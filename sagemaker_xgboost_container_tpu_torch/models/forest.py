@@ -1,0 +1,416 @@
+"""Forest: the trained model — host representation + xgboost JSON codec.
+
+The model artifact stays xgboost-compatible: it serializes to the public
+xgboost JSON schema, so the ``xgboost-model`` file of the serving contract
+keeps its format and models trained elsewhere load into this predictor.
+
+Host side each tree is compact arrays (left/right children, split feature,
+float threshold, default_left, values); for inference the forest stacks into
+padded [T, N] tensors on the forest's device, consumed by ops.predict. Trees
+coming out of the trainer arrive in the padded full-binary layout with *bin*
+splits and are compacted here, converting bins to float thresholds via the
+binning cuts (bin(v) <= b  <=>  v < cuts[b] by construction).
+"""
+
+import json
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..ops.predict import forest_predict_margin, host_predict_margin
+from ..toolkit import exceptions as exc
+from . import objectives as objectives_mod
+
+# payloads up to this many rows predict with the numpy host traversal: a
+# device round trip costs more than the traversal itself
+HOST_PREDICT_ROWS = 32
+
+
+class Tree:
+    """One decision tree, compact arrays, xgboost node ordering (root = 0)."""
+
+    def __init__(self, feature, threshold, default_left, left, right, value,
+                 base_weight=None, gain=None, sum_hess=None, parent=None):
+        self.feature = np.asarray(feature, np.int32)
+        self.threshold = np.asarray(threshold, np.float32)
+        self.default_left = np.asarray(default_left, np.bool_)
+        self.left = np.asarray(left, np.int32)
+        self.right = np.asarray(right, np.int32)
+        self.value = np.asarray(value, np.float32)  # leaf value at leaves
+        n = len(self.feature)
+        self.base_weight = np.asarray(
+            base_weight if base_weight is not None else np.zeros(n), np.float32
+        )
+        self.gain = np.asarray(gain if gain is not None else np.zeros(n), np.float32)
+        self.sum_hess = np.asarray(sum_hess if sum_hess is not None else np.zeros(n), np.float32)
+        self.parent = np.asarray(
+            parent if parent is not None else _parents_from_children(self.left, self.right),
+            np.int32,
+        )
+
+    @property
+    def num_nodes(self):
+        return len(self.feature)
+
+    @property
+    def is_leaf(self):
+        return self.left < 0
+
+    def depth(self):
+        """Max root->leaf depth (host-side, for the traversal's round count)."""
+        depth = 0
+        frontier = [(0, 0)]
+        while frontier:
+            node, d = frontier.pop()
+            depth = max(depth, d)
+            if self.left[node] >= 0:
+                frontier.append((int(self.left[node]), d + 1))
+                frontier.append((int(self.right[node]), d + 1))
+        return depth
+
+
+def _parents_from_children(left, right):
+    parent = np.full(len(left), 2147483647, np.int32)  # xgboost root parent marker
+    for i, (l, r) in enumerate(zip(left, right)):
+        if l >= 0:
+            parent[l] = i
+            parent[r] = i
+    return parent
+
+
+def compact_padded_tree(padded, cut_points):
+    """Trainer's padded arrays (numpy) -> compact Tree.
+
+    Keeps only reachable nodes (BFS from root through explicit child indices);
+    split bin indices become float thresholds via the feature's cut array.
+    """
+    is_leaf = np.asarray(padded["is_leaf"])
+    feature = np.asarray(padded["feature"])
+    bin_idx = np.asarray(padded["bin"])
+    default_left = np.asarray(padded["default_left"])
+    leaf_value = np.asarray(padded["leaf_value"])
+    base_weight = np.asarray(padded["base_weight"])
+    gain = np.asarray(padded["gain"])
+    sum_hess = np.asarray(padded["sum_hess"])
+    child_left = np.asarray(padded["left"])
+    child_right = np.asarray(padded["right"])
+
+    # BFS in padded numbering, assigning compact ids in visit order
+    order = [0]
+    compact_id = {0: 0}
+    for node in order:
+        if not is_leaf[node]:
+            for child in (int(child_left[node]), int(child_right[node])):
+                compact_id[child] = len(order)
+                order.append(child)
+
+    k = len(order)
+    out = {
+        "feature": np.zeros(k, np.int32),
+        "threshold": np.zeros(k, np.float32),
+        "default_left": np.zeros(k, np.bool_),
+        "left": np.full(k, -1, np.int32),
+        "right": np.full(k, -1, np.int32),
+        "value": np.zeros(k, np.float32),
+        "base_weight": np.zeros(k, np.float32),
+        "gain": np.zeros(k, np.float32),
+        "sum_hess": np.zeros(k, np.float32),
+    }
+    for node in order:
+        cid = compact_id[node]
+        out["base_weight"][cid] = base_weight[node]
+        out["sum_hess"][cid] = sum_hess[node]
+        if is_leaf[node]:
+            out["value"][cid] = leaf_value[node]
+        else:
+            f = int(feature[node])
+            out["feature"][cid] = f
+            out["threshold"][cid] = cut_points[f][int(bin_idx[node])]
+            out["default_left"][cid] = default_left[node]
+            out["left"][cid] = compact_id[int(child_left[node])]
+            out["right"][cid] = compact_id[int(child_right[node])]
+            out["gain"][cid] = gain[node]
+    return Tree(**out)
+
+
+def _parse_base_score(value):
+    """xgboost >= 2.x may store base_score as a vector literal '[5E-1]'."""
+    if isinstance(value, str):
+        value = value.strip()
+        if value.startswith("["):
+            value = value.strip("[]").split(",")[0]
+    return float(value)
+
+
+class Forest:
+    """The model: trees + objective metadata + prediction entry points.
+
+    ``device``: where ``predict`` traverses the trees (CUDA unless given;
+    raises when CUDA is asked for and absent). ``to`` moves the forest.
+    """
+
+    def __init__(self, objective_name="reg:squarederror", objective_params=None,
+                 base_score=0.5, num_feature=0, num_class=0, feature_names=None,
+                 device=None):
+        self.trees = []
+        self.tree_info = []  # class id per tree (0 for single-output)
+        self.iteration_indptr = [0]
+        self.objective_name = objective_name
+        self.objective_params = dict(objective_params or {})
+        self.base_score = float(base_score)
+        self.num_feature = int(num_feature)
+        self.num_class = int(num_class)  # 0 = not multiclass (xgboost convention)
+        self.feature_names = feature_names
+        self.attributes = {}
+        self.device = resolve_device(device)
+        self._stacked = None
+
+    def to(self, device):
+        """Predict on ``device`` from now on; returns self."""
+        self.device = resolve_device(device)
+        self._stacked = None
+        return self
+
+    # ------------------------------------------------------------------ meta
+    @property
+    def num_boosted_rounds(self):
+        return len(self.iteration_indptr) - 1
+
+    def objective(self):
+        params = dict(self.objective_params)
+        if self.num_class:
+            params.setdefault("num_class", self.num_class)
+        return objectives_mod.create_objective(self.objective_name, params)
+
+    # ------------------------------------------------------------- mutation
+    def append_round(self, trees, tree_info):
+        """Add one boosting round's trees (list[Tree], list[int] class ids)."""
+        self.trees.extend(trees)
+        self.tree_info.extend(int(c) for c in tree_info)
+        self.iteration_indptr.append(len(self.trees))
+        self._stacked = None
+
+    # ------------------------------------------------------------ prediction
+    def _stack(self):
+        """(host, device): the padded [T, N] numpy arrays of every tree and
+        their copy on the forest's device, memoized until the trees or the
+        device change (serving predicts per request)."""
+        if self._stacked is None:
+            host = self._stack_uncached()
+            dev = None
+            if host is not None:
+                dev = {
+                    k: v if k == "depth" else torch.as_tensor(v, device=self.device)
+                    for k, v in host.items()
+                }
+            self._stacked = (host, dev)
+        return self._stacked
+
+    def _stack_uncached(self):
+        trees = self.trees
+        if not trees:
+            return None
+        N = max(t.num_nodes for t in trees)
+        T = len(trees)
+
+        def pad(getter, dtype, fill=0):
+            out = np.full((T, N), fill, dtype)
+            for i, t in enumerate(trees):
+                out[i, : t.num_nodes] = getter(t)
+            return out
+
+        self_idx = np.arange(N, dtype=np.int32)[None, :].repeat(T, axis=0)
+        left = pad(lambda t: t.left, np.int32, -1)
+        right = pad(lambda t: t.right, np.int32, -1)
+        is_leaf = left < 0
+        return {
+            "feature": pad(lambda t: t.feature, np.int32),
+            "threshold": pad(lambda t: t.threshold, np.float32),
+            "default_left": pad(lambda t: t.default_left, np.bool_),
+            "left": np.where(is_leaf, self_idx, left),
+            "right": np.where(is_leaf, self_idx, right),
+            "is_leaf": is_leaf,
+            "leaf_value": pad(lambda t: t.value, np.float32),
+            "depth": max(t.depth() for t in trees),
+        }
+
+    def predict_margin(self, features):
+        """features: [n, d] float32 (numpy or tensor) with NaN missing ->
+        numpy margins. The objective must be single-output (the port
+        registers no multi-output objective)."""
+        base = self.objective().base_margin(self.base_score)
+        if features.shape[1] < self.num_feature:
+            raise exc.UserError(
+                "feature_names mismatch: model expects {} features, data has {}".format(
+                    self.num_feature, features.shape[1]
+                )
+            )
+        host, dev = self._stack()
+        n = features.shape[0]
+        if host is None:
+            return np.full(n, base, np.float32)
+        if 0 < n <= HOST_PREDICT_ROWS:
+            if isinstance(features, torch.Tensor):
+                features = features.cpu().numpy()
+            return host_predict_margin(
+                host, np.ascontiguousarray(features, np.float32), base_margin=base
+            )
+        x = torch.as_tensor(features, dtype=torch.float32, device=self.device)
+        return forest_predict_margin(dev, x, base_margin=base).cpu().numpy()
+
+    def predict(self, features, output_margin=False):
+        margin = self.predict_margin(features)
+        if output_margin:
+            return margin
+        return self.objective().margin_to_prediction(margin)
+
+    # ----------------------------------------------------------------- json
+    _OBJECTIVE_PARAM_BLOCKS = {
+        "reg:squarederror": ("reg_loss_param", {"scale_pos_weight": "1"}),
+        "reg:logistic": ("reg_loss_param", {"scale_pos_weight": "1"}),
+        "binary:logistic": ("reg_loss_param", {"scale_pos_weight": "1"}),
+    }
+
+    def _tree_to_json(self, tree, tree_id):
+        is_leaf = tree.is_leaf
+        # xgboost: split_conditions holds the threshold for splits, the leaf
+        # value for leaves; split_indices is 0 at leaves.
+        split_conditions = np.where(is_leaf, tree.value, tree.threshold)
+        return {
+            "base_weights": [float(v) for v in tree.base_weight],
+            "categories": [],
+            "categories_nodes": [],
+            "categories_segments": [],
+            "categories_sizes": [],
+            "default_left": [int(b) for b in tree.default_left],
+            "id": tree_id,
+            "left_children": [int(v) for v in tree.left],
+            "right_children": [int(v) for v in tree.right],
+            "loss_changes": [float(v) for v in tree.gain],
+            "parents": [int(v) for v in tree.parent],
+            "split_conditions": [float(v) for v in split_conditions],
+            "split_indices": [int(v) for v in tree.feature],
+            "split_type": [0] * tree.num_nodes,
+            "sum_hessian": [float(v) for v in tree.sum_hess],
+            "tree_param": {
+                "num_deleted": "0",
+                "num_feature": str(self.num_feature),
+                "num_nodes": str(tree.num_nodes),
+                "size_leaf_vector": "1",
+            },
+        }
+
+    @staticmethod
+    def _tree_from_json(blob):
+        if blob.get("categories_nodes"):
+            raise exc.UserError(
+                "categorical splits are not supported by the PyTorch port yet"
+            )
+        left = np.asarray(blob["left_children"], np.int32)
+        is_leaf = left < 0
+        cond = np.asarray(blob["split_conditions"], np.float32)
+        return Tree(
+            feature=blob["split_indices"],
+            threshold=np.where(is_leaf, 0.0, cond),
+            default_left=np.asarray(blob["default_left"], bool),
+            left=left,
+            right=blob["right_children"],
+            value=np.where(is_leaf, cond, 0.0),
+            base_weight=blob.get("base_weights"),
+            gain=blob.get("loss_changes"),
+            sum_hess=blob.get("sum_hessian"),
+            parent=blob.get("parents"),
+        )
+
+    def save_json(self):
+        block_name, defaults = self._OBJECTIVE_PARAM_BLOCKS.get(
+            self.objective_name, ("reg_loss_param", {"scale_pos_weight": "1"})
+        )
+        block = dict(defaults)
+        for key in list(block):
+            if key in self.objective_params:
+                block[key] = str(self.objective_params[key])
+        doc = {
+            "version": [3, 0, 0],
+            "learner": {
+                "attributes": self.attributes,
+                "feature_names": self.feature_names or [],
+                "feature_types": [],
+                "gradient_booster": {
+                    "model": {
+                        "gbtree_model_param": {
+                            "num_trees": str(len(self.trees)),
+                            "num_parallel_tree": "1",
+                        },
+                        "iteration_indptr": list(self.iteration_indptr),
+                        "tree_info": list(self.tree_info),
+                        "trees": [
+                            self._tree_to_json(t, i) for i, t in enumerate(self.trees)
+                        ],
+                    },
+                    "name": "gbtree",
+                },
+                "learner_model_param": {
+                    "base_score": repr(self.base_score),
+                    "boost_from_average": "1",
+                    "num_class": str(self.num_class),
+                    "num_feature": str(self.num_feature),
+                    "num_target": "1",
+                },
+                "objective": {"name": self.objective_name, block_name: block},
+            },
+        }
+        return json.dumps(doc)
+
+    @classmethod
+    def load_json(cls, text, device=None):
+        try:
+            doc = json.loads(text)
+        except (ValueError, TypeError) as e:
+            raise exc.UserError("Not a valid xgboost JSON model", caused_by=e)
+        return cls.from_dict(doc, device=device)
+
+    @classmethod
+    def from_dict(cls, doc, device=None):
+        try:
+            learner = doc["learner"]
+            gb = learner["gradient_booster"]
+            model = gb["model"]
+            lmp = learner["learner_model_param"]
+            objective = learner["objective"]
+        except (KeyError, ValueError, TypeError) as e:
+            raise exc.UserError("Not a valid gbtree xgboost JSON model", caused_by=e)
+        params = {}
+        for block in objective.values():
+            if isinstance(block, dict):
+                params.update(block)
+        forest = cls(
+            objective_name=objective["name"],
+            objective_params=params,
+            base_score=_parse_base_score(lmp.get("base_score", 0.5)),
+            num_feature=int(lmp.get("num_feature", 0)),
+            num_class=int(lmp.get("num_class", 0)),
+            feature_names=learner.get("feature_names") or None,
+            device=device,
+        )
+        forest.attributes = learner.get("attributes", {})
+        forest.trees = [cls._tree_from_json(t) for t in model["trees"]]
+        forest.tree_info = [int(v) for v in model.get("tree_info", [0] * len(forest.trees))]
+        indptr = model.get("iteration_indptr")
+        if indptr:
+            forest.iteration_indptr = [int(v) for v in indptr]
+        else:
+            forest.iteration_indptr = list(range(len(forest.trees) + 1))
+        return forest
+
+    def save_model(self, path):
+        """Write the model as xgboost JSON."""
+        with open(path, "w") as f:
+            f.write(self.save_json())
+
+    @classmethod
+    def load_model(cls, path, device=None):
+        with open(path, "rb") as f:
+            raw = f.read()
+        return cls.load_json(raw.decode("utf-8"), device=device)

@@ -1,0 +1,227 @@
+"""Per-node gradient histograms: the hot op of the tree builder.
+
+For each tree level, accumulate (grad, hess) into a (node x feature x bin)
+tensor (``level_histogram``); at the last level only per-node totals are
+needed (``node_totals``). On a CUDA tensor each function launches its
+hand-written kernel (``csrc/hist_kernel.cu``, ``csrc/totals_kernel.cu``); on
+a CPU tensor it runs its plain PyTorch version (``_hist_plain``,
+``_totals_plain``). There is no fallback from one to the other.
+
+The kernels sum with f32 atomics, so the order of the additions, and the
+last bits of every sum, vary from run to run. Against a sequential f32 sum of
+the same values the difference is bounded by a few ulps of the largest
+partial sum of a cell.
+"""
+
+import collections
+
+import torch
+
+# kernel launch counts, one per wrapper; chip_smoke.py resets and reads them
+LAUNCHES = {"hist_kernel": 0, "totals_kernel": 0}
+
+# histogram cache a sibling-subtraction build may keep alive (both levels'
+# G and H, f32): the same cap as the JAX package's default
+SUBTRACT_MEM = 512 * 1024 * 1024
+
+# shared memory one hist_kernel CTA may use for its (g, h) histogram slice:
+# at most two CTAs of this size fit an H100 SM's 228 KB
+HIST_SMEM_BUDGET = 99 * 1024
+_HIST_MIN_CHUNK_ROWS = 256
+_TOTALS_THREADS = 256
+
+HistPlan = collections.namedtuple(
+    "HistPlan",
+    [
+        "rows_per_chunk", "row_chunks",      # grid.x
+        "feature_tile", "feature_tiles",     # grid.y
+        "node_range", "node_ranges",         # grid.z
+        "smem_bytes",
+    ],
+)
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def subtraction_enabled(cache_bytes):
+    """Memory cap on the histogram cache sibling subtraction keeps alive."""
+    return cache_bytes <= SUBTRACT_MEM
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def hist_plan(n, d, W, B, num_sms):
+    """Tiling of one hist_kernel launch.
+
+    A CTA holds [node_range, feature_tile, B] x (g, h) f32 in shared memory,
+    within HIST_SMEM_BUDGET. The node axis splits only when one feature's W
+    nodes do not fit; the feature tile then takes what is left. Row chunks
+    fill the card: about two waves of the CTAs that fit at once.
+    """
+    per_cell = 2 * B * 4
+    max_cells = HIST_SMEM_BUDGET // per_cell
+    if max_cells < 1:
+        raise ValueError(
+            "hist_kernel: B={} bins need {} B of shared memory per node and "
+            "feature, above the {} B budget".format(B, per_cell, HIST_SMEM_BUDGET)
+        )
+    node_ranges = _cdiv(W, max_cells)
+    node_range = _cdiv(W, node_ranges)
+    feature_tile = max(1, min(d, max_cells // node_range))
+    feature_tiles = _cdiv(d, feature_tile)
+    feature_tile = _cdiv(d, feature_tiles)
+    smem_bytes = node_range * feature_tile * per_cell
+    ctas_per_sm = max(1, (228 * 1024) // (smem_bytes + 1024))
+    columns = feature_tiles * node_ranges
+    row_chunks = _cdiv(2 * num_sms * ctas_per_sm, columns)
+    row_chunks = min(row_chunks, max(1, _cdiv(n, _HIST_MIN_CHUNK_ROWS)))
+    # the kernel counts a chunk's (row, feature) items in an int
+    row_chunks = max(row_chunks, _cdiv(n * feature_tile, 2**30), 1)
+    rows_per_chunk = max(1, _cdiv(n, row_chunks))
+    row_chunks = max(1, _cdiv(n, rows_per_chunk))
+    if feature_tiles > 65535 or node_ranges > 65535:
+        raise ValueError("hist_kernel: grid too large for d={}, W={}".format(d, W))
+    return HistPlan(
+        rows_per_chunk, row_chunks, feature_tile, feature_tiles,
+        node_range, node_ranges, smem_bytes,
+    )
+
+
+def widen_rows(bins, rows=None):
+    """Bin indices (of the rows ``rows``, or all) as int64. uint16 has few
+    torch ops, so it is indexed as int16 and masked back."""
+    if bins.dtype == torch.uint16:
+        b = bins.view(torch.int16)
+        b = b if rows is None else b.index_select(0, rows)
+        return b.long() & 0xFFFF
+    b = bins if rows is None else bins.index_select(0, rows)
+    return b.long()
+
+
+def level_histogram(bins, grad, hess, node_local, num_nodes, num_bins):
+    """Build (G, H) histograms for one tree level.
+
+    Args:
+      bins: [n, d] uint8/uint16/int32 bin indices (missing bin included).
+      grad, hess: f32 [n].
+      node_local: i32 [n]; position of the row's node within this level,
+        or negative when the row no longer participates.
+      num_nodes: number of nodes W at this level.
+      num_bins: histogram width B per feature (max_bin + 1).
+
+    Returns:
+      (G, H): f32 [num_nodes, d, num_bins].
+    """
+    if bins.device.type == "cpu":
+        return _hist_plain(bins, grad, hess, node_local, num_nodes, num_bins)
+    return _hist_cuda(bins, grad, hess, node_local, num_nodes, num_bins)
+
+
+def node_totals(grad, hess, node_local, num_nodes):
+    """Per-node (sum g, sum h) over rows with node_local in [0, num_nodes).
+
+    The last tree level only needs leaf weights, so it skips the widest
+    [W, d, B] histogram of the tree and takes these totals instead.
+    """
+    if grad.device.type == "cpu":
+        return _totals_plain(grad, hess, node_local, num_nodes)
+    return _totals_cuda(grad, hess, node_local, num_nodes)
+
+
+# ----------------------------------------------------------- plain versions
+
+
+def _hist_plain(bins, grad, hess, node_local, num_nodes, num_bins):
+    """index_add_ over flattened (node, feature, bin) ids."""
+    n, d = bins.shape
+    W, B = num_nodes, num_bins
+    active = (node_local >= 0) & (node_local < W)
+    rows = torch.nonzero(active).squeeze(1)
+    nd = node_local[rows].long()
+    f_ids = torch.arange(d, device=bins.device)
+    seg = ((nd[:, None] * d + f_ids[None, :]) * B + widen_rows(bins, rows)).reshape(-1)
+    G = torch.zeros(W * d * B, dtype=torch.float32, device=bins.device)
+    H = torch.zeros_like(G)
+    G.index_add_(0, seg, grad[rows][:, None].expand(-1, d).reshape(-1))
+    H.index_add_(0, seg, hess[rows][:, None].expand(-1, d).reshape(-1))
+    return G.reshape(W, d, B), H.reshape(W, d, B)
+
+
+def _totals_plain(grad, hess, node_local, num_nodes):
+    active = (node_local >= 0) & (node_local < num_nodes)
+    rows = torch.nonzero(active).squeeze(1)
+    nd = node_local[rows].long()
+    g = torch.zeros(num_nodes, dtype=torch.float32, device=grad.device)
+    h = torch.zeros_like(g)
+    g.index_add_(0, nd, grad[rows])
+    h.index_add_(0, nd, hess[rows])
+    return g, h
+
+
+# ------------------------------------------------------------ CUDA wrappers
+
+
+def _check_rows(name, t, n, dtype, device):
+    if t.device != device:
+        raise ValueError("{} is on {}, expected {}".format(name, t.device, device))
+    if t.dtype != dtype:
+        raise TypeError("{} must be {}, got {}".format(name, dtype, t.dtype))
+    if t.dim() != 1 or t.shape[0] != n:
+        raise ValueError("{} must have shape [{}], got {}".format(name, n, tuple(t.shape)))
+    if not t.is_contiguous():
+        raise ValueError("{} must be contiguous".format(name))
+
+
+def _check_cuda(t):
+    if t.device.type != "cuda":
+        raise ValueError("expected a CUDA or CPU tensor, got {}".format(t.device))
+
+
+def _num_sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _hist_cuda(bins, grad, hess, node_local, num_nodes, num_bins):
+    from .. import _build
+
+    _check_cuda(bins)
+    if bins.dtype not in (torch.uint8, torch.uint16, torch.int32):
+        raise TypeError("bins must be uint8, uint16 or int32, got {}".format(bins.dtype))
+    if bins.dim() != 2 or not bins.is_contiguous():
+        raise ValueError("bins must be a contiguous [n, d] tensor")
+    n, d = bins.shape
+    _check_rows("grad", grad, n, torch.float32, bins.device)
+    _check_rows("hess", hess, n, torch.float32, bins.device)
+    _check_rows("node_local", node_local, n, torch.int32, bins.device)
+    if num_nodes < 1 or num_bins < 1:
+        raise ValueError("num_nodes and num_bins must be positive")
+    G = torch.zeros((num_nodes, d, num_bins), dtype=torch.float32, device=bins.device)
+    H = torch.zeros_like(G)
+    if d == 0:
+        return G, H
+    plan = hist_plan(n, d, num_nodes, num_bins, _num_sms(bins.device))
+    _build.kernels().hist(bins, grad, hess, node_local, G, H, plan)
+    LAUNCHES["hist_kernel"] += 1
+    return G, H
+
+
+def _totals_cuda(grad, hess, node_local, num_nodes):
+    from .. import _build
+
+    _check_cuda(grad)
+    n = grad.shape[0]
+    _check_rows("grad", grad, n, torch.float32, grad.device)
+    _check_rows("hess", hess, n, torch.float32, grad.device)
+    _check_rows("node_local", node_local, n, torch.int32, grad.device)
+    if num_nodes < 1 or 2 * num_nodes * 4 > 227 * 1024:
+        raise ValueError("totals_kernel takes 1 <= W <= 29056, got {}".format(num_nodes))
+    out = torch.zeros(2 * num_nodes, dtype=torch.float32, device=grad.device)
+    blocks = max(1, min(_cdiv(n, _TOTALS_THREADS), 8 * _num_sms(grad.device)))
+    _build.kernels().totals(grad, hess, node_local, out, blocks)
+    LAUNCHES["totals_kernel"] += 1
+    return out[:num_nodes], out[num_nodes:]

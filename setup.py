@@ -46,7 +46,11 @@ setup(
     long_description=read("README.md"),
     long_description_content_type="text/markdown",
     packages=find_packages(exclude=("tests",)),
-    package_data={"sagemaker_xgboost_container_tpu.data": ["record_pb2.py"]},
+    package_data={
+        "sagemaker_xgboost_container_tpu.data": ["record_pb2.py"],
+        # CUDA sources of the PyTorch port, built at first use (_build.py)
+        "sagemaker_xgboost_container_tpu_torch": ["csrc/*.cu", "csrc/*.cpp", "csrc/*.h"],
+    },
     ext_modules=[fastdata_ext],
     python_requires=">=3.10",
     install_requires=_contract["install_requires"](),
