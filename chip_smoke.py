@@ -7,10 +7,15 @@ Run from the repository root with no arguments:
 
 Phases (each prints its own lines; any failure exits non-zero):
 
-1. build the CUDA kernels from csrc/ (into build/torch_kernels/);
-2. hist_kernel against its plain PyTorch version at the main path's shapes
-   (1M x 28 uint16 bins, B=257, W=1 and W=64), plus n=0, an unaligned n and
-   uint8 bins with B=256;
+1. build the CUDA kernels from csrc/ with nvcc (into build/torch_kernels/),
+   printing the build time, the -Xptxas -v report of the hist_* kernels and
+   the atomic instructions they compiled to;
+2. hist_kernel (the hist_* kernels behind level_histogram) against its plain
+   PyTorch version: timed at 1M x 28 uint16 bins, B=257, with nodes drawn
+   from [-1, W) at W=1 and W=64 and with level 7's left children (half the
+   rows at -1, W=64); untimed with every row in one node, half the nodes
+   empty, no row active, fewer rows than hist_kernel CTAs, W=130, n=0, an
+   unaligned n and uint8 bins with B=256;
 3. totals_kernel against its plain version at n=1M, W=256;
 4. the slice: train 5 rounds of binary:logistic, max_depth=8, max_bin=256 on
    1M x 28 synthetic rows with 100k validation rows, checking the launch
@@ -19,7 +24,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 5. a small training run on the GPU against the same run on the CPU;
 6. where a round's time goes: the main path again for 9 rounds, rounds 2-5
    timed on the host clock and rounds 6-9 under torch.profiler (device
-   activity), giving device time per kernel and the device's busy share.
+   activity), giving device time per kernel, the histogram's (every hist_*
+   kernel) per round and the device's busy share.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -27,6 +33,7 @@ device JSON line. Needs one CUDA GPU; exits 2 without one.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,13 +51,21 @@ REPLACES = {
 # main-path sizes (bench.py's binary workload)
 N_TRAIN, N_VAL, N_FEATURES, N_SERVE, ROUNDS = 1_000_000, 100_000, 28, 10_000, 5
 SMALL = (20_000, 12)
-HIST_CASES = (  # n, d, W, B, bin dtype, timed
-    (1_000_000, 28, 1, 257, np.uint16, True),
-    (1_000_000, 28, 64, 257, np.uint16, True),
-    (0, 28, 4, 257, np.uint16, False),
-    (12_345, 5, 3, 33, np.uint16, False),
-    (1_000_003, 28, 128, 256, np.uint8, False),
+HIST_CASES = (  # n, d, W, B, bin dtype, node distribution, timed
+    (1_000_000, 28, 1, 257, np.uint16, "random", True),
+    (1_000_000, 28, 64, 257, np.uint16, "random", True),
+    (1_000_000, 28, 64, 257, np.uint16, "left", True),
+    (1_000_000, 28, 64, 257, np.uint16, "one", False),
+    (1_000_000, 28, 64, 257, np.uint16, "half_empty", False),
+    (1_000_000, 28, 64, 257, np.uint16, "none", False),
+    (100, 28, 8, 257, np.uint16, "random", False),
+    (1_000_000, 28, 130, 257, np.uint16, "random", False),
+    (0, 28, 4, 257, np.uint16, "random", False),
+    (12_345, 5, 3, 33, np.uint16, "random", False),
+    (1_000_003, 28, 128, 256, np.uint8, "random", False),
 )
+# the timed hist case whose numbers go into the kernels line
+HIST_MAIN = "hist W=64 left"
 TOTALS_CASE = (1_000_000, 256)
 MAIN_PARAMS = {"objective": "binary:logistic", "max_depth": 8, "max_bin": 256,
                "eta": 0.2, "tree_method": "hist"}
@@ -97,6 +112,52 @@ def bound_ms(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def ptxas_report(log, prefix):
+    """The -Xptxas -v lines (registers, shared memory, spills) of the kernels
+    whose names hold `prefix`, one line per kernel."""
+    out, name, facts = [], None, []
+
+    def flush():
+        if name is not None:
+            out.append("ptxas {}: {}".format(name, "; ".join(facts)))
+
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            flush()
+            # the last match: the mangled name holds the file's name first
+            found = re.findall(prefix + r"[a-z]+(?:I[a-z]E)?", m.group(1))
+            name, facts = (found[-1] if found else None), []
+        elif name is not None and ("Used" in line or "spill" in line):
+            facts.append(line.split(":", 1)[-1].strip() if "ptxas" in line else line.strip())
+    flush()
+    return out
+
+
+def sass_atomics(lib_path, prefix):
+    """The shared- and global-memory atomic instructions (SASS opcodes, with
+    their counts) of each kernel whose name holds `prefix`, from cuobjdump;
+    f32 atomicAdd on shared memory shows up as a compare-and-swap loop."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return ["cuobjdump not found: atomics not reported"]
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    ops, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.findall(prefix + r"[a-z]+(?:I[a-z]E)?", line)
+            name = found[-1] if found else None
+        elif name is not None and "*/" in line:
+            op = [t for t in line.split("*/", 1)[1].split() if not t.startswith("@")]
+            if op and op[0].startswith(("ATOM", "RED")):
+                ops.setdefault(name, {}).setdefault(op[0], 0)
+                ops[name][op[0]] += 1
+    return ["sass {}: {}".format(k, v) for k, v in ops.items()]
+
+
 def make_data(n, d, seed=0):
     """The synthetic binary task of bench.py (same formula)."""
     rng = np.random.RandomState(seed)
@@ -106,14 +167,33 @@ def make_data(n, d, seed=0):
     return X, y
 
 
-def hist_case(torch, hist, n, d, W, B, np_dtype, seed, timed, tag):
+def node_distribution(rng, kind, n, W):
+    """node_local of a hist case: "random" draws from [-1, W); "left" is a
+    subtracted level's left children (children of 2W nodes, the right half
+    at -1); "one" puts every row in one node; "half_empty" only in even
+    nodes; "none" leaves no row active (-1, or W and beyond)."""
+    if kind == "random":
+        return rng.randint(-1, W, n).astype(np.int32)
+    if kind == "left":
+        child = rng.randint(0, 2 * W, n)
+        return np.where(child % 2 == 0, child // 2, -1).astype(np.int32)
+    if kind == "one":
+        return np.full(n, W // 2, dtype=np.int32)
+    if kind == "half_empty":
+        return (2 * rng.randint(0, (W + 1) // 2, n)).astype(np.int32)
+    if kind == "none":
+        return np.where(rng.rand(n) < 0.5, -1, W + rng.randint(0, 3, n)).astype(np.int32)
+    raise ValueError(kind)
+
+
+def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag):
     """One hist_kernel check; returns the measurement dict when timed."""
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(seed)
     bins = torch.as_tensor(rng.randint(0, B, (n, d)).astype(np_dtype), device=dev)
     grad = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
     hess = torch.as_tensor((rng.rand(n) + 0.1).astype(np.float32), device=dev)
-    node = torch.as_tensor(rng.randint(-1, W, n).astype(np.int32), device=dev)
+    node = torch.as_tensor(node_distribution(rng, kind, n, W), device=dev)
 
     G, H = hist.level_histogram(bins, grad, hess, node, W, B)
     Gp, Hp = hist._hist_plain(bins, grad, hess, node, W, B)
@@ -129,7 +209,7 @@ def hist_case(torch, hist, n, d, W, B, np_dtype, seed, timed, tag):
     Ge, He = hist.level_histogram(bins, ones, ints, node, W, B)
     Gq, Hq = hist._hist_plain(bins, ones, ints, node, W, B)
     exact = bool(torch.equal(Ge, Gq) and torch.equal(He, Hq))
-    label = "hist_kernel n={} d={} {} B={} W={}".format(n, d, bins.dtype, B, W)
+    label = "hist_kernel n={} d={} {} B={} W={} nodes={}".format(n, d, bins.dtype, B, W, kind)
     print("{} | {}: max_abs_err={:.3e} tol={:.3e} exact_integer_check={}".format(
         tag, label, err, tol, exact), flush=True)
     check(err <= tol, "{} disagrees with its plain version".format(label))
@@ -137,7 +217,7 @@ def hist_case(torch, hist, n, d, W, B, np_dtype, seed, timed, tag):
     if not timed:
         return None
 
-    active = node >= 0
+    active = (node >= 0) & (node < W)
     rows = torch.nonzero(active).squeeze(1)
     ids = ((node[rows].long()[:, None] * d + torch.arange(d, device=dev)) * B
            + hist.widen_rows(bins, rows)).reshape(-1)
@@ -148,8 +228,10 @@ def hist_case(torch, hist, n, d, W, B, np_dtype, seed, timed, tag):
     plain = time_ms(torch, lambda: hist._hist_plain(bins, grad, hess, node, W, B))
     library = time_ms(torch, lambda: (torch.bincount(ids, g_rep, minlength=size),
                                       torch.bincount(ids, h_rep, minlength=size)))
-    nbytes = n * (d * bins.element_size() + 12) + 2 * size * 4
-    b_ms, b_by = bound_ms(nbytes, 2 * int(rows.numel()) * d)
+    # node read for every row; bins, grad and hess only for the active ones
+    n_active = int(rows.numel())
+    nbytes = n * 4 + n_active * (d * bins.element_size() + 8) + 2 * size * 4
+    b_ms, b_by = bound_ms(nbytes, 2 * n_active * d)
     print("{} | {}: kernel_ms={:.4f} plain_ms={:.4f} library_ms={:.4f} "
           "(torch.bincount with weights, G and H) bound_ms={:.4f} ({})".format(
               tag, label, kernel, plain, library, b_ms, b_by), flush=True)
@@ -349,14 +431,21 @@ def run_profile(torch, pkg, dtrain, dval, tag):
     def kernel_ms(name):
         return sum(r["device_ms"] for r in rows if name in r["name"]) / rounds
 
+    def kernel_calls(name):
+        return sum(r["calls"] for r in rows if name in r["name"]) / rounds
+
     for r in rows[:15]:
         print("  {:9.3f} ms {:6d} calls  {}".format(r["device_ms"], r["calls"], r["name"]))
+    for name in ("hist_count", "hist_scan", "hist_scatter", "hist_kernel", "hist_reduce"):
+        print("  {}: {:.4f} ms/round, {:.0f} launches/round".format(
+            name, kernel_ms(name), kernel_calls(name)), flush=True)
+    # the histogram is every hist_* kernel level_histogram enqueues
     print("{} | profile: rounds 2-5 {:.3f} ms/round host clock; rounds 6-9 profiled "
           "{:.3f} ms/round, {:.0f} kernel launches/round, device {:.3f} ms/round "
-          "(hist_kernel {:.3f}, totals_kernel {:.3f}); device busy {:.1%} of an "
-          "unprofiled round".format(
+          "(histogram, all hist_* kernels, {:.3f} in {:.0f} launches; totals_kernel "
+          "{:.3f}); device busy {:.1%} of an unprofiled round".format(
               tag, plain_round_ms, profiled_round_ms, launches, busy_ms,
-              kernel_ms("hist_kernel"), kernel_ms("totals_kernel"),
+              kernel_ms("hist_"), kernel_calls("hist_"), kernel_ms("totals_kernel"),
               busy_ms / plain_round_ms), flush=True)
 
 
@@ -384,13 +473,16 @@ def main():
     try:
         t = time.perf_counter()
         k = _build.kernels()
-        print("{} | build: {:.1f} s ({})".format(tag, time.perf_counter() - t, k.route), flush=True)
+        print("{} | build: {:.1f} s ({}, nvcc {:.1f} s)".format(
+            tag, time.perf_counter() - t, k.route, k.build_s), flush=True)
+        for line in ptxas_report(k.build_log, "hist_") + sass_atomics(k.path, "hist_"):
+            print("  " + line, flush=True)
 
         results = {}
-        for n, d, W, B, dt, timed in HIST_CASES:
-            r = hist_case(torch, hist, n, d, W, B, dt, 10 + W, timed, tag)
+        for n, d, W, B, dt, kind, timed in HIST_CASES:
+            r = hist_case(torch, hist, n, d, W, B, dt, kind, 10 + W, timed, tag)
             if r is not None:
-                results["hist W={}".format(W)] = r
+                results["hist W={} {}".format(W, kind)] = r
         results["totals"] = totals_case(torch, hist, *TOTALS_CASE, 3, tag)
 
         launches, dtrain, dval = run_slice(torch, hist, pkg, tag)
@@ -401,7 +493,7 @@ def main():
         raise
 
     kernels = []
-    for name, key in (("hist_kernel", "hist W=64"), ("totals_kernel", "totals")):
+    for name, key in (("hist_kernel", HIST_MAIN), ("totals_kernel", "totals")):
         r = results[key]
         entry = {"name": name, "route": "cuda", "source": SOURCES[name],
                  "replaces": REPLACES[name], "launches": launches[name]}

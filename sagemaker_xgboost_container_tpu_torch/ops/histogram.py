@@ -3,14 +3,14 @@
 For each tree level, accumulate (grad, hess) into a (node x feature x bin)
 tensor (``level_histogram``); at the last level only per-node totals are
 needed (``node_totals``). On a CUDA tensor each function launches its
-hand-written kernel (``csrc/hist_kernel.cu``, ``csrc/totals_kernel.cu``); on
+hand-written kernels (``csrc/hist_kernel.cu``, ``csrc/totals_kernel.cu``); on
 a CPU tensor it runs its plain PyTorch version (``_hist_plain``,
 ``_totals_plain``). There is no fallback from one to the other.
 
-The kernels sum with f32 atomics, so the order of the additions, and the
-last bits of every sum, vary from run to run. Against a sequential f32 sum of
-the same values the difference is bounded by a few ulps of the largest
-partial sum of a cell.
+The kernels add in shared memory with f32 atomics (and totals_kernel flushes
+with global ones), so the order of the additions, and the last bits of every
+sum, vary from run to run. Against a sequential f32 sum of the same values
+the difference is bounded by a few ulps of the largest partial sum of a cell.
 """
 
 import collections
@@ -25,18 +25,25 @@ LAUNCHES = {"hist_kernel": 0, "totals_kernel": 0}
 SUBTRACT_MEM = 512 * 1024 * 1024
 
 # shared memory one hist_kernel CTA may use for its (g, h) histogram slice:
-# at most two CTAs of this size fit an H100 SM's 228 KB
+# two CTAs of this size fit an H100 SM's 228 KB
 HIST_SMEM_BUDGET = 99 * 1024
-_HIST_MIN_CHUNK_ROWS = 256
+_HIST_CTAS_PER_SM = 2
+# hist_count / hist_scatter: row chunks of at least this many rows
+_HIST_MIN_CHUNK_ROWS = 2048
+# hist_count, hist_scan and hist_scatter keep one int32 per node in shared
+# memory, within the 227 KB a CTA can have
+HIST_MAX_NODES = (227 * 1024) // 4
+# row ids are int32
+HIST_MAX_ROWS = 2**31 - 1
 _TOTALS_THREADS = 256
 
 HistPlan = collections.namedtuple(
     "HistPlan",
     [
-        "rows_per_chunk", "row_chunks",      # grid.x
-        "feature_tile", "feature_tiles",     # grid.y
-        "node_range", "node_ranges",         # grid.z
-        "smem_bytes",
+        "ctas", "feature_tile", "feature_tiles",  # hist_kernel grid (x, y)
+        "smem_bytes",                             # its dynamic shared memory
+        "slots",                                  # scratch pieces, ctas + W
+        "count_ctas", "rows_per_count_cta",       # hist_count / hist_scatter
     ],
 )
 
@@ -56,39 +63,38 @@ def _cdiv(a, b):
 
 
 def hist_plan(n, d, W, B, num_sms):
-    """Tiling of one hist_kernel launch.
+    """Launch shapes of the hist_* kernels for one level_histogram call.
 
-    A CTA holds [node_range, feature_tile, B] x (g, h) f32 in shared memory,
-    within HIST_SMEM_BUDGET. The node axis splits only when one feature's W
-    nodes do not fit; the feature tile then takes what is left. Row chunks
-    fill the card: about two waves of the CTAs that fit at once.
+    hist_kernel holds [feature_tile, B] x (g, h) f32 in shared memory, within
+    HIST_SMEM_BUDGET: the whole row where it fits (d=28, B=257: 57.6 KB),
+    else feature tiles of equal width. Its grid is persistent: ctas x
+    feature_tiles fills the card with _HIST_CTAS_PER_SM CTAs per SM, and each
+    of the ctas CTAs takes an equal slice of the rows ordered by node. A CTA
+    writes one scratch piece per node its slice touches, at slot c + w, so
+    ctas + W slots suffice. hist_count and hist_scatter split the rows into
+    count_ctas chunks.
     """
-    per_cell = 2 * B * 4
-    max_cells = HIST_SMEM_BUDGET // per_cell
-    if max_cells < 1:
+    per_feature = 2 * B * 4
+    max_features = HIST_SMEM_BUDGET // per_feature
+    if max_features < 1:
         raise ValueError(
-            "hist_kernel: B={} bins need {} B of shared memory per node and "
-            "feature, above the {} B budget".format(B, per_cell, HIST_SMEM_BUDGET)
+            "hist_kernel: B={} bins need {} B of shared memory per feature, "
+            "above the {} B budget".format(B, per_feature, HIST_SMEM_BUDGET)
         )
-    node_ranges = _cdiv(W, max_cells)
-    node_range = _cdiv(W, node_ranges)
-    feature_tile = max(1, min(d, max_cells // node_range))
-    feature_tiles = _cdiv(d, feature_tile)
+    if not 1 <= W <= HIST_MAX_NODES:
+        raise ValueError("hist_kernel takes 1 <= W <= {}, got {}".format(HIST_MAX_NODES, W))
+    if n > HIST_MAX_ROWS:
+        raise ValueError("hist_kernel takes n <= {} rows, got {}".format(HIST_MAX_ROWS, n))
+    feature_tiles = max(1, _cdiv(d, max_features))
     feature_tile = _cdiv(d, feature_tiles)
-    smem_bytes = node_range * feature_tile * per_cell
-    ctas_per_sm = max(1, (228 * 1024) // (smem_bytes + 1024))
-    columns = feature_tiles * node_ranges
-    row_chunks = _cdiv(2 * num_sms * ctas_per_sm, columns)
-    row_chunks = min(row_chunks, max(1, _cdiv(n, _HIST_MIN_CHUNK_ROWS)))
-    # the kernel counts a chunk's (row, feature) items in an int
-    row_chunks = max(row_chunks, _cdiv(n * feature_tile, 2**30), 1)
-    rows_per_chunk = max(1, _cdiv(n, row_chunks))
-    row_chunks = max(1, _cdiv(n, rows_per_chunk))
-    if feature_tiles > 65535 or node_ranges > 65535:
-        raise ValueError("hist_kernel: grid too large for d={}, W={}".format(d, W))
+    if feature_tiles > 65535:
+        raise ValueError("hist_kernel: grid too large for d={}".format(d))
+    ctas = max(1, _cdiv(_HIST_CTAS_PER_SM * num_sms, feature_tiles))
+    count_ctas = max(1, min(_HIST_CTAS_PER_SM * num_sms, _cdiv(n, _HIST_MIN_CHUNK_ROWS)))
+    rows_per_count_cta = max(1, _cdiv(n, count_ctas))
     return HistPlan(
-        rows_per_chunk, row_chunks, feature_tile, feature_tiles,
-        node_range, node_ranges, smem_bytes,
+        ctas, feature_tile, feature_tiles, feature_tile * per_feature,
+        ctas + W, count_ctas, rows_per_count_cta,
     )
 
 
@@ -200,12 +206,17 @@ def _hist_cuda(bins, grad, hess, node_local, num_nodes, num_bins):
     _check_rows("node_local", node_local, n, torch.int32, bins.device)
     if num_nodes < 1 or num_bins < 1:
         raise ValueError("num_nodes and num_bins must be positive")
-    G = torch.zeros((num_nodes, d, num_bins), dtype=torch.float32, device=bins.device)
-    H = torch.zeros_like(G)
+    W, B = num_nodes, num_bins
+    # hist_reduce writes every cell
+    G = torch.empty((W, d, B), dtype=torch.float32, device=bins.device)
+    H = torch.empty_like(G)
     if d == 0:
         return G, H
-    plan = hist_plan(n, d, num_nodes, num_bins, _num_sms(bins.device))
-    _build.kernels().hist(bins, grad, hess, node_local, G, H, plan)
+    plan = hist_plan(n, d, W, B, _num_sms(bins.device))
+    work = torch.empty(2 * W * plan.count_ctas + W + 1 + n, dtype=torch.int32,
+                       device=bins.device)
+    pieces = torch.empty(2 * plan.slots * d * B, dtype=torch.float32, device=bins.device)
+    _build.kernels().hist(bins, grad, hess, node_local, G, H, work, pieces, plan)
     LAUNCHES["hist_kernel"] += 1
     return G, H
 

@@ -49,7 +49,7 @@ setup(
     package_data={
         "sagemaker_xgboost_container_tpu.data": ["record_pb2.py"],
         # CUDA sources of the PyTorch port, built at first use (_build.py)
-        "sagemaker_xgboost_container_tpu_torch": ["csrc/*.cu", "csrc/*.cpp", "csrc/*.h"],
+        "sagemaker_xgboost_container_tpu_torch": ["csrc/*.cu", "csrc/*.h"],
     },
     ext_modules=[fastdata_ext],
     python_requires=">=3.10",

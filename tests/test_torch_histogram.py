@@ -110,24 +110,150 @@ def test_empty_rows_give_zero_histograms():
         (0, 28, 4, 257),
         (12_345, 5, 3, 33),
         (100, 1, 1, 2),
+        (50_000, 300, 130, 257),
     ],
 )
 def test_hist_plan_covers_the_grid(n, d, W, B):
     p = hist.hist_plan(n, d, W, B, num_sms=132)
-    assert p.smem_bytes == p.node_range * p.feature_tile * 2 * B * 4
+    # hist_kernel: one CTA's histogram slice fits the budget and the
+    # feature tiles cover d without an empty tile
+    assert p.smem_bytes == p.feature_tile * 2 * B * 4
     assert p.smem_bytes <= hist.HIST_SMEM_BUDGET
-    assert p.rows_per_chunk * p.row_chunks >= n
-    assert (p.row_chunks - 1) * p.rows_per_chunk < max(n, 1)
     assert p.feature_tile * p.feature_tiles >= d
     assert (p.feature_tiles - 1) * p.feature_tile < d
-    assert p.node_range * p.node_ranges >= W
-    assert (p.node_ranges - 1) * p.node_range < W
-    assert p.rows_per_chunk * p.feature_tile < 2**31
+    # a persistent grid of about two CTAs per SM, and one scratch piece per
+    # CTA plus one per node
+    assert p.ctas * p.feature_tiles <= 2 * 132 + p.feature_tiles
+    assert p.ctas >= 1 and p.slots == p.ctas + W
+    # hist_count / hist_scatter chunks cover the rows
+    assert p.count_ctas * p.rows_per_count_cta >= n
+    assert (p.count_ctas - 1) * p.rows_per_count_cta < max(n, 1)
 
 
-def test_hist_plan_rejects_bins_beyond_shared_memory():
+@pytest.mark.parametrize(
+    "n,d,W,B",
+    [
+        (10, 1, 1, 20_000),                   # one feature's bins beyond the budget
+        (10, 1, hist.HIST_MAX_NODES + 1, 9),  # node counters beyond shared memory
+        (2**31, 1, 1, 9),                     # row ids beyond int32
+    ],
+)
+def test_hist_plan_rejects_bins_beyond_shared_memory(n, d, W, B):
     with pytest.raises(ValueError):
-        hist.hist_plan(10, 1, 1, 20_000, num_sms=132)
+        hist.hist_plan(n, d, W, B, num_sms=132)
+
+
+def _node_distribution(kind, n, W, seed=11):
+    rng = np.random.RandomState(seed)
+    if kind == "random":       # dead rows (-1) mixed in
+        return rng.randint(-1, W, size=n).astype(np.int32)
+    if kind == "left":         # a subtracted level's left children: half dead
+        child = rng.randint(0, 2 * W, size=n)
+        return np.where(child % 2 == 0, child // 2, -1).astype(np.int32)
+    if kind == "one":          # every row in one node
+        return np.full(n, W // 2, dtype=np.int32)
+    if kind == "half_empty":   # odd nodes hold no rows
+        return (2 * rng.randint(0, (W + 1) // 2, size=n)).astype(np.int32)
+    if kind == "none":         # no row active (below 0 or at W and beyond)
+        return np.where(rng.rand(n) < 0.5, -1, W + rng.randint(0, 3, size=n)).astype(np.int32)
+    raise ValueError(kind)
+
+
+def _emulate_hist_kernels(bins, grad, hess, node, W, B, plan):
+    """The hist_* kernels' index arithmetic, step by step in numpy: per-chunk
+    counts, their scans, the scatter into node order, the equal slices of
+    the persistent CTAs with their (c + w) pieces, and the reduce over the
+    CTAs whose slices overlap each node. Checks that no piece slot is
+    written twice and that the reduce reads exactly the pieces written."""
+    n, d = bins.shape
+    C, R = plan.count_ctas, plan.rows_per_count_cta
+    active = (node >= 0) & (node < W)
+    counts = np.zeros((W, C), dtype=np.int64)
+    for c in range(C):
+        seg = node[c * R:(c + 1) * R]
+        seg = seg[(seg >= 0) & (seg < W)]
+        counts[:, c] = np.bincount(seg, minlength=W)
+    base = np.cumsum(counts, axis=1) - counts
+    totals = counts.sum(axis=1)
+    offsets = np.concatenate([[0], np.cumsum(totals)])
+    order = np.full(int(offsets[W]), -1, dtype=np.int64)
+    for c in range(C):
+        cursor = offsets[:W] + base[:, c]
+        for row in range(c * R, min(n, (c + 1) * R)):
+            if active[row]:
+                order[cursor[node[row]]] = row
+                cursor[node[row]] += 1
+    assert (order >= 0).all() and len(np.unique(order)) == len(order)
+
+    total, P = int(offsets[W]), plan.ctas
+    S = -(-total // P)
+    pieces = {}
+    for c in range(P):
+        lo, hi = c * S, min(total, (c + 1) * S)
+        if lo >= hi:
+            continue
+        w = int(np.searchsorted(offsets, lo, side="right")) - 1
+        while lo < hi:
+            seg_end = min(hi, int(offsets[w + 1]))
+            rows = order[lo:seg_end]
+            slot = c + w
+            assert slot < plan.slots and slot not in pieces
+            g = np.zeros((d, B), np.float64)
+            h = np.zeros((d, B), np.float64)
+            for f in range(d):
+                np.add.at(g[f], bins[rows, f], grad[rows])
+                np.add.at(h[f], bins[rows, f], hess[rows])
+            pieces[slot] = (c, w, g, h)
+            lo = seg_end
+            if lo < hi:
+                w += 1
+                while offsets[w + 1] <= lo:
+                    w += 1
+    G = np.zeros((W, d, B))
+    H = np.zeros((W, d, B))
+    read = set()
+    for w in range(W):
+        a, e = int(offsets[w]), int(offsets[w + 1])
+        if e > a:
+            for c in range(a // S, (e - 1) // S + 1):
+                cw, ww, g, h = pieces[c + w]
+                assert (cw, ww) == (c, w)
+                G[w] += g
+                H[w] += h
+                read.add(c + w)
+    assert read == set(pieces)
+    return G, H
+
+
+@pytest.mark.parametrize(
+    "n,W,kind",
+    [
+        (5000, 1, "random"),
+        (5000, 16, "left"),
+        (5000, 16, "one"),
+        (5000, 16, "half_empty"),
+        (5000, 16, "none"),
+        (40, 8, "random"),     # fewer rows than hist_kernel CTAs
+        (3000, 130, "random"),
+        (0, 4, "random"),
+    ],
+)
+def test_hist_kernel_bookkeeping_matches_plain(n, W, kind):
+    rng = np.random.RandomState(3)
+    d, B = 3, 7
+    bins = rng.randint(0, B, size=(n, d)).astype(np.uint8)
+    grad = rng.randn(n).astype(np.float32)
+    hess = (rng.rand(n) + 0.1).astype(np.float32)
+    node = _node_distribution(kind, n, W)
+    plan = hist.hist_plan(n, d, W, B, num_sms=32)
+    if kind == "random" and n == 40:
+        assert n < plan.ctas
+    G, H = _emulate_hist_kernels(bins, grad, hess, node, W, B, plan)
+    Gp, Hp = _port_hist(bins, grad, hess, node, W, B)
+    # f64 pieces against an f32 sum: 1e-4 of the largest cell, as on the card
+    tol = 1e-4 * max(1.0, np.abs(Gp).max(initial=0), np.abs(Hp).max(initial=0))
+    np.testing.assert_allclose(G, Gp, atol=tol, rtol=0)
+    np.testing.assert_allclose(H, Hp, atol=tol, rtol=0)
 
 
 def test_wrappers_refuse_other_devices():
@@ -148,10 +274,22 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,dtype", [(1, np.uint16), (8, np.uint8), (130, np.uint16)])
-def test_hist_kernel_matches_plain(problem, cuda_device, W, dtype):
+@pytest.mark.parametrize(
+    "W,dtype,kind",
+    [
+        (1, np.uint16, "random"),
+        (8, np.uint8, "random"),
+        (130, np.uint16, "random"),
+        (64, np.uint16, "left"),
+        (64, np.uint16, "one"),
+        (64, np.uint16, "half_empty"),
+        (64, np.uint16, "none"),
+        (4, np.int32, "random"),
+    ],
+)
+def test_hist_kernel_matches_plain(problem, cuda_device, W, dtype, kind):
     bins, grad, hess, B = problem
-    node = _node_local(len(grad), W)
+    node = _node_distribution(kind, len(grad), W)
     args = [torch.as_tensor(a, device=cuda_device)
             for a in (bins.astype(dtype), grad, hess, node)]
     hist.reset_launch_counts()
@@ -160,6 +298,11 @@ def test_hist_kernel_matches_plain(problem, cuda_device, W, dtype):
     Gp, Hp = hist._hist_plain(*args, W, B)
     torch.testing.assert_close(G, Gp, atol=1e-4, rtol=0)
     torch.testing.assert_close(H, Hp, atol=1e-4, rtol=0)
+    # integer weights sum exactly in f32, in any order
+    ones = torch.ones_like(args[1])
+    Ge, He = hist.level_histogram(args[0], ones, ones, args[3], W, B)
+    Gq, Hq = hist._hist_plain(args[0], ones, ones, args[3], W, B)
+    assert torch.equal(Ge, Gq) and torch.equal(He, Hq)
 
 
 @pytest.mark.cuda
