@@ -8,15 +8,21 @@ Run from the repository root with no arguments:
 Phases (each prints its own lines; any failure exits non-zero):
 
 1. build the CUDA kernels from csrc/ with nvcc (into build/torch_kernels/),
-   printing the build time, the -Xptxas -v report of the hist_* kernels and
-   the atomic instructions they compiled to;
+   printing the build time, the -Xptxas -v report of the hist_* and totals_*
+   kernels and the atomic instructions they compiled to (the totals_*
+   kernels must have none);
 2. hist_kernel (the hist_* kernels behind level_histogram) against its plain
    PyTorch version: timed at 1M x 28 uint16 bins, B=257, with nodes drawn
    from [-1, W) at W=1 and W=64 and with level 7's left children (half the
    rows at -1, W=64); untimed with every row in one node, half the nodes
    empty, no row active, fewer rows than hist_kernel CTAs, W=130, n=0, an
    unaligned n and uint8 bins with B=256;
-3. totals_kernel against its plain version at n=1M, W=256;
+3. totals_kernel (totals_partial and totals_reduce behind node_totals)
+   against its plain version, and two calls against each other bitwise:
+   timed at n=1M, W=256 with nodes drawn from [-1, W) (CUDA events around
+   the wrapper, and the kernels' device time from torch.profiler over a
+   second run of the timed loop); untimed at W=1, W=4096, with every row in
+   one node, no row active, n=100 and n=0;
 4. the slice: train 5 rounds of binary:logistic, max_depth=8, max_bin=256 on
    1M x 28 synthetic rows with 100k validation rows, checking the launch
    counts and a falling validation logloss; save the model, load it back and
@@ -25,7 +31,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 6. where a round's time goes: the main path again for 9 rounds, rounds 2-5
    timed on the host clock and rounds 6-9 under torch.profiler (device
    activity), giving device time per kernel, the histogram's (every hist_*
-   kernel) per round and the device's busy share.
+   kernel) and the totals' (every totals_* kernel) per round and the
+   device's busy share.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -66,7 +73,15 @@ HIST_CASES = (  # n, d, W, B, bin dtype, node distribution, timed
 )
 # the timed hist case whose numbers go into the kernels line
 HIST_MAIN = "hist W=64 left"
-TOTALS_CASE = (1_000_000, 256)
+TOTALS_CASES = (  # n, W, node distribution, timed
+    (1_000_000, 256, "random", True),
+    (1_000_000, 1, "random", False),
+    (1_000_000, 4096, "random", False),
+    (1_000_000, 256, "one", False),
+    (1_000_000, 256, "none", False),
+    (100, 256, "random", False),
+    (0, 256, "random", False),
+)
 MAIN_PARAMS = {"objective": "binary:logistic", "max_depth": 8, "max_bin": 256,
                "eta": 0.2, "tree_method": "hist"}
 SOURCES = {
@@ -135,14 +150,15 @@ def ptxas_report(log, prefix):
 
 
 def sass_atomics(lib_path, prefix):
-    """The shared- and global-memory atomic instructions (SASS opcodes, with
-    their counts) of each kernel whose name holds `prefix`, from cuobjdump;
+    """The shared- and global-memory atomic instructions (ATOM*, RED*: SASS
+    opcodes with their counts) of each kernel whose name holds `prefix`,
+    from cuobjdump, as {kernel: {opcode: count}}; None without cuobjdump.
     f32 atomicAdd on shared memory shows up as a compare-and-swap loop."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     cuobjdump = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
-        return ["cuobjdump not found: atomics not reported"]
+        return None
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
     ops, name = {}, None
@@ -150,12 +166,32 @@ def sass_atomics(lib_path, prefix):
         if "Function :" in line:
             found = re.findall(prefix + r"[a-z]+(?:I[a-z]E)?", line)
             name = found[-1] if found else None
+            if name is not None:
+                ops.setdefault(name, {})
         elif name is not None and "*/" in line:
             op = [t for t in line.split("*/", 1)[1].split() if not t.startswith("@")]
-            if op and op[0].startswith(("ATOM", "RED")):
-                ops.setdefault(name, {}).setdefault(op[0], 0)
-                ops[name][op[0]] += 1
-    return ["sass {}: {}".format(k, v) for k, v in ops.items()]
+            # REDUX is a warp reduction in registers, not an atomic
+            if op and re.match(r"(ATOM|RED(?!UX))", op[0]):
+                ops[name][op[0]] = ops[name].get(op[0], 0) + 1
+    return ops
+
+
+def report_kernels(k, prefix, atomic_free):
+    """Print the ptxas and SASS lines of the kernels whose names hold
+    `prefix`; with atomic_free, fail unless SASS shows them without any
+    atomic instruction."""
+    for line in ptxas_report(k.build_log, prefix):
+        print("  " + line, flush=True)
+    ops = sass_atomics(k.path, prefix)
+    if ops is None:
+        print("  cuobjdump not found: atomics not reported", flush=True)
+        return
+    for name, found in ops.items():
+        print("  sass {}: {}".format(name, found or "no atomic instructions"), flush=True)
+    if atomic_free:
+        check(ops, "no {}* kernel found in the SASS".format(prefix))
+        check(not any(ops.values()),
+              "{}* kernels compiled to atomics: {}".format(prefix, ops))
 
 
 def make_data(n, d, seed=0):
@@ -240,39 +276,72 @@ def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag):
             "shape": label}
 
 
-def totals_case(torch, hist, n, W, seed, tag):
+def device_ms(torch, fn, prefix, iters=20):
+    """Device time per call of each kernel whose name holds `prefix`, from
+    torch.profiler (device activity) over `iters` calls of fn."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.key_averages():
+        us = _kernel_time_us(torch, evt)
+        found = re.findall(prefix + r"[a-z]+", evt.key)
+        if us > 0 and found:
+            per[found[-1]] = per.get(found[-1], 0.0) + us / 1e3 / iters
+    return per
+
+
+def totals_case(torch, hist, n, W, kind, seed, timed, tag):
+    """One totals_kernel check; returns the measurement dict when timed."""
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(seed)
     grad = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
     hess = torch.as_tensor((rng.rand(n) + 0.1).astype(np.float32), device=dev)
-    node = torch.as_tensor(rng.randint(-1, W, n).astype(np.int32), device=dev)
+    node = torch.as_tensor(node_distribution(rng, kind, n, W), device=dev)
     g, h = hist.node_totals(grad, hess, node, W)
     gp, hp = hist._totals_plain(grad, hess, node, W)
+    # the order of additions is fixed by the shapes: a second call on the
+    # same f32 inputs must be bitwise equal
+    g2, h2 = hist.node_totals(grad, hess, node, W)
     torch.cuda.synchronize()
     err = max(float((g - gp).abs().max()), float((h - hp).abs().max()))
     tol = 1e-4 * max(1.0, float(gp.abs().max()), float(hp.abs().max()))
+    same = bool(torch.equal(g, g2) and torch.equal(h, h2))
     ones = torch.ones_like(grad)
     ints = torch.as_tensor(rng.randint(0, 4, n).astype(np.float32), device=dev)
     ge, he = hist.node_totals(ones, ints, node, W)
     gq, hq = hist._totals_plain(ones, ints, node, W)
     exact = bool(torch.equal(ge, gq) and torch.equal(he, hq))
-    label = "totals_kernel n={} W={}".format(n, W)
-    print("{} | {}: max_abs_err={:.3e} tol={:.3e} exact_integer_check={}".format(
-        tag, label, err, tol, exact), flush=True)
+    label = "totals_kernel n={} W={} nodes={}".format(n, W, kind)
+    print("{} | {}: max_abs_err={:.3e} tol={:.3e} exact_integer_check={} "
+          "bitwise_equal_second_call={}".format(tag, label, err, tol, exact, same), flush=True)
     check(err <= tol, "{} disagrees with its plain version".format(label))
     check(exact, "{} integer totals differ from its plain version".format(label))
+    check(same, "{} differs between two calls".format(label))
+    if not timed:
+        return None
 
     valid = torch.nonzero((node >= 0) & (node < W)).squeeze(1)
     ids, gv, hv = node[valid].long(), grad[valid], hess[valid]
-    kernel = time_ms(torch, lambda: hist.node_totals(grad, hess, node, W))
+    call = lambda: hist.node_totals(grad, hess, node, W)  # noqa: E731
+    kernel = time_ms(torch, call)
+    per = device_ms(torch, call, "totals_")
+    check(set(per) == {"totals_partial", "totals_reduce"},
+          "{}: profiled kernels {}, expected totals_partial and totals_reduce".format(label, per))
+    dev_ms = sum(per.values())
     plain = time_ms(torch, lambda: hist._totals_plain(grad, hess, node, W))
     library = time_ms(torch, lambda: (torch.bincount(ids, gv, minlength=W),
                                       torch.bincount(ids, hv, minlength=W)))
     b_ms, b_by = bound_ms(n * 12 + 2 * W * 4, 2 * int(valid.numel()))
-    print("{} | {}: kernel_ms={:.4f} plain_ms={:.4f} library_ms={:.4f} "
-          "(torch.bincount with weights, g and h) bound_ms={:.4f} ({})".format(
-              tag, label, kernel, plain, library, b_ms, b_by), flush=True)
-    return {"max_abs_err": err, "ms": kernel, "plain_ms": plain,
+    print("{} | {}: kernel_ms={:.4f} (CUDA events around the wrapper) device_ms={:.4f} "
+          "(torch.profiler: totals_partial {:.4f} + totals_reduce {:.4f}) plain_ms={:.4f} "
+          "library_ms={:.4f} (torch.bincount with weights, g and h) bound_ms={:.4f} ({})".format(
+              tag, label, kernel, dev_ms, per["totals_partial"], per["totals_reduce"],
+              plain, library, b_ms, b_by), flush=True)
+    return {"max_abs_err": err, "ms": kernel, "device_ms": dev_ms, "plain_ms": plain,
             "library_ms": library, "bound_ms": b_ms, "bound_by": b_by,
             "shape": label}
 
@@ -436,17 +505,20 @@ def run_profile(torch, pkg, dtrain, dval, tag):
 
     for r in rows[:15]:
         print("  {:9.3f} ms {:6d} calls  {}".format(r["device_ms"], r["calls"], r["name"]))
-    for name in ("hist_count", "hist_scan", "hist_scatter", "hist_kernel", "hist_reduce"):
+    for name in ("hist_count", "hist_scan", "hist_scatter", "hist_kernel", "hist_reduce",
+                 "totals_partial", "totals_reduce"):
         print("  {}: {:.4f} ms/round, {:.0f} launches/round".format(
             name, kernel_ms(name), kernel_calls(name)), flush=True)
-    # the histogram is every hist_* kernel level_histogram enqueues
+    # the histogram is every hist_* kernel level_histogram enqueues, the
+    # totals every totals_* kernel node_totals enqueues
     print("{} | profile: rounds 2-5 {:.3f} ms/round host clock; rounds 6-9 profiled "
           "{:.3f} ms/round, {:.0f} kernel launches/round, device {:.3f} ms/round "
-          "(histogram, all hist_* kernels, {:.3f} in {:.0f} launches; totals_kernel "
-          "{:.3f}); device busy {:.1%} of an unprofiled round".format(
+          "(histogram, all hist_* kernels, {:.3f} in {:.0f} launches; totals, all "
+          "totals_* kernels, {:.4f} in {:.0f} launches); device busy {:.1%} of an "
+          "unprofiled round".format(
               tag, plain_round_ms, profiled_round_ms, launches, busy_ms,
-              kernel_ms("hist_"), kernel_calls("hist_"), kernel_ms("totals_kernel"),
-              busy_ms / plain_round_ms), flush=True)
+              kernel_ms("hist_"), kernel_calls("hist_"), kernel_ms("totals_"),
+              kernel_calls("totals_"), busy_ms / plain_round_ms), flush=True)
 
 
 def main():
@@ -475,15 +547,18 @@ def main():
         k = _build.kernels()
         print("{} | build: {:.1f} s ({}, nvcc {:.1f} s)".format(
             tag, time.perf_counter() - t, k.route, k.build_s), flush=True)
-        for line in ptxas_report(k.build_log, "hist_") + sass_atomics(k.path, "hist_"):
-            print("  " + line, flush=True)
+        report_kernels(k, "hist_", atomic_free=False)
+        report_kernels(k, "totals_", atomic_free=True)
 
         results = {}
         for n, d, W, B, dt, kind, timed in HIST_CASES:
             r = hist_case(torch, hist, n, d, W, B, dt, kind, 10 + W, timed, tag)
             if r is not None:
                 results["hist W={} {}".format(W, kind)] = r
-        results["totals"] = totals_case(torch, hist, *TOTALS_CASE, 3, tag)
+        for n, W, kind, timed in TOTALS_CASES:
+            r = totals_case(torch, hist, n, W, kind, 3 + W, timed, tag)
+            if r is not None:
+                results["totals"] = r
 
         launches, dtrain, dval = run_slice(torch, hist, pkg, tag)
         run_small_parity(torch, pkg, tag)
@@ -499,6 +574,8 @@ def main():
                  "replaces": REPLACES[name], "launches": launches[name]}
         entry.update({k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms", "shape")})
+        if "device_ms" in r:
+            entry["device_ms"] = r["device_ms"]
         kernels.append(entry)
     print(tag)
     print(json.dumps({"kernels": kernels}))

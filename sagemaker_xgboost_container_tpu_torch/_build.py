@@ -83,7 +83,7 @@ class _CtypesKernels:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.hist_launch.argtypes = [p, i, p, p, p, p, p, p, p, ll] + [i] * 8 + [ll, p]
         lib.hist_launch.restype = i
-        lib.totals_launch.argtypes = [p, p, p, p, ll, i, i, p]
+        lib.totals_launch.argtypes = [p, p, p, p, p, ll, i, i, i, ll, i, p]
         lib.totals_launch.restype = i
         lib.kernel_error_string.argtypes = [i]
         lib.kernel_error_string.restype = ctypes.c_char_p
@@ -121,13 +121,14 @@ class _CtypesKernels:
             )
         self._check(err, "hist_kernel")
 
-    def totals(self, grad, hess, node, out, blocks):
+    def totals(self, grad, hess, node, out, pieces, plan):
         import torch
 
         with torch.cuda.device(grad.device):
             err = self._lib.totals_launch(
                 grad.data_ptr(), hess.data_ptr(), node.data_ptr(),
-                out.data_ptr(), grad.shape[0], out.shape[0] // 2, blocks,
-                self._stream(grad),
+                out.data_ptr(), pieces.data_ptr(), grad.shape[0],
+                out.shape[0] // 2, plan.ctas, plan.warps_per_cta,
+                plan.rows_per_cta, plan.smem_bytes, self._stream(grad),
             )
         self._check(err, "totals_kernel")

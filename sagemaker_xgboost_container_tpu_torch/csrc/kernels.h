@@ -24,9 +24,14 @@ int hist_launch(const void* bins, int bin_bytes, const float* grad,
                 int ctas, int feature_tile, int feature_tiles, int smem_bytes,
                 int count_ctas, long long rows_per_count_cta, void* stream);
 
-// out: f32 [2W] zero-filled by the caller; g totals in [0, W), h in [W, 2W).
+// out: f32 [2W], every cell written; g totals in [0, W), h in [W, 2W). The
+// grid arguments come from ops/histogram.py::totals_plan. Scratch,
+// uninitialised: pieces f32 [ctas * 2W], one [2W] piece per CTA.
+// Enqueues totals_partial, totals_reduce.
 int totals_launch(const float* grad, const float* hess, const int32_t* node,
-                  float* out, long long n, int W, int blocks, void* stream);
+                  float* out, float* pieces, long long n, int W, int ctas,
+                  int warps_per_cta, long long rows_per_cta, int smem_bytes,
+                  void* stream);
 
 // cudaGetErrorString for the codes above.
 const char* kernel_error_string(int code);

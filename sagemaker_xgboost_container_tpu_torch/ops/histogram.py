@@ -7,10 +7,11 @@ hand-written kernels (``csrc/hist_kernel.cu``, ``csrc/totals_kernel.cu``); on
 a CPU tensor it runs its plain PyTorch version (``_hist_plain``,
 ``_totals_plain``). There is no fallback from one to the other.
 
-The kernels add in shared memory with f32 atomics (and totals_kernel flushes
-with global ones), so the order of the additions, and the last bits of every
-sum, vary from run to run. Against a sequential f32 sum of the same values
-the difference is bounded by a few ulps of the largest partial sum of a cell.
+The histogram kernels add in shared memory with f32 atomics, so the order of
+the additions, and the last bits of every cell, vary from run to run. The
+totals kernels use no atomics and sum in an order fixed by the shapes, so
+their totals are the same on every call. Against a sequential f32 sum of the
+same values either differs by a few ulps of the largest partial sum.
 """
 
 import collections
@@ -35,7 +36,15 @@ _HIST_MIN_CHUNK_ROWS = 2048
 HIST_MAX_NODES = (227 * 1024) // 4
 # row ids are int32
 HIST_MAX_ROWS = 2**31 - 1
-_TOTALS_THREADS = 256
+
+# shared memory of one totals_partial CTA: a private [2W] f32 copy per warp
+TOTALS_SMEM_BUDGET = 227 * 1024
+TOTALS_MAX_NODES = TOTALS_SMEM_BUDGET // 8  # 29056: one warp's copy fills it
+_TOTALS_MAX_WARPS = 8
+_TOTALS_MAX_CTAS_PER_SM = 4
+# an H100 SM's shared memory, of which each resident CTA takes 1 KB more
+_SM_SMEM_BYTES = 228 * 1024
+_CTA_RESERVED_SMEM = 1024
 
 HistPlan = collections.namedtuple(
     "HistPlan",
@@ -44,6 +53,16 @@ HistPlan = collections.namedtuple(
         "smem_bytes",                             # its dynamic shared memory
         "slots",                                  # scratch pieces, ctas + W
         "count_ctas", "rows_per_count_cta",       # hist_count / hist_scatter
+    ],
+)
+
+TotalsPlan = collections.namedtuple(
+    "TotalsPlan",
+    [
+        "ctas", "warps_per_cta",  # totals_partial grid and block (x 32 threads)
+        "smem_bytes",             # its dynamic shared memory
+        "rows_per_cta",           # S: CTA c takes rows [c*S, (c+1)*S)
+        "piece_floats",           # f32 scratch: one [2W] piece per CTA
     ],
 )
 
@@ -96,6 +115,26 @@ def hist_plan(n, d, W, B, num_sms):
         ctas, feature_tile, feature_tiles, feature_tile * per_feature,
         ctas + W, count_ctas, rows_per_count_cta,
     )
+
+
+def totals_plan(n, W, num_sms):
+    """Launch shapes of the totals_* kernels for one node_totals call.
+
+    Every warp keeps its own [2W] f32 copy in shared memory, so a CTA has as
+    many warps (up to 8) as copies fit TOTALS_SMEM_BUDGET: 8 at W=256 (16
+    KB), 1 at W=TOTALS_MAX_NODES. totals_partial is a persistent grid of as
+    many such CTAs per SM as fit its shared memory, up to 4 (32 warps to
+    keep rows in flight), each over an equal slice of the rows; an empty
+    slice gives a zero piece.
+    """
+    if not 1 <= W <= TOTALS_MAX_NODES:
+        raise ValueError(
+            "totals_kernel takes 1 <= W <= {}, got {}".format(TOTALS_MAX_NODES, W))
+    warps = min(_TOTALS_MAX_WARPS, TOTALS_SMEM_BUDGET // (8 * W))
+    smem = warps * 8 * W
+    per_sm = _SM_SMEM_BYTES // (smem + _CTA_RESERVED_SMEM)
+    ctas = max(1, min(_TOTALS_MAX_CTAS_PER_SM, per_sm)) * num_sms
+    return TotalsPlan(ctas, warps, smem, _cdiv(n, ctas), ctas * 2 * W)
 
 
 def widen_rows(bins, rows=None):
@@ -229,10 +268,10 @@ def _totals_cuda(grad, hess, node_local, num_nodes):
     _check_rows("grad", grad, n, torch.float32, grad.device)
     _check_rows("hess", hess, n, torch.float32, grad.device)
     _check_rows("node_local", node_local, n, torch.int32, grad.device)
-    if num_nodes < 1 or 2 * num_nodes * 4 > 227 * 1024:
-        raise ValueError("totals_kernel takes 1 <= W <= 29056, got {}".format(num_nodes))
-    out = torch.zeros(2 * num_nodes, dtype=torch.float32, device=grad.device)
-    blocks = max(1, min(_cdiv(n, _TOTALS_THREADS), 8 * _num_sms(grad.device)))
-    _build.kernels().totals(grad, hess, node_local, out, blocks)
+    plan = totals_plan(n, num_nodes, _num_sms(grad.device))
+    # totals_reduce writes every cell
+    out = torch.empty(2 * num_nodes, dtype=torch.float32, device=grad.device)
+    pieces = torch.empty(plan.piece_floats, dtype=torch.float32, device=grad.device)
+    _build.kernels().totals(grad, hess, node_local, out, pieces, plan)
     LAUNCHES["totals_kernel"] += 1
     return out[:num_nodes], out[num_nodes:]

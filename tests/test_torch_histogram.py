@@ -256,6 +256,169 @@ def test_hist_kernel_bookkeeping_matches_plain(n, W, kind):
     np.testing.assert_allclose(H, Hp, atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize(
+    "n,W",
+    [
+        (1_000_000, 1),
+        (1_000_000, 256),
+        (1_000_000, 4096),
+        (1_000_000, hist.TOTALS_MAX_NODES),
+        (0, 256),
+        (100, 256),        # fewer rows than CTAs
+        (1_000_003, 256),  # an unaligned n
+    ],
+)
+def test_totals_plan_covers_the_rows(n, W):
+    p = hist.totals_plan(n, W, num_sms=132)
+    # every warp has its own [2W] f32 copy, within the budget
+    assert 1 <= p.warps_per_cta <= 8
+    assert p.smem_bytes == p.warps_per_cta * 8 * W <= hist.TOTALS_SMEM_BUDGET
+    if W == 256:
+        assert (p.warps_per_cta, p.smem_bytes) == (8, 16 * 1024)
+    # a persistent grid: as many CTAs per SM as their shared memory (and 1
+    # KB reserved for each) lets reside, from 1 up to 4
+    per_sm = p.ctas // 132
+    assert p.ctas == per_sm * 132 and 1 <= per_sm <= 4
+    assert per_sm == 1 or per_sm * (p.smem_bytes + 1024) <= 228 * 1024
+    if per_sm < 4:
+        assert (per_sm + 1) * (p.smem_bytes + 1024) > 228 * 1024
+    if W == 256:
+        assert per_sm == 4
+    # equal slices that cover n, the shortest that do (below ctas rows, the
+    # last CTAs' slices are empty)
+    assert p.ctas * p.rows_per_cta >= n
+    assert p.ctas * (p.rows_per_cta - 1) < max(n, 1)
+    assert p.piece_floats == p.ctas * 2 * W
+
+
+@pytest.mark.parametrize("W", [0, hist.TOTALS_MAX_NODES + 1])
+def test_totals_plan_rejects_widths_beyond_shared_memory(W):
+    assert hist.TOTALS_MAX_NODES == 29056
+    with pytest.raises(ValueError):
+        hist.totals_plan(1000, W, num_sms=132)
+
+
+_TOTALS_ROW_UNROLL = 4       # kRowUnroll in csrc/totals_kernel.cu
+_TOTALS_REDUCE_GROUPS = 16   # kReduceGroups there
+
+
+def _lowest_lane(mask):
+    return (mask & -mask).bit_length() - 1
+
+
+def _emulate_reduce_peers(peers, g, h):
+    """reduce_peers of csrc/totals_kernel.cu on one warp, in f32: peers[l]
+    is the lane mask of lane l's group; each group's sum lands on its
+    lowest lane, in the kernel's order of additions."""
+    rel = [bin(peers[l] & ((1 << l) - 1)).count("1") for l in range(32)]
+    rest = [peers[l] & (0xFFFFFFFE << l) & 0xFFFFFFFF for l in range(32)]
+    g, h = g.copy(), h.copy()
+    while any(rest):
+        src = [_lowest_lane(r) if r else 31 for r in rest]
+        tg, th = g[src], h[src]  # every lane shuffles the old values
+        take = np.array([r != 0 for r in rest])
+        g = np.where(take, g + tg, g).astype(np.float32)
+        h = np.where(take, h + th, h).astype(np.float32)
+        done = sum(1 << l for l in range(32) if rel[l] & 1)
+        rest = [r & ~done for r in rest]
+        rel = [x >> 1 for x in rel]
+    return g, h
+
+
+def _emulate_totals_kernels(grad, hess, node, W, plan):
+    """The totals_* kernels' index arithmetic and order of additions, in
+    f32 numpy: each CTA's equal slice, each warp's groups of 32 rows with
+    their peer sums and one leader per key, the warp-private copies summed
+    in warp order into the CTA's piece, and the pieces summed in runs of
+    consecutive CTAs, the runs' sums in run order. Checks that every row is
+    read exactly once and every piece written and read once."""
+    n, W2, U = len(grad), 2 * W, _TOTALS_ROW_UNROLL
+    S, warps = plan.rows_per_cta, plan.warps_per_cta
+    seen = np.zeros(n, dtype=np.int64)
+    pieces = np.full((plan.ctas, W2), np.nan, dtype=np.float32)
+    lanes = np.arange(32)
+    for c in range(plan.ctas):
+        r0 = c * S
+        r1 = min(n, r0 + S)
+        acc = np.zeros((warps, W2), dtype=np.float32)
+        for w in range(warps):
+            for base in range(r0 + 32 * U * w, r1, 32 * U * warps):
+                for u in range(U):
+                    rows = base + 32 * u + lanes
+                    valid = rows < r1
+                    seen[rows[valid]] += 1
+                    at = np.where(valid, rows, 0)
+                    key = np.where(valid & (node[at] >= 0) & (node[at] < W), node[at], -1)
+                    g = np.where(key >= 0, grad[at], 0).astype(np.float32)
+                    h = np.where(key >= 0, hess[at], 0).astype(np.float32)
+                    peers = [int(np.sum((key == key[l]) << lanes)) for l in range(32)]
+                    g, h = _emulate_reduce_peers(peers, g, h)
+                    leaders = [l for l in range(32) if key[l] >= 0 and _lowest_lane(peers[l]) == l]
+                    assert len({int(key[l]) for l in leaders}) == len(leaders)
+                    for l in leaders:
+                        acc[w, key[l]] += g[l]
+                        acc[w, W + key[l]] += h[l]
+        pieces[c] = acc[0]
+        for w in range(1, warps):
+            pieces[c] += acc[w]
+    assert (seen == 1).all()
+    assert not np.isnan(pieces).any()
+    run = -(-plan.ctas // _TOTALS_REDUCE_GROUPS)
+    runs = np.zeros((_TOTALS_REDUCE_GROUPS, W2), dtype=np.float32)
+    read = []
+    for r in range(_TOTALS_REDUCE_GROUPS):
+        for c in range(r * run, min(plan.ctas, (r + 1) * run)):
+            runs[r] += pieces[c]
+            read.append(c)
+    assert read == list(range(plan.ctas))
+    out = runs[0].copy()
+    for r in range(1, _TOTALS_REDUCE_GROUPS):
+        out += runs[r]
+    return out[:W], out[W:]
+
+
+@pytest.mark.parametrize(
+    "n,W,kind",
+    [
+        (5000, 1, "random"),
+        (5000, 16, "random"),
+        (5000, 256, "random"),
+        (5000, 16, "one"),
+        (5000, 16, "half_empty"),
+        (5000, 16, "none"),
+        (30, 8, "random"),     # fewer rows than totals_partial CTAs
+        (0, 4, "random"),
+        (3000, 4096, "random"),  # seven warps of a CTA, one CTA an SM
+    ],
+)
+def test_totals_kernel_bookkeeping_matches_plain(n, W, kind):
+    rng = np.random.RandomState(5)
+    grad = rng.randn(n).astype(np.float32)
+    hess = (rng.rand(n) + 0.1).astype(np.float32)
+    node = _node_distribution(kind, n, W)
+    # 10 SMs: 40 CTAs at W <= 256, so the reduce's last runs are empty
+    plan = hist.totals_plan(n, W, num_sms=10)
+    if n == 30:
+        assert n < plan.ctas
+    if W == 4096:
+        assert (plan.warps_per_cta, plan.ctas) == (7, 10)
+    g, h = _emulate_totals_kernels(grad, hess, node, W, plan)
+    gp, hp = (t.numpy() for t in hist.node_totals(
+        torch.as_tensor(grad), torch.as_tensor(hess), torch.as_tensor(node), W))
+    # f32 sums in another order: 1e-4 of the largest total, as on the card
+    tol = 1e-4 * max(1.0, np.abs(gp).max(initial=0), np.abs(hp).max(initial=0))
+    np.testing.assert_allclose(g, gp, atol=tol, rtol=0)
+    np.testing.assert_allclose(h, hp, atol=tol, rtol=0)
+    # integer-valued weights sum exactly in any order
+    ones = np.ones(n, dtype=np.float32)
+    ints = rng.randint(0, 4, n).astype(np.float32)
+    ge, he = _emulate_totals_kernels(ones, ints, node, W, plan)
+    gq, hq = (t.numpy() for t in hist.node_totals(
+        torch.as_tensor(ones), torch.as_tensor(ints), torch.as_tensor(node), W))
+    np.testing.assert_array_equal(ge, gq)
+    np.testing.assert_array_equal(he, hq)
+
+
 def test_wrappers_refuse_other_devices():
     meta = torch.empty((4, 2), dtype=torch.uint8, device="meta")
     v = torch.empty(4, device="meta")
@@ -306,14 +469,38 @@ def test_hist_kernel_matches_plain(problem, cuda_device, W, dtype, kind):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [1, 256])
-def test_totals_kernel_matches_plain(problem, cuda_device, W):
+@pytest.mark.parametrize(
+    "n,W,kind",
+    [
+        (3000, 1, "random"),
+        (3000, 256, "random"),
+        (3000, 4096, "random"),
+        (3000, 64, "one"),
+        (3000, 64, "none"),
+        (100, 256, "random"),  # fewer rows than totals_partial CTAs
+        (0, 256, "random"),
+    ],
+)
+def test_totals_kernel_matches_plain(problem, cuda_device, n, W, kind):
     _, grad, hess, _ = problem
-    node = _node_local(len(grad), W)
-    args = [torch.as_tensor(a, device=cuda_device) for a in (grad, hess, node)]
+    node = _node_distribution(kind, n, W)
+    args = [torch.as_tensor(a[:n], device=cuda_device) for a in (grad, hess)]
+    args.append(torch.as_tensor(node, device=cuda_device))
     hist.reset_launch_counts()
     g, h = hist.node_totals(*args, W)
     assert hist.LAUNCHES["totals_kernel"] == 1
     gp, hp = hist._totals_plain(*args, W)
-    torch.testing.assert_close(g, gp, atol=1e-4, rtol=0)
-    torch.testing.assert_close(h, hp, atol=1e-4, rtol=0)
+    tol = 1e-4 * max(1.0, float(gp.abs().max()) if n else 0.0,
+                     float(hp.abs().max()) if n else 0.0)
+    torch.testing.assert_close(g, gp, atol=tol, rtol=0)
+    torch.testing.assert_close(h, hp, atol=tol, rtol=0)
+    # the order of additions is fixed: a second call is bitwise equal
+    g2, h2 = hist.node_totals(*args, W)
+    assert torch.equal(g, g2) and torch.equal(h, h2)
+    # integer-valued weights sum exactly in any order
+    ones = torch.ones_like(args[0])
+    ints = torch.as_tensor(
+        np.random.RandomState(4).randint(0, 4, n).astype(np.float32), device=cuda_device)
+    ge, he = hist.node_totals(ones, ints, args[2], W)
+    gq, hq = hist._totals_plain(ones, ints, args[2], W)
+    assert torch.equal(ge, gq) and torch.equal(he, hq)
