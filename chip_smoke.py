@@ -32,7 +32,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    timed on the host clock and rounds 6-9 under torch.profiler (device
    activity), giving device time per kernel, the histogram's (every hist_*
    kernel) and the totals' (every totals_* kernel) per round and the
-   device's busy share.
+   device's busy share;
+7. the serve entry point: train 100 rounds of the main path's parameters on
+   200k x 28 rows (best_iteration 79), save it as xgboost JSON and as
+   UBJSON, start `serving_entrypoint(port=0, block=False)` and check over
+   HTTP /ping, /execution-parameters, 10k rows as csv, libsvm and
+   recordio-protobuf against every accept (within 1e-5 of the CPU predict
+   of rounds 0-79), selectable inference, the UBJSON model and the
+   204/415/406/400 answers; then p50/p95/p99 latency and requests/s of
+   1-row and 100-row csv requests from 16 client threads and of 10k-row
+   requests one after another, the clients in a child process (and the
+   1-row load again from threads of the server's own process, which share
+   its interpreter lock), each beside the in-process predict time,
+   the device predict's H2D/traversal/D2H split (CUDA events), the
+   batcher's counts and the host/device predict counts, and the 100-row
+   load once more under torch.profiler for the device's busy share and
+   kernel launches per device predict; then SIGTERM with a request in
+   flight, which must still be answered before the listener closes. Last,
+   the csv decode and the host predict path timed in two child processes
+   at once, one with OMP_NUM_THREADS=1 and one without. The serve path
+   launches neither kernel; its launch counts are printed.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -41,10 +60,14 @@ device JSON line. Needs one CUDA GPU; exits 2 without one.
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -84,6 +107,9 @@ TOTALS_CASES = (  # n, W, node distribution, timed
 )
 MAIN_PARAMS = {"objective": "binary:logistic", "max_depth": 8, "max_bin": 256,
                "eta": 0.2, "tree_method": "hist"}
+# the served model: up to 511 nodes a tree, 80 of its 100 rounds served
+SERVE_TRAIN_ROWS, SERVE_ROUNDS, SERVE_BEST_ITERATION = 200_000, 100, 79
+SERVE_LOADS = ((1, 16, 50), (100, 16, 20), (10_000, 1, 10))  # rows, threads, requests each
 SOURCES = {
     "hist_kernel": "sagemaker_xgboost_container_tpu_torch/csrc/hist_kernel.cu",
     "totals_kernel": "sagemaker_xgboost_container_tpu_torch/csrc/totals_kernel.cu",
@@ -521,6 +547,418 @@ def run_profile(torch, pkg, dtrain, dval, tag):
               kernel_calls("totals_"), busy_ms / plain_round_ms), flush=True)
 
 
+def _csv_body(x):
+    # %.9g round-trips float32, so the server decodes the exact values
+    return "\n".join(",".join("%.9g" % v for v in row) for row in x).encode()
+
+
+def _libsvm_body(x):
+    return "\n".join(" ".join("%d:%.9g" % (j + 1, v) for j, v in enumerate(row)
+                              if not np.isnan(v)) for row in x).encode()
+
+
+class _Client:
+    """HTTP calls with a timeout, keeping every status seen: the phase fails
+    on any 5xx it did not provoke."""
+
+    def __init__(self, base):
+        self.base = base
+        self.statuses = []
+        self.lock = threading.Lock()
+
+    def call(self, path, body=None, content_type="text/csv", accept=None):
+        headers = {"Content-Type": content_type}
+        if accept:
+            headers["Accept"] = accept
+        req = urllib.request.Request(self.base + path, data=body, headers=headers,
+                                     method="GET" if body is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                status, out = resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            status, out = e.code, e.read()
+        with self.lock:
+            self.statuses.append(status)
+        return status, out
+
+
+def _decode_scores(body, accept):
+    if accept == "text/csv":
+        return np.asarray([float(v) for v in body.decode().split("\n")])
+    if accept == "application/json":
+        return np.asarray([p["score"] for p in json.loads(body)["predictions"]])
+    if accept == "application/jsonlines":
+        return np.asarray([json.loads(line)["score"] for line in body.decode().splitlines()])
+    from sagemaker_xgboost_container_tpu_torch.data.recordio import read_recordio_protobuf
+
+    return read_recordio_protobuf(body)[0][:, 0]
+
+
+def _percentiles(lat_ms):
+    p50, p95, p99 = np.percentile(lat_ms, [50, 95, 99])
+    return "p50 {:.3f} ms, p95 {:.3f} ms, p99 {:.3f} ms".format(p50, p95, p99)
+
+
+def _load(base, body, want, threads, per_thread):
+    """`threads` clients each POST `body` (csv) `per_thread` times and check
+    every answer against `want`. -> (latencies ms, wall s, failed statuses,
+    every status)."""
+    client = _Client(base)
+    # urllib builds its opener and imports lazily on the first call, which
+    # takes ~100 ms when the threads race for it: once before the clock
+    client.call("/ping")
+    lat, errs = [], []
+
+    def worker():
+        for _ in range(per_thread):
+            t = time.perf_counter()
+            status, out = client.call("/invocations", body, "text/csv", "text/csv")
+            lat.append((time.perf_counter() - t) * 1e3)
+            if status != 200 or np.abs(_decode_scores(out, "text/csv") - want).max() > 1e-5:
+                errs.append(status)
+
+    t = time.perf_counter()
+    pool = [threading.Thread(target=worker) for _ in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(300)
+        check(not th.is_alive(), "a client thread did not finish")
+    return lat, time.perf_counter() - t, errs, client.statuses
+
+
+def load_child(base, body_path, want_path, threads, per_thread):
+    """`chip_smoke.py --load URL BODY WANT THREADS PER_THREAD`: the serve
+    phase's load from a process of its own, so that the clients do not share
+    the server's interpreter lock; prints one JSON line."""
+    with open(body_path, "rb") as f:
+        body = f.read()
+    lat, wall, errs, statuses = _load(base, body, np.load(want_path), int(threads),
+                                      int(per_thread))
+    print(json.dumps({"lat_ms": lat, "wall_s": wall, "failed": errs, "statuses": statuses}))
+    return 0
+
+
+def _child_load(base, tmp, x, want, threads, per_thread):
+    """`_load` run by `chip_smoke.py --load` in a child process."""
+    body_path, want_path = os.path.join(tmp, "body.csv"), os.path.join(tmp, "want.npy")
+    with open(body_path, "wb") as f:
+        f.write(_csv_body(x))
+    np.save(want_path, want)
+    out = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--load", base, body_path, want_path,
+         str(threads), str(per_thread)], capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, "load client failed: {}".format(out.stderr[-2000:]))
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    return res["lat_ms"], res["wall_s"], res["failed"], res["statuses"]
+
+
+def _device_split(torch, forest, x, rounds, reps=20):
+    """Median (H2D, traversal, D2H, host total) ms of the device predict's
+    steps, CUDA events between them."""
+    from sagemaker_xgboost_container_tpu_torch.ops.predict import forest_predict_margin
+
+    _, dev = forest._stack(0, forest.iteration_indptr[rounds])
+    base = forest.objective().base_margin(forest.base_score)
+    rows = []
+    for _ in range(reps + 2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev[0].record()
+        xt = torch.as_tensor(x, dtype=torch.float32, device=DEVICE)
+        ev[1].record()
+        margin = forest_predict_margin(dev, xt, base_margin=base)
+        ev[2].record()
+        margin.cpu().numpy()
+        ev[3].record()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t) * 1e3
+        rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)] + [total])
+    return np.median(np.asarray(rows[2:]), axis=0)
+
+
+def host_probe(model_path):
+    """`chip_smoke.py --host-probe MODEL`: time the request decode and the
+    host predict path on the CPU in this process, print one JSON line. Run
+    twice by the serve phase, with and without OMP_NUM_THREADS=1 set before
+    torch is imported."""
+    import torch
+
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+    from sagemaker_xgboost_container_tpu_torch.serving import serve_utils
+
+    forest = Forest.load_model(model_path, device="cpu")
+    x, _ = make_data(10_000, N_FEATURES, seed=5)
+    out = {"omp_num_threads": os.environ.get("OMP_NUM_THREADS"),
+           "torch_threads": torch.get_num_threads()}
+    for n, reps in ((1, 200), (100, 50), (10_000, 3)):
+        body = _csv_body(x[:n])
+        t = time.perf_counter()
+        for _ in range(reps):
+            serve_utils.parse_content_data(body, "text/csv")
+        out["decode_csv_{}_ms".format(n)] = (time.perf_counter() - t) * 1e3 / reps
+    rng = serve_utils.best_iteration_range(forest)
+    for n in (1, 32):
+        t = time.perf_counter()
+        for _ in range(100):
+            forest.predict(x[:n], iteration_range=rng)
+        out["host_predict_{}_ms".format(n)] = (time.perf_counter() - t) * 10
+    print(json.dumps(out))
+    return 0
+
+
+def run_serve(torch, pkg, hist, tag):
+    """Phase 7: the serve entry point on the card (see the module docstring)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        _serve(torch, pkg, hist, tag, tmp)
+    print("{} | serve phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _serve(torch, pkg, hist, tag, tmp):
+    from wsgiref.simple_server import make_server
+
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.data.recordio import write_recordio_protobuf
+    from sagemaker_xgboost_container_tpu_torch.models import compat
+    from sagemaker_xgboost_container_tpu_torch.models import forest as forest_mod
+    from sagemaker_xgboost_container_tpu_torch.serving import app as app_mod
+    from sagemaker_xgboost_container_tpu_torch.serving import server
+
+    t0 = time.perf_counter()
+    X, y = make_data(SERVE_TRAIN_ROWS, N_FEATURES, seed=3)
+    forest = pkg.train(MAIN_PARAMS, DataMatrix(X, y), SERVE_ROUNDS, device=DEVICE,
+                       verbose_eval=False)
+    torch.cuda.synchronize()
+    forest.set_attr(best_iteration=SERVE_BEST_ITERATION)
+    rounds = SERVE_BEST_ITERATION + 1
+    json_dir, ubj_dir = os.path.join(tmp, "json"), os.path.join(tmp, "ubjson")
+    os.makedirs(json_dir)
+    os.makedirs(ubj_dir)
+    path = os.path.join(json_dir, "xgboost-model")
+    forest.save_model(path)
+    with open(os.path.join(ubj_dir, "xgboost-model"), "wb") as f:
+        f.write(compat.encode_ubjson(json.loads(forest.save_json())))
+    nodes = max(t.num_nodes for t in forest.trees)
+    print("{} | serve model: {} rounds of depth-8 binary:logistic on {} x {} rows in {:.3f} s "
+          "(up to {} nodes a tree), best_iteration {}".format(
+              tag, SERVE_ROUNDS, SERVE_TRAIN_ROWS, N_FEATURES, time.perf_counter() - t0,
+              nodes, SERVE_BEST_ITERATION), flush=True)
+
+    x_all, _ = make_data(N_SERVE, N_FEATURES, seed=4)
+    x_all[np.random.RandomState(5).rand(*x_all.shape) < 0.02] = np.nan
+    on_cpu = forest_mod.Forest.load_model(path, device="cpu")
+    ref = on_cpu.predict(x_all, iteration_range=(0, rounds))
+
+    os.environ["SM_MODEL_DIR"] = json_dir
+    hist.reset_launch_counts()
+    forest_mod.reset_predict_counts()
+    httpd = server.serving_entrypoint(port=0, block=False, device=DEVICE)
+    loop = threading.Thread(target=httpd.serve_forever, daemon=True)
+    loop.start()
+    client = _Client("http://127.0.0.1:{}".format(httpd.server_port))
+    service = httpd.get_app().service
+    ubj_httpd = None
+    try:
+        t = time.perf_counter()
+        status, _ = client.call("/ping")
+        check(status == 200, "/ping answered {}".format(status))
+        check(service.warmup.join(60) is None and not service.warmup.is_alive(),
+              "warmup did not finish")
+        first_s = time.perf_counter() - t
+        status, body = client.call("/execution-parameters")
+        params = json.loads(body)
+        check(status == 200 and params["BatchStrategy"] == "MULTI_RECORD",
+              "/execution-parameters answered {} {}".format(status, body[:100]))
+        print("{} | serve: /ping 200 (model load + warmup {:.3f} s), /execution-parameters {}"
+              .format(tag, first_s, params), flush=True)
+
+        # ---- correctness: every content type x every accept, 10k rows
+        t_check = time.perf_counter()
+        bodies = {"text/csv": _csv_body(x_all), "text/libsvm": _libsvm_body(x_all),
+                  "application/x-recordio-protobuf": write_recordio_protobuf(x_all)}
+        worst = 0.0
+        for ctype, body in bodies.items():
+            for accept in ("text/csv", "application/json", "application/jsonlines",
+                           "application/x-recordio-protobuf"):
+                status, out = client.call("/invocations", body, ctype, accept)
+                check(status == 200, "{} -> {} answered {}".format(ctype, accept, status))
+                got = _decode_scores(out, accept)
+                check(got.shape == ref.shape and np.all(np.isfinite(got)),
+                      "{} -> {}: bad answer shape {}".format(ctype, accept, got.shape))
+                err = float(np.abs(got - ref).max())
+                worst = max(worst, err)
+                check(err <= 1e-5, "{} -> {}: max_abs_err {} against the CPU predict".format(
+                    ctype, accept, err))
+        os.environ["SAGEMAKER_INFERENCE_OUTPUT"] = "predicted_label,probability"
+        try:
+            status, out = client.call("/invocations", bodies["text/csv"], "text/csv",
+                                      "application/json")
+        finally:
+            del os.environ["SAGEMAKER_INFERENCE_OUTPUT"]
+        check(status == 200, "selectable inference answered {}".format(status))
+        sel = json.loads(out)["predictions"]
+        prob = np.asarray([p["probability"] for p in sel])
+        check(np.abs(prob - ref).max() <= 1e-5
+              and [p["predicted_label"] for p in sel] == [int(v > 0.5) for v in ref],
+              "selectable inference disagrees with the CPU predict")
+        # the UBJSON copy of the model, served by a second server
+        ubj_app = app_mod.make_app(app_mod.ScoringService(ubj_dir, device=DEVICE))
+        ubj_httpd = make_server("127.0.0.1", 0, ubj_app, server_class=server._ThreadedWSGIServer,
+                                handler_class=server._QuietHandler)
+        threading.Thread(target=ubj_httpd.serve_forever, daemon=True).start()
+        ubj_client = _Client("http://127.0.0.1:{}".format(ubj_httpd.server_port))
+        status, out = ubj_client.call("/invocations", bodies["application/x-recordio-protobuf"],
+                                      "application/x-recordio-protobuf", "text/csv")
+        ubj_err = float(np.abs(_decode_scores(out, "text/csv") - ref).max())
+        check(status == 200 and ubj_err <= 1e-5, "UBJSON model: {} err {}".format(status, ubj_err))
+        ubj_httpd.stop()
+        ubj_httpd = None
+        client.statuses.extend(ubj_client.statuses)
+        # provoked errors: 204, 415, 406, 400
+        wide = _csv_body(np.hstack([x_all[:5], x_all[:5, :2]]))
+        provoked = [client.call("/invocations", b"", "text/csv")[0],
+                    client.call("/invocations", b"<x/>", "application/xml")[0],
+                    client.call("/invocations", bodies["text/csv"][:200].rsplit(b"\n", 1)[0],
+                                "text/csv", "text/html")[0],
+                    client.call("/invocations", wide, "text/csv")[0]]
+        check(provoked == [204, 415, 406, 400], "error codes {}".format(provoked))
+        print("{} | serve correctness: {} rows x (csv, libsvm, recordio-protobuf) x (csv, "
+              "json, jsonlines, recordio-protobuf) max_abs_err {:.3e} against the CPU predict "
+              "(iteration_range (0, {})); selectable inference ok; UBJSON model max_abs_err "
+              "{:.3e}; errors 204/415/406/400 as expected ({:.1f} s)".format(
+                  tag, len(x_all), worst, rounds, ubj_err, time.perf_counter() - t_check),
+              flush=True)
+
+        # ---- latency and throughput, end to end over HTTP, the clients in a
+        # process of their own; 1-row requests again from threads of this
+        # process, which share the server's interpreter lock
+        served = service.model
+        loads = [(n, threads, per_thread, "child process")
+                 for n, threads, per_thread in SERVE_LOADS]
+        loads.append((1, 16, 20, "threads of the server's process"))
+        for n, threads, per_thread, where in loads:
+            x = x_all[:n]
+            before = service.batcher.stats()
+            forest_mod.reset_predict_counts()
+            if where == "child process":
+                lat, wall, errs, statuses = _child_load(client.base, tmp, x, ref[:n], threads,
+                                                        per_thread)
+            else:
+                lat, wall, errs, statuses = _load(client.base, _csv_body(x), ref[:n], threads,
+                                                  per_thread)
+            client.statuses.extend(statuses)
+            check(len(lat) == threads * per_thread and not errs,
+                  "{} wrong or failed answers at {} rows: {}".format(len(errs), n, errs[:5]))
+            counts = dict(forest_mod.PREDICTS)
+            after = service.batcher.stats()
+            delta = {k: after[k] - before[k] for k in after}
+            inproc = []
+            for _ in range(20 if n < 10_000 else 10):
+                t = time.perf_counter()
+                served.predict(x, iteration_range=(0, rounds))
+                inproc.append((time.perf_counter() - t) * 1e3)
+            split = ("H2D {:.4f} + traversal {:.4f} + D2H {:.4f} ms (CUDA events), "
+                     "{:.4f} ms host clock".format(*_device_split(torch, served, x, rounds))
+                     if n > forest_mod.HOST_PREDICT_ROWS else "host path (numpy), no transfer")
+            print("{} | serve {} rows, {} client thread(s) x {} requests ({}): {}; {:.1f} "
+                  "requests/s; in-process Forest.predict median {:.3f} ms; device predict "
+                  "split: {}; batcher requests {} inline {} dispatches {} coalesced {}; "
+                  "predicts host {} device {}".format(
+                      tag, n, threads, per_thread, where, _percentiles(lat), len(lat) / wall,
+                      float(np.median(inproc)), split, delta["requests"], delta["inline"],
+                      delta["dispatches"], delta["coalesced"], counts["host"],
+                      counts["device"]), flush=True)
+            if n == 100:
+                check(counts["device"] > 0, "the 100-row traffic made no device predict")
+
+        # ---- the device's share of the 100-row load, under torch.profiler
+        # (device activity); its set-up takes seconds, so the clock starts
+        # once it runs
+        forest_mod.reset_predict_counts()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+        t = time.perf_counter()
+        lat, wall, errs, statuses = _child_load(client.base, tmp, x_all[:100], ref[:100], 16, 10)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t
+        prof.stop()
+        client.statuses.extend(statuses)
+        check(not errs, "wrong or failed answers in the profiled load: {}".format(errs[:5]))
+        events = [e for e in prof.key_averages() if _kernel_time_us(torch, e) > 0]
+        busy_ms = sum(_kernel_time_us(torch, e) for e in events) / 1e3
+        kernels = sum(int(e.count) for e in events)
+        device = forest_mod.PREDICTS["device"]
+        print("{} | serve 100 rows, 16 client threads x 10 requests (child process) under "
+              "torch.profiler: {:.1f} requests/s; {} device predicts, {} kernel launches "
+              "({:.0f} a predict), device busy {:.3f} ms ({:.4f} ms a predict), {:.2%} of the "
+              "load's {:.3f} s".format(
+                  tag, len(lat) / wall, device, kernels, kernels / max(device, 1), busy_ms,
+                  busy_ms / max(device, 1), busy_ms / 1e3 / elapsed, elapsed), flush=True)
+
+        # ---- shutdown: SIGTERM with a request in flight
+        inflight = {}
+
+        def late():
+            inflight["answer"] = client.call("/invocations", bodies["text/csv"], "text/csv",
+                                             "text/csv")
+
+        req = threading.Thread(target=late)
+        req.start()
+        time.sleep(0.2)
+        t = time.perf_counter()
+        os.kill(os.getpid(), signal.SIGTERM)
+        check(httpd.stopped.wait(60), "the server did not stop after SIGTERM")
+        stop_s = time.perf_counter() - t
+        req.join(60)
+        status, out = inflight.get("answer", (None, b""))
+        check(status == 200 and np.abs(_decode_scores(out, "text/csv") - ref).max() <= 1e-5,
+              "the request in flight at SIGTERM lost its answer: {}".format(status))
+        loop.join(10)
+        check(not loop.is_alive(), "the serve loop did not end")
+        refused = False
+        try:
+            client.call("/ping")
+        except OSError:
+            refused = True
+        check(refused, "the listener still answers after SIGTERM")
+        launches = dict(hist.LAUNCHES)
+        print("{} | serve shutdown: SIGTERM -> stopped in {:.3f} s, the in-flight {}-row "
+              "request answered 200 and right, listener closed; serve launches {}".format(
+                  tag, stop_s, len(x_all), json.dumps(launches)), flush=True)
+        fives = [s for s in client.statuses if s >= 500]
+        check(not fives, "unprovoked 5xx answers: {}".format(fives))
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        if not httpd.stopped.is_set():
+            httpd.stop()
+        if ubj_httpd is not None:
+            ubj_httpd.stop()
+        os.environ.pop("SM_MODEL_DIR", None)
+
+    # OMP_NUM_THREADS=1 (set by the entry point) against unset, each set
+    # before torch is imported, on the host path and the decode; the two
+    # child processes run at the same time, so neither has the other's turn
+    t = time.perf_counter()
+    procs = {}
+    for label, omp in (("OMP_NUM_THREADS=1", "1"), ("unset", None)):
+        env = {k: v for k, v in os.environ.items() if k != "OMP_NUM_THREADS"}
+        if omp:
+            env["OMP_NUM_THREADS"] = omp
+        procs[label] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--host-probe", path], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for label, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=120)
+        finally:
+            proc.kill()
+        check(proc.returncode == 0, "host probe failed: {}".format(err[-2000:]))
+        print("{} | serve host probe ({}, both child processes together {:.1f} s): {}".format(
+            tag, label, time.perf_counter() - t, out.strip().splitlines()[-1]), flush=True)
+
+
 def main():
     try:
         import torch
@@ -563,6 +1001,7 @@ def main():
         launches, dtrain, dval = run_slice(torch, hist, pkg, tag)
         run_small_parity(torch, pkg, tag)
         run_profile(torch, pkg, dtrain, dval, tag)
+        run_serve(torch, pkg, hist, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise
@@ -586,4 +1025,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--host-probe"]:
+        sys.exit(host_probe(sys.argv[2]))
+    if sys.argv[1:2] == ["--load"]:
+        sys.exit(load_child(*sys.argv[2:7]))
     sys.exit(main())

@@ -52,6 +52,18 @@ class DataMatrix:
             return np.ones(self.num_row, dtype=np.float32)
         return self.weights
 
+    def pad_features(self, num_col):
+        """Widen with all-missing columns (serving: model trained on more cols)."""
+        if num_col <= self.num_col:
+            return self
+        pad = np.full((self.num_row, num_col - self.num_col), np.nan, dtype=np.float32)
+        return DataMatrix(
+            np.concatenate([self.features, pad], axis=1),
+            labels=self.labels,
+            weights=self.weights,
+            feature_names=self.feature_names,
+        )
+
 
 def _densify_with_nan(csr):
     """CSR -> dense float32 where absent entries become NaN (missing)."""

@@ -13,6 +13,7 @@ binning cuts (bin(v) <= b  <=>  v < cuts[b] by construction).
 """
 
 import json
+import threading
 
 import numpy as np
 import torch
@@ -25,6 +26,21 @@ from . import objectives as objectives_mod
 # payloads up to this many rows predict with the numpy host traversal: a
 # device round trip costs more than the traversal itself
 HOST_PREDICT_ROWS = 32
+
+# predict_margin calls by path, for showing where served traffic ran
+PREDICTS = {"host": 0, "device": 0}
+_PREDICTS_LOCK = threading.Lock()
+
+
+def reset_predict_counts():
+    with _PREDICTS_LOCK:
+        for k in PREDICTS:
+            PREDICTS[k] = 0
+
+
+def _count_predict(path):
+    with _PREDICTS_LOCK:
+        PREDICTS[path] += 1
 
 
 class Tree:
@@ -164,12 +180,16 @@ class Forest:
         self.feature_names = feature_names
         self.attributes = {}
         self.device = resolve_device(device)
-        self._stacked = None
+        self._stacked = {}
+        # serving threads predict concurrently: one of them builds and
+        # uploads each tree slice, the others wait for it
+        self._stack_lock = threading.Lock()
 
     def to(self, device):
         """Predict on ``device`` from now on; returns self."""
-        self.device = resolve_device(device)
-        self._stacked = None
+        with self._stack_lock:
+            self.device = resolve_device(device)
+            self._stacked = {}
         return self
 
     # ------------------------------------------------------------------ meta
@@ -189,26 +209,29 @@ class Forest:
         self.trees.extend(trees)
         self.tree_info.extend(int(c) for c in tree_info)
         self.iteration_indptr.append(len(self.trees))
-        self._stacked = None
+        with self._stack_lock:
+            self._stacked = {}
 
     # ------------------------------------------------------------ prediction
-    def _stack(self):
-        """(host, device): the padded [T, N] numpy arrays of every tree and
-        their copy on the forest's device, memoized until the trees or the
-        device change (serving predicts per request)."""
-        if self._stacked is None:
-            host = self._stack_uncached()
-            dev = None
-            if host is not None:
-                dev = {
-                    k: v if k == "depth" else torch.as_tensor(v, device=self.device)
-                    for k, v in host.items()
-                }
-            self._stacked = (host, dev)
-        return self._stacked
+    def _stack(self, tree_lo=0, tree_hi=None):
+        """(host, device): the padded [T, N] numpy arrays of the trees
+        ``tree_lo:tree_hi`` (all by default) and their copy on the forest's
+        device, memoized per slice until the trees or the device change
+        (serving predicts per request)."""
+        key = (tree_lo, len(self.trees) if tree_hi is None else tree_hi)
+        with self._stack_lock:
+            if key not in self._stacked:
+                host = self._stack_uncached(self.trees[key[0]:key[1]])
+                dev = None
+                if host is not None:
+                    dev = {
+                        k: v if k == "depth" else torch.as_tensor(v, device=self.device)
+                        for k, v in host.items()
+                    }
+                self._stacked[key] = (host, dev)
+            return self._stacked[key]
 
-    def _stack_uncached(self):
-        trees = self.trees
+    def _stack_uncached(self, trees):
         if not trees:
             return None
         N = max(t.num_nodes for t in trees)
@@ -235,35 +258,57 @@ class Forest:
             "depth": max(t.depth() for t in trees),
         }
 
-    def predict_margin(self, features):
+    def predict_margin(self, features, iteration_range=None):
         """features: [n, d] float32 (numpy or tensor) with NaN missing ->
-        numpy margins. The objective must be single-output (the port
-        registers no multi-output objective)."""
+        numpy margins. ``iteration_range`` (lo, hi) keeps the trees of
+        rounds lo..hi-1 (hi 0 or None: to the last round). The objective
+        must be single-output (the port registers no multi-output
+        objective)."""
         base = self.objective().base_margin(self.base_score)
+        if iteration_range is None:
+            lo, hi = 0, self.num_boosted_rounds
+        else:
+            lo, hi = iteration_range
+            hi = hi or self.num_boosted_rounds
         if features.shape[1] < self.num_feature:
             raise exc.UserError(
                 "feature_names mismatch: model expects {} features, data has {}".format(
                     self.num_feature, features.shape[1]
                 )
             )
-        host, dev = self._stack()
+        host, dev = self._stack(self.iteration_indptr[lo], self.iteration_indptr[hi])
         n = features.shape[0]
         if host is None:
             return np.full(n, base, np.float32)
         if 0 < n <= HOST_PREDICT_ROWS:
+            _count_predict("host")
             if isinstance(features, torch.Tensor):
                 features = features.cpu().numpy()
             return host_predict_margin(
                 host, np.ascontiguousarray(features, np.float32), base_margin=base
             )
+        _count_predict("device")
         x = torch.as_tensor(features, dtype=torch.float32, device=self.device)
         return forest_predict_margin(dev, x, base_margin=base).cpu().numpy()
 
-    def predict(self, features, output_margin=False):
-        margin = self.predict_margin(features)
+    def predict(self, features, output_margin=False, iteration_range=None):
+        margin = self.predict_margin(features, iteration_range=iteration_range)
         if output_margin:
             return margin
         return self.objective().margin_to_prediction(margin)
+
+    # ------------------------------------------------------------ attributes
+    def attr(self, key):
+        """xgboost Booster.attr: stored attribute or None."""
+        return self.attributes.get(key)
+
+    def set_attr(self, **kwargs):
+        """xgboost Booster.set_attr: set (or delete with None) attributes."""
+        for key, value in kwargs.items():
+            if value is None:
+                self.attributes.pop(key, None)
+            else:
+                self.attributes[key] = str(value)
 
     # ----------------------------------------------------------------- json
     _OBJECTIVE_PARAM_BLOCKS = {

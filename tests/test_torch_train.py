@@ -5,6 +5,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -145,6 +146,93 @@ def test_device_and_host_predict_agree(trained):
     np.testing.assert_allclose(ours.predict(Xv[:5]), ref.predict(Xv[:5]), atol=1e-5)
     np.testing.assert_allclose(ours.predict(Xv[:5], output_margin=True),
                                ref.predict(Xv[:5], output_margin=True), atol=1e-5)
+
+
+@pytest.mark.parametrize("iteration_range", [None, (0, 1), (0, 2), (1, 3), (2, 0), (0, 0)])
+@pytest.mark.parametrize("rows", [5, 200])
+def test_iteration_range_matches_jax(trained, iteration_range, rows):
+    _, ref, _, Xv = trained
+    ours = Forest.from_dict(json.loads(ref.save_json()), device="cpu")
+    for margin in (False, True):
+        np.testing.assert_allclose(
+            ours.predict(Xv[:rows], output_margin=margin, iteration_range=iteration_range),
+            ref.predict(Xv[:rows], output_margin=margin, iteration_range=iteration_range),
+            atol=1e-6)
+
+
+def test_attr_and_set_attr_match_jax(trained):
+    _, ref, _, _ = trained
+    ours = Forest.from_dict(json.loads(ref.save_json()), device="cpu")
+    mirror = JaxForest.load_json(ref.save_json())
+    for forest in (ours, mirror):
+        forest.set_attr(best_iteration=1, best_score=0.25)
+        forest.set_attr(best_score=None)
+    assert ours.attributes == mirror.attributes == {"best_iteration": "1"}
+    assert ours.attr("best_iteration") == mirror.attr("best_iteration") == "1"
+    assert ours.attr("missing") is None
+    saved = Forest.load_json(ours.save_json(), device="cpu")
+    assert saved.attr("best_iteration") == "1"
+
+
+def test_predict_counts_host_and_device_paths(trained):
+    from sagemaker_xgboost_container_tpu_torch.models import forest as forest_mod
+
+    ours, _, _, Xv = trained
+    forest_mod.reset_predict_counts()
+    ours.predict(Xv[:forest_mod.HOST_PREDICT_ROWS])
+    ours.predict(Xv[:forest_mod.HOST_PREDICT_ROWS + 1])
+    ours.predict(Xv[:1], iteration_range=(0, 1))
+    assert forest_mod.PREDICTS == {"host": 2, "device": 1}
+    forest_mod.reset_predict_counts()
+    assert forest_mod.PREDICTS == {"host": 0, "device": 0}
+
+
+def test_stack_builds_each_slice_once_under_concurrency(trained, monkeypatch):
+    """Concurrent first predicts (serving threads) build and upload each tree
+    slice once; every thread gets the same stacked arrays."""
+    _, ref, _, Xv = trained
+    ours = Forest.from_dict(json.loads(ref.save_json()), device="cpu")
+    builds = []
+    real = Forest._stack_uncached
+
+    def counting(self, trees):
+        builds.append(len(trees))
+        return real(self, trees)
+
+    monkeypatch.setattr(Forest, "_stack_uncached", counting)
+    from sagemaker_xgboost_container_tpu_torch.models import forest as forest_mod
+
+    before = dict(forest_mod.PREDICTS)
+    results, errors = [], []
+    ranges = [None, (0, 2)]
+
+    def hammer(i):
+        try:
+            for _ in range(20):
+                rng = ranges[i % 2]
+                results.append((rng, ours._stack(*((0, 2) if rng else ())),
+                                ours.predict(Xv[:40], iteration_range=rng)))
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=hammer, args=(i,)) for i in range(2 * os.cpu_count())]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors, errors
+    assert sorted(builds) == [2, 3]
+    for rng, stacked, pred in results:
+        assert stacked is ours._stack(*((0, 2) if rng else ()))
+        np.testing.assert_allclose(pred, ref.predict(Xv[:40], iteration_range=rng), atol=1e-6)
+    # no lost update of the shared counters
+    assert forest_mod.PREDICTS["device"] - before["device"] == len(results)
 
 
 @pytest.mark.parametrize(
