@@ -51,7 +51,32 @@ Phases (each prints its own lines; any failure exits non-zero):
    flight, which must still be answered before the listener closes. Last,
    the csv decode and the host predict path timed in two child processes
    at once, one with OMP_NUM_THREADS=1 and one without. The serve path
-   launches neither kernel; its launch counts are printed.
+   launches neither kernel; its launch counts are printed;
+8. the train entry point: a SageMaker tree in a tempdir (hyperparameters
+   with all-string values: the main path's parameters, eta 0.2, 30 rounds,
+   eval_metric logloss,auc, early stopping after 10 rounds on
+   validation:auc; csv train and validation channels of 200,000 and
+   50,000 x 28 rows of the same formula, seed 5, 2 % missing values as
+   empty fields; a checkpoint LocalPath), pointed at by the SM_* env.
+   `python -m sagemaker_xgboost_container_tpu_torch.training.entry` runs
+   in a child process: exit 0, `xgboost-model` written, one HPO-regex line
+   per round for validation-logloss and validation-auc, logloss falling
+   over the first 5 rounds, checkpoints present. Then
+   `training.algorithm_train.sagemaker_train` runs the same job in this
+   process: 8 hist_kernel and 1 totals_kernel launches a round, the wall
+   time split into channel read, binning and upload, rounds and model
+   save, and the model against the child's. Then a spot interruption:
+   SIGTERM to a child with save_model_on_termination after round 5 leaves
+   an intermediate model and checkpoints, and a rerun on the same
+   checkpoint dir resumes from the last checkpoint, keeps its trees
+   unchanged and ends with the uninterrupted run's rounds. Two GPU runs
+   of one job are different models of the same quality (the histograms'
+   f32 atomics add in a varying order, and near-tie splits go either
+   way), so the runs are held to ENTRY_METRIC_TOL on every last-round
+   metric and ENTRY_DP_TOL on the mean probability difference, and the
+   trees that agree are counted. Last, the trained model behind
+   `serving_entrypoint`: 10k validation rows as csv within 1e-5 of the
+   CPU predict.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -959,6 +984,368 @@ def _serve(torch, pkg, hist, tag, tmp):
             tag, label, time.perf_counter() - t, out.strip().splitlines()[-1]), flush=True)
 
 
+# ---------------------------------------------------------------- phase 8
+
+ENTRY_TRAIN_ROWS, ENTRY_VAL_ROWS, ENTRY_MISSING, ENTRY_SEED = 200_000, 50_000, 0.02, 5
+ENTRY_HP = {"objective": "binary:logistic", "max_depth": "8", "max_bin": "256",
+            "tree_method": "hist", "eta": "0.2", "num_round": "30",
+            "eval_metric": "logloss,auc", "early_stopping_rounds": "10",
+            "_tuning_objective_metric": "validation:auc"}
+ENTRY_SIGTERM_AFTER = 5  # the spot interruption lands after this round's line
+# two GPU runs of one job are different models of the same quality: the
+# histograms' shared-memory f32 atomics add in a varying order, a split whose
+# gain ties within rounding goes either way, and the margins and the later
+# trees then differ too; a flip near a root moves many rows. Two runs must
+# agree within ENTRY_METRIC_TOL on every last-round metric and within
+# ENTRY_DP_TOL on the mean predicted probability difference (the largest
+# seen on an H100 at 700 W over three calls: 2.48e-3 and 6.88e-3). The CPU
+# tests hold a resumed run to the uninterrupted one tree for tree.
+ENTRY_METRIC_TOL, ENTRY_DP_TOL = 1e-2, 5e-2
+ENTRY_COMMAND = [sys.executable, "-m", "sagemaker_xgboost_container_tpu_torch.training.entry"]
+HPO_LINE = re.compile(r"^\[(\d+)\]\t(.*)$")
+HPO_REGEX = ".*\\[[0-9]+\\].*\tvalidation-{}:(\\S+)"  # a real tab here, #011 in CloudWatch
+
+
+class _RoundTimes:
+    """Callback: the wall time at the start of training, after each round
+    and at the end of training."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.times = []
+        self.end = None
+
+    def before_training(self, forest):
+        self.torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+        return forest
+
+    def after_iteration(self, forest, rnd, evals_log):
+        self.torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+        self.last = {"{}-{}".format(d, m): v[-1] for d, ms in evals_log.items()
+                     for m, v in ms.items()}
+        return False
+
+    def after_training(self, forest):
+        self.end = time.perf_counter()
+        return forest
+
+
+def _write_csv_channel(path, X, y):
+    """A csv channel as SageMaker users write one: label first, missing
+    values as empty fields."""
+    os.makedirs(path)
+    import io
+
+    buf = io.StringIO()
+    np.savetxt(buf, np.column_stack([y, X]), fmt="%.9g", delimiter=",")
+    with open(os.path.join(path, "data.csv"), "w") as f:
+        f.write(buf.getvalue().replace("nan", ""))
+
+
+def _metric_lines(stdout):
+    """{round: {"validation-auc": value, ...}} of the HPO metric lines."""
+    out = {}
+    for line in stdout.splitlines():
+        m = HPO_LINE.match(line)
+        if m:
+            out[int(m.group(1))] = {k: float(v) for k, v in
+                                    (part.split(":") for part in m.group(2).split("\t"))}
+    return out
+
+
+def _missing_reaches(tree, X):
+    """Per node: does a training row with a missing value in the node's
+    split feature reach it? Elsewhere both placements of the missing bucket
+    score alike and f32 rounding picks ``default_left``."""
+    out = np.zeros(tree.num_nodes, bool)
+    node = np.zeros(len(X), np.int64)
+    rows = np.arange(len(X))
+    for _ in range(tree.depth()):
+        v = X[rows, tree.feature[node]]
+        missing = np.isnan(v) & ~tree.is_leaf[node]
+        out[node[missing]] = True
+        right = np.where(np.isnan(v), ~tree.default_left[node], v >= tree.threshold[node])
+        node = np.where(tree.is_leaf[node], node,
+                        np.where(right, tree.right[node], tree.left[node]))
+    return out
+
+
+def _same_tree(ta, tb, X):
+    """Splits equal (children, feature, threshold, and ``default_left``
+    where a training row with a missing value reaches) and leaf values
+    within 1e-5."""
+    if ta.num_nodes != tb.num_nodes or (ta.left != tb.left).any():
+        return False
+    split, decided = ~ta.is_leaf, _missing_reaches(ta, X)
+    return bool((ta.feature[split] == tb.feature[split]).all()
+                and (ta.threshold[split] == tb.threshold[split]).all()
+                and (ta.default_left[decided] == tb.default_left[decided]).all()
+                and np.abs(ta.value - tb.value).max() <= 1e-5)
+
+
+def _compare(a, b, X, x_val):
+    """Two models of one job -> the trees whose splits agree before the
+    first that differs, the trees that differ, and the largest and mean
+    difference of their predicted probabilities on ``x_val``."""
+    same = [_same_tree(ta, tb, X) for ta, tb in zip(a.trees, b.trees)]
+    leading = same.index(False) if False in same else len(same)
+    dp = np.abs(a.predict(x_val) - b.predict(x_val))
+    roots = sum(int(ta.feature[0] != tb.feature[0] or ta.threshold[0] != tb.threshold[0])
+                for ta, tb in zip(a.trees, b.trees))
+    return {"rounds": (a.num_boosted_rounds, b.num_boosted_rounds), "leading_same": leading,
+            "differ": same.count(False) + abs(len(a.trees) - len(b.trees)),
+            "roots_differ": roots, "max_dp": float(dp.max()), "mean_dp": float(dp.mean())}
+
+
+def _run_entry_child(env, sigterm_after=None, timeout=600):
+    """`python -m ...training.entry` in a child process -> (exit code,
+    stdout, stderr, seconds); with ``sigterm_after``, SIGTERM once the line
+    of that round is printed."""
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        ENTRY_COMMAND, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    err = []
+    drain = threading.Thread(target=lambda: err.extend(proc.stderr), daemon=True)
+    drain.start()
+    out = []
+    try:
+        for line in proc.stdout:
+            out.append(line)
+            m = HPO_LINE.match(line)
+            if sigterm_after is not None and m and int(m.group(1)) >= sigterm_after:
+                proc.send_signal(signal.SIGTERM)
+                sigterm_after = None
+        proc.wait(timeout=timeout)
+    finally:
+        proc.kill()
+        drain.join(10)
+    return proc.returncode, "".join(out), "".join(err), time.perf_counter() - t
+
+
+def run_entry(torch, hist, tag):
+    """Phase 8: the train entry point on the card (see the module docstring)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_entry_") as tmp:
+        _entry(torch, hist, tag, tmp)
+    print("{} | entry phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _entry(torch, hist, tag, tmp):
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+    from sagemaker_xgboost_container_tpu_torch.serving import serve_utils, server
+    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
+
+    # ---- the SageMaker tree: configs, channels, env
+    X, y = make_data(ENTRY_TRAIN_ROWS + ENTRY_VAL_ROWS, N_FEATURES, seed=ENTRY_SEED)
+    X[np.random.RandomState(ENTRY_SEED + 1).rand(*X.shape) < ENTRY_MISSING] = np.nan
+    n = ENTRY_TRAIN_ROWS
+    conf = os.path.join(tmp, "config")
+    os.makedirs(conf)
+    channel = {"ContentType": "csv", "TrainingInputMode": "File",
+               "S3DistributionType": "FullyReplicated"}
+    data_config = {"train": channel, "validation": dict(channel)}
+    for name, cfg in (("hyperparameters.json", ENTRY_HP),
+                      ("hyperparameters-spot.json", dict(ENTRY_HP, save_model_on_termination="true")),
+                      ("inputdataconfig.json", data_config)):
+        with open(os.path.join(conf, name), "w") as f:
+            json.dump(cfg, f)
+    train_dir, val_dir = os.path.join(tmp, "data", "train"), os.path.join(tmp, "data", "validation")
+    _write_csv_channel(train_dir, X[:n], y[:n])
+    _write_csv_channel(val_dir, X[n:], y[n:])
+    # ("%.9g" gives every float32 back exactly, so X is what the reader reads)
+
+    def sm_env(run, hp="hyperparameters.json"):
+        ckpt_conf = os.path.join(conf, "checkpoint-{}.json".format(run))
+        with open(ckpt_conf, "w") as f:
+            json.dump({"LocalPath": os.path.join(tmp, "ckpt-" + run)}, f)
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("SM_", "SAGEMAKER_"))}
+        env.update({
+            "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+            "SM_INPUT_TRAINING_CONFIG_FILE": os.path.join(conf, hp),
+            "SM_INPUT_DATA_CONFIG_FILE": os.path.join(conf, "inputdataconfig.json"),
+            "SM_CHECKPOINT_CONFIG_FILE": ckpt_conf,
+            "SM_CHANNEL_TRAIN": train_dir, "SM_CHANNEL_VALIDATION": val_dir,
+            "SM_MODEL_DIR": os.path.join(tmp, "model-" + run),
+            "SM_OUTPUT_DIR": os.path.join(tmp, "output-" + run),
+            "SM_OUTPUT_DATA_DIR": os.path.join(tmp, "output-" + run, "data"),
+            "SM_HOSTS": '["algo-1"]', "SM_CURRENT_HOST": "algo-1"})
+        return env
+
+    def failure(run):
+        path = os.path.join(tmp, "output-" + run, "failure")
+        return open(path).read()[-2000:] if os.path.exists(path) else None
+
+    def checkpoints(run):
+        d = os.path.join(tmp, "ckpt-" + run)
+        return sorted(int(f.rsplit(".", 1)[1]) for f in os.listdir(d)
+                      if re.match(r"^xgboost-checkpoint\.\d+$", f))
+
+    # ---- 1. the entry point as SageMaker starts it, in a child process
+    rc, out, err, child_s = _run_entry_child(sm_env("full"))
+    check(rc == 0, "the train entry point exited {}: {} {}".format(rc, failure("full"), err[-2000:]))
+    model_path = os.path.join(tmp, "model-full", "xgboost-model")
+    check(os.path.exists(model_path), "no xgboost-model written")
+    lines = _metric_lines(out)
+    rounds = len(lines)
+    check(rounds > 0 and sorted(lines) == list(range(rounds)),
+          "metric lines are not one per round: {}".format(sorted(lines)))
+    for metric in ("logloss", "auc"):
+        found = re.findall(HPO_REGEX.format(metric), out)
+        check(len(found) == rounds and all(np.isfinite(float(v)) for v in found),
+              "{} HPO-regex lines for validation-{} over {} rounds".format(
+                  len(found), metric, rounds))
+    ll = [lines[r]["validation-logloss"] for r in range(min(5, rounds))]
+    check(all(b < a for a, b in zip(ll, ll[1:])), "validation logloss did not fall: {}".format(ll))
+    ckpts = checkpoints("full")
+    check(ckpts and ckpts[-1] == rounds - 1, "checkpoints {} after {} rounds".format(ckpts, rounds))
+    full = Forest.load_model(model_path, device="cpu")
+    print("{} | entry (child process): exit 0 in {:.3f} s; {} rounds, {} HPO lines each for "
+          "validation-logloss and validation-auc; validation logloss {:.5f} -> {:.5f}, auc "
+          "{:.5f} -> {:.5f}; best_iteration {}; checkpoints {}".format(
+              tag, child_s, rounds, rounds, lines[0]["validation-logloss"],
+              lines[rounds - 1]["validation-logloss"], lines[0]["validation-auc"],
+              lines[rounds - 1]["validation-auc"], full.attr("best_iteration"), ckpts),
+          flush=True)
+
+    # ---- 2. the same job in this process: kernel launches and time split
+    # the job's stages timed from outside: the channel read by wrapping the
+    # reader call, binning and upload up to the first callback, the rounds
+    # by a callback, the model save after the last callback
+    times = _RoundTimes(torch)
+    get_callbacks = algorithm_train.get_callbacks
+    read_matrices = algorithm_train.get_validated_data_matrices
+    read = {}
+
+    def with_times(**kw):
+        xgb_model, iteration, callbacks = get_callbacks(**kw)
+        return xgb_model, iteration, callbacks + [times]
+
+    def timed_read(*args, **kw):
+        read["start"] = time.perf_counter()
+        out = read_matrices(*args, **kw)
+        read["end"] = time.perf_counter()
+        return out
+
+    algorithm_train.get_callbacks = with_times
+    algorithm_train.get_validated_data_matrices = timed_read
+    hist.reset_launch_counts()
+    try:
+        t = time.perf_counter()
+        algorithm_train.sagemaker_train(
+            ENTRY_HP, data_config, train_dir, val_dir, os.path.join(tmp, "model-inproc"),
+            ["algo-1"], "algo-1", {"LocalPath": os.path.join(tmp, "ckpt-inproc")}, device=DEVICE)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        algorithm_train.get_callbacks = get_callbacks
+        algorithm_train.get_validated_data_matrices = read_matrices
+    launches = dict(hist.LAUNCHES)
+    inproc = Forest.load_model(os.path.join(tmp, "model-inproc", "xgboost-model"), device="cpu")
+    in_rounds = len(times.times) - 1
+    check(in_rounds == rounds, "in-process run took {} rounds, the child {}".format(
+        in_rounds, rounds))
+    check(launches == {"hist_kernel": 8 * rounds, "totals_kernel": rounds},
+          "entry launches {} over {} rounds (want 8 and 1 a round)".format(launches, rounds))
+    x_val = X[n:n + N_SERVE]
+    cmp = _compare(inproc, full, X[:n], x_val)
+    gaps = {k: abs(times.last[k] - lines[rounds - 1][k]) for k in lines[rounds - 1]}
+    check(cmp["rounds"] == (rounds, rounds)
+          and max(gaps.values()) <= ENTRY_METRIC_TOL and cmp["mean_dp"] <= ENTRY_DP_TOL,
+          "in-process run against the child's: {}, last-round metric gaps {}".format(cmp, gaps))
+    rounds_s = times.times[-1] - times.times[0]
+    print("{} | entry (in process, {}): launches {} over {} rounds (8 hist_kernel and 1 "
+          "totals_kernel a round); channel read {:.3f} s, binning and upload {:.3f} s, {} rounds "
+          "{:.3f} s ({:.2f} rounds/s, a checkpoint saved each round), model save {:.3f} s, total "
+          "{:.3f} s".format(
+              tag, DEVICE, json.dumps(launches), rounds, read["end"] - read["start"],
+              times.times[0] - read["end"], rounds, rounds_s, rounds / rounds_s,
+              t_end - times.end, t_end - t), flush=True)
+    print("{} | entry run to run (in process against the child, both {}): the first {} trees "
+          "alike, {} of {} differ ({} at the root); {} rows' probabilities differ by {:.3e} at "
+          "most, {:.3e} on average; last-round metric gaps {}".format(
+              tag, DEVICE, cmp["leading_same"], cmp["differ"], rounds, cmp["roots_differ"],
+              len(x_val), cmp["max_dp"],
+              cmp["mean_dp"], json.dumps({k: float("{:.3e}".format(v)) for k, v in gaps.items()})),
+          flush=True)
+
+    # ---- 3. spot interruption: SIGTERM, then a rerun resumes from the checkpoint
+    rc, out, err, spot_s = _run_entry_child(sm_env("spot", "hyperparameters-spot.json"),
+                                            sigterm_after=ENTRY_SIGTERM_AFTER)
+    check(rc == 0, "SIGTERM: the entry point exited {}: {}".format(rc, err[-2000:]))
+    killed_at = max(_metric_lines(out))
+    spot_model = os.path.join(tmp, "model-spot", "xgboost-model")
+    check(os.path.exists(spot_model), "no intermediate model after SIGTERM")
+    intermediate = Forest.load_model(spot_model, device="cpu")
+    kept = checkpoints("spot")
+    check(intermediate.num_boosted_rounds >= ENTRY_SIGTERM_AFTER and kept,
+          "intermediate model of {} rounds, checkpoints {}".format(
+              intermediate.num_boosted_rounds, kept))
+    check(killed_at < rounds - 1, "SIGTERM landed after the last round")
+    rc, out, err, resume_s = _run_entry_child(sm_env("spot", "hyperparameters-spot.json"))
+    check(rc == 0, "resume: the entry point exited {}: {} {}".format(
+        rc, failure("spot"), err[-2000:]))
+    resumed_lines = _metric_lines(out)
+    check(min(resumed_lines) == kept[-1] + 1 and max(resumed_lines) == rounds - 1,
+          "resumed rounds {}..{}, want {}..{}".format(
+              min(resumed_lines), max(resumed_lines), kept[-1] + 1, rounds - 1))
+    resumed = Forest.load_model(spot_model, device="cpu")
+    # the resumed model carries the checkpoint's trees unchanged ...
+    resumed_from = Forest.load_model(os.path.join(
+        tmp, "ckpt-spot", "xgboost-checkpoint.{}".format(kept[-1])), device="cpu")
+    carried = resumed_from.save_json()
+    resumed_from.trees = resumed.trees[:len(resumed_from.trees)]
+    check(resumed_from.save_json() == carried,
+          "the resumed model changed the trees of the checkpoint it resumed from")
+    # ... and ends like the uninterrupted run, within the run-to-run spread
+    cmp_r = _compare(resumed, full, X[:n], x_val)
+    gaps_r = {k: abs(resumed_lines[rounds - 1][k] - lines[rounds - 1][k])
+              for k in lines[rounds - 1]}
+    check(cmp_r["rounds"] == (rounds, rounds)
+          and max(gaps_r.values()) <= ENTRY_METRIC_TOL and cmp_r["mean_dp"] <= ENTRY_DP_TOL,
+          "resumed run against the uninterrupted one: {}, last-round metric gaps {} (SIGTERM "
+          "after round {}, checkpoints {}, resumed at {})".format(
+              cmp_r, gaps_r, killed_at, kept, min(resumed_lines)))
+    print("{} | entry spot interruption: SIGTERM after round {} ({:.3f} s) left an intermediate "
+          "model of {} rounds and checkpoints {}; the rerun resumed at round {} with the "
+          "checkpoint's {} trees unchanged and ended at round {} in {:.3f} s; against the "
+          "uninterrupted run: the first {} trees alike, {} differ ({} at the root), "
+          "probabilities within {:.3e} ({:.3e} on average), last-round metric gaps {}".format(
+              tag, killed_at, spot_s, intermediate.num_boosted_rounds, kept, min(resumed_lines),
+              len(resumed_from.trees), max(resumed_lines), resume_s, cmp_r["leading_same"],
+              cmp_r["differ"], cmp_r["roots_differ"], cmp_r["max_dp"], cmp_r["mean_dp"],
+              json.dumps({k: float("{:.3e}".format(v)) for k, v in gaps_r.items()})), flush=True)
+
+    # ---- 4. the trained model behind the serve entry point
+    ref = full.predict(x_val, iteration_range=serve_utils.best_iteration_range(full))
+    os.environ["SM_MODEL_DIR"] = os.path.dirname(model_path)
+    hist.reset_launch_counts()
+    httpd = server.serving_entrypoint(port=0, block=False, device=DEVICE)
+    loop = threading.Thread(target=httpd.serve_forever, daemon=True)
+    loop.start()
+    try:
+        client = _Client("http://127.0.0.1:{}".format(httpd.server_port))
+        status, _ = client.call("/ping")
+        check(status == 200, "/ping answered {}".format(status))
+        t = time.perf_counter()
+        status, body = client.call("/invocations", _csv_body(x_val), "text/csv", "text/csv")
+        serve_ms = (time.perf_counter() - t) * 1e3
+        check(status == 200, "/invocations answered {}".format(status))
+        got = _decode_scores(body, "text/csv")
+        check(got.shape == ref.shape and np.all(np.isfinite(got)), "bad served answer")
+        err = float(np.abs(got - ref).max())
+        check(err <= 1e-5, "served predictions differ from the CPU predict by {}".format(err))
+    finally:
+        httpd.stop()
+        loop.join(10)
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        os.environ.pop("SM_MODEL_DIR", None)
+    print("{} | entry model served: {} validation rows as csv in {:.3f} ms, max_abs_err {:.3e} "
+          "against the CPU predict; serve launches {}".format(
+              tag, len(x_val), serve_ms, err, json.dumps(dict(hist.LAUNCHES))), flush=True)
+
+
 def main():
     try:
         import torch
@@ -1002,6 +1389,7 @@ def main():
         run_small_parity(torch, pkg, tag)
         run_profile(torch, pkg, dtrain, dval, tag)
         run_serve(torch, pkg, hist, tag)
+        run_entry(torch, hist, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

@@ -13,9 +13,9 @@ from ..toolkit import exceptions as exc
 
 
 class DataMatrix:
-    """Features + labels + optional per-row weights."""
+    """Features + labels + optional per-row weights and ranking groups."""
 
-    def __init__(self, features, labels=None, weights=None, feature_names=None):
+    def __init__(self, features, labels=None, weights=None, groups=None, feature_names=None):
         if sp.issparse(features):
             features = _densify_with_nan(features.tocsr())
         features = np.asarray(features, dtype=np.float32)
@@ -26,6 +26,7 @@ class DataMatrix:
         self.features = features
         self.labels = None if labels is None else np.asarray(labels, dtype=np.float32).reshape(-1)
         self.weights = None if weights is None else np.asarray(weights, dtype=np.float32).reshape(-1)
+        self.groups = None if groups is None else np.asarray(groups, dtype=np.int32).reshape(-1)
         self.feature_names = list(feature_names) if feature_names is not None else None
 
         if self.labels is not None and len(self.labels) != self.num_row:
@@ -38,6 +39,12 @@ class DataMatrix:
                     len(self.weights), self.num_row
                 )
             )
+        if self.groups is not None and int(self.groups.sum()) != self.num_row:
+            raise exc.UserError(
+                "Group sizes sum to {} but the data has {} rows".format(
+                    int(self.groups.sum()), self.num_row
+                )
+            )
 
     @property
     def num_row(self):
@@ -47,10 +54,23 @@ class DataMatrix:
     def num_col(self):
         return self.features.shape[1]
 
+    def get_label(self):
+        return self.labels if self.labels is not None else np.empty(0, dtype=np.float32)
+
     def get_weight(self):
         if self.weights is None:
             return np.ones(self.num_row, dtype=np.float32)
         return self.weights
+
+    def slice(self, row_indices):
+        """Row subset (k-fold CV), keeping labels and weights."""
+        row_indices = np.asarray(row_indices)
+        return DataMatrix(
+            self.features[row_indices],
+            labels=None if self.labels is None else self.labels[row_indices],
+            weights=None if self.weights is None else self.weights[row_indices],
+            feature_names=self.feature_names,
+        )
 
     def pad_features(self, num_col):
         """Widen with all-missing columns (serving: model trained on more cols)."""
@@ -61,6 +81,28 @@ class DataMatrix:
             np.concatenate([self.features, pad], axis=1),
             labels=self.labels,
             weights=self.weights,
+            groups=self.groups,
+            feature_names=self.feature_names,
+        )
+
+    def concat(self, other):
+        """Row-wise concatenation (the k-fold CV train + validation merge)."""
+        d = max(self.num_col, other.num_col)
+        a, b = self.pad_features(d), other.pad_features(d)
+
+        def _cat(x, y):
+            if x is None and y is None:
+                return None
+            if x is None:
+                x = np.zeros(a.num_row, dtype=y.dtype)
+            if y is None:
+                y = np.zeros(b.num_row, dtype=x.dtype)
+            return np.concatenate([x, y])
+
+        return DataMatrix(
+            np.concatenate([a.features, b.features], axis=0),
+            labels=_cat(a.labels, b.labels),
+            weights=_cat(a.weights, b.weights),
             feature_names=self.feature_names,
         )
 

@@ -16,18 +16,26 @@ import torch
 
 from .._device import resolve_device
 from ..data.binning import bin_matrix
+from ..ops.predict import forest_leaf_values
 from ..ops.tree_build import build_tree, pack_tree, predict_binned, unpack_tree
 from ..toolkit import exceptions as exc
 from .device_metrics import make_device_metric
 from .forest import Forest, compact_padded_tree
+from .objectives import TRAINABLE
 
 # objective hyperparameters carried into the saved model
 OBJECTIVE_PARAM_KEYS = ("scale_pos_weight", "max_delta_step")
+# trees traversed together when a resumed run rebuilds its margins
+_RESUME_TREES_PER_PASS = 64
 
 
 class TrainConfig:
     """Parsed + defaulted booster parameters of the ported slice.
 
+    Takes every key that ``algorithm.hyperparameters`` validates. Keys that
+    do not change a depthwise gbtree model (``updater``, ``predictor``,
+    ``nthread``, ``verbosity``, ``seed``, the dart and gblinear knobs, ...)
+    are accepted and ignored, as the JAX package ignores them there.
     Everything the slice does not run raises ``UserError`` naming the
     parameter, rather than training something else.
     """
@@ -44,7 +52,13 @@ class TrainConfig:
         self.gamma = float(p.get("gamma", 0.0))
         self.min_child_weight = float(p.get("min_child_weight", 1.0))
         self.max_delta_step = float(p.get("max_delta_step", 0.0))
-        self.max_bin = int(p.get("max_bin", 256))
+        if p.get("max_bin") is not None:
+            self.max_bin = int(p["max_bin"])
+        elif p.get("sketch_eps"):
+            # bins ~ 1/eps, the JAX package's reading of sketch_eps
+            self.max_bin = int(min(max(1.0 / float(p["sketch_eps"]), 2), 1024))
+        else:
+            self.max_bin = 256
         self.seed = int(p.get("seed", 0))
         self.objective = p.get("objective", "reg:squarederror")
         self.base_score = float(p.get("base_score", 0.5))
@@ -52,6 +66,8 @@ class TrainConfig:
         self.objective_params = p
 
         unsupported = []
+        if self.objective not in TRAINABLE:
+            unsupported.append("objective={!r}".format(self.objective))
         for key in ("subsample", "colsample_bytree", "colsample_bylevel", "colsample_bynode"):
             if float(p.get(key, 1.0)) < 1.0:
                 unsupported.append("{}={}".format(key, p[key]))
@@ -102,7 +118,7 @@ class _TrainingSession:
         self.labels = torch.as_tensor(dtrain.labels, device=device)
         self.weights = torch.as_tensor(dtrain.get_weight(), device=device)
         base = self.objective.base_margin(forest.base_score)
-        self.margins = torch.full((dtrain.num_row,), base, dtype=torch.float32, device=device)
+        self.margins = self._start_margins(forest, dtrain, base)
 
         self.metrics = []
         for name in metric_names:
@@ -126,8 +142,23 @@ class _TrainingSession:
                 torch.as_tensor(binned.bins, device=device),
                 torch.as_tensor(dm.labels, device=device),
                 torch.as_tensor(dm.get_weight(), device=device),
-                torch.full((dm.num_row,), base, dtype=torch.float32, device=device),
+                self._start_margins(forest, dm, base),
             ))
+
+    def _start_margins(self, forest, dm, base):
+        """Margins of ``dm``'s rows before the first new round: the base
+        margin plus the resumed forest's trees, added one tree at a time in
+        round order as the rounds added them, so that a resumed run's
+        margins equal an uninterrupted run's bit for bit."""
+        margins = torch.full((dm.num_row,), base, dtype=torch.float32, device=self.device)
+        if forest.trees:
+            x = torch.as_tensor(dm.features, device=self.device)
+            for lo in range(0, len(forest.trees), _RESUME_TREES_PER_PASS):
+                hi = min(lo + _RESUME_TREES_PER_PASS, len(forest.trees))
+                _, stacked = forest._stack(lo, hi)
+                for leaf in forest_leaf_values(stacked, x).unbind(1):
+                    margins += leaf
+        return margins
 
     def run_round(self):
         """Grow one tree and update every margin -> host tree dict."""
@@ -164,23 +195,35 @@ def train(
     device=None,
     callbacks=None,
     verbose_eval=True,
+    xgb_model=None,
 ):
     """Train a Forest on ``device`` (CUDA unless given). API mirrors
     ``xgb.train``: ``evals`` is a list of (DataMatrix, name) pairs whose
-    metric lines print each round when ``verbose_eval``."""
+    metric lines print each round when ``verbose_eval``. ``xgb_model``, a
+    Forest or a model-file path, resumes training: its trees stay, the
+    margins start from its predictions, and round numbers continue from its
+    last round."""
     dev = resolve_device(device)
     config = TrainConfig(params)
     callbacks = list(callbacks or [])
-    forest = Forest(
-        objective_name=config.objective,
-        objective_params={
-            k: v for k, v in config.objective_params.items() if k in OBJECTIVE_PARAM_KEYS
-        },
-        base_score=config.base_score,
-        num_feature=dtrain.num_col,
-        feature_names=dtrain.feature_names,
-        device=dev,
-    )
+    if xgb_model is None:
+        forest = Forest(
+            objective_name=config.objective,
+            objective_params={
+                k: v for k, v in config.objective_params.items() if k in OBJECTIVE_PARAM_KEYS
+            },
+            base_score=config.base_score,
+            num_feature=dtrain.num_col,
+            feature_names=dtrain.feature_names,
+            device=dev,
+        )
+    elif isinstance(xgb_model, Forest):
+        forest = xgb_model.to(dev)
+    else:
+        forest = Forest.load_model(xgb_model, device=dev)
+    if forest.num_feature < dtrain.num_col and forest.trees:
+        raise exc.UserError("feature_names mismatch between checkpoint and data")
+    forest.num_feature = max(forest.num_feature, dtrain.num_col)
     metric_names = _eval_metric_names(config, forest.objective())
     session = _TrainingSession(config, dtrain, list(evals), forest, metric_names, dev)
 
@@ -189,7 +232,8 @@ def train(
             forest = cb.before_training(forest) or forest
 
     evals_log = {}
-    for rnd in range(num_boost_round):
+    start_round = forest.num_boosted_rounds
+    for rnd in range(start_round, start_round + num_boost_round):
         tree_np = session.run_round()
         forest.append_round([compact_padded_tree(tree_np, session.cuts)], [0])
         results = session.evaluate()

@@ -208,16 +208,6 @@ def encode_ubjson(obj):
 # ---------------------------------------------------------------------------
 
 
-def _model_from_dict(doc, device=None):
-    """Dispatch a decoded model document by booster type."""
-    name = doc.get("learner", {}).get("gradient_booster", {}).get("name", "gbtree")
-    if name != "gbtree":
-        raise exc.UserError(
-            "{} models are not supported by the PyTorch port yet".format(name)
-        )
-    return Forest.from_dict(doc, device=device)
-
-
 def _forest_from_raw(raw, device=None):
     """Dispatch a raw model buffer by magic."""
     raw = bytes(raw)
@@ -227,9 +217,9 @@ def _forest_from_raw(raw, device=None):
         )
     head = raw.lstrip()[:1]
     if head == b"{" and raw[1:2] not in (b"L", b"l", b"i", b"U", b"I", b"#", b"$"):
-        return _model_from_dict(json.loads(raw.decode("utf-8")), device=device)
+        return Forest.from_dict(json.loads(raw.decode("utf-8")), device=device)
     if raw[:1] == b"{":
-        return _model_from_dict(decode_ubjson(raw), device=device)
+        return Forest.from_dict(decode_ubjson(raw), device=device)
     if raw[:1] == b"\x80":  # pickle protocol 2 and later
         raise exc.UserError(
             "pickled xgboost Booster models are not supported by the PyTorch port yet"

@@ -66,4 +66,32 @@ def make_device_metric(name, objective_name):
     if base == "error":
         threshold = float(suffix) if suffix else 0.5
         return wm(lambda p, y, w: ((p > threshold).float() != y).float())
+    if base == "auc":
+        return DeviceMetric(name, lambda m, y, w: _auc_stats(objective_name, m, y, w),
+                            lambda s: s[0] / torch.clamp(s[1], min=_EPS))
     return None
+
+
+def _auc_stats(objective_name, m, y, w):
+    """Weighted Mann-Whitney AUC with tie midranks in cumulative-weight
+    space -> [auc * pair weight, pair weight] (the JAX device metric's
+    form: tie groups from a neighbour-inequality cumsum, segment sums)."""
+    p = _prob_transform(objective_name, m)
+    n = p.shape[0]
+    order = torch.argsort(p, stable=True)
+    sp, sw = p[order], w[order]
+    pos = (y[order] > 0).to(sw.dtype)
+    spos, sneg = pos * sw, (1.0 - pos) * sw
+    new_group = torch.ones(n, dtype=torch.long, device=p.device)
+    new_group[1:] = (sp[1:] != sp[:-1]).long()
+    gid = torch.cumsum(new_group, 0) - 1
+    group_w = torch.zeros_like(sw).index_add_(0, gid, sw)
+    cumw = torch.cumsum(sw, 0)
+    group_end = torch.zeros_like(sw).scatter_reduce_(0, gid, cumw, reduce="amax",
+                                                     include_self=False)
+    ranks = (group_end - group_w / 2.0)[gid]
+    w_pos, w_neg = torch.sum(spos), torch.sum(sneg)
+    u = torch.sum(ranks * spos) - w_pos * w_pos / 2.0
+    pairw = w_pos * w_neg
+    auc = torch.clamp(u / torch.clamp(pairw, min=_EPS), 0.0, 1.0)
+    return torch.stack([auc * pairw, pairw])

@@ -194,6 +194,10 @@ class Forest:
 
     # ------------------------------------------------------------------ meta
     @property
+    def num_output_group(self):
+        return max(1, self.num_class)
+
+    @property
     def num_boosted_rounds(self):
         return len(self.iteration_indptr) - 1
 
@@ -260,11 +264,12 @@ class Forest:
 
     def predict_margin(self, features, iteration_range=None):
         """features: [n, d] float32 (numpy or tensor) with NaN missing ->
-        numpy margins. ``iteration_range`` (lo, hi) keeps the trees of
-        rounds lo..hi-1 (hi 0 or None: to the last round). The objective
-        must be single-output (the port registers no multi-output
-        objective)."""
+        numpy margins, [n] or, for a multi-output model, [n, num_class]
+        with each tree's output in the column of its class (``tree_info``).
+        ``iteration_range`` (lo, hi) keeps the trees of rounds lo..hi-1
+        (hi 0 or None: to the last round)."""
         base = self.objective().base_margin(self.base_score)
+        groups = self.num_output_group
         if iteration_range is None:
             lo, hi = 0, self.num_boosted_rounds
         else:
@@ -276,20 +281,25 @@ class Forest:
                     self.num_feature, features.shape[1]
                 )
             )
-        host, dev = self._stack(self.iteration_indptr[lo], self.iteration_indptr[hi])
+        tree_lo, tree_hi = self.iteration_indptr[lo], self.iteration_indptr[hi]
+        host, dev = self._stack(tree_lo, tree_hi)
         n = features.shape[0]
         if host is None:
-            return np.full(n, base, np.float32)
+            return np.full(n if groups == 1 else (n, groups), base, np.float32)
+        tree_info = self.tree_info[tree_lo:tree_hi]
         if 0 < n <= HOST_PREDICT_ROWS:
             _count_predict("host")
             if isinstance(features, torch.Tensor):
                 features = features.cpu().numpy()
             return host_predict_margin(
-                host, np.ascontiguousarray(features, np.float32), base_margin=base
+                host, np.ascontiguousarray(features, np.float32),
+                num_output_group=groups, base_margin=base, tree_info=tree_info,
             )
         _count_predict("device")
         x = torch.as_tensor(features, dtype=torch.float32, device=self.device)
-        return forest_predict_margin(dev, x, base_margin=base).cpu().numpy()
+        return forest_predict_margin(
+            dev, x, num_output_group=groups, base_margin=base, tree_info=tree_info
+        ).cpu().numpy()
 
     def predict(self, features, output_margin=False, iteration_range=None):
         margin = self.predict_margin(features, iteration_range=iteration_range)
@@ -313,8 +323,18 @@ class Forest:
     # ----------------------------------------------------------------- json
     _OBJECTIVE_PARAM_BLOCKS = {
         "reg:squarederror": ("reg_loss_param", {"scale_pos_weight": "1"}),
+        "reg:squaredlogerror": ("reg_loss_param", {"scale_pos_weight": "1"}),
         "reg:logistic": ("reg_loss_param", {"scale_pos_weight": "1"}),
         "binary:logistic": ("reg_loss_param", {"scale_pos_weight": "1"}),
+        "binary:logitraw": ("reg_loss_param", {"scale_pos_weight": "1"}),
+        "count:poisson": ("poisson_regression_param", {"max_delta_step": "0.7"}),
+        "reg:tweedie": ("tweedie_regression_param", {"tweedie_variance_power": "1.5"}),
+        "reg:pseudohubererror": ("pseudo_huber_param", {"huber_slope": "1"}),
+        "multi:softmax": ("softmax_multiclass_param", {"num_class": "0"}),
+        "multi:softprob": ("softmax_multiclass_param", {"num_class": "0"}),
+        "rank:pairwise": ("lambdarank_param", {}),
+        "rank:ndcg": ("lambdarank_param", {}),
+        "rank:map": ("lambdarank_param", {}),
     }
 
     def _tree_to_json(self, tree, tree_id):
@@ -376,6 +396,8 @@ class Forest:
         for key in list(block):
             if key in self.objective_params:
                 block[key] = str(self.objective_params[key])
+        if "num_class" in block:
+            block["num_class"] = str(self.num_class)
         doc = {
             "version": [3, 0, 0],
             "learner": {
@@ -421,6 +443,13 @@ class Forest:
         try:
             learner = doc["learner"]
             gb = learner["gradient_booster"]
+            name = gb.get("name", "gbtree")
+            if name != "gbtree" or "gbtree" in gb:
+                raise exc.UserError(
+                    "{} models are not supported by the PyTorch port yet".format(
+                        "dart" if "gbtree" in gb else name
+                    )
+                )
             model = gb["model"]
             lmp = learner["learner_model_param"]
             objective = learner["objective"]
@@ -446,7 +475,9 @@ class Forest:
         if indptr:
             forest.iteration_indptr = [int(v) for v in indptr]
         else:
-            forest.iteration_indptr = list(range(len(forest.trees) + 1))
+            forest.iteration_indptr = list(
+                range(0, len(forest.trees) + 1, forest.num_output_group)
+            )
         return forest
 
     def save_model(self, path):

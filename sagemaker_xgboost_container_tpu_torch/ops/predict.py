@@ -32,16 +32,26 @@ def forest_leaf_nodes(stacked, x):
     return node
 
 
-def forest_predict_margin(stacked, x, base_margin=0.0):
-    """Sum per-tree leaf outputs into margins (single output group).
-
-    stacked: dict of [T, N] tensors on x's device + "depth" int.
-    Returns a tensor [n].
-    """
+def forest_leaf_values(stacked, x):
+    """x: f32 tensor [n, d] -> each tree's output per row, [n, T]."""
     node = forest_leaf_nodes(stacked, x)
     T = node.shape[1]
-    leaf = stacked["leaf_value"][torch.arange(T, device=x.device)[None, :], node]
-    return leaf.sum(dim=1) + base_margin
+    return stacked["leaf_value"][torch.arange(T, device=x.device)[None, :], node]
+
+
+def forest_predict_margin(stacked, x, num_output_group=1, base_margin=0.0, tree_info=None):
+    """Sum per-tree leaf outputs into per-group margins.
+
+    stacked: dict of [T, N] tensors on x's device + "depth" int.
+    Returns a tensor [n] (single group) or [n, num_output_group], where
+    tree t adds to the column of its class ``tree_info[t]``.
+    """
+    leaf = forest_leaf_values(stacked, x)
+    if num_output_group == 1:
+        return leaf.sum(dim=1) + base_margin
+    out = torch.zeros((x.shape[0], num_output_group), dtype=leaf.dtype, device=x.device)
+    info = torch.as_tensor(np.asarray(tree_info, np.int64), device=x.device)
+    return out.index_add_(1, info, leaf) + base_margin
 
 
 # ------------------------------------------------------------- host predictor
@@ -69,10 +79,16 @@ def host_leaf_nodes(stacked, x):
     return node
 
 
-def host_predict_margin(stacked, x, base_margin=0.0):
+def host_predict_margin(stacked, x, num_output_group=1, base_margin=0.0, tree_info=None):
     """Host forest margin (numpy) with the contract of ``forest_predict_margin``."""
     node = host_leaf_nodes(stacked, x)
     leaf_value = np.asarray(stacked["leaf_value"])
     T = leaf_value.shape[0]
     leaf = leaf_value[np.arange(T)[None, :], node]        # [n, T]
-    return leaf.sum(axis=1) + np.float32(base_margin)
+    if num_output_group == 1:
+        return leaf.sum(axis=1) + np.float32(base_margin)
+    out = np.zeros((x.shape[0], num_output_group), np.float32)
+    info = np.asarray(tree_info)
+    for c in range(num_output_group):
+        out[:, c] = leaf[:, info == c].sum(axis=1) + np.float32(base_margin)
+    return out

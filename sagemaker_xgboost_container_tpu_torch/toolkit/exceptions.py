@@ -1,5 +1,6 @@
-"""Error taxonomy: ``UserError`` (the customer can fix it) and
-``AlgorithmError`` (a defect in this framework).
+"""Error taxonomy: ``UserError`` (the customer can fix it),
+``AlgorithmError`` (a defect in this framework) and ``PlatformError`` (the
+hosting platform failed).
 
 Each carries an optional ``caused_by`` exception whose message is appended so
 the original failure is never lost when re-raising across layers.
@@ -29,6 +30,10 @@ class BaseToolkitError(Exception):
                 out += "\n\nCaused by: {}".format(detail)
         return out
 
+    def public_failure_message(self):
+        """Message safe to write to the platform failure file."""
+        return self.message
+
 
 class UserError(BaseToolkitError):
     """The customer supplied something invalid and can fix it themselves."""
@@ -42,3 +47,17 @@ class AlgorithmError(BaseToolkitError):
 
     def __init__(self, message, caused_by=None):
         super().__init__(message, caused_by, failure_prefix="Algorithm Error")
+
+
+class PlatformError(BaseToolkitError):
+    """The surrounding platform (SageMaker, filesystem contract) failed."""
+
+    def __init__(self, message, caused_by=None):
+        super().__init__(message, caused_by, failure_prefix="Platform Error")
+
+
+def convert_to_algorithm_error(error):
+    """Wrap an arbitrary exception, passing through ones already classified."""
+    if isinstance(error, (UserError, AlgorithmError, PlatformError)):
+        return error
+    return AlgorithmError(str(error), caused_by=error)

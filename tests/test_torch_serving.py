@@ -11,6 +11,7 @@ import csv
 import io
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -830,3 +831,174 @@ def test_serving_entrypoint_real_socket(models, monkeypatch):
         warm = httpd.get_app().service.warmup
         if warm is not None:
             warm.join(30)
+
+
+# ------------------------------------------------- every objective (predict)
+
+OBJECTIVE_LABELS = {
+    "reg:squaredlogerror": lambda z, r: np.exp(z * 0.3),
+    "reg:pseudohubererror": lambda z, r: z,
+    "reg:absoluteerror": lambda z, r: z,
+    "binary:logitraw": lambda z, r: (z > 0).astype(np.float32),
+    "binary:hinge": lambda z, r: (z > 0).astype(np.float32),
+    "count:poisson": lambda z, r: np.floor(np.exp(z * 0.5)),
+    "reg:gamma": lambda z, r: np.exp(z * 0.3),
+    "reg:tweedie": lambda z, r: np.maximum(z, 0.0),
+    "multi:softmax": lambda z, r: np.digitize(z, [-0.5, 0.5]),
+    "multi:softprob": lambda z, r: np.digitize(z, [-0.5, 0.5]),
+    "survival:aft": lambda z, r: np.exp(z * 0.3),
+    "survival:cox": lambda z, r: np.exp(z * 0.3) * np.where(r.rand(len(z)) < 0.3, -1, 1),
+    "rank:pairwise": lambda z, r: np.digitize(z, [-0.5, 0.5]),
+    "rank:ndcg": lambda z, r: np.digitize(z, [-0.5, 0.5]),
+    "rank:map": lambda z, r: (z > 0).astype(np.float32),
+}
+
+
+@pytest.fixture(scope="module")
+def objective_apps(tmp_path_factory):
+    """(JAX app, port app on the CPU) per objective, over a model the JAX
+    package trained on the CPU (depth 3, 3 rounds; 3 classes for multi:*)."""
+    saved = os.environ.get("GRAFT_PREDICT_WARMUP")
+    os.environ["GRAFT_PREDICT_WARMUP"] = "0"
+    root = tmp_path_factory.mktemp("objective_models")
+    X, _ = _data(400, seed=20)
+    z = X[:, 0] + 0.5 * X[:, 1] * X[:, 2]
+    out = {}
+    for objective, label in OBJECTIVE_LABELS.items():
+        params = {"objective": objective, "max_depth": 3, "max_bin": 16, "eta": 0.3}
+        if objective.startswith("multi:"):
+            params["num_class"] = 3
+        groups = np.full(20, 20) if objective.startswith("rank:") else None
+        y = label(z, np.random.RandomState(21)).astype(np.float32)
+        forest = jax_booster.train(params, JaxDataMatrix(X, y, groups=groups), 3)
+        model_dir = _save(forest, root / objective.replace(":", "_"))
+        out[objective] = (jax_app.make_app(jax_app.ScoringService(model_dir)),
+                          app.make_app(app.ScoringService(model_dir, device="cpu")))
+    yield out
+    if saved is None:
+        os.environ.pop("GRAFT_PREDICT_WARMUP", None)
+    else:
+        os.environ["GRAFT_PREDICT_WARMUP"] = saved
+
+
+@pytest.mark.parametrize("objective", sorted(OBJECTIVE_LABELS))
+@pytest.mark.parametrize("kind", ["csv", "libsvm", "recordio"])
+@pytest.mark.parametrize("accept", ACCEPTS)
+def test_every_objective_served_like_jax(objective_apps, objective, kind, accept):
+    """Both apps answer alike for a model of each objective the reference
+    registers: the host path (5 rows) and the device path (100 rows)."""
+    jax_wsgi, port_wsgi = objective_apps[objective]
+    for rows in (5, 100):
+        X, _ = _data(rows, seed=22)
+        X[np.random.RandomState(23).rand(*X.shape) < 0.1] = np.nan
+        body, content_type = _payload(X, kind)
+        a, _ = _same_answer(jax_wsgi, port_wsgi, rows, tol=1e-5, body=body,
+                            content_type=content_type, accept=accept)
+        assert a[0] == 200
+
+
+@pytest.mark.parametrize("objective", ["multi:softprob", "multi:softmax"])
+def test_multiclass_margins_grouped_by_tree_info(objective_apps, objective):
+    """Margins of a 3-class model: column c sums the trees of class c
+    (``tree_info``), on the host path and the device path alike."""
+    model = objective_apps[objective][1].service.model
+    assert model.num_output_group == 3 and model.tree_info[:3] == [0, 1, 2]
+    for rows in (7, 64):
+        X, _ = _data(rows, seed=24)
+        margin = model.predict(X, output_margin=True)
+        assert margin.shape == (rows, 3)
+        stacked, _ = model._stack(0, len(model.trees))
+        from sagemaker_xgboost_container_tpu_torch.ops.predict import host_leaf_nodes
+        node = host_leaf_nodes(stacked, X)
+        leaf = stacked["leaf_value"][np.arange(len(model.trees))[None, :], node]
+        info = np.asarray(model.tree_info)
+        want = np.stack([leaf[:, info == c].sum(axis=1) for c in range(3)], axis=1) + 0.5
+        np.testing.assert_allclose(margin, want, atol=1e-6)
+        pred = model.predict(X)
+        if objective == "multi:softprob":
+            assert pred.shape == (rows, 3)
+            np.testing.assert_allclose(pred.sum(axis=1), 1.0, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(pred, np.argmax(margin, axis=1))
+
+
+def _edited_model(models, tmp_path, kind):
+    """The binary model as xgboost writes a dart model (the gbtree nested
+    under "gbtree", with per-tree "weight_drop"), or with a categorical
+    split at the root of its first tree."""
+    with open(os.path.join(models["json"], "xgboost-model")) as f:
+        doc = json.load(f)
+    gb = doc["learner"]["gradient_booster"]
+    if kind == "dart":
+        doc["learner"]["gradient_booster"] = {
+            "name": "dart", "gbtree": gb, "weight_drop": [0.9] * len(gb["model"]["trees"])}
+    else:
+        tree = gb["model"]["trees"][0]
+        tree.update(categories=[1], categories_nodes=[0], categories_segments=[0],
+                    categories_sizes=[1])
+        tree["split_type"][0] = 1
+    (tmp_path / "xgboost-model").write_text(json.dumps(doc))
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("booster", ["dart", "gblinear", "categorical"])
+def test_unported_boosters_answer_ping_500(models, tmp_path, booster):
+    """A model the port cannot predict fails at load with a UserError naming
+    what it is, so that /ping answers 500 (the JAX app serves it)."""
+    if booster != "gblinear":
+        model_dir, match = _edited_model(models, tmp_path, booster), booster
+    else:
+        X, _ = _data(200, seed=25)
+        forest = jax_booster.train({"booster": booster, "objective": "reg:squarederror",
+                                    "max_depth": 3, "max_bin": 16}, JaxDataMatrix(X, X[:, 0]), 2)
+        model_dir, match = _save(forest, tmp_path), booster
+    with pytest.raises(exc.UserError, match=match):
+        compat.load_model_any_format(os.path.join(model_dir, "xgboost-model"), device="cpu")
+    port_wsgi = app.make_app(app.ScoringService(model_dir, device="cpu"))
+    assert _call(port_wsgi, path="/ping", method="GET")[0] == 500
+    jax_wsgi = jax_app.make_app(jax_app.ScoringService(model_dir))
+    assert _call(jax_wsgi, path="/ping", method="GET")[0] == 200
+    X, _ = _data(3, seed=26)
+    assert _call(jax_wsgi, body=_payload(X, "csv")[0])[0] == 200
+
+
+@pytest.mark.parametrize("objective", sorted(OBJECTIVE_LABELS) + ["reg:linear"])
+def test_objective_predict_side_matches_jax(objective):
+    """base_margin, margin_to_prediction, validate_labels, default_metric and
+    the output count of every registered objective, against the JAX one."""
+    from sagemaker_xgboost_container_tpu.models import objectives as jax_objectives
+    from sagemaker_xgboost_container_tpu_torch.models import objectives
+
+    params = {"num_class": 3, "tweedie_variance_power": 1.3}
+    ours = objectives.create_objective(objective, params)
+    ref = jax_objectives.create_objective(objective, params)
+    assert ours.name == ref.name and ours.default_metric == ref.default_metric
+    assert ours.num_output_group == ref.num_output_group
+    for base_score in (0.3, 0.5, 2.0):
+        try:
+            want = ref.base_margin(base_score)
+        except Exception as e:
+            with pytest.raises(exc.UserError, match=re.escape(str(e).split(": ", 1)[1])):
+                ours.base_margin(base_score)
+        else:
+            assert ours.base_margin(base_score) == want
+    rng = np.random.RandomState(27)
+    margin = rng.randn(20, 3).astype(np.float32) if ours.num_output_group > 1 else \
+        rng.randn(20).astype(np.float32)
+    np.testing.assert_allclose(ours.margin_to_prediction(margin),
+                               ref.margin_to_prediction(margin), rtol=1e-6)
+    for labels in ([0.0, 1.0, 2.0], [-1.0, 0.5], [0.0, 0.5, 1.0], [3.0]):
+        labels = np.asarray(labels, np.float32)
+
+        def outcome(obj, error_type):
+            try:
+                obj.validate_labels(labels)
+                return None
+            except error_type as e:
+                return str(e)
+
+        assert outcome(ours, exc.UserError) == outcome(ref, Exception)
+    trainable = objective in objectives.TRAINABLE
+    if not trainable:
+        with pytest.raises(exc.UserError, match=objective.replace("+", r"\+")):
+            ours.grad_hess(None, None, None)
