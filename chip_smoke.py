@@ -16,13 +16,22 @@ Phases (each prints its own lines; any failure exits non-zero):
    from [-1, W) at W=1 and W=64 and with level 7's left children (half the
    rows at -1, W=64); untimed with every row in one node, half the nodes
    empty, no row active, fewer rows than hist_kernel CTAs, W=130, n=0, an
-   unaligned n and uint8 bins with B=256;
+   unaligned n and uint8 bins with B=256; then the class axis (C classes'
+   [C, n] gradients sharing the bins, one launch): timed at CoverType's
+   shape, 581,012 x 54 uint16 bins, B=257, C=7, nodes drawn from [-1, 64)
+   per class (CUDA events around the wrapper, torch.profiler's device time,
+   the plain version, torch.bincount over the folded keys, the bound counting
+   the bins once); untimed at C=2 with one class without an active row,
+   C=7 with W=1, fewer entries than CTAs and uint8 bins with B=256;
 3. totals_kernel (totals_partial and totals_reduce behind node_totals)
    against its plain version, and two calls against each other bitwise:
    timed at n=1M, W=256 with nodes drawn from [-1, W) (CUDA events around
    the wrapper, and the kernels' device time from torch.profiler over a
    second run of the timed loop); untimed at W=1, W=4096, with every row in
-   one node, no row active, n=100 and n=0;
+   one node, no row active, n=100 and n=0; then the class axis, bitwise
+   equal on a second call too: timed at C=7, W=256, n=581,012; untimed at
+   C=2 with one class without an active row, C=7 with W=1 and fewer
+   entries than CTAs;
 4. the slice: train 5 rounds of binary:logistic, max_depth=8, max_bin=256 on
    1M x 28 synthetic rows with 100k validation rows, checking the launch
    counts and a falling validation logloss; save the model, load it back and
@@ -76,7 +85,21 @@ Phases (each prints its own lines; any failure exits non-zero):
    metric and ENTRY_DP_TOL on the mean probability difference, and the
    trees that agree are counted. Last, the trained model behind
    `serving_entrypoint`: 10k validation rows as csv within 1e-5 of the
-   CPU predict.
+   CPU predict;
+9. multiclass at full width: BASELINE.md config #3, CoverType-shaped
+   multi:softmax (581,012 x 54 rows of bench.py's BENCH_TASK=multiclass
+   formula, seed 0, 7 classes; 58,101 validation rows, seed 1; max_depth 8,
+   max_bin 256, eta 0.3, 10 rounds, eval_metric mlogloss,merror): 8
+   hist_kernel and 1 totals_kernel launches a round (one launch a level for
+   all 7 classes), validation mlogloss falling every round, rounds/s on the
+   host clock over rounds 1-4 and, over rounds 5-8 under torch.profiler,
+   device ms a round, the histogram's and the totals' share and the
+   device's busy share; the model saved, loaded and predicting 10k
+   validation rows on the GPU against the CPU (margins within 1e-5, the
+   same classes) and served once through `serving_entrypoint` (1,000 csv
+   rows). Then every objective beyond the main path trains 3 rounds on
+   20,000 x 9 rows on the GPU and on the CPU: the last-round training
+   metric within SWEEP_METRIC_TOL, and the identical trees counted.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -119,6 +142,15 @@ HIST_CASES = (  # n, d, W, B, bin dtype, node distribution, timed
     (12_345, 5, 3, 33, np.uint16, "random", False),
     (1_000_003, 28, 128, 256, np.uint8, "random", False),
 )
+# the class axis (one launch for C classes sharing the bins), at CoverType's
+# shape: n, d, W, B, bin dtype, node distribution, timed, C
+HIST_CLASS_CASES = (
+    (581_012, 54, 64, 257, np.uint16, "random", True, 7),
+    (200_000, 54, 64, 257, np.uint16, "class_empty", False, 2),
+    (581_012, 54, 1, 257, np.uint16, "random", False, 7),
+    (20, 54, 8, 257, np.uint16, "random", False, 3),
+    (581_012, 54, 64, 256, np.uint8, "random", False, 7),
+)
 # the timed hist case whose numbers go into the kernels line
 HIST_MAIN = "hist W=64 left"
 TOTALS_CASES = (  # n, W, node distribution, timed
@@ -130,8 +162,44 @@ TOTALS_CASES = (  # n, W, node distribution, timed
     (100, 256, "random", False),
     (0, 256, "random", False),
 )
+TOTALS_CLASS_CASES = (  # n, W, node distribution, timed, C
+    (581_012, 256, "random", True, 7),
+    (200_000, 256, "class_empty", False, 2),
+    (581_012, 1, "random", False, 7),
+    (20, 256, "random", False, 3),
+)
 MAIN_PARAMS = {"objective": "binary:logistic", "max_depth": 8, "max_bin": 256,
                "eta": 0.2, "tree_method": "hist"}
+# phase 9: BASELINE.md config #3, CoverType multi:softmax, at CoverType's
+# published shape (bench.py's BENCH_TASK=multiclass labels)
+COVTYPE_TRAIN, COVTYPE_VAL, COVTYPE_FEATURES, COVTYPE_ROUNDS = 581_012, 58_101, 54, 10
+COVTYPE_PARAMS = {"objective": "multi:softmax", "num_class": 7, "max_depth": 8,
+                  "max_bin": 256, "tree_method": "hist", "eta": 0.3,
+                  "eval_metric": ["mlogloss", "merror"]}
+N_COVTYPE_PREDICT, N_COVTYPE_SERVE = 10_000, 1_000
+# the GPU-vs-CPU sweep of the objectives beyond the main path: label kind
+# (of a positive score S), extra parameters
+SWEEP_SHAPE = (20_000, 9)
+SWEEP = (
+    ("reg:squaredlogerror", "score", {}),
+    ("reg:pseudohubererror", "score", {}),
+    ("reg:absoluteerror", "score", {}),
+    ("reg:gamma", "score", {}),
+    ("reg:tweedie", "score", {"tweedie_variance_power": 1.3}),
+    ("binary:logitraw", "binary", {}),
+    ("binary:hinge", "binary", {}),
+    ("count:poisson", "count", {}),
+    ("multi:softmax", "class", {"num_class": 3}),
+    ("multi:softprob", "class", {"num_class": 3}),
+    ("survival:aft", "score", {"base_score": 1.0}),
+    ("survival:cox", "censored", {}),
+)
+# the last-round metric, GPU against CPU, relative to max(1, |metric|):
+# phase 5's 1e-4 where every tree is the same; where a split differs (the
+# GPU's f32 atomics add in another order, and a near-tie then goes either
+# way: on an H100 reg:pseudohubererror once kept 1 of 3 trees alike, mphe
+# 2.0e-4 apart) the spread of two GPU runs, phase 8's 1e-2
+SWEEP_METRIC_TOL, SWEEP_SPLIT_TOL = 1e-4, 1e-2
 # the served model: up to 511 nodes a tree, 80 of its 100 rounds served
 SERVE_TRAIN_ROWS, SERVE_ROUNDS, SERVE_BEST_ITERATION = 200_000, 100, 79
 SERVE_LOADS = ((1, 16, 50), (100, 16, 20), (10_000, 1, 10))  # rows, threads, requests each
@@ -192,7 +260,7 @@ def ptxas_report(log, prefix):
         if m:
             flush()
             # the last match: the mangled name holds the file's name first
-            found = re.findall(prefix + r"[a-z]+(?:I[a-z]E)?", m.group(1))
+            found = re.findall(prefix + r"[a-z]+(?:I[a-z]?(?:Lb[01]E)?E)?", m.group(1))
             name, facts = (found[-1] if found else None), []
         elif name is not None and ("Used" in line or "spill" in line):
             facts.append(line.split(":", 1)[-1].strip() if "ptxas" in line else line.strip())
@@ -215,7 +283,7 @@ def sass_atomics(lib_path, prefix):
     ops, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            found = re.findall(prefix + r"[a-z]+(?:I[a-z]E)?", line)
+            found = re.findall(prefix + r"[a-z]+(?:I[a-z]?(?:Lb[01]E)?E)?", line)
             name = found[-1] if found else None
             if name is not None:
                 ops.setdefault(name, {})
@@ -273,14 +341,27 @@ def node_distribution(rng, kind, n, W):
     raise ValueError(kind)
 
 
-def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag):
-    """One hist_kernel check; returns the measurement dict when timed."""
+def class_nodes(rng, kind, n, W, classes):
+    """node_local of a case: [n] for one class, else [C, n] with each class
+    drawn on its own; "class_empty" leaves the last class no active row."""
+    if classes == 1:
+        return node_distribution(rng, kind, n, W)
+    kinds = [kind] * classes
+    if kind == "class_empty":
+        kinds = ["random"] * (classes - 1) + ["none"]
+    return np.stack([node_distribution(rng, k, n, W) for k in kinds])
+
+
+def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag, classes=1):
+    """One hist_kernel check, on [n] or (classes > 1) [C, n] gradients;
+    returns the measurement dict when timed."""
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(seed)
+    shape = (n,) if classes == 1 else (classes, n)
     bins = torch.as_tensor(rng.randint(0, B, (n, d)).astype(np_dtype), device=dev)
-    grad = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
-    hess = torch.as_tensor((rng.rand(n) + 0.1).astype(np.float32), device=dev)
-    node = torch.as_tensor(node_distribution(rng, kind, n, W), device=dev)
+    grad = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+    hess = torch.as_tensor((rng.rand(*shape) + 0.1).astype(np.float32), device=dev)
+    node = torch.as_tensor(class_nodes(rng, kind, n, W, classes), device=dev)
 
     G, H = hist.level_histogram(bins, grad, hess, node, W, B)
     Gp, Hp = hist._hist_plain(bins, grad, hess, node, W, B)
@@ -292,11 +373,13 @@ def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag):
     tol = 1e-4 * scale
     # integer-valued weights sum exactly in f32: the cells must match bitwise
     ones = torch.ones_like(grad)
-    ints = torch.as_tensor(rng.randint(0, 4, n).astype(np.float32), device=dev)
+    ints = torch.as_tensor(rng.randint(0, 4, shape).astype(np.float32), device=dev)
     Ge, He = hist.level_histogram(bins, ones, ints, node, W, B)
     Gq, Hq = hist._hist_plain(bins, ones, ints, node, W, B)
     exact = bool(torch.equal(Ge, Gq) and torch.equal(He, Hq))
     label = "hist_kernel n={} d={} {} B={} W={} nodes={}".format(n, d, bins.dtype, B, W, kind)
+    if classes > 1:
+        label += " C={}".format(classes)
     print("{} | {}: max_abs_err={:.3e} tol={:.3e} exact_integer_check={}".format(
         tag, label, err, tol, exact), flush=True)
     check(err <= tol, "{} disagrees with its plain version".format(label))
@@ -304,27 +387,46 @@ def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag):
     if not timed:
         return None
 
-    active = (node >= 0) & (node < W)
-    rows = torch.nonzero(active).squeeze(1)
-    ids = ((node[rows].long()[:, None] * d + torch.arange(d, device=dev)) * B
+    # the folded keys (class * W + node) of the active entries
+    node2, grad2, hess2 = node.reshape(-1, n), grad.reshape(-1, n), hess.reshape(-1, n)
+    cls, rows = torch.nonzero((node2 >= 0) & (node2 < W), as_tuple=True)
+    keys = cls * W + node2[cls, rows].long()
+    ids = ((keys[:, None] * d + torch.arange(d, device=dev)) * B
            + hist.widen_rows(bins, rows)).reshape(-1)
-    g_rep = grad[rows][:, None].expand(-1, d).reshape(-1).contiguous()
-    h_rep = hess[rows][:, None].expand(-1, d).reshape(-1).contiguous()
-    size = W * d * B
-    kernel = time_ms(torch, lambda: hist.level_histogram(bins, grad, hess, node, W, B))
+    g_rep = grad2[cls, rows][:, None].expand(-1, d).reshape(-1).contiguous()
+    h_rep = hess2[cls, rows][:, None].expand(-1, d).reshape(-1).contiguous()
+    size = classes * W * d * B
+    call = lambda: hist.level_histogram(bins, grad, hess, node, W, B)  # noqa: E731
+    kernel = time_ms(torch, call)
     plain = time_ms(torch, lambda: hist._hist_plain(bins, grad, hess, node, W, B))
     library = time_ms(torch, lambda: (torch.bincount(ids, g_rep, minlength=size),
                                       torch.bincount(ids, h_rep, minlength=size)))
-    # node read for every row; bins, grad and hess only for the active ones
+    # node read for every entry, grad and hess for the active ones, and the
+    # bins once, of the rows active in some class
     n_active = int(rows.numel())
-    nbytes = n * 4 + n_active * (d * bins.element_size() + 8) + 2 * size * 4
+    bin_rows = int(torch.unique(rows).numel()) if classes > 1 else n_active
+    nbytes = (classes * n * 4 + n_active * 8 + bin_rows * d * bins.element_size()
+              + 2 * size * 4)
     b_ms, b_by = bound_ms(nbytes, 2 * n_active * d)
-    print("{} | {}: kernel_ms={:.4f} plain_ms={:.4f} library_ms={:.4f} "
+    out = {"max_abs_err": err, "ms": kernel, "plain_ms": plain,
+           "library_ms": library, "bound_ms": b_ms, "bound_by": b_by,
+           "shape": label}
+    dev_text = ""
+    if classes > 1:
+        per = device_ms(torch, call, "hist_")
+        out["device_ms"] = sum(per.values())
+        dev_text = " device_ms={:.4f} (torch.profiler: {})".format(
+            out["device_ms"], ", ".join("{} {:.4f}".format(k, v) for k, v in sorted(per.items())))
+    print("{} | {}: kernel_ms={:.4f}{} plain_ms={:.4f} library_ms={:.4f} "
           "(torch.bincount with weights, G and H) bound_ms={:.4f} ({})".format(
-              tag, label, kernel, plain, library, b_ms, b_by), flush=True)
-    return {"max_abs_err": err, "ms": kernel, "plain_ms": plain,
-            "library_ms": library, "bound_ms": b_ms, "bound_by": b_by,
-            "shape": label}
+              tag, label, kernel, dev_text, plain, library, b_ms, b_by), flush=True)
+    return out
+
+
+# a profiling session on an H100 machine now and then records no device
+# activity at all (seen once; the same calls in the same order traced on
+# the next machine): such a session is repeated
+PROFILE_ATTEMPTS = 3
 
 
 def device_ms(torch, fn, prefix, iters=20):
@@ -332,26 +434,33 @@ def device_ms(torch, fn, prefix, iters=20):
     torch.profiler (device activity) over `iters` calls of fn."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for evt in prof.key_averages():
-        us = _kernel_time_us(torch, evt)
-        found = re.findall(prefix + r"[a-z]+", evt.key)
-        if us > 0 and found:
-            per[found[-1]] = per.get(found[-1], 0.0) + us / 1e3 / iters
+    for attempt in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for evt in prof.key_averages():
+            us = _kernel_time_us(torch, evt)
+            found = re.findall(prefix + r"[a-z]+", evt.key)
+            if us > 0 and found:
+                per[found[-1]] = per.get(found[-1], 0.0) + us / 1e3 / iters
+        if per:
+            return per
+        print("  torch.profiler recorded no {}* kernel (attempt {} of {})".format(
+            prefix, attempt + 1, PROFILE_ATTEMPTS), flush=True)
     return per
 
 
-def totals_case(torch, hist, n, W, kind, seed, timed, tag):
-    """One totals_kernel check; returns the measurement dict when timed."""
+def totals_case(torch, hist, n, W, kind, seed, timed, tag, classes=1):
+    """One totals_kernel check, on [n] or (classes > 1) [C, n] gradients;
+    returns the measurement dict when timed."""
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(seed)
-    grad = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
-    hess = torch.as_tensor((rng.rand(n) + 0.1).astype(np.float32), device=dev)
-    node = torch.as_tensor(node_distribution(rng, kind, n, W), device=dev)
+    shape = (n,) if classes == 1 else (classes, n)
+    grad = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
+    hess = torch.as_tensor((rng.rand(*shape) + 0.1).astype(np.float32), device=dev)
+    node = torch.as_tensor(class_nodes(rng, kind, n, W, classes), device=dev)
     g, h = hist.node_totals(grad, hess, node, W)
     gp, hp = hist._totals_plain(grad, hess, node, W)
     # the order of additions is fixed by the shapes: a second call on the
@@ -362,11 +471,13 @@ def totals_case(torch, hist, n, W, kind, seed, timed, tag):
     tol = 1e-4 * max(1.0, float(gp.abs().max()), float(hp.abs().max()))
     same = bool(torch.equal(g, g2) and torch.equal(h, h2))
     ones = torch.ones_like(grad)
-    ints = torch.as_tensor(rng.randint(0, 4, n).astype(np.float32), device=dev)
+    ints = torch.as_tensor(rng.randint(0, 4, shape).astype(np.float32), device=dev)
     ge, he = hist.node_totals(ones, ints, node, W)
     gq, hq = hist._totals_plain(ones, ints, node, W)
     exact = bool(torch.equal(ge, gq) and torch.equal(he, hq))
     label = "totals_kernel n={} W={} nodes={}".format(n, W, kind)
+    if classes > 1:
+        label += " C={}".format(classes)
     print("{} | {}: max_abs_err={:.3e} tol={:.3e} exact_integer_check={} "
           "bitwise_equal_second_call={}".format(tag, label, err, tol, exact, same), flush=True)
     check(err <= tol, "{} disagrees with its plain version".format(label))
@@ -375,8 +486,10 @@ def totals_case(torch, hist, n, W, kind, seed, timed, tag):
     if not timed:
         return None
 
-    valid = torch.nonzero((node >= 0) & (node < W)).squeeze(1)
-    ids, gv, hv = node[valid].long(), grad[valid], hess[valid]
+    node2 = node.reshape(-1, n)
+    cls, rows = torch.nonzero((node2 >= 0) & (node2 < W), as_tuple=True)
+    ids = cls * W + node2[cls, rows].long()
+    gv, hv = grad.reshape(-1, n)[cls, rows], hess.reshape(-1, n)[cls, rows]
     call = lambda: hist.node_totals(grad, hess, node, W)  # noqa: E731
     kernel = time_ms(torch, call)
     per = device_ms(torch, call, "totals_")
@@ -384,9 +497,10 @@ def totals_case(torch, hist, n, W, kind, seed, timed, tag):
           "{}: profiled kernels {}, expected totals_partial and totals_reduce".format(label, per))
     dev_ms = sum(per.values())
     plain = time_ms(torch, lambda: hist._totals_plain(grad, hess, node, W))
-    library = time_ms(torch, lambda: (torch.bincount(ids, gv, minlength=W),
-                                      torch.bincount(ids, hv, minlength=W)))
-    b_ms, b_by = bound_ms(n * 12 + 2 * W * 4, 2 * int(valid.numel()))
+    K = classes * W
+    library = time_ms(torch, lambda: (torch.bincount(ids, gv, minlength=K),
+                                      torch.bincount(ids, hv, minlength=K)))
+    b_ms, b_by = bound_ms(classes * n * 12 + 2 * K * 4, 2 * int(ids.numel()))
     print("{} | {}: kernel_ms={:.4f} (CUDA events around the wrapper) device_ms={:.4f} "
           "(torch.profiler: totals_partial {:.4f} + totals_reduce {:.4f}) plain_ms={:.4f} "
           "library_ms={:.4f} (torch.bincount with weights, g and h) bound_ms={:.4f} ({})".format(
@@ -508,6 +622,30 @@ def _kernel_time_us(torch, evt):
     return 0.0
 
 
+def _device_rows(torch, prof, rounds):
+    """Kernels of a profiled window of `rounds` rounds: (rows by device time,
+    device ms a round, launches a round, fn(name) -> device ms a round of
+    the kernels whose names hold name, fn(name) -> their launches a round)."""
+    rows = []
+    for evt in prof.key_averages():
+        dev_us = _kernel_time_us(torch, evt)
+        if dev_us > 0:
+            # kernel names run to kilobytes of template arguments
+            rows.append({"name": evt.key[:100], "calls": int(evt.count),
+                         "device_ms": dev_us / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy_ms = sum(r["device_ms"] for r in rows) / rounds
+    launches = sum(r["calls"] for r in rows) / rounds
+
+    def kernel_ms(name):
+        return sum(r["device_ms"] for r in rows if name in r["name"]) / rounds
+
+    def kernel_calls(name):
+        return sum(r["calls"] for r in rows if name in r["name"]) / rounds
+
+    return rows, busy_ms, launches, kernel_ms, kernel_calls
+
+
 def run_profile(torch, pkg, dtrain, dval, tag):
     """Rounds 2-5 unprofiled give the host clock per round; rounds 6-9 under
     torch.profiler give the device time per kernel. Tracing slows every
@@ -537,23 +675,7 @@ def run_profile(torch, pkg, dtrain, dval, tag):
     rounds = 4
     plain_round_ms = (marks[4] - marks[0]) * 1e3 / rounds
     profiled_round_ms = (marks[9] - marks[5]) * 1e3 / rounds
-    rows = []
-    for evt in prof.key_averages():
-        dev_us = _kernel_time_us(torch, evt)
-        if dev_us > 0:
-            # kernel names run to kilobytes of template arguments
-            rows.append({"name": evt.key[:100], "calls": int(evt.count),
-                         "device_ms": dev_us / 1e3})
-    rows.sort(key=lambda r: -r["device_ms"])
-    busy_ms = sum(r["device_ms"] for r in rows) / rounds
-    launches = sum(r["calls"] for r in rows) / rounds
-
-    def kernel_ms(name):
-        return sum(r["device_ms"] for r in rows if name in r["name"]) / rounds
-
-    def kernel_calls(name):
-        return sum(r["calls"] for r in rows if name in r["name"]) / rounds
-
+    rows, busy_ms, launches, kernel_ms, kernel_calls = _device_rows(torch, prof, rounds)
     for r in rows[:15]:
         print("  {:9.3f} ms {:6d} calls  {}".format(r["device_ms"], r["calls"], r["name"]))
     for name in ("hist_count", "hist_scan", "hist_scatter", "hist_kernel", "hist_reduce",
@@ -1346,6 +1468,234 @@ def _entry(torch, hist, tag, tmp):
               tag, len(x_val), serve_ms, err, json.dumps(dict(hist.LAUNCHES))), flush=True)
 
 
+def make_multiclass(n, d, seed):
+    """bench.py's multiclass task (BENCH_TASK=multiclass, BASELINE.md config
+    #3): the binary task's features, 7 classes from the quantiles of a noisy
+    score."""
+    X, _ = make_data(n, d, seed)
+    rng = np.random.RandomState(seed)
+    score = X[:, 0] + 0.7 * X[:, 1] * X[:, 2] + 0.3 * rng.randn(n)
+    y = np.digitize(score, np.quantile(score, np.linspace(0, 1, 8)[1:-1]))
+    return X, y.astype(np.float32)
+
+
+def run_multiclass(torch, hist, pkg, tag):
+    """Phase 9: CoverType-shaped multi:softmax at full width on the card,
+    then the GPU-vs-CPU sweep of the objectives beyond the main path."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multiclass_") as tmp:
+        _multiclass(torch, hist, pkg, tag, tmp)
+    run_sweep(torch, pkg, tag)
+    print("{} | multiclass phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _multiclass(torch, hist, pkg, tag, tmp):
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+    from sagemaker_xgboost_container_tpu_torch.serving import server
+
+    n, d, rounds = COVTYPE_TRAIN, COVTYPE_FEATURES, COVTYPE_ROUNDS
+    t0 = time.perf_counter()
+    X, y = make_multiclass(n, d, seed=0)
+    Xv, yv = make_multiclass(COVTYPE_VAL, d, seed=1)
+    data_s = time.perf_counter() - t0
+    # rounds 1-4 on the host clock, rounds 5-8 under torch.profiler (and,
+    # should that session record no device activity, round 9)
+    profile = lambda: torch.profiler.profile(  # noqa: E731
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    marks, log, window = [], {}, {"prof": profile(), "rounds": 4}
+
+    class Window:
+        def before_training(self, forest):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return forest
+
+        def after_iteration(self, forest, rnd, evals_log):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            log.update(evals_log["validation"])
+            if rnd == 4:
+                window["prof"].start()
+            elif rnd == 8:
+                window["prof"].stop()
+                window["rows"] = _device_rows(torch, window["prof"], 4)
+                if not window["rows"][0]:
+                    print("  torch.profiler recorded no device activity in rounds 5-8: "
+                          "round 9 is profiled instead", flush=True)
+                    window.update(prof=profile(), rounds=1)
+                    window["prof"].start()
+            elif rnd == 9 and window["rounds"] == 1:
+                window["prof"].stop()
+                window["rows"] = _device_rows(torch, window["prof"], 1)
+            if rnd in (4, 8):
+                # the profiler's start and stop take seconds: keep them out
+                # of both windows by restarting the clock after them
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+            return False
+
+    hist.reset_launch_counts()
+    t0 = time.perf_counter()
+    forest = pkg.train(COVTYPE_PARAMS, DataMatrix(X, y), rounds,
+                       evals=[(DataMatrix(Xv, yv), "validation")], device=DEVICE,
+                       callbacks=[Window()], verbose_eval=False)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(hist.LAUNCHES)
+    setup_s = marks[0] - t0
+    host_ms = (marks[5] - marks[1]) * 1e3 / 4
+    profiled_ms = (marks[10] - marks[6]) * 1e3 / 4
+    rows, busy_ms, per_round, kernel_ms, kernel_calls = window["rows"]
+    check(rows, "torch.profiler recorded no device activity in phase 9")
+    ll, me = log["mlogloss"], log["merror"]
+    print("{} | multiclass (CoverType shape: {} x {} rows, {} validation, 7 classes, "
+          "depth 8, 10 rounds): data {:.3f} s, setup (binning, upload) {:.3f} s, total "
+          "{:.3f} s; rounds 1-4 {:.3f} ms/round host clock = {:.3f} rounds/s; rounds 5-8 "
+          "profiled {:.3f} ms/round".format(
+              tag, n, d, COVTYPE_VAL, data_s, setup_s, total_s, host_ms, 1e3 / host_ms,
+              profiled_ms), flush=True)
+    print("{} | multiclass validation mlogloss {}; merror {}".format(
+        tag, [round(float(v), 5) for v in ll], [round(float(v), 5) for v in me]), flush=True)
+    for r in rows[:12]:
+        print("  {:9.3f} ms {:6d} calls  {}".format(r["device_ms"], r["calls"], r["name"]))
+    print("{} | multiclass profile (rounds {}): {:.0f} kernel launches/round, device {:.3f} "
+          "ms/round (histogram, all hist_* kernels, {:.3f} = {:.1%} in {:.0f} launches; "
+          "totals, all totals_* kernels, {:.4f} = {:.1%} in {:.0f} launches); device busy "
+          "{:.1%} of an unprofiled round".format(
+              tag, "5-8" if window["rounds"] == 4 else "9", per_round, busy_ms,
+              kernel_ms("hist_"), kernel_ms("hist_") / busy_ms,
+              kernel_calls("hist_"), kernel_ms("totals_"), kernel_ms("totals_") / busy_ms,
+              kernel_calls("totals_"), busy_ms / host_ms), flush=True)
+    print("multiclass launches: {}".format(json.dumps(launches)), flush=True)
+    check(launches == {"hist_kernel": 8 * rounds, "totals_kernel": rounds},
+          "multiclass launches {}, expected 8 hist_kernel and 1 totals_kernel a round".format(
+              launches))
+    check(len(ll) == rounds and all(np.isfinite(ll)), "validation mlogloss missing: {}".format(ll))
+    check(all(b < a for a, b in zip(ll, ll[1:])), "validation mlogloss did not fall: {}".format(ll))
+    check(len(forest.trees) == 7 * rounds and forest.tree_info == list(range(7)) * rounds,
+          "expected 7 trees a round, one per class")
+
+    path = os.path.join(tmp, "xgboost-model")
+    forest.save_model(path)
+    on_gpu = Forest.load_model(path, device=DEVICE)
+    on_cpu = Forest.load_model(path, device="cpu")
+    x = Xv[:N_COVTYPE_PREDICT]
+    margin, ref_margin = on_gpu.predict(x, output_margin=True), on_cpu.predict(x, output_margin=True)
+    err = float(np.abs(margin - ref_margin).max())
+    pred, ref = on_gpu.predict(x), on_cpu.predict(x)
+    check(margin.shape == (len(x), 7) and np.all(np.isfinite(margin)), "bad multiclass margins")
+    check(err <= 1e-5 and np.array_equal(pred, ref),
+          "GPU predict differs from CPU predict: margins by {}".format(err))
+
+    os.environ["SM_MODEL_DIR"] = tmp
+    hist.reset_launch_counts()
+    httpd = server.serving_entrypoint(port=0, block=False, device=DEVICE)
+    loop = threading.Thread(target=httpd.serve_forever, daemon=True)
+    loop.start()
+    try:
+        client = _Client("http://127.0.0.1:{}".format(httpd.server_port))
+        status, _ = client.call("/ping")
+        check(status == 200, "/ping answered {}".format(status))
+        rows_in = Xv[:N_COVTYPE_SERVE]
+        t = time.perf_counter()
+        status, body = client.call("/invocations", _csv_body(rows_in), "text/csv", "text/csv")
+        serve_ms = (time.perf_counter() - t) * 1e3
+        check(status == 200, "/invocations answered {}".format(status))
+        got = _decode_scores(body, "text/csv")
+        want = on_cpu.predict(rows_in)
+        check(got.shape == want.shape, "served {} answers for {} rows".format(got.shape, len(want)))
+        serve_err = float(np.abs(got - want).max())
+        check(serve_err <= 1e-5, "served classes differ from the CPU predict by {}".format(
+            serve_err))
+    finally:
+        httpd.stop()
+        loop.join(10)
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        os.environ.pop("SM_MODEL_DIR", None)
+    print("{} | multiclass model: {} validation rows, GPU vs CPU predict margins max_abs_err "
+          "{:.3e}, classes equal; served {} rows as csv in {:.3f} ms, max_abs_err {:.3e}; "
+          "serve launches {}".format(tag, len(x), err, len(rows_in), serve_ms, serve_err,
+                                     json.dumps(dict(hist.LAUNCHES))), flush=True)
+
+
+def sweep_labels(kind, score, rng):
+    if kind == "score":
+        return score
+    if kind == "binary":
+        return (score > 2.0).astype(np.float32)
+    if kind == "count":
+        return np.round(score)
+    if kind == "class":
+        return np.digitize(score, np.quantile(score, [1 / 3, 2 / 3])).astype(np.float32)
+    return np.where(rng.rand(len(score)) < 0.2, -score, score).astype(np.float32)  # censored
+
+
+def _first_split_difference(ta, tb):
+    """"node: GPU feature/threshold/gain, CPU ..." at the first node whose
+    split differs between two trees, or None."""
+    for i in range(min(ta.num_nodes, tb.num_nodes)):
+        if (ta.is_leaf[i], ta.feature[i], ta.threshold[i]) != (
+                tb.is_leaf[i], tb.feature[i], tb.threshold[i]):
+            return "node {}: GPU f{} < {:.6g} gain {:.7g}, CPU f{} < {:.6g} gain {:.7g}".format(
+                i, ta.feature[i], ta.threshold[i], ta.gain[i], tb.feature[i], tb.threshold[i],
+                tb.gain[i])
+    return None if ta.num_nodes == tb.num_nodes else "node counts {} and {}".format(
+        ta.num_nodes, tb.num_nodes)
+
+
+def run_sweep(torch, pkg, tag):
+    """Each objective beyond the main path trains 3 rounds on the GPU and on
+    the CPU (plain versions of the kernels): the last-round training metric
+    agrees within SWEEP_METRIC_TOL where the trees are the same and within
+    SWEEP_SPLIT_TOL where a split differs. Where split gains tie within f32
+    rounding, the GPU's atomics may keep another split than the CPU, so
+    trees are counted, not required equal, and the first split that differs
+    is printed with both gains."""
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+
+    X, _ = make_data(*SWEEP_SHAPE, seed=11)
+    rng = np.random.RandomState(12)
+    score = np.clip(X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + np.sin(X[:, 3]) + 2.0
+                    + 0.3 * rng.randn(len(X)), 0.05, None).astype(np.float32)
+
+    class Last:
+        def after_iteration(self, forest, rnd, evals_log):
+            self.log = evals_log["train"]
+            return False
+
+    same_total = trees_total = 0
+    for objective, kind, extra in SWEEP:
+        y = sweep_labels(kind, score, rng)
+        params = dict({"objective": objective, "max_depth": 6, "max_bin": 64, "eta": 0.3},
+                      **extra)
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            last = Last()
+            forest = pkg.train(params, DataMatrix(X, y), 3, evals=[(DataMatrix(X, y), "train")],
+                               device=dev, callbacks=[last], verbose_eval=False)
+            (metric, values), = last.log.items()
+            runs[dev] = (forest, metric, values[-1])
+        (fg, metric, mg), (fc, _, mc) = runs[DEVICE], runs["cpu"]
+        diffs = [_first_split_difference(a, b) for a, b in zip(fg.trees, fc.trees)]
+        same = sum(d is None for d in diffs)
+        same_total += same
+        trees_total += len(fc.trees)
+        dp = float(np.abs(fg.predict(X[:2000], output_margin=True)
+                          - fc.predict(X[:2000], output_margin=True)).max())
+        first = next((("tree {} {}".format(t, d)) for t, d in enumerate(diffs) if d), "none")
+        print("{} | sweep {} {}: {} GPU {:.6f} CPU {:.6f}; identical trees {}/{} (first "
+              "difference: {}); margins max_abs_err {:.3e}".format(
+                  tag, objective, json.dumps(extra), metric, mg, mc, same, len(fc.trees),
+                  first, dp), flush=True)
+        tol = SWEEP_METRIC_TOL if same == len(fc.trees) else SWEEP_SPLIT_TOL
+        check(np.isfinite(mg) and abs(mg - mc) <= tol * max(1.0, abs(mc)),
+              "sweep {}: GPU {} {} against CPU {} ({} of {} trees alike)".format(
+                  objective, metric, mg, mc, same, len(fc.trees)))
+    print("{} | sweep: {} objectives, identical trees {}/{}".format(
+        tag, len(SWEEP), same_total, trees_total), flush=True)
+
+
 def main():
     try:
         import torch
@@ -1380,16 +1730,21 @@ def main():
             r = hist_case(torch, hist, n, d, W, B, dt, kind, 10 + W, timed, tag)
             if r is not None:
                 results["hist W={} {}".format(W, kind)] = r
+        for n, d, W, B, dt, kind, timed, C in HIST_CLASS_CASES:
+            hist_case(torch, hist, n, d, W, B, dt, kind, 40 + W + C, timed, tag, classes=C)
         for n, W, kind, timed in TOTALS_CASES:
             r = totals_case(torch, hist, n, W, kind, 3 + W, timed, tag)
             if r is not None:
                 results["totals"] = r
+        for n, W, kind, timed, C in TOTALS_CLASS_CASES:
+            totals_case(torch, hist, n, W, kind, 30 + W + C, timed, tag, classes=C)
 
         launches, dtrain, dval = run_slice(torch, hist, pkg, tag)
         run_small_parity(torch, pkg, tag)
         run_profile(torch, pkg, dtrain, dval, tag)
         run_serve(torch, pkg, hist, tag)
         run_entry(torch, hist, tag)
+        run_multiclass(torch, hist, pkg, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

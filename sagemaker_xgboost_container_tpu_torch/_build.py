@@ -81,9 +81,9 @@ class _CtypesKernels:
     def __init__(self, path, build_log, build_s):
         lib = ctypes.CDLL(path)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hist_launch.argtypes = [p, i, p, p, p, p, p, p, p, ll] + [i] * 8 + [ll, p]
+        lib.hist_launch.argtypes = [p, i, p, p, p, p, p, p, p, ll] + [i] * 9 + [ll, p]
         lib.hist_launch.restype = i
-        lib.totals_launch.argtypes = [p, p, p, p, p, ll, i, i, i, ll, i, p]
+        lib.totals_launch.argtypes = [p, p, p, p, p, ll, i, i, i, i, ll, i, p]
         lib.totals_launch.restype = i
         lib.kernel_error_string.argtypes = [i]
         lib.kernel_error_string.restype = ctypes.c_char_p
@@ -107,28 +107,32 @@ class _CtypesKernels:
         return torch.cuda.current_stream(t.device).cuda_stream
 
     def hist(self, bins, grad, hess, node, G, H, work, pieces, plan):
+        """grad, hess, node: [C, n]; G, H: [C, W, d, B]."""
         import torch
 
         n, d = bins.shape
+        C, W, _, B = G.shape
         with torch.cuda.device(bins.device):
             err = self._lib.hist_launch(
                 bins.data_ptr(), bins.element_size(), grad.data_ptr(),
                 hess.data_ptr(), node.data_ptr(), G.data_ptr(), H.data_ptr(),
-                work.data_ptr(), pieces.data_ptr(), n, d, G.shape[0],
-                G.shape[2], plan.ctas, plan.feature_tile, plan.feature_tiles,
+                work.data_ptr(), pieces.data_ptr(), n, d, W, B, C,
+                plan.ctas, plan.feature_tile, plan.feature_tiles,
                 plan.smem_bytes, plan.count_ctas, plan.rows_per_count_cta,
                 self._stream(bins),
             )
         self._check(err, "hist_kernel")
 
     def totals(self, grad, hess, node, out, pieces, plan):
+        """grad, hess, node: [C, n]; out: [2, C, W]."""
         import torch
 
+        C, n = grad.shape
         with torch.cuda.device(grad.device):
             err = self._lib.totals_launch(
                 grad.data_ptr(), hess.data_ptr(), node.data_ptr(),
-                out.data_ptr(), pieces.data_ptr(), grad.shape[0],
-                out.shape[0] // 2, plan.ctas, plan.warps_per_cta,
-                plan.rows_per_cta, plan.smem_bytes, self._stream(grad),
+                out.data_ptr(), pieces.data_ptr(), n, out.shape[2], C,
+                plan.ctas, plan.warps_per_cta, plan.rows_per_cta,
+                plan.smem_bytes, self._stream(grad),
             )
         self._check(err, "totals_kernel")

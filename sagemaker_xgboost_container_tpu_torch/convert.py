@@ -11,12 +11,18 @@ package):
       {"trees": [padded tree dicts in the ops/tree_build.unpack_tree layout],
        "cut_points": [per-feature float32 cut arrays],
        "objective": "binary:logistic", "base_score": 0.5,
-       "num_feature": d, "objective_params": {...}}   # last three optional
+       "num_feature": d, "objective_params": {...},
+       "num_class": C}   # last four optional
 
-  Each tree is one boosting round of a single-output model.
+  Each entry of "trees" is one boosting round: a tree of a single-output
+  model (arrays [max_nodes]), or the C trees of a multiclass round as the
+  JAX trainer's class-vmapped builder packs them (arrays [C, max_nodes]),
+  committed with ``tree_info`` 0..C-1.
 """
 
 import json
+
+import numpy as np
 
 from .models.forest import Forest, compact_padded_tree
 
@@ -34,8 +40,18 @@ def forest_from_reference(doc_or_arrays, device=None):
         objective_params=ref.get("objective_params"),
         base_score=ref.get("base_score", 0.5),
         num_feature=ref.get("num_feature", len(cuts)),
+        num_class=ref.get("num_class", 0),
         device=device,
     )
     for padded in ref["trees"]:
-        forest.append_round([compact_padded_tree(padded, cuts)], [0])
+        arrays = {k: np.asarray(v) for k, v in padded.items()}
+        if arrays["feature"].ndim == 1:
+            forest.append_round([compact_padded_tree(arrays, cuts)], [0])
+            continue
+        classes = arrays["feature"].shape[0]
+        forest.append_round(
+            [compact_padded_tree({k: v[c] for k, v in arrays.items()}, cuts)
+             for c in range(classes)],
+            list(range(classes)),
+        )
     return forest

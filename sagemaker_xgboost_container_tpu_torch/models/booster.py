@@ -1,11 +1,13 @@
 """The boosting engine: ``train()``, the counterpart of ``xgb.train``.
 
 One device, eager PyTorch: each round computes the objective's grad/hess,
-grows one tree (``ops/tree_build.build_tree``), adds the tree's row outputs
-to the training margins and its predictions to every eval set's margins,
-evaluates the eval metrics on the device, and commits the compacted tree to
-the Forest. The only host work per round is pulling the tree's small node
-arrays and the metric scalars.
+grows one tree, or one per class for a multiclass objective, all C in one
+level loop (``ops/tree_build.build_tree`` on [C, n] gradients), adds the
+trees' row outputs to the training margins ([n] or [n, C]) and their
+predictions to every eval set's margins, evaluates the eval metrics (on the
+device where the metric has a device form, else on the host), and commits
+the compacted trees to the Forest. The only host work per round is pulling
+the trees' small node arrays and the metric scalars.
 
 Callback protocol mirrors xgboost's (before_training / after_iteration ->
 bool stop / after_training), which is how early stopping hooks in.
@@ -19,12 +21,21 @@ from ..data.binning import bin_matrix
 from ..ops.predict import forest_leaf_values
 from ..ops.tree_build import build_tree, pack_tree, predict_binned, unpack_tree
 from ..toolkit import exceptions as exc
+from . import eval_metrics
 from .device_metrics import make_device_metric
 from .forest import Forest, compact_padded_tree
-from .objectives import TRAINABLE
+from .objectives import TRAINABLE, SoftprobMulti, create_objective
 
 # objective hyperparameters carried into the saved model
-OBJECTIVE_PARAM_KEYS = ("scale_pos_weight", "max_delta_step")
+OBJECTIVE_PARAM_KEYS = (
+    "scale_pos_weight",
+    "tweedie_variance_power",
+    "huber_slope",
+    "max_delta_step",
+    "num_class",
+    "aft_loss_distribution",
+    "aft_loss_distribution_scale",
+)
 # trees traversed together when a resumed run rebuilds its margins
 _RESUME_TREES_PER_PASS = 64
 
@@ -32,12 +43,17 @@ _RESUME_TREES_PER_PASS = 64
 class TrainConfig:
     """Parsed + defaulted booster parameters of the ported slice.
 
-    Takes every key that ``algorithm.hyperparameters`` validates. Keys that
-    do not change a depthwise gbtree model (``updater``, ``predictor``,
-    ``nthread``, ``verbosity``, ``seed``, the dart and gblinear knobs, ...)
-    are accepted and ignored, as the JAX package ignores them there.
-    Everything the slice does not run raises ``UserError`` naming the
-    parameter, rather than training something else.
+    Takes every key that ``algorithm.hyperparameters`` validates, and every
+    objective but the ranking ones (``num_class`` >= 2 for multiclass).
+    Keys that do not change a depthwise gbtree model (``updater``,
+    ``predictor``, ``nthread``, ``verbosity``, ``seed``, the dart and
+    gblinear knobs, ...) are accepted and ignored, as the JAX package
+    ignores them there. What the port does not train raises ``UserError``
+    naming the parameter, rather than training something else: the ranking
+    objectives, ``grow_policy=lossguide``, ``subsample`` and
+    ``colsample_*`` below 1, ``num_parallel_tree`` above 1, monotone and
+    interaction constraints, dart, gblinear, ``process_type=update`` and
+    the exact and approx tree methods.
     """
 
     def __init__(self, params):
@@ -61,9 +77,12 @@ class TrainConfig:
             self.max_bin = 256
         self.seed = int(p.get("seed", 0))
         self.objective = p.get("objective", "reg:squarederror")
+        self.num_class = int(p.get("num_class", 0) or 0)
         self.base_score = float(p.get("base_score", 0.5))
         self.eval_metric = p.get("eval_metric")
         self.objective_params = p
+        if self.objective == "count:poisson" and "max_delta_step" not in p:
+            self.max_delta_step = 0.7
 
         unsupported = []
         if self.objective not in TRAINABLE:
@@ -75,7 +94,6 @@ class TrainConfig:
             ("grow_policy", "depthwise", lambda v: v == "depthwise"),
             ("tree_method", "auto", lambda v: v in ("auto", "hist")),
             ("booster", "gbtree", lambda v: v == "gbtree"),
-            ("num_class", 0, lambda v: int(v or 0) <= 1),
             ("num_parallel_tree", 1, lambda v: int(v or 1) == 1),
             ("process_type", "default", lambda v: v == "default"),
             ("monotone_constraints", None, lambda v: not v),
@@ -106,6 +124,7 @@ class _TrainingSession:
         self.config = config
         self.device = device
         self.objective = forest.objective()
+        self.num_group = self.objective.num_output_group
         self.objective.validate_labels(dtrain.labels)
 
         self.train_binned = bin_matrix(dtrain, config.max_bin)
@@ -120,25 +139,29 @@ class _TrainingSession:
         base = self.objective.base_margin(forest.base_score)
         self.margins = self._start_margins(forest, dtrain, base)
 
+        # each metric on the device where it has a device form, else on the
+        # host (None), as the JAX package evaluates it
         self.metrics = []
         for name in metric_names:
-            m = make_device_metric(name, self.objective.name)
-            if m is None:
+            m = make_device_metric(name, self.objective.name, self.num_group,
+                                   config.objective_params)
+            if m is None and not eval_metrics.is_native_metric(name):
                 raise exc.UserError(
                     "eval_metric {!r} is not supported by the PyTorch port yet".format(name)
                 )
-            self.metrics.append(m)
+            self.metrics.append((name, m))
 
         # eval sets: bins and labels on the device once, margins incremental;
         # the training matrix itself shares the training margins
         self.eval_sets = []
         for dm, name in evals:
             if dm is dtrain:
-                self.eval_sets.append((name, None, self.labels, self.weights, None))
+                self.eval_sets.append((name, dm, None, self.labels, self.weights, None))
                 continue
             binned = bin_matrix(dm, config.max_bin, cut_points=self.cuts)
             self.eval_sets.append((
                 name,
+                dm,
                 torch.as_tensor(binned.bins, device=device),
                 torch.as_tensor(dm.labels, device=device),
                 torch.as_tensor(dm.get_weight(), device=device),
@@ -146,24 +169,34 @@ class _TrainingSession:
             ))
 
     def _start_margins(self, forest, dm, base):
-        """Margins of ``dm``'s rows before the first new round: the base
-        margin plus the resumed forest's trees, added one tree at a time in
-        round order as the rounds added them, so that a resumed run's
-        margins equal an uninterrupted run's bit for bit."""
-        margins = torch.full((dm.num_row,), base, dtype=torch.float32, device=self.device)
+        """Margins of ``dm``'s rows before the first new round ([n], or
+        [n, C] for a multi-output objective): the base margin plus the
+        resumed forest's trees, added one tree at a time in round order into
+        their class's column, as the rounds added them, so that a resumed
+        run's margins equal an uninterrupted run's bit for bit."""
+        shape = (dm.num_row,) if self.num_group == 1 else (dm.num_row, self.num_group)
+        margins = torch.full(shape, base, dtype=torch.float32, device=self.device)
         if forest.trees:
             x = torch.as_tensor(dm.features, device=self.device)
             for lo in range(0, len(forest.trees), _RESUME_TREES_PER_PASS):
                 hi = min(lo + _RESUME_TREES_PER_PASS, len(forest.trees))
                 _, stacked = forest._stack(lo, hi)
-                for leaf in forest_leaf_values(stacked, x).unbind(1):
-                    margins += leaf
+                leaves = forest_leaf_values(stacked, x).unbind(1)
+                for leaf, cls in zip(leaves, forest.tree_info[lo:hi]):
+                    if self.num_group == 1:
+                        margins += leaf
+                    else:
+                        margins[:, cls] += leaf
         return margins
 
     def run_round(self):
-        """Grow one tree and update every margin -> host tree dict."""
+        """Grow one round's trees and update every margin -> host tree dict
+        (arrays [max_nodes], or [C, max_nodes] for C classes)."""
         cfg = self.config
         g, h = self.objective.grad_hess(self.margins, self.labels, self.weights)
+        if self.num_group > 1:
+            # [n, C] -> the builder's contiguous [C, n]
+            g, h = g.T.contiguous(), h.T.contiguous()
         tree, row_out = build_tree(
             self.bins, g, h, self.num_cuts,
             max_depth=cfg.max_depth, num_bins=self.num_bins,
@@ -171,20 +204,39 @@ class _TrainingSession:
             min_child_weight=cfg.min_child_weight, eta=cfg.eta,
             max_delta_step=cfg.max_delta_step,
         )
-        self.margins += row_out
-        for _name, bins, _labels, _weights, margins in self.eval_sets:
+        self.margins += row_out if self.num_group == 1 else row_out.T
+        for _name, _dm, bins, _labels, _weights, margins in self.eval_sets:
             if bins is not None:
-                margins += predict_binned(tree, bins, cfg.max_depth, self.num_bins)
+                out = predict_binned(tree, bins, cfg.max_depth, self.num_bins)
+                margins += out if self.num_group == 1 else out.T
         return unpack_tree(pack_tree(tree))
 
     def evaluate(self):
         """-> list of (data_name, metric_name, value) per eval set."""
         results = []
-        for name, _bins, labels, weights, margins in self.eval_sets:
+        for name, dm, _bins, labels, weights, margins in self.eval_sets:
             m = self.margins if margins is None else margins
-            for metric in self.metrics:
-                results.append((name, metric.name, float(metric(m, labels, weights))))
+            host = None
+            for metric_name, metric in self.metrics:
+                if metric is not None:
+                    value = float(metric(m, labels, weights))
+                else:
+                    if host is None:
+                        host = self._host_predictions(m)
+                    preds, prob_matrix = host
+                    value = eval_metrics.evaluate(
+                        metric_name, preds, dm.labels, dm.weights, prob_matrix=prob_matrix)
+                results.append((name, metric_name, value))
         return results
+
+    def _host_predictions(self, margins):
+        """(predictions, class probabilities or None) on the host, for the
+        metrics without a device form."""
+        margin = margins.cpu().numpy()
+        prob_matrix = None
+        if self.num_group > 1:
+            prob_matrix = SoftprobMulti.margin_to_prediction(self.objective, margin)
+        return self.objective.margin_to_prediction(margin), prob_matrix
 
 
 def train(
@@ -207,13 +259,16 @@ def train(
     config = TrainConfig(params)
     callbacks = list(callbacks or [])
     if xgb_model is None:
+        objective_params = {
+            k: v for k, v in config.objective_params.items() if k in OBJECTIVE_PARAM_KEYS
+        }
+        groups = create_objective(config.objective, objective_params).num_output_group
         forest = Forest(
             objective_name=config.objective,
-            objective_params={
-                k: v for k, v in config.objective_params.items() if k in OBJECTIVE_PARAM_KEYS
-            },
+            objective_params=objective_params,
             base_score=config.base_score,
             num_feature=dtrain.num_col,
+            num_class=config.num_class if groups > 1 else 0,
             feature_names=dtrain.feature_names,
             device=dev,
         )
@@ -235,7 +290,14 @@ def train(
     start_round = forest.num_boosted_rounds
     for rnd in range(start_round, start_round + num_boost_round):
         tree_np = session.run_round()
-        forest.append_round([compact_padded_tree(tree_np, session.cuts)], [0])
+        if session.num_group == 1:
+            forest.append_round([compact_padded_tree(tree_np, session.cuts)], [0])
+        else:
+            forest.append_round(
+                [compact_padded_tree({k: v[c] for k, v in tree_np.items()}, session.cuts)
+                 for c in range(session.num_group)],
+                list(range(session.num_group)),
+            )
         results = session.evaluate()
         for data_name, metric_name, value in results:
             evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(value)

@@ -2,7 +2,8 @@
 
 Every metric decomposes into a fixed-size statistics vector plus a cheap
 ``finalize`` that turns the stats into the scalar. Weighted formulations
-throughout.
+throughout. Metrics without a device form (``mphe``, ``aucpr``,
+``aft-nloglik``, ...) are evaluated on the host by ``eval_metrics``.
 """
 
 import torch
@@ -26,9 +27,24 @@ def _sigmoid(m):
     return 1.0 / (1.0 + torch.exp(-m))
 
 
+def _softmax(m):
+    e = torch.exp(m - torch.amax(m, dim=1, keepdim=True))
+    return e / e.sum(dim=1, keepdim=True)
+
+
+_EXP_OBJECTIVES = ("count:poisson", "reg:gamma", "reg:tweedie", "survival:aft",
+                   "survival:cox")
+
+
 def _prob_transform(objective_name, margins):
+    """What the metric sees: the objective's prediction, as the JAX
+    package's host metrics see it (binary:hinge predicts 0 or 1)."""
     if objective_name in ("reg:logistic", "binary:logistic"):
         return _sigmoid(margins)
+    if objective_name in _EXP_OBJECTIVES:
+        return torch.exp(margins)
+    if objective_name == "binary:hinge":
+        return (margins > 0).to(margins.dtype)
     return margins
 
 
@@ -37,7 +53,8 @@ def _weighted_mean_metric(name, objective_name, term_fn, post=None):
 
     def partial(m, y, w):
         p = _prob_transform(objective_name, m)
-        return torch.stack([torch.sum(term_fn(p, y, w) * w), torch.sum(w)])
+        num = torch.sum(term_fn(p, y, w) * w)
+        return torch.stack([num, torch.sum(w).to(num.dtype)])
 
     def finalize(stats):
         mean = stats[0] / torch.clamp(stats[1], min=_EPS)
@@ -46,20 +63,53 @@ def _weighted_mean_metric(name, objective_name, term_fn, post=None):
     return DeviceMetric(name, partial, finalize)
 
 
-def make_device_metric(name, objective_name):
-    """-> DeviceMetric, or None if the metric is not ported."""
+def _ratio(stats):
+    return stats[0] / torch.clamp(stats[1], min=_EPS)
+
+
+def make_device_metric(name, objective_name, num_group=1, params=None):
+    """-> DeviceMetric, or None where the metric has no device form (the
+    booster then evaluates it on the host, ``eval_metrics``)."""
+    params = params or {}
     base, _, suffix = name.partition("@")
+
+    if num_group > 1:
+        if base == "merror":
+            def partial(m, y, w):
+                wrong = (torch.argmax(m, dim=1) != y.long()).to(w.dtype)
+                return torch.stack([torch.sum(wrong * w), torch.sum(w)])
+
+            return DeviceMetric(name, partial, _ratio)
+        if base == "mlogloss":
+            def partial(m, y, w):
+                picked = torch.gather(_softmax(m), 1, y.long()[:, None])[:, 0]
+                v = -torch.log(torch.clamp(picked, _EPS, 1.0))
+                return torch.stack([torch.sum(v * w), torch.sum(w)])
+
+            return DeviceMetric(name, partial, _ratio)
+        return None
 
     def wm(term_fn, post=None):
         return _weighted_mean_metric(name, objective_name, term_fn, post)
 
     if base == "rmse":
         return wm(lambda p, y, w: (p - y) ** 2, post=torch.sqrt)
+    if base == "mse":
+        return wm(lambda p, y, w: (p - y) ** 2)
+    if base == "mae":
+        return wm(lambda p, y, w: torch.abs(p - y))
+    if base == "mape":
+        return wm(lambda p, y, w: torch.abs((y - p) / torch.clamp(torch.abs(y), min=_EPS)))
+    if base == "rmsle":
+        return wm(
+            lambda p, y, w: (torch.log1p(torch.clamp(p, min=0.0)) - torch.log1p(y)) ** 2,
+            post=torch.sqrt,
+        )
     if base == "logloss":
         def term(p, y, w):
-            # f32-safe: clip with an epsilon representable in float32
-            eps32 = 1e-7
-            p = torch.clamp(p, eps32, 1 - eps32)
+            # f64, as the host metric: in f32, 1 - 1e-15 rounds to 1.0, and
+            # binary:logitraw's raw margins reach the clip
+            p = torch.clamp(p.double(), _EPS, 1 - _EPS)
             return -(y * torch.log(p) + (1 - y) * torch.log(1 - p))
 
         return wm(term)
@@ -68,8 +118,56 @@ def make_device_metric(name, objective_name):
         return wm(lambda p, y, w: ((p > threshold).float() != y).float())
     if base == "auc":
         return DeviceMetric(name, lambda m, y, w: _auc_stats(objective_name, m, y, w),
-                            lambda s: s[0] / torch.clamp(s[1], min=_EPS))
+                            _ratio)
+    if base == "poisson-nloglik":
+        def term(p, y, w):
+            p = torch.clamp(p, min=_EPS)
+            return p - y * torch.log(p) + torch.lgamma(y + 1.0)
+
+        return wm(term)
+    if base == "gamma-nloglik":
+        def term(p, y, w):
+            p = torch.clamp(p, min=_EPS)
+            return torch.log(p) + y / p
+
+        return wm(term)
+    if base == "gamma-deviance":
+        def term(p, y, w):
+            p = torch.clamp(p, min=_EPS)
+            yy = torch.clamp(y, min=_EPS)
+            return torch.log(p / yy) + yy / p - 1.0
+
+        return wm(term, post=lambda x: 2.0 * x)
+    if base == "cox-nloglik":
+        return DeviceMetric(name, _cox_stats,
+                            lambda s: s[0] / torch.clamp(s[1], min=1e-12))
+    if base == "tweedie-nloglik":
+        rho = float(suffix) if suffix else float(params.get("tweedie_variance_power", 1.5))
+
+        def term(p, y, w):
+            p = torch.clamp(p, min=_EPS)
+            a = y * torch.pow(p, 1 - rho) / (1 - rho)
+            b = torch.pow(p, 2 - rho) / (2 - rho)
+            return -a + b
+
+        return wm(term)
     return None
+
+
+def _cox_stats(m, y, w):
+    """Negative Breslow partial log-likelihood -> [-ll, event weight]:
+    labels < 0 are censored at |t|, the hazard ratio is exp(margin), risk
+    sets are cumulative sums over the descending-time order (stable)."""
+    p = torch.exp(m)
+    event = (y > 0).to(m.dtype)
+    order = torch.argsort(-torch.abs(y), stable=True)
+    hz = torch.clamp(p, min=1e-30)[order] * w[order]
+    cum = torch.cumsum(hz, 0)
+    ev = (event * w)[order]
+    ll = torch.sum(
+        ev * (torch.log(torch.clamp(hz, min=1e-30)) - torch.log(torch.clamp(cum, min=1e-30)))
+    )
+    return torch.stack([-ll, torch.sum(ev)])
 
 
 def _auc_stats(objective_name, m, y, w):

@@ -6,8 +6,10 @@
 
 Every objective of xgboost that the container serves is registered, so a
 model of any of them loads and predicts. Gradients follow the published
-XGBoost objective definitions and exist for ``TRAINABLE`` only; the others
-raise ``UserError`` naming the objective when training asks for them.
+XGBoost objective definitions (the JAX package's formulas, elementwise) and
+exist for ``TRAINABLE``: every objective but the ranking ones, whose
+gradients need query groups; those raise ``UserError`` naming the
+objective when training asks for them.
 """
 
 import math
@@ -24,6 +26,7 @@ from ..constants import (
 from ..toolkit import exceptions as exc
 
 _EPS = 1e-16
+_HESS_EPS = 1e-6
 
 
 def _sigmoid(x):
@@ -68,15 +71,33 @@ class SquaredLogError(Objective):
     name = "reg:squaredlogerror"
     default_metric = "rmsle"
 
+    def grad_hess(self, margin, label, weight):
+        p = torch.clamp(margin, min=-1 + 1e-6)
+        z = torch.log1p(p) - torch.log1p(label)
+        g = z / (p + 1.0)
+        h = torch.clamp((1.0 - z) / ((p + 1.0) ** 2), min=_HESS_EPS)
+        return g * weight, h * weight
+
 
 class PseudoHuber(Objective):
     name = "reg:pseudohubererror"
     default_metric = "mphe"
 
+    def grad_hess(self, margin, label, weight):
+        delta = float(self.params.get("huber_slope", 1.0))
+        z = margin - label
+        scale = torch.sqrt(1.0 + (z / delta) ** 2)
+        g = z / scale
+        h = 1.0 / (scale**3)
+        return g * weight, h * weight
+
 
 class AbsoluteError(Objective):
     name = "reg:absoluteerror"
     default_metric = "mae"
+
+    def grad_hess(self, margin, label, weight):
+        return torch.sign(margin - label) * weight, torch.ones_like(margin) * weight
 
 
 class LogisticRegression(Objective):
@@ -117,9 +138,6 @@ class BinaryLogitRaw(LogisticRegression):
     name = "binary:logitraw"
     default_metric = "logloss"
 
-    def grad_hess(self, margin, label, weight):
-        return Objective.grad_hess(self, margin, label, weight)
-
     def margin_to_prediction(self, margin):
         return margin
 
@@ -131,6 +149,13 @@ class BinaryHinge(Objective):
     def validate_labels(self, labels):
         if labels.size and ((labels < 0).any() or (labels > 1).any()):
             raise exc.UserError(LOGISTIC_REGRESSION_LABEL_RANGE_ERROR)
+
+    def grad_hess(self, margin, label, weight):
+        y = 2.0 * label - 1.0
+        in_margin = margin * y < 1.0
+        g = torch.where(in_margin, -y, 0.0) * weight
+        h = torch.where(in_margin, 1.0, _HESS_EPS) * weight
+        return g, h
 
     def margin_to_prediction(self, margin):
         return (margin > 0).astype(np.float32)
@@ -147,6 +172,10 @@ class PoissonRegression(Objective):
     def base_margin(self, base_score):
         return math.log(max(float(base_score), 1e-16))
 
+    def grad_hess(self, margin, label, weight):
+        p = torch.exp(margin)
+        return (p - label) * weight, p * weight
+
     def margin_to_prediction(self, margin):
         return np.exp(margin)
 
@@ -158,6 +187,10 @@ class GammaRegression(PoissonRegression):
     def validate_labels(self, labels):
         if labels.size and (labels < 0).any():
             raise exc.UserError("label must be nonnegative for gamma regression")
+
+    def grad_hess(self, margin, label, weight):
+        ey = label * torch.exp(-margin)
+        return (1.0 - ey) * weight, torch.clamp(ey, min=_HESS_EPS) * weight
 
 
 class TweedieRegression(PoissonRegression):
@@ -174,6 +207,14 @@ class TweedieRegression(PoissonRegression):
     def validate_labels(self, labels):
         if labels.size and (labels < 0).any():
             raise exc.UserError(TWEEDIE_REGRESSION_ERROR)
+
+    def grad_hess(self, margin, label, weight):
+        rho = self.rho
+        a = label * torch.exp((1.0 - rho) * margin)
+        b = torch.exp((2.0 - rho) * margin)
+        g = (-a + b) * weight
+        h = torch.clamp(-a * (1.0 - rho) + b * (2.0 - rho), min=_HESS_EPS) * weight
+        return g, h
 
 
 class SoftmaxMulti(Objective):
@@ -198,6 +239,16 @@ class SoftmaxMulti(Objective):
     def base_margin(self, base_score):
         return 0.5
 
+    def grad_hess(self, margin, label, weight):
+        # margin [n, C]; label, weight [n]
+        p = torch.exp(margin - torch.amax(margin, dim=1, keepdim=True))
+        p = p / torch.sum(p, dim=1, keepdim=True)
+        classes = torch.arange(p.shape[1], device=p.device)
+        onehot = (label[:, None] == classes[None, :]).to(p.dtype)
+        g = (p - onehot) * weight[:, None]
+        h = torch.clamp(2.0 * p * (1.0 - p), min=_EPS) * weight[:, None]
+        return g, h
+
     def margin_to_prediction(self, margin):
         return np.argmax(margin, axis=1).astype(np.float32)
 
@@ -213,10 +264,34 @@ class SoftprobMulti(SoftmaxMulti):
 
 class SurvivalAft(Objective):
     """survival:aft with point labels (the SageMaker data carries one label
-    column); the prediction is the event time."""
+    column, so the censoring interval is [label, label]); the prediction is
+    the event time. ``aft_loss_distribution`` is normal, logistic or
+    extreme, scaled by ``aft_loss_distribution_scale``."""
 
     name = "survival:aft"
     default_metric = "aft-nloglik"
+
+    def __init__(self, params=None):
+        super().__init__(params)
+        self.dist = str(self.params.get("aft_loss_distribution", "normal"))
+        self.sigma = float(self.params.get("aft_loss_distribution_scale", 1.0))
+
+    def grad_hess(self, margin, label, weight):
+        s = self.sigma
+        z = (torch.log(torch.clamp(label, min=1e-12)) - margin) / s
+        if self.dist == "normal":
+            g = -z / s
+            h = torch.full_like(margin, 1.0 / (s * s))
+        elif self.dist == "logistic":
+            ez = torch.exp(-torch.abs(z))
+            sig = torch.where(z >= 0, 1.0 / (1.0 + ez), ez / (1.0 + ez))
+            g = -(2.0 * sig - 1.0) / s
+            h = torch.clamp(2.0 * sig * (1.0 - sig) / (s * s), min=_HESS_EPS)
+        else:  # extreme (Gumbel)
+            w = torch.exp(torch.clamp(z, -30.0, 30.0))
+            g = (1.0 - w) / s
+            h = torch.clamp(w / (s * s), min=_HESS_EPS)
+        return g * weight, h * weight
 
     def validate_labels(self, labels):
         if labels.size and (labels <= 0).any():
@@ -230,13 +305,44 @@ class SurvivalAft(Objective):
 
 
 class SurvivalCox(Objective):
-    """survival:cox; the prediction is the hazard ratio."""
+    """survival:cox, the proportional-hazards partial likelihood; the
+    prediction is the hazard ratio. Labels follow xgboost: positive = event
+    time, negative = |censoring time|. Risk sets are cumulative sums over
+    the rows in descending |label| (a stable sort, ties in row order), an
+    order taken once per label tensor: the labels do not change between
+    rounds."""
 
     name = "survival:cox"
     default_metric = "cox-nloglik"
 
+    def __init__(self, params=None):
+        super().__init__(params)
+        self._order = None  # (label tensor, order, inverse order)
+
     def base_margin(self, base_score):
         return 0.0
+
+    def _risk_order(self, label):
+        if self._order is None or self._order[0] is not label:
+            order = torch.argsort(-torch.abs(label), stable=True)
+            inv = torch.empty_like(order)
+            inv[order] = torch.arange(order.numel(), device=order.device)
+            self._order = (label, order, inv)
+        return self._order[1], self._order[2]
+
+    def grad_hess(self, margin, label, weight):
+        order, inv = self._risk_order(label)
+        is_event = (label > 0).to(margin.dtype)
+        exp_m = torch.exp(margin - torch.max(margin)) * weight
+        cum_risk = torch.cumsum(exp_m[order], 0)           # risk set of order[k]
+        # over events e with t_e <= t_i: sums of 1/risk(e) and 1/risk(e)^2
+        ev = (is_event * weight)[order]
+        cum_inv = torch.flip(torch.cumsum(torch.flip(ev / cum_risk, [0]), 0), [0])[inv]
+        cum_inv2 = torch.flip(
+            torch.cumsum(torch.flip(ev / cum_risk**2, [0]), 0), [0])[inv]
+        g = -is_event * weight + exp_m * cum_inv
+        h = torch.clamp(exp_m * cum_inv - (exp_m**2) * cum_inv2, min=_HESS_EPS)
+        return g, h
 
     def margin_to_prediction(self, margin):
         return np.exp(margin)
@@ -284,8 +390,9 @@ _REGISTRY = {
 }
 _REGISTRY["reg:linear"] = SquaredError  # deprecated alias
 
-# the objectives whose gradients the port computes
-TRAINABLE = ("reg:squarederror", "reg:linear", "reg:logistic", "binary:logistic")
+# the objectives whose gradients the port computes: all but ranking
+TRAINABLE = tuple(sorted(
+    name for name, cls in _REGISTRY.items() if not issubclass(cls, RankPairwise)))
 
 
 def create_objective(name, params=None):

@@ -2,7 +2,9 @@
 
 For each tree level, accumulate (grad, hess) into a (node x feature x bin)
 tensor (``level_histogram``); at the last level only per-node totals are
-needed (``node_totals``). On a CUDA tensor each function launches its
+needed (``node_totals``). Both take a class axis: C trees that share the
+bins (one per class of a multiclass round) are one call, and one launch, on
+``[C, n]`` gradients. On a CUDA tensor each function launches its
 hand-written kernels (``csrc/hist_kernel.cu``, ``csrc/totals_kernel.cu``); on
 a CPU tensor it runs its plain PyTorch version (``_hist_plain``,
 ``_totals_plain``). There is no fallback from one to the other.
@@ -81,8 +83,11 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def hist_plan(n, d, W, B, num_sms):
+def hist_plan(n, d, W, B, num_sms, classes=1):
     """Launch shapes of the hist_* kernels for one level_histogram call.
+
+    With C = ``classes`` the kernels see C*n entries and K = C*W keys (the
+    class folded into the key); below, "rows" are entries and "nodes" keys.
 
     hist_kernel holds [feature_tile, B] x (g, h) f32 in shared memory, within
     HIST_SMEM_BUDGET: the whole row where it fits (d=28, B=257: 57.6 KB),
@@ -90,51 +95,62 @@ def hist_plan(n, d, W, B, num_sms):
     feature_tiles fills the card with _HIST_CTAS_PER_SM CTAs per SM, and each
     of the ctas CTAs takes an equal slice of the rows ordered by node. A CTA
     writes one scratch piece per node its slice touches, at slot c + w, so
-    ctas + W slots suffice. hist_count and hist_scatter split the rows into
+    ctas + K slots suffice. hist_count and hist_scatter split the rows into
     count_ctas chunks.
     """
     per_feature = 2 * B * 4
+    keys, entries = classes * W, classes * n
     max_features = HIST_SMEM_BUDGET // per_feature
     if max_features < 1:
         raise ValueError(
             "hist_kernel: B={} bins need {} B of shared memory per feature, "
             "above the {} B budget".format(B, per_feature, HIST_SMEM_BUDGET)
         )
-    if not 1 <= W <= HIST_MAX_NODES:
-        raise ValueError("hist_kernel takes 1 <= W <= {}, got {}".format(HIST_MAX_NODES, W))
-    if n > HIST_MAX_ROWS:
-        raise ValueError("hist_kernel takes n <= {} rows, got {}".format(HIST_MAX_ROWS, n))
+    if classes < 1 or W < 1 or keys > HIST_MAX_NODES:
+        raise ValueError("hist_kernel takes 1 <= C*W <= {}, got C={} W={}".format(
+            HIST_MAX_NODES, classes, W))
+    if entries > HIST_MAX_ROWS:
+        raise ValueError("hist_kernel takes C*n <= {} entries, got C={} n={}".format(
+            HIST_MAX_ROWS, classes, n))
     feature_tiles = max(1, _cdiv(d, max_features))
     feature_tile = _cdiv(d, feature_tiles)
     if feature_tiles > 65535:
         raise ValueError("hist_kernel: grid too large for d={}".format(d))
     ctas = max(1, _cdiv(_HIST_CTAS_PER_SM * num_sms, feature_tiles))
-    count_ctas = max(1, min(_HIST_CTAS_PER_SM * num_sms, _cdiv(n, _HIST_MIN_CHUNK_ROWS)))
-    rows_per_count_cta = max(1, _cdiv(n, count_ctas))
+    count_ctas = max(1, min(_HIST_CTAS_PER_SM * num_sms,
+                            _cdiv(entries, _HIST_MIN_CHUNK_ROWS)))
+    rows_per_count_cta = max(1, _cdiv(entries, count_ctas))
     return HistPlan(
         ctas, feature_tile, feature_tiles, feature_tile * per_feature,
-        ctas + W, count_ctas, rows_per_count_cta,
+        ctas + keys, count_ctas, rows_per_count_cta,
     )
 
 
-def totals_plan(n, W, num_sms):
+def totals_plan(n, W, num_sms, classes=1):
     """Launch shapes of the totals_* kernels for one node_totals call.
 
-    Every warp keeps its own [2W] f32 copy in shared memory, so a CTA has as
+    With C = ``classes`` the kernels see C*n entries and K = C*W keys (the
+    class folded into the key); below, "rows" are entries and W stands for
+    K. Every warp keeps its own [2W] f32 copy in shared memory, so a CTA has as
     many warps (up to 8) as copies fit TOTALS_SMEM_BUDGET: 8 at W=256 (16
     KB), 1 at W=TOTALS_MAX_NODES. totals_partial is a persistent grid of as
     many such CTAs per SM as fit its shared memory, up to 4 (32 warps to
     keep rows in flight), each over an equal slice of the rows; an empty
     slice gives a zero piece.
     """
-    if not 1 <= W <= TOTALS_MAX_NODES:
-        raise ValueError(
-            "totals_kernel takes 1 <= W <= {}, got {}".format(TOTALS_MAX_NODES, W))
-    warps = min(_TOTALS_MAX_WARPS, TOTALS_SMEM_BUDGET // (8 * W))
-    smem = warps * 8 * W
+    if classes < 1 or not 1 <= W <= TOTALS_MAX_NODES // classes:
+        raise ValueError("totals_kernel takes 1 <= C*W <= {}, got C={} W={}".format(
+            TOTALS_MAX_NODES, classes, W))
+    if classes > 1 and classes * n > HIST_MAX_ROWS:
+        # the class of an entry comes from a 32-bit division of its id
+        raise ValueError("totals_kernel takes C*n <= {} entries, got C={} n={}".format(
+            HIST_MAX_ROWS, classes, n))
+    keys = classes * W
+    warps = min(_TOTALS_MAX_WARPS, TOTALS_SMEM_BUDGET // (8 * keys))
+    smem = warps * 8 * keys
     per_sm = _SM_SMEM_BYTES // (smem + _CTA_RESERVED_SMEM)
     ctas = max(1, min(_TOTALS_MAX_CTAS_PER_SM, per_sm)) * num_sms
-    return TotalsPlan(ctas, warps, smem, _cdiv(n, ctas), ctas * 2 * W)
+    return TotalsPlan(ctas, warps, smem, _cdiv(classes * n, ctas), ctas * 2 * keys)
 
 
 def widen_rows(bins, rows=None):
@@ -153,14 +169,15 @@ def level_histogram(bins, grad, hess, node_local, num_nodes, num_bins):
 
     Args:
       bins: [n, d] uint8/uint16/int32 bin indices (missing bin included).
-      grad, hess: f32 [n].
-      node_local: i32 [n]; position of the row's node within this level,
-        or negative when the row no longer participates.
-      num_nodes: number of nodes W at this level.
+      grad, hess: f32 [n], or [C, n] for C classes sharing the bins.
+      node_local: i32, shaped as grad; position of the row's node within
+        this level (per class), or negative when the row no longer
+        participates.
+      num_nodes: number of nodes W at this level (per class).
       num_bins: histogram width B per feature (max_bin + 1).
 
     Returns:
-      (G, H): f32 [num_nodes, d, num_bins].
+      (G, H): f32 [num_nodes, d, num_bins], or [C, num_nodes, d, num_bins].
     """
     if bins.device.type == "cpu":
         return _hist_plain(bins, grad, hess, node_local, num_nodes, num_bins)
@@ -168,7 +185,8 @@ def level_histogram(bins, grad, hess, node_local, num_nodes, num_bins):
 
 
 def node_totals(grad, hess, node_local, num_nodes):
-    """Per-node (sum g, sum h) over rows with node_local in [0, num_nodes).
+    """Per-node (sum g, sum h) over rows with node_local in [0, num_nodes),
+    each f32 [num_nodes], or [C, num_nodes] for [C, n] inputs.
 
     The last tree level only needs leaf weights, so it skips the widest
     [W, d, B] histogram of the tree and takes these totals instead.
@@ -181,43 +199,61 @@ def node_totals(grad, hess, node_local, num_nodes):
 # ----------------------------------------------------------- plain versions
 
 
+def _classes(t):
+    """A [n] or [C, n] tensor as [C, n] (a view)."""
+    return t[None] if t.dim() == 1 else t
+
+
+def _active_keys(node_local, num_nodes):
+    """(class, row, key) of every active entry of [C, n] node ids, in
+    class-major row order: key = class * W + node."""
+    active = (node_local >= 0) & (node_local < num_nodes)
+    cls, rows = torch.nonzero(active, as_tuple=True)
+    return cls, rows, cls * num_nodes + node_local[cls, rows].long()
+
+
 def _hist_plain(bins, grad, hess, node_local, num_nodes, num_bins):
-    """index_add_ over flattened (node, feature, bin) ids."""
+    """index_add_ over flattened (class, node, feature, bin) ids. Each cell
+    takes its entries in row order, so class c's cells equal a call on
+    class c alone bit for bit."""
     n, d = bins.shape
     W, B = num_nodes, num_bins
-    active = (node_local >= 0) & (node_local < W)
-    rows = torch.nonzero(active).squeeze(1)
-    nd = node_local[rows].long()
+    g, h = _classes(grad), _classes(hess)
+    C = g.shape[0]
+    cls, rows, key = _active_keys(_classes(node_local), W)
     f_ids = torch.arange(d, device=bins.device)
-    seg = ((nd[:, None] * d + f_ids[None, :]) * B + widen_rows(bins, rows)).reshape(-1)
-    G = torch.zeros(W * d * B, dtype=torch.float32, device=bins.device)
+    seg = ((key[:, None] * d + f_ids[None, :]) * B + widen_rows(bins, rows)).reshape(-1)
+    G = torch.zeros(C * W * d * B, dtype=torch.float32, device=bins.device)
     H = torch.zeros_like(G)
-    G.index_add_(0, seg, grad[rows][:, None].expand(-1, d).reshape(-1))
-    H.index_add_(0, seg, hess[rows][:, None].expand(-1, d).reshape(-1))
-    return G.reshape(W, d, B), H.reshape(W, d, B)
+    G.index_add_(0, seg, g[cls, rows][:, None].expand(-1, d).reshape(-1))
+    H.index_add_(0, seg, h[cls, rows][:, None].expand(-1, d).reshape(-1))
+    shape = (W, d, B) if grad.dim() == 1 else (C, W, d, B)
+    return G.reshape(shape), H.reshape(shape)
 
 
 def _totals_plain(grad, hess, node_local, num_nodes):
-    active = (node_local >= 0) & (node_local < num_nodes)
-    rows = torch.nonzero(active).squeeze(1)
-    nd = node_local[rows].long()
-    g = torch.zeros(num_nodes, dtype=torch.float32, device=grad.device)
-    h = torch.zeros_like(g)
-    g.index_add_(0, nd, grad[rows])
-    h.index_add_(0, nd, hess[rows])
-    return g, h
+    g, h = _classes(grad), _classes(hess)
+    C = g.shape[0]
+    cls, rows, key = _active_keys(_classes(node_local), num_nodes)
+    gt = torch.zeros(C * num_nodes, dtype=torch.float32, device=grad.device)
+    ht = torch.zeros_like(gt)
+    gt.index_add_(0, key, g[cls, rows])
+    ht.index_add_(0, key, h[cls, rows])
+    shape = (num_nodes,) if grad.dim() == 1 else (C, num_nodes)
+    return gt.reshape(shape), ht.reshape(shape)
 
 
 # ------------------------------------------------------------ CUDA wrappers
 
 
-def _check_rows(name, t, n, dtype, device):
+def _check_entries(name, t, shape, dtype, device):
     if t.device != device:
         raise ValueError("{} is on {}, expected {}".format(name, t.device, device))
     if t.dtype != dtype:
         raise TypeError("{} must be {}, got {}".format(name, dtype, t.dtype))
-    if t.dim() != 1 or t.shape[0] != n:
-        raise ValueError("{} must have shape [{}], got {}".format(name, n, tuple(t.shape)))
+    if tuple(t.shape) != shape:
+        raise ValueError("{} must have shape {}, got {}".format(
+            name, list(shape), tuple(t.shape)))
     if not t.is_contiguous():
         raise ValueError("{} must be contiguous".format(name))
 
@@ -240,23 +276,30 @@ def _hist_cuda(bins, grad, hess, node_local, num_nodes, num_bins):
     if bins.dim() != 2 or not bins.is_contiguous():
         raise ValueError("bins must be a contiguous [n, d] tensor")
     n, d = bins.shape
-    _check_rows("grad", grad, n, torch.float32, bins.device)
-    _check_rows("hess", hess, n, torch.float32, bins.device)
-    _check_rows("node_local", node_local, n, torch.int32, bins.device)
+    if grad.dim() not in (1, 2):
+        raise ValueError("grad must be [n] or [C, n], got {}".format(tuple(grad.shape)))
+    shape = (grad.shape[0], n) if grad.dim() == 2 else (n,)
+    _check_entries("grad", grad, shape, torch.float32, bins.device)
+    _check_entries("hess", hess, shape, torch.float32, bins.device)
+    _check_entries("node_local", node_local, shape, torch.int32, bins.device)
     if num_nodes < 1 or num_bins < 1:
         raise ValueError("num_nodes and num_bins must be positive")
+    C = shape[0] if grad.dim() == 2 else 1
     W, B = num_nodes, num_bins
     # hist_reduce writes every cell
-    G = torch.empty((W, d, B), dtype=torch.float32, device=bins.device)
+    G = torch.empty((C, W, d, B), dtype=torch.float32, device=bins.device)
     H = torch.empty_like(G)
-    if d == 0:
-        return G, H
-    plan = hist_plan(n, d, W, B, _num_sms(bins.device))
-    work = torch.empty(2 * W * plan.count_ctas + W + 1 + n, dtype=torch.int32,
-                       device=bins.device)
-    pieces = torch.empty(2 * plan.slots * d * B, dtype=torch.float32, device=bins.device)
-    _build.kernels().hist(bins, grad, hess, node_local, G, H, work, pieces, plan)
-    LAUNCHES["hist_kernel"] += 1
+    if d > 0:
+        plan = hist_plan(n, d, W, B, _num_sms(bins.device), classes=C)
+        K = C * W
+        work = torch.empty(2 * K * plan.count_ctas + K + 1 + C * n, dtype=torch.int32,
+                           device=bins.device)
+        pieces = torch.empty(2 * plan.slots * d * B, dtype=torch.float32,
+                             device=bins.device)
+        _build.kernels().hist(bins, grad, hess, node_local, G, H, work, pieces, plan)
+        LAUNCHES["hist_kernel"] += 1
+    if grad.dim() == 1:
+        return G[0], H[0]
     return G, H
 
 
@@ -264,14 +307,20 @@ def _totals_cuda(grad, hess, node_local, num_nodes):
     from .. import _build
 
     _check_cuda(grad)
-    n = grad.shape[0]
-    _check_rows("grad", grad, n, torch.float32, grad.device)
-    _check_rows("hess", hess, n, torch.float32, grad.device)
-    _check_rows("node_local", node_local, n, torch.int32, grad.device)
-    plan = totals_plan(n, num_nodes, _num_sms(grad.device))
-    # totals_reduce writes every cell
-    out = torch.empty(2 * num_nodes, dtype=torch.float32, device=grad.device)
+    if grad.dim() not in (1, 2):
+        raise ValueError("grad must be [n] or [C, n], got {}".format(tuple(grad.shape)))
+    shape = tuple(grad.shape)
+    _check_entries("grad", grad, shape, torch.float32, grad.device)
+    _check_entries("hess", hess, shape, torch.float32, grad.device)
+    _check_entries("node_local", node_local, shape, torch.int32, grad.device)
+    g2 = _classes(grad)
+    C, n = g2.shape
+    plan = totals_plan(n, num_nodes, _num_sms(grad.device), classes=C)
+    # totals_reduce writes every cell: g totals [C, W], then h totals
+    out = torch.empty((2, C, num_nodes), dtype=torch.float32, device=grad.device)
     pieces = torch.empty(plan.piece_floats, dtype=torch.float32, device=grad.device)
-    _build.kernels().totals(grad, hess, node_local, out, pieces, plan)
+    _build.kernels().totals(g2, _classes(hess), _classes(node_local), out, pieces, plan)
     LAUNCHES["totals_kernel"] += 1
-    return out[:num_nodes], out[num_nodes:]
+    if grad.dim() == 1:
+        return out[0, 0], out[1, 0]
+    return out[0], out[1]

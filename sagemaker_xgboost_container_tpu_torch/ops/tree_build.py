@@ -6,6 +6,12 @@ level: histogram -> split scan -> finalize leaves -> route rows to children.
 Rows carry their node id; finalized rows hold -1 and accumulate their leaf
 value into ``row_out``, so the booster updates margins without
 re-predicting the train set.
+
+A multiclass round grows its C trees together, on ``[C, n]`` gradients:
+every per-row and per-node tensor gets a leading class axis, each level's
+histogram is one call over all classes (the JAX package's ``jax.vmap`` of
+the builder, written out), and the split scan sees the ``[C*W, d, B]``
+histograms as C*W nodes.
 """
 
 import numpy as np
@@ -18,11 +24,14 @@ MIN_SPLIT_LOSS = 1e-6  # xgboost kRtEps
 
 
 def row_bin_lookup(bins, feat_idx):
-    """Per-row bin of a per-row feature, ``bins[i, feat_idx[i]]``, as i32."""
+    """Per-row bin of a per-row feature as i32: ``bins[i, feat_idx[i]]`` for
+    ``feat_idx`` [n], ``bins[i, feat_idx[c, i]]`` for [C, n]."""
+    index = feat_idx.long()[:, None] if feat_idx.dim() == 1 else feat_idx.long().T
     if bins.dtype == torch.uint16:
-        picked = torch.gather(bins.view(torch.int16), 1, feat_idx.long()[:, None])
-        return (picked[:, 0].int() & 0xFFFF)
-    return torch.gather(bins, 1, feat_idx.long()[:, None])[:, 0].int()
+        picked = torch.gather(bins.view(torch.int16), 1, index).int() & 0xFFFF
+    else:
+        picked = torch.gather(bins, 1, index).int()
+    return picked[:, 0] if feat_idx.dim() == 1 else picked.T
 
 
 def max_nodes_for_depth(max_depth):
@@ -32,7 +41,8 @@ def max_nodes_for_depth(max_depth):
 def _subtraction_enabled(max_depth, d, num_bins):
     """Sibling subtraction: build only left children, derive right ones as
     parent - left. Needs the previous level's histograms cached, gated by the
-    shared memory cap."""
+    shared memory cap on one class's cache, as the JAX package gates each
+    class of its vmapped builder."""
     if max_depth < 2:
         return False
     return subtraction_enabled(2 * (2 ** (max_depth - 1)) * d * num_bins * 4)
@@ -52,33 +62,43 @@ def build_tree(
     eta=0.3,
     max_delta_step=0.0,
 ):
-    """Grow one tree. Returns (tree tensors dict, row_out f32 [n]).
+    """Grow one tree on grad, hess [n], or C trees on [C, n] (one per
+    class, sharing the bins). Returns (tree tensors dict, row_out f32 [n] or
+    [C, n]).
 
-    Tree tensors (length ``max_nodes_for_depth(max_depth)``): feature, bin
-    (i32), default_left (bool), is_leaf (bool), leaf_value (f32, eta already
-    applied), base_weight (f32, pre-eta), gain (f32), sum_hess (f32), left,
-    right (i32; leaves self-loop).
+    Tree tensors (length ``max_nodes_for_depth(max_depth)``, or [C, that]):
+    feature, bin (i32), default_left (bool), is_leaf (bool), leaf_value
+    (f32, eta already applied), base_weight (f32, pre-eta), gain (f32),
+    sum_hess (f32), left, right (i32; leaves self-loop).
     """
-    n, d = bins.shape
+    single = grad.dim() == 1
+    if single:
+        grad, hess = grad[None], hess[None]
+    C, n = grad.shape
+    d = bins.shape[1]
     dev = bins.device
     max_nodes = max_nodes_for_depth(max_depth)
+
+    def zeros(dtype):
+        return torch.zeros((C, max_nodes), dtype=dtype, device=dev)
+
     tree = {
-        "feature": torch.zeros(max_nodes, dtype=torch.int32, device=dev),
-        "bin": torch.zeros(max_nodes, dtype=torch.int32, device=dev),
-        "default_left": torch.zeros(max_nodes, dtype=torch.bool, device=dev),
-        "is_leaf": torch.zeros(max_nodes, dtype=torch.bool, device=dev),
-        "leaf_value": torch.zeros(max_nodes, dtype=torch.float32, device=dev),
-        "base_weight": torch.zeros(max_nodes, dtype=torch.float32, device=dev),
-        "gain": torch.zeros(max_nodes, dtype=torch.float32, device=dev),
-        "sum_hess": torch.zeros(max_nodes, dtype=torch.float32, device=dev),
+        "feature": zeros(torch.int32),
+        "bin": zeros(torch.int32),
+        "default_left": zeros(torch.bool),
+        "is_leaf": zeros(torch.bool),
+        "leaf_value": zeros(torch.float32),
+        "base_weight": zeros(torch.float32),
+        "gain": zeros(torch.float32),
+        "sum_hess": zeros(torch.float32),
     }
-    node_of_row = torch.zeros(n, dtype=torch.int32, device=dev)
-    row_out = torch.zeros(n, dtype=torch.float32, device=dev)
+    node_of_row = torch.zeros((C, n), dtype=torch.int32, device=dev)
+    row_out = torch.zeros((C, n), dtype=torch.float32, device=dev)
     minus_one = torch.tensor(-1, dtype=torch.int32, device=dev)
 
     subtract = _subtraction_enabled(max_depth, d, num_bins)
-    G_cache = H_cache = None      # previous level's [W/2, d, B] histograms
-    parent_leaf = None            # previous level's becomes_leaf [W/2]
+    G_cache = H_cache = None      # previous level's [C, W/2, d, B] histograms
+    parent_leaf = None            # previous level's becomes_leaf [C, W/2]
 
     for level in range(max_depth + 1):
         first = 2**level - 1
@@ -88,6 +108,10 @@ def build_tree(
         local_safe = torch.clamp(node_local, 0, width - 1).long()
         sl = slice(first, first + width)
 
+        def per_row(per_node):
+            """[C, width] per-node values -> each row's node's, [C, n]."""
+            return torch.gather(per_node, 1, local_safe)
+
         if level == max_depth:
             # last level: every surviving node becomes a leaf, and leaf
             # weights need only per-node totals, not a [W, d, B] histogram
@@ -96,11 +120,11 @@ def build_tree(
                 g_tot, h_tot,
                 reg_lambda=reg_lambda, alpha=alpha, max_delta_step=max_delta_step,
             )
-            tree["is_leaf"][sl] = True
-            tree["leaf_value"][sl] = eta * weight
-            tree["base_weight"][sl] = weight
-            tree["sum_hess"][sl] = h_tot
-            row_out = torch.where(at_level, eta * weight[local_safe], row_out)
+            tree["is_leaf"][:, sl] = True
+            tree["leaf_value"][:, sl] = eta * weight
+            tree["base_weight"][:, sl] = weight
+            tree["sum_hess"][:, sl] = h_tot
+            row_out = torch.where(at_level, eta * per_row(weight), row_out)
             break
 
         if subtract and level > 0:
@@ -110,21 +134,24 @@ def build_tree(
             is_left = (node_local % 2) == 0
             left_local = torch.where(at_level & is_left, node_local // 2, minus_one)
             Gl, Hl = level_histogram(bins, grad, hess, left_local, width // 2, num_bins)
-            keep = ~parent_leaf[:, None, None]
+            keep = ~parent_leaf[:, :, None, None]
             Gr = torch.where(keep, G_cache, 0.0) - Gl
             Hr = torch.where(keep, H_cache, 0.0) - Hl
-            G = torch.stack([Gl, Gr], dim=1).reshape(width, d, num_bins)
-            H = torch.stack([Hl, Hr], dim=1).reshape(width, d, num_bins)
+            G = torch.stack([Gl, Gr], dim=2).reshape(C, width, d, num_bins)
+            H = torch.stack([Hl, Hr], dim=2).reshape(C, width, d, num_bins)
         else:
             G, H = level_histogram(bins, grad, hess, node_local, width, num_bins)
         if subtract:
             G_cache, H_cache = G, H
 
+        # the split scan works per node: the classes' nodes side by side
         splits = find_best_splits(
-            G, H, num_cuts,
+            G.reshape(C * width, d, num_bins), H.reshape(C * width, d, num_bins),
+            num_cuts,
             reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
             min_child_weight=min_child_weight,
         )
+        splits = {k: v.reshape(C, width) for k, v in splits.items()}
         weight = leaf_weight(
             splits["g_total"], splits["h_total"],
             reg_lambda=reg_lambda, alpha=alpha, max_delta_step=max_delta_step,
@@ -133,24 +160,24 @@ def build_tree(
         becomes_leaf = ~can_split
         parent_leaf = becomes_leaf
 
-        tree["feature"][sl] = splits["feature"]
-        tree["bin"][sl] = splits["bin"]
-        tree["default_left"][sl] = splits["default_left"]
-        tree["is_leaf"][sl] = becomes_leaf
-        tree["leaf_value"][sl] = torch.where(becomes_leaf, eta * weight, 0.0)
-        tree["base_weight"][sl] = weight
-        tree["gain"][sl] = torch.where(can_split, splits["gain"], 0.0)
-        tree["sum_hess"][sl] = splits["h_total"]
+        tree["feature"][:, sl] = splits["feature"]
+        tree["bin"][:, sl] = splits["bin"]
+        tree["default_left"][:, sl] = splits["default_left"]
+        tree["is_leaf"][:, sl] = becomes_leaf
+        tree["leaf_value"][:, sl] = torch.where(becomes_leaf, eta * weight, 0.0)
+        tree["base_weight"][:, sl] = weight
+        tree["gain"][:, sl] = torch.where(can_split, splits["gain"], 0.0)
+        tree["sum_hess"][:, sl] = splits["h_total"]
 
         # --- route rows ----------------------------------------------------
-        row_leafed = at_level & becomes_leaf[local_safe]
-        row_out = torch.where(row_leafed, eta * weight[local_safe], row_out)
-        row_bin = row_bin_lookup(bins, splits["feature"][local_safe])
+        row_leafed = at_level & per_row(becomes_leaf)
+        row_out = torch.where(row_leafed, eta * per_row(weight), row_out)
+        row_bin = row_bin_lookup(bins, per_row(splits["feature"]))
         is_missing = row_bin == (num_bins - 1)
         go_right = torch.where(
             is_missing,
-            ~splits["default_left"][local_safe],
-            row_bin > splits["bin"][local_safe],
+            ~per_row(splits["default_left"]),
+            row_bin > per_row(splits["bin"]),
         )
         child = node_of_row * 2 + 1 + go_right.int()
         node_of_row = torch.where(
@@ -161,6 +188,8 @@ def build_tree(
     ids = torch.arange(max_nodes, dtype=torch.int32, device=dev)
     tree["left"] = torch.where(tree["is_leaf"], ids, 2 * ids + 1)
     tree["right"] = torch.where(tree["is_leaf"], ids, 2 * ids + 2)
+    if single:
+        return {k: v[0] for k, v in tree.items()}, row_out[0]
     return tree, row_out
 
 
@@ -179,7 +208,8 @@ _TREE_FIELDS = (
 
 
 def pack_tree(tree):
-    """Tree dict -> one f32 [10, max_nodes] tensor (one device-to-host copy)."""
+    """Tree dict -> one f32 [10, max_nodes] (or [10, C, max_nodes]) tensor:
+    one device-to-host copy."""
     return torch.stack([tree[k].float() for k in _TREE_FIELDS])
 
 
@@ -216,19 +246,28 @@ def unpack_tree(packed):
 
 
 def predict_binned(tree, bins, max_depth, num_bins):
-    """Apply one trained tree to binned rows -> margins [n].
+    """Apply one trained tree (tensors [max_nodes]) to binned rows ->
+    margins [n], or C trees ([C, max_nodes]) -> [C, n].
 
     ``max_depth`` rounds of routing (leaves self-loop, so rows that reached a
     leaf stay put). Used for eval-set margins during training: eval sets are
     binned with the training cuts, so bin comparison == float comparison.
     """
-    node = torch.zeros(bins.shape[0], dtype=torch.long, device=bins.device)
+    single = tree["feature"].dim() == 1
+    trees = {k: v[None] if single else v for k, v in tree.items()}
+    C = trees["feature"].shape[0]
+    node = torch.zeros((C, bins.shape[0]), dtype=torch.long, device=bins.device)
+
+    def at_node(key):
+        return torch.gather(trees[key], 1, node)
+
     for _ in range(max_depth):
-        row_bin = row_bin_lookup(bins, tree["feature"][node])
+        row_bin = row_bin_lookup(bins, at_node("feature"))
         is_missing = row_bin == (num_bins - 1)
         go_right = torch.where(
-            is_missing, ~tree["default_left"][node], row_bin > tree["bin"][node]
+            is_missing, ~at_node("default_left"), row_bin > at_node("bin")
         )
-        child = torch.where(go_right, tree["right"][node], tree["left"][node]).long()
-        node = torch.where(tree["is_leaf"][node], node, child)
-    return tree["leaf_value"][node]
+        child = torch.where(go_right, at_node("right"), at_node("left")).long()
+        node = torch.where(at_node("is_leaf"), node, child)
+    out = at_node("leaf_value")
+    return out[0] if single else out

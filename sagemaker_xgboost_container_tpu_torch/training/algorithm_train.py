@@ -5,11 +5,17 @@ for one host: validate hyperparameters and channels, load and check the
 data matrices, run boosting with the callback stack (metric lines,
 checkpoints, intermediate model, early stopping) on one device, and save
 the model under ``xgboost-model``. Errors matching the known customer
-substrings re-raise as UserError.
+substrings re-raise as UserError. The validated hyperparameters, among them
+``num_class`` and the objective parameters (``tweedie_variance_power``,
+``huber_slope``, ``aft_loss_distribution``, ...), go to ``booster.train``
+as they are; without ``eval_metric`` the objective's default metric makes
+the metric lines the tuner reads.
 
 Not ported yet, each refused with a ``UserError`` naming it: more than one
 host (``SM_HOSTS``), k-fold cross-validation (``_kfold``, which needs a fold
-splitter in place of sklearn's) and custom (sklearn) metrics.
+splitter in place of sklearn's), custom (sklearn) metrics, and what
+``booster.TrainConfig`` refuses: the ranking objectives, lossguide, row and
+column sampling and ``num_parallel_tree`` above 1.
 """
 
 import logging

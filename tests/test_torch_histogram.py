@@ -100,21 +100,81 @@ def test_empty_rows_give_zero_histograms():
     assert g.shape == (3,) and not g.any() and not h.any()
 
 
+def _class_problem(C=3, W=8, seed=21):
+    rng = np.random.RandomState(seed)
+    n, d, B = 3000, 9, 33
+    bins = rng.randint(0, B, size=(n, d)).astype(np.uint8)
+    grad = rng.randn(C, n).astype(np.float32)
+    hess = (rng.rand(C, n) + 0.1).astype(np.float32)
+    node = np.stack([_node_local(n, W, seed=seed + c) for c in range(C)])
+    return bins, grad, hess, node, B
+
+
+@pytest.mark.parametrize("W", [1, 8])
+@pytest.mark.parametrize("bin_dtype", [np.uint8, np.uint16, np.int32])
+def test_class_axis_equals_single_class_calls_bitwise(W, bin_dtype):
+    bins, grad, hess, node, B = _class_problem(W=W)
+    node[2, :] = -1  # a class with no active row
+    b = torch.as_tensor(bins.astype(bin_dtype))
+    G, H = hist.level_histogram(b, torch.as_tensor(grad), torch.as_tensor(hess),
+                                torch.as_tensor(node), W, B)
+    g, h = hist.node_totals(torch.as_tensor(grad), torch.as_tensor(hess),
+                            torch.as_tensor(node), W)
+    assert G.shape == (3, W, 9, B) and g.shape == (3, W)
+    for c in range(3):
+        Gc, Hc = hist.level_histogram(b, torch.as_tensor(grad[c]), torch.as_tensor(hess[c]),
+                                      torch.as_tensor(node[c]), W, B)
+        gc, hc = hist.node_totals(torch.as_tensor(grad[c]), torch.as_tensor(hess[c]),
+                                  torch.as_tensor(node[c]), W)
+        assert torch.equal(G[c], Gc) and torch.equal(H[c], Hc)
+        assert torch.equal(g[c], gc) and torch.equal(h[c], hc)
+    assert not G[2].any() and not g[2].any()
+
+
+@pytest.mark.parametrize("impl", ["flat", "pallas"])
+def test_class_axis_matches_jax_vmap(impl):
+    import jax
+
+    bins, grad, hess, node, B = _class_problem()
+    W = 8
+    knobs = jax_hist.resolve_hist_knobs()._replace(
+        impl=impl, totals_impl="segment" if impl == "flat" else "pallas", pallas_block=256)
+    rG, rH = jax.vmap(lambda g, h, nd: jax_hist.level_histogram(
+        jnp.asarray(bins), g, h, nd, W, B, knobs=knobs))(
+        jnp.asarray(grad), jnp.asarray(hess), jnp.asarray(node))
+    rg, rh = jax.vmap(lambda g, h, nd: jax_hist.node_totals(g, h, nd, W, knobs=knobs))(
+        jnp.asarray(grad), jnp.asarray(hess), jnp.asarray(node))
+    G, H = _port_hist(bins, grad, hess, node, W, B)
+    g, h = (t.numpy() for t in hist.node_totals(
+        torch.as_tensor(grad), torch.as_tensor(hess), torch.as_tensor(node), W))
+    for ours, ref in ((G, rG), (H, rH), (g, rg), (h, rh)):
+        ref = np.asarray(ref)
+        assert ours.shape == ref.shape
+        # 1e-4 of the largest cell: f32 sums in another order (and, for the
+        # Pallas kernel, bf16x2 operands of ~16 mantissa bits)
+        np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-4 * max(1.0, np.abs(ref).max()))
+
+
 @pytest.mark.parametrize(
-    "n,d,W,B",
+    "n,d,W,B,C",
     [
-        (1_000_000, 28, 1, 257),
-        (1_000_000, 28, 64, 257),
-        (1_000_000, 28, 128, 257),
-        (1_000_003, 28, 128, 256),
-        (0, 28, 4, 257),
-        (12_345, 5, 3, 33),
-        (100, 1, 1, 2),
-        (50_000, 300, 130, 257),
+        (1_000_000, 28, 1, 257, 1),
+        (1_000_000, 28, 64, 257, 1),
+        (1_000_000, 28, 128, 257, 1),
+        (1_000_003, 28, 128, 256, 1),
+        (0, 28, 4, 257, 1),
+        (12_345, 5, 3, 33, 1),
+        (100, 1, 1, 2, 1),
+        (50_000, 300, 130, 257, 1),
+        # CoverType's shape at levels 0 and 7 (subtracted: 64 left children)
+        (581_012, 54, 1, 257, 7),
+        (581_012, 54, 64, 257, 7),
+        (10, 3, 4, 9, 3),
     ],
 )
-def test_hist_plan_covers_the_grid(n, d, W, B):
-    p = hist.hist_plan(n, d, W, B, num_sms=132)
+def test_hist_plan_covers_the_grid(n, d, W, B, C):
+    p = hist.hist_plan(n, d, W, B, num_sms=132, classes=C)
+    n, W = C * n, C * W  # the kernels see C*n entries and C*W keys
     # hist_kernel: one CTA's histogram slice fits the budget and the
     # feature tiles cover d without an empty tile
     assert p.smem_bytes == p.feature_tile * 2 * B * 4
@@ -131,16 +191,19 @@ def test_hist_plan_covers_the_grid(n, d, W, B):
 
 
 @pytest.mark.parametrize(
-    "n,d,W,B",
+    "n,d,W,B,C",
     [
-        (10, 1, 1, 20_000),                   # one feature's bins beyond the budget
-        (10, 1, hist.HIST_MAX_NODES + 1, 9),  # node counters beyond shared memory
-        (2**31, 1, 1, 9),                     # row ids beyond int32
+        (10, 1, 1, 20_000, 1),                   # one feature's bins beyond the budget
+        (10, 1, hist.HIST_MAX_NODES + 1, 9, 1),  # node counters beyond shared memory
+        (2**31, 1, 1, 9, 1),                     # row ids beyond int32
+        (10, 1, hist.HIST_MAX_NODES // 4 + 1, 9, 4),  # C*W keys beyond shared memory
+        (2**29, 1, 1, 9, 4),                     # C*n entry ids beyond int32
+        (10, 1, 1, 9, 0),
     ],
 )
-def test_hist_plan_rejects_bins_beyond_shared_memory(n, d, W, B):
+def test_hist_plan_rejects_bins_beyond_shared_memory(n, d, W, B, C):
     with pytest.raises(ValueError):
-        hist.hist_plan(n, d, W, B, num_sms=132)
+        hist.hist_plan(n, d, W, B, num_sms=132, classes=C)
 
 
 def _node_distribution(kind, n, W, seed=11):
@@ -159,33 +222,58 @@ def _node_distribution(kind, n, W, seed=11):
     raise ValueError(kind)
 
 
-def _emulate_hist_kernels(bins, grad, hess, node, W, B, plan):
-    """The hist_* kernels' index arithmetic, step by step in numpy: per-chunk
-    counts, their scans, the scatter into node order, the equal slices of
-    the persistent CTAs with their (c + w) pieces, and the reduce over the
-    CTAs whose slices overlap each node. Checks that no piece slot is
-    written twice and that the reduce reads exactly the pieces written."""
-    n, d = bins.shape
-    C, R = plan.count_ctas, plan.rows_per_count_cta
+def _class_nodes(kind, n, W, C, seed=11):
+    """[n] node ids (C = 1), or [C, n] with each class drawn on its own;
+    "class_empty" leaves the last class without an active row."""
+    if C == 1:
+        return _node_distribution(kind, n, W, seed)
+    if kind == "class_empty":
+        return np.stack([_node_distribution("random", n, W, seed + c) for c in range(C - 1)]
+                        + [_node_distribution("none", n, W, seed)])
+    return np.stack([_node_distribution(kind, n, W, seed + c) for c in range(C)])
+
+
+def _fold_keys(node, W):
+    """[n] or [C, n] node ids -> the kernels' view: per entry of the C*n
+    (class-major), its key class * W + node, or -1 when inactive."""
+    node = np.atleast_2d(node)
+    C, n = node.shape
     active = (node >= 0) & (node < W)
-    counts = np.zeros((W, C), dtype=np.int64)
+    keys = np.where(active, np.arange(C)[:, None] * W + node, -1)
+    return keys.reshape(-1), C, n
+
+
+def _emulate_hist_kernels(bins, grad, hess, node, W, B, plan):
+    """The hist_* kernels' index arithmetic, step by step in numpy, over the
+    C*n entries of [C, n] inputs (or n of [n]) with the class folded into
+    the key: per-chunk counts, their scans, the scatter into key order, the
+    equal slices of the persistent CTAs with their (c + k) pieces (each
+    segment reading the bin rows of its key's class), and the reduce over
+    the CTAs whose slices overlap each key. Checks that no piece slot is
+    written twice and that the reduce reads exactly the pieces written.
+    Returns [K, d, B] histograms, K = C*W."""
+    d = bins.shape[1]
+    key, classes, n = _fold_keys(node, W)
+    grad, hess = np.ravel(grad), np.ravel(hess)
+    entries, K = len(key), classes * W
+    C, R = plan.count_ctas, plan.rows_per_count_cta
+    counts = np.zeros((K, C), dtype=np.int64)
     for c in range(C):
-        seg = node[c * R:(c + 1) * R]
-        seg = seg[(seg >= 0) & (seg < W)]
-        counts[:, c] = np.bincount(seg, minlength=W)
+        seg = key[c * R:(c + 1) * R]
+        counts[:, c] = np.bincount(seg[seg >= 0], minlength=K)
     base = np.cumsum(counts, axis=1) - counts
     totals = counts.sum(axis=1)
     offsets = np.concatenate([[0], np.cumsum(totals)])
-    order = np.full(int(offsets[W]), -1, dtype=np.int64)
+    order = np.full(int(offsets[K]), -1, dtype=np.int64)
     for c in range(C):
-        cursor = offsets[:W] + base[:, c]
-        for row in range(c * R, min(n, (c + 1) * R)):
-            if active[row]:
-                order[cursor[node[row]]] = row
-                cursor[node[row]] += 1
+        cursor = offsets[:K] + base[:, c]
+        for e in range(c * R, min(entries, (c + 1) * R)):
+            if key[e] >= 0:
+                order[cursor[key[e]]] = e
+                cursor[key[e]] += 1
     assert (order >= 0).all() and len(np.unique(order)) == len(order)
 
-    total, P = int(offsets[W]), plan.ctas
+    total, P = int(offsets[K]), plan.ctas
     S = -(-total // P)
     pieces = {}
     for c in range(P):
@@ -195,24 +283,26 @@ def _emulate_hist_kernels(bins, grad, hess, node, W, B, plan):
         w = int(np.searchsorted(offsets, lo, side="right")) - 1
         while lo < hi:
             seg_end = min(hi, int(offsets[w + 1]))
-            rows = order[lo:seg_end]
+            seg = order[lo:seg_end]
+            rows = seg - (w // W) * n  # the class's entries start at class * n
+            assert ((rows >= 0) & (rows < n)).all()
             slot = c + w
             assert slot < plan.slots and slot not in pieces
             g = np.zeros((d, B), np.float64)
             h = np.zeros((d, B), np.float64)
             for f in range(d):
-                np.add.at(g[f], bins[rows, f], grad[rows])
-                np.add.at(h[f], bins[rows, f], hess[rows])
+                np.add.at(g[f], bins[rows, f], grad[seg])
+                np.add.at(h[f], bins[rows, f], hess[seg])
             pieces[slot] = (c, w, g, h)
             lo = seg_end
             if lo < hi:
                 w += 1
                 while offsets[w + 1] <= lo:
                     w += 1
-    G = np.zeros((W, d, B))
-    H = np.zeros((W, d, B))
+    G = np.zeros((K, d, B))
+    H = np.zeros((K, d, B))
     read = set()
-    for w in range(W):
+    for w in range(K):
         a, e = int(offsets[w]), int(offsets[w + 1])
         if e > a:
             for c in range(a // S, (e - 1) // S + 1):
@@ -226,30 +316,38 @@ def _emulate_hist_kernels(bins, grad, hess, node, W, B, plan):
 
 
 @pytest.mark.parametrize(
-    "n,W,kind",
+    "n,W,kind,C",
     [
-        (5000, 1, "random"),
-        (5000, 16, "left"),
-        (5000, 16, "one"),
-        (5000, 16, "half_empty"),
-        (5000, 16, "none"),
-        (40, 8, "random"),     # fewer rows than hist_kernel CTAs
-        (3000, 130, "random"),
-        (0, 4, "random"),
+        (5000, 1, "random", 1),
+        (5000, 16, "left", 1),
+        (5000, 16, "one", 1),
+        (5000, 16, "half_empty", 1),
+        (5000, 16, "none", 1),
+        (40, 8, "random", 1),     # fewer rows than hist_kernel CTAs
+        (3000, 130, "random", 1),
+        (0, 4, "random", 1),
+        # the class axis: C*n entries, C*W keys
+        (3000, 16, "left", 3),
+        (3000, 1, "random", 3),
+        (12, 8, "random", 3),     # fewer entries than hist_kernel CTAs
+        (2000, 16, "class_empty", 2),
+        (0, 4, "random", 3),
     ],
 )
-def test_hist_kernel_bookkeeping_matches_plain(n, W, kind):
+def test_hist_kernel_bookkeeping_matches_plain(n, W, kind, C):
     rng = np.random.RandomState(3)
     d, B = 3, 7
     bins = rng.randint(0, B, size=(n, d)).astype(np.uint8)
-    grad = rng.randn(n).astype(np.float32)
-    hess = (rng.rand(n) + 0.1).astype(np.float32)
-    node = _node_distribution(kind, n, W)
-    plan = hist.hist_plan(n, d, W, B, num_sms=32)
-    if kind == "random" and n == 40:
-        assert n < plan.ctas
+    shape = (n,) if C == 1 else (C, n)
+    grad = rng.randn(*shape).astype(np.float32)
+    hess = (rng.rand(*shape) + 0.1).astype(np.float32)
+    node = _class_nodes(kind, n, W, C)
+    plan = hist.hist_plan(n, d, W, B, num_sms=32, classes=C)
+    if kind == "random" and n * C < 40:
+        assert n * C < plan.ctas
     G, H = _emulate_hist_kernels(bins, grad, hess, node, W, B, plan)
     Gp, Hp = _port_hist(bins, grad, hess, node, W, B)
+    Gp, Hp = Gp.reshape(C * W, d, B), Hp.reshape(C * W, d, B)
     # f64 pieces against an f32 sum: 1e-4 of the largest cell, as on the card
     tol = 1e-4 * max(1.0, np.abs(Gp).max(initial=0), np.abs(Hp).max(initial=0))
     np.testing.assert_allclose(G, Gp, atol=tol, rtol=0)
@@ -266,10 +364,16 @@ def test_hist_kernel_bookkeeping_matches_plain(n, W, kind):
         (0, 256),
         (100, 256),        # fewer rows than CTAs
         (1_000_003, 256),  # an unaligned n
+        (581_012, 7 * 256),  # CoverType's last level, C=7 (below, as C*n, C*W)
     ],
 )
 def test_totals_plan_covers_the_rows(n, W):
-    p = hist.totals_plan(n, W, num_sms=132)
+    if W == 7 * 256:
+        p = hist.totals_plan(n, 256, num_sms=132, classes=7)
+        n *= 7
+        assert (p.warps_per_cta, p.ctas) == (8, 264)
+    else:
+        p = hist.totals_plan(n, W, num_sms=132)
     # every warp has its own [2W] f32 copy, within the budget
     assert 1 <= p.warps_per_cta <= 8
     assert p.smem_bytes == p.warps_per_cta * 8 * W <= hist.TOTALS_SMEM_BUDGET
@@ -291,11 +395,15 @@ def test_totals_plan_covers_the_rows(n, W):
     assert p.piece_floats == p.ctas * 2 * W
 
 
-@pytest.mark.parametrize("W", [0, hist.TOTALS_MAX_NODES + 1])
-def test_totals_plan_rejects_widths_beyond_shared_memory(W):
+@pytest.mark.parametrize("n,W,C", [
+    (1000, 0, 1), (1000, hist.TOTALS_MAX_NODES + 1, 1),
+    (1000, hist.TOTALS_MAX_NODES // 7 + 1, 7),  # C*W keys beyond shared memory
+    (2**29, 1, 4),                              # C*n entry ids beyond int32
+])
+def test_totals_plan_rejects_widths_beyond_shared_memory(n, W, C):
     assert hist.TOTALS_MAX_NODES == 29056
     with pytest.raises(ValueError):
-        hist.totals_plan(1000, W, num_sms=132)
+        hist.totals_plan(n, W, num_sms=132, classes=C)
 
 
 _TOTALS_ROW_UNROLL = 4       # kRowUnroll in csrc/totals_kernel.cu
@@ -327,12 +435,17 @@ def _emulate_reduce_peers(peers, g, h):
 
 def _emulate_totals_kernels(grad, hess, node, W, plan):
     """The totals_* kernels' index arithmetic and order of additions, in
-    f32 numpy: each CTA's equal slice, each warp's groups of 32 rows with
-    their peer sums and one leader per key, the warp-private copies summed
-    in warp order into the CTA's piece, and the pieces summed in runs of
-    consecutive CTAs, the runs' sums in run order. Checks that every row is
-    read exactly once and every piece written and read once."""
-    n, W2, U = len(grad), 2 * W, _TOTALS_ROW_UNROLL
+    f32 numpy, over the C*n entries of [C, n] inputs (or n of [n]) with the
+    class folded into the key: each CTA's equal slice, each warp's groups of
+    32 entries with their peer sums and one leader per key, the warp-private
+    copies summed in warp order into the CTA's piece, and the pieces summed
+    in runs of consecutive CTAs, the runs' sums in run order. Checks that
+    every entry is read exactly once and every piece written and read once.
+    Returns the [K] g and h totals, K = C*W."""
+    keys, classes, _ = _fold_keys(node, W)
+    grad, hess = np.ravel(grad), np.ravel(hess)
+    K = classes * W
+    n, W2, U = len(keys), 2 * K, _TOTALS_ROW_UNROLL
     S, warps = plan.rows_per_cta, plan.warps_per_cta
     seen = np.zeros(n, dtype=np.int64)
     pieces = np.full((plan.ctas, W2), np.nan, dtype=np.float32)
@@ -348,7 +461,7 @@ def _emulate_totals_kernels(grad, hess, node, W, plan):
                     valid = rows < r1
                     seen[rows[valid]] += 1
                     at = np.where(valid, rows, 0)
-                    key = np.where(valid & (node[at] >= 0) & (node[at] < W), node[at], -1)
+                    key = np.where(valid, keys[at], -1)
                     g = np.where(key >= 0, grad[at], 0).astype(np.float32)
                     h = np.where(key >= 0, hess[at], 0).astype(np.float32)
                     peers = [int(np.sum((key == key[l]) << lanes)) for l in range(32)]
@@ -357,7 +470,7 @@ def _emulate_totals_kernels(grad, hess, node, W, plan):
                     assert len({int(key[l]) for l in leaders}) == len(leaders)
                     for l in leaders:
                         acc[w, key[l]] += g[l]
-                        acc[w, W + key[l]] += h[l]
+                        acc[w, K + key[l]] += h[l]
         pieces[c] = acc[0]
         for w in range(1, warps):
             pieces[c] += acc[w]
@@ -374,46 +487,52 @@ def _emulate_totals_kernels(grad, hess, node, W, plan):
     out = runs[0].copy()
     for r in range(1, _TOTALS_REDUCE_GROUPS):
         out += runs[r]
-    return out[:W], out[W:]
+    return out[:K], out[K:]
 
 
 @pytest.mark.parametrize(
-    "n,W,kind",
+    "n,W,kind,C",
     [
-        (5000, 1, "random"),
-        (5000, 16, "random"),
-        (5000, 256, "random"),
-        (5000, 16, "one"),
-        (5000, 16, "half_empty"),
-        (5000, 16, "none"),
-        (30, 8, "random"),     # fewer rows than totals_partial CTAs
-        (0, 4, "random"),
-        (3000, 4096, "random"),  # seven warps of a CTA, one CTA an SM
+        (5000, 1, "random", 1),
+        (5000, 16, "random", 1),
+        (5000, 256, "random", 1),
+        (5000, 16, "one", 1),
+        (5000, 16, "half_empty", 1),
+        (5000, 16, "none", 1),
+        (30, 8, "random", 1),     # fewer rows than totals_partial CTAs
+        (0, 4, "random", 1),
+        (3000, 4096, "random", 1),  # seven warps of a CTA, one CTA an SM
+        # the class axis: C*n entries, C*W keys
+        (3000, 256, "random", 3),
+        (3000, 1, "random", 3),
+        (2000, 16, "class_empty", 2),
+        (10, 8, "random", 3),     # fewer entries than totals_partial CTAs
     ],
 )
-def test_totals_kernel_bookkeeping_matches_plain(n, W, kind):
+def test_totals_kernel_bookkeeping_matches_plain(n, W, kind, C):
     rng = np.random.RandomState(5)
-    grad = rng.randn(n).astype(np.float32)
-    hess = (rng.rand(n) + 0.1).astype(np.float32)
-    node = _node_distribution(kind, n, W)
+    shape = (n,) if C == 1 else (C, n)
+    grad = rng.randn(*shape).astype(np.float32)
+    hess = (rng.rand(*shape) + 0.1).astype(np.float32)
+    node = _class_nodes(kind, n, W, C)
     # 10 SMs: 40 CTAs at W <= 256, so the reduce's last runs are empty
-    plan = hist.totals_plan(n, W, num_sms=10)
-    if n == 30:
-        assert n < plan.ctas
+    plan = hist.totals_plan(n, W, num_sms=10, classes=C)
+    if n * C < 40:
+        assert n * C < plan.ctas
     if W == 4096:
         assert (plan.warps_per_cta, plan.ctas) == (7, 10)
     g, h = _emulate_totals_kernels(grad, hess, node, W, plan)
-    gp, hp = (t.numpy() for t in hist.node_totals(
+    gp, hp = (t.numpy().reshape(-1) for t in hist.node_totals(
         torch.as_tensor(grad), torch.as_tensor(hess), torch.as_tensor(node), W))
     # f32 sums in another order: 1e-4 of the largest total, as on the card
     tol = 1e-4 * max(1.0, np.abs(gp).max(initial=0), np.abs(hp).max(initial=0))
     np.testing.assert_allclose(g, gp, atol=tol, rtol=0)
     np.testing.assert_allclose(h, hp, atol=tol, rtol=0)
     # integer-valued weights sum exactly in any order
-    ones = np.ones(n, dtype=np.float32)
-    ints = rng.randint(0, 4, n).astype(np.float32)
+    ones = np.ones(shape, dtype=np.float32)
+    ints = rng.randint(0, 4, shape).astype(np.float32)
     ge, he = _emulate_totals_kernels(ones, ints, node, W, plan)
-    gq, hq = (t.numpy() for t in hist.node_totals(
+    gq, hq = (t.numpy().reshape(-1) for t in hist.node_totals(
         torch.as_tensor(ones), torch.as_tensor(ints), torch.as_tensor(node), W))
     np.testing.assert_array_equal(ge, gq)
     np.testing.assert_array_equal(he, hq)
@@ -504,3 +623,55 @@ def test_totals_kernel_matches_plain(problem, cuda_device, n, W, kind):
     ge, he = hist.node_totals(ones, ints, args[2], W)
     gq, hq = hist._totals_plain(ones, ints, args[2], W)
     assert torch.equal(ge, gq) and torch.equal(he, hq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "W,C,dtype,kind",
+    [
+        (64, 7, np.uint16, "random"),
+        (1, 7, np.uint16, "random"),
+        (16, 2, np.uint8, "class_empty"),
+        (8, 3, np.int32, "left"),
+    ],
+)
+def test_hist_kernel_class_axis_matches_plain(problem, cuda_device, W, C, dtype, kind):
+    bins, _, _, B = problem
+    n = len(bins)
+    rng = np.random.RandomState(13)
+    grad = rng.randn(C, n).astype(np.float32)
+    hess = (rng.rand(C, n) + 0.1).astype(np.float32)
+    node = _class_nodes(kind, n, W, C)
+    args = [torch.as_tensor(a, device=cuda_device)
+            for a in (bins.astype(dtype), grad, hess, node)]
+    hist.reset_launch_counts()
+    G, H = hist.level_histogram(*args, W, B)
+    assert hist.LAUNCHES["hist_kernel"] == 1 and G.shape == (C, W, bins.shape[1], B)
+    Gp, Hp = hist._hist_plain(*args, W, B)
+    tol = 1e-4 * max(1.0, float(Gp.abs().max()), float(Hp.abs().max()))
+    torch.testing.assert_close(G, Gp, atol=tol, rtol=0)
+    torch.testing.assert_close(H, Hp, atol=tol, rtol=0)
+    ones = torch.ones_like(args[1])
+    Ge, He = hist.level_histogram(args[0], ones, ones, args[3], W, B)
+    Gq, Hq = hist._hist_plain(args[0], ones, ones, args[3], W, B)
+    assert torch.equal(Ge, Gq) and torch.equal(He, Hq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,C,kind", [(256, 7, "random"), (1, 7, "random"),
+                                      (16, 2, "class_empty"), (8, 3, "one")])
+def test_totals_kernel_class_axis_matches_plain(problem, cuda_device, W, C, kind):
+    n = 3000
+    rng = np.random.RandomState(17)
+    args = [torch.as_tensor(a, device=cuda_device) for a in (
+        rng.randn(C, n).astype(np.float32), (rng.rand(C, n) + 0.1).astype(np.float32),
+        _class_nodes(kind, n, W, C))]
+    hist.reset_launch_counts()
+    g, h = hist.node_totals(*args, W)
+    assert hist.LAUNCHES["totals_kernel"] == 1 and g.shape == (C, W)
+    gp, hp = hist._totals_plain(*args, W)
+    tol = 1e-4 * max(1.0, float(gp.abs().max()), float(hp.abs().max()))
+    torch.testing.assert_close(g, gp, atol=tol, rtol=0)
+    torch.testing.assert_close(h, hp, atol=tol, rtol=0)
+    g2, h2 = hist.node_totals(*args, W)
+    assert torch.equal(g, g2) and torch.equal(h, h2)

@@ -180,8 +180,9 @@ EVERY_KEY_IN_THE_SLICE = {
     "process_type": "default", "grow_policy": "depthwise", "max_leaves": "0", "max_bin": "256",
     "predictor": "auto", "sample_type": "uniform", "normalize_type": "tree", "rate_drop": "0",
     "one_drop": "0", "skip_drop": "0", "lambda_bias": "0", "tweedie_variance_power": "1.5",
-    "objective": "binary:logistic", "base_score": "0.5", "_kfold": "2", "_num_cv_round": "1",
-    "_tuning_objective_metric": "validation:auc", "eval_metric": "logloss,auc", "seed": "3",
+    "objective": "multi:softprob", "num_class": "3", "base_score": "0.5", "_kfold": "2",
+    "_num_cv_round": "1", "_tuning_objective_metric": "validation:merror",
+    "eval_metric": "mlogloss,merror", "seed": "3",
     "num_parallel_tree": "1", "save_model_on_termination": "false",
     "aft_loss_distribution": "normal", "aft_loss_distribution_scale": "1",
     "deterministic_histogram": "true", "sampling_method": "uniform", "prob_buffer_row": "2",
@@ -193,18 +194,19 @@ def test_train_config_takes_every_validated_key():
     from sagemaker_xgboost_container_tpu_torch.models.booster import TrainConfig
 
     schema = hyperparameters.initialize(metrics.initialize())
-    # the three left out have no value the slice trains: absent is their default
+    # the two left out have no value the slice trains: absent is their default
     assert set(schema._schema) - set(EVERY_KEY_IN_THE_SLICE) == {
-        "interaction_constraints", "monotone_constraints", "num_class"}
+        "interaction_constraints", "monotone_constraints"}
     assert set(EVERY_KEY_IN_THE_SLICE) <= set(schema._schema)
     validated = schema.validate(dict(EVERY_KEY_IN_THE_SLICE))
     validated["updater"] = ",".join(validated["updater"])
     config = TrainConfig(validated)
     assert (config.max_depth, config.max_bin, config.eta) == (8, 256, 0.2)
+    assert (config.objective, config.num_class) == ("multi:softprob", 3)
 
 
 @pytest.mark.parametrize("key,value", [
-    ("objective", "reg:gamma"), ("objective", "multi:softprob"), ("booster", "dart"),
+    ("objective", "rank:pairwise"), ("objective", "rank:ndcg"), ("booster", "dart"),
     ("booster", "gblinear"), ("tree_method", "exact"), ("tree_method", "approx"),
     ("grow_policy", "lossguide"), ("subsample", "0.5"), ("colsample_bytree", "0.5"),
     ("colsample_bylevel", "0.5"), ("colsample_bynode", "0.5"), ("num_parallel_tree", "2"),
@@ -215,8 +217,6 @@ def test_train_config_refuses_what_the_slice_does_not_train(key, value):
     from sagemaker_xgboost_container_tpu_torch.models.booster import TrainConfig
 
     config = {"num_round": "10", "tree_method": "hist", key: value}
-    if value == "multi:softprob":
-        config["num_class"] = "3"
     if key == "process_type":
         config["updater"] = "refresh"
     validated = hyperparameters.initialize(metrics.initialize()).validate(config)

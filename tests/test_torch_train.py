@@ -243,7 +243,7 @@ def test_stack_builds_each_slice_once_under_concurrency(trained, monkeypatch):
         {"colsample_bylevel": 0.5},
         {"colsample_bynode": 0.5},
         {"grow_policy": "lossguide"},
-        {"num_class": 3},
+        {"objective": "rank:pairwise"},
         {"monotone_constraints": [1, 0]},
         {"interaction_constraints": [[0, 1]]},
         {"booster": "dart"},
