@@ -13,8 +13,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    kernels must have none);
 2. hist_kernel (the hist_* kernels behind level_histogram) against its plain
    PyTorch version: timed at 1M x 28 uint16 bins, B=257, with nodes drawn
-   from [-1, W) at W=1 and W=64 and with level 7's left children (half the
-   rows at -1, W=64); untimed with every row in one node, half the nodes
+   from [-1, W) at W=1 and W=64, with level 7's left children (half the
+   rows at -1, W=64) and with a lossguide split step's child (W=1, 1/64 of
+   the rows in the node; CUDA events around the wrapper, torch.profiler's
+   device time, the plain version, torch.bincount over the keys, the bound);
+   untimed with every row in one node, half the nodes
    empty, no row active, fewer rows than hist_kernel CTAs, W=130, n=0, an
    unaligned n and uint8 bins with B=256; then the class axis (C classes'
    [C, n] gradients sharing the bins, one launch): timed at CoverType's
@@ -98,8 +101,29 @@ Phases (each prints its own lines; any failure exits non-zero):
    validation rows on the GPU against the CPU (margins within 1e-5, the
    same classes) and served once through `serving_entrypoint` (1,000 csv
    rows). Then every objective beyond the main path trains 3 rounds on
-   20,000 x 9 rows on the GPU and on the CPU: the last-round training
-   metric within SWEEP_METRIC_TOL, and the identical trees counted.
+   20,000 x 9 rows on the GPU and on the CPU (the ranking ones with queries
+   of 100 rows; lossguide with binary:logistic and multi:softprob at 31
+   leaves): the last-round training metric within SWEEP_METRIC_TOL, and the
+   identical trees counted;
+10. ranking and lossguide at full width. 10a: BASELINE.md config #4 shaped
+   like MSLR-WEB30K, rank:ndcg (2,000 training and 500 validation queries,
+   lognormal query sizes with a mean of 120 cut at 1,250, 136 features,
+   bench.py's BENCH_TASK=ranking relevance; max_depth 8, max_bin 256, eta
+   0.1, 10 rounds, eval_metric ndcg@10,map@10): 8 hist_kernel and 1
+   totals_kernel launches a round, validation ndcg@10 rising, rounds/s on
+   the host clock over rounds 1-4 and device ms a round over rounds 5-8
+   (torch.profiler), the gradient pass alone (CUDA events and device time,
+   its share of a round), GPU against CPU gradients on 200 queries (within
+   1e-5 of the largest |g| and |h|), the saved model predicting 10k
+   validation rows on the GPU against the CPU; then `sagemaker_train` with
+   rank:pairwise over libsvm channels with qid: tokens, one metric line a
+   round. 10b: bench.py's BENCH_TASK=lossguide on the main path's rows
+   (binary:logistic, max_leaves 255, max_depth 0, eta 0.2, 5 rounds): one
+   hist_kernel launch for the root and one a split step (255 a tree), no
+   totals_kernel launch, validation logloss falling every round, rounds/s
+   over rounds 1-2 and device ms and torch launches a round over rounds
+   3-4; the model saved, loaded and predicting 10k rows on the GPU against
+   the CPU, and served once through `serving_entrypoint`.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -133,6 +157,8 @@ HIST_CASES = (  # n, d, W, B, bin dtype, node distribution, timed
     (1_000_000, 28, 1, 257, np.uint16, "random", True),
     (1_000_000, 28, 64, 257, np.uint16, "random", True),
     (1_000_000, 28, 64, 257, np.uint16, "left", True),
+    # a lossguide split step's left child: 1/64 of the rows in the node
+    (1_000_000, 28, 1, 257, np.uint16, "step", True),
     (1_000_000, 28, 64, 257, np.uint16, "one", False),
     (1_000_000, 28, 64, 257, np.uint16, "half_empty", False),
     (1_000_000, 28, 64, 257, np.uint16, "none", False),
@@ -177,6 +203,24 @@ COVTYPE_PARAMS = {"objective": "multi:softmax", "num_class": 7, "max_depth": 8,
                   "max_bin": 256, "tree_method": "hist", "eta": 0.3,
                   "eval_metric": ["mlogloss", "merror"]}
 N_COVTYPE_PREDICT, N_COVTYPE_SERVE = 10_000, 1_000
+# phase 10a: BASELINE.md config #4, MSLR-WEB30K rank:ndcg (LambdaMART), at
+# MSLR's 136 features and its spread of query sizes (a mean of about 120
+# documents, a tail to about 1,250), with 2,000 of its 31,531 queries
+# (bench.py's BENCH_TASK=ranking relevance)
+RANK_QUERIES, RANK_VAL_QUERIES, RANK_FEATURES, RANK_ROUNDS = 2_000, 500, 136, 10
+RANK_MEAN_GROUP, RANK_MAX_GROUP = 120, 1_250
+RANK_PARAMS = {"objective": "rank:ndcg", "max_depth": 8, "max_bin": 256, "tree_method": "hist",
+               "eta": 0.1, "eval_metric": ["ndcg@10", "map@10"]}
+RANK_GRAD_QUERIES, N_RANK_PREDICT = 200, 10_000
+# the train entry point on a libsvm channel with qid: tokens
+RANK_ENTRY_QUERIES, RANK_ENTRY_HP = (60, 20), {
+    "objective": "rank:pairwise", "num_round": "5", "max_depth": "6", "max_bin": "64",
+    "eta": "0.3", "eval_metric": "ndcg@5,map@10"}
+# phase 10b: bench.py's BENCH_TASK=lossguide on the main path's rows
+LOSSGUIDE_PARAMS = {"objective": "binary:logistic", "grow_policy": "lossguide",
+                    "max_leaves": 255, "max_depth": 0, "max_bin": 256, "tree_method": "hist",
+                    "eta": 0.2}
+LOSSGUIDE_ROUNDS, N_LOSSGUIDE_SERVE = 5, 1_000
 # the GPU-vs-CPU sweep of the objectives beyond the main path: label kind
 # (of a positive score S), extra parameters
 SWEEP_SHAPE = (20_000, 9)
@@ -193,7 +237,15 @@ SWEEP = (
     ("multi:softprob", "class", {"num_class": 3}),
     ("survival:aft", "score", {"base_score": 1.0}),
     ("survival:cox", "censored", {}),
+    ("rank:pairwise", "rank", {}),
+    ("rank:ndcg", "rank", {}),
+    ("rank:map", "rank", {}),
+    ("binary:logistic", "binary", {"grow_policy": "lossguide", "max_leaves": 31,
+                                   "max_depth": 0}),
+    ("multi:softprob", "class", {"num_class": 3, "grow_policy": "lossguide",
+                                 "max_leaves": 31, "max_depth": 0}),
 )
+SWEEP_GROUP = 100  # the ranking objectives' query size in the sweep
 # the last-round metric, GPU against CPU, relative to max(1, |metric|):
 # phase 5's 1e-4 where every tree is the same; where a split differs (the
 # GPU's f32 atomics add in another order, and a near-tie then goes either
@@ -326,9 +378,12 @@ def node_distribution(rng, kind, n, W):
     """node_local of a hist case: "random" draws from [-1, W); "left" is a
     subtracted level's left children (children of 2W nodes, the right half
     at -1); "one" puts every row in one node; "half_empty" only in even
-    nodes; "none" leaves no row active (-1, or W and beyond)."""
+    nodes; "none" leaves no row active (-1, or W and beyond); "step" is a
+    lossguide split step's child: 1/64 of the rows in node 0, the rest -1."""
     if kind == "random":
         return rng.randint(-1, W, n).astype(np.int32)
+    if kind == "step":
+        return np.where(rng.rand(n) < 1 / 64, 0, -1).astype(np.int32)
     if kind == "left":
         child = rng.randint(0, 2 * W, n)
         return np.where(child % 2 == 0, child // 2, -1).astype(np.int32)
@@ -411,12 +466,10 @@ def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag, classes
     out = {"max_abs_err": err, "ms": kernel, "plain_ms": plain,
            "library_ms": library, "bound_ms": b_ms, "bound_by": b_by,
            "shape": label}
-    dev_text = ""
-    if classes > 1:
-        per = device_ms(torch, call, "hist_")
-        out["device_ms"] = sum(per.values())
-        dev_text = " device_ms={:.4f} (torch.profiler: {})".format(
-            out["device_ms"], ", ".join("{} {:.4f}".format(k, v) for k, v in sorted(per.items())))
+    per = device_ms(torch, call, "hist_")
+    out["device_ms"] = sum(per.values())
+    dev_text = " device_ms={:.4f} (torch.profiler: {})".format(
+        out["device_ms"], ", ".join("{} {:.4f}".format(k, v) for k, v in sorted(per.items())))
     print("{} | {}: kernel_ms={:.4f}{} plain_ms={:.4f} library_ms={:.4f} "
           "(torch.bincount with weights, G and H) bound_ms={:.4f} ({})".format(
               tag, label, kernel, dev_text, plain, library, b_ms, b_by), flush=True)
@@ -429,9 +482,10 @@ def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag, classes
 PROFILE_ATTEMPTS = 3
 
 
-def device_ms(torch, fn, prefix, iters=20):
-    """Device time per call of each kernel whose name holds `prefix`, from
-    torch.profiler (device activity) over `iters` calls of fn."""
+def profiled_kernels(torch, fn, iters, prefix=""):
+    """The kernel events (name holding `prefix`) of `iters` calls of fn
+    under torch.profiler (device activity), after one unprofiled call; the
+    session is repeated while it records none."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(PROFILE_ATTEMPTS):
@@ -439,16 +493,21 @@ def device_ms(torch, fn, prefix, iters=20):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        per = {}
-        for evt in prof.key_averages():
-            us = _kernel_time_us(torch, evt)
-            found = re.findall(prefix + r"[a-z]+", evt.key)
-            if us > 0 and found:
-                per[found[-1]] = per.get(found[-1], 0.0) + us / 1e3 / iters
-        if per:
-            return per
+        events = [e for e in prof.key_averages()
+                  if _kernel_time_us(torch, e) > 0 and prefix in e.key]
+        if events:
+            return events
         print("  torch.profiler recorded no {}* kernel (attempt {} of {})".format(
             prefix, attempt + 1, PROFILE_ATTEMPTS), flush=True)
+    return []
+
+
+def device_ms(torch, fn, prefix, iters=20):
+    """Device time per call of each kernel whose name holds `prefix`."""
+    per = {}
+    for evt in profiled_kernels(torch, fn, iters, prefix):
+        for name in re.findall(prefix + r"[a-z]+", evt.key)[-1:]:
+            per[name] = per.get(name, 0.0) + _kernel_time_us(torch, evt) / 1e3 / iters
     return per
 
 
@@ -727,6 +786,37 @@ class _Client:
         with self.lock:
             self.statuses.append(status)
         return status, out
+
+
+def _serve_once(model_dir, rows, want):
+    """The model in `model_dir` behind `serving_entrypoint` on the card: /ping,
+    then `rows` as one csv request, checked within 1e-5 of `want` (the CPU
+    predict). -> (request ms, max_abs_err)."""
+    from sagemaker_xgboost_container_tpu_torch.serving import server
+
+    os.environ["SM_MODEL_DIR"] = model_dir
+    httpd = server.serving_entrypoint(port=0, block=False, device=DEVICE)
+    loop = threading.Thread(target=httpd.serve_forever, daemon=True)
+    loop.start()
+    try:
+        client = _Client("http://127.0.0.1:{}".format(httpd.server_port))
+        status, _ = client.call("/ping")
+        check(status == 200, "/ping answered {}".format(status))
+        t = time.perf_counter()
+        status, body = client.call("/invocations", _csv_body(rows), "text/csv", "text/csv")
+        serve_ms = (time.perf_counter() - t) * 1e3
+        check(status == 200, "/invocations answered {}".format(status))
+        got = _decode_scores(body, "text/csv")
+        check(got.shape == want.shape and np.all(np.isfinite(got)),
+              "served {} answers for {} rows".format(got.shape, len(want)))
+        err = float(np.abs(got - want).max())
+        check(err <= 1e-5, "served predictions differ from the CPU predict by {}".format(err))
+    finally:
+        httpd.stop()
+        loop.join(10)
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        os.environ.pop("SM_MODEL_DIR", None)
+    return serve_ms, err
 
 
 def _decode_scores(body, accept):
@@ -1256,7 +1346,7 @@ def run_entry(torch, hist, tag):
 
 def _entry(torch, hist, tag, tmp):
     from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
-    from sagemaker_xgboost_container_tpu_torch.serving import serve_utils, server
+    from sagemaker_xgboost_container_tpu_torch.serving import serve_utils
     from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
 
     # ---- the SageMaker tree: configs, channels, env
@@ -1441,28 +1531,8 @@ def _entry(torch, hist, tag, tmp):
 
     # ---- 4. the trained model behind the serve entry point
     ref = full.predict(x_val, iteration_range=serve_utils.best_iteration_range(full))
-    os.environ["SM_MODEL_DIR"] = os.path.dirname(model_path)
     hist.reset_launch_counts()
-    httpd = server.serving_entrypoint(port=0, block=False, device=DEVICE)
-    loop = threading.Thread(target=httpd.serve_forever, daemon=True)
-    loop.start()
-    try:
-        client = _Client("http://127.0.0.1:{}".format(httpd.server_port))
-        status, _ = client.call("/ping")
-        check(status == 200, "/ping answered {}".format(status))
-        t = time.perf_counter()
-        status, body = client.call("/invocations", _csv_body(x_val), "text/csv", "text/csv")
-        serve_ms = (time.perf_counter() - t) * 1e3
-        check(status == 200, "/invocations answered {}".format(status))
-        got = _decode_scores(body, "text/csv")
-        check(got.shape == ref.shape and np.all(np.isfinite(got)), "bad served answer")
-        err = float(np.abs(got - ref).max())
-        check(err <= 1e-5, "served predictions differ from the CPU predict by {}".format(err))
-    finally:
-        httpd.stop()
-        loop.join(10)
-        signal.signal(signal.SIGTERM, signal.SIG_DFL)
-        os.environ.pop("SM_MODEL_DIR", None)
+    serve_ms, err = _serve_once(os.path.dirname(model_path), x_val, ref)
     print("{} | entry model served: {} validation rows as csv in {:.3f} ms, max_abs_err {:.3e} "
           "against the CPU predict; serve launches {}".format(
               tag, len(x_val), serve_ms, err, json.dumps(dict(hist.LAUNCHES))), flush=True)
@@ -1489,21 +1559,18 @@ def run_multiclass(torch, hist, pkg, tag):
     print("{} | multiclass phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
 
 
-def _multiclass(torch, hist, pkg, tag, tmp):
-    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
-    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
-    from sagemaker_xgboost_container_tpu_torch.serving import server
-
-    n, d, rounds = COVTYPE_TRAIN, COVTYPE_FEATURES, COVTYPE_ROUNDS
-    t0 = time.perf_counter()
-    X, y = make_multiclass(n, d, seed=0)
-    Xv, yv = make_multiclass(COVTYPE_VAL, d, seed=1)
-    data_s = time.perf_counter() - t0
-    # rounds 1-4 on the host clock, rounds 5-8 under torch.profiler (and,
-    # should that session record no device activity, round 9)
+def _profiled_train(torch, pkg, params, dtrain, dval, rounds, host_rounds, profile_rounds):
+    """Train on the card with the host clock over rounds 1..host_rounds
+    (0-based, after round 0's warm-up) and torch.profiler (device activity)
+    over the next profile_rounds rounds; should that session record no
+    device activity, the round after it is profiled instead, where there is
+    one. -> (forest, dict: the validation metrics, setup s, total s, host ms
+    a round, profiled ms a round, the profiled rounds, _device_rows' tuple)."""
     profile = lambda: torch.profiler.profile(  # noqa: E731
         activities=[torch.profiler.ProfilerActivity.CUDA])
-    marks, log, window = [], {}, {"prof": profile(), "rounds": 4}
+    start, stop = host_rounds, host_rounds + profile_rounds
+    marks, log, window = [], {}, {"prof": profile(), "rounds": profile_rounds,
+                                  "label": "{}-{}".format(start + 1, stop)}
 
     class Window:
         def before_training(self, forest):
@@ -1515,58 +1582,83 @@ def _multiclass(torch, hist, pkg, tag, tmp):
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             log.update(evals_log["validation"])
-            if rnd == 4:
+            if rnd == start:
                 window["prof"].start()
-            elif rnd == 8:
+            elif rnd == stop:
                 window["prof"].stop()
-                window["rows"] = _device_rows(torch, window["prof"], 4)
-                if not window["rows"][0]:
-                    print("  torch.profiler recorded no device activity in rounds 5-8: "
-                          "round 9 is profiled instead", flush=True)
-                    window.update(prof=profile(), rounds=1)
+                window["rows"] = _device_rows(torch, window["prof"], profile_rounds)
+                if not window["rows"][0] and rnd + 1 < rounds:
+                    print("  torch.profiler recorded no device activity in rounds {}: round "
+                          "{} is profiled instead".format(window["label"], stop + 1), flush=True)
+                    window.update(prof=profile(), rounds=1, label=str(stop + 1))
                     window["prof"].start()
-            elif rnd == 9 and window["rounds"] == 1:
+            elif rnd == stop + 1 and window["rounds"] == 1:
                 window["prof"].stop()
                 window["rows"] = _device_rows(torch, window["prof"], 1)
-            if rnd in (4, 8):
+            if rnd in (start, stop):
                 # the profiler's start and stop take seconds: keep them out
                 # of both windows by restarting the clock after them
                 torch.cuda.synchronize()
                 marks.append(time.perf_counter())
             return False
 
-    hist.reset_launch_counts()
     t0 = time.perf_counter()
-    forest = pkg.train(COVTYPE_PARAMS, DataMatrix(X, y), rounds,
-                       evals=[(DataMatrix(Xv, yv), "validation")], device=DEVICE,
+    forest = pkg.train(params, dtrain, rounds, evals=[(dval, "validation")], device=DEVICE,
                        callbacks=[Window()], verbose_eval=False)
     torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
-    launches = dict(hist.LAUNCHES)
-    setup_s = marks[0] - t0
-    host_ms = (marks[5] - marks[1]) * 1e3 / 4
-    profiled_ms = (marks[10] - marks[6]) * 1e3 / 4
-    rows, busy_ms, per_round, kernel_ms, kernel_calls = window["rows"]
-    check(rows, "torch.profiler recorded no device activity in phase 9")
-    ll, me = log["mlogloss"], log["merror"]
-    print("{} | multiclass (CoverType shape: {} x {} rows, {} validation, 7 classes, "
-          "depth 8, 10 rounds): data {:.3f} s, setup (binning, upload) {:.3f} s, total "
-          "{:.3f} s; rounds 1-4 {:.3f} ms/round host clock = {:.3f} rounds/s; rounds 5-8 "
-          "profiled {:.3f} ms/round".format(
-              tag, n, d, COVTYPE_VAL, data_s, setup_s, total_s, host_ms, 1e3 / host_ms,
-              profiled_ms), flush=True)
-    print("{} | multiclass validation mlogloss {}; merror {}".format(
-        tag, [round(float(v), 5) for v in ll], [round(float(v), 5) for v in me]), flush=True)
+    p0 = start + 2
+    out = {"log": log, "setup_s": marks[0] - t0, "total_s": time.perf_counter() - t0,
+           "host_ms": (marks[start + 1] - marks[1]) * 1e3 / host_rounds,
+           "profiled_ms": (marks[p0 + profile_rounds] - marks[p0]) * 1e3 / profile_rounds,
+           "label": window["label"], "rows": window.get("rows", ([],))}
+    check(out["rows"][0], "torch.profiler recorded no device activity")
+    return forest, out
+
+
+def _profile_line(tag, what, run, kernel_name="hist_", totals=True):
+    """The profiled window's launches, device ms a round, the histogram's
+    (every hist_* kernel) and the totals' (every totals_* kernel) share and
+    the device's busy share of an unprofiled round."""
+    rows, busy_ms, per_round, kernel_ms, kernel_calls = run["rows"]
     for r in rows[:12]:
         print("  {:9.3f} ms {:6d} calls  {}".format(r["device_ms"], r["calls"], r["name"]))
-    print("{} | multiclass profile (rounds {}): {:.0f} kernel launches/round, device {:.3f} "
-          "ms/round (histogram, all hist_* kernels, {:.3f} = {:.1%} in {:.0f} launches; "
-          "totals, all totals_* kernels, {:.4f} = {:.1%} in {:.0f} launches); device busy "
-          "{:.1%} of an unprofiled round".format(
-              tag, "5-8" if window["rounds"] == 4 else "9", per_round, busy_ms,
-              kernel_ms("hist_"), kernel_ms("hist_") / busy_ms,
-              kernel_calls("hist_"), kernel_ms("totals_"), kernel_ms("totals_") / busy_ms,
-              kernel_calls("totals_"), busy_ms / host_ms), flush=True)
+    text = ("{} | {} profile (rounds {}): {:.0f} kernel launches/round, device {:.3f} ms/round "
+            "(histogram, all hist_* kernels, {:.3f} = {:.1%} in {:.0f} launches".format(
+                tag, what, run["label"], per_round, busy_ms, kernel_ms("hist_"),
+                kernel_ms("hist_") / busy_ms, kernel_calls("hist_")))
+    if totals:
+        text += "; totals, all totals_* kernels, {:.4f} = {:.1%} in {:.0f} launches".format(
+            kernel_ms("totals_"), kernel_ms("totals_") / busy_ms, kernel_calls("totals_"))
+    print(text + "); device busy {:.1%} of an unprofiled round".format(
+        busy_ms / run["host_ms"]), flush=True)
+    return busy_ms, per_round
+
+
+def _multiclass(torch, hist, pkg, tag, tmp):
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    n, d, rounds = COVTYPE_TRAIN, COVTYPE_FEATURES, COVTYPE_ROUNDS
+    t0 = time.perf_counter()
+    X, y = make_multiclass(n, d, seed=0)
+    Xv, yv = make_multiclass(COVTYPE_VAL, d, seed=1)
+    data_s = time.perf_counter() - t0
+    # rounds 1-4 on the host clock, rounds 5-8 under torch.profiler (and,
+    # should that session record no device activity, round 9)
+    hist.reset_launch_counts()
+    forest, run = _profiled_train(torch, pkg, COVTYPE_PARAMS, DataMatrix(X, y),
+                                  DataMatrix(Xv, yv), rounds, 4, 4)
+    launches = dict(hist.LAUNCHES)
+    ll, me = run["log"]["mlogloss"], run["log"]["merror"]
+    print("{} | multiclass (CoverType shape: {} x {} rows, {} validation, 7 classes, "
+          "depth 8, 10 rounds): data {:.3f} s, setup (binning, upload) {:.3f} s, total "
+          "{:.3f} s; rounds 1-4 {:.3f} ms/round host clock = {:.3f} rounds/s; rounds {} "
+          "profiled {:.3f} ms/round".format(
+              tag, n, d, COVTYPE_VAL, data_s, run["setup_s"], run["total_s"], run["host_ms"],
+              1e3 / run["host_ms"], run["label"], run["profiled_ms"]), flush=True)
+    print("{} | multiclass validation mlogloss {}; merror {}".format(
+        tag, [round(float(v), 5) for v in ll], [round(float(v), 5) for v in me]), flush=True)
+    _profile_line(tag, "multiclass", run)
     print("multiclass launches: {}".format(json.dumps(launches)), flush=True)
     check(launches == {"hist_kernel": 8 * rounds, "totals_kernel": rounds},
           "multiclass launches {}, expected 8 hist_kernel and 1 totals_kernel a round".format(
@@ -1588,31 +1680,9 @@ def _multiclass(torch, hist, pkg, tag, tmp):
     check(err <= 1e-5 and np.array_equal(pred, ref),
           "GPU predict differs from CPU predict: margins by {}".format(err))
 
-    os.environ["SM_MODEL_DIR"] = tmp
     hist.reset_launch_counts()
-    httpd = server.serving_entrypoint(port=0, block=False, device=DEVICE)
-    loop = threading.Thread(target=httpd.serve_forever, daemon=True)
-    loop.start()
-    try:
-        client = _Client("http://127.0.0.1:{}".format(httpd.server_port))
-        status, _ = client.call("/ping")
-        check(status == 200, "/ping answered {}".format(status))
-        rows_in = Xv[:N_COVTYPE_SERVE]
-        t = time.perf_counter()
-        status, body = client.call("/invocations", _csv_body(rows_in), "text/csv", "text/csv")
-        serve_ms = (time.perf_counter() - t) * 1e3
-        check(status == 200, "/invocations answered {}".format(status))
-        got = _decode_scores(body, "text/csv")
-        want = on_cpu.predict(rows_in)
-        check(got.shape == want.shape, "served {} answers for {} rows".format(got.shape, len(want)))
-        serve_err = float(np.abs(got - want).max())
-        check(serve_err <= 1e-5, "served classes differ from the CPU predict by {}".format(
-            serve_err))
-    finally:
-        httpd.stop()
-        loop.join(10)
-        signal.signal(signal.SIGTERM, signal.SIG_DFL)
-        os.environ.pop("SM_MODEL_DIR", None)
+    rows_in = Xv[:N_COVTYPE_SERVE]
+    serve_ms, serve_err = _serve_once(tmp, rows_in, on_cpu.predict(rows_in))
     print("{} | multiclass model: {} validation rows, GPU vs CPU predict margins max_abs_err "
           "{:.3e}, classes equal; served {} rows as csv in {:.3f} ms, max_abs_err {:.3e}; "
           "serve launches {}".format(tag, len(x), err, len(rows_in), serve_ms, serve_err,
@@ -1628,6 +1698,8 @@ def sweep_labels(kind, score, rng):
         return np.round(score)
     if kind == "class":
         return np.digitize(score, np.quantile(score, [1 / 3, 2 / 3])).astype(np.float32)
+    if kind == "rank":
+        return relevance(score)
     return np.where(rng.rand(len(score)) < 0.2, -score, score).astype(np.float32)  # censored
 
 
@@ -1667,12 +1739,14 @@ def run_sweep(torch, pkg, tag):
     same_total = trees_total = 0
     for objective, kind, extra in SWEEP:
         y = sweep_labels(kind, score, rng)
+        groups = np.full(len(y) // SWEEP_GROUP, SWEEP_GROUP) if kind == "rank" else None
         params = dict({"objective": objective, "max_depth": 6, "max_bin": 64, "eta": 0.3},
                       **extra)
         runs = {}
         for dev in (DEVICE, "cpu"):
             last = Last()
-            forest = pkg.train(params, DataMatrix(X, y), 3, evals=[(DataMatrix(X, y), "train")],
+            dm = DataMatrix(X, y, groups=groups)
+            forest = pkg.train(params, dm, 3, evals=[(dm, "train")],
                                device=dev, callbacks=[last], verbose_eval=False)
             (metric, values), = last.log.items()
             runs[dev] = (forest, metric, values[-1])
@@ -1694,6 +1768,272 @@ def run_sweep(torch, pkg, tag):
                   objective, metric, mg, mc, same, len(fc.trees)))
     print("{} | sweep: {} objectives, identical trees {}/{}".format(
         tag, len(SWEEP), same_total, trees_total), flush=True)
+
+
+def relevance(score):
+    """bench.py's BENCH_TASK=ranking relevance: 0-4 at the 50th, 75th, 90th
+    and 97th percentiles of a noisy score."""
+    return np.digitize(score, np.quantile(score, [0.5, 0.75, 0.9, 0.97])).astype(np.float32)
+
+
+def make_ranking(queries, d, seed):
+    """BASELINE.md config #4 shaped like MSLR-WEB30K: query sizes lognormal
+    with a mean of RANK_MEAN_GROUP, cut at RANK_MAX_GROUP; features and
+    relevance as bench.py's BENCH_TASK=ranking. -> (X, y, query sizes)."""
+    rng = np.random.RandomState(seed)
+    sigma = 0.8
+    sizes = np.clip(np.round(rng.lognormal(np.log(RANK_MEAN_GROUP) - sigma ** 2 / 2, sigma,
+                                           queries)), 1, RANK_MAX_GROUP).astype(np.int64)
+    n = int(sizes.sum())
+    X = rng.randn(n, d).astype(np.float32)
+    y = relevance(X[:, 0] + np.sin(X[:, 1]) + 0.5 * rng.randn(n))
+    return X, y, sizes
+
+
+def device_total(torch, fn, iters=5):
+    """Device ms and kernel launches per call of fn, every kernel counted."""
+    events = profiled_kernels(torch, fn, iters)
+    check(events, "torch.profiler recorded no device activity")
+    return (sum(_kernel_time_us(torch, e) for e in events) / 1e3 / iters,
+            sum(e.count for e in events) / iters)
+
+
+def host_syncs(torch, fn):
+    """Host syncs fn makes on the card, as torch's sync debug mode counts
+    them (a prototype: it sees cudaStreamSynchronize and the copies to or
+    from the host that wait)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+
+
+def _write_qid_channel(path, X, y, sizes):
+    os.makedirs(path)
+    qid = np.repeat(np.arange(len(sizes)), sizes)
+    with open(os.path.join(path, "data.libsvm"), "w") as f:
+        for label, q, row in zip(y, qid, X):
+            f.write("%d qid:%d " % (label, q)
+                    + " ".join("%d:%.9g" % (j, v) for j, v in enumerate(row)) + "\n")
+
+
+def run_ranking(torch, hist, pkg, tag):
+    """Phase 10a: BASELINE.md config #4 (MSLR-WEB30K-shaped rank:ndcg) at
+    full width on the card, then the train entry point over a libsvm channel
+    with qid: tokens."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranking_") as tmp:
+        _ranking(torch, hist, pkg, tag, tmp)
+        _ranking_entry(torch, hist, tag, tmp)
+    print("{} | ranking phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _ranking(torch, hist, pkg, tag, tmp):
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+    from sagemaker_xgboost_container_tpu_torch.ops import ranking
+
+    d, rounds = RANK_FEATURES, RANK_ROUNDS
+    t0 = time.perf_counter()
+    X, y, sizes = make_ranking(RANK_QUERIES, d, seed=0)
+    Xv, yv, sizes_v = make_ranking(RANK_VAL_QUERIES, d, seed=1)
+    data_s = time.perf_counter() - t0
+    print("{} | ranking data (MSLR-WEB30K shape): {} training queries, {} rows, query sizes "
+          "mean {:.1f} max {}; {} validation queries, {} rows, mean {:.1f} max {}; {} "
+          "features; data {:.3f} s".format(
+              tag, len(sizes), len(y), sizes.mean(), sizes.max(), len(sizes_v), len(yv),
+              sizes_v.mean(), sizes_v.max(), d, data_s), flush=True)
+    hist.reset_launch_counts()
+    forest, run = _profiled_train(torch, pkg, RANK_PARAMS, DataMatrix(X, y, groups=sizes),
+                                  DataMatrix(Xv, yv, groups=sizes_v), rounds, 4, 4)
+    launches = dict(hist.LAUNCHES)
+    nd, mp = run["log"]["ndcg@10"], run["log"]["map@10"]
+    print("{} | ranking (rank:ndcg, depth 8, {} rounds): setup (binning, upload, group "
+          "layout) {:.3f} s, total {:.3f} s; rounds 1-4 {:.3f} ms/round host clock = {:.3f} "
+          "rounds/s; rounds {} profiled {:.3f} ms/round".format(
+              tag, rounds, run["setup_s"], run["total_s"], run["host_ms"], 1e3 / run["host_ms"],
+              run["label"], run["profiled_ms"]), flush=True)
+    print("{} | ranking validation ndcg@10 {}; map@10 {}".format(
+        tag, [round(float(v), 5) for v in nd], [round(float(v), 5) for v in mp]), flush=True)
+    busy_ms, _ = _profile_line(tag, "ranking", run)
+    print("ranking launches: {}".format(json.dumps(launches)), flush=True)
+    check(launches == {"hist_kernel": 8 * rounds, "totals_kernel": rounds},
+          "ranking launches {}, expected 8 hist_kernel and 1 totals_kernel a round".format(
+              launches))
+    check(len(nd) == rounds and all(np.isfinite(nd)), "validation ndcg@10 missing: {}".format(nd))
+    check(nd[-1] > nd[0], "validation ndcg@10 did not rise: {}".format(nd))
+
+    # the gradient pass of a round (LambdaMART over the bucketed groups), by
+    # itself, at the trained model's margins
+    dev = torch.device(DEVICE)
+    blocks = ranking.bucket_group_layout(sizes)
+    margins = forest.predict(X, output_margin=True)
+    args = [torch.as_tensor(a, device=dev) for a in (margins, y, np.ones_like(y))]
+    blocks_dev = [torch.as_tensor(b, device=dev) for b in blocks]
+    call = lambda: ranking.lambdarank_grad_hess(*args, blocks_dev, scheme="ndcg")  # noqa: E731
+    grad_ms = time_ms(torch, call, iters=5, warmup=1)
+    grad_dev_ms, grad_launches = device_total(torch, call)
+    grad_syncs = host_syncs(torch, call)
+    pairs = sum(b.shape[0] * b.shape[1] ** 2 for b in blocks)
+    real = int((sizes.astype(np.int64) ** 2).sum())
+    print("{} | ranking gradient pass: {} blocks, {} padded pairs for {} within groups ({} "
+          "if every query were padded to the largest); {:.3f} ms (CUDA events), device "
+          "{:.3f} ms in {:.0f} launches = {:.1%} of a round's device time; {} host "
+          "syncs".format(tag, len(blocks), pairs, real, len(sizes) * int(sizes.max()) ** 2,
+                         grad_ms, grad_dev_ms, grad_launches, grad_dev_ms / busy_ms,
+                         grad_syncs), flush=True)
+    check(grad_syncs == 0, "the ranking gradient pass waits for the device")
+
+    # GPU against CPU gradients on a subset of the queries
+    sub = int(sizes[:RANK_GRAD_QUERIES].sum())
+    grads = {}
+    for where in (DEVICE, "cpu"):
+        a = [torch.as_tensor(v[:sub], device=where) for v in (margins, y, np.ones_like(y))]
+        b = [torch.as_tensor(v, device=where)
+             for v in ranking.bucket_group_layout(sizes[:RANK_GRAD_QUERIES])]
+        grads[where] = [t.cpu().numpy() for t in ranking.lambdarank_grad_hess(
+            *a, b, scheme="ndcg")]
+    g_err = float(np.abs(grads[DEVICE][0] - grads["cpu"][0]).max())
+    h_err = float(np.abs(grads[DEVICE][1] - grads["cpu"][1]).max())
+    g_scale = max(1.0, float(np.abs(grads["cpu"][0]).max()))
+    h_scale = max(1.0, float(np.abs(grads["cpu"][1]).max()))
+    print("{} | ranking gradients, {} queries ({} rows), GPU vs CPU: grad max_abs_err {:.3e} "
+          "(largest |g| {:.3e}), hess max_abs_err {:.3e} (largest |h| {:.3e})".format(
+              tag, RANK_GRAD_QUERIES, sub, g_err, g_scale, h_err, h_scale), flush=True)
+    check(g_err <= 1e-5 * g_scale and h_err <= 1e-5 * h_scale,
+          "GPU ranking gradients differ from the CPU's")
+
+    path = os.path.join(tmp, "xgboost-model")
+    forest.save_model(path)
+    x = Xv[:N_RANK_PREDICT]
+    pred = Forest.load_model(path, device=DEVICE).predict(x)
+    ref = Forest.load_model(path, device="cpu").predict(x)
+    err = float(np.abs(pred - ref).max())
+    print("{} | ranking model: {} validation rows, GPU vs CPU predict max_abs_err {:.3e}".format(
+        tag, len(x), err), flush=True)
+    check(pred.shape == (len(x),) and np.all(np.isfinite(pred)), "bad ranking predictions")
+    check(err <= 1e-5, "GPU predict differs from CPU predict by {}".format(err))
+
+
+def _ranking_entry(torch, hist, tag, tmp):
+    """sagemaker_train with rank:pairwise over libsvm channels with qid:
+    tokens: one HPO line a round with validation-ndcg@5 and validation-map@10."""
+    import contextlib
+    import io
+
+    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
+
+    (q_train, q_val), d = RANK_ENTRY_QUERIES, RANK_FEATURES
+    X, y, sizes = make_ranking(q_train + q_val, d, seed=7)
+    n = int(sizes[:q_train].sum())
+    train_dir, val_dir = os.path.join(tmp, "entry", "train"), os.path.join(tmp, "entry", "val")
+    _write_qid_channel(train_dir, X[:n], y[:n], sizes[:q_train])
+    _write_qid_channel(val_dir, X[n:], y[n:], sizes[q_train:])
+    channel = {"ContentType": "text/libsvm", "TrainingInputMode": "File",
+               "S3DistributionType": "FullyReplicated"}
+    hist.reset_launch_counts()
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        algorithm_train.sagemaker_train(
+            dict(RANK_ENTRY_HP), {"train": channel, "validation": dict(channel)}, train_dir,
+            val_dir, os.path.join(tmp, "entry", "model"), ["algo-1"], "algo-1", {},
+            device=DEVICE)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t
+    lines = _metric_lines(out.getvalue())
+    rounds = int(RANK_ENTRY_HP["num_round"])
+    print("{} | ranking entry point (rank:pairwise, libsvm with qid:, {} + {} queries, {} + "
+          "{} rows): {:.3f} s, launches {}; last line {}".format(
+              tag, q_train, q_val, n, len(y) - n, entry_s, json.dumps(dict(hist.LAUNCHES)),
+              json.dumps(lines.get(rounds - 1))), flush=True)
+    check(sorted(lines) == list(range(rounds)), "metric lines for rounds {}".format(sorted(lines)))
+    for metric in ("ndcg@5", "map@10"):
+        for data in ("train", "validation"):
+            values = [lines[r].get("{}-{}".format(data, metric)) for r in range(rounds)]
+            check(all(v is not None and 0.0 <= v <= 1.0 for v in values),
+                  "{}-{} lines: {}".format(data, metric, values))
+        check(re.search(HPO_REGEX.format(re.escape(metric)), out.getvalue()),
+              "no HPO line for validation-{}".format(metric))
+    check(dict(hist.LAUNCHES) == {"hist_kernel": 6 * rounds, "totals_kernel": rounds},
+          "entry launches {}".format(dict(hist.LAUNCHES)))
+    check(os.path.exists(os.path.join(tmp, "entry", "model", "xgboost-model")), "no model written")
+
+
+def run_lossguide(torch, hist, pkg, dtrain, dval, tag):
+    """Phase 10b: bench.py's BENCH_TASK=lossguide at full width on the card:
+    the main path's 1M x 28 rows, 255 leaves a tree, unbounded depth."""
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+    from sagemaker_xgboost_container_tpu_torch.ops import lossguide
+
+    t = time.perf_counter()
+    rounds, leaves = LOSSGUIDE_ROUNDS, LOSSGUIDE_PARAMS["max_leaves"]
+    subtract = lossguide._subtraction_enabled(leaves, dtrain.num_col, 257)
+    # the split steps never wait for the device: a tree of 64 leaves makes
+    # the host syncs of a tree of 8
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(3)
+    n, d = dtrain.num_row, dtrain.num_col
+    bins = torch.as_tensor(rng.randint(0, 257, (n, d)).astype(np.uint16), device=dev)
+    g = torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
+    h = torch.as_tensor(rng.rand(n).astype(np.float32) + 0.1, device=dev)
+    cuts = torch.full((d,), 255, dtype=torch.int32, device=dev)
+    syncs = {k: host_syncs(torch, lambda: lossguide.build_tree_lossguide(
+        bins, g, h, cuts, max_leaves=k, num_bins=257)) for k in (8, 64)}
+    print("{} | lossguide host syncs a tree: {} ({} x {} random bins)".format(
+        tag, json.dumps(syncs), n, d), flush=True)
+    check(syncs[64] == syncs[8], "a lossguide split step waits for the device")
+    del bins, g, h
+    hist.reset_launch_counts()
+    forest, run = _profiled_train(torch, pkg, LOSSGUIDE_PARAMS, dtrain, dval, rounds, 2, 2)
+    launches = dict(hist.LAUNCHES)
+    ll = run["log"]["logloss"]
+    print("{} | lossguide (binary:logistic, max_leaves {}, max_depth 0, {} rounds, {} x {} "
+          "rows): sibling subtraction {} (the rule's verdict); setup (binning, upload) {:.3f} "
+          "s, total {:.3f} s; rounds 1-2 {:.3f} ms/round host clock = {:.3f} rounds/s; rounds "
+          "{} profiled {:.3f} ms/round".format(
+              tag, leaves, rounds, dtrain.num_row, dtrain.num_col,
+              "on (the left child a step, W=1)" if subtract else "off (both children, W=2)",
+              run["setup_s"], run["total_s"], run["host_ms"], 1e3 / run["host_ms"],
+              run["label"], run["profiled_ms"]), flush=True)
+    print("{} | lossguide validation logloss {}; leaves a tree {}".format(
+        tag, [round(float(v), 5) for v in ll],
+        [int(np.sum(tr.left < 0)) for tr in forest.trees]), flush=True)
+    busy_ms, per_round = _profile_line(tag, "lossguide", run, totals=False)
+    print("{} | lossguide: {:.0f} torch kernel launches a tree".format(tag, per_round),
+          flush=True)
+    print("lossguide launches: {}".format(json.dumps(launches)), flush=True)
+    check(launches == {"hist_kernel": rounds * leaves, "totals_kernel": 0},
+          "lossguide launches {}, expected 1 + {} hist_kernel and no totals_kernel a "
+          "tree".format(launches, leaves - 1))
+    check(len(ll) == rounds and all(np.isfinite(ll)), "validation logloss missing: {}".format(ll))
+    check(all(b < a for a, b in zip(ll, ll[1:])), "validation logloss did not fall: {}".format(ll))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lossguide_") as tmp:
+        forest.save_model(os.path.join(tmp, "xgboost-model"))
+        on_gpu = Forest.load_model(os.path.join(tmp, "xgboost-model"), device=DEVICE)
+        on_cpu = Forest.load_model(os.path.join(tmp, "xgboost-model"), device="cpu")
+        x = dval.features[:N_SERVE]
+        pred, ref = on_gpu.predict(x), on_cpu.predict(x)
+        err = float(np.abs(pred - ref).max())
+        check(pred.shape == (len(x),) and np.all(np.isfinite(pred)), "bad lossguide predictions")
+        check(err <= 1e-5, "GPU predict differs from CPU predict by {}".format(err))
+        hist.reset_launch_counts()
+        rows_in = x[:N_LOSSGUIDE_SERVE]
+        serve_ms, serve_err = _serve_once(tmp, rows_in, on_cpu.predict(rows_in))
+    print("{} | lossguide model: {} validation rows, GPU vs CPU predict max_abs_err {:.3e}; "
+          "served {} rows as csv in {:.3f} ms, max_abs_err {:.3e}; serve launches {}".format(
+              tag, len(x), err, len(rows_in), serve_ms, serve_err,
+              json.dumps(dict(hist.LAUNCHES))), flush=True)
+    print("{} | lossguide phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
 
 
 def main():
@@ -1745,6 +2085,8 @@ def main():
         run_serve(torch, pkg, hist, tag)
         run_entry(torch, hist, tag)
         run_multiclass(torch, hist, pkg, tag)
+        run_ranking(torch, hist, pkg, tag)
+        run_lossguide(torch, hist, pkg, dtrain, dval, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

@@ -1,8 +1,11 @@
 """The boosting engine: ``train()``, the counterpart of ``xgb.train``.
 
-One device, eager PyTorch: each round computes the objective's grad/hess,
-grows one tree, or one per class for a multiclass objective, all C in one
-level loop (``ops/tree_build.build_tree`` on [C, n] gradients), adds the
+One device, eager PyTorch: each round computes the objective's grad/hess
+(LambdaMART gradients over the query groups for the ranking objectives,
+``ops/ranking``), grows one tree, or one per class for a multiclass
+objective, all C in one loop (``ops/tree_build.build_tree`` level by level,
+or ``ops/lossguide.build_tree_lossguide`` split by split, on [C, n]
+gradients), adds the
 trees' row outputs to the training margins ([n] or [n, C]) and their
 predictions to every eval set's margins, evaluates the eval metrics (on the
 device where the metric has a device form, else on the host), and commits
@@ -18,13 +21,15 @@ import torch
 
 from .._device import resolve_device
 from ..data.binning import bin_matrix
+from ..ops.lossguide import build_tree_lossguide
 from ..ops.predict import forest_leaf_values
+from ..ops.ranking import bucket_group_layout, lambdarank_grad_hess
 from ..ops.tree_build import build_tree, pack_tree, predict_binned, unpack_tree
 from ..toolkit import exceptions as exc
 from . import eval_metrics
 from .device_metrics import make_device_metric
 from .forest import Forest, compact_padded_tree
-from .objectives import TRAINABLE, SoftprobMulti, create_objective
+from .objectives import SoftprobMulti, create_objective
 
 # objective hyperparameters carried into the saved model
 OBJECTIVE_PARAM_KEYS = (
@@ -43,17 +48,17 @@ _RESUME_TREES_PER_PASS = 64
 class TrainConfig:
     """Parsed + defaulted booster parameters of the ported slice.
 
-    Takes every key that ``algorithm.hyperparameters`` validates, and every
-    objective but the ranking ones (``num_class`` >= 2 for multiclass).
-    Keys that do not change a depthwise gbtree model (``updater``,
-    ``predictor``, ``nthread``, ``verbosity``, ``seed``, the dart and
-    gblinear knobs, ...) are accepted and ignored, as the JAX package
-    ignores them there. What the port does not train raises ``UserError``
-    naming the parameter, rather than training something else: the ranking
-    objectives, ``grow_policy=lossguide``, ``subsample`` and
-    ``colsample_*`` below 1, ``num_parallel_tree`` above 1, monotone and
-    interaction constraints, dart, gblinear, ``process_type=update`` and
-    the exact and approx tree methods.
+    Takes every key that ``algorithm.hyperparameters`` validates and every
+    objective (``num_class`` >= 2 for multiclass), with depthwise or
+    lossguide growth (``max_leaves`` set; ``max_depth`` 0 only there).
+    Keys that do not change a gbtree model (``updater``, ``predictor``,
+    ``nthread``, ``verbosity``, ``seed``, the dart and gblinear knobs, ...)
+    are accepted and ignored, as the JAX package ignores them there. What
+    the port does not train raises ``UserError`` naming the parameter,
+    rather than training something else: ``subsample`` and ``colsample_*``
+    below 1, ``num_parallel_tree`` above 1, monotone and interaction
+    constraints, dart, gblinear, ``process_type=update`` and the exact and
+    approx tree methods.
     """
 
     def __init__(self, params):
@@ -61,8 +66,22 @@ class TrainConfig:
         self.eta = float(p.get("eta", 0.3))
         max_depth = p.get("max_depth", 6)
         self.max_depth = int(max_depth) if max_depth is not None else 6
-        if self.max_depth < 1:
-            raise exc.UserError("max_depth must be >= 1 for grow_policy='depthwise'")
+        self.grow_policy = p.get("grow_policy", "depthwise")
+        self.max_leaves = int(p.get("max_leaves", 0) or 0)
+        if self.grow_policy == "lossguide" and self.max_leaves <= 0:
+            # xgboost's 0 means unlimited; the builder's node slots need a bound
+            raise exc.UserError("grow_policy='lossguide' requires max_leaves >= 2")
+        if self.max_depth < 1 and not (self.grow_policy == "lossguide" and self.max_depth == 0):
+            raise exc.UserError(
+                "max_depth must be >= 1 for grow_policy='depthwise'; max_depth=0 "
+                "(unlimited depth) needs grow_policy='lossguide' with max_leaves"
+            )
+        # routing passes that take a row to its leaf in any tree
+        self.predict_depth = (
+            (self.max_depth if self.max_depth > 0 else self.max_leaves - 1)
+            if self.grow_policy == "lossguide"
+            else self.max_depth
+        )
         self.reg_lambda = float(p.get("lambda", 1.0))
         self.alpha = float(p.get("alpha", 0.0))
         self.gamma = float(p.get("gamma", 0.0))
@@ -85,13 +104,11 @@ class TrainConfig:
             self.max_delta_step = 0.7
 
         unsupported = []
-        if self.objective not in TRAINABLE:
-            unsupported.append("objective={!r}".format(self.objective))
         for key in ("subsample", "colsample_bytree", "colsample_bylevel", "colsample_bynode"):
             if float(p.get(key, 1.0)) < 1.0:
                 unsupported.append("{}={}".format(key, p[key]))
         checks = (
-            ("grow_policy", "depthwise", lambda v: v == "depthwise"),
+            ("grow_policy", "depthwise", lambda v: v in ("depthwise", "lossguide")),
             ("tree_method", "auto", lambda v: v in ("auto", "hist")),
             ("booster", "gbtree", lambda v: v == "gbtree"),
             ("num_parallel_tree", 1, lambda v: int(v or 1) == 1),
@@ -136,6 +153,13 @@ class _TrainingSession:
         )
         self.labels = torch.as_tensor(dtrain.labels, device=device)
         self.weights = torch.as_tensor(dtrain.get_weight(), device=device)
+        # ranking: the query groups as row-index blocks, once (a matrix
+        # without groups is one group of all its rows, as in xgboost)
+        self.rank_blocks = None
+        if self.objective.needs_groups:
+            groups = [dtrain.num_row] if dtrain.groups is None else dtrain.groups
+            self.rank_blocks = [torch.as_tensor(b, device=device)
+                                for b in bucket_group_layout(groups)]
         base = self.objective.base_margin(forest.base_score)
         self.margins = self._start_margins(forest, dtrain, base)
 
@@ -193,21 +217,29 @@ class _TrainingSession:
         """Grow one round's trees and update every margin -> host tree dict
         (arrays [max_nodes], or [C, max_nodes] for C classes)."""
         cfg = self.config
-        g, h = self.objective.grad_hess(self.margins, self.labels, self.weights)
+        if self.rank_blocks is not None:
+            g, h = lambdarank_grad_hess(self.margins, self.labels, self.weights,
+                                        self.rank_blocks, scheme=self.objective.scheme)
+        else:
+            g, h = self.objective.grad_hess(self.margins, self.labels, self.weights)
         if self.num_group > 1:
             # [n, C] -> the builder's contiguous [C, n]
             g, h = g.T.contiguous(), h.T.contiguous()
-        tree, row_out = build_tree(
-            self.bins, g, h, self.num_cuts,
-            max_depth=cfg.max_depth, num_bins=self.num_bins,
+        common = dict(
+            num_bins=self.num_bins, max_depth=cfg.max_depth,
             reg_lambda=cfg.reg_lambda, alpha=cfg.alpha, gamma=cfg.gamma,
             min_child_weight=cfg.min_child_weight, eta=cfg.eta,
             max_delta_step=cfg.max_delta_step,
         )
+        if cfg.grow_policy == "lossguide":
+            tree, row_out = build_tree_lossguide(
+                self.bins, g, h, self.num_cuts, max_leaves=cfg.max_leaves, **common)
+        else:
+            tree, row_out = build_tree(self.bins, g, h, self.num_cuts, **common)
         self.margins += row_out if self.num_group == 1 else row_out.T
         for _name, _dm, bins, _labels, _weights, margins in self.eval_sets:
             if bins is not None:
-                out = predict_binned(tree, bins, cfg.max_depth, self.num_bins)
+                out = predict_binned(tree, bins, cfg.predict_depth, self.num_bins)
                 margins += out if self.num_group == 1 else out.T
         return unpack_tree(pack_tree(tree))
 
@@ -225,7 +257,8 @@ class _TrainingSession:
                         host = self._host_predictions(m)
                     preds, prob_matrix = host
                     value = eval_metrics.evaluate(
-                        metric_name, preds, dm.labels, dm.weights, prob_matrix=prob_matrix)
+                        metric_name, preds, dm.labels, dm.weights, groups=dm.groups,
+                        prob_matrix=prob_matrix)
                 results.append((name, metric_name, value))
         return results
 

@@ -3,9 +3,9 @@
 Numpy versions evaluated on *transformed* predictions (probabilities for
 logistic, class probabilities for the multiclass metrics), with the JAX
 package's semantics. The booster evaluates a metric here only where it has
-no device form (``device_metrics``): ``mphe``, ``aucpr``, ``aft-nloglik``
-and ``interval-regression-accuracy``. The ranking metrics (``ndcg``,
-``map``) wait for the ranking objectives.
+no device form (``device_metrics``): ``mphe``, ``aucpr``, ``aft-nloglik``,
+``interval-regression-accuracy`` and the ranking metrics ``ndcg`` and
+``map`` (with or without ``@k``), which take the query groups.
 
 Each metric: fn(preds, labels, weights) -> float. ``preds`` is what
 ``Objective.margin_to_prediction`` returns except for the multiclass
@@ -193,6 +193,53 @@ def interval_regression_accuracy(preds, labels, weights=None):
     )
 
 
+def _dcg_at(scores_sorted_labels, k):
+    gains = (2.0**scores_sorted_labels - 1.0) / np.log2(np.arange(2, len(scores_sorted_labels) + 2))
+    if k:
+        gains = gains[:k]
+    return gains.sum()
+
+
+def ndcg(preds, labels, weights=None, groups=None, k=None):
+    """Mean NDCG over query groups (groups = group-size array; None is one
+    group of all rows). A group without a relevant document scores 1."""
+    if groups is None:
+        groups = np.asarray([len(labels)])
+    out, start = [], 0
+    for size in groups:
+        size = int(size)
+        sl = slice(start, start + size)
+        start += size
+        lab = labels[sl]
+        order = np.argsort(-preds[sl], kind="stable")
+        dcg = _dcg_at(lab[order], k)
+        ideal = _dcg_at(np.sort(lab)[::-1], k)
+        out.append(dcg / ideal if ideal > 0 else 1.0)
+    return float(np.mean(out))
+
+
+def map_metric(preds, labels, weights=None, groups=None, k=None):
+    """Mean average precision over query groups (binary relevance, label >
+    0). A group without a relevant document scores 1."""
+    if groups is None:
+        groups = np.asarray([len(labels)])
+    out, start = [], 0
+    for size in groups:
+        size = int(size)
+        sl = slice(start, start + size)
+        start += size
+        lab = (labels[sl] > 0).astype(np.float64)
+        order = np.argsort(-preds[sl], kind="stable")
+        rel = lab[order]
+        if k:
+            rel = rel[:k]
+        hits = np.cumsum(rel)
+        precisions = hits / np.arange(1, len(rel) + 1)
+        denom = rel.sum()
+        out.append(float((precisions * rel).sum() / denom) if denom > 0 else 1.0)
+    return float(np.mean(out))
+
+
 _SIMPLE = {
     "rmse": rmse,
     "mse": mse,
@@ -214,20 +261,25 @@ _SIMPLE = {
 }
 
 _MULTI = {"merror": merror, "mlogloss": mlogloss}
+_RANKING = {"ndcg": ndcg, "map": map_metric}
 
 
 def is_native_metric(name):
     base = name.split("@")[0]
-    return base in _SIMPLE or base in _MULTI
+    return base in _SIMPLE or base in _MULTI or base in _RANKING
 
 
-def evaluate(name, preds, labels, weights=None, prob_matrix=None):
-    """Dispatch one metric by its (possibly @-suffixed) name."""
+def evaluate(name, preds, labels, weights=None, groups=None, prob_matrix=None):
+    """Dispatch one metric by its (possibly @-suffixed) name; ``groups``
+    (group sizes) are read by the ranking metrics only."""
     base, _, suffix = name.partition("@")
     if base in _MULTI:
         if prob_matrix is None:
             raise exc.AlgorithmError("metric {} needs the probability matrix".format(name))
         return _MULTI[base](prob_matrix, labels, weights)
+    if base in _RANKING:
+        k = int(float(suffix)) if suffix else None
+        return _RANKING[base](preds, labels, weights, groups=groups, k=k)
     if base == "error" and suffix:
         return error(preds, labels, weights, threshold=float(suffix))
     if base == "tweedie-nloglik" and suffix:

@@ -6,10 +6,10 @@
 
 Every objective of xgboost that the container serves is registered, so a
 model of any of them loads and predicts. Gradients follow the published
-XGBoost objective definitions (the JAX package's formulas, elementwise) and
-exist for ``TRAINABLE``: every objective but the ranking ones, whose
-gradients need query groups; those raise ``UserError`` naming the
-objective when training asks for them.
+XGBoost objective definitions (the JAX package's formulas, elementwise).
+Every registered objective trains (``TRAINABLE``): the ranking ones need
+query groups, so their ``grad_hess`` raises and the booster computes their
+gradients with ``ops.ranking.lambdarank_grad_hess`` over the group layout.
 """
 
 import math
@@ -39,16 +39,14 @@ class Objective:
     name = None
     num_output_group = 1
     default_metric = "rmse"
+    needs_groups = False
 
     def __init__(self, params=None):
         self.params = params or {}
         self.scale_pos_weight = float(self.params.get("scale_pos_weight", 1.0))
 
     def grad_hess(self, margin, label, weight):
-        raise exc.UserError(
-            "Training with objective '{}' is not supported by the PyTorch port yet; "
-            "it can only predict with such a model".format(self.name)
-        )
+        raise NotImplementedError
 
     def validate_labels(self, labels):
         pass
@@ -348,19 +346,35 @@ class SurvivalCox(Objective):
         return np.exp(margin)
 
 
-class RankPairwise(Objective):
-    """rank:pairwise / rank:ndcg / rank:map; the prediction is the margin."""
+class LambdaRankObjective(Objective):
+    """rank:pairwise / rank:ndcg / rank:map: LambdaMART gradients; the
+    prediction is the margin.
+
+    Gradients need the query-group layout, so the booster routes these
+    through ``ops.ranking.lambdarank_grad_hess``; this class carries the
+    scheme (the part of the name after ``rank:``)."""
 
     name = "rank:pairwise"
     default_metric = "map"
+    needs_groups = True
+
+    def __init__(self, params=None):
+        super().__init__(params)
+        self.scheme = self.name.split(":")[1]
+
+    def grad_hess(self, margin, label, weight):
+        raise exc.AlgorithmError(
+            "ranking objectives need group info; the booster must route through "
+            "ops.ranking.lambdarank_grad_hess"
+        )
 
 
-class RankNdcg(RankPairwise):
+class RankNdcg(LambdaRankObjective):
     name = "rank:ndcg"
     default_metric = "ndcg"
 
 
-class RankMap(RankPairwise):
+class RankMap(LambdaRankObjective):
     name = "rank:map"
     default_metric = "map"
 
@@ -383,16 +397,15 @@ _REGISTRY = {
         SoftprobMulti,
         SurvivalAft,
         SurvivalCox,
-        RankPairwise,
+        LambdaRankObjective,
         RankNdcg,
         RankMap,
     ]
 }
 _REGISTRY["reg:linear"] = SquaredError  # deprecated alias
 
-# the objectives whose gradients the port computes: all but ranking
-TRAINABLE = tuple(sorted(
-    name for name, cls in _REGISTRY.items() if not issubclass(cls, RankPairwise)))
+# the objectives the port trains: every registered one
+TRAINABLE = tuple(sorted(_REGISTRY))
 
 
 def create_objective(name, params=None):

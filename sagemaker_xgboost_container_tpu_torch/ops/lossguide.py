@@ -1,0 +1,182 @@
+"""Leaf-wise (lossguide) tree growth: best-gain-first splitting to max_leaves.
+
+The JAX package's ``ops/lossguide.py`` for one device, as an eager loop:
+
+* node slots are allocated in order (root 0; split step t creates 2t+1 and
+  2t+2), with explicit child indices: the tree layout of ``tree_build``;
+* ``max_leaves - 1`` split steps; each picks the leaf with the best stored
+  candidate gain, routes its rows, and histograms the two fresh children
+  (only the left one when sibling subtraction is on: the right one is the
+  cached parent minus the left);
+* every leaf keeps its best-split candidate, so a step's pick is a max over
+  node slots, not over rows.
+
+A step that cannot split (no leaf gains more than ``MIN_SPLIT_LOSS``) is
+masked, never branched on: the loop enqueues every step's work without
+waiting for the device, and such a step changes nothing.
+
+C trees (one per class of a multiclass round) grow together on ``[C, n]``
+gradients: each step is one histogram launch for all classes, and each class
+picks its own leaf.
+"""
+
+import torch
+
+from .histogram import level_histogram, subtraction_enabled
+from .split import find_best_splits, leaf_weight
+from .tree_build import MIN_SPLIT_LOSS, row_bin_lookup
+
+
+def _subtraction_enabled(max_leaves, d, num_bins):
+    """Sibling subtraction for leaf-wise growth: needs a [2*max_leaves-1, d,
+    B] f32 cache of G and H per class, gated by the shared memory cap."""
+    return subtraction_enabled(2 * (2 * max_leaves - 1) * d * num_bins * 4)
+
+
+def build_tree_lossguide(
+    bins,
+    grad,
+    hess,
+    num_cuts,
+    max_leaves,
+    num_bins,
+    max_depth=0,
+    reg_lambda=1.0,
+    alpha=0.0,
+    gamma=0.0,
+    min_child_weight=1.0,
+    eta=0.3,
+    max_delta_step=0.0,
+):
+    """Grow one leaf-wise tree on grad, hess [n], or C trees on [C, n].
+    Returns (tree tensors dict, row_out f32 [n] or [C, n]).
+
+    The tree dict has ``build_tree``'s keys, each of length
+    ``2 * max_leaves - 1`` (or [C, that]); slots no split created stay
+    self-looped leaves. ``max_depth`` 0 leaves the depth unbounded (at most
+    ``max_leaves - 1``).
+    """
+    single = grad.dim() == 1
+    if single:
+        grad, hess = grad[None], hess[None]
+    C, n = grad.shape
+    d = bins.shape[1]
+    B = num_bins
+    dev = bins.device
+    max_nodes = 2 * max_leaves - 1
+    depth_cap = max_depth if max_depth > 0 else max_leaves
+    cls = torch.arange(C, device=dev)
+    # fills, not copies from the host: the step loop never waits for the device
+    neg_inf = torch.full((), float("-inf"), device=dev)
+
+    def full(value, dtype):
+        return torch.full((C, max_nodes), value, dtype=dtype, device=dev)
+
+    ids = torch.arange(max_nodes, dtype=torch.int32, device=dev).expand(C, -1)
+    tree = {
+        "feature": full(0, torch.int32),
+        "bin": full(0, torch.int32),
+        "default_left": full(False, torch.bool),
+        "is_leaf": full(True, torch.bool),
+        "leaf_value": full(0.0, torch.float32),
+        "base_weight": full(0.0, torch.float32),
+        "gain": full(0.0, torch.float32),
+        "sum_hess": full(0.0, torch.float32),
+        "left": ids.clone(),
+        "right": ids.clone(),
+    }
+    # per-leaf best-split candidate store
+    cand = {
+        "gain": full(float("-inf"), torch.float32),
+        "feature": full(0, torch.int32),
+        "bin": full(0, torch.int32),
+        "default_left": full(False, torch.bool),
+    }
+    node_g = full(0.0, torch.float32)
+    node_h = full(0.0, torch.float32)
+    node_depth = full(0, torch.int32)
+    node_of_row = torch.zeros((C, n), dtype=torch.int32, device=dev)
+
+    def scan(G, H):
+        """[C, W, d, B] histograms -> the split scan's dict of [C, W]."""
+        W = G.shape[1]
+        splits = find_best_splits(
+            G.reshape(C * W, d, B), H.reshape(C * W, d, B), num_cuts,
+            reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
+            min_child_weight=min_child_weight,
+        )
+        return {k: v.reshape(C, W) for k, v in splits.items()}
+
+    def store(slot, splits, k, gain):
+        cand["gain"][:, slot] = gain
+        for key in ("feature", "bin", "default_left"):
+            cand[key][:, slot] = splits[key][:, k]
+        node_g[:, slot] = splits["g_total"][:, k]
+        node_h[:, slot] = splits["h_total"][:, k]
+
+    subtract = _subtraction_enabled(max_leaves, d, B)
+    G, H = level_histogram(bins, grad, hess, node_of_row, 1, B)
+    if subtract:
+        hist_G = torch.zeros((C, max_nodes, d, B), dtype=torch.float32, device=dev)
+        hist_H = torch.zeros_like(hist_G)
+        hist_G[:, 0], hist_H[:, 0] = G[:, 0], H[:, 0]
+    root = scan(G, H)
+    store(0, root, 0, root["gain"][:, 0])
+
+    for t in range(max_leaves - 1):
+        id_a, id_b = 2 * t + 1, 2 * t + 2
+        gains = torch.where(tree["is_leaf"], cand["gain"], neg_inf)
+        leaf = torch.argmax(gains, dim=1)  # the first of equal gains
+        best = gains[cls, leaf]
+        can = best > MIN_SPLIT_LOSS
+        f, b, dl = (cand[k][cls, leaf] for k in ("feature", "bin", "default_left"))
+
+        # mark the split (nothing changes where the step cannot split)
+        for key, value in (("feature", f), ("bin", b), ("default_left", dl),
+                           ("is_leaf", False), ("gain", best), ("left", id_a),
+                           ("right", id_b)):
+            tree[key][cls, leaf] = torch.where(can, value, tree[key][cls, leaf])
+        cand["gain"].index_put_((cls, leaf), neg_inf)  # picked: never again
+
+        # route the leaf's rows to the fresh children
+        row_bin = row_bin_lookup(bins, f[:, None].expand(C, n))
+        go_right = torch.where(row_bin == B - 1, ~dl[:, None], row_bin > b[:, None])
+        in_leaf = (node_of_row == leaf[:, None].int()) & can[:, None]
+        node_of_row = torch.where(in_leaf, id_a + go_right.int(), node_of_row)  # id_b = id_a + 1
+
+        depth = node_depth[cls, leaf] + 1
+        node_depth[:, id_a] = depth
+        node_depth[:, id_b] = depth
+        # the fresh slots hold no row unless the step split
+        if subtract:
+            # histogram only the left child; right = cached parent - left,
+            # zero when the step could not split
+            left_local = torch.where(node_of_row == id_a, 0, -1).int()
+            Ga, Ha = level_histogram(bins, grad, hess, left_local, 1, B)
+            keep = can[:, None, None]
+            Gb = torch.where(keep, hist_G[cls, leaf] - Ga[:, 0], 0.0)
+            Hb = torch.where(keep, hist_H[cls, leaf] - Ha[:, 0], 0.0)
+            hist_G[:, id_a], hist_G[:, id_b] = Ga[:, 0], Gb
+            hist_H[:, id_a], hist_H[:, id_b] = Ha[:, 0], Hb
+            G, H = torch.stack([Ga[:, 0], Gb], dim=1), torch.stack([Ha[:, 0], Hb], dim=1)
+        else:
+            child_local = torch.where(
+                node_of_row == id_a, 0, torch.where(node_of_row == id_b, 1, -1)).int()
+            G, H = level_histogram(bins, grad, hess, child_local, 2, B)
+        splits = scan(G, H)
+        # children at the depth cap never split; those of a step that could
+        # not split hold no rows and are never picked
+        open_ = (can & (depth < depth_cap))[:, None]
+        child_gain = torch.where(open_, splits["gain"], neg_inf)
+        store(id_a, splits, 0, child_gain[:, 0])
+        store(id_b, splits, 1, child_gain[:, 1])
+
+    weight = leaf_weight(node_g, node_h, reg_lambda=reg_lambda, alpha=alpha,
+                         max_delta_step=max_delta_step)
+    tree["base_weight"] = weight
+    tree["sum_hess"] = node_h
+    tree["leaf_value"] = torch.where(tree["is_leaf"], eta * weight, 0.0)
+    row_out = torch.gather(tree["leaf_value"], 1, node_of_row.long())
+    if single:
+        return {k: v[0] for k, v in tree.items()}, row_out[0]
+    return tree, row_out

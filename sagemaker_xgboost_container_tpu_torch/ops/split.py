@@ -54,7 +54,8 @@ def find_best_splits(
     h_cum = torch.cumsum(H[:, :, :nbins], dim=-1)
 
     parent = _score(g_total, h_total, reg_lambda, alpha)[:, None, None]
-    neg_inf = torch.tensor(float("-inf"), device=G.device)
+    # a fill, not a copy from the host, which would wait for the device
+    neg_inf = torch.full((), float("-inf"), device=G.device)
 
     def _gain(gl, hl):
         gr = g_total[:, None, None] - gl

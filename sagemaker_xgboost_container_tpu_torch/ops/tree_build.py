@@ -94,7 +94,7 @@ def build_tree(
     }
     node_of_row = torch.zeros((C, n), dtype=torch.int32, device=dev)
     row_out = torch.zeros((C, n), dtype=torch.float32, device=dev)
-    minus_one = torch.tensor(-1, dtype=torch.int32, device=dev)
+    minus_one = torch.full((), -1, dtype=torch.int32, device=dev)  # no host copy
 
     subtract = _subtraction_enabled(max_depth, d, num_bins)
     G_cache = H_cache = None      # previous level's [C, W/2, d, B] histograms

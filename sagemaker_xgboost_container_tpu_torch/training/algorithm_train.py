@@ -11,11 +11,16 @@ substrings re-raise as UserError. The validated hyperparameters, among them
 as they are; without ``eval_metric`` the objective's default metric makes
 the metric lines the tuner reads.
 
-Not ported yet, each refused with a ``UserError`` naming it: more than one
-host (``SM_HOSTS``), k-fold cross-validation (``_kfold``, which needs a fold
-splitter in place of sklearn's), custom (sklearn) metrics, and what
-``booster.TrainConfig`` refuses: the ranking objectives, lossguide, row and
-column sampling and ``num_parallel_tree`` above 1.
+Every objective trains, the ranking ones with the query groups of the
+channel (libsvm ``qid:`` tokens or ``.group`` sidecar files; a csv channel,
+or one without groups, is one group of all its rows), with depthwise or
+lossguide growth; ranking metric lines read ``validation-ndcg@10`` and so
+on. Not ported yet, each refused with a ``UserError`` naming it: more than
+one host (``SM_HOSTS``), k-fold cross-validation (``_kfold``, which needs a
+fold splitter in place of sklearn's), custom (sklearn) metrics, and what
+``booster.TrainConfig`` refuses: row and column sampling,
+``num_parallel_tree`` above 1, constraints, dart, gblinear,
+``process_type=update`` and the exact and approx tree methods.
 """
 
 import logging

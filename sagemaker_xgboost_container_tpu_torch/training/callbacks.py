@@ -131,7 +131,8 @@ def get_callbacks(
                 rounds=early_stopping_rounds,
                 data_name=early_stopping_data_name,
                 metric_name=early_stopping_metric,
-                maximize=early_stopping_metric in XGB_MAXIMIZE_METRICS,
+                # ndcg@10 and map@5 rise as ndcg and map do
+                maximize=early_stopping_metric.partition("@")[0] in XGB_MAXIMIZE_METRICS,
                 save_best=is_master,
             )
         )

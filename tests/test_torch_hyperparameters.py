@@ -214,13 +214,24 @@ def test_train_config_takes_every_validated_key():
     ("interaction_constraints", "[[0, 1]]"), ("max_depth", "0"),
 ])
 def test_train_config_refuses_what_the_slice_does_not_train(key, value):
+    """Refusals, and (since the port trains them) acceptance of the ranking
+    objectives and of lossguide with max_leaves."""
     from sagemaker_xgboost_container_tpu_torch.models.booster import TrainConfig
 
     config = {"num_round": "10", "tree_method": "hist", key: value}
     if key == "process_type":
         config["updater"] = "refresh"
+    accepted = value in ("rank:pairwise", "rank:ndcg", "lossguide")
+    if value == "lossguide":
+        config["max_leaves"] = "31"
     validated = hyperparameters.initialize(metrics.initialize()).validate(config)
     if "updater" in validated:
         validated["updater"] = ",".join(validated["updater"])
+    if accepted:
+        train_config = TrainConfig(validated)
+        assert getattr(train_config, key) == value
+        if value == "lossguide":
+            assert (train_config.max_leaves, train_config.predict_depth) == (31, 6)
+        return
     with pytest.raises(exc.UserError, match=key if key != "max_depth" else "max_depth must be"):
         TrainConfig(validated)

@@ -59,11 +59,12 @@ def test_device_metric_matches_jax(objective, name):
 
 
 def test_metrics_without_a_device_form_go_to_the_host():
-    for name in ("mphe", "aucpr", "aft-nloglik", "interval-regression-accuracy"):
+    for name in ("mphe", "aucpr", "aft-nloglik", "interval-regression-accuracy", "ndcg",
+                 "ndcg@10", "map", "map@5"):
         assert device_metrics.make_device_metric(name, "reg:squarederror") is None
         assert eval_metrics.is_native_metric(name)
     assert device_metrics.make_device_metric("auc", "multi:softmax", 3) is None
-    assert not eval_metrics.is_native_metric("ndcg")
+    assert not eval_metrics.is_native_metric("nosuchmetric")
 
 
 HOST_CASES = ["rmse", "mse", "mae", "mape", "rmsle", "mphe", "logloss", "error",
@@ -102,4 +103,4 @@ def test_host_metrics_refuse_what_they_cannot_compute():
     with pytest.raises(exc.UserError, match="interval-censored"):
         eval_metrics.evaluate("interval-regression-accuracy", np.ones(3), np.ones(3))
     with pytest.raises(exc.UserError, match="Unknown eval metric"):
-        eval_metrics.evaluate("ndcg@5", np.ones(3), np.ones(3))
+        eval_metrics.evaluate("nosuchmetric@5", np.ones(3), np.ones(3))

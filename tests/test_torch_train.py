@@ -242,7 +242,7 @@ def test_stack_builds_each_slice_once_under_concurrency(trained, monkeypatch):
         {"colsample_bytree": 0.5},
         {"colsample_bylevel": 0.5},
         {"colsample_bynode": 0.5},
-        {"grow_policy": "lossguide"},
+        {"grow_policy": "lossguide", "max_leaves": 8},
         {"objective": "rank:pairwise"},
         {"monotone_constraints": [1, 0]},
         {"interaction_constraints": [[0, 1]]},
@@ -252,7 +252,13 @@ def test_stack_builds_each_slice_once_under_concurrency(trained, monkeypatch):
     ],
 )
 def test_parameters_outside_the_slice_raise(params):
+    """Refusals, and (since the port trains them) acceptance of lossguide
+    with max_leaves and of the ranking objectives."""
     name = next(iter(params))
+    if name in ("grow_policy", "objective"):
+        config = TrainConfig(dict(PARAMS, **params))
+        assert getattr(config, name) == params[name]
+        return
     with pytest.raises(exc.UserError, match=name):
         TrainConfig(dict(PARAMS, **params))
 

@@ -369,7 +369,7 @@ def test_entry_module_needs_a_gpu(tmp_path):
     ("script_mode", "script mode"),
     ("parquet", "parquet"),
     ("custom_metric", "custom metrics.*accuracy"),
-    ("objective", "objective='rank:pairwise'"),
+    ("booster", "booster='dart'"),
 ])
 def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monkeypatch):
     tree = _tree(str(tmp_path), "csv")
@@ -386,8 +386,8 @@ def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monk
                 "train_path": str(tmp_path / "pq"), "val_path": None}
     elif case == "custom_metric":
         hp["eval_metric"] = "accuracy"
-    elif case == "objective":
-        hp["objective"], hp["eval_metric"] = "rank:pairwise", "rmse"
+    elif case == "booster":
+        hp["booster"] = "dart"
     if case == "script_mode":
         _sm_env(monkeypatch, tmp_path / "sm", dict(hp, sagemaker_program="train.py"),
                 CSV_CHANNELS)
