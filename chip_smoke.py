@@ -123,7 +123,35 @@ Phases (each prints its own lines; any failure exits non-zero):
    totals_kernel launch, validation logloss falling every round, rounds/s
    over rounds 1-2 and device ms and torch launches a round over rounds
    3-4; the model saved, loaded and predicting 10k rows on the GPU against
-   the CPU, and served once through `serving_entrypoint`.
+   the CPU, and served once through `serving_entrypoint`;
+11. sampling, bagging and cross-validation. First both kernels at the
+   fold axis of fold-parallel CV against their plain versions and timed:
+   u16 [250,000, 28], B=257, C=5 folds, W=16 for hist and W=32 for totals,
+   each fold's held-out fifth at g=h=0. 11a: AWS's customer-churn example
+   (`binary:logistic`, max_depth 5, eta 0.2, gamma 4, min_child_weight 6,
+   subsample 0.8, max_bin 256) on the main path's rows for 10 rounds, and
+   three variants adding colsample_bytree, colsample_bylevel or
+   colsample_bynode 0.8: 5 hist_kernel and 1 totals_kernel launches a
+   round, rounds/s over rounds 2-6 on the host clock and launches, device
+   ms and busy share over rounds 7-9 (torch.profiler), the mask draw's
+   device time, each round's kept share within 4 binomial sigma of 0.8, and
+   validation logloss falling every round; then the four on 20,000 x 9
+   rows on the GPU and on the CPU with the GPU's draws replayed (phase 9's
+   rule for the last-round metric; predict within 1e-5). 11b: xgboost's
+   random-forest recipe (num_parallel_tree 100, subsample 0.8,
+   colsample_bynode 0.8, eta 1, max_depth 5, one round) on the main path's
+   rows beside a single tree: wall s, 5 hist_kernel and 1 totals_kernel
+   launches a tree, torch launches and device ms (torch.profiler), the
+   validation logloss of each; the forest saved, predicting within 1e-5 of
+   the CPU and served once. 11c: k-fold CV through the train entry point
+   on phase 8's csv channels (depth 5, 20 rounds): `_kfold=5,
+   _num_cv_round=2, eval_metric=logloss,auc` in this process, on the
+   fold-parallel path (all 10 fold runs on the class axis: 5 hist_kernel
+   and 1 totals_kernel launches a round), 10 models, predictions.csv of
+   250,000 rows and three CV metric lines; then `eval_metric=accuracy,f1,
+   auc`, `_num_cv_round=1` in a child process (the feval takes the
+   sequential path: a line a round a fold with validation-accuracy and
+   validation-f1); the two runs' CV means of auc within 1e-2.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -407,15 +435,27 @@ def class_nodes(rng, kind, n, W, classes):
     return np.stack([node_distribution(rng, k, n, W) for k in kinds])
 
 
-def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag, classes=1):
-    """One hist_kernel check, on [n] or (classes > 1) [C, n] gradients;
+def held_out_weights(n, classes):
+    """[C, n]: 0 on class (fold) c's c-th C-th of the rows, 1 elsewhere: the
+    weights of fold-parallel CV, whose held-out rows add g = h = 0."""
+    w = np.ones((classes, n), np.float32)
+    for c in range(classes):
+        w[c, c * n // classes:(c + 1) * n // classes] = 0.0
+    return w
+
+
+def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag, classes=1,
+              held_out=False):
+    """One hist_kernel check, on [n] or (classes > 1) [C, n] gradients (with
+    ``held_out``, each class a CV fold whose held-out rows weigh 0);
     returns the measurement dict when timed."""
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(seed)
     shape = (n,) if classes == 1 else (classes, n)
     bins = torch.as_tensor(rng.randint(0, B, (n, d)).astype(np_dtype), device=dev)
-    grad = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
-    hess = torch.as_tensor((rng.rand(*shape) + 0.1).astype(np.float32), device=dev)
+    fold_w = held_out_weights(n, classes) if held_out else np.ones(shape, np.float32)
+    grad = torch.as_tensor(rng.randn(*shape).astype(np.float32) * fold_w, device=dev)
+    hess = torch.as_tensor((rng.rand(*shape) + 0.1).astype(np.float32) * fold_w, device=dev)
     node = torch.as_tensor(class_nodes(rng, kind, n, W, classes), device=dev)
 
     G, H = hist.level_histogram(bins, grad, hess, node, W, B)
@@ -427,14 +467,16 @@ def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag, classes
                 float(Hp.abs().max()) if G.numel() else 0.0)
     tol = 1e-4 * scale
     # integer-valued weights sum exactly in f32: the cells must match bitwise
-    ones = torch.ones_like(grad)
-    ints = torch.as_tensor(rng.randint(0, 4, shape).astype(np.float32), device=dev)
+    ones = torch.as_tensor(fold_w, device=dev)
+    ints = torch.as_tensor(rng.randint(0, 4, shape).astype(np.float32) * fold_w, device=dev)
     Ge, He = hist.level_histogram(bins, ones, ints, node, W, B)
     Gq, Hq = hist._hist_plain(bins, ones, ints, node, W, B)
     exact = bool(torch.equal(Ge, Gq) and torch.equal(He, Hq))
     label = "hist_kernel n={} d={} {} B={} W={} nodes={}".format(n, d, bins.dtype, B, W, kind)
     if classes > 1:
         label += " C={}".format(classes)
+    if held_out:
+        label += " folds, held-out rows g=h=0"
     print("{} | {}: max_abs_err={:.3e} tol={:.3e} exact_integer_check={}".format(
         tag, label, err, tol, exact), flush=True)
     check(err <= tol, "{} disagrees with its plain version".format(label))
@@ -511,14 +553,15 @@ def device_ms(torch, fn, prefix, iters=20):
     return per
 
 
-def totals_case(torch, hist, n, W, kind, seed, timed, tag, classes=1):
-    """One totals_kernel check, on [n] or (classes > 1) [C, n] gradients;
-    returns the measurement dict when timed."""
+def totals_case(torch, hist, n, W, kind, seed, timed, tag, classes=1, held_out=False):
+    """One totals_kernel check, on [n] or (classes > 1) [C, n] gradients
+    (``held_out`` as hist_case's); returns the measurement dict when timed."""
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(seed)
     shape = (n,) if classes == 1 else (classes, n)
-    grad = torch.as_tensor(rng.randn(*shape).astype(np.float32), device=dev)
-    hess = torch.as_tensor((rng.rand(*shape) + 0.1).astype(np.float32), device=dev)
+    fold_w = held_out_weights(n, classes) if held_out else np.ones(shape, np.float32)
+    grad = torch.as_tensor(rng.randn(*shape).astype(np.float32) * fold_w, device=dev)
+    hess = torch.as_tensor((rng.rand(*shape) + 0.1).astype(np.float32) * fold_w, device=dev)
     node = torch.as_tensor(class_nodes(rng, kind, n, W, classes), device=dev)
     g, h = hist.node_totals(grad, hess, node, W)
     gp, hp = hist._totals_plain(grad, hess, node, W)
@@ -529,14 +572,16 @@ def totals_case(torch, hist, n, W, kind, seed, timed, tag, classes=1):
     err = max(float((g - gp).abs().max()), float((h - hp).abs().max()))
     tol = 1e-4 * max(1.0, float(gp.abs().max()), float(hp.abs().max()))
     same = bool(torch.equal(g, g2) and torch.equal(h, h2))
-    ones = torch.ones_like(grad)
-    ints = torch.as_tensor(rng.randint(0, 4, shape).astype(np.float32), device=dev)
+    ones = torch.as_tensor(fold_w, device=dev)
+    ints = torch.as_tensor(rng.randint(0, 4, shape).astype(np.float32) * fold_w, device=dev)
     ge, he = hist.node_totals(ones, ints, node, W)
     gq, hq = hist._totals_plain(ones, ints, node, W)
     exact = bool(torch.equal(ge, gq) and torch.equal(he, hq))
     label = "totals_kernel n={} W={} nodes={}".format(n, W, kind)
     if classes > 1:
         label += " C={}".format(classes)
+    if held_out:
+        label += " folds, held-out rows g=h=0"
     print("{} | {}: max_abs_err={:.3e} tol={:.3e} exact_integer_check={} "
           "bitwise_equal_second_call={}".format(tag, label, err, tol, exact, same), flush=True)
     check(err <= tol, "{} disagrees with its plain version".format(label))
@@ -1559,13 +1604,15 @@ def run_multiclass(torch, hist, pkg, tag):
     print("{} | multiclass phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
 
 
-def _profiled_train(torch, pkg, params, dtrain, dval, rounds, host_rounds, profile_rounds):
+def _profiled_train(torch, pkg, params, dtrain, dval, rounds, host_rounds, profile_rounds,
+                    sampler=None):
     """Train on the card with the host clock over rounds 1..host_rounds
     (0-based, after round 0's warm-up) and torch.profiler (device activity)
     over the next profile_rounds rounds; should that session record no
     device activity, the round after it is profiled instead, where there is
-    one. -> (forest, dict: the validation metrics, setup s, total s, host ms
-    a round, profiled ms a round, the profiled rounds, _device_rows' tuple)."""
+    one. ``sampler``: train()'s ``_sampler``. -> (forest, dict: the
+    validation metrics, setup s, total s, host ms a round, profiled ms a
+    round, the profiled rounds, _device_rows' tuple)."""
     profile = lambda: torch.profiler.profile(  # noqa: E731
         activities=[torch.profiler.ProfilerActivity.CUDA])
     start, stop = host_rounds, host_rounds + profile_rounds
@@ -1604,7 +1651,7 @@ def _profiled_train(torch, pkg, params, dtrain, dval, rounds, host_rounds, profi
 
     t0 = time.perf_counter()
     forest = pkg.train(params, dtrain, rounds, evals=[(dval, "validation")], device=DEVICE,
-                       callbacks=[Window()], verbose_eval=False)
+                       callbacks=[Window()], verbose_eval=False, _sampler=sampler)
     torch.cuda.synchronize()
     p0 = start + 2
     out = {"log": log, "setup_s": marks[0] - t0, "total_s": time.perf_counter() - t0,
@@ -2036,6 +2083,348 @@ def run_lossguide(torch, hist, pkg, dtrain, dval, tag):
     print("{} | lossguide phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
 
 
+# ---------------------------------------------------------------- phase 11
+
+# AWS's customer-churn / direct-marketing XGBoost examples (max_depth=5,
+# eta=0.2, gamma=4, min_child_weight=6, subsample=0.8), on the main path's rows
+CHURN_PARAMS = {"objective": "binary:logistic", "max_depth": 5, "eta": 0.2, "gamma": 4,
+                "min_child_weight": 6, "subsample": 0.8, "max_bin": 256,
+                "tree_method": "hist"}
+SAMPLING_VARIANTS = (("churn", {}), ("+colsample_bytree", {"colsample_bytree": 0.8}),
+                     ("+colsample_bylevel", {"colsample_bylevel": 0.8}),
+                     ("+colsample_bynode", {"colsample_bynode": 0.8}))
+SAMPLING_ROUNDS = 10
+# xgboost's "Random Forests in XGBoost" recipe, one round of 100 trees
+RF_PARAMS = {"objective": "binary:logistic", "num_parallel_tree": 100, "subsample": 0.8,
+             "colsample_bynode": 0.8, "eta": 1.0, "max_depth": 5, "max_bin": 256,
+             "tree_method": "hist"}
+# k-fold CV through the entry point on phase 8's csv channels, depth 5
+KFOLD_HP = {"objective": "binary:logistic", "max_depth": "5", "max_bin": "256",
+            "tree_method": "hist", "eta": "0.2", "num_round": "20", "_kfold": "5",
+            "_num_cv_round": "2", "eval_metric": "logloss,auc"}
+KFOLD_FEVAL_HP = dict(KFOLD_HP, _num_cv_round="1", eval_metric="accuracy,f1,auc")
+# the CV means of the fold-parallel and the sequential runs: other splits and
+# other cuts (the whole matrix against each fold's rows), so only this close
+KFOLD_MEAN_TOL = 1e-2
+FOLD_SHAPE = (250_000, 28, 16, 5)  # rows, features, W, folds
+
+
+class _RecordingSampler:
+    """Wraps a Sampler, keeping every round's draws (to replay them on the
+    CPU, and for the kept share)."""
+
+    def __init__(self, inner):
+        self.inner, self.draws = inner, {}
+
+    def draw(self, rnd):
+        self.draws[rnd] = self.inner.draw(rnd)
+        return self.draws[rnd]
+
+
+class _ReplaySampler:
+    """Replays recorded draws on another device."""
+
+    def __init__(self, draws, device):
+        self.draws, self.device = draws, device
+
+    def draw(self, rnd):
+        from sagemaker_xgboost_container_tpu_torch.models.sampling import TreeDraw
+        from sagemaker_xgboost_container_tpu_torch.ops.split import ColumnMasks
+
+        def move(t):
+            return None if t is None else t.to(self.device)
+
+        return [TreeDraw(move(keep), None if masks is None else ColumnMasks(*map(move, masks)))
+                for keep, masks in self.draws[rnd]]
+
+
+def _sampler_for(params, dm):
+    from sagemaker_xgboost_container_tpu_torch.models.booster import TrainConfig
+    from sagemaker_xgboost_container_tpu_torch.models.sampling import Sampler
+
+    return _RecordingSampler(Sampler(TrainConfig(params), dm.num_row, dm.num_col, DEVICE))
+
+
+def run_sampling(torch, hist, pkg, dtrain, dval, tag):
+    """Phase 11: row and column sampling, a random forest and k-fold CV."""
+    t = time.perf_counter()
+    for n, d, W, C in (FOLD_SHAPE,):
+        hist_case(torch, hist, n, d, W, 257, np.uint16, "random", 70 + C, True, tag,
+                  classes=C, held_out=True)
+        # the last level of a depth-5 tree: 32 nodes a fold
+        totals_case(torch, hist, n, 2 * W, "random", 71 + C, True, tag, classes=C,
+                    held_out=True)
+    run_sampled_training(torch, hist, pkg, dtrain, dval, tag)
+    run_sampling_replay(torch, pkg, tag)
+    run_forest(torch, hist, pkg, dtrain, dval, tag)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kfold_") as tmp:
+        run_kfold(torch, hist, tag, tmp)
+    print("{} | sampling phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def run_sampled_training(torch, hist, pkg, dtrain, dval, tag):
+    """11a: the churn example's parameters and three colsample variants on
+    the main path's rows: rounds/s, launches, device ms, the mask draw's
+    device time, the kept share and a falling validation logloss."""
+    n = dtrain.num_row
+    for name, extra in SAMPLING_VARIANTS:
+        params = dict(CHURN_PARAMS, **extra)
+        sampler = _sampler_for(params, dtrain)
+        hist.reset_launch_counts()
+        forest, run = _profiled_train(torch, pkg, params, dtrain, dval, SAMPLING_ROUNDS, 5, 3,
+                                      sampler=sampler)
+        launches = dict(hist.LAUNCHES)
+        draw_ms, draw_launches = device_total(torch, lambda: sampler.inner.draw(0))
+        kept = [float(d[0].keep.mean()) for _, d in sorted(sampler.draws.items())]
+        sigma = np.sqrt(0.8 * 0.2 / n)
+        ll = run["log"]["logloss"]
+        print("{} | sampling {} ({}): setup {:.3f} s, total {:.3f} s; rounds 2-6 {:.3f} "
+              "ms/round host clock = {:.3f} rounds/s; rounds {} profiled {:.3f} ms/round; "
+              "mask draw {:.4f} ms device time in {:.0f} launches a round; kept share {} "
+              "(0.8 +- 4 sigma = {:.5f})".format(
+                  tag, name, json.dumps(params), run["setup_s"], run["total_s"],
+                  run["host_ms"], 1e3 / run["host_ms"], run["label"], run["profiled_ms"],
+                  draw_ms, draw_launches, [round(k, 5) for k in kept], 4 * sigma), flush=True)
+        print("{} | sampling {} validation logloss {}".format(
+            tag, name, [round(float(v), 5) for v in ll]), flush=True)
+        _profile_line(tag, "sampling " + name, run)
+        print("sampling {} launches: {}".format(name, json.dumps(launches)), flush=True)
+        check(launches == {"hist_kernel": 5 * SAMPLING_ROUNDS, "totals_kernel": SAMPLING_ROUNDS},
+              "sampling {} launches {}, expected 5 hist_kernel and 1 totals_kernel a "
+              "round".format(name, launches))
+        check(len(kept) == SAMPLING_ROUNDS and all(abs(k - 0.8) <= 4 * sigma for k in kept),
+              "sampling {}: kept shares {}".format(name, kept))
+        check(len(ll) == SAMPLING_ROUNDS and all(np.isfinite(ll)),
+              "validation logloss missing: {}".format(ll))
+        check(all(b < a for a, b in zip(ll, ll[1:])),
+              "sampling {}: validation logloss did not fall: {}".format(name, ll))
+        check(len(forest.trees) == SAMPLING_ROUNDS, "expected one tree a round")
+
+
+def run_sampling_replay(torch, pkg, tag):
+    """11a on SWEEP_SHAPE rows: the four parameter sets on the GPU and on the
+    CPU with the GPU's draws replayed (phase 9's rule for the last-round
+    metric; GPU and CPU predict of the GPU's model within 1e-5, and of the
+    two models within 1e-5 where every tree is the same)."""
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    X, y = make_data(*SWEEP_SHAPE, seed=13)
+    dm = DataMatrix(X, y)
+
+    class Last:
+        def after_iteration(self, forest, rnd, evals_log):
+            self.value = evals_log["train"]["logloss"][-1]
+            return False
+
+    for name, extra in SAMPLING_VARIANTS:
+        params = dict(CHURN_PARAMS, **extra)
+        sampler = _sampler_for(params, dm)
+        runs = {}
+        for dev, smp in ((DEVICE, sampler), ("cpu", None)):
+            last = Last()
+            smp = smp or _ReplaySampler(sampler.draws, "cpu")
+            forest = pkg.train(params, dm, 3, evals=[(dm, "train")], device=dev,
+                               callbacks=[last], verbose_eval=False, _sampler=smp)
+            runs[dev] = (forest, last.value)
+        (fg, mg), (fc, mc) = runs[DEVICE], runs["cpu"]
+        diffs = [_first_split_difference(a, b) for a, b in zip(fg.trees, fc.trees)]
+        same = sum(d is None for d in diffs)
+        with tempfile.TemporaryDirectory() as tmp:
+            fg.save_model(os.path.join(tmp, "m"))
+            fg_cpu = Forest.load_model(os.path.join(tmp, "m"), device="cpu")
+        x = X[:2000]
+        gpu_cpu = float(np.abs(fg.predict(x) - fg_cpu.predict(x)).max())
+        runs_dp = float(np.abs(fg.predict(x) - fc.predict(x)).max())
+        print("{} | sampling replay {} ({} x {}, 3 rounds): train logloss GPU {:.6f} CPU "
+              "{:.6f}; identical trees {}/{} (first difference: {}); predict of the GPU's "
+              "model GPU vs CPU max_abs_err {:.3e}; GPU vs CPU models {:.3e}".format(
+                  tag, name, X.shape[0], X.shape[1], mg, mc, same, len(fc.trees),
+                  next((d for d in diffs if d), "none"), gpu_cpu, runs_dp), flush=True)
+        tol = SWEEP_METRIC_TOL if same == len(fc.trees) else SWEEP_SPLIT_TOL
+        check(np.isfinite(mg) and abs(mg - mc) <= tol * max(1.0, abs(mc)),
+              "sampling replay {}: GPU logloss {} against CPU {}".format(name, mg, mc))
+        check(gpu_cpu <= 1e-5, "sampling replay {}: GPU predict differs from CPU predict by "
+              "{}".format(name, gpu_cpu))
+        check(same < len(fc.trees) or runs_dp <= 1e-5,
+              "sampling replay {}: identical trees predict {} apart".format(name, runs_dp))
+
+
+def run_forest(torch, hist, pkg, dtrain, dval, tag):
+    """11b: one round of 100 bagged trees (the random-forest recipe) on the
+    main path's rows, against a single tree of the same parameters; the
+    forest saved and served once."""
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    results = {}
+    for trees in (RF_PARAMS["num_parallel_tree"], 1):
+        params = dict(RF_PARAMS, num_parallel_tree=trees)
+        for attempt in range(PROFILE_ATTEMPTS):
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            marks = []
+
+            class Window:
+                def before_training(self, forest):
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+                    prof.start()
+                    return forest
+
+                def after_iteration(self, forest, rnd, evals_log):
+                    torch.cuda.synchronize()
+                    prof.stop()
+                    marks.append(time.perf_counter())
+                    self.log = evals_log["validation"]["logloss"]
+                    return False
+
+            window = Window()
+            hist.reset_launch_counts()
+            t0 = time.perf_counter()
+            forest = pkg.train(params, dtrain, 1, evals=[(dval, "validation")], device=DEVICE,
+                               callbacks=[window], verbose_eval=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(hist.LAUNCHES)
+            rows, busy_ms, per_round, kernel_ms, kernel_calls = _device_rows(torch, prof, 1)
+            if rows:
+                break
+            print("  torch.profiler recorded no device activity (attempt {} of {})".format(
+                attempt + 1, PROFILE_ATTEMPTS), flush=True)
+        results[trees] = (forest, window.log[-1])
+        print("{} | forest {} trees ({}): wall {:.3f} s (setup {:.3f} s, the round {:.3f} s "
+              "profiled); launches {}; {:.0f} torch kernel launches, device {:.3f} ms "
+              "(histogram {:.3f} ms in {:.0f} launches); validation logloss {:.5f}".format(
+                  tag, trees, json.dumps(params), wall, marks[0] - t0, marks[1] - marks[0],
+                  json.dumps(launches), per_round, busy_ms, kernel_ms("hist_"),
+                  kernel_calls("hist_"), window.log[-1]), flush=True)
+        check(rows, "torch.profiler recorded no device activity")
+        check(launches == {"hist_kernel": 5 * trees, "totals_kernel": trees},
+              "forest launches {}, expected 5 hist_kernel and 1 totals_kernel a tree".format(
+                  launches))
+        check(len(forest.trees) == trees and forest.iteration_indptr == [0, trees],
+              "expected {} trees in one round".format(trees))
+        check(np.isfinite(window.log[-1]), "forest logloss {}".format(window.log[-1]))
+    rf, ll = results[RF_PARAMS["num_parallel_tree"]]
+    print("{} | forest: validation logloss of 100 trees {:.5f} against one tree's {:.5f}".format(
+        tag, ll, results[1][1]), flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_forest_") as tmp:
+        rf.save_model(os.path.join(tmp, "xgboost-model"))
+        on_cpu = Forest.load_model(os.path.join(tmp, "xgboost-model"), device="cpu")
+        rows_in = dval.features[:N_LOSSGUIDE_SERVE]
+        want = on_cpu.predict(rows_in)
+        err = float(np.abs(rf.predict(rows_in) - want).max())
+        check(err <= 1e-5, "forest: GPU predict differs from CPU predict by {}".format(err))
+        serve_ms, serve_err = _serve_once(tmp, rows_in, want)
+    print("{} | forest model: GPU vs CPU predict max_abs_err {:.3e}; served {} rows as csv in "
+          "{:.3f} ms, max_abs_err {:.3e}".format(tag, err, len(rows_in), serve_ms, serve_err),
+          flush=True)
+
+
+def _cv_lines(stdout, num_round):
+    """The print_cv_metric lines ("[num_round]\t...") -> list of dicts."""
+    return [{k: float(v) for k, v in (p.split(":") for p in m.group(2).split("\t"))}
+            for m in map(HPO_LINE.match, stdout.splitlines())
+            if m and int(m.group(1)) == num_round]
+
+
+def run_kfold(torch, hist, tag, tmp):
+    """11c: k-fold CV through the train entry point on phase 8's channels:
+    fold-parallel in this process (launch counts), then with a feval (the
+    sequential path) in a child process as SageMaker starts it."""
+    import contextlib
+    import io
+
+    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
+
+    X, y = make_data(ENTRY_TRAIN_ROWS + ENTRY_VAL_ROWS, N_FEATURES, seed=ENTRY_SEED)
+    X[np.random.RandomState(ENTRY_SEED + 1).rand(*X.shape) < ENTRY_MISSING] = np.nan
+    n = ENTRY_TRAIN_ROWS
+    train_dir, val_dir = os.path.join(tmp, "train"), os.path.join(tmp, "validation")
+    _write_csv_channel(train_dir, X[:n], y[:n])
+    _write_csv_channel(val_dir, X[n:], y[n:])
+    channel = {"ContentType": "csv", "TrainingInputMode": "File",
+               "S3DistributionType": "FullyReplicated"}
+    data_config = {"train": channel, "validation": dict(channel)}
+    rounds, repeats, k = int(KFOLD_HP["num_round"]), int(KFOLD_HP["_num_cv_round"]), 5
+
+    # (i) fold-parallel, in this process
+    model_dir, out_dir = os.path.join(tmp, "model-parallel"), os.path.join(tmp, "out-parallel")
+    os.environ["SM_OUTPUT_DATA_DIR"] = out_dir
+    hist.reset_launch_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            algorithm_train.sagemaker_train(dict(KFOLD_HP), data_config, train_dir, val_dir,
+                                            model_dir, ["algo-1"], "algo-1", {}, device=DEVICE)
+    finally:
+        os.environ.pop("SM_OUTPUT_DATA_DIR", None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hist.LAUNCHES)
+    cv = _cv_lines(out.getvalue(), rounds)
+    models = sorted(os.listdir(model_dir))
+    preds = np.loadtxt(os.path.join(out_dir, "predictions.csv"), delimiter=",")
+    # the folds of both repeats ride the class axis together: C = 10
+    print("{} | kfold fold-parallel (_kfold 5, _num_cv_round 2, {} rounds, {} rows): wall "
+          "{:.3f} s; launches {} = {:.0f} hist_kernel and {:.0f} totals_kernel a round for all "
+          "{} folds; models {}; predictions.csv {}".format(
+              tag, rounds, len(X), wall, json.dumps(launches), launches["hist_kernel"] / rounds,
+              launches["totals_kernel"] / rounds, k * repeats, models, preds.shape), flush=True)
+    for line in cv:
+        print("{} | kfold fold-parallel CV means {}".format(tag, json.dumps(line)), flush=True)
+    check(launches == {"hist_kernel": 5 * rounds, "totals_kernel": rounds},
+          "kfold launches {}, expected 5 hist_kernel and 1 totals_kernel a round for all "
+          "folds".format(launches))
+    check(models == ["xgboost-model-{}".format(i) for i in range(k * repeats)],
+          "kfold models {}".format(models))
+    check(preds.shape == (len(X), 3) and np.all(np.isfinite(preds)),
+          "predictions.csv {}".format(preds.shape))
+    check(len(cv) == repeats + 1 and all(np.isfinite(list(c.values())).all() for c in cv),
+          "{} CV metric lines".format(len(cv)))
+
+    # (ii) a feval (accuracy, f1): the sequential path, in a child process
+    conf = os.path.join(tmp, "config")
+    os.makedirs(conf)
+    for name, cfg in (("hyperparameters.json", KFOLD_FEVAL_HP),
+                      ("inputdataconfig.json", data_config)):
+        with open(os.path.join(conf, name), "w") as f:
+            json.dump(cfg, f)
+    env = {key: v for key, v in os.environ.items() if not key.startswith(("SM_", "SAGEMAKER_"))}
+    env.update({
+        "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+        "SM_INPUT_TRAINING_CONFIG_FILE": os.path.join(conf, "hyperparameters.json"),
+        "SM_INPUT_DATA_CONFIG_FILE": os.path.join(conf, "inputdataconfig.json"),
+        "SM_CHECKPOINT_CONFIG_FILE": os.path.join(conf, "checkpointconfig.json"),
+        "SM_CHANNEL_TRAIN": train_dir, "SM_CHANNEL_VALIDATION": val_dir,
+        "SM_MODEL_DIR": os.path.join(tmp, "model-seq"),
+        "SM_OUTPUT_DIR": os.path.join(tmp, "output-seq"),
+        "SM_OUTPUT_DATA_DIR": os.path.join(tmp, "output-seq", "data"),
+        "SM_HOSTS": '["algo-1"]', "SM_CURRENT_HOST": "algo-1"})
+    rc, stdout, err, child_s = _run_entry_child(env)
+    failure = os.path.join(tmp, "output-seq", "failure")
+    check(rc == 0, "the kfold entry point exited {}: {} {}".format(
+        rc, open(failure).read()[-2000:] if os.path.exists(failure) else "", err[-2000:]))
+    lines = [m for m in map(HPO_LINE.match, stdout.splitlines()) if m]
+    per_round = [m for m in lines if int(m.group(1)) < rounds]
+    seq_cv = _cv_lines(stdout, rounds)
+    keys = [p.split(":")[0] for p in per_round[0].group(2).split("\t")] if per_round else []
+    print("{} | kfold sequential with a feval (_kfold 5, _num_cv_round 1, child process): exit "
+          "0 in {:.3f} s; {} metric lines of {}; CV means {}".format(
+              tag, child_s, len(per_round), keys, json.dumps(seq_cv)), flush=True)
+    check(len(per_round) == k * rounds and all(
+        "validation-accuracy:" in m.group(2) and "validation-f1:" in m.group(2)
+        for m in per_round), "the sequential CV printed {} metric lines".format(len(per_round)))
+    check(len(seq_cv) == 1, "{} CV metric lines".format(len(seq_cv)))
+    gaps = {key: abs(cv[-1][key] - seq_cv[0][key]) for key in ("train-auc", "validation-auc")}
+    print("{} | kfold CV means, fold-parallel (2 repeats) against sequential (1): gaps {}".format(
+        tag, json.dumps(gaps)), flush=True)
+    check(all(g <= KFOLD_MEAN_TOL for g in gaps.values()),
+          "CV means differ by {}".format(gaps))
+    check(sorted(os.listdir(os.path.join(tmp, "model-seq"))) == [
+        "xgboost-model-{}".format(i) for i in range(k)], "sequential kfold models")
+
+
 def main():
     try:
         import torch
@@ -2087,6 +2476,7 @@ def main():
         run_multiclass(torch, hist, pkg, tag)
         run_ranking(torch, hist, pkg, tag)
         run_lossguide(torch, hist, pkg, dtrain, dval, tag)
+        run_sampling(torch, hist, pkg, dtrain, dval, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

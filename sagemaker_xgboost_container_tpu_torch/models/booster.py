@@ -2,15 +2,17 @@
 
 One device, eager PyTorch: each round computes the objective's grad/hess
 (LambdaMART gradients over the query groups for the ranking objectives,
-``ops/ranking``), grows one tree, or one per class for a multiclass
-objective, all C in one loop (``ops/tree_build.build_tree`` level by level,
-or ``ops/lossguide.build_tree_lossguide`` split by split, on [C, n]
-gradients), adds the
-trees' row outputs to the training margins ([n] or [n, C]) and their
-predictions to every eval set's margins, evaluates the eval metrics (on the
-device where the metric has a device form, else on the host), and commits
-the compacted trees to the Forest. The only host work per round is pulling
-the trees' small node arrays and the metric scalars.
+``ops/ranking``), grows ``num_parallel_tree`` trees, or that many per class
+for a multiclass objective, all C in one loop (``ops/tree_build.build_tree``
+level by level, or ``ops/lossguide.build_tree_lossguide`` split by split,
+on [C, n] gradients), adds the trees' row outputs to the training margins
+([n] or [n, C]) and their predictions to every eval set's margins,
+evaluates the eval metrics (on the device where the metric has a device
+form, else on the host) and the ``feval``, and commits the compacted trees
+to the Forest. Row and column sampling multiply the gradients by a row keep
+mask and the split scan by feature masks, drawn each round by
+``models/sampling``. The only host work per round is pulling the trees'
+small node arrays and the metric scalars.
 
 Callback protocol mirrors xgboost's (before_training / after_iteration ->
 bool stop / after_training), which is how early stopping hooks in.
@@ -30,6 +32,7 @@ from . import eval_metrics
 from .device_metrics import make_device_metric
 from .forest import Forest, compact_padded_tree
 from .objectives import SoftprobMulti, create_objective
+from .sampling import Sampler
 
 # objective hyperparameters carried into the saved model
 OBJECTIVE_PARAM_KEYS = (
@@ -50,15 +53,16 @@ class TrainConfig:
 
     Takes every key that ``algorithm.hyperparameters`` validates and every
     objective (``num_class`` >= 2 for multiclass), with depthwise or
-    lossguide growth (``max_leaves`` set; ``max_depth`` 0 only there).
-    Keys that do not change a gbtree model (``updater``, ``predictor``,
-    ``nthread``, ``verbosity``, ``seed``, the dart and gblinear knobs, ...)
-    are accepted and ignored, as the JAX package ignores them there. What
-    the port does not train raises ``UserError`` naming the parameter,
-    rather than training something else: ``subsample`` and ``colsample_*``
-    below 1, ``num_parallel_tree`` above 1, monotone and interaction
-    constraints, dart, gblinear, ``process_type=update`` and the exact and
-    approx tree methods.
+    lossguide growth (``max_leaves`` set; ``max_depth`` 0 only there), row
+    and column sampling (``subsample``, ``colsample_bytree``,
+    ``colsample_bylevel``, ``colsample_bynode``, drawn from ``seed``) and
+    bagged rounds (``num_parallel_tree``). Keys that do not change a gbtree
+    model (``updater``, ``predictor``, ``nthread``, ``verbosity``, the dart
+    and gblinear knobs, ...) are accepted and ignored, as the JAX package
+    ignores them there. What the port does not train raises ``UserError``
+    naming the parameter, rather than training something else: monotone
+    and interaction constraints, dart, gblinear, ``process_type=update``
+    and the exact and approx tree methods.
     """
 
     def __init__(self, params):
@@ -95,6 +99,11 @@ class TrainConfig:
         else:
             self.max_bin = 256
         self.seed = int(p.get("seed", 0))
+        self.subsample = float(p.get("subsample", 1.0))
+        self.colsample_bytree = float(p.get("colsample_bytree", 1.0))
+        self.colsample_bylevel = float(p.get("colsample_bylevel", 1.0))
+        self.colsample_bynode = float(p.get("colsample_bynode", 1.0))
+        self.num_parallel_tree = int(p.get("num_parallel_tree", 1) or 1)
         self.objective = p.get("objective", "reg:squarederror")
         self.num_class = int(p.get("num_class", 0) or 0)
         self.base_score = float(p.get("base_score", 0.5))
@@ -104,14 +113,10 @@ class TrainConfig:
             self.max_delta_step = 0.7
 
         unsupported = []
-        for key in ("subsample", "colsample_bytree", "colsample_bylevel", "colsample_bynode"):
-            if float(p.get(key, 1.0)) < 1.0:
-                unsupported.append("{}={}".format(key, p[key]))
         checks = (
             ("grow_policy", "depthwise", lambda v: v in ("depthwise", "lossguide")),
             ("tree_method", "auto", lambda v: v in ("auto", "hist")),
             ("booster", "gbtree", lambda v: v == "gbtree"),
-            ("num_parallel_tree", 1, lambda v: int(v or 1) == 1),
             ("process_type", "default", lambda v: v == "default"),
             ("monotone_constraints", None, lambda v: not v),
             ("interaction_constraints", None, lambda v: not v),
@@ -137,7 +142,7 @@ def _eval_metric_names(config, objective):
 class _TrainingSession:
     """Device state for one training run: bins, margins, eval sets."""
 
-    def __init__(self, config, dtrain, evals, forest, metric_names, device):
+    def __init__(self, config, dtrain, evals, forest, metric_names, device, sampler=None):
         self.config = config
         self.device = device
         self.objective = forest.objective()
@@ -162,6 +167,9 @@ class _TrainingSession:
                                 for b in bucket_group_layout(groups)]
         base = self.objective.base_margin(forest.base_score)
         self.margins = self._start_margins(forest, dtrain, base)
+        if sampler is None and Sampler.needed(config):
+            sampler = Sampler(config, dtrain.num_row, self.bins.shape[1], device)
+        self.sampler = sampler
 
         # each metric on the device where it has a device form, else on the
         # host (None), as the JAX package evaluates it
@@ -195,27 +203,39 @@ class _TrainingSession:
     def _start_margins(self, forest, dm, base):
         """Margins of ``dm``'s rows before the first new round ([n], or
         [n, C] for a multi-output objective): the base margin plus the
-        resumed forest's trees, added one tree at a time in round order into
-        their class's column, as the rounds added them, so that a resumed
-        run's margins equal an uninterrupted run's bit for bit."""
+        resumed forest's trees, each round's trees summed into their class's
+        column and the sum added, as the rounds added them, so that a
+        resumed run's margins equal an uninterrupted run's bit for bit."""
         shape = (dm.num_row,) if self.num_group == 1 else (dm.num_row, self.num_group)
         margins = torch.full(shape, base, dtype=torch.float32, device=self.device)
         if forest.trees:
             x = torch.as_tensor(dm.features, device=self.device)
-            for lo in range(0, len(forest.trees), _RESUME_TREES_PER_PASS):
-                hi = min(lo + _RESUME_TREES_PER_PASS, len(forest.trees))
+            indptr = forest.iteration_indptr
+            rounds = len(indptr) - 1
+            r = 0
+            while r < rounds:
+                # the trees of whole rounds, up to _RESUME_TREES_PER_PASS a pass
+                r_hi = r + 1
+                while r_hi < rounds and indptr[r_hi + 1] - indptr[r] <= _RESUME_TREES_PER_PASS:
+                    r_hi += 1
+                lo, hi = indptr[r], indptr[r_hi]
                 _, stacked = forest._stack(lo, hi)
-                leaves = forest_leaf_values(stacked, x).unbind(1)
-                for leaf, cls in zip(leaves, forest.tree_info[lo:hi]):
-                    if self.num_group == 1:
-                        margins += leaf
-                    else:
-                        margins[:, cls] += leaf
+                leaves = forest_leaf_values(stacked, x)
+                for rr in range(r, r_hi):
+                    total = torch.zeros_like(margins)
+                    for t in range(indptr[rr], indptr[rr + 1]):
+                        if self.num_group == 1:
+                            total += leaves[:, t - lo]
+                        else:
+                            total[:, forest.tree_info[t]] += leaves[:, t - lo]
+                    margins += total
+                r = r_hi
         return margins
 
-    def run_round(self):
-        """Grow one round's trees and update every margin -> host tree dict
-        (arrays [max_nodes], or [C, max_nodes] for C classes)."""
+    def run_round(self, rnd):
+        """Grow round ``rnd``'s ``num_parallel_tree`` trees and update every
+        margin -> list of host tree dicts (arrays [max_nodes], or [C,
+        max_nodes] for C classes), one per parallel tree."""
         cfg = self.config
         if self.rank_blocks is not None:
             g, h = lambdarank_grad_hess(self.margins, self.labels, self.weights,
@@ -225,26 +245,49 @@ class _TrainingSession:
         if self.num_group > 1:
             # [n, C] -> the builder's contiguous [C, n]
             g, h = g.T.contiguous(), h.T.contiguous()
+        draws = self.sampler.draw(rnd) if self.sampler is not None else None
         common = dict(
             num_bins=self.num_bins, max_depth=cfg.max_depth,
             reg_lambda=cfg.reg_lambda, alpha=cfg.alpha, gamma=cfg.gamma,
-            min_child_weight=cfg.min_child_weight, eta=cfg.eta,
+            min_child_weight=cfg.min_child_weight,
+            # the round's trees fit the same gradients: their sum is averaged
+            eta=cfg.eta / cfg.num_parallel_tree,
             max_delta_step=cfg.max_delta_step,
         )
-        if cfg.grow_policy == "lossguide":
-            tree, row_out = build_tree_lossguide(
-                self.bins, g, h, self.num_cuts, max_leaves=cfg.max_leaves, **common)
-        else:
-            tree, row_out = build_tree(self.bins, g, h, self.num_cuts, **common)
-        self.margins += row_out if self.num_group == 1 else row_out.T
+        trees, total = [], None
+        for k in range(cfg.num_parallel_tree):
+            gk, hk, masks = g, h, None
+            if draws is not None:
+                keep, masks = draws[k]
+                if keep is not None:
+                    # dropped rows stay routed, with zero gradients
+                    gk, hk = g * keep, h * keep
+            if cfg.grow_policy == "lossguide":
+                tree, row_out = build_tree_lossguide(
+                    self.bins, gk, hk, self.num_cuts, max_leaves=cfg.max_leaves,
+                    masks=masks, **common)
+            else:
+                tree, row_out = build_tree(self.bins, gk, hk, self.num_cuts, masks=masks,
+                                           **common)
+            trees.append(tree)
+            total = row_out if total is None else total + row_out
+        self.margins += total if self.num_group == 1 else total.T
         for _name, _dm, bins, _labels, _weights, margins in self.eval_sets:
             if bins is not None:
-                out = predict_binned(tree, bins, cfg.predict_depth, self.num_bins)
+                out = None
+                for tree in trees:
+                    o = predict_binned(tree, bins, cfg.predict_depth, self.num_bins)
+                    out = o if out is None else out + o
                 margins += out if self.num_group == 1 else out.T
-        return unpack_tree(pack_tree(tree))
+        # one device-to-host copy for the round's trees
+        packed = [pack_tree(tree) for tree in trees]
+        host = (packed[0][None] if len(packed) == 1 else torch.stack(packed)).cpu().numpy()
+        return [unpack_tree(p) for p in host]
 
-    def evaluate(self):
-        """-> list of (data_name, metric_name, value) per eval set."""
+    def evaluate(self, feval=None):
+        """-> list of (data_name, metric_name, value) per eval set: the eval
+        metrics, then what ``feval(margin, dm)`` returns for the set's host
+        margins ([n] or [n, C]), the JAX package's order."""
         results = []
         for name, dm, _bins, labels, weights, margins in self.eval_sets:
             m = self.margins if margins is None else margins
@@ -260,6 +303,9 @@ class _TrainingSession:
                         metric_name, preds, dm.labels, dm.weights, groups=dm.groups,
                         prob_matrix=prob_matrix)
                 results.append((name, metric_name, value))
+            if feval is not None:
+                for metric_name, value in feval(m.cpu().numpy(), dm):
+                    results.append((name, metric_name, value))
         return results
 
     def _host_predictions(self, margins):
@@ -277,17 +323,23 @@ def train(
     dtrain,
     num_boost_round=10,
     evals=(),
+    feval=None,
     device=None,
     callbacks=None,
     verbose_eval=True,
     xgb_model=None,
+    _sampler=None,
 ):
     """Train a Forest on ``device`` (CUDA unless given). API mirrors
     ``xgb.train``: ``evals`` is a list of (DataMatrix, name) pairs whose
-    metric lines print each round when ``verbose_eval``. ``xgb_model``, a
-    Forest or a model-file path, resumes training: its trees stay, the
-    margins start from its predictions, and round numbers continue from its
-    last round."""
+    metric lines print each round when ``verbose_eval``; ``feval(margin,
+    dm)`` returns [(name, value), ...] from an eval set's raw margins, and
+    its values join the metric lines (and early stopping) after the eval
+    metrics. ``xgb_model``, a Forest or a model-file path, resumes
+    training: its trees stay, the margins start from its predictions, and
+    round numbers continue from its last round. ``_sampler``: an object
+    with ``models.sampling.Sampler``'s ``draw`` in place of the port's own
+    draws (the tests replay the JAX package's)."""
     dev = resolve_device(device)
     config = TrainConfig(params)
     callbacks = list(callbacks or [])
@@ -313,7 +365,8 @@ def train(
         raise exc.UserError("feature_names mismatch between checkpoint and data")
     forest.num_feature = max(forest.num_feature, dtrain.num_col)
     metric_names = _eval_metric_names(config, forest.objective())
-    session = _TrainingSession(config, dtrain, list(evals), forest, metric_names, dev)
+    session = _TrainingSession(config, dtrain, list(evals), forest, metric_names, dev,
+                               sampler=_sampler)
 
     for cb in callbacks:
         if hasattr(cb, "before_training"):
@@ -321,17 +374,17 @@ def train(
 
     evals_log = {}
     start_round = forest.num_boosted_rounds
+    C, P = session.num_group, config.num_parallel_tree
     for rnd in range(start_round, start_round + num_boost_round):
-        tree_np = session.run_round()
-        if session.num_group == 1:
-            forest.append_round([compact_padded_tree(tree_np, session.cuts)], [0])
+        trees_np = session.run_round(rnd)
+        # class-major: class 0's P trees, then class 1's, ... (xgboost's layout)
+        if C == 1:
+            trees = [compact_padded_tree(t, session.cuts) for t in trees_np]
         else:
-            forest.append_round(
-                [compact_padded_tree({k: v[c] for k, v in tree_np.items()}, session.cuts)
-                 for c in range(session.num_group)],
-                list(range(session.num_group)),
-            )
-        results = session.evaluate()
+            trees = [compact_padded_tree({k: v[c] for k, v in t.items()}, session.cuts)
+                     for c in range(C) for t in trees_np]
+        forest.append_round(trees, [c for c in range(C) for _ in range(P)])
+        results = session.evaluate(feval)
         for data_name, metric_name, value in results:
             evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(value)
         if verbose_eval and results:

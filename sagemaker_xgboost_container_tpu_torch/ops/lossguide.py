@@ -18,12 +18,19 @@ waiting for the device, and such a step changes nothing.
 C trees (one per class of a multiclass round) grow together on ``[C, n]``
 gradients: each step is one histogram launch for all classes, and each class
 picks its own leaf.
+
+Column sampling (``ColumnMasks``, drawn by ``models/sampling``), as the JAX
+package's lossguide applies it: the tree's column set everywhere; the
+bylevel row of a node's depth (capped at the depth limit) when its
+candidate is scored, a depth that differs per class; and for the two
+children of split step t, the bynode rows of their slots 2t+1 and 2t+2
+(the root draws none).
 """
 
 import torch
 
 from .histogram import level_histogram, subtraction_enabled
-from .split import find_best_splits, leaf_weight
+from .split import combine_masks, find_best_splits, leaf_weight
 from .tree_build import MIN_SPLIT_LOSS, row_bin_lookup
 
 
@@ -47,6 +54,7 @@ def build_tree_lossguide(
     min_child_weight=1.0,
     eta=0.3,
     max_delta_step=0.0,
+    masks=None,
 ):
     """Grow one leaf-wise tree on grad, hess [n], or C trees on [C, n].
     Returns (tree tensors dict, row_out f32 [n] or [C, n]).
@@ -55,6 +63,10 @@ def build_tree_lossguide(
     ``2 * max_leaves - 1`` (or [C, that]); slots no split created stay
     self-looped leaves. ``max_depth`` 0 leaves the depth unbounded (at most
     ``max_leaves - 1``).
+
+    ``masks``: optional ``ColumnMasks`` with ``level`` [1 or C, depth cap +
+    1, d] (the depth cap is ``max_depth``, or ``max_leaves`` when it is 0)
+    and ``node`` [1 or C, 2 * max_leaves - 1, d] (one row per node slot).
     """
     single = grad.dim() == 1
     if single:
@@ -97,15 +109,35 @@ def build_tree_lossguide(
     node_depth = full(0, torch.int32)
     node_of_row = torch.zeros((C, n), dtype=torch.int32, device=dev)
 
-    def scan(G, H):
-        """[C, W, d, B] histograms -> the split scan's dict of [C, W]."""
+    def scan(G, H, mask=None):
+        """[C, W, d, B] histograms (and a [C, W or 1, d] mask) -> the split
+        scan's dict of [C, W]."""
         W = G.shape[1]
         splits = find_best_splits(
             G.reshape(C * W, d, B), H.reshape(C * W, d, B), num_cuts,
             reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
-            min_child_weight=min_child_weight,
+            min_child_weight=min_child_weight, feature_mask=mask,
         )
         return {k: v.reshape(C, W) for k, v in splits.items()}
+
+    tree_mask = level_masks = node_masks = None
+    if masks is not None:
+        if masks.tree is not None:
+            tree_mask = masks.tree[:, None, :].expand(C, -1, -1)
+        if masks.level is not None:
+            level_masks = masks.level.expand(C, -1, -1)
+        node_masks = masks.node
+
+    def scan_mask(depth, slots=None):
+        """The mask of nodes at ``depth`` ([C], a class's own), in node
+        ``slots`` -> [C, len(slots) or 1, d], or None without sampling."""
+        level = None
+        if level_masks is not None:
+            level = level_masks[cls, torch.clamp(depth, max=depth_cap).long()][:, None, :]
+        node = None
+        if node_masks is not None and slots is not None:
+            node = node_masks[:, slots].expand(C, -1, -1)
+        return combine_masks(tree_mask, level, node)
 
     def store(slot, splits, k, gain):
         cand["gain"][:, slot] = gain
@@ -120,7 +152,7 @@ def build_tree_lossguide(
         hist_G = torch.zeros((C, max_nodes, d, B), dtype=torch.float32, device=dev)
         hist_H = torch.zeros_like(hist_G)
         hist_G[:, 0], hist_H[:, 0] = G[:, 0], H[:, 0]
-    root = scan(G, H)
+    root = scan(G, H, scan_mask(node_depth[:, 0]))
     store(0, root, 0, root["gain"][:, 0])
 
     for t in range(max_leaves - 1):
@@ -163,7 +195,7 @@ def build_tree_lossguide(
             child_local = torch.where(
                 node_of_row == id_a, 0, torch.where(node_of_row == id_b, 1, -1)).int()
             G, H = level_histogram(bins, grad, hess, child_local, 2, B)
-        splits = scan(G, H)
+        splits = scan(G, H, scan_mask(depth, slice(id_a, id_b + 1)))
         # children at the depth cap never split; those of a step that could
         # not split hold no rows and are never picked
         open_ = (can & (depth < depth_cap))[:, None]

@@ -6,10 +6,41 @@ missing direction (both placements of the missing bucket are scored and the
 larger decides ``default_left``).
 
 Histograms are [W, d, B] with B = max_bin + 1 (last slot = missing); the
-scan considers splits at bins 0..B-2 masked by each feature's cut count.
+scan considers splits at bins 0..B-2 masked by each feature's cut count and,
+under column sampling, by a feature mask.
 """
 
+import collections
+
 import torch
+
+# A tree's column-sampling masks (f32 1 = usable, 0 = not), each None when
+# that knob is off, each with a leading axis of 1 (shared by the classes of a
+# multiclass round) or C (one per class axis entry, e.g. CV folds):
+#   tree  [C, d]     colsample_bytree's column set
+#   level [C, L, d]  colsample_bylevel, one row per depth
+#   node  [C, S, d]  colsample_bynode, one row per node slot
+ColumnMasks = collections.namedtuple("ColumnMasks", ["tree", "level", "node"])
+
+
+def combine_masks(*masks):
+    """Product of the masks that are not None (0/1 values, so an AND), or
+    None when every one is None."""
+    out = None
+    for m in masks:
+        if m is not None:
+            out = m if out is None else out * m
+    return out
+
+
+def _node_feature_mask(feature_mask, W):
+    """A [d], [W, d] or class-axis [C, W/C or 1, d] mask -> [W or 1, d]."""
+    if feature_mask.dim() == 1:
+        return feature_mask[None]
+    if feature_mask.dim() == 2:
+        return feature_mask
+    C = feature_mask.shape[0]
+    return feature_mask.expand(C, W // C, -1).reshape(W, -1)
 
 
 def _threshold_l1(g, alpha):
@@ -29,6 +60,7 @@ def find_best_splits(
     alpha=0.0,
     gamma=0.0,
     min_child_weight=1.0,
+    feature_mask=None,
 ):
     """Best (feature, bin, default_dir, gain) per node at one level.
 
@@ -36,6 +68,10 @@ def find_best_splits(
       G, H: f32 [W, d, B] level histograms (B includes the missing slot).
       num_cuts: i32 [d] — number of real cut thresholds per feature; splits
         are only legal at bin < num_cuts[f].
+      feature_mask: optional colsample mask, 1 = usable: [d], [W, d] per
+        node, or with the class axis (the builder's C*W nodes, class-major)
+        [C, d] given as [C, 1, d], or [C, W/C, d]. A feature it zeroes has
+        every candidate at -inf before the argmax.
 
     Returns dict of per-node tensors (length W): gain f32, feature i32,
     bin i32, default_left bool, plus node totals g_total/h_total f32. Ties
@@ -74,6 +110,8 @@ def find_best_splits(
     # mask: split bin must be a real cut of this feature
     bin_ids = torch.arange(nbins, device=G.device)[None, :]
     legal = (bin_ids < num_cuts.to(G.device)[:, None])[None, :, :]  # [1, d, nbins]
+    if feature_mask is not None:
+        legal = legal & (_node_feature_mask(feature_mask, W) > 0)[:, :, None]
     gain_right = torch.where(legal, gain_right, neg_inf)
     gain_left = torch.where(legal, gain_left, neg_inf)
 

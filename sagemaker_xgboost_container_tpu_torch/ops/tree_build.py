@@ -11,14 +11,20 @@ A multiclass round grows its C trees together, on ``[C, n]`` gradients:
 every per-row and per-node tensor gets a leading class axis, each level's
 histogram is one call over all classes (the JAX package's ``jax.vmap`` of
 the builder, written out), and the split scan sees the ``[C*W, d, B]``
-histograms as C*W nodes.
+histograms as C*W nodes. The class axis need not hold classes: fold-parallel
+cross-validation puts its folds there (``models/cv_parallel``).
+
+Column sampling arrives as ``ColumnMasks`` (``ops/split``), drawn by the
+caller (``models/sampling``): level l scans with the tree's column set times
+row l of the level masks times the node masks of its node slots, as the
+JAX package's ``build_tree`` applies its draws.
 """
 
 import numpy as np
 import torch
 
 from .histogram import level_histogram, node_totals, subtraction_enabled
-from .split import find_best_splits, leaf_weight
+from .split import combine_masks, find_best_splits, leaf_weight
 
 MIN_SPLIT_LOSS = 1e-6  # xgboost kRtEps
 
@@ -61,10 +67,15 @@ def build_tree(
     min_child_weight=1.0,
     eta=0.3,
     max_delta_step=0.0,
+    masks=None,
 ):
     """Grow one tree on grad, hess [n], or C trees on [C, n] (one per
     class, sharing the bins). Returns (tree tensors dict, row_out f32 [n] or
     [C, n]).
+
+    ``masks``: optional ``ColumnMasks`` with ``level`` [1 or C, max_depth,
+    d] and ``node`` [1 or C, 2**max_depth - 1, d] (one row per node slot of
+    the levels that split).
 
     Tree tensors (length ``max_nodes_for_depth(max_depth)``, or [C, that]):
     feature, bin (i32), default_left (bool), is_leaf (bool), leaf_value
@@ -144,12 +155,21 @@ def build_tree(
         if subtract:
             G_cache, H_cache = G, H
 
+        feature_mask = None
+        if masks is not None:
+            feature_mask = combine_masks(
+                None if masks.tree is None else masks.tree[:, None, :],
+                None if masks.level is None else masks.level[:, level, None, :],
+                None if masks.node is None else masks.node[:, sl],
+            )
+            if feature_mask is not None:
+                feature_mask = feature_mask.expand(C, -1, -1)
         # the split scan works per node: the classes' nodes side by side
         splits = find_best_splits(
             G.reshape(C * width, d, num_bins), H.reshape(C * width, d, num_bins),
             num_cuts,
             reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
-            min_child_weight=min_child_weight,
+            min_child_weight=min_child_weight, feature_mask=feature_mask,
         )
         splits = {k: v.reshape(C, width) for k, v in splits.items()}
         weight = leaf_weight(

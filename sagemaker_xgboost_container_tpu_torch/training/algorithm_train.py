@@ -3,34 +3,40 @@
 The port's counterpart of ``sagemaker_xgboost_container_tpu/training/algorithm_train.py``
 for one host: validate hyperparameters and channels, load and check the
 data matrices, run boosting with the callback stack (metric lines,
-checkpoints, intermediate model, early stopping) on one device, and save
-the model under ``xgboost-model``. Errors matching the known customer
+checkpoints, intermediate model, early stopping) on one device, or repeated
+k-fold cross-validation (``_kfold``, ``_num_cv_round``) with out-of-fold
+predictions, and save the model(s) under ``xgboost-model`` (one a fold,
+``xgboost-model-{fold}``, for CV). Errors matching the known customer
 substrings re-raise as UserError. The validated hyperparameters, among them
-``num_class`` and the objective parameters (``tweedie_variance_power``,
-``huber_slope``, ``aft_loss_distribution``, ...), go to ``booster.train``
-as they are; without ``eval_metric`` the objective's default metric makes
-the metric lines the tuner reads.
+``num_class``, the objective parameters (``tweedie_variance_power``,
+``huber_slope``, ``aft_loss_distribution``, ...) and the sampling ones
+(``subsample``, ``colsample_*``, ``num_parallel_tree``), go to
+``booster.train`` as they are; custom metrics (``accuracy``, ``f1``, ...)
+become a feval; without ``eval_metric`` the objective's default metric
+makes the metric lines the tuner reads.
 
 Every objective trains, the ranking ones with the query groups of the
 channel (libsvm ``qid:`` tokens or ``.group`` sidecar files; a csv channel,
 or one without groups, is one group of all its rows), with depthwise or
 lossguide growth; ranking metric lines read ``validation-ndcg@10`` and so
-on. Not ported yet, each refused with a ``UserError`` naming it: more than
-one host (``SM_HOSTS``), k-fold cross-validation (``_kfold``, which needs a
-fold splitter in place of sklearn's), custom (sklearn) metrics, and what
-``booster.TrainConfig`` refuses: row and column sampling,
-``num_parallel_tree`` above 1, constraints, dart, gblinear,
+on. CV trains its folds side by side in one tree build where
+``models/cv_parallel`` allows (``GRAFT_PARALLEL_CV``, as in the JAX
+package), else one after another. Not ported yet, each refused with a
+``UserError`` naming it: more than one host (``SM_HOSTS``), and what
+``booster.TrainConfig`` refuses: constraints, dart, gblinear,
 ``process_type=update`` and the exact and approx tree methods.
 """
 
 import logging
 import os
 
+import numpy as np
+
 from .._device import resolve_device
 from ..algorithm import channels as cv
 from ..algorithm import hyperparameters as hpv
 from ..algorithm import metrics as metrics_mod
-from ..constants import CUSTOMER_ERRORS, MODEL_NAME, PIPE_MODE
+from ..constants import CUSTOMER_ERRORS, MODEL_NAME, PIPE_MODE, SM_OUTPUT_DATA_DIR
 from ..data.content_types import get_content_type
 from ..data.readers import (
     check_data_redundancy,
@@ -39,9 +45,12 @@ from ..data.readers import (
     validate_data_file_path,
 )
 from ..models import booster
+from ..models.forest import Forest
 from ..toolkit import exceptions as exc
 from . import train_utils
 from .callbacks import get_callbacks
+from .folds import RepeatedKFold, RepeatedStratifiedKFold
+from .prediction_utils import ValidationPredictionRecorder
 
 logger = logging.getLogger(__name__)
 
@@ -107,10 +116,7 @@ def sagemaker_train(
     is_pipe = input_mode == PIPE_MODE
 
     validation_channel = validated_data_config.get("validation", None)
-    if "_kfold" in validated_train_config:
-        raise exc.UserError(
-            "k-fold cross-validation (_kfold) is not supported by the PyTorch port yet"
-        )
+    combine_train_val = "_kfold" in validated_train_config
     num_hosts = len(sm_hosts)
     if num_hosts > 1:
         raise exc.UserError(
@@ -136,7 +142,7 @@ def sagemaker_train(
 
     dev = resolve_device(device)
     train_dmatrix, val_dmatrix, train_val_dmatrix = get_validated_data_matrices(
-        train_path, val_path, file_type, csv_weights, is_pipe,
+        train_path, val_path, file_type, csv_weights, is_pipe, combine_train_val,
     )
     missing_validation_data = validation_channel and not val_dmatrix
 
@@ -165,19 +171,16 @@ def train_job(
     train_cfg, train_dmatrix, val_dmatrix, train_val_dmatrix, model_dir, checkpoint_dir,
     is_master, device=None,
 ):
-    """Run boosting on this node on ``device``; save the model (master only)."""
+    """Run boosting (or repeated k-fold CV) on this node on ``device``; save
+    the model(s) (master only)."""
     train_cfg = dict(train_cfg)
     train_cfg.pop("_num_devices", None)
-    if "_kfold" in train_cfg:
-        raise exc.UserError(
-            "k-fold cross-validation (_kfold) is not supported by the PyTorch port yet"
-        )
     num_round = train_cfg.pop("num_round")
     save_model_on_termination = train_cfg.pop("save_model_on_termination", "false")
 
     tuning_objective_metric_param = train_cfg.pop("_tuning_objective_metric", None)
     eval_metric = train_cfg.get("eval_metric")
-    cleaned_eval_metric, _feval, tuning_objective_metric = (
+    cleaned_eval_metric, configured_feval, tuning_objective_metric = (
         train_utils.get_eval_metrics_and_feval(tuning_objective_metric_param, eval_metric)
     )
     if cleaned_eval_metric:
@@ -202,11 +205,8 @@ def train_job(
     if val_dmatrix:
         logger.info("Validation matrix has %d rows", val_dmatrix.num_row)
 
-    try:
-        watchlist = [(train_dmatrix, "train")]
-        if val_dmatrix is not None:
-            watchlist.append((val_dmatrix, "validation"))
-        xgb_model, iteration, callbacks = get_callbacks(
+    def callbacks_for(fold=None):
+        return get_callbacks(
             model_dir=model_dir,
             checkpoint_dir=checkpoint_dir,
             early_stopping_data_name=early_stopping_data_name,
@@ -214,18 +214,34 @@ def train_job(
             early_stopping_rounds=early_stopping_rounds,
             save_model_on_termination=save_model_on_termination,
             is_master=is_master,
+            fold=fold,
             num_round=num_round,
         )
-        bst = booster.train(
-            train_cfg,
-            train_dmatrix,
-            num_boost_round=num_round - iteration,
-            evals=watchlist,
-            device=device,
-            callbacks=callbacks,
-            verbose_eval=False,
-            xgb_model=xgb_model,
-        )
+
+    try:
+        kfold = train_cfg.pop("_kfold", None)
+        if kfold is None:
+            watchlist = [(train_dmatrix, "train")]
+            if val_dmatrix is not None:
+                watchlist.append((val_dmatrix, "validation"))
+            xgb_model, iteration, callbacks = callbacks_for()
+            bst = booster.train(
+                train_cfg,
+                train_dmatrix,
+                num_boost_round=num_round - iteration,
+                evals=watchlist,
+                feval=configured_feval,
+                device=device,
+                callbacks=callbacks,
+                verbose_eval=False,
+                xgb_model=xgb_model,
+            )
+        else:
+            bst = _cross_validate(
+                train_cfg, train_val_dmatrix, kfold, num_round, configured_feval,
+                callbacks_for, checkpoint_dir, early_stopping_rounds,
+                save_model_on_termination, device,
+            )
     except Exception as e:
         for customer_error_message in CUSTOMER_ERRORS:
             if customer_error_message in str(e):
@@ -236,7 +252,162 @@ def train_job(
 
     os.makedirs(model_dir, exist_ok=True)
     if is_master:
-        model_location = os.path.join(model_dir, MODEL_NAME)
-        bst.save_model(model_location)
-        logger.debug("Stored trained model at %s", model_location)
+        if not isinstance(bst, list):
+            model_location = os.path.join(model_dir, MODEL_NAME)
+            bst.save_model(model_location)
+            logger.debug("Stored trained model at %s", model_location)
+        else:
+            for fold, fold_booster in enumerate(bst):
+                model_location = os.path.join(model_dir, "{}-{}".format(MODEL_NAME, fold))
+                fold_booster.save_model(model_location)
+                logger.debug("Stored trained model %d at %s", fold, model_location)
     return bst
+
+
+class _EvalsRecorder:
+    """Callback: the fold's metric log, for the CV means."""
+
+    def __init__(self):
+        self.log = {}
+
+    def after_iteration(self, model, epoch, evals_log):
+        self.log = {k: dict(v) for k, v in evals_log.items()}
+        return False
+
+
+def _cross_validate(train_cfg, train_val_dmatrix, kfold, num_round, configured_feval,
+                    callbacks_for, checkpoint_dir, early_stopping_rounds,
+                    save_model_on_termination, device):
+    """Repeated k-fold CV over the train+validation rows -> the fold models,
+    fold by fold; writes the out-of-fold predictions and prints the CV
+    metric lines."""
+    num_cv_round = train_cfg.pop("_num_cv_round", 1)
+    logger.info(
+        "Run %s-round of %s-fold cross validation with %s rows",
+        num_cv_round,
+        kfold,
+        train_val_dmatrix.num_row,
+    )
+    bst = []
+    evals_results = []
+    num_class = train_cfg.get("num_class", None)
+    objective = train_cfg.get("objective") or ""
+    classification_problem = bool(num_class) or objective.startswith("binary:")
+    y = train_val_dmatrix.get_label() if classification_problem else None
+    rkf = (
+        RepeatedStratifiedKFold(n_splits=kfold, n_repeats=num_cv_round)
+        if y is not None
+        else RepeatedKFold(n_splits=kfold, n_repeats=num_cv_round)
+    )
+    val_pred = ValidationPredictionRecorder(
+        y_true=train_val_dmatrix.get_label(),
+        num_cv_round=num_cv_round,
+        classification=classification_problem,
+        output_data_dir=os.environ[SM_OUTPUT_DATA_DIR],
+    )
+    splits = list(rkf.split(X=range(train_val_dmatrix.num_row), y=y))
+
+    parallel = _try_parallel_cv(
+        train_cfg, train_val_dmatrix, splits, num_round, kfold, checkpoint_dir,
+        early_stopping_rounds, configured_feval, save_model_on_termination, device,
+    )
+    if parallel is not None:
+        bst, evals_results = parallel
+        for k, (_train_idx, val_idx) in enumerate(splits):
+            cv_val = train_val_dmatrix.slice(val_idx)
+            val_pred.record(val_idx, bst[k].predict(cv_val.features))
+            if (k + 1) % kfold == 0:
+                logger.info("The metrics of round %d cross validation", (k + 1) // kfold)
+                print_cv_metric(num_round, evals_results[k + 1 - kfold: k + 1])
+    else:
+        for train_idx, val_idx in splits:
+            cv_train = train_val_dmatrix.slice(train_idx)
+            cv_val = train_val_dmatrix.slice(val_idx)
+            xgb_model, iteration, callbacks = callbacks_for(fold=len(bst))
+            recorder = _EvalsRecorder()
+            logger.info("Train cross validation fold %d", (len(bst) % kfold) + 1)
+            fold_booster = booster.train(
+                train_cfg,
+                cv_train,
+                num_boost_round=num_round - iteration,
+                evals=[(cv_train, "train"), (cv_val, "validation")],
+                feval=configured_feval,
+                device=device,
+                callbacks=callbacks + [recorder],
+                verbose_eval=False,
+                xgb_model=xgb_model,
+            )
+            bst.append(fold_booster)
+            evals_results.append(recorder.log)
+            val_pred.record(val_idx, fold_booster.predict(cv_val.features))
+            if len(bst) % kfold == 0:
+                logger.info("The metrics of round %d cross validation", len(bst) // kfold)
+                print_cv_metric(num_round, evals_results[-kfold:])
+    val_pred.save()
+    if num_cv_round > 1:
+        logger.info("The overall metrics of %s-round cross validation", num_cv_round)
+        print_cv_metric(num_round, evals_results)
+    return bst
+
+
+def _try_parallel_cv(train_cfg, train_val_dmatrix, splits, num_round, kfold, checkpoint_dir,
+                     early_stopping_rounds, configured_feval, save_model_on_termination,
+                     device):
+    """The fold-parallel path (``models/cv_parallel``) -> (forests,
+    evals_results), or None where it does not apply: it needs no per-fold
+    host work mid-training (checkpoints, early stopping, the SIGTERM save,
+    a feval) and metrics with a device form. ``GRAFT_PARALLEL_CV=0`` turns
+    it off, as in the JAX package."""
+    if os.environ.get("GRAFT_PARALLEL_CV", "1") != "1":
+        return None
+    if checkpoint_dir or early_stopping_rounds or configured_feval is not None:
+        return None
+    if save_model_on_termination == "true":
+        return None
+    from ..models.cv_parallel import parallel_cv_supported, train_cv_parallel
+
+    try:
+        cfg = booster.TrainConfig(dict(train_cfg))
+    except exc.UserError:
+        return None  # the sequential path raises it where it does
+
+    def forest_factory():
+        return Forest(
+            objective_name=cfg.objective,
+            objective_params={k: v for k, v in cfg.objective_params.items()
+                              if k in booster.OBJECTIVE_PARAM_KEYS},
+            base_score=cfg.base_score,
+            num_feature=train_val_dmatrix.num_col,
+            num_class=cfg.num_class,
+            device=device,
+        )
+
+    metric_names = booster._eval_metric_names(cfg, forest_factory().objective())
+    if not parallel_cv_supported(cfg, metric_names, False):
+        return None
+    logger.info("Training %d CV folds side by side on one device", len(splits))
+    forests, evals_results = train_cv_parallel(
+        cfg, train_val_dmatrix, splits, num_round, metric_names, forest_factory, device)
+    # per-fold per-round metric lines in the sequential monitor's format
+    for k, res in enumerate(evals_results):
+        logger.info("Train cross validation fold %d", (k % kfold) + 1)
+        for r in range(num_round):
+            parts = [
+                "{}-{}:{:.5f}".format(data_name, metric_name, res[data_name][metric_name][r])
+                for data_name in res
+                for metric_name in res[data_name]
+            ]
+            print("[{}]\t{}".format(r, "\t".join(parts)), flush=True)
+    return forests, evals_results
+
+
+def print_cv_metric(num_round, evals_results):
+    """One stdout line with each metric's mean over the folds."""
+    report = "[{}]".format(num_round)
+    data_names = evals_results[0].keys()
+    metric_names = evals_results[0]["train"].keys()
+    for metric_name in metric_names:
+        for data_name in data_names:
+            values = [r[data_name][metric_name][-1] for r in evals_results]
+            report += "\t{}-{}:{:.5f}".format(data_name, metric_name, float(np.mean(values)))
+    print(report, flush=True)

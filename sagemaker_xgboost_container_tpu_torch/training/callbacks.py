@@ -100,13 +100,18 @@ def get_callbacks(
     early_stopping_rounds,
     save_model_on_termination,
     is_master,
+    fold=None,
     num_round=None,
 ):
     """-> (xgb_model path or None, start iteration, callback list).
 
     Order: monitor, checkpoint saver (master only), intermediate model +
-    SIGTERM handler, early stopping.
+    SIGTERM handler, early stopping. A cross-validation ``fold`` keeps its
+    checkpoints in ``model-{fold}`` under ``checkpoint_dir`` and its
+    intermediate model as ``xgboost-model-{fold}``.
     """
+    if checkpoint_dir and fold is not None:
+        checkpoint_dir = os.path.join(checkpoint_dir, "model-{}".format(fold))
     xgb_model, iteration = checkpointing.load_checkpoint(checkpoint_dir)
     if xgb_model is not None:
         logger.info("Checkpoint loaded from %s", xgb_model)
@@ -120,8 +125,9 @@ def get_callbacks(
         )
 
     if save_model_on_termination == "true" and is_master:
+        model_name = "{}-{}".format(MODEL_NAME, fold) if fold is not None else MODEL_NAME
         callbacks.append(
-            checkpointing.SaveIntermediateModelCallBack(model_dir, MODEL_NAME, is_master)
+            checkpointing.SaveIntermediateModelCallBack(model_dir, model_name, is_master)
         )
         add_sigterm_handler(model_dir, is_master)
 

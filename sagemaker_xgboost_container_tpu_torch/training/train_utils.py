@@ -1,34 +1,17 @@
-"""Metric-list plumbing between the HPO config and the native metrics.
+"""Metric-list plumbing between the HPO config, the native metrics and the
+feval.
 
 The union of the HPO tuning metric and the user's eval_metric is sorted so
-that every host agrees on its order. The JAX package splits custom
-(sklearn) metrics off into a ``feval``; the port computes none of them yet,
-so a custom metric name raises ``UserError`` naming it.
+that every host agrees on its order, then split into the natively computed
+metrics and the custom ones a feval computes (``metrics/custom_metrics``),
+as the JAX package's ``train_utils`` splits them.
 """
 
 import os
 
-from ..toolkit import exceptions as exc
+from ..metrics.custom_metrics import configure_feval, get_custom_metrics
 
 HPO_SEPARATOR = ":"
-
-# the metrics the JAX package computes with sklearn as a feval
-# (sagemaker_xgboost_container_tpu/metrics/custom_metrics.py)
-CUSTOM_METRICS = (
-    "accuracy",
-    "balanced_accuracy",
-    "f1",
-    "f1_binary",
-    "f1_macro",
-    "mse",
-    "precision",
-    "precision_macro",
-    "precision_micro",
-    "r2",
-    "recall",
-    "recall_macro",
-    "recall_micro",
-)
 
 
 class MetricNameComponents:
@@ -55,14 +38,10 @@ def get_union_metrics(metric_a, metric_b):
     return sorted(set(metric_a) | set(metric_b))
 
 
-def get_custom_metrics(eval_metrics):
-    """The names in ``eval_metrics`` that only a feval computes."""
-    return [m for m in eval_metrics if m in CUSTOM_METRICS]
-
-
 def get_eval_metrics_and_feval(tuning_objective_metric_param, eval_metric):
-    """-> (native metric list, feval (always None), tuning metric list)."""
+    """-> (native metric list, configured feval or None, tuning metric list)."""
     tuning_objective_metric = None
+    configured_feval = None
     cleaned_eval_metrics = None
 
     if tuning_objective_metric_param is not None:
@@ -71,16 +50,14 @@ def get_eval_metrics_and_feval(tuning_objective_metric_param, eval_metric):
 
     union = get_union_metrics(tuning_objective_metric, eval_metric)
     if union is not None:
-        custom = get_custom_metrics(union)
-        if custom:
-            raise exc.UserError(
-                "custom metrics are not supported by the PyTorch port yet: {}".format(
-                    ", ".join(custom)
-                )
-            )
-        cleaned_eval_metrics = union
+        feval_metrics = get_custom_metrics(union)
+        if feval_metrics:
+            configured_feval = configure_feval(feval_metrics)
+            cleaned_eval_metrics = [m for m in union if m not in set(feval_metrics)]
+        else:
+            cleaned_eval_metrics = union
 
-    return cleaned_eval_metrics, None, tuning_objective_metric
+    return cleaned_eval_metrics, configured_feval, tuning_objective_metric
 
 
 def cleanup_dir(directory, file_prefix):

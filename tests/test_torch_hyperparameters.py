@@ -215,13 +215,16 @@ def test_train_config_takes_every_validated_key():
 ])
 def test_train_config_refuses_what_the_slice_does_not_train(key, value):
     """Refusals, and (since the port trains them) acceptance of the ranking
-    objectives and of lossguide with max_leaves."""
+    objectives, of lossguide with max_leaves, of row and column sampling and
+    of num_parallel_tree."""
     from sagemaker_xgboost_container_tpu_torch.models.booster import TrainConfig
 
     config = {"num_round": "10", "tree_method": "hist", key: value}
     if key == "process_type":
         config["updater"] = "refresh"
-    accepted = value in ("rank:pairwise", "rank:ndcg", "lossguide")
+    sampling = ("subsample", "colsample_bytree", "colsample_bylevel", "colsample_bynode",
+                "num_parallel_tree")
+    accepted = value in ("rank:pairwise", "rank:ndcg", "lossguide") or key in sampling
     if value == "lossguide":
         config["max_leaves"] = "31"
     validated = hyperparameters.initialize(metrics.initialize()).validate(config)
@@ -229,7 +232,7 @@ def test_train_config_refuses_what_the_slice_does_not_train(key, value):
         validated["updater"] = ",".join(validated["updater"])
     if accepted:
         train_config = TrainConfig(validated)
-        assert getattr(train_config, key) == value
+        assert str(getattr(train_config, key)) == value
         if value == "lossguide":
             assert (train_config.max_leaves, train_config.predict_depth) == (31, 6)
         return

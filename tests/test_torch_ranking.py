@@ -65,6 +65,57 @@ def _jax_grads(margins, labels, weights, sizes, scheme):
     return np.array(g), np.array(h)
 
 
+def _ap_of_order(rel_in_order):
+    """Average precision of binary relevances listed in rank order."""
+    if rel_in_order.sum() == 0:
+        return 0.0
+    hits = np.cumsum(rel_in_order)
+    return float((hits / np.arange(1, len(rel_in_order) + 1) * rel_in_order).sum()
+                 / rel_in_order.sum())
+
+
+def _f64_grads(margins, labels, weights, sizes, scheme):
+    """LambdaMART (grad, hess) recomputed group by group in float64 from the
+    definitions (the delta of ndcg and map by exchanging the two documents'
+    places in the stable descending order of the scores)."""
+    g = np.zeros(len(margins))
+    h = np.zeros(len(margins))
+    start = 0
+    for k in sizes:
+        rows = np.arange(start, start + k)
+        start += k
+        S, Y = margins[rows].astype(np.float64), labels[rows].astype(np.float64)
+        order = np.argsort(-S, kind="stable")
+        rank = np.empty(k, int)
+        rank[order] = np.arange(k)
+        if scheme == "ndcg":
+            gains = np.exp2(Y) - 1.0
+            ideal = np.sort(gains)[::-1] / np.log2(2.0 + np.arange(k))
+            max_dcg = max(ideal.sum(), 1e-12)
+            disc = 1.0 / np.log2(2.0 + rank)
+        rel = (Y > 0).astype(np.float64)
+        base_ap = _ap_of_order(rel[order]) if scheme == "map" else 0.0
+        for i in range(k):
+            for j in range(k):
+                if not Y[i] > Y[j]:
+                    continue
+                rho = 1.0 / (1.0 + np.exp(S[i] - S[j]))
+                if scheme == "ndcg":
+                    delta = abs(gains[i] - gains[j]) * abs(disc[i] - disc[j]) / max_dcg
+                elif scheme == "map":
+                    swapped = order.copy()
+                    swapped[rank[i]], swapped[rank[j]] = j, i
+                    delta = abs(_ap_of_order(rel[swapped]) - base_ap)
+                else:
+                    delta = 1.0
+                g[rows[i]] -= rho * delta
+                g[rows[j]] += rho * delta
+                h[rows[i]] += rho * (1.0 - rho) * delta
+                h[rows[j]] += rho * (1.0 - rho) * delta
+    w = weights.astype(np.float64)
+    return g * w, np.maximum(h, 1e-16) * w
+
+
 def test_build_group_layout_matches_jax():
     for sizes, cap in (([3, 1, 4, 1, 5], None), ([2, 7, 7, 1], 4), ([9], None)):
         got = ranking.build_group_layout(sizes, cap)
@@ -123,8 +174,16 @@ def test_map_exchange_delta_matches_jax_and_brute_force():
 @pytest.mark.parametrize("case", ["uneven", "weights", "ties", "many"])
 @pytest.mark.parametrize("scheme", SCHEMES)
 def test_lambdarank_grad_hess_matches_jax(scheme, case):
+    """Both packages' f32 gradients against an f64 recomputation from the
+    definitions, each within 1e-5 of the largest |g| / |h|, so that a
+    failure names the side that drifted; then the port against the JAX
+    package, within the same 1e-5."""
     margins, labels, weights, sizes = _groups_case(case)
     want_g, want_h = _jax_grads(margins, labels, weights, sizes, scheme)
+    ref_g, ref_h = _f64_grads(margins, labels, weights, sizes, scheme)
+    ref_tol = (GRAD_TOL * max(1.0, np.abs(ref_g).max()), GRAD_TOL * max(1.0, np.abs(ref_h).max()))
+    assert np.abs(want_g - ref_g).max() <= ref_tol[0], "the JAX package's grad"
+    assert np.abs(want_h - ref_h).max() <= ref_tol[1], "the JAX package's hess"
     args = [torch.as_tensor(a) for a in (margins, labels, weights)]
     layouts = {
         # the JAX package's layout and 256-group chunks
@@ -141,6 +200,8 @@ def test_lambdarank_grad_hess_matches_jax(scheme, case):
         assert g.dtype == h.dtype == torch.float32
         g_tol = GRAD_TOL * max(1.0, np.abs(want_g).max())
         h_tol = GRAD_TOL * max(1.0, np.abs(want_h).max())
+        assert np.abs(g.numpy() - ref_g).max() <= ref_tol[0], ("the port's grad", name)
+        assert np.abs(h.numpy() - ref_h).max() <= ref_tol[1], ("the port's hess", name)
         assert np.abs(g.numpy() - want_g).max() <= g_tol, name
         assert np.abs(h.numpy() - want_h).max() <= h_tol, name
     if case == "uneven":

@@ -253,9 +253,11 @@ def test_stack_builds_each_slice_once_under_concurrency(trained, monkeypatch):
 )
 def test_parameters_outside_the_slice_raise(params):
     """Refusals, and (since the port trains them) acceptance of lossguide
-    with max_leaves and of the ranking objectives."""
+    with max_leaves, of the ranking objectives, of row and column sampling
+    and of num_parallel_tree."""
     name = next(iter(params))
-    if name in ("grow_policy", "objective"):
+    if name in ("grow_policy", "objective", "subsample", "colsample_bytree",
+                "colsample_bylevel", "colsample_bynode", "num_parallel_tree"):
         config = TrainConfig(dict(PARAMS, **params))
         assert getattr(config, name) == params[name]
         return

@@ -372,6 +372,8 @@ def test_entry_module_needs_a_gpu(tmp_path):
     ("booster", "booster='dart'"),
 ])
 def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monkeypatch):
+    """What the port does not train raises a UserError naming it; k-fold CV
+    and the custom metrics, which it trains now, run to their models."""
     tree = _tree(str(tmp_path), "csv")
     hp, hosts = dict(BASE_HP), ["algo-1"]
     if case == "kfold":
@@ -388,6 +390,15 @@ def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monk
         hp["eval_metric"] = "accuracy"
     elif case == "booster":
         hp["booster"] = "dart"
+    if case in ("kfold", "custom_metric"):
+        monkeypatch.setenv("SM_OUTPUT_DATA_DIR", str(tmp_path / "output"))
+        algorithm_train.sagemaker_train(hp, tree["data_config"], tree["train_path"],
+                                        tree["val_path"], str(tmp_path / "model"), hosts,
+                                        "algo-1", {}, device="cpu")
+        names = ["xgboost-model-{}".format(k) for k in range(3)] if case == "kfold" else [
+            "xgboost-model"]
+        assert sorted(os.listdir(str(tmp_path / "model"))) == names
+        return
     if case == "script_mode":
         _sm_env(monkeypatch, tmp_path / "sm", dict(hp, sagemaker_program="train.py"),
                 CSV_CHANNELS)
