@@ -151,7 +151,31 @@ Phases (each prints its own lines; any failure exits non-zero):
    250,000 rows and three CV metric lines; then `eval_metric=accuracy,f1,
    auc`, `_num_cv_round=1` in a child process (the feval takes the
    sequential path: a line a round a fold with validation-accuracy and
-   validation-f1); the two runs' CV means of auc within 1e-2.
+   validation-f1); the two runs' CV means of auc within 1e-2;
+12. the multi-model endpoint and the serving planes. Three server child
+   processes on the card (`python -m ...serving.server` with
+   SAGEMAKER_MULTI_MODEL=true): the endpoint (SAGEMAKER_MAX_MODELS=3,
+   SM_SERVING_METRICS=true) loads the models of phases 4, 11b, 9 and 10a
+   (the CoverType one with a manifest from `write_manifest`), the fourth
+   load evicting the forest (404, GET /models lists three); each resident
+   model answers 1, 100 and 1,000 csv and libsvm rows within 1e-5 of the
+   CPU predict; a model file with one byte flipped after its manifest
+   answers POST /models 500 and counts model_verify_fail_total{stage=
+   "digest"} once; p50 / p99 of 1-row and 100-row closed-loop loads (16
+   client threads in a child process, over the 3 models) with the device's
+   busy share (nvidia-smi utilization.gpu); DELETE retires the model's
+   batcher series from /metrics; SIGTERM exits 0. The second child
+   (SM_PREDICT_STUCK_S=1, a 4 s `batcher.dispatch` wedge): /ping and
+   invokes 503 + Retry-After while stuck, 200 again after; then SIGTERM
+   with 8 requests in flight (a 3 s `predict.dispatch` stall each): all 8
+   answered 200, new ones 503 + Retry-After, exit 0. The third
+   (SM_REQUEST_DEADLINE_S=0.5): a decode past it answers 503 +
+   Retry-After and counts serving_deadline_exceeded_total{stage="decode"};
+   a request wedged in its decode past SM_DRAIN_TIMEOUT_S=2 makes SIGTERM
+   exit 83. Last, in this process, each model's device memory while
+   resident in a ModelManager, and 20 load/unload cycles of the forest
+   after which torch.cuda.memory_allocated() and threading.active_count()
+   are what they were before the first.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -391,6 +415,25 @@ def report_kernels(k, prefix, atomic_free):
         check(ops, "no {}* kernel found in the SASS".format(prefix))
         check(not any(ops.values()),
               "{}* kernels compiled to atomics: {}".format(prefix, ops))
+
+
+# the model files phases 4, 9, 10a and 11b train, kept for phase 12's
+# multi-model endpoint: {name: model dir}, under MODEL_ROOT (made on first use)
+MODELS = {}
+MODEL_ROOT = None
+
+
+def keep_model(name, path):
+    """Copy the model file at `path` to MODEL_ROOT/<name>/xgboost-model."""
+    global MODEL_ROOT
+    import shutil
+
+    if MODEL_ROOT is None:
+        MODEL_ROOT = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    d = os.path.join(MODEL_ROOT, name)
+    os.makedirs(d, exist_ok=True)
+    shutil.copyfile(path, os.path.join(d, "xgboost-model"))
+    MODELS[name] = d
 
 
 def make_data(n, d, seed=0):
@@ -672,6 +715,7 @@ def run_slice(torch, hist, pkg, tag):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "xgboost-model")
         forest.save_model(path)
+        keep_model("main", path)
         served = Forest.load_model(path, device=DEVICE)
         on_cpu = Forest.load_model(path, device="cpu")
     pred = served.predict(x_serve)
@@ -837,7 +881,7 @@ def _serve_once(model_dir, rows, want):
     """The model in `model_dir` behind `serving_entrypoint` on the card: /ping,
     then `rows` as one csv request, checked within 1e-5 of `want` (the CPU
     predict). -> (request ms, max_abs_err)."""
-    from sagemaker_xgboost_container_tpu_torch.serving import server
+    from sagemaker_xgboost_container_tpu_torch.serving import lifecycle, server
 
     os.environ["SM_MODEL_DIR"] = model_dir
     httpd = server.serving_entrypoint(port=0, block=False, device=DEVICE)
@@ -861,6 +905,7 @@ def _serve_once(model_dir, rows, want):
         loop.join(10)
         signal.signal(signal.SIGTERM, signal.SIG_DFL)
         os.environ.pop("SM_MODEL_DIR", None)
+        lifecycle.uninstall()
     return serve_ms, err
 
 
@@ -885,22 +930,29 @@ def _load(base, body, want, threads, per_thread):
     """`threads` clients each POST `body` (csv) `per_thread` times and check
     every answer against `want`. -> (latencies ms, wall s, failed statuses,
     every status)."""
+    return _load_targets(base, [("/invocations", body, want)], threads, per_thread)
+
+
+def _load_targets(base, targets, threads, per_thread):
+    """`_load` over several (path, csv body, want) targets: client thread i
+    starts at target i and takes the next one on each request."""
     client = _Client(base)
     # urllib builds its opener and imports lazily on the first call, which
     # takes ~100 ms when the threads race for it: once before the clock
     client.call("/ping")
     lat, errs = [], []
 
-    def worker():
-        for _ in range(per_thread):
+    def worker(i):
+        for k in range(per_thread):
+            path, body, want = targets[(i + k) % len(targets)]
             t = time.perf_counter()
-            status, out = client.call("/invocations", body, "text/csv", "text/csv")
+            status, out = client.call(path, body, "text/csv", "text/csv")
             lat.append((time.perf_counter() - t) * 1e3)
             if status != 200 or np.abs(_decode_scores(out, "text/csv") - want).max() > 1e-5:
                 errs.append(status)
 
     t = time.perf_counter()
-    pool = [threading.Thread(target=worker) for _ in range(threads)]
+    pool = [threading.Thread(target=worker, args=(i,)) for i in range(threads)]
     for th in pool:
         th.start()
     for th in pool:
@@ -917,6 +969,22 @@ def load_child(base, body_path, want_path, threads, per_thread):
         body = f.read()
     lat, wall, errs, statuses = _load(base, body, np.load(want_path), int(threads),
                                       int(per_thread))
+    print(json.dumps({"lat_ms": lat, "wall_s": wall, "failed": errs, "statuses": statuses}))
+    return 0
+
+
+def load_spec_child(spec_path):
+    """`chip_smoke.py --load-spec SPEC`: `load_child` over the targets of a
+    JSON spec {"base", "targets": [[path, body file, want file], ...],
+    "threads", "per_thread"}; prints one JSON line."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    targets = []
+    for path, body_path, want_path in spec["targets"]:
+        with open(body_path, "rb") as f:
+            targets.append((path, f.read(), np.load(want_path)))
+    lat, wall, errs, statuses = _load_targets(spec["base"], targets, spec["threads"],
+                                              spec["per_thread"])
     print(json.dumps({"lat_ms": lat, "wall_s": wall, "failed": errs, "statuses": statuses}))
     return 0
 
@@ -1006,7 +1074,7 @@ def _serve(torch, pkg, hist, tag, tmp):
     from sagemaker_xgboost_container_tpu_torch.models import compat
     from sagemaker_xgboost_container_tpu_torch.models import forest as forest_mod
     from sagemaker_xgboost_container_tpu_torch.serving import app as app_mod
-    from sagemaker_xgboost_container_tpu_torch.serving import server
+    from sagemaker_xgboost_container_tpu_torch.serving import lifecycle, server
 
     t0 = time.perf_counter()
     X, y = make_data(SERVE_TRAIN_ROWS, N_FEATURES, seed=3)
@@ -1218,6 +1286,7 @@ def _serve(torch, pkg, hist, tag, tmp):
         if ubj_httpd is not None:
             ubj_httpd.stop()
         os.environ.pop("SM_MODEL_DIR", None)
+        lifecycle.uninstall()
 
     # OMP_NUM_THREADS=1 (set by the entry point) against unset, each set
     # before torch is imported, on the host path and the decode; the two
@@ -1717,6 +1786,7 @@ def _multiclass(torch, hist, pkg, tag, tmp):
 
     path = os.path.join(tmp, "xgboost-model")
     forest.save_model(path)
+    keep_model("covtype", path)
     on_gpu = Forest.load_model(path, device=DEVICE)
     on_cpu = Forest.load_model(path, device="cpu")
     x = Xv[:N_COVTYPE_PREDICT]
@@ -1960,6 +2030,7 @@ def _ranking(torch, hist, pkg, tag, tmp):
 
     path = os.path.join(tmp, "xgboost-model")
     forest.save_model(path)
+    keep_model("mslr", path)
     x = Xv[:N_RANK_PREDICT]
     pred = Forest.load_model(path, device=DEVICE).predict(x)
     ref = Forest.load_model(path, device="cpu").predict(x)
@@ -2309,6 +2380,7 @@ def run_forest(torch, hist, pkg, dtrain, dval, tag):
         tag, ll, results[1][1]), flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_forest_") as tmp:
         rf.save_model(os.path.join(tmp, "xgboost-model"))
+        keep_model("forest", os.path.join(tmp, "xgboost-model"))
         on_cpu = Forest.load_model(os.path.join(tmp, "xgboost-model"), device="cpu")
         rows_in = dval.features[:N_LOSSGUIDE_SERVE]
         want = on_cpu.predict(rows_in)
@@ -2425,6 +2497,486 @@ def run_kfold(torch, hist, tag, tmp):
         "xgboost-model-{}".format(i) for i in range(k)], "sequential kfold models")
 
 
+# ---------------------------------------------------------------- phase 12
+# the multi-model endpoint: the models of phases 4, 11b, 9 and 10a in this
+# load order under an LRU cap of 3; `main` is invoked before `mslr` loads,
+# so the fourth load evicts `forest`, the one used longest ago
+MME_ORDER = ("main", "forest", "covtype", "mslr")
+MME_MAX_MODELS = 3
+MME_ROWS = (1, 100, 1_000)
+MME_LOADS = ((1, 16, 30), (100, 16, 12))  # rows, client threads, requests each
+MME_CYCLES = 20
+# drills: the watchdog's stuck threshold and the wedge's length, the drain's
+# in-flight requests and their stall; a deadline and the decode stall past it
+MME_STUCK_S, MME_STUCK_SLEEP_S, MME_INFLIGHT, MME_DRAIN_SLEEP_S = 1.0, 4.0, 8, 3.0
+MME_DEADLINE_S, MME_DEADLINE_SLEEP_S, MME_DRAIN_TIMEOUT_S = 0.5, 1.0, 2.0
+SERVER_COMMAND = [sys.executable, "-m", "sagemaker_xgboost_container_tpu_torch.serving.server"]
+
+
+def _http(base, path, body=None, content_type="text/csv", accept=None, method=None,
+          timeout=60):
+    """-> (status, headers, body) of one HTTP call."""
+    headers = {"Content-Type": content_type}
+    if accept:
+        headers["Accept"] = accept
+    req = urllib.request.Request(base + path, data=body, headers=headers,
+                                 method=method or ("GET" if body is None else "POST"))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _metrics(base):
+    """GET /metrics -> {'name{labels}': value}."""
+    status, _, body = _http(base, "/metrics")
+    check(status == 200, "/metrics answered {}".format(status))
+    out = {}
+    for line in body.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def _poll(fn, done, timeout, what):
+    """Call `fn` until `done(result)`; -> (result, seconds). Connection
+    errors count as not done."""
+    t = time.perf_counter()
+    while True:
+        try:
+            r = fn()
+            if done(r):
+                return r, time.perf_counter() - t
+        except OSError:
+            pass
+        check(time.perf_counter() - t < timeout, "timed out waiting for {}".format(what))
+        time.sleep(0.05)
+
+
+class _ServerChild:
+    """SERVER_COMMAND in a child process with SAGEMAKER_MULTI_MODEL=true and
+    `env` (the SM_* / SAGEMAKER_* variables of this process left out), on a
+    port it picks; its output goes to <tmp>/<label>.log."""
+
+    def __init__(self, tmp, label, env):
+        self.label = label
+        self.log_path = os.path.join(tmp, label + ".log")
+        full = {k: v for k, v in os.environ.items() if not k.startswith(("SM_", "SAGEMAKER_"))}
+        full.update(SAGEMAKER_MULTI_MODEL="true", SAGEMAKER_BIND_TO_PORT="0", **env)
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(SERVER_COMMAND, env=full, stdout=self._log,
+                                     stderr=subprocess.STDOUT,
+                                     cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.base = None
+
+    def log(self):
+        with open(self.log_path) as f:
+            return f.read()
+
+    def wait_ready(self, timeout=240):
+        t = time.perf_counter()
+        while self.base is None:
+            check(self.proc.poll() is None, "server {} exited {}: {}".format(
+                self.label, self.proc.returncode, self.log()[-3000:]))
+            m = re.search(r"Serving on port (\d+)", self.log())
+            if m:
+                self.base = "http://127.0.0.1:{}".format(m.group(1))
+            else:
+                check(time.perf_counter() - t < timeout, "server {} did not start".format(
+                    self.label))
+                time.sleep(0.1)
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(60)
+        self._log.close()
+
+
+class _Utilization:
+    """nvidia-smi's utilization.gpu (the share of its sample period in which
+    a kernel ran on the card) sampled every 0.2 s while the block runs; the
+    mean in `.mean`, the sample count in `.n`."""
+
+    def __enter__(self):
+        self.samples = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=utilization.gpu",
+                                  "--format=csv,noheader,nounits"], capture_output=True,
+                                 text=True, timeout=30)
+            if out.returncode == 0 and out.stdout.strip():
+                self.samples.append(float(out.stdout.split()[0]))
+            self._stop.wait(0.2)
+
+    def __exit__(self, *exc_info):
+        self._stop.set()
+        self._thread.join(60)
+        self.n = len(self.samples)
+        self.mean = float(np.mean(self.samples)) if self.samples else float("nan")
+
+
+def _child_load_targets(base, tmp, targets, threads, per_thread):
+    """`_load_targets` over (path, rows, want) run by `chip_smoke.py
+    --load-spec` in a child process."""
+    spec = {"base": base, "threads": threads, "per_thread": per_thread, "targets": []}
+    for i, (path, x, want) in enumerate(targets):
+        body_path = os.path.join(tmp, "target{}.csv".format(i))
+        want_path = os.path.join(tmp, "target{}.npy".format(i))
+        with open(body_path, "wb") as f:
+            f.write(_csv_body(x))
+        np.save(want_path, want)
+        spec["targets"].append([path, body_path, want_path])
+    spec_path = os.path.join(tmp, "load-spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--load-spec", spec_path],
+                         capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, "load client failed: {}".format(out.stderr[-2000:]))
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    return res["lat_ms"], res["wall_s"], res["failed"], res["statuses"]
+
+
+def _load_body(name, url):
+    return json.dumps({"model_name": name, "url": url}).encode()
+
+
+def _invoke_ok(base, name, x, want, kind="csv", what=""):
+    """POST `x` to /models/<name>/invoke; checks 200 and every answer within
+    1e-5 of `want` (the CPU predict). -> (ms, max_abs_err)."""
+    body, ctype = (_csv_body(x), "text/csv") if kind == "csv" else (_libsvm_body(x),
+                                                                     "text/libsvm")
+    t = time.perf_counter()
+    status, _, out = _http(base, "/models/{}/invoke".format(name), body, ctype, "text/csv")
+    ms = (time.perf_counter() - t) * 1e3
+    check(status == 200, "{}: {} {} rows ({}) answered {}: {}".format(
+        what, name, len(x), kind, status, out[:200]))
+    got = _decode_scores(out, "text/csv")
+    check(got.shape == want.shape and np.all(np.isfinite(got)),
+          "{}: {} answered shape {} for {} rows".format(what, name, got.shape, len(x)))
+    err = float(np.abs(got - want).max())
+    check(err <= 1e-5, "{}: {} {} rows ({}) differ from the CPU predict by {}".format(
+        what, name, len(x), kind, err))
+    return ms, err
+
+
+def run_mme(torch, hist, tag):
+    """Phase 12: the multi-model endpoint and the serving planes on the card
+    (see the module docstring)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mme_") as tmp:
+        _mme(torch, hist, tag, tmp)
+    print("{} | mme phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _mme(torch, hist, tag, tmp):
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    check(all(name in MODELS for name in MME_ORDER),
+          "phase 12 needs the models of phases 4, 9, 10a and 11b; kept: {}".format(
+              sorted(MODELS)))
+    rows, refs = {}, {}
+    for name in MME_ORDER:
+        on_cpu = Forest.load_model(os.path.join(MODELS[name], "xgboost-model"), device="cpu")
+        x, _ = make_data(max(MME_ROWS), on_cpu.num_feature, seed=60 + on_cpu.num_feature)
+        x[np.random.RandomState(61).rand(*x.shape) < 0.02] = np.nan
+        rows[name], refs[name] = x, on_cpu.predict(x)
+    hist.reset_launch_counts()
+    children = []
+    try:
+        t = time.perf_counter()
+        endpoint = _ServerChild(tmp, "mme", {"SAGEMAKER_MAX_MODELS": str(MME_MAX_MODELS),
+                                             "SM_SERVING_METRICS": "true"})
+        stuck = _ServerChild(tmp, "stuck-drain", {
+            "SM_SERVING_METRICS": "true", "SM_PREDICT_STUCK_S": str(MME_STUCK_S),
+            "SM_PREDICT_STUCK_ACTION": "shed", "SM_SHED_COOLDOWN_S": "1",
+            "SM_DRAIN_TIMEOUT_S": "60",
+            # the 1st batched dispatch wedges; the 3rd predict stage on stalls
+            "SM_FAULT_SPEC": "batcher.dispatch:sleep:{}@1,predict.dispatch:sleep:{}@3+".format(
+                MME_STUCK_SLEEP_S, MME_DRAIN_SLEEP_S)})
+        wedge = _ServerChild(tmp, "deadline-wedge", {
+            "SM_SERVING_METRICS": "true", "SM_REQUEST_DEADLINE_S": str(MME_DEADLINE_S),
+            "SM_DRAIN_TIMEOUT_S": str(MME_DRAIN_TIMEOUT_S),
+            # the 1st decode outlasts the deadline; the 3rd never returns
+            "SM_FAULT_SPEC": "serving.decode:sleep:{}@1,serving.decode:sleep:600@3".format(
+                MME_DEADLINE_SLEEP_S)})
+        children = [endpoint, stuck, wedge]
+        for child in children:
+            child.wait_ready()
+        print("{} | mme: 3 server child processes (SAGEMAKER_MULTI_MODEL=true) answering in "
+              "{:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+        _mme_endpoint(endpoint, rows, refs, tag, tmp)
+        _mme_stuck_and_drain(stuck, rows, refs, tag)
+        _mme_deadline_and_wedge(wedge, rows, refs, tag)
+    finally:
+        for child in children:
+            child.close()
+    _mme_in_process(torch, rows, refs, tag)
+    launches = dict(hist.LAUNCHES)
+    print("{} | mme launches in this process: {}".format(tag, json.dumps(launches)), flush=True)
+
+
+def _mme_endpoint(child, rows, refs, tag, tmp):
+    from sagemaker_xgboost_container_tpu_torch.utils import integrity
+
+    base = child.base
+    statuses = []
+
+    def call(*args, **kwargs):
+        r = _http(base, *args, **kwargs)
+        statuses.append(r[0])
+        return r
+
+    # ---- loads: one model carries a manifest; the fourth load evicts
+    integrity.write_manifest(os.path.join(MODELS["covtype"], "xgboost-model"))
+    load_ms = {}
+    for name in MME_ORDER:
+        if name == "mslr":
+            _invoke_ok(base, "main", rows["main"][:1], refs["main"][:1], what="touch")
+        t = time.perf_counter()
+        status, _, out = call("/models", _load_body(name, MODELS[name]), "application/json")
+        load_ms[name] = (time.perf_counter() - t) * 1e3
+        check(status == 200, "POST /models {} answered {}: {}".format(name, status, out[:300]))
+    listed = [m["modelName"] for m in json.loads(call("/models")[2])["models"]]
+    resident = ["main", "covtype", "mslr"]
+    check(sorted(listed) == sorted(resident), "GET /models lists {}".format(listed))
+    evicted = call("/models/forest/invoke", _csv_body(rows["forest"][:1]))[0]
+    check(evicted == 404, "the evicted forest answered {}".format(evicted))
+    print("{} | mme POST /models ms: {} (covtype verified against its manifest); LRU cap {}: "
+          "the fourth load evicted forest (404), GET /models lists {}".format(
+              tag, json.dumps({k: round(v, 3) for k, v in load_ms.items()}), MME_MAX_MODELS,
+              listed), flush=True)
+
+    # ---- answers of each resident model, csv and libsvm
+    t = time.perf_counter()
+    worst = {}
+    for name in resident:
+        for n in MME_ROWS:
+            for kind in ("csv", "libsvm"):
+                _, err = _invoke_ok(base, name, rows[name][:n], refs[name][:n], kind, "invoke")
+                worst[name] = max(worst.get(name, 0.0), err)
+    print("{} | mme answers: {} rows x (csv, libsvm) per resident model, max_abs_err against "
+          "the CPU predict {} ({:.1f} s)".format(
+              tag, list(MME_ROWS), json.dumps({k: float("%.3e" % v) for k, v in worst.items()}),
+              time.perf_counter() - t), flush=True)
+
+    # ---- a tampered file fails its digest
+    tampered = os.path.join(tmp, "tampered")
+    os.makedirs(tampered)
+    path = os.path.join(tampered, "xgboost-model")
+    with open(os.path.join(MODELS["main"], "xgboost-model"), "rb") as f:
+        raw = bytearray(f.read())
+    with open(path, "wb") as f:
+        f.write(raw)
+    integrity.write_manifest(path)
+    raw[len(raw) // 2] ^= 0x01
+    with open(path, "wb") as f:
+        f.write(bytes(raw))
+    status = call("/models", _load_body("tampered", tampered), "application/json")[0]
+    digest_fails = _metrics(base).get('model_verify_fail_total{stage="digest"}')
+    check(status == 500 and digest_fails == 1.0,
+          "tampered model: POST /models {} and model_verify_fail_total digest {}".format(
+              status, digest_fails))
+    listed = [m["modelName"] for m in json.loads(call("/models")[2])["models"]]
+    check(sorted(listed) == sorted(resident), "after the tampered load: {}".format(listed))
+    print("{} | mme tampered model (one byte flipped after its manifest): POST /models 500, "
+          "model_verify_fail_total{{stage=\"digest\"}} {:.0f}".format(tag, digest_fails),
+          flush=True)
+
+    # ---- closed-loop load over the 3 resident models
+    for n, threads, per_thread in MME_LOADS:
+        targets = [("/models/{}/invoke".format(name), rows[name][:n], refs[name][:n])
+                   for name in resident]
+        with _Utilization() as util:
+            lat, wall, errs, seen = _child_load_targets(base, tmp, targets, threads, per_thread)
+        statuses.extend(seen)
+        check(len(lat) == threads * per_thread and not errs,
+              "{} wrong or failed answers at {} rows: {}".format(len(errs), n, errs[:5]))
+        p50, p99 = np.percentile(lat, [50, 99])
+        print("{} | mme load, {} rows, {} client threads x {} requests over 3 resident models "
+              "(child process): p50 {:.3f} ms, p99 {:.3f} ms, {:.1f} requests/s; device busy "
+              "{:.1f} % (nvidia-smi utilization.gpu, mean of {} samples)".format(
+                  tag, n, threads, per_thread, p50, p99, len(lat) / wall, util.mean, util.n),
+              flush=True)
+
+    # ---- DELETE retires the model's batcher series
+    before = [k for k in _metrics(base) if 'batcher="covtype"' in k]
+    status = call("/models/covtype", method="DELETE")[0]
+    after = [k for k in _metrics(base) if 'batcher="covtype"' in k]
+    listed = [m["modelName"] for m in json.loads(call("/models")[2])["models"]]
+    check(status == 200 and before and not after and sorted(listed) == ["main", "mslr"],
+          "DELETE /models/covtype: {}, series {} -> {}, listed {}".format(
+              status, len(before), len(after), listed))
+    fives = [s for s in statuses if s >= 500]
+    check(fives == [500], "unprovoked 5xx answers: {}".format(fives))
+    child.proc.send_signal(signal.SIGTERM)
+    rc = child.proc.wait(60)
+    check(rc == 0, "the endpoint exited {} after SIGTERM".format(rc))
+    print("{} | mme DELETE /models/covtype 200: its {} batcher lines gone from /metrics; "
+          "SIGTERM -> exit 0".format(tag, len(before)), flush=True)
+
+
+def _mme_stuck_and_drain(child, rows, refs, tag):
+    base = child.base
+    x1, x100 = rows["main"][:1], rows["main"][:100]
+    status = _http(base, "/models", _load_body("main", MODELS["main"]), "application/json")[0]
+    check(status == 200, "stuck drill: POST /models answered {}".format(status))
+
+    # ---- a batched dispatch wedged past SM_PREDICT_STUCK_S
+    wedged = {}
+    thread = threading.Thread(target=lambda: wedged.update(
+        r=_invoke_ok(base, "main", x100, refs["main"][:100], what="wedged")))
+    t = time.perf_counter()
+    thread.start()
+    ping, _ = _poll(lambda: _http(base, "/ping"), lambda r: r[0] == 503,
+                    MME_STUCK_SLEEP_S + 10, "/ping 503 while the dispatch is stuck")
+    shed_s = time.perf_counter() - t
+    shed = _http(base, "/models/main/invoke", _csv_body(x1))
+    check("Retry-After" in ping[1] and shed[0] == 503 and "Retry-After" in shed[1],
+          "while stuck: /ping {} {}, invoke {} {}".format(ping[0], ping[1], shed[0], shed[1]))
+    thread.join(120)
+    check("r" in wedged, "the wedged request did not answer")
+    returned_s = time.perf_counter() - t
+    _poll(lambda: _http(base, "/ping"), lambda r: r[0] == 200, 30, "/ping 200 after the stuck "
+          "dispatch")
+    recovered_s = time.perf_counter() - t
+    _invoke_ok(base, "main", x1, refs["main"][:1], what="after the stuck dispatch")
+    metrics = _metrics(base)
+    shed_total = metrics.get('serving_shed_total{breaker="mme"}', 0.0)
+    check(shed_total >= 1 and '"serving.stuck"' in child.log(),
+          "stuck drill: serving_shed_total {} and no serving.stuck record".format(shed_total))
+    print("{} | mme stuck dispatch ({} s wedge, SM_PREDICT_STUCK_S={}): /ping and invokes 503 "
+          "+ Retry-After from {:.3f} s, the wedged request 200 at {:.3f} s, /ping 200 again "
+          "at {:.3f} s, then invokes 200; serving_shed_total {:.0f}, one serving.stuck "
+          "record".format(tag, MME_STUCK_SLEEP_S, MME_STUCK_S, shed_s, returned_s, recovered_s,
+                          shed_total), flush=True)
+
+    # ---- SIGTERM with MME_INFLIGHT requests in flight
+    answers = [None] * MME_INFLIGHT
+
+    def one(i):
+        answers[i] = _invoke_ok(base, "main", x1, refs["main"][:1], what="in flight")
+
+    pool = [threading.Thread(target=one, args=(i,)) for i in range(MME_INFLIGHT)]
+    for th in pool:
+        th.start()
+    # the gauge counts the /metrics request too
+    _poll(lambda: _metrics(base).get("serving_inflight", 0.0), lambda v: v >= MME_INFLIGHT + 1,
+          10, "{} requests in flight".format(MME_INFLIGHT))
+    t = time.perf_counter()
+    child.proc.send_signal(signal.SIGTERM)
+    ping, _ = _poll(lambda: _http(base, "/ping"), lambda r: r[0] == 503, MME_DRAIN_SLEEP_S,
+                    "/ping 503 while draining")
+    new = _http(base, "/models/main/invoke", _csv_body(x1))
+    check("Retry-After" in ping[1] and new[0] == 503 and "Retry-After" in new[1],
+          "while draining: /ping {}, a new invoke {}".format(ping[0], new[0]))
+    for th in pool:
+        th.join(60)
+    check(all(a is not None for a in answers), "in-flight requests lost their answers")
+    rc = child.proc.wait(60)
+    exit_s = time.perf_counter() - t
+    check(rc == 0, "the drained server exited {}".format(rc))
+    print("{} | mme drain: SIGTERM with {} requests in flight ({} s stall each): all answered "
+          "200 and right, /ping and a new invoke 503 + Retry-After meanwhile, exit 0 {:.3f} s "
+          "after SIGTERM".format(tag, MME_INFLIGHT, MME_DRAIN_SLEEP_S, exit_s), flush=True)
+
+
+def _mme_deadline_and_wedge(child, rows, refs, tag):
+    base = child.base
+    x1 = rows["main"][:1]
+    status = _http(base, "/models", _load_body("main", MODELS["main"]), "application/json")[0]
+    check(status == 200, "deadline drill: POST /models answered {}".format(status))
+    late = _http(base, "/models/main/invoke", _csv_body(x1))
+    check(late[0] == 503 and "Retry-After" in late[1],
+          "a decode past SM_REQUEST_DEADLINE_S answered {}".format(late[0]))
+    ms, _ = _invoke_ok(base, "main", x1, refs["main"][:1], what="within the deadline")
+    expired = _metrics(base).get('serving_deadline_exceeded_total{stage="decode"}')
+    check(expired == 1.0, "serving_deadline_exceeded_total decode {}".format(expired))
+    print("{} | mme deadline (SM_REQUEST_DEADLINE_S={}): a {} s decode 503 + Retry-After, "
+          "serving_deadline_exceeded_total{{stage=\"decode\"}} 1; the next request 200 in "
+          "{:.3f} ms".format(tag, MME_DEADLINE_S, MME_DEADLINE_SLEEP_S, ms), flush=True)
+
+    def wedged():
+        try:
+            _http(base, "/models/main/invoke", _csv_body(x1), timeout=120)
+        except OSError:
+            pass  # the server exits under it
+
+    thread = threading.Thread(target=wedged, daemon=True)
+    thread.start()
+    _poll(lambda: _metrics(base).get("serving_inflight", 0.0), lambda v: v >= 2, 10,
+          "the wedged request in flight")
+    t = time.perf_counter()
+    child.proc.send_signal(signal.SIGTERM)
+    rc = child.proc.wait(60)
+    exit_s = time.perf_counter() - t
+    log = child.log()
+    check(rc == 83 and '"serving.abort"' in log and "drain_timeout" in log,
+          "a wedged drain exited {}: {}".format(rc, log[-2000:]))
+    thread.join(10)
+    print("{} | mme wedged drain (SM_DRAIN_TIMEOUT_S={}): exit 83 {:.3f} s after SIGTERM, one "
+          "serving.abort record".format(tag, MME_DRAIN_TIMEOUT_S, exit_s), flush=True)
+
+
+def _mme_in_process(torch, rows, refs, tag):
+    """ModelManager in this process: each model's device memory while
+    resident, then MME_CYCLES load/unload cycles of the forest against the
+    baselines of torch.cuda.memory_allocated() and threading.active_count()."""
+    import gc
+
+    from sagemaker_xgboost_container_tpu_torch.serving import lifecycle, mme
+
+    lifecycle.uninstall()
+    manager = mme.ModelManager(device=DEVICE)
+    gc.collect()
+    torch.cuda.synchronize()
+    held = {}
+    for name in MME_ORDER:
+        mem0 = torch.cuda.memory_allocated()
+        manager.load(name, MODELS[name])
+        entry = manager.get(name)
+        entry.warmup.join(120)
+        got = entry.batcher.predict(rows[name])
+        err = float(np.abs(got - refs[name]).max())
+        check(err <= 1e-5, "in-process {}: predict differs by {}".format(name, err))
+        torch.cuda.synchronize()
+        held[name] = torch.cuda.memory_allocated() - mem0
+        manager.unload(name)
+        torch.cuda.synchronize()
+        check(torch.cuda.memory_allocated() == mem0,
+              "unloading {} left {} bytes on the device".format(
+                  name, torch.cuda.memory_allocated() - mem0))
+    print("{} | mme device memory held by each resident model (torch.cuda.memory_allocated, "
+          "bytes): {}".format(tag, json.dumps(held)), flush=True)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0, count0, threads0 = (torch.cuda.memory_allocated(), threading.active_count(),
+                              set(threading.enumerate()))
+    t = time.perf_counter()
+    for cycle in range(MME_CYCLES):
+        manager.load("forest", MODELS["forest"])
+        got = manager.get("forest").batcher.predict(rows["forest"][:100])
+        check(float(np.abs(got - refs["forest"][:100]).max()) <= 1e-5,
+              "cycle {}: forest predict differs".format(cycle))
+        manager.unload("forest")
+        torch.cuda.synchronize()
+        mem, count = torch.cuda.memory_allocated(), threading.active_count()
+        check(mem == mem0 and count == count0 and set(threading.enumerate()) <= threads0,
+              "cycle {}: {} bytes ({} at the start), {} threads ({} at the start)".format(
+                  cycle, mem, mem0, count, count0))
+    print("{} | mme {} load/unload cycles of the 100-tree forest in {:.3f} s: device memory "
+          "{} bytes and {} threads after each, as before the first".format(
+              tag, MME_CYCLES, time.perf_counter() - t, mem0, count0), flush=True)
+
+
 def main():
     try:
         import torch
@@ -2477,9 +3029,15 @@ def main():
         run_ranking(torch, hist, pkg, tag)
         run_lossguide(torch, hist, pkg, dtrain, dval, tag)
         run_sampling(torch, hist, pkg, dtrain, dval, tag)
+        run_mme(torch, hist, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise
+    finally:
+        if MODEL_ROOT is not None:
+            import shutil
+
+            shutil.rmtree(MODEL_ROOT, ignore_errors=True)
 
     kernels = []
     for name, key in (("hist_kernel", HIST_MAIN), ("totals_kernel", "totals")):
@@ -2504,4 +3062,6 @@ if __name__ == "__main__":
         sys.exit(host_probe(sys.argv[2]))
     if sys.argv[1:2] == ["--load"]:
         sys.exit(load_child(*sys.argv[2:7]))
+    if sys.argv[1:2] == ["--load-spec"]:
+        sys.exit(load_spec_child(sys.argv[2]))
     sys.exit(main())

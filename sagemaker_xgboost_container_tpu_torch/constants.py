@@ -117,3 +117,9 @@ SAGEMAKER_DEFAULT_INVOCATIONS_ACCEPT = "SAGEMAKER_DEFAULT_INVOCATIONS_ACCEPT"
 SAGEMAKER_BATCH = "SAGEMAKER_BATCH"
 
 ONE_THREAD_PER_PROCESS = "1"
+
+# serving supervision exit codes, the JAX package's: distinct non-zero codes
+# above the shell and signal ranges, so the platform restarts the server and
+# its log names which supervisor pulled the trigger
+EXIT_DRAIN_TIMEOUT = 83  # SIGTERM drain: requests still in flight past SM_DRAIN_TIMEOUT_S
+EXIT_PREDICT_STUCK = 84  # predict watchdog: a dispatch wedged past SM_PREDICT_STUCK_S (abort)

@@ -20,6 +20,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.predict import forest_predict_margin, host_predict_margin
+from ..telemetry import tracing
 from ..toolkit import exceptions as exc
 from . import objectives as objectives_mod
 
@@ -192,6 +193,12 @@ class Forest:
             self._stacked = {}
         return self
 
+    def release(self):
+        """Drop the trees' copies on the device (a model leaving an
+        endpoint); a later predict uploads them again."""
+        with self._stack_lock:
+            self._stacked = {}
+
     # ------------------------------------------------------------------ meta
     @property
     def num_output_group(self):
@@ -297,9 +304,10 @@ class Forest:
             )
         _count_predict("device")
         x = torch.as_tensor(features, dtype=torch.float32, device=self.device)
-        return forest_predict_margin(
-            dev, x, num_output_group=groups, base_margin=base, tree_info=tree_info
-        ).cpu().numpy()
+        margin = forest_predict_margin(
+            dev, x, num_output_group=groups, base_margin=base, tree_info=tree_info)
+        tracing.device_sync(self.device)  # SM_TRACE_DEVICE_SYNC's fence
+        return margin.cpu().numpy()
 
     def predict(self, features, output_margin=False, iteration_range=None):
         margin = self.predict_margin(features, iteration_range=iteration_range)

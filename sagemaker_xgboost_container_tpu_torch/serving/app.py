@@ -1,11 +1,13 @@
-"""The scoring WSGI application: /ping, /invocations, /execution-parameters.
+"""The scoring WSGI application: /ping, /invocations, /execution-parameters
+and (with SM_SERVING_METRICS=true) /metrics.
 
 Status codes: 204 on an empty payload, 415 on undecodable content, 400 on a
 payload the model cannot evaluate, 406 on a bad accept, 413 above
 MAX_CONTENT_LENGTH (6 MB by default), 500 on a model-load failure and on an
 error of the torch runtime during predict, 503 + Retry-After on
-saturation. Accept negotiation falls back to
-SAGEMAKER_DEFAULT_INVOCATIONS_ACCEPT (default text/csv).
+saturation, on an expired request deadline and while the server drains.
+Accept negotiation falls back to SAGEMAKER_DEFAULT_INVOCATIONS_ACCEPT
+(default text/csv).
 
 A dependency-free WSGI callable, served by the threaded server in
 ``server.py``. One process owns the GPU; request threads share the forest
@@ -25,11 +27,14 @@ from .. import constants
 from .._device import resolve_device
 from ..data.content_types import get_content_type
 from ..data.recordio import write_recordio_protobuf
+from ..telemetry import instrument_wsgi
 from ..toolkit import exceptions as exc
 from ..utils.envconfig import env_int
-from . import serve_utils
+from ..utils.faults import fault_point
+from . import lifecycle, serve_utils
 from .batcher import JobQueueFull, PredictBatcher
-from .breaker import CircuitBreaker
+from .breaker import CircuitBreaker, retry_after_hint
+from .lifecycle import DeadlineExceeded
 
 logger = logging.getLogger(__name__)
 
@@ -62,7 +67,7 @@ class ScoringService:
         self.batcher = None
         self.warmup = None  # the warmup thread, once the model is loaded
         self._load_lock = threading.Lock()
-        self.breaker = CircuitBreaker()
+        self.breaker = CircuitBreaker(name="single")
 
     def load_model(self):
         # lock: concurrent first requests on the threaded server must not
@@ -83,7 +88,11 @@ class ScoringService:
                         lambda feats: model.predict(feats, iteration_range=rng),
                         max_queue=env_int("SAGEMAKER_MODEL_JOB_QUEUE_SIZE", 100, minimum=1),
                     )
+                    # the predict watchdog (SM_PREDICT_STUCK_S) trips this
+                    # breaker while a dispatch is wedged
+                    lifecycle.register_batcher("single", self.batcher, self.breaker)
                 self.warmup = serve_utils.warmup_predict_async(self.model)
+                lifecycle.mark_ready()
         return self.model_format
 
     @property
@@ -96,13 +105,19 @@ class ScoringService:
         model = self.model[0] if isinstance(self.model, list) else self.model
         return str(model.num_class or "") if model else ""
 
-    def predict(self, dtest, content_type):
+    def predict(self, dtest, content_type, deadline=None):
         if self.batcher is not None:
             serve_utils._check_feature_count(self.model, dtest, get_content_type(content_type))
-            return self.batcher.predict(serve_utils.canonicalize_features(self.model, dtest))
-        return serve_utils.predict(
+            return self.batcher.predict(serve_utils.canonicalize_features(self.model, dtest),
+                                        deadline=deadline)
+        result = serve_utils.predict(
             self.model, self.model_format, dtest, content_type, objective=self.objective
         )
+        if deadline is not None:
+            # the direct path cannot be interrupted: bill the stage after the
+            # fact, so that an expiry still answers 503, not a slow 200
+            deadline.check("predict")
+        return result
 
 
 def _response(start_response, status, body=b"", content_type="text/plain", extra_headers=None):
@@ -128,6 +143,17 @@ def _shed_response(start_response, breaker, detail):
     )
 
 
+def _drain_response(start_response):
+    """503 + Retry-After while draining or stopped: the load balancer must
+    deregister this instance and send the retry elsewhere."""
+    return _response(
+        start_response,
+        http.client.SERVICE_UNAVAILABLE,
+        "draining: instance is shutting down",
+        extra_headers=[("Retry-After", str(retry_after_hint()))],
+    )
+
+
 def parse_accept(environ):
     accept = environ.get("HTTP_ACCEPT", "").split(";")[0].strip().lower()
     if not accept or accept == "*/*":
@@ -141,12 +167,12 @@ def parse_accept(environ):
     return accept
 
 
-def _read_body(environ):
+def _read_body(environ, limit=None):
     try:
         length = int(environ.get("CONTENT_LENGTH") or 0)
     except ValueError:
         length = 0
-    if length > PARSED_MAX_CONTENT_LENGTH:
+    if length > (PARSED_MAX_CONTENT_LENGTH if limit is None else limit):
         raise exc.UserError("Payload too large")
     return environ["wsgi.input"].read(length) if length else b""
 
@@ -182,10 +208,16 @@ def make_app(scoring_service=None, hooks=None):
     breaker = getattr(service, "breaker", None)
 
     def handle_invocations(environ, start_response):
+        if not lifecycle.accepting():
+            # draining: new work is refused while in-flight requests settle
+            return _drain_response(start_response)
         if breaker is not None and not breaker.allow():
             # open breaker: shed before decode, so a drowning instance stops
             # paying per-request parse costs
             return _shed_response(start_response, breaker, "shedding load")
+        # the request's budget (SM_REQUEST_DEADLINE_S), drawn down by its
+        # stages; None when the knob is unset
+        deadline = lifecycle.request_deadline()
         payload = _read_body(environ)
         if len(payload) == 0:
             return _response(start_response, http.client.NO_CONTENT)
@@ -214,6 +246,8 @@ def make_app(scoring_service=None, hooks=None):
         except Exception as e:
             logger.exception("decode failed")
             return _response(start_response, http.client.UNSUPPORTED_MEDIA_TYPE, str(e))
+        if deadline is not None:
+            deadline.check("decode")
 
         try:
             model = _hooked_model(service, hooks)
@@ -226,9 +260,17 @@ def make_app(scoring_service=None, hooks=None):
             )
 
         try:
+            # the request-thread predict stage: an error drills the 400
+            # answer, a sleep the predict-stage deadline
+            fault_point("predict.dispatch", content_type=parsed_type)
             if "predict_fn" in hooks:
                 preds = hooks["predict_fn"](dtest, model)
+                if deadline is not None:
+                    deadline.check("predict")
+            elif deadline is not None:
+                preds = service.predict(dtest, parsed_type, deadline=deadline)
             else:
+                # positional only: duck-typed services take no deadline
                 preds = service.predict(dtest, parsed_type)
         except (JobQueueFull, TimeoutError) as e:
             # saturation, not a client error: 503 + Retry-After, and feed the
@@ -255,7 +297,15 @@ def make_app(scoring_service=None, hooks=None):
                 http.client.BAD_REQUEST,
                 "Unable to evaluate payload provided: %s" % e,
             )
+        # response encoding; the deadline check right after bills a budget
+        # gone before encoding starts to the `encode` stage
+        fault_point("serving.encode", accept=accept)
+        if deadline is not None:
+            deadline.check("encode")
         if breaker is not None:
+            # success only once the deadline cleared too: recorded before the
+            # encode check, it would reset the saturation count on every
+            # request of an encode-expiry storm
             breaker.record_success()
 
         if "output_fn" in hooks:
@@ -284,6 +334,12 @@ def make_app(scoring_service=None, hooks=None):
         method = environ.get("REQUEST_METHOD", "GET")
         try:
             if path == "/ping" and method == "GET":
+                if not lifecycle.accepting():
+                    # draining: unready, so the load balancer deregisters
+                    return _drain_response(start_response)
+                # each readiness poll publishes the derived ready <->
+                # degraded state
+                lifecycle.observe(breaker)
                 if breaker is not None and breaker.degraded:
                     # unready while shedding: the platform should stop
                     # routing to this instance until it recovers
@@ -295,6 +351,8 @@ def make_app(scoring_service=None, hooks=None):
                     )
                 try:
                     _hooked_model(service, hooks)
+                    # a script-mode model_fn bypasses load_model
+                    lifecycle.mark_ready()
                     return _response(start_response, http.client.OK)
                 except Exception as e:
                     logger.exception("ping model load failed")
@@ -318,12 +376,22 @@ def make_app(scoring_service=None, hooks=None):
             return _response(start_response, http.client.NOT_FOUND, "not found")
         except exc.UserError as e:
             return _response(start_response, http.client.REQUEST_ENTITY_TOO_LARGE, str(e))
+        except DeadlineExceeded as e:
+            # a decode- or encode-stage expiry (predict-stage ones take the
+            # TimeoutError clause above): the same saturation protocol
+            logger.warning("request deadline exceeded: %s", e)
+            if breaker is not None:
+                breaker.record_saturation()
+                return _shed_response(start_response, breaker, str(e))
+            return _response(start_response, http.client.SERVICE_UNAVAILABLE, str(e))
         except Exception as e:  # last-resort 500
             logger.exception("unhandled serving error")
             return _response(start_response, http.client.INTERNAL_SERVER_ERROR, str(e))
 
-    app.service = service
-    return app
+    # the middleware owns /metrics (SM_SERVING_METRICS) and the route metrics
+    wrapped = instrument_wsgi(app)
+    wrapped.service = service
+    return wrapped
 
 
 def _hooked_model(service, hooks):

@@ -12,6 +12,12 @@ that saturation into protocol:
 * ``half_open`` - after the cooldown, exactly one probe request flows; its
   success closes the breaker, another saturation event re-opens it.
 
+The predict watchdog forces it open (``force_open``) while a dispatch is
+wedged. State transitions count in ``serving_breaker_transitions_total``,
+the state is the ``serving_breaker_open`` gauge (0 closed, 1 open, 0.5
+half-open), and shed requests count in ``serving_shed_total``, each
+labelled ``breaker=<name>``.
+
 Set ``SM_LOAD_SHEDDING=false`` to disable (saturation then surfaces as
 per-request 503s without the fast-path shed or the /ping flip).
 """
@@ -21,6 +27,7 @@ import math
 import threading
 import time
 
+from ..telemetry.registry import REGISTRY
 from ..utils.envconfig import env_bool, env_float, env_int
 
 logger = logging.getLogger(__name__)
@@ -31,6 +38,8 @@ SHED_COOLDOWN_ENV = "SM_SHED_COOLDOWN_S"
 SHED_RETRY_AFTER_ENV = "SM_SHED_RETRY_AFTER_S"
 
 CLOSED, OPEN, HALF_OPEN = "closed", "open", "half_open"
+
+_STATE_GAUGE = {CLOSED: 0.0, OPEN: 1.0, HALF_OPEN: 0.5}
 
 
 def load_shedding_enabled():
@@ -48,12 +57,12 @@ def retry_after_hint():
 class CircuitBreaker:
     """Thread-safe three-state breaker driven by saturation events.
 
-    ``clock`` is injectable for tests. ``shed`` counts the requests shed
-    while open.
+    ``clock`` is injectable for tests. ``name`` labels the breaker's series
+    in ``registry`` (the process-wide one unless given).
     """
 
-    def __init__(self, threshold=None, cooldown_s=None, retry_after_s=None,
-                 clock=time.monotonic):
+    def __init__(self, name="default", threshold=None, cooldown_s=None, retry_after_s=None,
+                 registry=None, clock=time.monotonic):
         self.enabled = load_shedding_enabled()
         self.threshold = (
             threshold
@@ -77,13 +86,32 @@ class CircuitBreaker:
         self._opened_at = 0.0
         self._probe_out = False
         self._probe_at = 0.0
-        self.shed = 0
+        reg = registry or REGISTRY
+        labels = {"breaker": name}
+        self._m_shed = reg.counter(
+            "serving_shed_total", "Requests shed with 503 while degraded", labels)
+        self._m_state = reg.gauge(
+            "serving_breaker_open", "Breaker state (0 closed, 0.5 half-open, 1 open)", labels)
+        self._m_transitions = lambda state: reg.counter(
+            "serving_breaker_transitions_total", "Breaker state transitions",
+            dict(labels, state=state))
+        self._m_state.set(0.0)
+        # the series are shared by every breaker of one name: ``shed``
+        # counts this breaker's from here
+        self._shed_base = self._m_shed.value
+
+    @property
+    def shed(self):
+        """Requests this breaker shed."""
+        return self._m_shed.value - self._shed_base
 
     def _transition(self, state):
         # lock held by caller
         if state == self._state:
             return
         self._state = state
+        self._m_state.set(_STATE_GAUGE[state])
+        self._m_transitions(state).inc()
         if state == OPEN:
             logger.warning(
                 "circuit breaker OPEN: shedding /invocations with 503 for "
@@ -125,7 +153,7 @@ class CircuitBreaker:
             now = self._clock()
             if self._state == OPEN:
                 if now - self._opened_at < self.cooldown_s:
-                    self.shed += 1
+                    self._m_shed.inc()
                     return False
                 self._transition(HALF_OPEN)
                 self._probe_out = False
@@ -133,11 +161,27 @@ class CircuitBreaker:
             # before reaching predict never reports back, so an aged-out
             # token is reissued rather than wedging the breaker half-open
             if self._probe_out and now - self._probe_at < self.cooldown_s:
-                self.shed += 1
+                self._m_shed.inc()
                 return False
             self._probe_out = True
             self._probe_at = now
             return True
+
+    def force_open(self, reason="forced"):
+        """Trip the breaker open now (the predict watchdog: a wedged dispatch
+        must shed and flip /ping without waiting for saturation events).
+        Forcing it again while open restarts the cooldown, so it stays open
+        as long as the caller keeps seeing the problem; recovery then takes
+        the half-open probe."""
+        if not self.enabled:
+            return
+        with self._lock:
+            already_open = self._state == OPEN
+            self._opened_at = self._clock()
+            self._probe_out = False
+            self._transition(OPEN)
+        if not already_open:
+            logger.warning("circuit breaker forced OPEN: %s", reason)
 
     def record_saturation(self):
         """One saturation event (JobQueueFull or a batch-queue timeout)."""

@@ -2,8 +2,10 @@
 inference, response encoders.
 
 * ``parse_content_data``: csv/libsvm/recordio -> DataMatrix,
-* ``get_loaded_booster``: load every non-dotfile in the model dir as an
-  ensemble (env-gated), each file xgboost JSON or UBJSON, onto the device,
+* ``get_loaded_booster``: load every model file in the model dir (not
+  dotfiles, not manifest sidecars) as an ensemble (env-gated), each file
+  xgboost JSON or UBJSON, onto the device, through the integrity checks of
+  ``_load_verified``,
 * ``predict``: feature-count checks per content type, best-iteration
   ranges, ensemble vote (softmax/hinge) or mean,
 * selectable inference: the VALID_OBJECTIVES key matrix, per-key
@@ -37,6 +39,9 @@ from ..data.content_types import CSV, LIBSVM, RECORDIO_PROTOBUF, get_content_typ
 from ..data.recordio import _frame, encode_float32_tensor, encode_record
 from ..models.compat import load_model_any_format
 from ..models.forest import HOST_PREDICT_ROWS
+from ..telemetry import REGISTRY
+from ..utils import integrity
+from ..utils.faults import fault_point
 from . import encoder
 
 logger = logging.getLogger(__name__)
@@ -80,6 +85,9 @@ VALID_OBJECTIVES = {
 
 def parse_content_data(input_data, input_content_type):
     """Request body + content type -> (DataMatrix, canonical content type)."""
+    # both serving apps decode here: an error drills the 415 answer, a sleep
+    # the decode-stage deadline
+    fault_point("serving.decode", content_type=input_content_type)
     content_type = get_content_type(input_content_type)
     payload = input_data
     if content_type == CSV:
@@ -116,20 +124,73 @@ def parse_content_data(input_data, input_content_type):
 def _get_full_model_paths(model_dir):
     for name in sorted(os.listdir(model_dir)):
         path = os.path.join(model_dir, name)
-        if os.path.isfile(path) and not name.startswith("."):
+        # a manifest sidecar describes a model file and is never one
+        if (os.path.isfile(path) and not name.startswith(".")
+                and not name.endswith(integrity.MANIFEST_SUFFIX)):
             yield path
 
 
+def _note_model_verify_fail(stage):
+    REGISTRY.counter(
+        "model_verify_fail_total",
+        "Serving model artifacts rejected at load (digest, parse, or structural validation)",
+        {"stage": stage},
+    ).inc()
+
+
+_drift_noted = threading.Event()
+
+
+def _load_verified(path, device=None):
+    """Load one model file onto ``device`` through three checks, each
+    counted in ``model_verify_fail_total{stage}`` when it fails: ``digest``
+    (the bytes disagree with the manifest sidecar that travels with the
+    file), ``parse`` (no supported format loads it) and ``structure`` (the
+    trees break the invariants the traversal assumes). A corrupt artifact
+    fails here, at load, instead of answering garbage at predict time.
+    -> (Forest, format tag)."""
+    fault_point("model.load", path=path)
+    manifest = integrity.read_manifest(path)
+    if manifest is not None:
+        try:
+            integrity.verify_file_against_manifest(path, manifest)
+        except (integrity.IntegrityError, OSError) as e:
+            _note_model_verify_fail("digest")
+            logger.error("MODEL VERIFICATION FAILED (digest): %s", e)
+            raise integrity.IntegrityError(
+                "Model artifact {} failed digest verification against its manifest: {}".format(
+                    path, e))
+        if manifest.get("drift_baseline") and not _drift_noted.is_set():
+            _drift_noted.set()
+            logger.info("%s: the manifest's drift_baseline is ignored (no drift monitor in "
+                        "this package)", path)
+    try:
+        forest, source_format = load_model_any_format(path, device=device)
+    except Exception as e:
+        _note_model_verify_fail("parse")
+        logger.error("MODEL VERIFICATION FAILED (parse): %s: %s", path, e)
+        raise
+    try:
+        integrity.validate_model(forest)
+    except integrity.IntegrityError as e:
+        _note_model_verify_fail("structure")
+        logger.error("MODEL VERIFICATION FAILED (structure): %s: %s", path, e)
+        raise integrity.IntegrityError(
+            "Model artifact {} is structurally invalid: {}".format(path, e))
+    return forest, source_format
+
+
 def get_loaded_booster(model_dir, ensemble=False, device=None):
-    """Load model file(s) from the directory onto ``device``; ensemble loads
-    all of them. -> (Forest or list of Forest, format tag or list)."""
+    """Load model file(s) from the directory onto ``device``, each through
+    ``_load_verified``; ensemble loads all of them. -> (Forest or list of
+    Forest, format tag or list)."""
     paths = list(_get_full_model_paths(model_dir))
     if not paths:
         raise RuntimeError("No model files found in {}".format(model_dir))
     paths = paths if ensemble else paths[:1]
     models, formats = [], []
     for path in paths:
-        forest, source_format = load_model_any_format(path, device=device)
+        forest, source_format = _load_verified(path, device=device)
         models.append(forest)
         formats.append(source_format)
     if ensemble and len(models) > 1:

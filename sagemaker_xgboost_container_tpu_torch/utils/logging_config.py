@@ -25,11 +25,23 @@ def _resolve_level():
 
 
 def setup_main_logger(name):
-    """dictConfig console logger; returns the configured logger."""
+    """dictConfig console logger; returns the configured logger.
+
+    The console handler carries ``telemetry.correlation.RequestIdFilter``:
+    on a serving request thread every record gains the request's id, so a
+    slow invocation can be followed from the batcher's warnings to the
+    response header.
+    """
     logging.config.dictConfig(
         {
             "version": 1,
             "disable_existing_loggers": False,
+            "filters": {
+                "request_id": {
+                    "()": "sagemaker_xgboost_container_tpu_torch.telemetry"
+                    ".correlation.RequestIdFilter"
+                }
+            },
             "formatters": {
                 "standard": {
                     "format": "[%(asctime)s:%(levelname)s] %(message)s",
@@ -40,6 +52,7 @@ def setup_main_logger(name):
                 "console": {
                     "class": "logging.StreamHandler",
                     "formatter": "standard",
+                    "filters": ["request_id"],
                     "stream": "ext://sys.stdout",
                 }
             },

@@ -38,7 +38,8 @@ from sagemaker_xgboost_container_tpu_torch.data import content_types, recordio
 from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
 from sagemaker_xgboost_container_tpu_torch.models import compat
 from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
-from sagemaker_xgboost_container_tpu_torch.serving import app, breaker, encoder, serve_utils, server
+from sagemaker_xgboost_container_tpu_torch.serving import (app, breaker, encoder, lifecycle,
+                                                            serve_utils, server)
 from sagemaker_xgboost_container_tpu_torch.serving.batcher import JobQueueFull, PredictBatcher
 from sagemaker_xgboost_container_tpu_torch.toolkit import exceptions as exc
 from sagemaker_xgboost_container_tpu_torch.utils import envconfig
@@ -381,10 +382,13 @@ def test_user_hooks_load_from_script(models, tmp_path, monkeypatch):
     assert sys.path == n_path
 
 
-def test_multi_model_is_refused(monkeypatch):
+def test_multi_model_builds_the_mme_app(monkeypatch):
     monkeypatch.setenv("SAGEMAKER_MULTI_MODEL", "true")
-    with pytest.raises(exc.UserError, match="multi-model endpoint is not ported"):
-        server.build_app(device="cpu")
+    wsgi = server.build_app(device="cpu")
+    assert _call(wsgi, path="/ping", method="GET")[0] == 200
+    status, headers, body = _call(wsgi, path="/models", method="GET")
+    assert status == 200 and headers["Content-Type"] == "application/json"
+    assert json.loads(body) == {"models": []}
 
 
 # ------------------------------------------------------------ model formats
@@ -825,6 +829,7 @@ def test_serving_entrypoint_real_socket(models, monkeypatch):
         signal.signal(signal.SIGTERM, saved_sigterm)
         if not httpd.stopped.is_set():
             httpd.stop()
+        lifecycle.uninstall()  # the entrypoint installed one, now stopped
         root.handlers[:], _ = saved_logging[0], root.setLevel(saved_logging[1])
         if saved_omp is None:
             os.environ.pop("OMP_NUM_THREADS", None)
