@@ -181,6 +181,7 @@ The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -926,16 +927,11 @@ def _percentiles(lat_ms):
     return "p50 {:.3f} ms, p95 {:.3f} ms, p99 {:.3f} ms".format(p50, p95, p99)
 
 
-def _load(base, body, want, threads, per_thread):
-    """`threads` clients each POST `body` (csv) `per_thread` times and check
-    every answer against `want`. -> (latencies ms, wall s, failed statuses,
-    every status)."""
-    return _load_targets(base, [("/invocations", body, want)], threads, per_thread)
-
-
-def _load_targets(base, targets, threads, per_thread):
-    """`_load` over several (path, csv body, want) targets: client thread i
-    starts at target i and takes the next one on each request."""
+def _load(base, targets, threads, per_thread):
+    """`threads` clients each POST `per_thread` csv requests to (path, body,
+    want) `targets`, client thread i starting at target i and taking the
+    next one on each request, and check every answer against its `want`.
+    -> (latencies ms, wall s, failed statuses, every status)."""
     client = _Client(base)
     # urllib builds its opener and imports lazily on the first call, which
     # takes ~100 ms when the threads race for it: once before the clock
@@ -961,43 +957,39 @@ def _load_targets(base, targets, threads, per_thread):
     return lat, time.perf_counter() - t, errs, client.statuses
 
 
-def load_child(base, body_path, want_path, threads, per_thread):
-    """`chip_smoke.py --load URL BODY WANT THREADS PER_THREAD`: the serve
-    phase's load from a process of its own, so that the clients do not share
-    the server's interpreter lock; prints one JSON line."""
-    with open(body_path, "rb") as f:
-        body = f.read()
-    lat, wall, errs, statuses = _load(base, body, np.load(want_path), int(threads),
-                                      int(per_thread))
-    print(json.dumps({"lat_ms": lat, "wall_s": wall, "failed": errs, "statuses": statuses}))
-    return 0
-
-
-def load_spec_child(spec_path):
-    """`chip_smoke.py --load-spec SPEC`: `load_child` over the targets of a
-    JSON spec {"base", "targets": [[path, body file, want file], ...],
-    "threads", "per_thread"}; prints one JSON line."""
+def load_child(spec_path):
+    """`chip_smoke.py --load SPEC`: `_load` from a process of its own, so
+    that the clients do not share the server's interpreter lock, over the
+    targets of a JSON spec {"base", "targets": [[path, body file, want
+    file], ...], "threads", "per_thread"}; prints one JSON line."""
     with open(spec_path) as f:
         spec = json.load(f)
     targets = []
     for path, body_path, want_path in spec["targets"]:
         with open(body_path, "rb") as f:
             targets.append((path, f.read(), np.load(want_path)))
-    lat, wall, errs, statuses = _load_targets(spec["base"], targets, spec["threads"],
-                                              spec["per_thread"])
+    lat, wall, errs, statuses = _load(spec["base"], targets, spec["threads"],
+                                      spec["per_thread"])
     print(json.dumps({"lat_ms": lat, "wall_s": wall, "failed": errs, "statuses": statuses}))
     return 0
 
 
-def _child_load(base, tmp, x, want, threads, per_thread):
-    """`_load` run by `chip_smoke.py --load` in a child process."""
-    body_path, want_path = os.path.join(tmp, "body.csv"), os.path.join(tmp, "want.npy")
-    with open(body_path, "wb") as f:
-        f.write(_csv_body(x))
-    np.save(want_path, want)
-    out = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--load", base, body_path, want_path,
-         str(threads), str(per_thread)], capture_output=True, text=True, timeout=600)
+def _child_load(base, tmp, targets, threads, per_thread):
+    """`_load` over (path, rows, want) targets, run by `chip_smoke.py
+    --load` in a child process."""
+    spec = {"base": base, "threads": threads, "per_thread": per_thread, "targets": []}
+    for i, (path, x, want) in enumerate(targets):
+        body_path = os.path.join(tmp, "target{}.csv".format(i))
+        want_path = os.path.join(tmp, "target{}.npy".format(i))
+        with open(body_path, "wb") as f:
+            f.write(_csv_body(x))
+        np.save(want_path, want)
+        spec["targets"].append([path, body_path, want_path])
+    spec_path = os.path.join(tmp, "load-spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--load", spec_path],
+                         capture_output=True, text=True, timeout=600)
     check(out.returncode == 0, "load client failed: {}".format(out.stderr[-2000:]))
     res = json.loads(out.stdout.strip().splitlines()[-1])
     return res["lat_ms"], res["wall_s"], res["failed"], res["statuses"]
@@ -1193,11 +1185,11 @@ def _serve(torch, pkg, hist, tag, tmp):
             before = service.batcher.stats()
             forest_mod.reset_predict_counts()
             if where == "child process":
-                lat, wall, errs, statuses = _child_load(client.base, tmp, x, ref[:n], threads,
-                                                        per_thread)
+                lat, wall, errs, statuses = _child_load(
+                    client.base, tmp, [("/invocations", x, ref[:n])], threads, per_thread)
             else:
-                lat, wall, errs, statuses = _load(client.base, _csv_body(x), ref[:n], threads,
-                                                  per_thread)
+                lat, wall, errs, statuses = _load(
+                    client.base, [("/invocations", _csv_body(x), ref[:n])], threads, per_thread)
             client.statuses.extend(statuses)
             check(len(lat) == threads * per_thread and not errs,
                   "{} wrong or failed answers at {} rows: {}".format(len(errs), n, errs[:5]))
@@ -1230,7 +1222,8 @@ def _serve(torch, pkg, hist, tag, tmp):
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
         prof.start()
         t = time.perf_counter()
-        lat, wall, errs, statuses = _child_load(client.base, tmp, x_all[:100], ref[:100], 16, 10)
+        lat, wall, errs, statuses = _child_load(
+            client.base, tmp, [("/invocations", x_all[:100], ref[:100])], 16, 10)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t
         prof.stop()
@@ -2540,6 +2533,15 @@ def _metrics(base):
     return out
 
 
+def _batcher_counts(base, names):
+    """The /metrics batcher_{requests,inline,dispatch,coalesced_requests}_total
+    of the batchers `names`, summed -> {'requests': ..., ...}."""
+    scraped = _metrics(base)
+    return {kind: sum(scraped.get('batcher_{}_total{{batcher="{}"}}'.format(kind, name), 0.0)
+                      for name in names)
+            for kind in ("requests", "inline", "dispatch", "coalesced_requests")}
+
+
 def _poll(fn, done, timeout, what):
     """Call `fn` until `done(result)`; -> (result, seconds). Connection
     errors count as not done."""
@@ -2621,27 +2623,6 @@ class _Utilization:
         self._thread.join(60)
         self.n = len(self.samples)
         self.mean = float(np.mean(self.samples)) if self.samples else float("nan")
-
-
-def _child_load_targets(base, tmp, targets, threads, per_thread):
-    """`_load_targets` over (path, rows, want) run by `chip_smoke.py
-    --load-spec` in a child process."""
-    spec = {"base": base, "threads": threads, "per_thread": per_thread, "targets": []}
-    for i, (path, x, want) in enumerate(targets):
-        body_path = os.path.join(tmp, "target{}.csv".format(i))
-        want_path = os.path.join(tmp, "target{}.npy".format(i))
-        with open(body_path, "wb") as f:
-            f.write(_csv_body(x))
-        np.save(want_path, want)
-        spec["targets"].append([path, body_path, want_path])
-    spec_path = os.path.join(tmp, "load-spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
-    out = subprocess.run([sys.executable, os.path.abspath(__file__), "--load-spec", spec_path],
-                         capture_output=True, text=True, timeout=600)
-    check(out.returncode == 0, "load client failed: {}".format(out.stderr[-2000:]))
-    res = json.loads(out.stdout.strip().splitlines()[-1])
-    return res["lat_ms"], res["wall_s"], res["failed"], res["statuses"]
 
 
 def _load_body(name, url):
@@ -2790,20 +2771,30 @@ def _mme_endpoint(child, rows, refs, tag, tmp):
           "model_verify_fail_total{{stage=\"digest\"}} {:.0f}".format(tag, digest_fails),
           flush=True)
 
-    # ---- closed-loop load over the 3 resident models
-    for n, threads, per_thread in MME_LOADS:
+    # ---- closed-loop load over the 3 resident models; the 1-row load a
+    # second time without the nvidia-smi poller, whose processes share the
+    # host's cores with the server and the clients
+    loads = [(n, threads, per_thread, True) for n, threads, per_thread in MME_LOADS]
+    loads.append(MME_LOADS[0] + (False,))
+    for n, threads, per_thread, polled in loads:
         targets = [("/models/{}/invoke".format(name), rows[name][:n], refs[name][:n])
                    for name in resident]
-        with _Utilization() as util:
-            lat, wall, errs, seen = _child_load_targets(base, tmp, targets, threads, per_thread)
+        before = _batcher_counts(base, resident)
+        with _Utilization() if polled else contextlib.nullcontext() as util:
+            lat, wall, errs, seen = _child_load(base, tmp, targets, threads, per_thread)
+        delta = {k: v - before[k] for k, v in _batcher_counts(base, resident).items()}
         statuses.extend(seen)
         check(len(lat) == threads * per_thread and not errs,
               "{} wrong or failed answers at {} rows: {}".format(len(errs), n, errs[:5]))
         p50, p99 = np.percentile(lat, [50, 99])
+        busy = ("device busy {:.1f} % (nvidia-smi utilization.gpu, mean of {} samples)".format(
+            util.mean, util.n) if polled else "nvidia-smi not polled")
         print("{} | mme load, {} rows, {} client threads x {} requests over 3 resident models "
-              "(child process): p50 {:.3f} ms, p99 {:.3f} ms, {:.1f} requests/s; device busy "
-              "{:.1f} % (nvidia-smi utilization.gpu, mean of {} samples)".format(
-                  tag, n, threads, per_thread, p50, p99, len(lat) / wall, util.mean, util.n),
+              "(child process): p50 {:.3f} ms, p99 {:.3f} ms, {:.1f} requests/s; {}; batchers' "
+              "requests {:.0f} inline {:.0f} dispatches {:.0f} coalesced {:.0f} (/metrics)".format(
+                  tag, n, threads, per_thread, p50, p99, len(lat) / wall, busy,
+                  delta["requests"], delta["inline"], delta["dispatch"],
+                  delta["coalesced_requests"]),
               flush=True)
 
     # ---- DELETE retires the model's batcher series
@@ -3061,7 +3052,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--host-probe"]:
         sys.exit(host_probe(sys.argv[2]))
     if sys.argv[1:2] == ["--load"]:
-        sys.exit(load_child(*sys.argv[2:7]))
-    if sys.argv[1:2] == ["--load-spec"]:
-        sys.exit(load_spec_child(sys.argv[2]))
+        sys.exit(load_child(sys.argv[2]))
     sys.exit(main())

@@ -134,7 +134,10 @@ class PredictBatcher:
         self._close_lock = threading.Lock()
         self._closed = False
         # the dispatch in flight, for the predict watchdog: its start time
-        # and (requests, rows), None / zeros when idle
+        # and (requests, rows), None / zeros when idle. Kept only while a
+        # watchdog watches this batcher (`watched`, set by its register), so
+        # that without SM_PREDICT_STUCK_S a predict reads no clock for it
+        self.watched = False
         self._dispatch_lock = threading.Lock()
         self._dispatch_started = None
         self._dispatch_meta = (0, 0)
@@ -161,11 +164,17 @@ class PredictBatcher:
             return self._dispatch_meta
 
     def _dispatch_begin(self, requests, rows):
+        if not self.watched:
+            return
         with self._dispatch_lock:
             self._dispatch_started = time.monotonic()
             self._dispatch_meta = (requests, rows)
 
     def _dispatch_end(self):
+        # dispatches are single-flight (the exec lock), so the begin that
+        # set the start ran on this thread: the unlocked read sees it
+        if self._dispatch_started is None:
+            return
         with self._dispatch_lock:
             self._dispatch_started = None
             self._dispatch_meta = (0, 0)

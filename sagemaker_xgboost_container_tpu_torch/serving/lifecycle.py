@@ -174,12 +174,16 @@ class PredictWatchdog:
     def register(self, name, batcher, breaker=None):
         with self._lock:
             self._targets[name] = (batcher, breaker)
+        # the batcher times its dispatches only while watched
+        batcher.watched = True
         self.start()
 
     def unregister(self, name):
         with self._lock:
-            self._targets.pop(name, None)
+            batcher, _ = self._targets.pop(name, (None, None))
             self._stuck.discard(name)
+        if batcher is not None:
+            batcher.watched = False
 
     def start(self):
         with self._lock:
@@ -344,9 +348,9 @@ class ServingLifecycle:
 
     @property
     def accepting(self):
-        """False once draining or stopped: /ping and new work get 503."""
-        with self._cond:
-            return self._base_state not in (DRAINING, STOPPED)
+        """False once draining or stopped: /ping and new work get 503. One
+        attribute read, taken without the lock: every request asks."""
+        return self._base_state not in (DRAINING, STOPPED)
 
     def note_breaker(self, breaker):
         """Tell the lifecycle about a breaker feeding the degraded state."""

@@ -507,6 +507,33 @@ def test_watchdog_restarts_after_stop_and_gates_on_its_knob(monkeypatch):
     assert lc.watchdog.check_interval == 0.75
 
 
+def test_batcher_times_its_dispatch_only_while_watched():
+    """Without a watchdog a predict reads no clock for one: the dispatch
+    age stays None mid-dispatch; registered with a watchdog, the dispatch
+    shows its age and size; unregistered, it is untimed again."""
+    seen = []
+
+    def predict_fn(x):
+        seen.append((batcher.dispatch_age_s(), batcher.dispatch_info()))
+        return x[:, 0]
+
+    batcher = PredictBatcher(predict_fn, registry=registry.MetricsRegistry())
+    X = np.ones((2, D), np.float32)
+    dog = lifecycle.PredictWatchdog(5.0, check_interval=60)
+    try:
+        batcher.predict(X)
+        dog.register("b", batcher)
+        batcher.predict(X)
+        dog.unregister("b")
+        batcher.predict(X)
+    finally:
+        dog.stop()
+        batcher.close()
+    assert seen[0] == (None, (0, 0)) and seen[2] == (None, (0, 0))
+    assert seen[1][0] is not None and 0.0 <= seen[1][0] < 5.0 and seen[1][1] == (1, 2)
+    assert batcher.dispatch_age_s() is None and not batcher.watched
+
+
 @pytest.mark.parametrize("kind", ["single", "mme"])
 def test_stuck_dispatch_sheds_then_recovers_like_jax(model_dir, monkeypatch, kind):
     """A batched dispatch wedged for 2 s (the `batcher.dispatch` fault)
