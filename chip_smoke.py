@@ -175,7 +175,30 @@ Phases (each prints its own lines; any failure exits non-zero):
    exit 83. Last, in this process, each model's device memory while
    resident in a ModelManager, and 20 load/unload cycles of the forest
    after which torch.cuda.memory_allocated() and threading.active_count()
-   are what they were before the first.
+   are what they were before the first;
+13. the other boosters. 13a: dart on the main path's rows (rate_drop 0.1,
+   one_drop, skip_drop 0, uniform sampling, normalize_type tree, 10
+   rounds): 8 hist_kernel and 1 totals_kernel launches a round, validation
+   logloss of round 10 below round 1's, rounds/s over rounds 2-6 on the host
+   clock and launches, device ms and busy share over rounds 7-9
+   (torch.profiler); the saved model predicting 10k rows on the GPU within
+   1e-5 of the CPU; then normalize_type=forest and sample_type=weighted, 3
+   rounds each on 20,000 x 9 rows on the GPU and on the CPU: the same
+   dropped sets (printed), the last-round training metric by phase 9's
+   rule, identical trees counted. 13b: gblinear on the same rows (eta 0.5,
+   lambda 1, alpha 0.01, 10 rounds): rounds/s, torch launches and device
+   ms a round, validation logloss falling, the weights against the CPU
+   run's within GBLINEAR_WEIGHT_TOL, the model saved, loaded and served.
+   13c: phase 4's model refreshed and pruned (gamma 1) on its training
+   rows with 10 % of the labels flipped, on the GPU and on the CPU: trees
+   equal in feature/threshold/is_leaf, leaf values within 1e-5, the splits
+   pruned and the wall times. 13d: `training.entry` in a child process
+   with booster=dart and with booster=gblinear on phase 8's channels, 10
+   rounds (exit 0, one HPO-regex line a round); both models served 1,000
+   csv rows through `serving_entrypoint`, the gblinear one also through
+   the MME's POST /models + invoke, within 1e-5 of the CPU predict; last,
+   manifests written beside the dart run's checkpoints and one digit of the
+   newest changed: a rerun resumes from the checkpoint before it.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -1451,12 +1474,14 @@ def run_entry(torch, hist, tag):
     print("{} | entry phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
 
 
-def _entry(torch, hist, tag, tmp):
-    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
-    from sagemaker_xgboost_container_tpu_torch.serving import serve_utils
-    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
-
-    # ---- the SageMaker tree: configs, channels, env
+def _entry_tree(tmp, hyperparameters):
+    """Phase 8's SageMaker tree under `tmp`: csv train and validation
+    channels of ENTRY_TRAIN_ROWS and ENTRY_VAL_ROWS x N_FEATURES rows (seed
+    ENTRY_SEED, ENTRY_MISSING of the values empty), the data config and one
+    hyperparameters file per entry of `hyperparameters` ({file name: dict}).
+    -> (X, y, data_config, train_dir, val_dir, sm_env(run, hp file) -> the
+    child's environment, with a checkpoint LocalPath, model and output dirs
+    of its own for `run`)."""
     X, y = make_data(ENTRY_TRAIN_ROWS + ENTRY_VAL_ROWS, N_FEATURES, seed=ENTRY_SEED)
     X[np.random.RandomState(ENTRY_SEED + 1).rand(*X.shape) < ENTRY_MISSING] = np.nan
     n = ENTRY_TRAIN_ROWS
@@ -1465,9 +1490,7 @@ def _entry(torch, hist, tag, tmp):
     channel = {"ContentType": "csv", "TrainingInputMode": "File",
                "S3DistributionType": "FullyReplicated"}
     data_config = {"train": channel, "validation": dict(channel)}
-    for name, cfg in (("hyperparameters.json", ENTRY_HP),
-                      ("hyperparameters-spot.json", dict(ENTRY_HP, save_model_on_termination="true")),
-                      ("inputdataconfig.json", data_config)):
+    for name, cfg in list(hyperparameters.items()) + [("inputdataconfig.json", data_config)]:
         with open(os.path.join(conf, name), "w") as f:
             json.dump(cfg, f)
     train_dir, val_dir = os.path.join(tmp, "data", "train"), os.path.join(tmp, "data", "validation")
@@ -1491,6 +1514,20 @@ def _entry(torch, hist, tag, tmp):
             "SM_OUTPUT_DATA_DIR": os.path.join(tmp, "output-" + run, "data"),
             "SM_HOSTS": '["algo-1"]', "SM_CURRENT_HOST": "algo-1"})
         return env
+
+    return X, y, data_config, train_dir, val_dir, sm_env
+
+
+def _entry(torch, hist, tag, tmp):
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+    from sagemaker_xgboost_container_tpu_torch.serving import serve_utils
+    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
+
+    # ---- the SageMaker tree: configs, channels, env
+    X, y, data_config, train_dir, val_dir, sm_env = _entry_tree(tmp, {
+        "hyperparameters.json": ENTRY_HP,
+        "hyperparameters-spot.json": dict(ENTRY_HP, save_model_on_termination="true")})
+    n = ENTRY_TRAIN_ROWS
 
     def failure(run):
         path = os.path.join(tmp, "output-" + run, "failure")
@@ -2968,6 +3005,343 @@ def _mme_in_process(torch, rows, refs, tag):
               tag, MME_CYCLES, time.perf_counter() - t, mem0, count0), flush=True)
 
 
+# ---------------------------------------------------------------- phase 13
+
+# 13a: dart on the main path's rows; its normalize_type / sample_type
+# variants on SWEEP_SHAPE rows, GPU against CPU
+DART_PARAMS = dict(MAIN_PARAMS, booster="dart", rate_drop=0.1, one_drop=1, skip_drop=0.0,
+                   sample_type="uniform", normalize_type="tree")
+DART_ROUNDS = 10
+DART_VARIANTS = (("normalize_type=forest", {"normalize_type": "forest"}),
+                 ("sample_type=weighted", {"sample_type": "weighted"}))
+# 13b: gblinear on the main path's rows
+GBLINEAR_PARAMS = {"objective": "binary:logistic", "booster": "gblinear", "eta": 0.5,
+                   "lambda": 1.0, "alpha": 0.01}
+GBLINEAR_ROUNDS = 10
+# GPU against CPU weights after 10 rounds: each coordinate step sums 1M f32
+# products in another order on each device, and the sweep carries every
+# step's rounding into the next feature's gradient
+GBLINEAR_WEIGHT_TOL = 1e-4
+# 13c: phase 4's model refreshed and pruned on its rows, 10 % of the labels
+# flipped
+UPDATE_PARAMS = dict(MAIN_PARAMS, process_type="update", updater="refresh,prune", gamma=1.0)
+UPDATE_FLIP = 0.1
+# 13d: dart and gblinear through the train entry point on phase 8's channels
+BOOSTER_ENTRY_HP = {
+    "dart": {"objective": "binary:logistic", "booster": "dart", "max_depth": "8",
+             "max_bin": "256", "eta": "0.2", "num_round": "10", "eval_metric": "logloss,auc",
+             "rate_drop": "0.1", "one_drop": "1"},
+    "gblinear": {"objective": "binary:logistic", "booster": "gblinear", "eta": "0.5",
+                 "lambda": "1", "alpha": "0.01", "num_round": "10",
+                 "eval_metric": "logloss,auc"},
+}
+BOOSTER_ENTRY_ROUNDS = 10
+BOOSTER_SERVE_ROWS = 1_000
+
+
+class _DropLog:
+    """Callback: each round's dropped set, the earlier rounds whose leaves
+    the round rescaled."""
+
+    def __init__(self):
+        self.rounds = []
+        self._values = []
+
+    def after_iteration(self, forest, rnd, evals_log):
+        indptr = forest.iteration_indptr
+        self.rounds.append([u for u in range(len(indptr) - 2) if any(
+            not np.array_equal(forest.trees[t].value, self._values[t])
+            for t in range(indptr[u], indptr[u + 1]))])
+        self._values = [t.value.copy() for t in forest.trees]
+        self.last = {k: v[-1] for k, v in evals_log.get("train", {}).items()}
+        return False
+
+
+def run_boosters(torch, hist, pkg, dtrain, dval, tag):
+    """Phase 13: dart, gblinear and process_type=update (see the module
+    docstring)."""
+    t = time.perf_counter()
+    run_dart(torch, hist, pkg, dtrain, dval, tag)
+    run_gblinear(torch, hist, pkg, dtrain, dval, tag)
+    run_update(torch, hist, pkg, dtrain, tag)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_boosters_") as tmp:
+        run_booster_entry(torch, hist, tag, tmp)
+    print("{} | boosters phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _gpu_cpu_predict(path, x):
+    """(GPU predict, CPU predict) of the model file at `path` on rows x."""
+    from sagemaker_xgboost_container_tpu_torch.models.compat import load_model_any_format
+
+    gpu, _ = load_model_any_format(path, device=DEVICE)
+    cpu, _ = load_model_any_format(path, device="cpu")
+    return gpu.predict(x), cpu.predict(x)
+
+
+def run_dart(torch, hist, pkg, dtrain, dval, tag):
+    """13a: dart at full width, then its variants on the GPU and the CPU."""
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+
+    rounds = DART_ROUNDS
+    hist.reset_launch_counts()
+    forest, run = _profiled_train(torch, pkg, DART_PARAMS, dtrain, dval, rounds, 5, 3)
+    launches = dict(hist.LAUNCHES)
+    check(launches == {"hist_kernel": 8 * rounds, "totals_kernel": rounds},
+          "dart launches {} over {} rounds (want 8 and 1 a round)".format(launches, rounds))
+    ll = run["log"]["logloss"]
+    check(len(ll) == rounds and all(np.isfinite(ll)) and ll[-1] < ll[0],
+          "dart validation logloss {}".format(ll))
+    print("{} | dart ({} x {}, depth 8, rate_drop 0.1, one_drop, {} rounds): launches {} (8 "
+          "hist_kernel and 1 totals_kernel a round); setup {:.3f} s; rounds/s (rounds 2-6, host "
+          "clock) {:.3f}; validation logloss {:.5f} -> {:.5f}; total {:.3f} s".format(
+              tag, dtrain.num_row, dtrain.num_col, rounds, json.dumps(launches), run["setup_s"],
+              1e3 / run["host_ms"], ll[0], ll[-1], run["total_s"]), flush=True)
+    _profile_line(tag, "dart", run)
+    x = dval.features[:N_SERVE]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "xgboost-model")
+        forest.save_model(path)
+        gpu, cpu = _gpu_cpu_predict(path, x)
+    err = float(np.abs(gpu - cpu).max())
+    check(gpu.shape == (len(x),) and np.all(np.isfinite(gpu)) and err <= 1e-5,
+          "dart: the saved model's GPU predict differs from the CPU by {}".format(err))
+    print("{} | dart model saved and loaded: {} rows, GPU vs CPU predict max_abs_err "
+          "{:.3e}".format(tag, len(x), err), flush=True)
+
+    X, y = make_data(*SWEEP_SHAPE, seed=13)
+    X[np.random.RandomState(14).rand(*X.shape) < 0.02] = np.nan
+    for label, extra in DART_VARIANTS:
+        # rate_drop 0.7 drops both earlier rounds in round 3, where the
+        # variants' normalizations and draws part ways
+        params = dict(DART_PARAMS, max_depth=6, max_bin=64, rate_drop=0.7, **extra)
+        runs = {}
+        for dev in (DEVICE, "cpu"):
+            log = _DropLog()
+            dm = DataMatrix(X, y)
+            f = pkg.train(params, dm, 3, evals=[(dm, "train")], device=dev, callbacks=[log],
+                          verbose_eval=False)
+            runs[dev] = (f, log)
+        (fg, lg), (fc, lc) = runs[DEVICE], runs["cpu"]
+        same = sum(_first_split_difference(a, b) is None for a, b in zip(fg.trees, fc.trees))
+        mg, mc = lg.last["logloss"], lc.last["logloss"]
+        print("{} | dart {} (3 rounds, {} x {}): dropped sets GPU {} CPU {}; train logloss GPU "
+              "{:.6f} CPU {:.6f}; identical trees {}/{}".format(
+                  tag, label, X.shape[0], X.shape[1], lg.rounds, lc.rounds, mg, mc, same,
+                  len(fc.trees)), flush=True)
+        check(lg.rounds == lc.rounds and sum(map(len, lg.rounds)) > 0,
+              "dart {}: dropped sets GPU {} CPU {}".format(label, lg.rounds, lc.rounds))
+        tol = SWEEP_METRIC_TOL if same == len(fc.trees) else SWEEP_SPLIT_TOL
+        check(abs(mg - mc) <= tol * max(1.0, abs(mc)),
+              "dart {}: train logloss GPU {} CPU {}".format(label, mg, mc))
+
+
+def run_gblinear(torch, hist, pkg, dtrain, dval, tag):
+    """13b: gblinear at full width, GPU weights against the CPU run's."""
+    rounds = GBLINEAR_ROUNDS
+    hist.reset_launch_counts()
+    model, run = _profiled_train(torch, pkg, GBLINEAR_PARAMS, dtrain, dval, rounds, 5, 3)
+    launches = dict(hist.LAUNCHES)
+    check(launches == {"hist_kernel": 0, "totals_kernel": 0},
+          "gblinear launched the tree kernels: {}".format(launches))
+    ll = run["log"]["logloss"]
+    check(len(ll) == rounds and all(np.isfinite(ll)) and ll[-1] < ll[0],
+          "gblinear validation logloss {}".format(ll))
+    rows, busy_ms, per_round, _, _ = run["rows"]
+    for r in rows[:8]:
+        print("  {:9.3f} ms {:6d} calls  {}".format(r["device_ms"], r["calls"], r["name"]))
+    print("{} | gblinear ({} x {}, {} rounds): setup {:.3f} s; rounds/s (rounds 2-6, host clock) "
+          "{:.3f}; profile (rounds {}): {:.0f} kernel launches/round, device {:.3f} ms/round, "
+          "device busy {:.1%} of an unprofiled round; validation logloss {:.5f} -> {:.5f}; "
+          "launches {}".format(
+              tag, dtrain.num_row, dtrain.num_col, rounds, run["setup_s"], 1e3 / run["host_ms"],
+              run["label"], per_round, busy_ms, busy_ms / run["host_ms"], ll[0], ll[-1],
+              json.dumps(launches)), flush=True)
+    t = time.perf_counter()
+    cpu = pkg.train(GBLINEAR_PARAMS, dtrain, rounds, device="cpu", verbose_eval=False)
+    cpu_s = time.perf_counter() - t
+    err_w = float(np.abs(model.weights - cpu.weights).max())
+    err_b = float(np.abs(model.bias - cpu.bias).max())
+    scale = max(1.0, float(np.abs(cpu.weights).max()))
+    print("{} | gblinear GPU vs CPU ({} rounds, CPU run {:.3f} s): weights max_abs_err {:.3e} "
+          "(largest |w| {:.4f}), bias max_abs_err {:.3e}; tolerance {} x max(1, largest "
+          "|w|)".format(tag, rounds, cpu_s, err_w, float(np.abs(cpu.weights).max()), err_b,
+                        GBLINEAR_WEIGHT_TOL), flush=True)
+    check(max(err_w, err_b) <= GBLINEAR_WEIGHT_TOL * scale,
+          "gblinear GPU weights differ from the CPU run's by {}".format(max(err_w, err_b)))
+    x = dval.features[:N_SERVE]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "xgboost-model")
+        model.save_model(path)
+        gpu, cpu_pred = _gpu_cpu_predict(path, x)
+        err = float(np.abs(gpu - cpu_pred).max())
+        check(err <= 1e-5, "gblinear: the saved model's GPU predict differs by {}".format(err))
+        serve_ms, serve_err = _serve_once(tmp, x[:BOOSTER_SERVE_ROWS],
+                                          cpu_pred[:BOOSTER_SERVE_ROWS])
+    print("{} | gblinear model saved, loaded ({} rows, GPU vs CPU max_abs_err {:.3e}) and served "
+          "({} csv rows in {:.3f} ms, max_abs_err {:.3e})".format(
+              tag, len(x), err, BOOSTER_SERVE_ROWS, serve_ms, serve_err), flush=True)
+
+
+def run_update(torch, hist, pkg, dtrain, tag):
+    """13c: phase 4's model refreshed and pruned on its training rows with
+    UPDATE_FLIP of the labels flipped, on the GPU and on the CPU."""
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    check("main" in MODELS, "phase 13c needs phase 4's model")
+    path = os.path.join(MODELS["main"], "xgboost-model")
+    base = Forest.load_model(path, device="cpu")
+    y = dtrain.labels.copy()
+    flip = np.random.RandomState(15).rand(len(y)) < UPDATE_FLIP
+    y[flip] = 1.0 - y[flip]
+    dm = DataMatrix(dtrain.features, y)
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        hist.reset_launch_counts()
+        t = time.perf_counter()
+        updated = pkg.train(UPDATE_PARAMS, dm, base.num_boosted_rounds, device=dev,
+                            xgb_model=path, verbose_eval=False)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        runs[dev] = (updated, time.perf_counter() - t, dict(hist.LAUNCHES))
+    (fg, gpu_s, launches), (fc, cpu_s, _) = runs[DEVICE], runs["cpu"]
+
+    def splits(f):
+        return sum(int((~t.is_leaf).sum()) for t in f.trees)
+
+    check(launches == {"hist_kernel": 0, "totals_kernel": 0},
+          "update launched the tree kernels: {}".format(launches))
+    check(len(fg.trees) == len(fc.trees) == len(base.trees), "update changed the tree count")
+    value_err = 0.0
+    for a, b in zip(fg.trees, fc.trees):
+        check(np.array_equal(a.is_leaf, b.is_leaf) and np.array_equal(a.left, b.left),
+              "update: GPU and CPU trees differ in structure")
+        split = ~a.is_leaf
+        check(np.array_equal(a.feature[split], b.feature[split])
+              and np.array_equal(a.threshold[split], b.threshold[split]),
+              "update: GPU and CPU trees differ in a split")
+        value_err = max(value_err, float(np.abs(a.value[a.is_leaf] - b.value[b.is_leaf]).max()))
+    check(value_err <= 1e-5, "update: leaf values differ by {}".format(value_err))
+    pruned = splits(base) - splits(fg)
+    check(0 < pruned < splits(base), "update pruned {} of {} splits".format(pruned, splits(base)))
+    print("{} | update (refresh,prune, gamma 1, {} rows, {:.0%} of labels flipped, {} trees of "
+          "depth 8): {} of {} splits pruned; wall GPU {:.3f} s, CPU {:.3f} s; GPU vs CPU trees "
+          "equal in feature/threshold/is_leaf, leaf values max_abs_err {:.3e}; launches "
+          "{}".format(tag, dm.num_row, UPDATE_FLIP, len(fg.trees), pruned, splits(base), gpu_s,
+                      cpu_s, value_err, json.dumps(launches)), flush=True)
+
+
+def _serve_mme_once(torch, model_dir, rows, want):
+    """The model in `model_dir` behind the multi-model endpoint on the card:
+    POST /models, one csv invoke of `rows` checked within 1e-5 of `want`,
+    DELETE. -> (device bytes while loaded, device bytes left after the
+    DELETE, invoke ms): the latter is what the request thread's first
+    matmul left behind (its cuBLAS workspace), not the model's."""
+    from sagemaker_xgboost_container_tpu_torch.serving import lifecycle, server
+
+    os.environ["SAGEMAKER_MULTI_MODEL"] = "true"
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    httpd = server.serving_entrypoint(port=0, block=False, device=DEVICE)
+    loop = threading.Thread(target=httpd.serve_forever, daemon=True)
+    loop.start()
+    try:
+        base = "http://127.0.0.1:{}".format(httpd.server_port)
+        status = _http(base, "/models", _load_body("linear", model_dir), "application/json")[0]
+        check(status == 200, "MME: POST /models of the gblinear model answered {}".format(status))
+        ms, _ = _invoke_ok(base, "linear", rows, want, what="MME gblinear")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - mem0
+        status = _http(base, "/models/linear", method="DELETE")[0]
+        check(status == 200, "MME: DELETE answered {}".format(status))
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - mem0
+    finally:
+        httpd.stop()
+        loop.join(10)
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        os.environ.pop("SAGEMAKER_MULTI_MODEL", None)
+        lifecycle.uninstall()
+    return held, left, ms
+
+
+def run_booster_entry(torch, hist, tag, tmp):
+    """13d: dart and gblinear through the train entry point in a child
+    process, their models served, and a resume past a tampered checkpoint."""
+    import contextlib
+    import io
+
+    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train, checkpointing
+    from sagemaker_xgboost_container_tpu_torch.utils import integrity
+
+    X, y, data_config, train_dir, val_dir, sm_env = _entry_tree(tmp, {
+        "hyperparameters-{}.json".format(k): hp for k, hp in BOOSTER_ENTRY_HP.items()})
+    x_val = X[ENTRY_TRAIN_ROWS:ENTRY_TRAIN_ROWS + BOOSTER_SERVE_ROWS]
+    for kind in ("dart", "gblinear"):
+        rc, out, err, child_s = _run_entry_child(sm_env(kind, "hyperparameters-{}.json".format(
+            kind)))
+        check(rc == 0, "{}: the train entry point exited {}: {}".format(kind, rc, err[-2000:]))
+        lines = _metric_lines(out)
+        found = re.findall(HPO_REGEX.format("logloss"), out)
+        check(sorted(lines) == list(range(BOOSTER_ENTRY_ROUNDS))
+              and len(found) == BOOSTER_ENTRY_ROUNDS,
+              "{}: metric lines for rounds {}, {} HPO-regex lines".format(
+                  kind, sorted(lines), len(found)))
+        model_dir = os.path.join(tmp, "model-" + kind)
+        gpu, cpu = _gpu_cpu_predict(os.path.join(model_dir, "xgboost-model"), x_val)
+        serve_ms, serve_err = _serve_once(model_dir, x_val, cpu)
+        text = ("{} | entry {} (child process): exit 0 in {:.3f} s, {} metric lines, validation "
+                "logloss {:.5f} -> {:.5f}; served {} csv rows in {:.3f} ms, max_abs_err "
+                "{:.3e}".format(tag, kind, child_s, len(found),
+                                lines[0]["validation-logloss"],
+                                lines[BOOSTER_ENTRY_ROUNDS - 1]["validation-logloss"],
+                                len(x_val), serve_ms, serve_err))
+        if kind == "gblinear":
+            held, left, mme_ms = _serve_mme_once(torch, model_dir, x_val, cpu)
+            check(held - left > 0, "the MME's gblinear model held no device memory")
+            text += ("; MME POST /models + invoke {:.3f} ms, device bytes while loaded {} and "
+                     "after DELETE {} (the model's {})".format(mme_ms, held, left, held - left))
+        print(text, flush=True)
+
+    # the tampered-checkpoint drill: manifests beside the dart run's
+    # checkpoints, one digit of the newest changed; the resume skips it
+    ckpt = os.path.join(tmp, "ckpt-dart")
+    kept = sorted(int(f.rsplit(".", 1)[1]) for f in os.listdir(ckpt)
+                  if re.match(r"^xgboost-checkpoint\.\d+$", f))
+    for i in kept:
+        integrity.write_manifest(os.path.join(ckpt, "xgboost-checkpoint.{}".format(i)),
+                                 iteration=i)
+    newest = os.path.join(ckpt, "xgboost-checkpoint.{}".format(kept[-1]))
+    with open(newest) as f:
+        text = f.read()
+    at = re.search(r'"split_conditions": \[-?\d\.(\d)', text).start(1)
+    tampered = text[:at] + str((int(text[at]) + 1) % 10) + text[at + 1:]
+    json.loads(tampered)
+    with open(newest, "w") as f:
+        f.write(tampered)
+    picked = checkpointing.load_checkpoint(ckpt)
+    check(picked == (os.path.join(ckpt, "xgboost-checkpoint.{}".format(kept[-2])), kept[-1]),
+          "tampered checkpoint {}: load_checkpoint picked {}".format(kept[-1], picked))
+    rounds = BOOSTER_ENTRY_ROUNDS + 2
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        algorithm_train.sagemaker_train(
+            dict(BOOSTER_ENTRY_HP["dart"], num_round=str(rounds)), data_config, train_dir,
+            val_dir, os.path.join(tmp, "model-resumed"), ["algo-1"], "algo-1",
+            {"LocalPath": ckpt}, device=DEVICE)
+    lines = _metric_lines(out.getvalue())
+    check(sorted(lines) == list(range(kept[-1], rounds)),
+          "resume past the tampered checkpoint trained rounds {}".format(sorted(lines)))
+    check(not os.path.exists(newest + integrity.MANIFEST_SUFFIX),
+          "the rewritten checkpoint kept its stale manifest")
+    print("{} | tampered checkpoint: one digit of xgboost-checkpoint.{} changed (still valid "
+          "JSON, digest no longer its manifest's): resumed from checkpoint {} and trained rounds "
+          "{}-{}; the rewritten checkpoint's stale manifest removed".format(
+              tag, kept[-1], kept[-2], kept[-1], rounds - 1), flush=True)
+
+
 def main():
     try:
         import torch
@@ -3021,6 +3395,7 @@ def main():
         run_lossguide(torch, hist, pkg, dtrain, dval, tag)
         run_sampling(torch, hist, pkg, dtrain, dval, tag)
         run_mme(torch, hist, tag)
+        run_boosters(torch, hist, pkg, dtrain, dval, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

@@ -1,5 +1,6 @@
 """Carry a model of the JAX package (``sagemaker_xgboost_container_tpu``)
-into this package's ``Forest``.
+into this package's ``Forest`` (gbtree and dart) or ``LinearModel``
+(gblinear, ``linear_from_reference``).
 
 Two input forms, both plain data (this module imports nothing of the JAX
 package):
@@ -25,6 +26,7 @@ import json
 import numpy as np
 
 from .models.forest import Forest, compact_padded_tree
+from .models.gblinear import LinearModel
 
 
 def forest_from_reference(doc_or_arrays, device=None):
@@ -55,3 +57,11 @@ def forest_from_reference(doc_or_arrays, device=None):
             list(range(classes)),
         )
     return forest
+
+
+def linear_from_reference(doc, device=None):
+    """The JAX ``LinearModel.save_json()`` document (a JSON string or the
+    parsed dict) -> LinearModel on ``device`` (CUDA unless given)."""
+    if isinstance(doc, (str, bytes)):
+        doc = json.loads(doc)
+    return LinearModel.from_dict(doc, device=device)

@@ -1,6 +1,8 @@
 """The boosting engine: ``train()``, the counterpart of ``xgb.train``.
 
-One device, eager PyTorch: each round computes the objective's grad/hess
+One device, eager PyTorch (the gbtree booster here; dart, gblinear and
+``process_type=update`` in ``models/dart``, ``models/gblinear`` and
+``models/update``): each round computes the objective's grad/hess
 (LambdaMART gradients over the query groups for the ranking objectives,
 ``ops/ranking``), grows ``num_parallel_tree`` trees, or that many per class
 for a multiclass objective, all C in one loop (``ops/tree_build.build_tree``
@@ -55,14 +57,15 @@ class TrainConfig:
     objective (``num_class`` >= 2 for multiclass), with depthwise or
     lossguide growth (``max_leaves`` set; ``max_depth`` 0 only there), row
     and column sampling (``subsample``, ``colsample_bytree``,
-    ``colsample_bylevel``, ``colsample_bynode``, drawn from ``seed``) and
-    bagged rounds (``num_parallel_tree``). Keys that do not change a gbtree
-    model (``updater``, ``predictor``, ``nthread``, ``verbosity``, the dart
-    and gblinear knobs, ...) are accepted and ignored, as the JAX package
-    ignores them there. What the port does not train raises ``UserError``
-    naming the parameter, rather than training something else: monotone
-    and interaction constraints, dart, gblinear, ``process_type=update``
-    and the exact and approx tree methods.
+    ``colsample_bylevel``, ``colsample_bynode``, drawn from ``seed``),
+    bagged rounds (``num_parallel_tree``), the three boosters (``booster``
+    gbtree, dart, gblinear) and ``process_type`` default or update. Keys
+    that do not change the model being trained (``predictor``, ``nthread``,
+    ``verbosity``, the dart knobs under gbtree, ...) are accepted and
+    ignored, as the JAX package ignores them there. What the port does not
+    train raises ``UserError`` naming the parameter, rather than training
+    something else: monotone and interaction constraints and the exact and
+    approx tree methods.
     """
 
     def __init__(self, params):
@@ -108,6 +111,12 @@ class TrainConfig:
         self.num_class = int(p.get("num_class", 0) or 0)
         self.base_score = float(p.get("base_score", 0.5))
         self.eval_metric = p.get("eval_metric")
+        self.booster = p.get("booster", "gbtree")
+        self.process_type = p.get("process_type", "default")
+        if self.process_type not in ("default", "update"):
+            raise exc.UserError(
+                "process_type must be 'default' or 'update', got {!r}".format(self.process_type)
+            )
         self.objective_params = p
         if self.objective == "count:poisson" and "max_delta_step" not in p:
             self.max_delta_step = 0.7
@@ -116,8 +125,7 @@ class TrainConfig:
         checks = (
             ("grow_policy", "depthwise", lambda v: v in ("depthwise", "lossguide")),
             ("tree_method", "auto", lambda v: v in ("auto", "hist")),
-            ("booster", "gbtree", lambda v: v == "gbtree"),
-            ("process_type", "default", lambda v: v == "default"),
+            ("booster", "gbtree", lambda v: v in ("gbtree", "dart", "gblinear")),
             ("monotone_constraints", None, lambda v: not v),
             ("interaction_constraints", None, lambda v: not v),
         )
@@ -128,6 +136,36 @@ class TrainConfig:
             raise exc.UserError(
                 "not supported by the PyTorch port yet: {}".format(", ".join(unsupported))
             )
+
+
+def print_metric_line(rnd, results):
+    """Print round ``rnd``'s (data, metric, value) results as xgboost's
+    ``[rnd]<TAB>data-metric:value...`` line (nothing without results)."""
+    if results:
+        print("[{}]\t{}".format(
+            rnd, "\t".join("{}-{}:{:.5f}".format(d, m, v) for d, m, v in results)), flush=True)
+
+
+def evaluate_host_lines(entries, metric_names, feval, objective, num_group):
+    """Host metric lines of ``entries``, (data name, DataMatrix, numpy
+    margin) each: every eval metric on the host (``eval_metrics``), then
+    what ``feval(margin, dm)`` returns, the JAX package's order. The dart,
+    gblinear and update loops evaluate so, as the JAX package's do."""
+    results = []
+    for name, dm, margin in entries:
+        preds = prob_matrix = None
+        for metric in metric_names:
+            if preds is None:
+                preds = objective.margin_to_prediction(margin)
+                if num_group > 1:
+                    prob_matrix = SoftprobMulti.margin_to_prediction(objective, margin)
+            value = eval_metrics.evaluate(metric, preds, dm.labels, dm.weights,
+                                          groups=dm.groups, prob_matrix=prob_matrix)
+            results.append((name, metric, value))
+        if feval is not None:
+            for metric_name, value in feval(margin, dm):
+                results.append((name, metric_name, value))
+    return results
 
 
 def _eval_metric_names(config, objective):
@@ -232,16 +270,20 @@ class _TrainingSession:
                 r = r_hi
         return margins
 
+    def grad_hess(self, margins):
+        """The objective's (g, h) at ``margins`` ([n] or [n, C]), over the
+        query groups for a ranking objective."""
+        if self.rank_blocks is not None:
+            return lambdarank_grad_hess(margins, self.labels, self.weights,
+                                        self.rank_blocks, scheme=self.objective.scheme)
+        return self.objective.grad_hess(margins, self.labels, self.weights)
+
     def run_round(self, rnd):
         """Grow round ``rnd``'s ``num_parallel_tree`` trees and update every
         margin -> list of host tree dicts (arrays [max_nodes], or [C,
         max_nodes] for C classes), one per parallel tree."""
         cfg = self.config
-        if self.rank_blocks is not None:
-            g, h = lambdarank_grad_hess(self.margins, self.labels, self.weights,
-                                        self.rank_blocks, scheme=self.objective.scheme)
-        else:
-            g, h = self.objective.grad_hess(self.margins, self.labels, self.weights)
+        g, h = self.grad_hess(self.margins)
         if self.num_group > 1:
             # [n, C] -> the builder's contiguous [C, n]
             g, h = g.T.contiguous(), h.T.contiguous()
@@ -339,10 +381,35 @@ def train(
     training: its trees stay, the margins start from its predictions, and
     round numbers continue from its last round. ``_sampler``: an object
     with ``models.sampling.Sampler``'s ``draw`` in place of the port's own
-    draws (the tests replay the JAX package's)."""
+    draws (the tests replay the JAX package's).
+
+    ``booster=gblinear`` trains a ``gblinear.LinearModel`` (resuming only
+    from one), ``booster=dart`` runs ``dart.train_dart`` and
+    ``process_type=update`` refreshes or prunes the trees of ``xgb_model``
+    (``update.train_update``), in the JAX package's order of checks."""
     dev = resolve_device(device)
     config = TrainConfig(params)
     callbacks = list(callbacks or [])
+    if config.process_type == "update" and config.booster == "gblinear":
+        # checked before the gblinear branch, which would otherwise boost
+        # more rounds where a refresh was asked for
+        raise exc.UserError(
+            "process_type 'update' can only be used with updater 'refresh' and "
+            "'prune' (tree boosters); booster=gblinear does not support it."
+        )
+    if config.booster == "gblinear":
+        from .compat import load_model_any_format
+        from .gblinear import LinearModel, train_linear
+
+        initial = xgb_model
+        if xgb_model is not None and not isinstance(xgb_model, LinearModel):
+            initial, _fmt = load_model_any_format(xgb_model, device=dev)
+            if not isinstance(initial, LinearModel):
+                raise exc.UserError("Checkpoint {} is not a gblinear model".format(xgb_model))
+        return train_linear(config, dtrain, num_boost_round, evals=list(evals), feval=feval,
+                            callbacks=callbacks, initial_model=initial, device=dev,
+                            verbose_eval=verbose_eval)
+
     if xgb_model is None:
         objective_params = {
             k: v for k, v in config.objective_params.items() if k in OBJECTIVE_PARAM_KEYS
@@ -364,6 +431,16 @@ def train(
     if forest.num_feature < dtrain.num_col and forest.trees:
         raise exc.UserError("feature_names mismatch between checkpoint and data")
     forest.num_feature = max(forest.num_feature, dtrain.num_col)
+    if config.process_type == "update":
+        from .update import train_update
+
+        return train_update(config, forest, dtrain, list(evals), feval, callbacks,
+                            num_boost_round, verbose_eval=verbose_eval)
+    if config.booster == "dart":
+        from .dart import train_dart
+
+        return train_dart(config, forest, dtrain, list(evals), feval, callbacks,
+                          num_boost_round, dev, verbose_eval=verbose_eval)
     metric_names = _eval_metric_names(config, forest.objective())
     session = _TrainingSession(config, dtrain, list(evals), forest, metric_names, dev,
                                sampler=_sampler)
@@ -387,13 +464,8 @@ def train(
         results = session.evaluate(feval)
         for data_name, metric_name, value in results:
             evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(value)
-        if verbose_eval and results:
-            print(
-                "[{}]\t{}".format(
-                    rnd, "\t".join("{}-{}:{:.5f}".format(d, m, v) for d, m, v in results)
-                ),
-                flush=True,
-            )
+        if verbose_eval:
+            print_metric_line(rnd, results)
         stops = [
             cb.after_iteration(forest, rnd, evals_log)
             for cb in callbacks

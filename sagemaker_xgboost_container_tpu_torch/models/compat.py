@@ -2,7 +2,8 @@
 
 Customers bring ``xgboost-model`` files saved by real xgboost as
 
-* xgboost JSON (``Forest.from_dict``),
+* xgboost JSON (``Forest.from_dict`` for gbtree and dart documents,
+  ``gblinear.LinearModel.from_dict`` for gblinear ones),
 * xgboost UBJSON: the draft-12 UBJ encoding of the same document, the
   default ``save_model`` format since xgboost 2.x (decoded here),
 * the legacy binary format or a pickled ``xgboost.core.Booster``: not
@@ -17,6 +18,7 @@ import numpy as np
 
 from ..toolkit import exceptions as exc
 from .forest import Forest
+from .gblinear import LinearModel
 
 XGB_FORMAT = "xgb_format"
 
@@ -208,6 +210,15 @@ def encode_ubjson(obj):
 # ---------------------------------------------------------------------------
 
 
+def _model_from_dict(doc, device=None):
+    """A decoded model document -> LinearModel for gblinear, else Forest
+    (gbtree, and dart with its weight_drop)."""
+    name = doc.get("learner", {}).get("gradient_booster", {}).get("name", "gbtree")
+    if name == "gblinear":
+        return LinearModel.from_dict(doc, device=device)
+    return Forest.from_dict(doc, device=device)
+
+
 def _forest_from_raw(raw, device=None):
     """Dispatch a raw model buffer by magic."""
     raw = bytes(raw)
@@ -217,9 +228,9 @@ def _forest_from_raw(raw, device=None):
         )
     head = raw.lstrip()[:1]
     if head == b"{" and raw[1:2] not in (b"L", b"l", b"i", b"U", b"I", b"#", b"$"):
-        return Forest.from_dict(json.loads(raw.decode("utf-8")), device=device)
+        return _model_from_dict(json.loads(raw.decode("utf-8")), device=device)
     if raw[:1] == b"{":
-        return Forest.from_dict(decode_ubjson(raw), device=device)
+        return _model_from_dict(decode_ubjson(raw), device=device)
     if raw[:1] == b"\x80":  # pickle protocol 2 and later
         raise exc.UserError(
             "pickled xgboost Booster models are not supported by the PyTorch port yet"
@@ -230,9 +241,9 @@ def _forest_from_raw(raw, device=None):
 
 
 def load_model_any_format(path, device=None):
-    """-> (Forest on ``device``, source format tag). xgboost JSON and UBJSON
-    load; the legacy binary and pickle formats raise a UserError naming the
-    format."""
+    """-> (model on ``device``, source format tag): a Forest (gbtree or
+    dart) or a LinearModel (gblinear). xgboost JSON and UBJSON load; the
+    legacy binary and pickle formats raise a UserError naming the format."""
     with open(path, "rb") as f:
         raw = f.read()
     try:

@@ -35,7 +35,7 @@ def parallel_cv_supported(config, metric_names, has_feval):
     """Static eligibility for the fold-parallel path."""
     if has_feval or not metric_names:
         return False
-    if config.grow_policy != "depthwise":
+    if config.booster != "gbtree" or config.grow_policy != "depthwise":
         return False
     if config.num_class > 1 or config.num_parallel_tree > 1:
         return False

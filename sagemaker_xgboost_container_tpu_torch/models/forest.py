@@ -451,13 +451,16 @@ class Forest:
         try:
             learner = doc["learner"]
             gb = learner["gradient_booster"]
-            name = gb.get("name", "gbtree")
-            if name != "gbtree" or "gbtree" in gb:
+            weight_drop = None
+            if gb.get("name") == "dart" or "gbtree" in gb:
+                # dart nests the tree model under "gbtree" and keeps each
+                # tree's dropout scale in "weight_drop"
+                weight_drop = gb.get("weight_drop")
+                gb = gb["gbtree"]
+            if gb.get("name", "gbtree") != "gbtree":
                 raise exc.UserError(
-                    "{} models are not supported by the PyTorch port yet".format(
-                        "dart" if "gbtree" in gb else name
-                    )
-                )
+                    "{} is not a tree model; load it with "
+                    "compat.load_model_any_format".format(gb.get("name")))
             model = gb["model"]
             lmp = learner["learner_model_param"]
             objective = learner["objective"]
@@ -478,6 +481,9 @@ class Forest:
         )
         forest.attributes = learner.get("attributes", {})
         forest.trees = [cls._tree_from_json(t) for t in model["trees"]]
+        if weight_drop:
+            for tree, scale in zip(forest.trees, weight_drop):
+                tree.value = tree.value * np.float32(scale)
         forest.tree_info = [int(v) for v in model.get("tree_info", [0] * len(forest.trees))]
         indptr = model.get("iteration_indptr")
         if indptr:

@@ -36,6 +36,7 @@ from .. import telemetry
 from ..constants import EXIT_DRAIN_TIMEOUT
 from ..utils.envconfig import env_float
 from ..utils.logging_config import setup_main_logger
+from ..utils.requirements import install_requirements_if_present
 from . import lifecycle as lifecycle_mod
 from .app import ScoringService, make_app
 from .mme import make_mme_app
@@ -89,7 +90,8 @@ def is_multi_model():
 def _load_user_hooks(model_dir):
     """Import the customer's inference script if present; return hook dict.
 
-    The script dir lands on ``sys.path`` (user scripts import sibling
+    A ``requirements.txt`` beside the script is pip-installed first
+    (``utils/requirements``). The script dir lands on ``sys.path`` (user scripts import sibling
     helpers, lazily too, so a successful load keeps it), and the module
     registers in ``sys.modules`` under a name derived from the script path
     (pickle and dataclass machinery resolve classes through it). A failed
@@ -109,6 +111,8 @@ def _load_user_hooks(model_dir):
     if script is None:
         return {}
     script_dir = os.path.dirname(script)
+    # the script's requirements.txt, before the script imports them
+    install_requirements_if_present(script_dir)
     module_name = "user_inference_{}".format(
         hashlib.sha1(os.path.abspath(script).encode("utf-8")).hexdigest()[:12]
     )

@@ -19,12 +19,14 @@ Every objective trains, the ranking ones with the query groups of the
 channel (libsvm ``qid:`` tokens or ``.group`` sidecar files; a csv channel,
 or one without groups, is one group of all its rows), with depthwise or
 lossguide growth; ranking metric lines read ``validation-ndcg@10`` and so
-on. CV trains its folds side by side in one tree build where
-``models/cv_parallel`` allows (``GRAFT_PARALLEL_CV``, as in the JAX
-package), else one after another. Not ported yet, each refused with a
-``UserError`` naming it: more than one host (``SM_HOSTS``), and what
-``booster.TrainConfig`` refuses: constraints, dart, gblinear,
-``process_type=update`` and the exact and approx tree methods.
+on. ``booster=dart`` / ``gblinear`` and ``process_type=update`` (over the
+checkpoint's model) train through the same call, and their models are
+saved and checkpointed through their ``save_model``. CV trains its folds
+side by side in one tree build where ``models/cv_parallel`` allows
+(``GRAFT_PARALLEL_CV``, gbtree only, as in the JAX package), else one after
+another. Not ported yet, each refused with a ``UserError`` naming it: more
+than one host (``SM_HOSTS``), and what ``booster.TrainConfig`` refuses:
+constraints and the exact and approx tree methods.
 """
 
 import logging

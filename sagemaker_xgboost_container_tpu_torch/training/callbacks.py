@@ -13,6 +13,7 @@ import os
 import signal
 
 from ..constants import MODEL_NAME, XGB_MAXIMIZE_METRICS
+from ..toolkit import exceptions as exc
 from . import checkpointing, train_utils
 
 logger = logging.getLogger(__name__)
@@ -36,7 +37,8 @@ class EarlyStopping:
     """Stop after ``rounds`` non-improving rounds on (data_name, metric_name).
 
     With save_best, the forest is truncated to the best iteration after
-    training (xgboost EarlyStopping(save_best=True) semantics).
+    training (xgboost EarlyStopping(save_best=True) semantics); a linear
+    model has no iterations to cut, and raises.
     """
 
     def __init__(self, rounds, data_name, metric_name, maximize, save_best=False):
@@ -71,6 +73,11 @@ class EarlyStopping:
         model.attributes["best_iteration"] = str(self.best_iteration)
         if self.best_score is not None:
             model.attributes["best_score"] = str(self.best_score)
+        if self.save_best and not hasattr(model, "iteration_indptr"):
+            raise exc.UserError(
+                "early_stopping with save_best is not supported for booster=gblinear; "
+                "the linear model cannot be truncated to a past iteration."
+            )
         if self.save_best:
             # truncate to the best round (iteration indices are absolute)
             end_tree = model.iteration_indptr[self.best_iteration + 1]

@@ -4,9 +4,12 @@ The port's counterpart of ``sagemaker_xgboost_container_tpu/training/checkpointi
 
 * checkpoints are full serialized models named ``xgboost-checkpoint.<iter>``
   in the checkpoint dir; resume picks the highest iteration whose file
-  parses as JSON (a corrupt or partial file is skipped with a warning) and
-  training continues with ``num_round - iteration`` remaining rounds,
-* writes are atomic (tempfile + rename),
+  verifies (the sha256 of its ``.manifest`` sidecar where one exists, else
+  a JSON parse; a corrupt, partial or tampered file is skipped with a
+  warning) and training continues with ``num_round - iteration`` remaining
+  rounds,
+* writes are atomic (tempfile + rename), and drop any sidecar of the name
+  they overwrite,
 * a daemon thread deletes all but the ``max_to_keep`` newest, deferring any
   file SageMaker is mid-upload (``.sagemaker-uploading`` marker present and
   ``.sagemaker-uploaded`` absent),
@@ -15,8 +18,9 @@ The port's counterpart of ``sagemaker_xgboost_container_tpu/training/checkpointi
   a fresh model behind.
 
 The JAX package also writes an integrity manifest beside each checkpoint;
-the port writes none and ignores ``.manifest`` files on load, so it resumes
-from the JAX package's checkpoints and the JAX package from the port's.
+the port writes none but verifies them on load, so it resumes from the JAX
+package's checkpoints as the JAX package does and the JAX package from the
+port's.
 """
 
 import json
@@ -28,9 +32,12 @@ import tempfile
 import threading
 import time
 
+from ..utils import integrity
+
 TEMP_FILE_SUFFIX = ".sagemaker-ignore"
 FILE_LOCK_SUFFIX = ".sagemaker-uploading"
 FILE_SAFE_SUFFIX = ".sagemaker-uploaded"
+MANIFEST_SUFFIX = integrity.MANIFEST_SUFFIX
 
 CHECKPOINT_FILENAME = "xgboost-checkpoint"
 
@@ -38,14 +45,28 @@ logger = logging.getLogger(__name__)
 
 
 def _checkpoint_usable(path):
-    """A checkpoint is usable when it is non-empty and parses as JSON (a
+    """A checkpoint is usable when it is non-empty and, with a manifest
+    sidecar, its sha256 matches the manifest (a bit flip that keeps the
+    JSON valid is caught only so), or, without one, it parses as JSON (a
     file cut off mid-write, or truncated, does not)."""
     try:
-        with open(path, "rb") as f:
-            raw = f.read()
-        if not raw:
+        if os.path.getsize(path) == 0:
             return False
-        json.loads(raw.decode("utf-8"))
+    except OSError:
+        return False
+    manifest = integrity.read_manifest(path)
+    if manifest is not None:
+        try:
+            integrity.verify_file_against_manifest(path, manifest)
+            return True
+        except integrity.IntegrityError as e:
+            logger.warning("checkpoint digest verification failed: %s", e)
+            return False
+        except OSError:
+            return False
+    try:
+        with open(path, "rb") as f:
+            json.loads(f.read().decode("utf-8"))
         return True
     except (OSError, ValueError, UnicodeDecodeError):
         return False
@@ -54,22 +75,32 @@ def _checkpoint_usable(path):
 def load_checkpoint(checkpoint_dir):
     """-> (model path or None, next iteration number).
 
-    Picks the highest-iteration checkpoint that parses; a corrupt or partial
-    file is skipped with a warning and the next-highest takes over. Also
-    removes orphaned ``.sagemaker-ignore`` temp files of a crash in
-    ``_atomic_save``.
+    Picks the highest-iteration checkpoint that verifies
+    (``_checkpoint_usable``); a corrupt, partial or tampered file is skipped
+    with a warning and the next-highest takes over. Also removes orphaned
+    ``.sagemaker-ignore`` temp files of a crash in ``_atomic_save`` and
+    orphaned ``.manifest`` sidecars whose checkpoint is gone.
     """
     if not checkpoint_dir or not os.path.exists(checkpoint_dir):
         return None, 0
     pattern = re.compile(r"^{}\.([0-9]+)$".format(re.escape(CHECKPOINT_FILENAME)))
     found = []
-    for name in sorted(os.listdir(checkpoint_dir)):
+    names = set(os.listdir(checkpoint_dir))
+    for name in sorted(names):
         if name.endswith(TEMP_FILE_SUFFIX):
             try:
                 os.remove(os.path.join(checkpoint_dir, name))
                 logger.info("removed orphaned checkpoint temp file %s", name)
             except OSError:
                 logger.debug("could not remove orphaned temp file %s", name)
+            continue
+        if name.endswith(MANIFEST_SUFFIX):
+            if name[: -len(MANIFEST_SUFFIX)] not in names:
+                try:
+                    os.remove(os.path.join(checkpoint_dir, name))
+                    logger.info("removed orphaned checkpoint manifest %s", name)
+                except OSError:
+                    logger.debug("could not remove orphaned manifest %s", name)
             continue
         m = pattern.match(name)
         if m:
@@ -87,13 +118,19 @@ def load_checkpoint(checkpoint_dir):
 
 def _atomic_save(model, directory, final_name):
     """Save ``model`` to a temp file in ``directory``, then rename it to
-    ``final_name``; a failed save leaves no temp file behind."""
+    ``final_name``; a failed save leaves no temp file behind. A sidecar of
+    ``final_name`` (a JAX package's manifest of the bytes being replaced)
+    is removed before the rename, so it never describes the new bytes."""
     with tempfile.NamedTemporaryFile(
         dir=directory, suffix=TEMP_FILE_SUFFIX, delete=False, mode="w"
     ) as tf:
         tmp = tf.name
     try:
         model.save_model(tmp)
+        try:
+            os.remove(os.path.join(directory, final_name + MANIFEST_SUFFIX))
+        except OSError:
+            pass
         os.rename(tmp, os.path.join(directory, final_name))
     except BaseException:
         try:

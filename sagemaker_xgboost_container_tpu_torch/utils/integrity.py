@@ -170,18 +170,22 @@ def _require(cond, tree_idx, message):
 
 
 def validate_model(model):
-    """Structural validation of a loaded Forest (or a list of them, an
-    ensemble); raises IntegrityError. Every tree's arrays have one length,
+    """Structural validation of a loaded Forest or LinearModel (or a list
+    of them, an ensemble); raises IntegrityError. Every tree's arrays have one length,
     split children lie inside the tree and are never the node itself,
     thresholds and leaf values are finite, split feature ids are in range,
-    and ``tree_info`` / ``iteration_indptr`` match the tree list. Objects
-    without trees (a script-mode model_fn's) pass."""
+    and ``tree_info`` / ``iteration_indptr`` match the tree list. A linear
+    model's weights are finite. Other objects (a script-mode model_fn's)
+    pass."""
     if isinstance(model, list):
         for m in model:
             validate_model(m)
         return
     trees = getattr(model, "trees", None)
     if trees is None:
+        weights = getattr(model, "weights", None)
+        if weights is not None and not np.all(np.isfinite(np.asarray(weights))):
+            raise IntegrityError("linear model has non-finite weights")
         return
     num_feature = int(getattr(model, "num_feature", 0) or 0)
     num_group = int(getattr(model, "num_output_group", 1) or 1)

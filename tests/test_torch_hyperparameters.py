@@ -215,8 +215,9 @@ def test_train_config_takes_every_validated_key():
 ])
 def test_train_config_refuses_what_the_slice_does_not_train(key, value):
     """Refusals, and (since the port trains them) acceptance of the ranking
-    objectives, of lossguide with max_leaves, of row and column sampling and
-    of num_parallel_tree."""
+    objectives, of lossguide with max_leaves, of row and column sampling, of
+    num_parallel_tree, of the dart and gblinear boosters and of
+    process_type=update."""
     from sagemaker_xgboost_container_tpu_torch.models.booster import TrainConfig
 
     config = {"num_round": "10", "tree_method": "hist", key: value}
@@ -224,7 +225,8 @@ def test_train_config_refuses_what_the_slice_does_not_train(key, value):
         config["updater"] = "refresh"
     sampling = ("subsample", "colsample_bytree", "colsample_bylevel", "colsample_bynode",
                 "num_parallel_tree")
-    accepted = value in ("rank:pairwise", "rank:ndcg", "lossguide") or key in sampling
+    accepted = (value in ("rank:pairwise", "rank:ndcg", "lossguide", "dart", "gblinear",
+                          "update") or key in sampling)
     if value == "lossguide":
         config["max_leaves"] = "31"
     validated = hyperparameters.initialize(metrics.initialize()).validate(config)

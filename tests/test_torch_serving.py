@@ -948,8 +948,10 @@ def _edited_model(models, tmp_path, kind):
 
 @pytest.mark.parametrize("booster", ["dart", "gblinear", "categorical"])
 def test_unported_boosters_answer_ping_500(models, tmp_path, booster):
-    """A model the port cannot predict fails at load with a UserError naming
-    what it is, so that /ping answers 500 (the JAX app serves it)."""
+    """A model the port cannot predict (categorical splits) fails at load
+    with a UserError naming what it is, so that /ping answers 500 (the JAX
+    app serves it). dart and gblinear models, which the port serves now,
+    answer as the JAX app does."""
     if booster != "gblinear":
         model_dir, match = _edited_model(models, tmp_path, booster), booster
     else:
@@ -957,13 +959,17 @@ def test_unported_boosters_answer_ping_500(models, tmp_path, booster):
         forest = jax_booster.train({"booster": booster, "objective": "reg:squarederror",
                                     "max_depth": 3, "max_bin": 16}, JaxDataMatrix(X, X[:, 0]), 2)
         model_dir, match = _save(forest, tmp_path), booster
-    with pytest.raises(exc.UserError, match=match):
-        compat.load_model_any_format(os.path.join(model_dir, "xgboost-model"), device="cpu")
-    port_wsgi = app.make_app(app.ScoringService(model_dir, device="cpu"))
-    assert _call(port_wsgi, path="/ping", method="GET")[0] == 500
     jax_wsgi = jax_app.make_app(jax_app.ScoringService(model_dir))
+    port_wsgi = app.make_app(app.ScoringService(model_dir, device="cpu"))
     assert _call(jax_wsgi, path="/ping", method="GET")[0] == 200
     X, _ = _data(3, seed=26)
+    if booster != "categorical":
+        assert _call(port_wsgi, path="/ping", method="GET")[0] == 200
+        _same_answer(jax_wsgi, port_wsgi, 3, body=_payload(X, "csv")[0])
+        return
+    with pytest.raises(exc.UserError, match=match):
+        compat.load_model_any_format(os.path.join(model_dir, "xgboost-model"), device="cpu")
+    assert _call(port_wsgi, path="/ping", method="GET")[0] == 500
     assert _call(jax_wsgi, body=_payload(X, "csv")[0])[0] == 200
 
 

@@ -259,7 +259,8 @@ def test_checkpointing_retention_and_temp_files(tmp_path):
     (tmp_path / "ckpt" / "junk.sagemaker-ignore").write_text("x")
     (tmp_path / "ckpt" / "xgboost-checkpoint.2.manifest").write_text("{}")
     assert checkpointing.load_checkpoint(ckpt) == (None, 0)
-    assert sorted(os.listdir(ckpt)) == ["xgboost-checkpoint.2.manifest"]
+    # the temp file and the manifest without its checkpoint are both swept
+    assert os.listdir(ckpt) == []
     saver = checkpointing.SaveCheckpointCallBack(ckpt, max_to_keep=2, num_round=6)
     for epoch in range(6):
         saver.after_iteration(forest, epoch, {})
@@ -372,8 +373,9 @@ def test_entry_module_needs_a_gpu(tmp_path):
     ("booster", "booster='dart'"),
 ])
 def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monkeypatch):
-    """What the port does not train raises a UserError naming it; k-fold CV
-    and the custom metrics, which it trains now, run to their models."""
+    """What the port does not train raises a UserError naming it; k-fold CV,
+    the custom metrics and booster=dart, which it trains now, run to their
+    models."""
     tree = _tree(str(tmp_path), "csv")
     hp, hosts = dict(BASE_HP), ["algo-1"]
     if case == "kfold":
@@ -390,7 +392,7 @@ def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monk
         hp["eval_metric"] = "accuracy"
     elif case == "booster":
         hp["booster"] = "dart"
-    if case in ("kfold", "custom_metric"):
+    if case in ("kfold", "custom_metric", "booster"):
         monkeypatch.setenv("SM_OUTPUT_DATA_DIR", str(tmp_path / "output"))
         algorithm_train.sagemaker_train(hp, tree["data_config"], tree["train_path"],
                                         tree["val_path"], str(tmp_path / "model"), hosts,
