@@ -25,7 +25,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    per class (CUDA events around the wrapper, torch.profiler's device time,
    the plain version, torch.bincount over the folded keys, the bound counting
    the bins once); untimed at C=2 with one class without an active row,
-   C=7 with W=1, fewer entries than CTAs and uint8 bins with B=256;
+   C=7 with W=1, fewer entries than CTAs and uint8 bins with B=256; then
+   tree_method=exact's width: the main path's rows rounded to multiples of
+   2^-9 and binned at every distinct value (B printed: 3,906), timed
+   at W=64 with level 7's left children; untimed at B=8,193 (one feature a
+   CTA) and B=20,001 (bins tiled, two CTAs a feature), 1M x 28;
 3. totals_kernel (totals_partial and totals_reduce behind node_totals)
    against its plain version, and two calls against each other bitwise:
    timed at n=1M, W=256 with nodes drawn from [-1, W) (CUDA events around
@@ -198,7 +202,31 @@ Phases (each prints its own lines; any failure exits non-zero):
    csv rows through `serving_entrypoint`, the gblinear one also through
    the MME's POST /models + invoke, within 1e-5 of the CPU predict; last,
    manifests written beside the dart run's checkpoints and one digit of the
-   newest changed: a rerun resumes from the checkpoint before it.
+   newest changed: a rerun resumes from the checkpoint before it;
+14. constraints and the exact and approx tree methods. 14a: the main path
+   (phase 4's rows, depth 8, 10 rounds) with monotone_constraints +1 on
+   feature 0 and interaction_constraints [[0,3],[1,2],[4..27]]: 8
+   hist_kernel and 1 totals_kernel launches a round, logloss falling,
+   every split on feature 0 with its children's base weights in order (the
+   JAX code orders a split's two children only, so the model as a whole
+   need not be monotone), every root-to-leaf path within one set, rounds/s
+   over rounds 2-6 and launches, device ms and busy share over rounds 7-9;
+   then 20,000 x 9 rows on the GPU and on the CPU by phase 9's rule. 14b:
+   tree_method=exact on phase 2's rounded rows, 5 rounds: B, the
+   histogram's share of device time, rounds/s, logloss falling; the saved
+   model predicting 10k rows on the GPU within 1e-5 of the CPU; 20,000 x 9
+   rounded rows GPU vs CPU. 14c: tree_method=approx on the main path,
+   max_bin 256, 10 rounds with the 100k validation rows: the re-sketch on
+   the card before every round (CUDA events; no host sketch inside a
+   round) and its share of the round, rounds/s, the cuts of rounds 1 and 2
+   differing, the incremental validation logloss within 5e-3 of a fresh
+   predict of the saved model; GPU vs CPU on 20,000 x 9 rows with
+   GRAFT_SKETCH_IMPL=device on both; dart + approx, 3 rounds on those rows
+   on both devices, the same dropped sets. 14d: `training.entry` in a child
+   process on phase 8's channels with tree_method=approx and
+   interaction_constraints "[[0,1],[2,3,4,5,6,7]]", 10 rounds: exit 0, one
+   HPO-regex line a round, every path within one set, the model served
+   through `serving_entrypoint` within 1e-5 of the CPU predict.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -252,6 +280,14 @@ HIST_CLASS_CASES = (
     (581_012, 54, 1, 257, np.uint16, "random", False, 7),
     (20, 54, 8, 257, np.uint16, "random", False, 3),
     (581_012, 54, 64, 256, np.uint8, "random", False, 7),
+)
+# exact's width (phase 2): the main path's rows rounded to multiples of
+# 2^-9, binned at every distinct value; then wider B against the plain
+# version: 8,193 (one feature a CTA) and 20,001 (two bin tiles a feature)
+EXACT_GRID = 2.0 ** -9
+HIST_WIDE_CASES = (
+    (1_000_000, 28, 64, 8_193, np.uint16, "left", False),
+    (1_000_000, 28, 16, 20_001, np.uint16, "random", False),
 )
 # the timed hist case whose numbers go into the kernels line
 HIST_MAIN = "hist W=64 left"
@@ -512,14 +548,17 @@ def held_out_weights(n, classes):
 
 
 def hist_case(torch, hist, n, d, W, B, np_dtype, kind, seed, timed, tag, classes=1,
-              held_out=False):
+              held_out=False, bins_np=None):
     """One hist_kernel check, on [n] or (classes > 1) [C, n] gradients (with
-    ``held_out``, each class a CV fold whose held-out rows weigh 0);
-    returns the measurement dict when timed."""
+    ``held_out``, each class a CV fold whose held-out rows weigh 0), over
+    uniform random bins or the [n, d] bins ``bins_np``; returns the
+    measurement dict when timed."""
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(seed)
     shape = (n,) if classes == 1 else (classes, n)
-    bins = torch.as_tensor(rng.randint(0, B, (n, d)).astype(np_dtype), device=dev)
+    if bins_np is None:
+        bins_np = rng.randint(0, B, (n, d)).astype(np_dtype)
+    bins = torch.as_tensor(bins_np, device=dev)
     fold_w = held_out_weights(n, classes) if held_out else np.ones(shape, np.float32)
     grad = torch.as_tensor(rng.randn(*shape).astype(np.float32) * fold_w, device=dev)
     hess = torch.as_tensor((rng.rand(*shape) + 0.1).astype(np.float32) * fold_w, device=dev)
@@ -618,6 +657,40 @@ def device_ms(torch, fn, prefix, iters=20):
         for name in re.findall(prefix + r"[a-z]+", evt.key)[-1:]:
             per[name] = per.get(name, 0.0) + _kernel_time_us(torch, evt) / 1e3 / iters
     return per
+
+
+EXACT_ROWS = {}  # the rounded main-path rows, kept for phase 14b
+
+
+def exact_rows():
+    """The main path's rows (train, validation) rounded to EXACT_GRID: up to
+    3,905 distinct values a feature, so exact binning's B is data-sized."""
+    if not EXACT_ROWS:
+        X, y = make_data(N_TRAIN + N_VAL, N_FEATURES, seed=0)
+        Xr = (np.round(X / EXACT_GRID) * EXACT_GRID).astype(np.float32)
+        EXACT_ROWS.update(X=Xr, y=y)
+    return EXACT_ROWS["X"], EXACT_ROWS["y"]
+
+
+def hist_exact_width(torch, hist, tag):
+    """hist_kernel at tree_method=exact's width: the rounded main-path rows'
+    exact bins (u16, B = distinct values + 1), level 7's left children
+    timed. -> the measurement dict, with B."""
+    from sagemaker_xgboost_container_tpu_torch.data.binning import bin_matrix
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+
+    X, y = exact_rows()
+    t = time.perf_counter()
+    binned = bin_matrix(DataMatrix(X[:N_TRAIN], y[:N_TRAIN]), None)
+    B = binned.num_bins
+    print("{} | exact width: the main path's {} x {} rows rounded to multiples of 2^-9 bin "
+          "to B={} ({} bins, host sketch {:.1f} s)".format(
+              tag, N_TRAIN, N_FEATURES, B, binned.bins.dtype, time.perf_counter() - t),
+          flush=True)
+    out = hist_case(torch, hist, N_TRAIN, N_FEATURES, 64, B, np.uint16, "left", 91, True, tag,
+                    bins_np=binned.bins)
+    out["B"] = B
+    return out
 
 
 def totals_case(torch, hist, n, W, kind, seed, timed, tag, classes=1, held_out=False):
@@ -1865,54 +1938,27 @@ def _first_split_difference(ta, tb):
 
 def run_sweep(torch, pkg, tag):
     """Each objective beyond the main path trains 3 rounds on the GPU and on
-    the CPU (plain versions of the kernels): the last-round training metric
-    agrees within SWEEP_METRIC_TOL where the trees are the same and within
-    SWEEP_SPLIT_TOL where a split differs. Where split gains tie within f32
-    rounding, the GPU's atomics may keep another split than the CPU, so
-    trees are counted, not required equal, and the first split that differs
-    is printed with both gains."""
-    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
-
+    the CPU (plain versions of the kernels), held by `gpu_cpu_small`'s rule:
+    the last-round training metric agrees within SWEEP_METRIC_TOL where the
+    trees are the same and within SWEEP_SPLIT_TOL where a split differs.
+    Where split gains tie within f32 rounding, the GPU's atomics may keep
+    another split than the CPU, so trees are counted, not required equal,
+    and the first split that differs is printed with both gains."""
     X, _ = make_data(*SWEEP_SHAPE, seed=11)
     rng = np.random.RandomState(12)
     score = np.clip(X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + np.sin(X[:, 3]) + 2.0
                     + 0.3 * rng.randn(len(X)), 0.05, None).astype(np.float32)
-
-    class Last:
-        def after_iteration(self, forest, rnd, evals_log):
-            self.log = evals_log["train"]
-            return False
-
     same_total = trees_total = 0
     for objective, kind, extra in SWEEP:
         y = sweep_labels(kind, score, rng)
         groups = np.full(len(y) // SWEEP_GROUP, SWEEP_GROUP) if kind == "rank" else None
         params = dict({"objective": objective, "max_depth": 6, "max_bin": 64, "eta": 0.3},
                       **extra)
-        runs = {}
-        for dev in (DEVICE, "cpu"):
-            last = Last()
-            dm = DataMatrix(X, y, groups=groups)
-            forest = pkg.train(params, dm, 3, evals=[(dm, "train")],
-                               device=dev, callbacks=[last], verbose_eval=False)
-            (metric, values), = last.log.items()
-            runs[dev] = (forest, metric, values[-1])
-        (fg, metric, mg), (fc, _, mc) = runs[DEVICE], runs["cpu"]
-        diffs = [_first_split_difference(a, b) for a, b in zip(fg.trees, fc.trees)]
-        same = sum(d is None for d in diffs)
+        _, fc, same = gpu_cpu_small(torch, pkg, params, tag,
+                                    "sweep {} {}".format(objective, json.dumps(extra)),
+                                    X=X, y=y, groups=groups)
         same_total += same
         trees_total += len(fc.trees)
-        dp = float(np.abs(fg.predict(X[:2000], output_margin=True)
-                          - fc.predict(X[:2000], output_margin=True)).max())
-        first = next((("tree {} {}".format(t, d)) for t, d in enumerate(diffs) if d), "none")
-        print("{} | sweep {} {}: {} GPU {:.6f} CPU {:.6f}; identical trees {}/{} (first "
-              "difference: {}); margins max_abs_err {:.3e}".format(
-                  tag, objective, json.dumps(extra), metric, mg, mc, same, len(fc.trees),
-                  first, dp), flush=True)
-        tol = SWEEP_METRIC_TOL if same == len(fc.trees) else SWEEP_SPLIT_TOL
-        check(np.isfinite(mg) and abs(mg - mc) <= tol * max(1.0, abs(mc)),
-              "sweep {}: GPU {} {} against CPU {} ({} of {} trees alike)".format(
-                  objective, metric, mg, mc, same, len(fc.trees)))
     print("{} | sweep: {} objectives, identical trees {}/{}".format(
         tag, len(SWEEP), same_total, trees_total), flush=True)
 
@@ -3342,6 +3388,375 @@ def run_booster_entry(torch, hist, tag, tmp):
               tag, kept[-1], kept[-2], kept[-1], rounds - 1), flush=True)
 
 
+# ---------------------------------------------------------------- phase 14
+
+# 14a: the main path with constraints: +1 on feature 0 (the label rises with
+# it by construction) and three interaction sets; 14b: exact on the rounded
+# main-path rows; 14c: approx on the main path
+CONSTRAINED_PARAMS = dict(MAIN_PARAMS, monotone_constraints=(1,),
+                          interaction_constraints=[[0, 3], [1, 2], list(range(4, 28))])
+CONSTRAINED_ROUNDS = 10
+EXACT_PARAMS = {k: v for k, v in MAIN_PARAMS.items() if k != "max_bin"}
+EXACT_PARAMS["tree_method"] = "exact"
+EXACT_ROUNDS = 5
+APPROX_PARAMS = dict(MAIN_PARAMS, tree_method="approx")
+APPROX_ROUNDS = 10
+# the JAX package's tests/test_booster.py holds the incremental validation
+# logloss of an approx run to a fresh predict of its model within this
+APPROX_EVAL_TOL = 5e-3
+# 14d: approx with interaction sets through the train entry point
+APPROX_ENTRY_HP = {"objective": "binary:logistic", "max_depth": "8", "max_bin": "256",
+                   "tree_method": "approx", "eta": "0.2", "num_round": "10",
+                   "eval_metric": "logloss",
+                   "interaction_constraints": "[[0,1],[2,3,4,5,6,7]]"}
+APPROX_ENTRY_ROUNDS = 10
+
+
+def _tree_paths(tree):
+    """The set of features split on along each root-to-leaf path."""
+    out, stack = [], [(0, frozenset())]
+    while stack:
+        node, used = stack.pop()
+        if tree.left[node] < 0:
+            out.append(used)
+            continue
+        used = used | {int(tree.feature[node])}
+        stack += [(tree.left[node], used), (tree.right[node], used)]
+    return out
+
+
+def check_constraints(forest, params, what):
+    """Every split on a monotone feature orders its two children's base
+    weights (what the JAX code guarantees: no bounds pass down, so the
+    model need not be monotone overall); every root-to-leaf path draws its
+    features from one interaction set. -> (splits on monotone features,
+    paths checked)."""
+    mono = params.get("monotone_constraints") or ()
+    sets = [set(s) for s in params.get("interaction_constraints") or ()]
+    ordered = paths = 0
+    for t in forest.trees:
+        for i in np.flatnonzero(t.left >= 0):
+            f = int(t.feature[i])
+            if f < len(mono) and mono[f] != 0:
+                wl, wr = t.base_weight[t.left[i]], t.base_weight[t.right[i]]
+                check(wl <= wr if mono[f] > 0 else wl >= wr,
+                      "{}: split {} on feature {} has children's weights {} and {}".format(
+                          what, i, f, wl, wr))
+                ordered += 1
+        if sets:
+            for p in _tree_paths(t):
+                check(any(p <= s for s in sets),
+                      "{}: a path draws features {} from no one set".format(what, sorted(p)))
+                paths += 1
+    return ordered, paths
+
+
+def gpu_cpu_small(torch, pkg, params, tag, what, rounds=3, X=None, y=None, groups=None):
+    """`params` on small rows (X, y and query `groups`; SWEEP_SHAPE rows of
+    the binary task with 2 % missing values unless given) on the GPU and on
+    the CPU: the last-round training metric within SWEEP_METRIC_TOL
+    (relative to max(1, |metric|)) where every tree is the same, within
+    SWEEP_SPLIT_TOL where a near-tie split differs (phase 9's rule). ->
+    (GPU forest, CPU forest, identical trees)."""
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+
+    if X is None:
+        X, y = make_data(*SWEEP_SHAPE, seed=15)
+        X[np.random.RandomState(16).rand(*X.shape) < 0.02] = np.nan
+
+    class Last:
+        def after_iteration(self, forest, rnd, evals_log):
+            self.log = evals_log["train"]
+            return False
+
+    runs = {}
+    for dev in (DEVICE, "cpu"):
+        last = Last()
+        dm = DataMatrix(X, y, groups=groups)
+        forest = pkg.train(params, dm, rounds, evals=[(dm, "train")], device=dev,
+                           callbacks=[last], verbose_eval=False)
+        (metric, values), = last.log.items()
+        runs[dev] = (forest, metric, values[-1])
+    (fg, metric, mg), (fc, _, mc) = runs[DEVICE], runs["cpu"]
+    diffs = [_first_split_difference(a, b) for a, b in zip(fg.trees, fc.trees)]
+    same = sum(d is None for d in diffs)
+    first = next(("tree {} {}".format(t, d) for t, d in enumerate(diffs) if d), "none")
+    dp = float(np.abs(fg.predict(X[:2000], output_margin=True)
+                      - fc.predict(X[:2000], output_margin=True)).max())
+    print("{} | {} GPU vs CPU ({} x {}, {} rounds): {} GPU {:.6f} CPU {:.6f}; identical trees "
+          "{}/{} (first difference: {}); margins max_abs_err {:.3e}".format(
+              tag, what, X.shape[0], X.shape[1], rounds, metric, mg, mc, same, len(fc.trees),
+              first, dp), flush=True)
+    tol = SWEEP_METRIC_TOL if same == len(fc.trees) else SWEEP_SPLIT_TOL
+    check(np.isfinite(mg) and abs(mg - mc) <= tol * max(1.0, abs(mc)),
+          "{}: GPU {} {} against CPU {} ({} of {} trees alike)".format(
+              what, metric, mg, mc, same, len(fc.trees)))
+    return fg, fc, same
+
+
+def run_methods(torch, hist, pkg, dtrain, dval, tag):
+    """Phase 14: constraints and the exact and approx tree methods (see the
+    module docstring)."""
+    t = time.perf_counter()
+    run_constrained(torch, hist, pkg, dtrain, dval, tag)
+    run_exact(torch, hist, pkg, tag)
+    run_approx(torch, hist, pkg, dtrain, dval, tag)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_methods_") as tmp:
+        run_approx_entry(tag, tmp)
+    print("{} | methods phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _falling(ll):
+    return len(ll) > 1 and all(np.isfinite(ll)) and all(b < a for a, b in zip(ll, ll[1:]))
+
+
+def run_constrained(torch, hist, pkg, dtrain, dval, tag):
+    """14a: the main path with monotone and interaction constraints."""
+    rounds = CONSTRAINED_ROUNDS
+    hist.reset_launch_counts()
+    forest, run = _profiled_train(torch, pkg, CONSTRAINED_PARAMS, dtrain, dval, rounds, 5, 3)
+    launches = dict(hist.LAUNCHES)
+    check(launches == {"hist_kernel": 8 * rounds, "totals_kernel": rounds},
+          "constrained launches {} over {} rounds (want 8 and 1 a round)".format(
+              launches, rounds))
+    ll = run["log"]["logloss"]
+    check(len(ll) == rounds and _falling(ll), "constrained validation logloss {}".format(ll))
+    ordered, paths = check_constraints(forest, CONSTRAINED_PARAMS, "14a")
+    check(ordered > 0, "14a: no split on the monotone feature 0")
+    print("{} | constrained ({} x {}, depth 8, monotone +1 on feature 0, interaction sets "
+          "[[0,3],[1,2],[4..27]], {} rounds): launches {} (8 hist_kernel and 1 totals_kernel a "
+          "round); {} splits on feature 0 with children's weights in order, {} root-to-leaf "
+          "paths each within one set; setup {:.3f} s; rounds/s (rounds 2-6, host clock) {:.3f}; "
+          "validation logloss {:.5f} -> {:.5f}; total {:.3f} s".format(
+              tag, dtrain.num_row, dtrain.num_col, rounds, json.dumps(launches), ordered, paths,
+              run["setup_s"], 1e3 / run["host_ms"], ll[0], ll[-1], run["total_s"]), flush=True)
+    _profile_line(tag, "constrained", run)
+    small = dict(CONSTRAINED_PARAMS, max_depth=6, max_bin=64,
+                 interaction_constraints=[[0, 3], [1, 2], list(range(4, 9))])
+    fg, fc, _ = gpu_cpu_small(torch, pkg, small, tag, "constrained")
+    check_constraints(fg, small, "14a GPU 20k")
+    check_constraints(fc, small, "14a CPU 20k")
+
+
+class _Widths:
+    """Spy on tree_build.level_histogram: the bin widths it is called with."""
+
+    def __init__(self):
+        from sagemaker_xgboost_container_tpu_torch.ops import tree_build
+
+        self.module, self.real, self.widths = tree_build, tree_build.level_histogram, set()
+
+    def __enter__(self):
+        def spy(bins, grad, hess, node, W, B):
+            self.widths.add(B)
+            return self.real(bins, grad, hess, node, W, B)
+
+        self.module.level_histogram = spy
+        return self
+
+    def __exit__(self, *exc_info):
+        self.module.level_histogram = self.real
+
+
+def run_exact(torch, hist, pkg, tag):
+    """14b: tree_method=exact on the rounded main-path rows."""
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+
+    X, y = exact_rows()
+    dtrain, dval = DataMatrix(X[:N_TRAIN], y[:N_TRAIN]), DataMatrix(X[N_TRAIN:], y[N_TRAIN:])
+    rounds = EXACT_ROUNDS
+    hist.reset_launch_counts()
+    with _Widths() as widths:
+        forest, run = _profiled_train(torch, pkg, EXACT_PARAMS, dtrain, dval, rounds, 2, 2)
+    launches = dict(hist.LAUNCHES)
+    check(launches == {"hist_kernel": 8 * rounds, "totals_kernel": rounds},
+          "exact launches {} over {} rounds".format(launches, rounds))
+    check(len(widths.widths) == 1, "exact: histogram widths {}".format(widths.widths))
+    B = widths.widths.pop()
+    ll = run["log"]["logloss"]
+    check(len(ll) == rounds and _falling(ll), "exact validation logloss {}".format(ll))
+    print("{} | exact ({} x {} rows rounded to 2^-9, depth 8, {} rounds): B={} (u16); launches "
+          "{}; setup (the exact host sketch, upload) {:.3f} s; rounds/s (rounds 2-3, host clock) "
+          "{:.3f}; validation logloss {:.5f} -> {:.5f}; total {:.3f} s".format(
+              tag, dtrain.num_row, dtrain.num_col, rounds, B, json.dumps(launches),
+              run["setup_s"], 1e3 / run["host_ms"], ll[0], ll[-1], run["total_s"]), flush=True)
+    _profile_line(tag, "exact", run)
+    x = dval.features[:N_SERVE]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "xgboost-model")
+        forest.save_model(path)
+        gpu, cpu = _gpu_cpu_predict(path, x)
+    err = float(np.abs(gpu - cpu).max())
+    check(gpu.shape == (len(x),) and np.all(np.isfinite(gpu)) and err <= 1e-5,
+          "exact: the saved model's GPU predict differs from the CPU by {}".format(err))
+    print("{} | exact model saved and loaded: {} rows, GPU vs CPU predict max_abs_err "
+          "{:.3e}".format(tag, len(x), err), flush=True)
+    Xs, ys = make_data(*SWEEP_SHAPE, seed=17)
+    Xs = (np.round(Xs / EXACT_GRID) * EXACT_GRID).astype(np.float32)
+    gpu_cpu_small(torch, pkg, dict(EXACT_PARAMS, max_depth=6), tag, "exact", X=Xs, y=ys)
+
+
+class _Resketches:
+    """Spy on the session's approx re-sketch: its time on the card (CUDA
+    events around it), the cuts it leaves, and the host sketch calls made
+    inside a round (none on a CUDA session)."""
+
+    def __init__(self, torch):
+        from sagemaker_xgboost_container_tpu_torch.models import booster
+
+        self.torch, self.booster = torch, booster
+        self.real = booster._TrainingSession._resketch_bins
+        self.ms, self.cuts, self.host_calls, self.device_calls = [], [], 0, 0
+
+    def __enter__(self):
+        torch, booster, spy = self.torch, self.booster, self
+        real_host, real_device = booster.compute_cut_points, booster.device_cut_points
+
+        def resketch(session):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            spy.real(session)
+            end.record()
+            torch.cuda.synchronize()
+            spy.ms.append(start.elapsed_time(end))
+            spy.cuts.append([c.copy() for c in session.cuts])
+
+        def host(*a, **kw):
+            spy.host_calls += 1
+            return real_host(*a, **kw)
+
+        def device(*a, **kw):
+            spy.device_calls += 1
+            return real_device(*a, **kw)
+
+        self.restore = [(booster._TrainingSession, "_resketch_bins", self.real),
+                        (booster, "compute_cut_points", real_host),
+                        (booster, "device_cut_points", real_device)]
+        booster._TrainingSession._resketch_bins = resketch
+        booster.compute_cut_points, booster.device_cut_points = host, device
+        return self
+
+    def __exit__(self, *exc_info):
+        for obj, name, value in self.restore:
+            setattr(obj, name, value)
+
+
+def _logloss(p, y):
+    p = np.clip(p, 1e-7, 1 - 1e-7)
+    return float(-np.mean(y * np.log(p) + (1 - y) * np.log(1 - p)))
+
+
+def run_approx(torch, hist, pkg, dtrain, dval, tag):
+    """14c: tree_method=approx on the main path, the re-sketch on the card."""
+    rounds = APPROX_ROUNDS
+    hist.reset_launch_counts()
+    with _Resketches(torch) as sk:
+        forest, run = _profiled_train(torch, pkg, APPROX_PARAMS, dtrain, dval, rounds, 5, 3)
+    launches = dict(hist.LAUNCHES)
+    check(launches == {"hist_kernel": 8 * rounds, "totals_kernel": rounds},
+          "approx launches {} over {} rounds".format(launches, rounds))
+    check(len(sk.ms) == rounds and sk.device_calls == rounds and sk.host_calls == 0,
+          "approx: {} re-sketches, {} on the device, {} host sketches in a round".format(
+              len(sk.ms), sk.device_calls, sk.host_calls))
+    moved = sum(int(len(a) != len(b) or not np.array_equal(a, b))
+                for a, b in zip(sk.cuts[0], sk.cuts[1]))
+    check(moved > 0, "approx: the cuts of rounds 1 and 2 are the same")
+    ll = run["log"]["logloss"]
+    check(len(ll) == rounds and _falling(ll), "approx validation logloss {}".format(ll))
+    x, yv = dval.features, dval.labels
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "xgboost-model")
+        forest.save_model(path)
+        gpu, cpu = _gpu_cpu_predict(path, x)
+    fresh = _logloss(gpu, yv)
+    err = float(np.abs(gpu[:N_SERVE] - cpu[:N_SERVE]).max())
+    check(abs(fresh - ll[-1]) <= APPROX_EVAL_TOL,
+          "approx: incremental validation logloss {} against {} from the saved model".format(
+              ll[-1], fresh))
+    check(err <= 1e-5, "approx: the saved model's GPU predict differs from the CPU by {}".format(
+        err))
+    sketch_ms = float(np.mean(sk.ms[1:]))
+    print("{} | approx ({} x {}, depth 8, max_bin 256, {} rounds): launches {}; the re-sketch "
+          "on the card (sort, cumulative hessians, searchsorted, re-binning of {} + {} rows; "
+          "CUDA events) {:.3f} ms a round over rounds 2-{} ({:.1%} of a host-clock round), "
+          "round 1 {:.3f} ms; host sketches inside a round {}; {} of {} features' cuts moved "
+          "from round 1 to 2; setup {:.3f} s; rounds/s (rounds 2-6, host clock) {:.3f}; "
+          "validation logloss {:.5f} -> {:.5f}, a fresh predict of the saved model {:.5f} "
+          "(gap {:.2e}); GPU vs CPU predict {:.3e}; total {:.3f} s".format(
+              tag, dtrain.num_row, dtrain.num_col, rounds, json.dumps(launches), dtrain.num_row,
+              dval.num_row, sketch_ms, rounds, sketch_ms / run["host_ms"], sk.ms[0],
+              sk.host_calls, moved, len(sk.cuts[0]), run["setup_s"], 1e3 / run["host_ms"],
+              ll[0], ll[-1], fresh, abs(fresh - ll[-1]), err, run["total_s"]), flush=True)
+    _profile_line(tag, "approx", run)
+
+    old = os.environ.get("GRAFT_SKETCH_IMPL")
+    os.environ["GRAFT_SKETCH_IMPL"] = "device"
+    try:
+        gpu_cpu_small(torch, pkg, dict(APPROX_PARAMS, max_depth=6, max_bin=64), tag,
+                      "approx (GRAFT_SKETCH_IMPL=device on both)")
+    finally:
+        if old is None:
+            os.environ.pop("GRAFT_SKETCH_IMPL")
+        else:
+            os.environ["GRAFT_SKETCH_IMPL"] = old
+    # dart + approx: the re-sketch before each round's dropout draw
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+
+    X, y = make_data(*SWEEP_SHAPE, seed=18)
+    params = dict(DART_PARAMS, tree_method="approx", max_depth=6, max_bin=64, rate_drop=0.7)
+    drops = {}
+    for dev in (DEVICE, "cpu"):
+        log = _DropLog()
+        dm = DataMatrix(X, y)
+        pkg.train(params, dm, 3, evals=[(dm, "train")], device=dev, callbacks=[log],
+                  verbose_eval=False)
+        drops[dev] = log
+    print("{} | dart + approx (3 rounds, {} x {}): dropped sets GPU {} CPU {}; train logloss "
+          "GPU {:.6f} CPU {:.6f}".format(tag, X.shape[0], X.shape[1], drops[DEVICE].rounds,
+                                         drops["cpu"].rounds, drops[DEVICE].last["logloss"],
+                                         drops["cpu"].last["logloss"]), flush=True)
+    check(drops[DEVICE].rounds == drops["cpu"].rounds
+          and sum(map(len, drops[DEVICE].rounds)) > 0,
+          "dart + approx: dropped sets GPU {} CPU {}".format(drops[DEVICE].rounds,
+                                                             drops["cpu"].rounds))
+    mg, mc = drops[DEVICE].last["logloss"], drops["cpu"].last["logloss"]
+    check(abs(mg - mc) <= SWEEP_SPLIT_TOL * max(1.0, abs(mc)),
+          "dart + approx: train logloss GPU {} CPU {}".format(mg, mc))
+
+
+def run_approx_entry(tag, tmp):
+    """14d: approx with interaction sets through the train entry point in a
+    child process on phase 8's channels, the model served."""
+    X, y, data_config, train_dir, val_dir, sm_env = _entry_tree(tmp, {
+        "hyperparameters-approx.json": APPROX_ENTRY_HP})
+    rc, out, err, child_s = _run_entry_child(sm_env("approx", "hyperparameters-approx.json"))
+    check(rc == 0, "approx entry: exited {}: {}".format(rc, err[-2000:]))
+    lines = _metric_lines(out)
+    found = re.findall(HPO_REGEX.format("logloss"), out)
+    check(sorted(lines) == list(range(APPROX_ENTRY_ROUNDS))
+          and len(found) == APPROX_ENTRY_ROUNDS,
+          "approx entry: metric lines for rounds {}, {} HPO-regex lines".format(
+              sorted(lines), len(found)))
+    model_dir = os.path.join(tmp, "model-approx")
+    path = os.path.join(model_dir, "xgboost-model")
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    model = Forest.load_model(path, device="cpu")
+    sets = json.loads(APPROX_ENTRY_HP["interaction_constraints"])
+    _, paths = check_constraints(model, {"interaction_constraints": sets}, "14d")
+    x_val = X[ENTRY_TRAIN_ROWS:ENTRY_TRAIN_ROWS + BOOSTER_SERVE_ROWS]
+    gpu, cpu = _gpu_cpu_predict(path, x_val)
+    serve_ms, serve_err = _serve_once(model_dir, x_val, cpu)
+    print("{} | approx entry (child process, interaction_constraints {}): exit 0 in {:.3f} s, "
+          "{} HPO lines, validation logloss {:.5f} -> {:.5f}; {} paths each within one set; "
+          "served {} csv rows in {:.3f} ms, max_abs_err {:.3e}".format(
+              tag, APPROX_ENTRY_HP["interaction_constraints"], child_s, len(found),
+              lines[0]["validation-logloss"],
+              lines[APPROX_ENTRY_ROUNDS - 1]["validation-logloss"], paths, len(x_val),
+              serve_ms, serve_err), flush=True)
+
+
 def main():
     try:
         import torch
@@ -3378,6 +3793,9 @@ def main():
                 results["hist W={} {}".format(W, kind)] = r
         for n, d, W, B, dt, kind, timed, C in HIST_CLASS_CASES:
             hist_case(torch, hist, n, d, W, B, dt, kind, 40 + W + C, timed, tag, classes=C)
+        results["hist exact"] = hist_exact_width(torch, hist, tag)
+        for n, d, W, B, dt, kind, timed in HIST_WIDE_CASES:
+            hist_case(torch, hist, n, d, W, B, dt, kind, 60 + W, timed, tag)
         for n, W, kind, timed in TOTALS_CASES:
             r = totals_case(torch, hist, n, W, kind, 3 + W, timed, tag)
             if r is not None:
@@ -3396,6 +3814,7 @@ def main():
         run_sampling(torch, hist, pkg, dtrain, dval, tag)
         run_mme(torch, hist, tag)
         run_boosters(torch, hist, pkg, dtrain, dval, tag)
+        run_methods(torch, hist, pkg, dtrain, dval, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

@@ -81,7 +81,7 @@ class _CtypesKernels:
     def __init__(self, path, build_log, build_s):
         lib = ctypes.CDLL(path)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hist_launch.argtypes = [p, i, p, p, p, p, p, p, p, ll] + [i] * 9 + [ll, p]
+        lib.hist_launch.argtypes = [p, i, p, p, p, p, p, p, p, ll] + [i] * 11 + [ll, p]
         lib.hist_launch.restype = i
         lib.totals_launch.argtypes = [p, p, p, p, p, ll, i, i, i, i, ll, i, p]
         lib.totals_launch.restype = i
@@ -118,7 +118,7 @@ class _CtypesKernels:
                 hess.data_ptr(), node.data_ptr(), G.data_ptr(), H.data_ptr(),
                 work.data_ptr(), pieces.data_ptr(), n, d, W, B, C,
                 plan.ctas, plan.feature_tile, plan.feature_tiles,
-                plan.smem_bytes, plan.count_ctas, plan.rows_per_count_cta,
+                plan.bin_tile, plan.bin_tiles, plan.smem_bytes, plan.count_ctas, plan.rows_per_count_cta,
                 self._stream(bins),
             )
         self._check(err, "hist_kernel")

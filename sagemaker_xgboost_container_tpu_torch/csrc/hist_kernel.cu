@@ -37,14 +37,19 @@
 //   hist_scatter  each entry chunk again: entry ids into order[], grouped
 //                 by key, at offsets[k] + base[k, c] plus a shared cursor
 //                 (the order within a key is free);
-//   hist_kernel   a persistent grid of P CTAs (times feature tiles): CTA c
-//                 takes the equal slice [c*S, (c+1)*S) of order, S =
-//                 ceil(total / P), and walks it key segment by key segment.
-//                 Each segment is added into a [feature tile, B] x (g, h) f32
-//                 histogram in shared memory, consecutive threads on
-//                 consecutive features of one gathered row (one contiguous
-//                 run of bins), and written without atomics to the scratch
-//                 piece c + k, unique along the monotone (c, k) path;
+//   hist_kernel   a persistent grid of P CTAs (times feature tiles, times
+//                 bin tiles): CTA c takes the equal slice [c*S, (c+1)*S) of
+//                 order, S = ceil(total / P), and walks it key segment by key
+//                 segment. Each segment is added into a [feature tile, bin
+//                 tile] x (g, h) f32 histogram in shared memory, consecutive
+//                 threads on consecutive features of one gathered row (one
+//                 contiguous run of bins), and its tile's cells are written
+//                 without atomics to the scratch piece c + k, unique along
+//                 the monotone (c, k) path. One bin tile holds all B bins
+//                 unless a feature's bins exceed the shared memory (exact
+//                 binning's data-sized u16 widths, B > 12,672); then each
+//                 CTA of a tile adds only the entries whose bin lies in it,
+//                 and the order of additions within a cell is unchanged;
 //   hist_reduce   every output cell (k, f, b) sums the pieces of the CTAs
 //                 whose slices overlap key k in a fixed order and writes G
 //                 and H (a key with no entries gets zeros).
@@ -206,16 +211,19 @@ hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
             const float* __restrict__ hess, const int32_t* __restrict__ order,
             const int32_t* __restrict__ offsets, float* __restrict__ piece_g,
             float* __restrict__ piece_h, long long rows, int d, int W, int K,
-            int B, int P, int feature_tile) {
+            int B, int P, int feature_tile, int bin_tile) {
   extern __shared__ float smem[];
   const int f0 = blockIdx.y * feature_tile;
   const int nf = min(feature_tile, d - f0);
+  // this CTA's bins [b0, b0 + nb); all B of them unless B is tiled
+  const int b0 = blockIdx.z * bin_tile;
+  const int nb = min(bin_tile, B - b0);
   const int c = blockIdx.x;
   const int total = offsets[K];
   const long long S = slice_rows(total, P);
   long long lo = (long long)c * S;
   const long long hi = min((long long)total, lo + S);
-  if (nf <= 0 || lo >= hi) return;  // uniform over the block
+  if (nf <= 0 || nb <= 0 || lo >= hi) return;  // uniform over the block
 
   // the key holding entry lo of order: the last w with offsets[w] <= lo
   int w = 0;
@@ -229,7 +237,7 @@ hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
     }
   }
 
-  const int cells = nf * B;
+  const int cells = nf * nb;
   float* sg = smem;
   float* sh = smem + cells;
   for (int i = threadIdx.x; i < 2 * cells; i += blockDim.x) smem[i] = 0.0f;
@@ -248,8 +256,8 @@ hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
     if (rs < R) {
       for (int f = fl; f < nf; f += blockDim.x) {
         const BinT* col = bins + f0 + f;
-        float* cg = sg + f * B;
-        float* ch = sh + f * B;
+        float* cg = sg + f * nb;
+        float* ch = sh + f * nb;
         for (long long j0 = lo + rs; j0 < seg_end; j0 += (long long)R * kHistUnroll) {
           int entry[kHistUnroll];
 #pragma unroll
@@ -273,9 +281,11 @@ hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
           }
 #pragma unroll
           for (int u = 0; u < kHistUnroll; ++u) {
-            if (b[u] < (unsigned)B) {  // also drops negative int32 bins
-              atomicAdd(cg + b[u], g[u]);
-              atomicAdd(ch + b[u], h[u]);
+            // outside the tile (and negative int32 bins): no add
+            const unsigned bt = b[u] - (unsigned)b0;
+            if (bt < (unsigned)nb) {
+              atomicAdd(cg + bt, g[u]);
+              atomicAdd(ch + bt, h[u]);
             }
           }
         }
@@ -285,11 +295,13 @@ hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
     // the finished segment goes to piece c + w; each thread zeroes what it
     // wrote, so the next segment starts from an empty histogram
     const long long slot = (long long)c + w;
-    float* pg = piece_g + (slot * dd + f0) * B;
-    float* ph = piece_h + (slot * dd + f0) * B;
+    float* pg = piece_g + (slot * dd + f0) * B + b0;
+    float* ph = piece_h + (slot * dd + f0) * B + b0;
     for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      pg[i] = sg[i];
-      ph[i] = sh[i];
+      // cell i is bin i % nb of feature i / nb; one tile is the whole row
+      const long long at = nb == B ? i : (long long)(i / nb) * B + i % nb;
+      pg[at] = sg[i];
+      ph[at] = sh[i];
       sg[i] = 0.0f;
       sh[i] = 0.0f;
     }
@@ -353,8 +365,8 @@ template <typename BinT, bool kMulti>
 int launch_typed(const void* bins, const float* grad, const float* hess,
                  const int32_t* node, float* G, float* H, int32_t* work,
                  float* pieces, long long n, int d, int W, int B, int C, int ctas,
-                 int feature_tile, int feature_tiles, int smem_bytes,
-                 int count_ctas, long long rows_per_count_cta,
+                 int feature_tile, int feature_tiles, int bin_tile, int bin_tiles,
+                 int smem_bytes, int count_ctas, long long rows_per_count_cta,
                  cudaStream_t stream) {
   const int K = C * W;
   const long long entries = (long long)C * n;
@@ -385,9 +397,9 @@ int launch_typed(const void* bins, const float* grad, const float* hess,
       node, base, offsets, order, entries, (unsigned)n, W, C, rows_per_count_cta);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   hist_kernel<BinT, kMulti>
-      <<<dim3(ctas, feature_tiles), kHistThreads, smem_bytes, stream>>>(
+      <<<dim3(ctas, feature_tiles, bin_tiles), kHistThreads, smem_bytes, stream>>>(
       static_cast<const BinT*>(bins), grad, hess, order, offsets, piece_g,
-      piece_h, n, d, W, K, B, ctas, feature_tile);
+      piece_h, n, d, W, K, B, ctas, feature_tile, bin_tile);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long reduce_ctas = ((long long)K * d * B + kReduceLanes - 1) / kReduceLanes;
   hist_reduce<<<(unsigned)reduce_ctas, dim3(kReduceLanes, kReduceGroups), 0, stream>>>(
@@ -399,15 +411,18 @@ template <typename BinT>
 int launch_bins(const void* bins, const float* grad, const float* hess,
                 const int32_t* node, float* G, float* H, int32_t* work,
                 float* pieces, long long n, int d, int W, int B, int C, int ctas,
-                int feature_tile, int feature_tiles, int smem_bytes,
-                int count_ctas, long long rows_per_count_cta, cudaStream_t stream) {
+                int feature_tile, int feature_tiles, int bin_tile, int bin_tiles,
+                int smem_bytes, int count_ctas, long long rows_per_count_cta,
+                cudaStream_t stream) {
   return C > 1
       ? launch_typed<BinT, true>(bins, grad, hess, node, G, H, work, pieces, n, d,
-                                 W, B, C, ctas, feature_tile, feature_tiles,
-                                 smem_bytes, count_ctas, rows_per_count_cta, stream)
+                                 W, B, C, ctas, feature_tile, feature_tiles, bin_tile,
+                                 bin_tiles, smem_bytes, count_ctas, rows_per_count_cta,
+                                 stream)
       : launch_typed<BinT, false>(bins, grad, hess, node, G, H, work, pieces, n, d,
-                                  W, B, C, ctas, feature_tile, feature_tiles,
-                                  smem_bytes, count_ctas, rows_per_count_cta, stream);
+                                  W, B, C, ctas, feature_tile, feature_tiles, bin_tile,
+                                  bin_tiles, smem_bytes, count_ctas, rows_per_count_cta,
+                                  stream);
 }
 
 }  // namespace
@@ -416,23 +431,24 @@ extern "C" int hist_launch(const void* bins, int bin_bytes, const float* grad,
                            const float* hess, const int32_t* node, float* G,
                            float* H, int32_t* work, float* pieces, long long n,
                            int d, int W, int B, int C, int ctas, int feature_tile,
-                           int feature_tiles, int smem_bytes, int count_ctas,
+                           int feature_tiles, int bin_tile, int bin_tiles,
+                           int smem_bytes, int count_ctas,
                            long long rows_per_count_cta, void* stream) {
   if (C < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bin_bytes) {
     case 1:
       return launch_bins<uint8_t>(bins, grad, hess, node, G, H, work, pieces, n, d,
-                                  W, B, C, ctas, feature_tile, feature_tiles,
-                                  smem_bytes, count_ctas, rows_per_count_cta, s);
+                                  W, B, C, ctas, feature_tile, feature_tiles, bin_tile,
+                                  bin_tiles, smem_bytes, count_ctas, rows_per_count_cta, s);
     case 2:
       return launch_bins<uint16_t>(bins, grad, hess, node, G, H, work, pieces, n, d,
-                                   W, B, C, ctas, feature_tile, feature_tiles,
-                                   smem_bytes, count_ctas, rows_per_count_cta, s);
+                                   W, B, C, ctas, feature_tile, feature_tiles, bin_tile,
+                                   bin_tiles, smem_bytes, count_ctas, rows_per_count_cta, s);
     case 4:
       return launch_bins<int32_t>(bins, grad, hess, node, G, H, work, pieces, n, d,
-                                  W, B, C, ctas, feature_tile, feature_tiles,
-                                  smem_bytes, count_ctas, rows_per_count_cta, s);
+                                  W, B, C, ctas, feature_tile, feature_tiles, bin_tile,
+                                  bin_tiles, smem_bytes, count_ctas, rows_per_count_cta, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

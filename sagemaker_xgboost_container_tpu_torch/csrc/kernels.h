@@ -24,8 +24,8 @@ int hist_launch(const void* bins, int bin_bytes, const float* grad,
                 const float* hess, const int32_t* node, float* G, float* H,
                 int32_t* work, float* pieces, long long n, int d, int W, int B,
                 int C, int ctas, int feature_tile, int feature_tiles,
-                int smem_bytes, int count_ctas, long long rows_per_count_cta,
-                void* stream);
+                int bin_tile, int bin_tiles, int smem_bytes, int count_ctas,
+                long long rows_per_count_cta, void* stream);
 
 // grad, hess, node: [C, n] row-major, K = C * W keys. out: f32 [2K], every
 // cell written; g totals in [0, K), h in [K, 2K), each [C, W]. The grid

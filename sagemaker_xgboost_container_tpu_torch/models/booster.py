@@ -20,11 +20,21 @@ Callback protocol mirrors xgboost's (before_training / after_iteration ->
 bool stop / after_training), which is how early stopping hooks in.
 """
 
+import os
+
 import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..data.binning import bin_matrix
+from ..data.binning import (
+    _sketch_impl,
+    apply_cut_points,
+    bin_matrix,
+    compute_cut_points,
+    cut_lists,
+    device_apply,
+    device_cut_points,
+)
 from ..ops.lossguide import build_tree_lossguide
 from ..ops.predict import forest_leaf_values
 from ..ops.ranking import bucket_group_layout, lambdarank_grad_hess
@@ -62,10 +72,14 @@ class TrainConfig:
     gbtree, dart, gblinear) and ``process_type`` default or update. Keys
     that do not change the model being trained (``predictor``, ``nthread``,
     ``verbosity``, the dart knobs under gbtree, ...) are accepted and
-    ignored, as the JAX package ignores them there. What the port does not
-    train raises ``UserError`` naming the parameter, rather than training
-    something else: monotone and interaction constraints and the exact and
-    approx tree methods.
+    ignored, as the JAX package ignores them there. ``tree_method`` exact
+    bins at every distinct value (``max_bin`` None, sized by the data up to
+    ``GRAFT_EXACT_BIN_CAP``, default 8192) and approx re-sketches the cuts
+    from the hessians before every round; ``monotone_constraints`` and
+    ``interaction_constraints`` constrain the gbtree builders, as the JAX
+    package's do. What the port does not train raises ``UserError`` naming
+    the parameter, rather than training something else: ``gpu_hist``, with
+    the JAX package's message.
     """
 
     def __init__(self, params):
@@ -94,13 +108,28 @@ class TrainConfig:
         self.gamma = float(p.get("gamma", 0.0))
         self.min_child_weight = float(p.get("min_child_weight", 1.0))
         self.max_delta_step = float(p.get("max_delta_step", 0.0))
-        if p.get("max_bin") is not None:
+        self.tree_method = p.get("tree_method", "auto")
+        self.exact_bin_cap = None
+        if self.tree_method == "exact":
+            # hist with cuts at every adjacent distinct-value midpoint: the
+            # candidate splits and thresholds of xgboost's exact greedy
+            # enumeration. The width is sized by the data at binning time,
+            # bounded by the cap; max_bin and sketch_eps do not apply
+            self.max_bin = None
+            self.exact_bin_cap = int(os.environ.get("GRAFT_EXACT_BIN_CAP", 8192))
+        elif p.get("max_bin") is not None:
             self.max_bin = int(p["max_bin"])
         elif p.get("sketch_eps"):
             # bins ~ 1/eps, the JAX package's reading of sketch_eps
             self.max_bin = int(min(max(1.0 / float(p["sketch_eps"]), 2), 1024))
         else:
             self.max_bin = 256
+        if self.tree_method == "gpu_hist":
+            raise exc.UserError(
+                "tree_method 'gpu_hist' is not available in the TPU container; use 'hist'."
+            )
+        self.monotone_constraints = p.get("monotone_constraints")
+        self.interaction_constraints = p.get("interaction_constraints")
         self.seed = int(p.get("seed", 0))
         self.subsample = float(p.get("subsample", 1.0))
         self.colsample_bytree = float(p.get("colsample_bytree", 1.0))
@@ -124,10 +153,8 @@ class TrainConfig:
         unsupported = []
         checks = (
             ("grow_policy", "depthwise", lambda v: v in ("depthwise", "lossguide")),
-            ("tree_method", "auto", lambda v: v in ("auto", "hist")),
+            ("tree_method", "auto", lambda v: v in ("auto", "hist", "exact", "approx")),
             ("booster", "gbtree", lambda v: v in ("gbtree", "dart", "gblinear")),
-            ("monotone_constraints", None, lambda v: not v),
-            ("interaction_constraints", None, lambda v: not v),
         )
         for key, default, ok in checks:
             if not ok(p.get(key, default)):
@@ -136,6 +163,27 @@ class TrainConfig:
             raise exc.UserError(
                 "not supported by the PyTorch port yet: {}".format(", ".join(unsupported))
             )
+
+
+def constraint_tensors(config, d, device):
+    """(monotone i32 [d] or None, interaction sets bool [S, d] or None) of
+    ``config``'s constraints over ``d`` features, as the JAX package lays
+    them out: monotone values past the given ones are 0, and set members
+    outside [0, d) are dropped."""
+    monotone = interaction_sets = None
+    if config.monotone_constraints:
+        mono = np.zeros(d, np.int32)
+        vals = np.asarray(config.monotone_constraints, np.int32)
+        mono[:len(vals)] = vals
+        monotone = torch.as_tensor(mono, device=device)
+    if config.interaction_constraints:
+        sets = np.zeros((len(config.interaction_constraints), d), bool)
+        for i, members in enumerate(config.interaction_constraints):
+            for f in members:
+                if 0 <= int(f) < d:
+                    sets[i, int(f)] = True
+        interaction_sets = torch.as_tensor(sets, device=device)
+    return monotone, interaction_sets
 
 
 def print_metric_line(rnd, results):
@@ -187,13 +235,23 @@ class _TrainingSession:
         self.num_group = self.objective.num_output_group
         self.objective.validate_labels(dtrain.labels)
 
-        self.train_binned = bin_matrix(dtrain, config.max_bin)
+        self.train_binned = bin_matrix(dtrain, config.max_bin, exact_cap=config.exact_bin_cap,
+                                       device=device)
         self.cuts = self.train_binned.cut_points
         self.num_bins = self.train_binned.num_bins
         self.bins = torch.as_tensor(self.train_binned.bins, device=device)
         self.num_cuts = torch.as_tensor(
             np.asarray([len(c) for c in self.cuts], np.int32), device=device
         )
+        self.monotone, self.interaction_sets = constraint_tensors(
+            config, self.bins.shape[1], device)
+        # tree_method=approx: the cuts re-sketched from the hessians before
+        # every round (_resketch_bins); GRAFT_APPROX_RESKETCH=0 keeps the
+        # initial sketch
+        self.approx_resketch = (config.tree_method == "approx"
+                                and os.environ.get("GRAFT_APPROX_RESKETCH", "1") != "0")
+        self._dtrain = dtrain
+        self._feats_dev = None       # train features on the device (device sketch)
         self.labels = torch.as_tensor(dtrain.labels, device=device)
         self.weights = torch.as_tensor(dtrain.get_weight(), device=device)
         # ranking: the query groups as row-index blocks, once (a matrix
@@ -222,21 +280,24 @@ class _TrainingSession:
             self.metrics.append((name, m))
 
         # eval sets: bins and labels on the device once, margins incremental;
-        # the training matrix itself shares the training margins
+        # the training matrix itself shares the training margins. Entries
+        # are lists: the approx re-sketch replaces their bins
         self.eval_sets = []
+        self._eval_feats_dev = {}    # eval set index -> features on the device
         for dm, name in evals:
             if dm is dtrain:
-                self.eval_sets.append((name, dm, None, self.labels, self.weights, None))
+                self.eval_sets.append([name, dm, None, self.labels, self.weights, None])
                 continue
-            binned = bin_matrix(dm, config.max_bin, cut_points=self.cuts)
-            self.eval_sets.append((
+            binned = bin_matrix(dm, self.train_binned.max_bin, cut_points=self.cuts,
+                                device=device)
+            self.eval_sets.append([
                 name,
                 dm,
                 torch.as_tensor(binned.bins, device=device),
                 torch.as_tensor(dm.labels, device=device),
                 torch.as_tensor(dm.get_weight(), device=device),
                 self._start_margins(forest, dm, base),
-            ))
+            ])
 
     def _start_margins(self, forest, dm, base):
         """Margins of ``dm``'s rows before the first new round ([n], or
@@ -270,6 +331,52 @@ class _TrainingSession:
                 r = r_hi
         return margins
 
+    def _resketch_bins(self):
+        """tree_method=approx: re-select the cuts from the current hessians
+        (xgboost re-sketches its candidates every iteration) and re-bin the
+        training rows and every eval set, as the JAX package's
+        ``_resketch_bins`` does before each dispatch, round 0 and a resumed
+        run's first round included. The hessians are the objective's
+        pointwise ones, summed over the classes of a multiclass objective.
+
+        Under the device lowering (``GRAFT_SKETCH_IMPL``; ``auto`` on a CUDA
+        session) the hessians stay on the device, the float features of the
+        training rows and of each eval set are staged there once, and only
+        the [d, max_bin - 1] cuts come back to the host (for compacting the
+        round's trees). Trees already committed keep the cuts they were
+        built with: each round's trees are compacted to float thresholds
+        before the next re-sketch."""
+        _g, h = self.objective.grad_hess(self.margins, self.labels, self.weights)
+        if h.dim() == 2:
+            h = h.sum(dim=1)
+        max_bin = self.train_binned.max_bin
+        if _sketch_impl(self.device) == "device":
+            if self._feats_dev is None:
+                self._feats_dev = torch.as_tensor(self._dtrain.features, dtype=torch.float32,
+                                                  device=self.device)
+            mids, n_cuts = device_cut_points(self._feats_dev, h, max_bin - 1)
+            self.bins = device_apply(self._feats_dev, mids, n_cuts, max_bin)
+            for i, entry in enumerate(self.eval_sets):
+                if entry[2] is None:
+                    continue
+                if i not in self._eval_feats_dev:
+                    self._eval_feats_dev[i] = torch.as_tensor(
+                        entry[1].features, dtype=torch.float32, device=self.device)
+                entry[2] = device_apply(self._eval_feats_dev[i], mids, n_cuts, max_bin)
+            self.num_cuts = n_cuts.int()
+            self.cuts = cut_lists(mids, n_cuts)
+            return
+        feats = self._dtrain.features
+        cuts = compute_cut_points(feats, h.cpu().numpy(), max_bin)
+        self.bins = torch.as_tensor(apply_cut_points(feats, cuts, max_bin), device=self.device)
+        for entry in self.eval_sets:
+            if entry[2] is not None:
+                entry[2] = torch.as_tensor(
+                    apply_cut_points(entry[1].features, cuts, max_bin), device=self.device)
+        self.num_cuts = torch.as_tensor(np.asarray([len(c) for c in cuts], np.int32),
+                                        device=self.device)
+        self.cuts = cuts
+
     def grad_hess(self, margins):
         """The objective's (g, h) at ``margins`` ([n] or [n, C]), over the
         query groups for a ranking objective."""
@@ -283,6 +390,8 @@ class _TrainingSession:
         margin -> list of host tree dicts (arrays [max_nodes], or [C,
         max_nodes] for C classes), one per parallel tree."""
         cfg = self.config
+        if self.approx_resketch:
+            self._resketch_bins()
         g, h = self.grad_hess(self.margins)
         if self.num_group > 1:
             # [n, C] -> the builder's contiguous [C, n]
@@ -295,6 +404,7 @@ class _TrainingSession:
             # the round's trees fit the same gradients: their sum is averaged
             eta=cfg.eta / cfg.num_parallel_tree,
             max_delta_step=cfg.max_delta_step,
+            monotone=self.monotone, interaction_sets=self.interaction_sets,
         )
         trees, total = [], None
         for k in range(cfg.num_parallel_tree):

@@ -18,7 +18,9 @@ Binning: the cut points are computed once over the whole train+validation
 matrix (feature values and weights, no labels), where the sequential path
 sketches each fold's training rows, so the two paths can grow slightly
 different trees; ``GRAFT_PARALLEL_CV=0`` makes the entry point take the
-sequential path.
+sequential path. Under ``tree_method=approx`` that one sketch stays for
+every round, as in the JAX package, where the sequential path re-sketches
+each round. The monotone and interaction constraints apply to every fold.
 """
 
 import numpy as np
@@ -26,6 +28,7 @@ import torch
 
 from ..data.binning import bin_matrix
 from ..ops.tree_build import build_tree, pack_tree, unpack_tree
+from .booster import constraint_tensors
 from .device_metrics import make_device_metric
 from .forest import compact_padded_tree
 from .sampling import Sampler
@@ -53,7 +56,7 @@ def train_cv_parallel(config, dmatrix, splits, num_boost_round, metric_names, fo
     round]}, "validation": {...}}, as the sequential fold loop records them.
     ``_sampler``: as ``booster.train``'s, with one stream a fold."""
     F = len(splits)
-    binned = bin_matrix(dmatrix, config.max_bin)
+    binned = bin_matrix(dmatrix, config.max_bin, exact_cap=config.exact_bin_cap)
     n, d = binned.bins.shape
     num_bins = binned.num_bins
     base_w = np.asarray(dmatrix.get_weight(), np.float32)
@@ -74,6 +77,7 @@ def train_cv_parallel(config, dmatrix, splits, num_boost_round, metric_names, fo
         np.asarray([len(c) for c in binned.cut_points], np.int32), device=device)
     train_w = torch.as_tensor(train_w, device=device)
     val_w = torch.as_tensor(val_w, device=device)
+    monotone, interaction_sets = constraint_tensors(config, d, device)
     margins = torch.full((F, n), objective.base_margin(forests[0].base_score),
                          dtype=torch.float32, device=device)
     sampler = _sampler
@@ -93,7 +97,8 @@ def train_cv_parallel(config, dmatrix, splits, num_boost_round, metric_names, fo
             bins, g, h, num_cuts, max_depth=config.max_depth, num_bins=num_bins,
             reg_lambda=config.reg_lambda, alpha=config.alpha, gamma=config.gamma,
             min_child_weight=config.min_child_weight, eta=config.eta,
-            max_delta_step=config.max_delta_step, masks=masks,
+            max_delta_step=config.max_delta_step, masks=masks, monotone=monotone,
+            interaction_sets=interaction_sets,
         )
         margins += row_out
         # per fold: each metric on the training rows, then the held-out ones

@@ -26,7 +26,9 @@ skip_drop uniform, the T unit uniforms, the one_drop randint, the
 colsample_bytree choice, the subsample uniforms, and a randint that seeds
 the round's ``colsample_bylevel`` draws (a ``torch.Generator`` here,
 threefry there, so those level masks differ between the packages). As in
-the JAX package, ``colsample_bynode`` is not applied.
+the JAX package, ``colsample_bynode`` and the monotone and interaction
+constraints are not applied, and ``tree_method=approx`` re-sketches the cuts
+before each round's dropout draw.
 """
 
 import logging
@@ -116,6 +118,11 @@ def train_dart(config, forest, dtrain, evals, feval, callbacks, num_boost_round,
             forest = cb.before_training(forest) or forest
     start_round = forest.num_boosted_rounds
     for rnd in range(start_round, start_round + num_boost_round):
+        if session.approx_resketch:
+            # tree_method=approx: the session re-sketches and re-bins in
+            # place, from the whole forest's margins (before the dropped set
+            # is drawn), as the JAX package's dart loop does
+            session._resketch_bins()
         # ---- the dropped set ---------------------------------------------
         dropped = []
         if tree_contribs and rng.uniform() >= skip_drop:

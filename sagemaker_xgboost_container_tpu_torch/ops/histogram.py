@@ -52,6 +52,7 @@ HistPlan = collections.namedtuple(
     "HistPlan",
     [
         "ctas", "feature_tile", "feature_tiles",  # hist_kernel grid (x, y)
+        "bin_tile", "bin_tiles",                  # and z: bins [z*bin_tile, ...)
         "smem_bytes",                             # its dynamic shared memory
         "slots",                                  # scratch pieces, ctas + W
         "count_ctas", "rows_per_count_cta",       # hist_count / hist_scatter
@@ -89,23 +90,26 @@ def hist_plan(n, d, W, B, num_sms, classes=1):
     With C = ``classes`` the kernels see C*n entries and K = C*W keys (the
     class folded into the key); below, "rows" are entries and "nodes" keys.
 
-    hist_kernel holds [feature_tile, B] x (g, h) f32 in shared memory, within
-    HIST_SMEM_BUDGET: the whole row where it fits (d=28, B=257: 57.6 KB),
-    else feature tiles of equal width. Its grid is persistent: ctas x
-    feature_tiles fills the card with _HIST_CTAS_PER_SM CTAs per SM, and each
-    of the ctas CTAs takes an equal slice of the rows ordered by node. A CTA
-    writes one scratch piece per node its slice touches, at slot c + w, so
-    ctas + K slots suffice. hist_count and hist_scatter split the rows into
-    count_ctas chunks.
+    hist_kernel holds [feature_tile, bin_tile] x (g, h) f32 in shared
+    memory, within HIST_SMEM_BUDGET: the whole row where it fits (d=28,
+    B=257: 57.6 KB), else feature tiles of equal width, and where one
+    feature's B bins do not fit (B > 12,672: exact binning's wide u16 bins)
+    one feature a CTA and bin tiles of equal width, each CTA adding only the
+    entries whose bin falls in its tile. Its grid is persistent: ctas x
+    feature_tiles x bin_tiles fills the card with _HIST_CTAS_PER_SM CTAs per
+    SM, and each of the ctas CTAs takes an equal slice of the rows ordered
+    by node. A CTA writes one scratch piece per node its slice touches, at
+    slot c + w (its tile's cells of it), so ctas + K slots suffice.
+    hist_count and hist_scatter split the rows into count_ctas chunks.
     """
-    per_feature = 2 * B * 4
     keys, entries = classes * W, classes * n
+    if B < 1:
+        raise ValueError("hist_kernel takes B >= 1, got {}".format(B))
+    max_cells = HIST_SMEM_BUDGET // 8  # (g, h) f32 cells of one CTA
+    bin_tiles = _cdiv(B, max_cells)
+    bin_tile = _cdiv(B, bin_tiles)
+    per_feature = 2 * bin_tile * 4
     max_features = HIST_SMEM_BUDGET // per_feature
-    if max_features < 1:
-        raise ValueError(
-            "hist_kernel: B={} bins need {} B of shared memory per feature, "
-            "above the {} B budget".format(B, per_feature, HIST_SMEM_BUDGET)
-        )
     if classes < 1 or W < 1 or keys > HIST_MAX_NODES:
         raise ValueError("hist_kernel takes 1 <= C*W <= {}, got C={} W={}".format(
             HIST_MAX_NODES, classes, W))
@@ -116,13 +120,13 @@ def hist_plan(n, d, W, B, num_sms, classes=1):
     feature_tile = _cdiv(d, feature_tiles)
     if feature_tiles > 65535:
         raise ValueError("hist_kernel: grid too large for d={}".format(d))
-    ctas = max(1, _cdiv(_HIST_CTAS_PER_SM * num_sms, feature_tiles))
+    ctas = max(1, _cdiv(_HIST_CTAS_PER_SM * num_sms, feature_tiles * bin_tiles))
     count_ctas = max(1, min(_HIST_CTAS_PER_SM * num_sms,
                             _cdiv(entries, _HIST_MIN_CHUNK_ROWS)))
     rows_per_count_cta = max(1, _cdiv(entries, count_ctas))
     return HistPlan(
-        ctas, feature_tile, feature_tiles, feature_tile * per_feature,
-        ctas + keys, count_ctas, rows_per_count_cta,
+        ctas, feature_tile, feature_tiles, bin_tile, bin_tiles,
+        feature_tile * per_feature, ctas + keys, count_ctas, rows_per_count_cta,
     )
 
 

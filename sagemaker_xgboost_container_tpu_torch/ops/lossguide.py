@@ -25,6 +25,11 @@ bylevel row of a node's depth (capped at the depth limit) when its
 candidate is scored, a depth that differs per class; and for the two
 children of split step t, the bynode rows of their slots 2t+1 and 2t+2
 (the root draws none).
+
+Constraints per slot, as in the JAX package: ``monotone`` in the split scan;
+``interaction_sets`` alive at each slot (all at the root; the two children of
+a step keep the sets of their parent that hold its split feature), a slot's
+candidate drawn from the features of its alive sets.
 """
 
 import torch
@@ -55,6 +60,8 @@ def build_tree_lossguide(
     eta=0.3,
     max_delta_step=0.0,
     masks=None,
+    monotone=None,
+    interaction_sets=None,
 ):
     """Grow one leaf-wise tree on grad, hess [n], or C trees on [C, n].
     Returns (tree tensors dict, row_out f32 [n] or [C, n]).
@@ -67,6 +74,8 @@ def build_tree_lossguide(
     ``masks``: optional ``ColumnMasks`` with ``level`` [1 or C, depth cap +
     1, d] (the depth cap is ``max_depth``, or ``max_leaves`` when it is 0)
     and ``node`` [1 or C, 2 * max_leaves - 1, d] (one row per node slot).
+    ``monotone``: optional i32 [d] in {-1, 0, 1}; ``interaction_sets``:
+    optional bool [S, d], one row a constraint set (``build_tree``'s).
     """
     single = grad.dim() == 1
     if single:
@@ -116,7 +125,7 @@ def build_tree_lossguide(
         splits = find_best_splits(
             G.reshape(C * W, d, B), H.reshape(C * W, d, B), num_cuts,
             reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
-            min_child_weight=min_child_weight, feature_mask=mask,
+            min_child_weight=min_child_weight, feature_mask=mask, monotone=monotone,
         )
         return {k: v.reshape(C, W) for k, v in splits.items()}
 
@@ -139,6 +148,17 @@ def build_tree_lossguide(
             node = node_masks[:, slots].expand(C, -1, -1)
         return combine_masks(tree_mask, level, node)
 
+    # interaction constraints: the sets alive at each slot, [C, max_nodes, S]
+    alive = sets = None
+    if interaction_sets is not None:
+        sets = interaction_sets.to(dev)
+        alive = torch.zeros((C, max_nodes, sets.shape[0]), dtype=torch.bool, device=dev)
+        alive[:, 0] = True
+
+    def allowed(alive_rows):
+        """[C, S] alive sets -> the [C, 1, d] mask of their features."""
+        return ((alive_rows.float() @ sets.float()) > 0).float()[:, None, :]
+
     def store(slot, splits, k, gain):
         cand["gain"][:, slot] = gain
         for key in ("feature", "bin", "default_left"):
@@ -152,7 +172,10 @@ def build_tree_lossguide(
         hist_G = torch.zeros((C, max_nodes, d, B), dtype=torch.float32, device=dev)
         hist_H = torch.zeros_like(hist_G)
         hist_G[:, 0], hist_H[:, 0] = G[:, 0], H[:, 0]
-    root = scan(G, H, scan_mask(node_depth[:, 0]))
+    root_mask = scan_mask(node_depth[:, 0])
+    if alive is not None:
+        root_mask = combine_masks(root_mask, allowed(alive[:, 0]))
+    root = scan(G, H, root_mask)
     store(0, root, 0, root["gain"][:, 0])
 
     for t in range(max_leaves - 1):
@@ -195,7 +218,14 @@ def build_tree_lossguide(
             child_local = torch.where(
                 node_of_row == id_a, 0, torch.where(node_of_row == id_b, 1, -1)).int()
             G, H = level_histogram(bins, grad, hess, child_local, 2, B)
-        splits = scan(G, H, scan_mask(depth, slice(id_a, id_b + 1)))
+        mask = scan_mask(depth, slice(id_a, id_b + 1))
+        if alive is not None:
+            # inert where the step cannot split: the children's gains are
+            # -inf below
+            child_alive = alive[cls, leaf] & sets[:, f.long()].T
+            alive[:, id_a], alive[:, id_b] = child_alive, child_alive
+            mask = combine_masks(mask, allowed(child_alive))
+        splits = scan(G, H, mask)
         # children at the depth cap never split; those of a step that could
         # not split hold no rows and are never picked
         open_ = (can & (depth < depth_cap))[:, None]

@@ -61,6 +61,7 @@ def find_best_splits(
     gamma=0.0,
     min_child_weight=1.0,
     feature_mask=None,
+    monotone=None,
 ):
     """Best (feature, bin, default_dir, gain) per node at one level.
 
@@ -72,6 +73,10 @@ def find_best_splits(
         node, or with the class axis (the builder's C*W nodes, class-major)
         [C, d] given as [C, 1, d], or [C, W/C, d]. A feature it zeroes has
         every candidate at -inf before the argmax.
+      monotone: optional i32 [d] in {-1, 0, 1}: a candidate on a feature
+        with +1 (-1) needs its left child's weight at most (at least) its
+        right child's; the order of a split's two children only, as in the
+        JAX package (no bounds pass down from ancestors).
 
     Returns dict of per-node tensors (length W): gain f32, feature i32,
     bin i32, default_left bool, plus node totals g_total/h_total f32. Ties
@@ -102,6 +107,11 @@ def find_best_splits(
             + _score(gr, hr, reg_lambda, alpha)
             - parent
         ) - gamma
+        if monotone is not None:
+            wl = -_threshold_l1(gl, alpha) / (hl + reg_lambda)
+            wr = -_threshold_l1(gr, alpha) / (hr + reg_lambda)
+            mono = monotone.to(G.device)[None, :, None]
+            ok = ok & torch.where(mono == 0, True, torch.where(mono > 0, wl <= wr, wl >= wr))
         return torch.where(ok, raw, neg_inf)
 
     gain_right = _gain(g_cum, h_cum)                          # missing -> right

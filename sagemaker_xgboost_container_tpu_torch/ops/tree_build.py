@@ -18,6 +18,12 @@ Column sampling arrives as ``ColumnMasks`` (``ops/split``), drawn by the
 caller (``models/sampling``): level l scans with the tree's column set times
 row l of the level masks times the node masks of its node slots, as the
 JAX package's ``build_tree`` applies its draws.
+
+Constraints, as in the JAX package: ``monotone`` orders the two children of
+every split on a constrained feature (``ops/split``); ``interaction_sets``
+keep, per node, the constraint sets still alive (all at the root; a split on
+f keeps those that hold f), and a node may split only on a feature of an
+alive set.
 """
 
 import numpy as np
@@ -68,6 +74,8 @@ def build_tree(
     eta=0.3,
     max_delta_step=0.0,
     masks=None,
+    monotone=None,
+    interaction_sets=None,
 ):
     """Grow one tree on grad, hess [n], or C trees on [C, n] (one per
     class, sharing the bins). Returns (tree tensors dict, row_out f32 [n] or
@@ -75,7 +83,8 @@ def build_tree(
 
     ``masks``: optional ``ColumnMasks`` with ``level`` [1 or C, max_depth,
     d] and ``node`` [1 or C, 2**max_depth - 1, d] (one row per node slot of
-    the levels that split).
+    the levels that split). ``monotone``: optional i32 [d] in {-1, 0, 1}.
+    ``interaction_sets``: optional bool [S, d], one row a constraint set.
 
     Tree tensors (length ``max_nodes_for_depth(max_depth)``, or [C, that]):
     feature, bin (i32), default_left (bool), is_leaf (bool), leaf_value
@@ -106,6 +115,12 @@ def build_tree(
     node_of_row = torch.zeros((C, n), dtype=torch.int32, device=dev)
     row_out = torch.zeros((C, n), dtype=torch.float32, device=dev)
     minus_one = torch.full((), -1, dtype=torch.int32, device=dev)  # no host copy
+
+    # interaction constraints: the sets still alive at each node, [C, W, S]
+    alive = sets_f = None
+    if interaction_sets is not None:
+        sets_f = interaction_sets.to(dev).float()
+        alive = torch.ones((C, 1, interaction_sets.shape[0]), dtype=torch.bool, device=dev)
 
     subtract = _subtraction_enabled(max_depth, d, num_bins)
     G_cache = H_cache = None      # previous level's [C, W/2, d, B] histograms
@@ -162,14 +177,19 @@ def build_tree(
                 None if masks.level is None else masks.level[:, level, None, :],
                 None if masks.node is None else masks.node[:, sl],
             )
-            if feature_mask is not None:
-                feature_mask = feature_mask.expand(C, -1, -1)
+        if alive is not None:
+            # [C, W, S] @ [S, d]: a feature of some alive set
+            allowed = ((alive.float() @ sets_f) > 0).float()
+            feature_mask = combine_masks(feature_mask, allowed)
+        if feature_mask is not None:
+            feature_mask = feature_mask.expand(C, -1, -1)
         # the split scan works per node: the classes' nodes side by side
         splits = find_best_splits(
             G.reshape(C * width, d, num_bins), H.reshape(C * width, d, num_bins),
             num_cuts,
             reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
             min_child_weight=min_child_weight, feature_mask=feature_mask,
+            monotone=monotone,
         )
         splits = {k: v.reshape(C, width) for k, v in splits.items()}
         weight = leaf_weight(
@@ -203,6 +223,10 @@ def build_tree(
         node_of_row = torch.where(
             row_leafed, minus_one, torch.where(at_level, child, node_of_row)
         )
+        if alive is not None:
+            # both children keep the sets that hold their parent's feature
+            held = interaction_sets.to(dev)[:, splits["feature"].long()].permute(1, 2, 0)
+            alive = (alive & held).repeat_interleave(2, dim=1)
 
     # explicit child indices (leaves self-loop)
     ids = torch.arange(max_nodes, dtype=torch.int32, device=dev)

@@ -24,9 +24,11 @@ checkpoint's model) train through the same call, and their models are
 saved and checkpointed through their ``save_model``. CV trains its folds
 side by side in one tree build where ``models/cv_parallel`` allows
 (``GRAFT_PARALLEL_CV``, gbtree only, as in the JAX package), else one after
-another. Not ported yet, each refused with a ``UserError`` naming it: more
-than one host (``SM_HOSTS``), and what ``booster.TrainConfig`` refuses:
-constraints and the exact and approx tree methods.
+another. ``monotone_constraints`` and ``interaction_constraints`` (the
+strings ``"(1,0,-1)"`` and ``"[[0,1],[2,3]]"`` of hyperparameters.json,
+parsed by their validators) and ``tree_method`` exact and approx train as
+``booster.TrainConfig`` reads them. Not ported yet, refused with a
+``UserError`` naming it: more than one host (``SM_HOSTS``).
 """
 
 import logging

@@ -170,20 +170,36 @@ def test_class_axis_matches_jax_vmap(impl):
         (581_012, 54, 1, 257, 7),
         (581_012, 54, 64, 257, 7),
         (10, 3, 4, 9, 3),
+        # exact binning's data-sized u16 widths: one feature a CTA up to
+        # 12,672 bins, bin tiles beyond, up to every width u16 bins hold
+        (1_000_000, 28, 64, 5_000, 1),
+        (1_000_000, 28, 64, 8_193, 1),
+        (1_000_000, 28, 64, 12_672, 1),
+        (1_000_000, 28, 64, 12_673, 1),
+        (1_000_000, 28, 64, 20_001, 1),
+        (100_000, 9, 16, 65_536, 1),
+        (250_000, 28, 16, 20_001, 5),
     ],
 )
 def test_hist_plan_covers_the_grid(n, d, W, B, C):
     p = hist.hist_plan(n, d, W, B, num_sms=132, classes=C)
     n, W = C * n, C * W  # the kernels see C*n entries and C*W keys
-    # hist_kernel: one CTA's histogram slice fits the budget and the
-    # feature tiles cover d without an empty tile
-    assert p.smem_bytes == p.feature_tile * 2 * B * 4
+    # hist_kernel: one CTA's histogram slice fits the budget, and the
+    # feature tiles cover d and the bin tiles B without an empty tile
+    assert p.smem_bytes == p.feature_tile * 2 * p.bin_tile * 4
     assert p.smem_bytes <= hist.HIST_SMEM_BUDGET
     assert p.feature_tile * p.feature_tiles >= d
     assert (p.feature_tiles - 1) * p.feature_tile < d
+    assert p.bin_tile * p.bin_tiles >= B
+    assert (p.bin_tiles - 1) * p.bin_tile < B
+    # the whole row of bins in one tile wherever it fits the budget
+    assert (p.bin_tiles == 1) == (2 * B * 4 <= hist.HIST_SMEM_BUDGET)
+    if p.bin_tiles > 1:
+        assert p.feature_tile == 1 and p.feature_tiles == d
     # a persistent grid of about two CTAs per SM, and one scratch piece per
     # CTA plus one per node
-    assert p.ctas * p.feature_tiles <= 2 * 132 + p.feature_tiles
+    tiles = p.feature_tiles * p.bin_tiles
+    assert p.ctas * tiles <= 2 * 132 + tiles
     assert p.ctas >= 1 and p.slots == p.ctas + W
     # hist_count / hist_scatter chunks cover the rows
     assert p.count_ctas * p.rows_per_count_cta >= n
@@ -193,7 +209,7 @@ def test_hist_plan_covers_the_grid(n, d, W, B, C):
 @pytest.mark.parametrize(
     "n,d,W,B,C",
     [
-        (10, 1, 1, 20_000, 1),                   # one feature's bins beyond the budget
+        (10, 1, 1, 0, 1),                        # no bins
         (10, 1, hist.HIST_MAX_NODES + 1, 9, 1),  # node counters beyond shared memory
         (2**31, 1, 1, 9, 1),                     # row ids beyond int32
         (10, 1, hist.HIST_MAX_NODES // 4 + 1, 9, 4),  # C*W keys beyond shared memory
@@ -290,9 +306,19 @@ def _emulate_hist_kernels(bins, grad, hess, node, W, B, plan):
             assert slot < plan.slots and slot not in pieces
             g = np.zeros((d, B), np.float64)
             h = np.zeros((d, B), np.float64)
-            for f in range(d):
-                np.add.at(g[f], bins[rows, f], grad[seg])
-                np.add.at(h[f], bins[rows, f], hess[seg])
+            # the bin tiles' CTAs of slice c: each adds the entries whose
+            # bin lies in its tile and writes only its tile's cells
+            written = np.zeros((d, B), np.int64)
+            for z in range(plan.bin_tiles):
+                b0 = z * plan.bin_tile
+                nb = min(plan.bin_tile, B - b0)
+                for f in range(d):
+                    b = bins[rows, f].astype(np.int64)
+                    m = (b >= b0) & (b < b0 + nb)
+                    np.add.at(g[f], b[m], grad[seg][m])
+                    np.add.at(h[f], b[m], hess[seg][m])
+                    written[f, b0:b0 + nb] += 1
+            assert (written == 1).all()
             pieces[slot] = (c, w, g, h)
             lo = seg_end
             if lo < hi:
@@ -349,6 +375,31 @@ def test_hist_kernel_bookkeeping_matches_plain(n, W, kind, C):
     Gp, Hp = _port_hist(bins, grad, hess, node, W, B)
     Gp, Hp = Gp.reshape(C * W, d, B), Hp.reshape(C * W, d, B)
     # f64 pieces against an f32 sum: 1e-4 of the largest cell, as on the card
+    tol = 1e-4 * max(1.0, np.abs(Gp).max(initial=0), np.abs(Hp).max(initial=0))
+    np.testing.assert_allclose(G, Gp, atol=tol, rtol=0)
+    np.testing.assert_allclose(H, Hp, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("n,d,W,B,C", [
+    (300, 2, 4, 20_001, 1),    # two bin tiles
+    (200, 1, 2, 65_536, 1),    # every width u16 bins hold: six tiles
+    (150, 2, 3, 12_673, 2),    # the class axis, one bin past one tile
+])
+def test_hist_kernel_bin_tiles_match_plain(n, d, W, B, C):
+    """Bins wider than one CTA's shared memory: the tiles' CTAs together add
+    every entry once, into the cells of its bin."""
+    rng = np.random.RandomState(5)
+    bins = rng.randint(0, B, size=(n, d)).astype(np.uint16)
+    bins[rng.rand(n, d) < 0.1] = B - 1   # the missing bin, in the last tile
+    shape = (n,) if C == 1 else (C, n)
+    grad = rng.randn(*shape).astype(np.float32)
+    hess = (rng.rand(*shape) + 0.1).astype(np.float32)
+    node = _class_nodes("random", n, W, C)
+    plan = hist.hist_plan(n, d, W, B, num_sms=4, classes=C)
+    assert plan.bin_tiles > 1
+    G, H = _emulate_hist_kernels(bins, grad, hess, node, W, B, plan)
+    Gp, Hp = _port_hist(bins, grad, hess, node, W, B)
+    Gp, Hp = Gp.reshape(C * W, d, B), Hp.reshape(C * W, d, B)
     tol = 1e-4 * max(1.0, np.abs(Gp).max(initial=0), np.abs(Hp).max(initial=0))
     np.testing.assert_allclose(G, Gp, atol=tol, rtol=0)
     np.testing.assert_allclose(H, Hp, atol=tol, rtol=0)
@@ -675,3 +726,22 @@ def test_totals_kernel_class_axis_matches_plain(problem, cuda_device, W, C, kind
     torch.testing.assert_close(h, hp, atol=tol, rtol=0)
     g2, h2 = hist.node_totals(*args, W)
     assert torch.equal(g, g2) and torch.equal(h, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,W", [(8_193, 64), (20_001, 16), (65_536, 4)])
+def test_hist_kernel_wide_bins_on_cuda_match_plain(B, W):
+    """hist_kernel at exact binning's widths, one feature a CTA (8,193) and
+    bins tiled across CTAs (20,001 and 65,536), against the plain version;
+    integer weights sum exactly, so those histograms are equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU; chip_smoke.py phase 2 runs these on the card")
+    rng = np.random.RandomState(B)
+    n, d = 100_000, 5
+    bins = torch.as_tensor(rng.randint(0, B, (n, d)).astype(np.uint16), device="cuda")
+    node = torch.as_tensor(rng.randint(-1, W, n).astype(np.int32), device="cuda")
+    ones = torch.ones(n, device="cuda")
+    ints = torch.as_tensor(rng.randint(0, 4, n).astype(np.float32), device="cuda")
+    G, H = hist.level_histogram(bins, ones, ints, node, W, B)
+    Gp, Hp = hist._hist_plain(bins, ones, ints, node, W, B)
+    assert torch.equal(G, Gp) and torch.equal(H, Hp)

@@ -187,6 +187,7 @@ EVERY_KEY_IN_THE_SLICE = {
     "aft_loss_distribution": "normal", "aft_loss_distribution_scale": "1",
     "deterministic_histogram": "true", "sampling_method": "uniform", "prob_buffer_row": "2",
     "use_dask_gpu_training": "false", "_num_devices": "1", "_rounds_per_dispatch": "8",
+    "monotone_constraints": "(1,0,-1)", "interaction_constraints": "[[0,1],[2,3]]",
 }
 
 
@@ -194,15 +195,16 @@ def test_train_config_takes_every_validated_key():
     from sagemaker_xgboost_container_tpu_torch.models.booster import TrainConfig
 
     schema = hyperparameters.initialize(metrics.initialize())
-    # the two left out have no value the slice trains: absent is their default
-    assert set(schema._schema) - set(EVERY_KEY_IN_THE_SLICE) == {
-        "interaction_constraints", "monotone_constraints"}
+    assert set(schema._schema) - set(EVERY_KEY_IN_THE_SLICE) == set()
     assert set(EVERY_KEY_IN_THE_SLICE) <= set(schema._schema)
     validated = schema.validate(dict(EVERY_KEY_IN_THE_SLICE))
     validated["updater"] = ",".join(validated["updater"])
     config = TrainConfig(validated)
     assert (config.max_depth, config.max_bin, config.eta) == (8, 256, 0.2)
     assert (config.objective, config.num_class) == ("multi:softprob", 3)
+    # the hyperparameters.json strings arrive parsed
+    assert tuple(config.monotone_constraints) == (1, 0, -1)
+    assert [list(s) for s in config.interaction_constraints] == [[0, 1], [2, 3]]
 
 
 @pytest.mark.parametrize("key,value", [
@@ -216,8 +218,9 @@ def test_train_config_takes_every_validated_key():
 def test_train_config_refuses_what_the_slice_does_not_train(key, value):
     """Refusals, and (since the port trains them) acceptance of the ranking
     objectives, of lossguide with max_leaves, of row and column sampling, of
-    num_parallel_tree, of the dart and gblinear boosters and of
-    process_type=update."""
+    num_parallel_tree, of the dart and gblinear boosters, of
+    process_type=update, of the exact and approx tree methods and of the
+    monotone and interaction constraints (parsed from their strings)."""
     from sagemaker_xgboost_container_tpu_torch.models.booster import TrainConfig
 
     config = {"num_round": "10", "tree_method": "hist", key: value}
@@ -226,7 +229,8 @@ def test_train_config_refuses_what_the_slice_does_not_train(key, value):
     sampling = ("subsample", "colsample_bytree", "colsample_bylevel", "colsample_bynode",
                 "num_parallel_tree")
     accepted = (value in ("rank:pairwise", "rank:ndcg", "lossguide", "dart", "gblinear",
-                          "update") or key in sampling)
+                          "update", "exact", "approx") or key in sampling
+                or key in ("monotone_constraints", "interaction_constraints"))
     if value == "lossguide":
         config["max_leaves"] = "31"
     validated = hyperparameters.initialize(metrics.initialize()).validate(config)
@@ -234,7 +238,15 @@ def test_train_config_refuses_what_the_slice_does_not_train(key, value):
         validated["updater"] = ",".join(validated["updater"])
     if accepted:
         train_config = TrainConfig(validated)
-        assert str(getattr(train_config, key)) == value
+        got = getattr(train_config, key)
+        if key == "monotone_constraints":
+            assert tuple(got) == (1, 0)
+        elif key == "interaction_constraints":
+            assert [list(s) for s in got] == [[0, 1]]
+        else:
+            assert str(got) == value
+        if value == "exact":
+            assert (train_config.max_bin, train_config.exact_bin_cap) == (None, 8192)
         if value == "lossguide":
             assert (train_config.max_leaves, train_config.predict_depth) == (31, 6)
         return

@@ -249,15 +249,19 @@ def test_stack_builds_each_slice_once_under_concurrency(trained, monkeypatch):
         {"booster": "dart"},
         {"tree_method": "approx"},
         {"num_parallel_tree": 2},
+        {"tree_method": "gpu_hist"},
     ],
 )
 def test_parameters_outside_the_slice_raise(params):
-    """Refusals, and (since the port trains them) acceptance of lossguide
-    with max_leaves, of the ranking objectives, of row and column sampling,
-    of num_parallel_tree and of the dart booster."""
+    """Refusals (tree_method=gpu_hist), and (since the port trains them)
+    acceptance of lossguide with max_leaves, of the ranking objectives, of
+    row and column sampling, of num_parallel_tree, of the dart booster, of
+    the monotone and interaction constraints and of tree_method=approx."""
     name = next(iter(params))
     if name in ("grow_policy", "objective", "subsample", "colsample_bytree",
-                "colsample_bylevel", "colsample_bynode", "num_parallel_tree", "booster"):
+                "colsample_bylevel", "colsample_bynode", "num_parallel_tree", "booster",
+                "monotone_constraints", "interaction_constraints") or params == {
+                    "tree_method": "approx"}:
         config = TrainConfig(dict(PARAMS, **params))
         assert getattr(config, name) == params[name]
         return

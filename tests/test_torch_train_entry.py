@@ -177,6 +177,38 @@ def test_sagemaker_train_matches_jax(kind, tmp_path, capsys):
                                   "validation-auc"]
 
 
+@pytest.mark.parametrize("hp", [
+    {"tree_method": "approx", "interaction_constraints": "[[0,1],[2,3,4,5,6,7]]"},
+    # depth 3: with a bin a distinct value, deeper nodes of these 3,000 rows
+    # hold near-ties of adjacent thresholds that f32 sums decide
+    {"tree_method": "exact", "monotone_constraints": "(1,0,-1)", "max_depth": "3"},
+    {"tree_method": "hist", "monotone_constraints": "(1,0,-1)",
+     "interaction_constraints": "[[0,1],[2,3]]"},
+])
+def test_sagemaker_train_tree_methods_and_constraints_match_jax(hp, tmp_path, capsys):
+    """hyperparameters.json strings of the constraints and the exact and
+    approx tree methods, through both packages' entry points: the same
+    model and metric lines."""
+    tree = _tree(str(tmp_path), "csv", seed=6)
+    hp = dict(BASE_HP, **hp)
+    ours, our_lines = _run("port", tree, hp, str(tmp_path / "model_port"), capsys)
+    ref, ref_lines = _run("jax", tree, hp, str(tmp_path / "model_jax"), capsys)
+    _assert_same_forest(ours, ref, tree["X"])
+    _assert_same_lines(our_lines, ref_lines)
+    assert sorted(our_lines) == list(range(6))
+    if "interaction_constraints" in hp:
+        sets = [set(s) for s in json.loads(hp["interaction_constraints"])]
+        for t in ours.trees:
+            stack = [(0, set())]
+            while stack:
+                node, used = stack.pop()
+                if t.is_leaf[node]:
+                    assert any(used <= s for s in sets), used
+                    continue
+                used = used | {int(t.feature[node])}
+                stack += [(t.left[node], used), (t.right[node], used)]
+
+
 @pytest.mark.parametrize("metric", ["validation:logloss", "validation:auc"])
 def test_early_stopping_with_save_best_matches_jax(metric, tmp_path, capsys):
     """Noisy labels, many rounds and a high eta: training stops early and the
