@@ -226,7 +226,37 @@ Phases (each prints its own lines; any failure exits non-zero):
    process on phase 8's channels with tree_method=approx and
    interaction_constraints "[[0,1],[2,3,4,5,6,7]]", 10 rounds: exit 0, one
    HPO-regex line a round, every path within one set, the model served
-   through `serving_entrypoint` within 1e-5 of the CPU predict.
+   through `serving_entrypoint` within 1e-5 of the CPU predict;
+15. models brought from xgboost and the rest of the train contract. 15a:
+   phase 11b's forest (100 trees, 28 features) on the main path's 100k
+   validation rows with features 0-7 coded to categories 0..999 (quantile
+   buckets): F_num sets each split on them to k - 0.5 (k the code of its
+   threshold), F_cat makes it a categorical split with the right-set
+   {k..999}; F_cat must predict exactly what F_num predicts, pred_leaf
+   included. Then 10 % of each set's membership flipped (seed 15) and 1 %
+   of the coded cells set to -1, 1e10, inf or NaN: the card's margins within
+   1e-5 of the CPU port's, pred_leaf equal, the numpy host path equal on the
+   first 32 rows; the device ms of a 100k-row predict of F_num and F_cat
+   (CUDA events, 20 calls) with their device time and kernel launches
+   (torch.profiler) and the bitmask's bytes; F_cat behind the MME (POST
+   /models with a manifest that verifies). 15b: phase 4's and phase 9's
+   models saved as UBJ (`save_model("*.ubj")`), as legacy binary (this
+   script's writer, `legacy_binary`, by the published C structs) and as
+   pickled Boosters (pickle opcodes, `pickled_booster`) whose handles hold
+   JSON, UBJ and CONFIG-offset + legacy bytes: each loaded on the card (load
+   ms) and served 1 and 10k csv rows within 1e-5 of the JSON model's CPU
+   predict. 15c: phase 4's model's get_score of all five types equal to a
+   numpy recount from its JSON, get_dump(with_stats=True) a line a node.
+   15d: a user script (`USER_SCRIPT`: TorchXGBRegressor on the card, depth
+   8, max_bin 256, 10 rounds on phase 8's 200k x 28 csv channel; writes
+   feature_importance.json and xgboost-model) through the train entry point
+   with sagemaker_program in a child process: exit 0, 80 hist_kernel and
+   10 totals_kernel launches in its fit (printed by the script), the model
+   served within 1e-5 of its CPU predict; then, where pyarrow imports,
+   phase 8's channels written as parquet: the DataMatrix bitwise equal to
+   the csv channel's, and an algorithm-mode job on them (10 rounds) exits 0
+   with one HPO line a round (where it does not, a line says the check did
+   not run and why).
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -978,6 +1008,12 @@ def _serve_once(model_dir, rows, want):
     """The model in `model_dir` behind `serving_entrypoint` on the card: /ping,
     then `rows` as one csv request, checked within 1e-5 of `want` (the CPU
     predict). -> (request ms, max_abs_err)."""
+    return _serve_cases(model_dir, [(rows, want)])[0]
+
+
+def _serve_cases(model_dir, cases):
+    """`_serve_once` for each (rows, want) of `cases` behind one server.
+    -> [(request ms, max_abs_err)] in the order of `cases`."""
     from sagemaker_xgboost_container_tpu_torch.serving import lifecycle, server
 
     os.environ["SM_MODEL_DIR"] = model_dir
@@ -988,22 +1024,26 @@ def _serve_once(model_dir, rows, want):
         client = _Client("http://127.0.0.1:{}".format(httpd.server_port))
         status, _ = client.call("/ping")
         check(status == 200, "/ping answered {}".format(status))
-        t = time.perf_counter()
-        status, body = client.call("/invocations", _csv_body(rows), "text/csv", "text/csv")
-        serve_ms = (time.perf_counter() - t) * 1e3
-        check(status == 200, "/invocations answered {}".format(status))
-        got = _decode_scores(body, "text/csv")
-        check(got.shape == want.shape and np.all(np.isfinite(got)),
-              "served {} answers for {} rows".format(got.shape, len(want)))
-        err = float(np.abs(got - want).max())
-        check(err <= 1e-5, "served predictions differ from the CPU predict by {}".format(err))
+        out = []
+        for rows, want in cases:
+            t = time.perf_counter()
+            status, body = client.call("/invocations", _csv_body(rows), "text/csv", "text/csv")
+            serve_ms = (time.perf_counter() - t) * 1e3
+            check(status == 200, "/invocations answered {}".format(status))
+            got = _decode_scores(body, "text/csv")
+            check(got.shape == want.shape and np.all(np.isfinite(got)),
+                  "served {} answers for {} rows".format(got.shape, len(want)))
+            err = float(np.abs(got - want).max())
+            check(err <= 1e-5, "served predictions differ from the CPU predict by {}".format(
+                err))
+            out.append((serve_ms, err))
     finally:
         httpd.stop()
         loop.join(10)
         signal.signal(signal.SIGTERM, signal.SIG_DFL)
         os.environ.pop("SM_MODEL_DIR", None)
         lifecycle.uninstall()
-    return serve_ms, err
+    return out
 
 
 def _decode_scores(body, accept):
@@ -3279,7 +3319,7 @@ def run_update(torch, hist, pkg, dtrain, tag):
                       cpu_s, value_err, json.dumps(launches)), flush=True)
 
 
-def _serve_mme_once(torch, model_dir, rows, want):
+def _serve_mme_once(torch, model_dir, rows, want, name="linear"):
     """The model in `model_dir` behind the multi-model endpoint on the card:
     POST /models, one csv invoke of `rows` checked within 1e-5 of `want`,
     DELETE. -> (device bytes while loaded, device bytes left after the
@@ -3295,12 +3335,12 @@ def _serve_mme_once(torch, model_dir, rows, want):
     loop.start()
     try:
         base = "http://127.0.0.1:{}".format(httpd.server_port)
-        status = _http(base, "/models", _load_body("linear", model_dir), "application/json")[0]
-        check(status == 200, "MME: POST /models of the gblinear model answered {}".format(status))
-        ms, _ = _invoke_ok(base, "linear", rows, want, what="MME gblinear")
+        status = _http(base, "/models", _load_body(name, model_dir), "application/json")[0]
+        check(status == 200, "MME: POST /models of {} answered {}".format(name, status))
+        ms, _ = _invoke_ok(base, name, rows, want, what="MME " + name)
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated() - mem0
-        status = _http(base, "/models/linear", method="DELETE")[0]
+        status = _http(base, "/models/" + name, method="DELETE")[0]
         check(status == 200, "MME: DELETE answered {}".format(status))
         torch.cuda.synchronize()
         left = torch.cuda.memory_allocated() - mem0
@@ -3757,6 +3797,394 @@ def run_approx_entry(tag, tmp):
               serve_ms, serve_err), flush=True)
 
 
+# ---------------------------------------------------------------- phase 15
+
+# 15a: phase 11b's forest with features 0-7 of the validation rows coded to
+# categories 0..999 (CAT_CODES quantile buckets); then a seeded CAT_FLIP of
+# each set's membership flipped and CAT_INVALID of the coded cells invalid
+CAT_FEATURES, CAT_CODES, CAT_FLIP, CAT_INVALID = 8, 1_000, 0.10, 0.01
+CAT_INVALID_VALUES = np.asarray([-1.0, 1e10, np.inf, np.nan], np.float32)
+CAT_HOST_ROWS = 32  # the numpy host path's share of a request
+# 15d: the user script's estimator on phase 8's channels; the parquet job
+SCRIPT_ROUNDS = 10
+SCRIPT_HP = {"n_estimators": str(SCRIPT_ROUNDS), "max_depth": "8", "max_bin": "256",
+             "eta": "0.2", "sagemaker_program": "train.py"}
+PARQUET_HP = {"objective": "binary:logistic", "max_depth": "8", "max_bin": "256",
+              "tree_method": "hist", "eta": "0.2", "num_round": "10", "eval_metric": "logloss"}
+PARQUET_ROUNDS = 10
+# a customer's script-mode training script: the port's sklearn estimator on
+# the card, its importances and its model written to SM_MODEL_DIR, and the
+# kernel launch counts of its fit printed for this script to read
+USER_SCRIPT = """
+import argparse, json, os
+from sagemaker_xgboost_container_tpu_torch.data.readers import get_data_matrix
+from sagemaker_xgboost_container_tpu_torch.ops import histogram
+from sagemaker_xgboost_container_tpu_torch.sklearn import TorchXGBRegressor
+
+parser = argparse.ArgumentParser()
+parser.add_argument("--n_estimators", type=int)
+parser.add_argument("--max_depth", type=int)
+parser.add_argument("--max_bin", type=int)
+parser.add_argument("--eta", type=float)
+args = parser.parse_args()
+train = get_data_matrix(os.environ["SM_CHANNEL_TRAIN"], "text/csv")
+histogram.reset_launch_counts()
+model = TorchXGBRegressor(n_estimators=args.n_estimators, max_depth=args.max_depth,
+                          max_bin=args.max_bin, eta=args.eta)
+model.fit(train.features, train.labels)
+print("script launches " + json.dumps(histogram.LAUNCHES), flush=True)
+model_dir = os.environ["SM_MODEL_DIR"]
+os.makedirs(model_dir, exist_ok=True)
+with open(os.path.join(model_dir, "feature_importance.json"), "w") as f:
+    json.dump(model.feature_importances_.tolist(), f)
+model.save_model(os.path.join(model_dir, "xgboost-model"))
+"""
+
+
+def legacy_binary(forest, binf=True, num_output_group=None, attributes=None,
+                  booster_name="gbtree"):
+    """xgboost's legacy binary model of `forest`, by the published C
+    structs: LearnerModelParam (136 bytes), the objective and booster names,
+    GBTreeModelParam (160 bytes), then a tree at a time TreeParam (148
+    bytes), Node (20 bytes: parent with the is-left-child bit, children,
+    feature with the default-left bit, threshold or leaf value) x n and
+    RTreeNodeStat (16 bytes) x n; then the int32 tree_info libxgboost writes
+    after the trees. `attributes` sets contain_extra_attrs and writes them
+    right after the trees instead, where the parsers read them."""
+    import struct
+
+    groups = forest.num_output_group if num_output_group is None else num_output_group
+    out = [b"binf"] if binf else []
+    out.append(struct.pack("<fIiii", forest.base_score, forest.num_feature, forest.num_class,
+                           1 if attributes else 0, 0) + b"\0" * 116)
+    for name in (forest.objective_name, booster_name):
+        out.append(struct.pack("<Q", len(name)) + name.encode())
+    out.append(struct.pack("<iiiiqii", len(forest.trees), 1, forest.num_feature, 0, 0, groups, 0)
+               + b"\0" * 128)
+    for tree in forest.trees:
+        n = tree.num_nodes
+        out.append(struct.pack("<iiiiii", 1, n, 0, tree.depth(), forest.num_feature, 0)
+                   + b"\0" * 124)
+        leaf = tree.left < 0
+        is_left = np.zeros(n, np.int64)
+        is_left[tree.left[~leaf]] = 1
+        parent = np.where(np.arange(n) == 0, -1, tree.parent.astype(np.int64) | (is_left << 31))
+        node = np.zeros(n, [("parent", "<u4"), ("left", "<i4"), ("right", "<i4"),
+                            ("sindex", "<u4"), ("info", "<f4")])
+        node["parent"] = parent & 0xFFFFFFFF
+        node["left"], node["right"] = tree.left, tree.right
+        node["sindex"] = np.where(leaf, 0, tree.feature.astype(np.int64)
+                                  | (tree.default_left.astype(np.int64) << 31))
+        node["info"] = np.where(leaf, tree.value, tree.threshold)
+        stat = np.stack([tree.gain, tree.sum_hess, tree.base_weight, np.zeros(n, np.float32)],
+                        axis=1).astype("<f4")
+        out += [node.tobytes(), stat.tobytes()]
+    if attributes:
+        out.append(struct.pack("<Q", len(attributes)))
+        for key, value in attributes.items():
+            out.append(struct.pack("<Q", len(key)) + key.encode()
+                       + struct.pack("<Q", len(value)) + value.encode())
+    else:
+        out.append(np.asarray(forest.tree_info, "<i4").tobytes())
+    return b"".join(out)
+
+
+def config_offset(legacy, objective):
+    """A pickled Booster's handle of xgboost 1.0-1.3: "CONFIG-offset:", the
+    legacy bytes' length (u64), the legacy bytes, a JSON config naming the
+    objective."""
+    import struct
+
+    trailer = json.dumps({"learner": {"objective": {"name": objective}}}).encode()
+    return b"CONFIG-offset:" + struct.pack("<Q", len(legacy)) + legacy + trailer
+
+
+def pickled_booster(handle, **state):
+    """The pickle of an `xgboost.core.Booster` whose state is {"handle":
+    bytearray(handle), **state}, assembled from opcodes (no xgboost here):
+    GLOBAL xgboost.core Booster, EMPTY_TUPLE, NEWOBJ, the state dict,
+    BUILD, STOP."""
+    import pickle
+
+    body = pickle.dumps(dict(state, handle=bytearray(handle)), protocol=2)
+    return b"\x80\x02cxgboost.core\nBooster\n)\x81" + body[2:-1] + b"b."
+
+
+def run_formats(torch, hist, dval, tag):
+    """Phase 15: BYO model formats and the rest of the train contract (see
+    the module docstring). Needs MODELS "main", "covtype" and "forest"."""
+    t = time.perf_counter()
+    check(all(k in MODELS for k in ("main", "covtype", "forest")),
+          "phase 15 needs the models of phases 4, 9 and 11b; kept: {}".format(sorted(MODELS)))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as tmp:
+        run_categorical(torch, hist, dval, tag, tmp)
+        run_model_files(torch, dval, tag, tmp)
+        run_importance(tag)
+        run_script_mode(tag, tmp)
+    print("{} | formats phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def run_categorical(torch, hist, dval, tag, tmp):
+    """15a: F_num / F_cat on the coded validation rows, then flipped sets and
+    invalid values, card against CPU; F_cat behind the MME."""
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+    from sagemaker_xgboost_container_tpu_torch.ops.predict import (forest_predict_margin,
+                                                                   host_leaf_nodes)
+    from sagemaker_xgboost_container_tpu_torch.utils import integrity
+
+    x = dval.features
+    edges = [np.quantile(x[:, j], np.arange(1, CAT_CODES) / CAT_CODES)
+             for j in range(CAT_FEATURES)]
+    codes = x.copy()
+    for j in range(CAT_FEATURES):
+        codes[:, j] = np.searchsorted(edges[j], x[:, j], side="right")
+    path = os.path.join(MODELS["forest"], "xgboost-model")
+    f_num = Forest.load_model(path, device=DEVICE)
+    f_cat = Forest.load_model(path, device=DEVICE)
+    n_cat = 0
+    for tn, tc in zip(f_num.trees, f_cat.trees):
+        for node in np.nonzero((tn.left >= 0) & (tn.feature < CAT_FEATURES))[0]:
+            k = int(np.searchsorted(edges[int(tn.feature[node])], tn.threshold[node],
+                                    side="right"))
+            tn.threshold[node] = tc.threshold[node] = k - 0.5
+            tc.categories[int(node)] = np.arange(k, CAT_CODES)
+            n_cat += 1
+    check(n_cat > 0, "15a: the forest has no split on features 0-{}".format(CAT_FEATURES - 1))
+    hist.reset_launch_counts()
+    p_num = f_num.predict(codes, output_margin=True)
+    p_cat = f_cat.predict(codes, output_margin=True)
+    same_leaf = np.array_equal(f_num.predict_leaf(codes), f_cat.predict_leaf(codes))
+    check(np.array_equal(p_num, p_cat) and same_leaf,
+          "15a: F_cat differs from F_num on the coded rows (max |d| {:.3e}, leaves "
+          "equal {})".format(float(np.abs(p_num - p_cat).max()), same_leaf))
+    xc = torch.as_tensor(codes, device=DEVICE)
+    stacks = {"F_num": f_num._stack()[1], "F_cat": f_cat._stack()[1]}
+    timing = {}
+    for name, dev in stacks.items():
+        fn = lambda dev=dev: forest_predict_margin(dev, xc)  # noqa: E731
+        timing[name] = (time_ms(torch, fn), *device_total(torch, fn))
+    mask = stacks["F_cat"]["cat_mask"]
+    mask_bytes = mask.numel() * mask.element_size()
+    print("{} | 15a categorical: {} splits of {} trees on features 0-{} coded to {} categories; "
+          "F_cat == F_num exactly on {} rows (margins and pred_leaf); mask [T, N, W] {} = {} "
+          "bytes; {}-row predict: F_num {:.3f} ms (device {:.3f} ms, {:.0f} launches), "
+          "F_cat {:.3f} ms (device {:.3f} ms, {:.0f} launches) (CUDA events, 20 calls); "
+          "hist/totals launches {}".format(
+              tag, n_cat, len(f_cat.trees), CAT_FEATURES - 1, CAT_CODES, len(codes),
+              list(mask.shape), mask_bytes, len(codes), *timing["F_num"], *timing["F_cat"],
+              json.dumps(hist.LAUNCHES)), flush=True)
+
+    rng = np.random.RandomState(15)
+    for tree in f_cat.trees:
+        for node, cats in tree.categories.items():
+            member = np.zeros(CAT_CODES, bool)
+            member[cats] = True
+            tree.categories[node] = np.nonzero(member ^ (rng.rand(CAT_CODES) < CAT_FLIP))[0]
+    bad = codes.copy()
+    cells = bad[:, :CAT_FEATURES]
+    invalid = rng.rand(*cells.shape) < CAT_INVALID
+    cells[invalid] = rng.choice(CAT_INVALID_VALUES, int(invalid.sum()))
+    cat_dir = os.path.join(tmp, "categorical")
+    os.makedirs(cat_dir)
+    cat_path = os.path.join(cat_dir, "xgboost-model")
+    f_cat.save_model(cat_path)
+    gpu = Forest.load_model(cat_path, device=DEVICE)
+    cpu = Forest.load_model(cat_path, device="cpu")
+    pg, pc = gpu.predict(bad, output_margin=True), cpu.predict(bad, output_margin=True)
+    err = float(np.abs(pg - pc).max())
+    leaf = gpu.predict_leaf(bad)
+    check(np.all(np.isfinite(pg)) and err <= 1e-5,
+          "15a: card vs CPU categorical predict max_abs_err {}".format(err))
+    check(np.array_equal(leaf, cpu.predict_leaf(bad)), "15a: pred_leaf differs card vs CPU")
+    host = host_leaf_nodes(cpu._stack()[0], bad[:CAT_HOST_ROWS])
+    host_err = float(np.abs(gpu.predict(bad[:CAT_HOST_ROWS], output_margin=True)
+                            - pg[:CAT_HOST_ROWS]).max())
+    check(np.array_equal(host, leaf[:CAT_HOST_ROWS]) and host_err <= 1e-5,
+          "15a: the numpy host path disagrees on the first {} rows (err {})".format(
+              CAT_HOST_ROWS, host_err))
+    integrity.write_manifest(cat_path)
+    check(integrity.check_model_file(cat_path) == "verified", "15a: manifest does not verify")
+    want = cpu.predict(bad[:1_000])
+    held, _left, mme_ms = _serve_mme_once(torch, cat_dir, bad[:1_000], want, name="categorical")
+    print("{} | 15a flipped {:.0%} of each set, {:.0%} of the coded cells in {}: card vs CPU "
+          "margins max_abs_err {:.3e}, pred_leaf equal on {} rows, host path equal on {}; MME "
+          "POST /models with a verified manifest, 1,000 rows in {:.3f} ms, {} device bytes "
+          "while loaded".format(tag, CAT_FLIP, CAT_INVALID, CAT_INVALID_VALUES.tolist(), err,
+                                len(bad), CAT_HOST_ROWS, mme_ms, held), flush=True)
+
+
+def run_model_files(torch, dval, tag, tmp):
+    """15b: phase 4's and phase 9's models as UBJ, legacy binary and pickles
+    (JSON, UBJ and CONFIG-offset handles), each loaded on the card and
+    served within 1e-5 of the JSON model's CPU predict."""
+    from sagemaker_xgboost_container_tpu_torch.models.compat import load_model_any_format
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    # CoverType's rows on a grid of 1/8 (exact in f32, so short in csv): 10k
+    # rows x 54 features at "%.9g" would pass the 6 MB payload cap
+    rows = {"main": dval.features[:N_SERVE],
+            "covtype": np.round(make_multiclass(N_SERVE, 54, seed=2)[0] * 8) / 8}
+    for name, x in rows.items():
+        ref = Forest.load_model(os.path.join(MODELS[name], "xgboost-model"), device="cpu")
+        want = ref.predict(x)
+        ubj_path = os.path.join(tmp, name + ".ubj")
+        ref.save_model(ubj_path)
+        with open(ubj_path, "rb") as f:
+            ubj = f.read()
+        check(ubj[:1] == b"{" and ubj[1:2] != b'"', "15b: {}.ubj is not UBJSON".format(name))
+        legacy = legacy_binary(ref)
+        files = {"ubj": ubj, "legacy": legacy,
+                 "pickle(json)": pickled_booster(ref.save_json().encode()),
+                 "pickle(ubj)": pickled_booster(ubj),
+                 "pickle(CONFIG-offset)": pickled_booster(config_offset(
+                     legacy_binary(ref, binf=False), ref.objective_name))}
+        for fmt, raw in files.items():
+            model_dir = os.path.join(tmp, "{}-{}".format(name, fmt))
+            os.makedirs(model_dir)
+            path = os.path.join(model_dir, "xgboost-model")
+            with open(path, "wb") as f:
+                f.write(raw)
+            t = time.perf_counter()
+            model, source = load_model_any_format(path, device=DEVICE)
+            load_ms = (time.perf_counter() - t) * 1e3
+            check(source == ("pkl_format" if fmt.startswith("pickle") else "xgb_format"),
+                  "15b: {} {} loaded as {}".format(name, fmt, source))
+            err = float(np.abs(model.predict(x) - want).max())
+            check(err <= 1e-5, "15b: {} {} predicts {} off the JSON model".format(name, fmt, err))
+            (one_ms, _), (many_ms, many_err) = _serve_cases(
+                model_dir, [(x[:1], want[:1]), (x, want)])
+            print("{} | 15b {} as {} ({} bytes): load {:.3f} ms on the card, predict "
+                  "max_abs_err {:.3e}; served 1 row in {:.3f} ms and {} rows in {:.3f} ms "
+                  "(max_abs_err {:.3e})".format(tag, name, fmt, len(raw), load_ms, err, one_ms,
+                                                len(x), many_ms, many_err), flush=True)
+
+
+def run_importance(tag):
+    """15c: get_score of every type against a numpy recount from phase 4's
+    model JSON; get_dump with stats lists every node."""
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    path = os.path.join(MODELS["main"], "xgboost-model")
+    model = Forest.load_model(path, device=DEVICE)
+    with open(path) as f:
+        trees = json.load(f)["learner"]["gradient_booster"]["model"]["trees"]
+    count, gain, cover = {}, {}, {}
+    for tree in trees:
+        for node in np.nonzero(np.asarray(tree["left_children"]) >= 0)[0]:
+            key = "f{}".format(tree["split_indices"][node])
+            count[key] = count.get(key, 0) + 1
+            gain[key] = gain.get(key, 0.0) + tree["loss_changes"][node]
+            cover[key] = cover.get(key, 0.0) + tree["sum_hessian"][node]
+    want = {"weight": count, "total_gain": gain, "total_cover": cover,
+            "gain": {k: gain[k] / count[k] for k in count},
+            "cover": {k: cover[k] / count[k] for k in count}}
+    for kind, expected in want.items():
+        got = model.get_score(kind)
+        check(got == expected, "15c: get_score({}) differs from the recount".format(kind))
+    dump = model.get_dump(with_stats=True)
+    lines = [line for tree in dump for line in tree.splitlines()]
+    nodes = sum(len(tree["left_children"]) for tree in trees)
+    check(len(dump) == len(trees) and len(lines) == nodes
+          and all("cover=" in line for line in lines),
+          "15c: get_dump lists {} lines for {} nodes".format(len(lines), nodes))
+    top = sorted(want["total_gain"].items(), key=lambda kv: -kv[1])[:3]
+    print("{} | 15c importances: get_score of all 5 types equal to the recount over {} "
+          "features, top total_gain {}; get_dump(with_stats) {} lines for {} nodes".format(
+              tag, len(count), [(k, round(v, 3)) for k, v in top], len(lines), nodes),
+          flush=True)
+
+
+def run_script_mode(tag, tmp):
+    """15d: a user script with TorchXGBRegressor through the train entry
+    point (sagemaker_program), its model served; an algorithm-mode job on
+    phase 8's channels written as parquet."""
+    from sagemaker_xgboost_container_tpu_torch.data.readers import get_data_matrix
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    code_dir = os.path.join(tmp, "code")
+    os.makedirs(code_dir)
+    with open(os.path.join(code_dir, "train.py"), "w") as f:
+        f.write(USER_SCRIPT)
+    hp = dict(SCRIPT_HP, sagemaker_submit_directory=code_dir)
+    X, y, _data_config, train_dir, val_dir, sm_env = _entry_tree(tmp, {
+        "hyperparameters-script.json": hp, "hyperparameters-parquet.json": PARQUET_HP})
+    rc, out, err, child_s = _run_entry_child(sm_env("script", "hyperparameters-script.json"))
+    check(rc == 0, "15d script mode: exited {}: {}".format(rc, err[-2000:]))
+    found = re.findall(r"^script launches (\{.*\})$", out, re.M)
+    check(len(found) == 1, "15d: the script printed no launch counts")
+    launches = json.loads(found[0])
+    check(launches.get("hist_kernel") == 8 * SCRIPT_ROUNDS
+          and launches.get("totals_kernel") == SCRIPT_ROUNDS,
+          "15d: the script's fit launched {}".format(launches))
+    model_dir = os.path.join(tmp, "model-script")
+    with open(os.path.join(model_dir, "feature_importance.json")) as f:
+        importance = np.asarray(json.load(f))
+    check(importance.shape == (N_FEATURES,) and abs(importance.sum() - 1) < 1e-5,
+          "15d: feature_importance.json holds {}".format(importance))
+    # served from a directory of its own: the serving loader (the JAX
+    # package's too) takes the first file of the model dir by name, and
+    # feature_importance.json sorts before xgboost-model
+    serve_dir = os.path.join(tmp, "serve-script")
+    os.makedirs(serve_dir)
+    path = os.path.join(serve_dir, "xgboost-model")
+    os.replace(os.path.join(model_dir, "xgboost-model"), path)
+    x_val = X[ENTRY_TRAIN_ROWS:ENTRY_TRAIN_ROWS + BOOSTER_SERVE_ROWS]
+    cpu = Forest.load_model(path, device="cpu").predict(x_val)
+    serve_ms, serve_err = _serve_once(serve_dir, x_val, cpu)
+    print("{} | 15d script mode (train entry point, sagemaker_program, TorchXGBRegressor on "
+          "the card, {} rounds of {} x {} rows): exit 0 in {:.3f} s of wall time, launches "
+          "{}, importances sum {:.6f} (top feature {}); served {} csv rows in {:.3f} ms, "
+          "max_abs_err {:.3e}".format(tag, SCRIPT_ROUNDS, ENTRY_TRAIN_ROWS, N_FEATURES, child_s,
+                                      json.dumps(launches), float(importance.sum()),
+                                      int(np.argmax(importance)), len(x_val), serve_ms,
+                                      serve_err), flush=True)
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        print("{} | 15d parquet check did not run: pyarrow does not import here ({})".format(
+            tag, e), flush=True)
+        return
+    channels = {}
+    for name, rows in (("train", slice(0, ENTRY_TRAIN_ROWS)),
+                       ("validation", slice(ENTRY_TRAIN_ROWS, None))):
+        channels[name] = os.path.join(tmp, "parquet", name)
+        os.makedirs(channels[name])
+        cols = [pa.array(y[rows])] + [pa.array(X[rows, j], mask=np.isnan(X[rows, j]))
+                                      for j in range(X.shape[1])]
+        pq.write_table(pa.table(cols, names=["label"] + ["f{}".format(j)
+                                                          for j in range(X.shape[1])]),
+                       os.path.join(channels[name], "part-0.parquet"))
+    t = time.perf_counter()
+    from_parquet = get_data_matrix(channels["train"], "application/x-parquet")
+    read_s = time.perf_counter() - t
+    from_csv = get_data_matrix(train_dir, "text/csv")
+    check(np.array_equal(from_parquet.features.view(np.uint32), from_csv.features.view(np.uint32))
+          and np.array_equal(from_parquet.labels, from_csv.labels),
+          "15d: the parquet channel's DataMatrix differs from the csv one's")
+    config = os.path.join(tmp, "config", "inputdataconfig-parquet.json")
+    channel = {"ContentType": "application/x-parquet", "TrainingInputMode": "File",
+               "S3DistributionType": "FullyReplicated"}
+    with open(config, "w") as f:
+        json.dump({"train": channel, "validation": dict(channel)}, f)
+    env = sm_env("parquet", "hyperparameters-parquet.json")
+    env.update(SM_INPUT_DATA_CONFIG_FILE=config, SM_CHANNEL_TRAIN=channels["train"],
+               SM_CHANNEL_VALIDATION=channels["validation"])
+    rc, out, err, child_s = _run_entry_child(env)
+    check(rc == 0, "15d parquet: exited {}: {}".format(rc, err[-2000:]))
+    lines = _metric_lines(out)
+    found = re.findall(HPO_REGEX.format("logloss"), out)
+    check(sorted(lines) == list(range(PARQUET_ROUNDS)) and len(found) == PARQUET_ROUNDS,
+          "15d parquet: metric lines for rounds {}, {} HPO-regex lines".format(
+              sorted(lines), len(found)))
+    print("{} | 15d parquet (pyarrow {}): the train channel's DataMatrix bitwise equal to the "
+          "csv one's ({} x {}, read in {:.3f} s); algorithm mode exit 0 in {:.3f} s, {} HPO "
+          "lines, validation logloss {:.5f} -> {:.5f}".format(
+              tag, pa.__version__, *from_parquet.features.shape, read_s, child_s, len(found),
+              lines[0]["validation-logloss"], lines[PARQUET_ROUNDS - 1]["validation-logloss"]),
+          flush=True)
+
+
 def main():
     try:
         import torch
@@ -3815,6 +4243,7 @@ def main():
         run_mme(torch, hist, tag)
         run_boosters(torch, hist, pkg, dtrain, dval, tag)
         run_methods(torch, hist, pkg, dtrain, dval, tag)
+        run_formats(torch, hist, dval, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

@@ -1,4 +1,4 @@
-"""Channel ingestion: staged file discovery + csv/libsvm/recordio readers.
+"""Channel ingestion: staged file discovery + csv/libsvm/parquet/recordio readers.
 
 The port's counterpart of ``sagemaker_xgboost_container_tpu/data/readers.py``,
 with a DataMatrix as destination:
@@ -13,12 +13,14 @@ with a DataMatrix as destination:
 * readers: csv with a sniffed delimiter, label in column 0 (weight in column
   1 when csv_weights=1), parsed with numpy; libsvm with optional
   ``label:weight`` and ``qid:`` tokens and ``.weight``/``.group`` sidecar
-  files (a pure-Python tokenizer); recordio-protobuf through the port's own
+  files (a pure-Python tokenizer); parquet through pyarrow, column by
+  column (column 0 the label); recordio-protobuf through the port's own
   wire codec (``data/recordio.py``),
 * the "no labels" UserError and the size and redundancy helpers.
 
-The port depends on neither pandas nor pyarrow. A parquet channel raises a
-``UserError`` naming the gap. The csv reader follows the JAX reader's
+The port depends on neither pandas nor pyarrow: pyarrow is imported only
+when a parquet channel is read, and its absence is a ``UserError`` naming
+it. The csv reader follows the JAX reader's
 pandas semantics without pandas: empty fields and the usual NA
 spellings are missing values, a row shorter than the file's first row is
 padded with missing values, a longer one is an error, and files of one
@@ -56,9 +58,9 @@ NO_LABEL_ERROR = (
     "is less than number of workers (16 * number of instance) in the cluster."
 )
 
-PARQUET_UNSUPPORTED_ERROR = (
-    "parquet channels are not supported by the PyTorch port yet. Use csv, "
-    "libsvm or recordio-protobuf."
+PARQUET_NEEDS_PYARROW_ERROR = (
+    "parquet channels need the pyarrow package, which is not installed. Install "
+    "pyarrow, or use csv, libsvm or recordio-protobuf."
 )
 
 # the strings pandas reads as a missing value by default
@@ -497,6 +499,32 @@ def _read_libsvm_files(path):
     return DataMatrix(csr, labels=labels, weights=weights, groups=groups)
 
 
+def _parquet_column(column):
+    """One parquet column -> f32 numpy, with the values pandas'
+    ``to_numpy(float32)`` gives: nulls NaN (an int column with nulls goes
+    through f64, as pandas makes it f64), bools 0/1, f64 rounded to f32."""
+    import pyarrow as pa
+
+    if column.null_count:
+        column = column.cast(pa.float64())
+    return column.to_numpy(zero_copy_only=False).astype(np.float32)
+
+
+def _read_parquet_files(path):
+    try:
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        raise exc.UserError(PARQUET_NEEDS_PYARROW_ERROR, caused_by=e)
+    files = _list_data_files(path)
+    if not files:
+        return None
+    tables = [pq.read_table(f) for f in files]
+    data = np.concatenate(
+        [np.stack([_parquet_column(c) for c in t.columns], axis=1) if t.num_columns
+         else np.zeros((t.num_rows, 0), np.float32) for t in tables], axis=0)
+    return DataMatrix(data[:, 1:], labels=data[:, 0])
+
+
 def _read_recordio_files(path):
     files = _list_data_files(path)
     if not files:
@@ -521,8 +549,6 @@ def get_data_matrix(data_path, content_type, csv_weights=0, is_pipe=False):
             "instead. Set input_mode='File' in your SageMaker Estimator or TrainingInput."
         )
     parsed = ct.get_content_type(content_type)
-    if parsed == ct.PARQUET:
-        raise exc.UserError(PARQUET_UNSUPPORTED_ERROR)
     staged = stage_input_files(data_path)
     if staged is None:
         return None
@@ -531,6 +557,8 @@ def get_data_matrix(data_path, content_type, csv_weights=0, is_pipe=False):
             dmatrix = _read_csv_files(staged, csv_weights)
         elif parsed == ct.LIBSVM:
             dmatrix = _read_libsvm_files(staged)
+        elif parsed == ct.PARQUET:
+            dmatrix = _read_parquet_files(staged)
         else:
             dmatrix = _read_recordio_files(staged)
     except exc.UserError:

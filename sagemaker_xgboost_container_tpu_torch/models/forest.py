@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.predict import forest_predict_margin, host_predict_margin
+from ..ops.predict import forest_leaf_nodes, forest_predict_margin, host_predict_margin
 from ..telemetry import tracing
 from ..toolkit import exceptions as exc
 from . import objectives as objectives_mod
@@ -45,10 +45,18 @@ def _count_predict(path):
 
 
 class Tree:
-    """One decision tree, compact arrays, xgboost node ordering (root = 0)."""
+    """One decision tree, compact arrays, xgboost node ordering (root = 0).
+
+    ``categories``: optional {node id: int array} of partition-based
+    categorical splits (xgboost ``enable_categorical``), each the set of
+    categories that routes to the RIGHT child (xgboost common::Decision);
+    missing values follow ``default_left``, invalid ones go left. The
+    trainer never makes them; they come with BYO xgboost models.
+    """
 
     def __init__(self, feature, threshold, default_left, left, right, value,
-                 base_weight=None, gain=None, sum_hess=None, parent=None):
+                 base_weight=None, gain=None, sum_hess=None, parent=None,
+                 categories=None):
         self.feature = np.asarray(feature, np.int32)
         self.threshold = np.asarray(threshold, np.float32)
         self.default_left = np.asarray(default_left, np.bool_)
@@ -65,10 +73,20 @@ class Tree:
             parent if parent is not None else _parents_from_children(self.left, self.right),
             np.int32,
         )
+        self.categories = {
+            int(k): np.asarray(v, np.int64) for k, v in (categories or {}).items()
+        }
 
     @property
     def num_nodes(self):
         return len(self.feature)
+
+    @property
+    def has_categorical(self):
+        return bool(self.categories)
+
+    def max_category(self):
+        return max((int(v.max()) for v in self.categories.values() if len(v)), default=-1)
 
     @property
     def is_leaf(self):
@@ -228,7 +246,8 @@ class Forest:
         """(host, device): the padded [T, N] numpy arrays of the trees
         ``tree_lo:tree_hi`` (all by default) and their copy on the forest's
         device, memoized per slice until the trees or the device change
-        (serving predicts per request)."""
+        (serving predicts per request). Both halves carry ``cat_split`` and
+        ``cat_mask`` when a tree of the slice has categorical splits."""
         key = (tree_lo, len(self.trees) if tree_hi is None else tree_hi)
         with self._stack_lock:
             if key not in self._stacked:
@@ -258,7 +277,7 @@ class Forest:
         left = pad(lambda t: t.left, np.int32, -1)
         right = pad(lambda t: t.right, np.int32, -1)
         is_leaf = left < 0
-        return {
+        stacked = {
             "feature": pad(lambda t: t.feature, np.int32),
             "threshold": pad(lambda t: t.threshold, np.float32),
             "default_left": pad(lambda t: t.default_left, np.bool_),
@@ -268,6 +287,22 @@ class Forest:
             "leaf_value": pad(lambda t: t.value, np.float32),
             "depth": max(t.depth() for t in trees),
         }
+        max_cat = max((t.max_category() for t in trees), default=-1)
+        if max_cat >= 0:
+            # each node's right-branch categories as a dense bitmask
+            # [T, N, W] of xgboost's u32 words, held as int32 (the same bits:
+            # torch has few uint32 kernels)
+            W = (max_cat >> 5) + 1
+            cat_split = np.zeros((T, N), np.bool_)
+            cat_mask = np.zeros((T, N, W), np.uint32)
+            for i, t in enumerate(trees):
+                for node, cats in t.categories.items():
+                    cat_split[i, node] = True
+                    np.bitwise_or.at(cat_mask[i, node], cats >> 5,
+                                     np.left_shift(np.uint32(1), (cats & 31).astype(np.uint32)))
+            stacked["cat_split"] = cat_split
+            stacked["cat_mask"] = cat_mask.view(np.int32)
+        return stacked
 
     def predict_margin(self, features, iteration_range=None):
         """features: [n, d] float32 (numpy or tensor) with NaN missing ->
@@ -309,11 +344,28 @@ class Forest:
         tracing.device_sync(self.device)  # SM_TRACE_DEVICE_SYNC's fence
         return margin.cpu().numpy()
 
-    def predict(self, features, output_margin=False, iteration_range=None):
+    def predict(self, features, output_margin=False, iteration_range=None, pred_leaf=False):
+        if pred_leaf:
+            return self.predict_leaf(features, iteration_range=iteration_range)
         margin = self.predict_margin(features, iteration_range=iteration_range)
         if output_margin:
             return margin
         return self.objective().margin_to_prediction(margin)
+
+    def predict_leaf(self, features, iteration_range=None):
+        """Leaf node id per (row, tree), int32 [n, T] in xgboost's node
+        numbering (xgboost ``predict(pred_leaf=True)``), traversed on the
+        forest's device."""
+        if iteration_range is None:
+            lo, hi = 0, self.num_boosted_rounds
+        else:
+            lo, hi = iteration_range
+            hi = hi or self.num_boosted_rounds
+        _host, dev = self._stack(self.iteration_indptr[lo], self.iteration_indptr[hi])
+        if dev is None:
+            return np.zeros((features.shape[0], 0), np.int32)
+        x = torch.as_tensor(features, dtype=torch.float32, device=self.device)
+        return forest_leaf_nodes(dev, x).to(torch.int32).cpu().numpy()
 
     # ------------------------------------------------------------ attributes
     def attr(self, key):
@@ -327,6 +379,81 @@ class Forest:
                 self.attributes.pop(key, None)
             else:
                 self.attributes[key] = str(value)
+
+    # ------------------------------------------------------------ importance
+    def _feature_name(self, f):
+        if self.feature_names and f < len(self.feature_names):
+            return self.feature_names[f]
+        return "f{}".format(f)
+
+    def get_score(self, importance_type="weight"):
+        """Feature importances (xgboost Booster.get_score): weight counts
+        splits; total_gain / total_cover sum the loss change / hessian at
+        the splits, gain / cover average them. Keys are the feature names
+        when known, else ``f<index>``."""
+        valid = ("weight", "gain", "cover", "total_gain", "total_cover")
+        if importance_type not in valid:
+            raise exc.UserError("importance_type must be one of {}".format(", ".join(valid)))
+        counts, gains, covers = {}, {}, {}
+        for tree in self.trees:
+            split = ~tree.is_leaf
+            for f, g, c in zip(tree.feature[split], tree.gain[split], tree.sum_hess[split]):
+                f = int(f)
+                counts[f] = counts.get(f, 0) + 1
+                gains[f] = gains.get(f, 0.0) + float(g)
+                covers[f] = covers.get(f, 0.0) + float(c)
+        name = self._feature_name
+        if importance_type == "weight":
+            return {name(f): v for f, v in counts.items()}
+        if importance_type == "total_gain":
+            return {name(f): v for f, v in gains.items()}
+        if importance_type == "total_cover":
+            return {name(f): v for f, v in covers.items()}
+        if importance_type == "gain":
+            return {name(f): gains[f] / counts[f] for f in counts}
+        return {name(f): covers[f] / counts[f] for f in counts}
+
+    def get_fscore(self):
+        return self.get_score("weight")
+
+    def get_dump(self, with_stats=False):
+        """Text dump of every tree (xgboost ``Booster.get_dump`` format): a
+        line a node in id order, indented by depth; a categorical node
+        prints its right-branch set with yes/no swapped (in the set goes
+        right)."""
+        name = self._feature_name
+        dumps = []
+        for tree in self.trees:
+            lines = {}
+            frontier = [(0, 0)]
+            while frontier:
+                node, depth = frontier.pop()
+                indent = "\t" * depth
+                if tree.is_leaf[node]:
+                    line = "{}{}:leaf={:.9g}".format(indent, node, float(tree.value[node]))
+                    if with_stats:
+                        line += ",cover={:.9g}".format(float(tree.sum_hess[node]))
+                    lines[node] = line
+                    continue
+                left, right = int(tree.left[node]), int(tree.right[node])
+                missing = left if tree.default_left[node] else right
+                if node in tree.categories:
+                    cond = "{}:{{{}}}".format(name(int(tree.feature[node])), ",".join(
+                        str(int(c)) for c in tree.categories[node]))
+                    yes, no = right, left
+                else:
+                    cond = "{}<{:.9g}".format(name(int(tree.feature[node])),
+                                              float(tree.threshold[node]))
+                    yes, no = left, right
+                line = "{}{}:[{}] yes={},no={},missing={}".format(
+                    indent, node, cond, yes, no, missing)
+                if with_stats:
+                    line += ",gain={:.9g},cover={:.9g}".format(
+                        float(tree.gain[node]), float(tree.sum_hess[node]))
+                lines[node] = line
+                frontier.extend([(right, depth + 1), (left, depth + 1)])
+            dumps.append("\n".join(lines[k] for k in sorted(lines)) + "\n")
+        return dumps
 
     # ----------------------------------------------------------------- json
     _OBJECTIVE_PARAM_BLOCKS = {
@@ -350,12 +477,22 @@ class Forest:
         # xgboost: split_conditions holds the threshold for splits, the leaf
         # value for leaves; split_indices is 0 at leaves.
         split_conditions = np.where(is_leaf, tree.value, tree.threshold)
+        # every categorical node's right-branch set in one flat list, with
+        # per-node segments (xgboost's layout); split_type 1 marks the node
+        cats, cat_nodes, cat_segs, cat_sizes = [], [], [], []
+        split_type = [0] * tree.num_nodes
+        for node in sorted(tree.categories):
+            cat_nodes.append(int(node))
+            cat_segs.append(len(cats))
+            cat_sizes.append(len(tree.categories[node]))
+            cats.extend(int(c) for c in tree.categories[node])
+            split_type[node] = 1
         return {
             "base_weights": [float(v) for v in tree.base_weight],
-            "categories": [],
-            "categories_nodes": [],
-            "categories_segments": [],
-            "categories_sizes": [],
+            "categories": cats,
+            "categories_nodes": cat_nodes,
+            "categories_segments": cat_segs,
+            "categories_sizes": cat_sizes,
             "default_left": [int(b) for b in tree.default_left],
             "id": tree_id,
             "left_children": [int(v) for v in tree.left],
@@ -364,7 +501,7 @@ class Forest:
             "parents": [int(v) for v in tree.parent],
             "split_conditions": [float(v) for v in split_conditions],
             "split_indices": [int(v) for v in tree.feature],
-            "split_type": [0] * tree.num_nodes,
+            "split_type": split_type,
             "sum_hessian": [float(v) for v in tree.sum_hess],
             "tree_param": {
                 "num_deleted": "0",
@@ -376,10 +513,15 @@ class Forest:
 
     @staticmethod
     def _tree_from_json(blob):
+        categories = None
         if blob.get("categories_nodes"):
-            raise exc.UserError(
-                "categorical splits are not supported by the PyTorch port yet"
-            )
+            flat = np.asarray(blob.get("categories", []), np.int64)
+            segs = blob.get("categories_segments", [])
+            sizes = blob.get("categories_sizes", [])
+            categories = {
+                int(node): flat[int(segs[j]):int(segs[j]) + int(sizes[j])]
+                for j, node in enumerate(blob["categories_nodes"])
+            }
         left = np.asarray(blob["left_children"], np.int32)
         is_leaf = left < 0
         cond = np.asarray(blob["split_conditions"], np.float32)
@@ -394,6 +536,7 @@ class Forest:
             gain=blob.get("loss_changes"),
             sum_hess=blob.get("sum_hessian"),
             parent=blob.get("parents"),
+            categories=categories,
         )
 
     def save_json(self):
@@ -494,8 +637,18 @@ class Forest:
             )
         return forest
 
-    def save_model(self, path):
-        """Write the model as xgboost JSON."""
+    def save_model(self, path, model_format=None):
+        """Write the model as xgboost JSON, or as UBJSON when
+        ``model_format`` is "ubj" or, without one, the path ends in .ubj
+        (xgboost's choice by extension)."""
+        if model_format is None:
+            model_format = "ubj" if str(path).endswith(".ubj") else "json"
+        if model_format == "ubj":
+            from .compat import encode_ubjson  # compat imports this module
+
+            with open(path, "wb") as f:
+                f.write(encode_ubjson(json.loads(self.save_json())))
+            return
         with open(path, "w") as f:
             f.write(self.save_json())
 

@@ -5,8 +5,10 @@ is ``depth`` rounds of vectorized gather/compare over [rows x trees]. The
 same rules run as torch ops on the forest's device (``forest_predict_margin``)
 and as numpy on the host for tiny payloads (``host_predict_margin``).
 
-Rules (xgboost semantics): NaN-missing follows ``default_left``; a node
-sends a row right when ``v >= threshold``; leaves self-loop via
+Rules (xgboost semantics): NaN-missing follows ``default_left``; a
+numerical node sends a row right when ``v >= threshold``; a categorical node
+(the stacked forest carries ``cat_split`` [T, N] and ``cat_mask`` [T, N, W],
+BYO xgboost models) by ``categorical_go_right``; leaves self-loop via
 left/right == own index.
 """
 
@@ -14,11 +16,38 @@ import numpy as np
 import torch
 
 
+def categorical_go_right(v, miss, dfl, cat_mask, t_idx, node):
+    """The categorical routing rule (xgboost common::Decision), one helper
+    for the torch and the numpy traversal alike (both namespaces share the
+    operators, ``where``, ``clip`` and ``nan_to_num`` used here).
+
+    v: the rows' values at their nodes [n, T] (f32), miss = isnan(v), dfl
+    the nodes' default_left; cat_mask [T, N, W] holds each node's
+    right-branch category set as 32-bit words (int32 with the bits of the
+    xgboost u32 words). A category in the set goes right; NaN follows
+    default_left; an invalid value (v < 0 or v >= 32 W, checked on the
+    float, so -0.5 is invalid) goes left. The float is clipped before its
+    integer cast: a cast of inf, NaN or values >= 2^31 is undefined on CUDA.
+    """
+    xp = np if isinstance(v, np.ndarray) else torch
+    max_cat = cat_mask.shape[2] * 32
+    invalid = (v < 0) | (v >= max_cat)
+    clipped = xp.nan_to_num(v, nan=-1.0).clip(-1.0, float(max_cat))
+    cat = clipped.astype(np.int64) if xp is np else clipped.to(torch.int64)
+    cat = cat.clip(0, max_cat - 1)
+    word = cat_mask[t_idx, node, cat >> 5]
+    in_set = ((word >> (cat & 31)) & 1) == 1
+    return xp.where(miss, ~dfl, in_set & ~invalid)
+
+
 def forest_leaf_nodes(stacked, x):
-    """x: f32 tensor [n, d] (NaN = missing) -> leaf node per (row, tree)."""
+    """x: f32 tensor [n, d] (NaN = missing) -> leaf node per (row, tree);
+    categorical nodes route by ``categorical_go_right`` where the stacked
+    forest carries category bitmasks."""
     n = x.shape[0]
     feature = stacked["feature"]
     T = feature.shape[0]
+    cat_mask = stacked["cat_mask"] if "cat_split" in stacked else None
     node = torch.zeros((n, T), dtype=torch.long, device=x.device)
     t_idx = torch.arange(T, device=x.device)[None, :].expand(n, T)
     for _ in range(stacked["depth"]):
@@ -26,7 +55,12 @@ def forest_leaf_nodes(stacked, x):
         thr = stacked["threshold"][t_idx, node]
         v = torch.gather(x, 1, feat.long())
         dfl = stacked["default_left"][t_idx, node]
-        go_right = torch.where(torch.isnan(v), ~dfl, v >= thr)
+        miss = torch.isnan(v)
+        go_right = torch.where(miss, ~dfl, v >= thr)
+        if cat_mask is not None:
+            go_right = torch.where(stacked["cat_split"][t_idx, node],
+                                   categorical_go_right(v, miss, dfl, cat_mask, t_idx, node),
+                                   go_right)
         nxt = torch.where(go_right, stacked["right"][t_idx, node], stacked["left"][t_idx, node])
         node = torch.where(stacked["is_leaf"][t_idx, node], node, nxt.long())
     return node
@@ -58,7 +92,8 @@ def forest_predict_margin(stacked, x, num_output_group=1, base_margin=0.0, tree_
 
 
 def host_leaf_nodes(stacked, x):
-    """Numpy twin of ``forest_leaf_nodes`` for tiny payloads."""
+    """Numpy twin of ``forest_leaf_nodes`` for tiny payloads (the same
+    ``categorical_go_right`` at categorical nodes)."""
     x = np.asarray(x, np.float32)
     feature = np.asarray(stacked["feature"])
     threshold = np.asarray(stacked["threshold"])
@@ -66,6 +101,10 @@ def host_leaf_nodes(stacked, x):
     left = np.asarray(stacked["left"])
     right = np.asarray(stacked["right"])
     is_leaf = np.asarray(stacked["is_leaf"])
+    cat_mask = None
+    if "cat_split" in stacked:
+        cat_mask = np.asarray(stacked["cat_mask"])
+        cat_split = np.asarray(stacked["cat_split"])
     n = x.shape[0]
     T = feature.shape[0]
     node = np.zeros((n, T), np.int64)
@@ -73,7 +112,13 @@ def host_leaf_nodes(stacked, x):
     for _ in range(stacked["depth"]):
         feat = feature[t_idx, node]
         v = np.take_along_axis(x, feat.astype(np.int64), axis=1)
-        go_right = np.where(np.isnan(v), ~default_left[t_idx, node], v >= threshold[t_idx, node])
+        dfl = default_left[t_idx, node]
+        miss = np.isnan(v)
+        go_right = np.where(miss, ~dfl, v >= threshold[t_idx, node])
+        if cat_mask is not None:
+            go_right = np.where(cat_split[t_idx, node],
+                                categorical_go_right(v, miss, dfl, cat_mask, t_idx, node),
+                                go_right)
         nxt = np.where(go_right, right[t_idx, node], left[t_idx, node])
         node = np.where(is_leaf[t_idx, node], node, nxt)
     return node

@@ -3,8 +3,9 @@ inference, response encoders.
 
 * ``parse_content_data``: csv/libsvm/recordio -> DataMatrix,
 * ``get_loaded_booster``: load every model file in the model dir (not
-  dotfiles, not manifest sidecars) as an ensemble (env-gated), each file
-  xgboost JSON or UBJSON, onto the device, through the integrity checks of
+  dotfiles, not manifest sidecars) as an ensemble (env-gated), each file a
+  pickled Booster (``PKL_FORMAT``) or xgboost JSON, UBJSON or legacy binary
+  (``XGB_FORMAT``), onto the device, through the integrity checks of
   ``_load_verified``,
 * ``predict``: feature-count checks per content type, best-iteration
   ranges, ensemble vote (softmax/hinge) or mean,
@@ -37,7 +38,7 @@ from ..constants import (
 )
 from ..data.content_types import CSV, LIBSVM, RECORDIO_PROTOBUF, get_content_type
 from ..data.recordio import _frame, encode_float32_tensor, encode_record
-from ..models.compat import load_model_any_format
+from ..models.compat import PKL_FORMAT, XGB_FORMAT, load_model_any_format  # noqa: F401
 from ..models.forest import HOST_PREDICT_ROWS
 from ..telemetry import REGISTRY
 from ..utils import integrity

@@ -5,16 +5,21 @@
 The port's counterpart of ``sagemaker_xgboost_container_tpu/training/entry.py``.
 Algorithm mode reads the SM_* env variables (or derives them from the
 mounted /opt/ml tree), which point at the JSON config files and the channel
-directories, and calls ``sagemaker_train`` on the GPU. A failure writes its
-message to the failure file (``$SM_OUTPUT_DIR/failure``, by default
-``/opt/ml/output/failure``) and exits 1. Script mode (a user's training
-script, ``sagemaker_program``) is not ported yet and raises ``UserError``.
+directories, and calls ``sagemaker_train`` on the GPU. Script mode
+(``sagemaker_program`` in the hyperparameters, or ``SAGEMAKER_PROGRAM``)
+runs the user's script from ``sagemaker_submit_directory`` (a directory, or
+a .tar.gz extracted into /opt/ml/code) as a subprocess with the SM
+environment, after pip-installing its requirements.txt. A failure writes
+its message to the failure file (``$SM_OUTPUT_DIR/failure``, by default
+``/opt/ml/output/failure``) and exits 1.
 """
 
 import json
 import logging
 import os
+import subprocess
 import sys
+import tarfile
 
 from .. import constants
 from ..toolkit import exceptions as exc
@@ -24,6 +29,7 @@ logger = logging.getLogger(__name__)
 
 FAILURE_FILE = "/opt/ml/output/failure"
 SM_INPUT_ROOT = "/opt/ml/input"
+CODE_DIR = "/opt/ml/code"
 
 
 def _read_json(path, default=None):
@@ -91,15 +97,67 @@ def run_algorithm_mode(device=None):
     )
 
 
+def _stage_user_module(hyperparameters, code_dir=CODE_DIR):
+    """The directory holding the user's code: ``sagemaker_submit_directory``
+    itself when it is a directory, or ``code_dir`` with the .tar.gz it names
+    extracted there (the "data" filter: no absolute paths, no links out of
+    ``code_dir``). None when no submit directory is given."""
+    submit_dir = hyperparameters.get("sagemaker_submit_directory")
+    if not submit_dir:
+        return None
+    if os.path.isdir(submit_dir):
+        return submit_dir
+    if submit_dir.endswith(".tar.gz") and os.path.exists(submit_dir):
+        os.makedirs(code_dir, exist_ok=True)
+        with tarfile.open(submit_dir) as tar:
+            tar.extractall(code_dir, filter="data")
+        return code_dir
+    raise exc.UserError(
+        "sagemaker_submit_directory {} not found locally; S3 download is the "
+        "platform's responsibility".format(submit_dir)
+    )
+
+
+def run_script_mode(code_dir=CODE_DIR):
+    """Run the user's training script as a subprocess in its code
+    directory: its requirements.txt installed first, the hyperparameters
+    (without the sagemaker_* keys) as ``SM_HPS`` JSON and as ``--key value``
+    arguments in sorted order, ``SM_MODEL_DIR`` set. A missing script or a
+    non-zero exit raises UserError."""
+    train_config = _read_json(os.getenv(constants.SM_INPUT_TRAINING_CONFIG_FILE))
+    program = train_config.get("sagemaker_program") or os.environ.get("SAGEMAKER_PROGRAM")
+    code_dir = _stage_user_module(train_config, code_dir) or os.environ.get(
+        "SAGEMAKER_SUBMIT_DIRECTORY", code_dir)
+    script = os.path.join(code_dir, program)
+    if not os.path.exists(script):
+        raise exc.UserError("User entry point {} does not exist".format(script))
+    from ..utils.requirements import install_requirements_if_present
+
+    install_requirements_if_present(code_dir)
+    env = dict(os.environ)
+    hps = {k: v for k, v in train_config.items() if not k.startswith("sagemaker_")}
+    env["SM_HPS"] = json.dumps(hps)
+    env.setdefault("SM_MODEL_DIR", os.getenv(constants.SM_MODEL_DIR, "/opt/ml/model"))
+    args = [sys.executable, script]
+    for key, value in sorted(hps.items()):
+        args.extend(["--{}".format(key), str(value)])
+    logger.info("Invoking user training script: %s", " ".join(args))
+    result = subprocess.run(args, env=env, cwd=code_dir)
+    if result.returncode != 0:
+        raise exc.UserError(
+            "User script exited with non-zero status {}".format(result.returncode))
+
+
 def train(device=None):
+    """Script mode when a program is named, else algorithm mode on
+    ``device`` (the user's script picks its own device)."""
     train_config = _read_json(os.getenv(constants.SM_INPUT_TRAINING_CONFIG_FILE))
     if train_config.get("sagemaker_program") or os.environ.get("SAGEMAKER_PROGRAM"):
-        raise exc.UserError(
-            "script mode (a user training script, sagemaker_program) is not supported "
-            "by the PyTorch port yet; run in algorithm mode"
-        )
-    logger.info("Running XGBoost Sagemaker in algorithm mode")
-    run_algorithm_mode(device=device)
+        logger.info("Invoking user training script.")
+        run_script_mode()
+    else:
+        logger.info("Running XGBoost Sagemaker in algorithm mode")
+        run_algorithm_mode(device=device)
 
 
 def _failure_file():

@@ -62,15 +62,21 @@ def forest_digest(model):
     """sha256 over a Forest's trees in canonical packed bytes: ``tree_info``
     (i32) and ``iteration_indptr`` (i64), then each tree's fields in
     ``_TREE_DIGEST_FIELDS`` order and dtypes followed by its node count
-    (i64), so (3 nodes + 5) never collides with (5 + 3). The port's trees
-    hold host numpy arrays; categorical splits do not load, so no category
-    sets are hashed."""
+    (i64), so (3 nodes + 5) never collides with (5 + 3). Before the node
+    count come the categorical nodes in id order: node id and set size
+    (i64), then the set (i64), so {1: [2]} never collides with
+    {1: [], 2: []}."""
     h = hashlib.sha256()
     h.update(np.asarray(model.tree_info, np.int32).tobytes())
     h.update(np.asarray(model.iteration_indptr, np.int64).tobytes())
     for tree in model.trees:
         for name, dtype in _TREE_DIGEST_FIELDS:
             h.update(np.ascontiguousarray(np.asarray(getattr(tree, name), dtype)).tobytes())
+        categories = getattr(tree, "categories", None) or {}
+        for node in sorted(categories):
+            cats = np.ascontiguousarray(np.asarray(categories[node], np.int64))
+            h.update(np.asarray([node, cats.size], np.int64).tobytes())
+            h.update(cats.tobytes())
         h.update(np.asarray([tree.num_nodes], np.int64).tobytes())
     return h.hexdigest()
 
@@ -173,7 +179,9 @@ def validate_model(model):
     """Structural validation of a loaded Forest or LinearModel (or a list
     of them, an ensemble); raises IntegrityError. Every tree's arrays have one length,
     split children lie inside the tree and are never the node itself,
-    thresholds and leaf values are finite, split feature ids are in range,
+    thresholds (at numerical splits: a categorical node routes by its set,
+    and some exporters leave NaN there) and leaf values are finite, split
+    feature ids are in range,
     and ``tree_info`` / ``iteration_indptr`` match the tree list. A linear
     model's weights are finite. Other objects (a script-mode model_fn's)
     pass."""
@@ -218,7 +226,11 @@ def validate_model(model):
                      "child index out of range (>= {} nodes)".format(n))
             _require(bool(np.all((left[split] != ids) & (right[split] != ids))), i,
                      "split node is its own child")
-            _require(bool(np.all(np.isfinite(np.asarray(tree.threshold)[split]))), i,
+            numeric_split = split.copy()
+            for node in getattr(tree, "categories", None) or {}:
+                if 0 <= int(node) < n:
+                    numeric_split[int(node)] = False
+            _require(bool(np.all(np.isfinite(np.asarray(tree.threshold)[numeric_split]))), i,
                      "non-finite split threshold")
             feature = np.asarray(tree.feature, np.int64)[split]
             _require(bool(np.all(feature >= 0)), i, "negative split feature id")

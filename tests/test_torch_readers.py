@@ -9,6 +9,7 @@ own words) is compared.
 
 import logging
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -241,10 +242,62 @@ def test_channel_reads_match_jax(case, tmp_path):
         assert a[1] is None
 
 
-def test_parquet_names_the_gap(tmp_path):
+def _parquet_tables(kind, n=200, seed=3):
+    """pyarrow tables (label first) of each column kind the parquet
+    reader converts: nulls in float and int columns, ints, bools, f64 that
+    rounds to f32."""
+    import pyarrow as pa
+
+    rng = np.random.RandomState(seed)
+    label = pa.array((rng.rand(n) < 0.4).astype(np.float64))
+    f64 = rng.randn(n) * 1e3 + 1e-7  # not representable in f32
+    nulls = rng.rand(n) < 0.2
+    if kind == "nulls":
+        cols = {"f": pa.array(f64, mask=nulls),
+                "i": pa.array(rng.randint(-5, 5, n).astype(np.int64), mask=~nulls & (
+                    rng.rand(n) < 0.3)),
+                "b": pa.array(rng.rand(n) < 0.5, mask=nulls)}
+    elif kind == "ints":
+        cols = {"i8": pa.array(rng.randint(-100, 100, n).astype(np.int8)),
+                "i64": pa.array(rng.randint(-2**40, 2**40, n).astype(np.int64)),
+                "u16": pa.array(rng.randint(0, 60000, n).astype(np.uint16))}
+    elif kind == "bools":
+        cols = {"b0": pa.array(rng.rand(n) < 0.5), "b1": pa.array(rng.rand(n) < 0.1)}
+    else:  # f64, f32 and one column per file across two files
+        cols = {"f64": pa.array(f64), "f32": pa.array(f64.astype(np.float32))}
+    table = pa.table(dict({"label": label}, **cols))
+    if kind == "two_files":
+        return [table.slice(0, n // 2), table.slice(n // 2)]
+    return [table]
+
+
+@pytest.mark.parametrize("kind", ["nulls", "ints", "bools", "f64", "two_files"])
+def test_parquet_names_the_gap(tmp_path, kind):
+    """A parquet channel reads bit for bit as the JAX reader (pyarrow
+    through pandas) reads it: nulls NaN, bools 0/1, ints and f64 rounded
+    to f32, column 0 the label."""
+    pq = pytest.importorskip("pyarrow.parquet")
+    os.makedirs(str(tmp_path / "ch"))
+    tables = _parquet_tables(kind)
+    for i, table in enumerate(tables):
+        pq.write_table(table, str(tmp_path / "ch" / "part-{}.parquet".format(i)))
+    path = str(tmp_path / "ch")
+    ours = readers.get_data_matrix(path, "application/x-parquet")
+    ref = jax_readers.get_data_matrix(path, "application/x-parquet")
+    assert ours.features.dtype == ref.features.dtype == np.float32
+    assert ours.features.shape == ref.features.shape == (200, tables[0].num_columns - 1)
+    np.testing.assert_array_equal(ours.features.view(np.uint32), ref.features.view(np.uint32))
+    np.testing.assert_array_equal(ours.labels.view(np.uint32), ref.labels.view(np.uint32))
+    if kind == "nulls":
+        assert np.isnan(ours.features).any()
+
+
+def test_parquet_without_pyarrow_names_it(tmp_path, monkeypatch):
     os.makedirs(str(tmp_path / "ch"))
     (tmp_path / "ch" / "a.parquet").write_bytes(b"PAR1")
-    with pytest.raises(exc.UserError, match="parquet channels are not supported"):
+    monkeypatch.setitem(sys.modules, "pyarrow", None)
+    monkeypatch.setitem(sys.modules, "pyarrow.parquet", None)
+    with pytest.raises(exc.UserError, match="parquet channels need the pyarrow package"):
         readers.get_data_matrix(str(tmp_path / "ch"), "application/x-parquet")
 
 

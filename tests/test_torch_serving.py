@@ -421,16 +421,35 @@ def test_ubjson_codec_matches_jax(models):
     assert compat.decode_ubjson(typed) == jax_compat.decode_ubjson(typed)
 
 
-@pytest.mark.parametrize("raw,match", [
-    (b"CONFIG-offset:\x00" + b"\x00" * 30, "legacy binary"),
-    (b"binf" + b"\x00" * 200, "legacy binary"),
-    (b"\x80\x04\x95" + b"\x00" * 20, "pickled xgboost Booster"),
-])
-def test_unported_formats_raise_user_error(tmp_path, raw, match):
-    path = tmp_path / "xgboost-model"
-    path.write_bytes(raw)
-    with pytest.raises(exc.UserError, match=match):
-        compat.load_model_any_format(str(path), device="cpu")
+@pytest.mark.parametrize("fmt", ["config_offset", "binf", "pickle"])
+def test_unported_formats_raise_user_error(models, tmp_path, fmt):
+    """The formats the port once refused load as the JAX package loads
+    them: a CONFIG-offset legacy buffer, a ``binf`` legacy binary file and a
+    pickled Booster (its handle the JSON model) give the same format tag and
+    trees, and both apps answer alike (host path exactly, 100 rows within
+    1e-6)."""
+    from chip_smoke import config_offset, legacy_binary, pickled_booster
+
+    with open(os.path.join(models["json"], "xgboost-model")) as f:
+        doc = f.read()
+    model = jax_booster.Forest.load_json(doc)
+    raw = {"config_offset": lambda: config_offset(legacy_binary(model, binf=False),
+                                                  model.objective_name),
+           "binf": lambda: legacy_binary(model),
+           "pickle": lambda: pickled_booster(doc.encode())}[fmt]()
+    (tmp_path / "xgboost-model").write_bytes(raw)
+    path = str(tmp_path / "xgboost-model")
+    ours, tag = compat.load_model_any_format(path, device="cpu")
+    ref, ref_tag = jax_compat.load_model_any_format(path)
+    assert tag == ref_tag == ("pkl_format" if fmt == "pickle" else "xgb_format")
+    assert len(ours.trees) == len(ref.trees) == len(model.trees)
+    assert ours.attributes == ref.attributes
+    jax_wsgi = jax_app.make_app(jax_app.ScoringService(str(tmp_path)))
+    port_wsgi = app.make_app(app.ScoringService(str(tmp_path), device="cpu"))
+    assert _call(port_wsgi, path="/ping", method="GET")[0] == 200
+    for rows in (3, 100):
+        X, _ = _data(rows, seed=12)
+        _same_answer(jax_wsgi, port_wsgi, rows, body=_payload(X, "csv")[0])
 
 
 def test_bad_json_model_raises_and_answers_500(tmp_path):
@@ -948,29 +967,26 @@ def _edited_model(models, tmp_path, kind):
 
 @pytest.mark.parametrize("booster", ["dart", "gblinear", "categorical"])
 def test_unported_boosters_answer_ping_500(models, tmp_path, booster):
-    """A model the port cannot predict (categorical splits) fails at load
-    with a UserError naming what it is, so that /ping answers 500 (the JAX
-    app serves it). dart and gblinear models, which the port serves now,
-    answer as the JAX app does."""
+    """dart and gblinear models and a model with a categorical split, which
+    the port once refused at load (/ping 500), answer as the JAX app
+    does."""
     if booster != "gblinear":
-        model_dir, match = _edited_model(models, tmp_path, booster), booster
+        model_dir = _edited_model(models, tmp_path, booster)
     else:
         X, _ = _data(200, seed=25)
         forest = jax_booster.train({"booster": booster, "objective": "reg:squarederror",
                                     "max_depth": 3, "max_bin": 16}, JaxDataMatrix(X, X[:, 0]), 2)
-        model_dir, match = _save(forest, tmp_path), booster
+        model_dir = _save(forest, tmp_path)
     jax_wsgi = jax_app.make_app(jax_app.ScoringService(model_dir))
     port_wsgi = app.make_app(app.ScoringService(model_dir, device="cpu"))
     assert _call(jax_wsgi, path="/ping", method="GET")[0] == 200
-    X, _ = _data(3, seed=26)
-    if booster != "categorical":
-        assert _call(port_wsgi, path="/ping", method="GET")[0] == 200
-        _same_answer(jax_wsgi, port_wsgi, 3, body=_payload(X, "csv")[0])
-        return
-    with pytest.raises(exc.UserError, match=match):
-        compat.load_model_any_format(os.path.join(model_dir, "xgboost-model"), device="cpu")
-    assert _call(port_wsgi, path="/ping", method="GET")[0] == 500
-    assert _call(jax_wsgi, body=_payload(X, "csv")[0])[0] == 200
+    assert _call(port_wsgi, path="/ping", method="GET")[0] == 200
+    for rows in (3, 100):
+        X, _ = _data(rows, seed=26)
+        _same_answer(jax_wsgi, port_wsgi, rows, body=_payload(X, "csv")[0])
+    if booster == "categorical":
+        model = port_wsgi.service.model
+        assert model.trees[0].has_categorical and "cat_split" in model._stack()[0]
 
 
 @pytest.mark.parametrize("objective", sorted(OBJECTIVE_LABELS) + ["reg:linear"])

@@ -337,6 +337,25 @@ def _main(module, monkeypatch, tmp_path, name, **kw):
     return e.value.code, text
 
 
+# a user script of script mode: the port's sklearn estimator on the csv
+# train channel, the model saved into SM_MODEL_DIR
+SKLEARN_SCRIPT = """
+import argparse, os
+import numpy as np
+from sagemaker_xgboost_container_tpu_torch.sklearn import TorchXGBRegressor
+
+parser = argparse.ArgumentParser()
+parser.add_argument("--num_round", type=int)
+parser.add_argument("--max_depth", type=int)
+args, _ = parser.parse_known_args()
+rows = np.genfromtxt(os.path.join(os.environ["SM_CHANNEL_TRAIN"], "data.csv"), delimiter=",",
+                     dtype=np.float32)
+model = TorchXGBRegressor(n_estimators=args.num_round, max_depth=args.max_depth, device="cpu")
+model.fit(rows[:, 1:], rows[:, 0])
+os.makedirs(os.environ["SM_MODEL_DIR"], exist_ok=True)
+model.save_model(os.path.join(os.environ["SM_MODEL_DIR"], "xgboost-model"))
+"""
+
 CSV_CHANNELS = {c: {"ContentType": "csv", "TrainingInputMode": "File",
                     "S3DistributionType": "FullyReplicated"} for c in ("train", "validation")}
 
@@ -405,9 +424,9 @@ def test_entry_module_needs_a_gpu(tmp_path):
     ("booster", "booster='dart'"),
 ])
 def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monkeypatch):
-    """What the port does not train raises a UserError naming it; k-fold CV,
-    the custom metrics and booster=dart, which it trains now, run to their
-    models."""
+    """What the port does not train (more than one host) raises a UserError
+    naming it; k-fold CV, parquet channels, the custom metrics, script mode
+    and booster=dart, which it trains now, run to their models."""
     tree = _tree(str(tmp_path), "csv")
     hp, hosts = dict(BASE_HP), ["algo-1"]
     if case == "kfold":
@@ -415,8 +434,14 @@ def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monk
     elif case == "multi_host":
         hosts = ["algo-1", "algo-2"]
     elif case == "parquet":
+        pa = pytest.importorskip("pyarrow")
+        import pyarrow.parquet as pq
+
         os.makedirs(str(tmp_path / "pq"))
-        (tmp_path / "pq" / "a.parquet").write_bytes(b"PAR1")
+        X, y = _data(N, 0)
+        pq.write_table(pa.table([pa.array(y)] + [pa.array(X[:, j]) for j in range(X.shape[1])],
+                                names=["y"] + ["f{}".format(j) for j in range(X.shape[1])]),
+                       str(tmp_path / "pq" / "a.parquet"))
         tree = {"data_config": {"train": dict(CSV_CHANNELS["train"],
                                               ContentType="application/x-parquet")},
                 "train_path": str(tmp_path / "pq"), "val_path": None}
@@ -424,7 +449,7 @@ def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monk
         hp["eval_metric"] = "accuracy"
     elif case == "booster":
         hp["booster"] = "dart"
-    if case in ("kfold", "custom_metric", "booster"):
+    if case in ("kfold", "parquet", "custom_metric", "booster"):
         monkeypatch.setenv("SM_OUTPUT_DATA_DIR", str(tmp_path / "output"))
         algorithm_train.sagemaker_train(hp, tree["data_config"], tree["train_path"],
                                         tree["val_path"], str(tmp_path / "model"), hosts,
@@ -434,10 +459,15 @@ def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monk
         assert sorted(os.listdir(str(tmp_path / "model"))) == names
         return
     if case == "script_mode":
-        _sm_env(monkeypatch, tmp_path / "sm", dict(hp, sagemaker_program="train.py"),
+        code = tmp_path / "code"
+        code.mkdir()
+        (code / "train.py").write_text(SKLEARN_SCRIPT)
+        monkeypatch.setenv("PYTHONPATH", REPO)
+        _sm_env(monkeypatch, tmp_path / "sm", dict(hp, sagemaker_program="train.py",
+                                                   sagemaker_submit_directory=str(code)),
                 CSV_CHANNELS)
-        with pytest.raises(exc.UserError, match=match):
-            entry.train(device="cpu")
+        entry.train(device="cpu")
+        assert os.listdir(str(tmp_path / "sm" / "model")) == ["xgboost-model"]
         return
     with pytest.raises(exc.UserError, match=match):
         algorithm_train.sagemaker_train(hp, tree["data_config"], tree["train_path"],
