@@ -256,7 +256,38 @@ Phases (each prints its own lines; any failure exits non-zero):
    phase 8's channels written as parquet: the DataMatrix bitwise equal to
    the csv channel's, and an algorithm-mode job on them (10 rounds) exits 0
    with one HPO line a round (where it does not, a line says the check did
-   not run and why).
+   not run and why);
+16. the training planes of one host. 16a: the main path (phase 4's rows,
+   depth 8, max_bin 256, 10 rounds) twice through `get_callbacks`' stack,
+   unarmed and with SM_MODEL_TELEMETRY, SM_DEVICE_TELEMETRY,
+   SM_HBM_SAMPLE_EVERY=1, SM_TRACE + SM_TRACE_DEVICE_SYNC=1 and
+   SM_PROFILER_TRACE_DIR: 80 / 10 launches each; in the armed run 10
+   training.round and 10 training.learning records, one summary,
+   attribution (reading device_sync), roofline, compiled and trace record,
+   every round with its host_dispatch and device_sync phases, the trace
+   file's bytes, the validation logloss against the unarmed run's by phase
+   9's rule, rounds/s over rounds 2-9 of both; the memory sample against
+   memory_allocated; the learning stats' extra launches (torch.profiler) and
+   host syncs (sync debug mode, must be 0) a round; the card's latency floor
+   (the device time of a main-path round at 1,000 rows). 16b: the train
+   entry point in child processes on phase 8's channels (8 rounds, a
+   checkpoint dir): round 3 stalled by `training.round_end:sleep:60@4`
+   under SM_ROUND_DEADLINE_S=5 exits 79 with one training.abort record,
+   checkpoint 2 with a manifest that verifies and carries the fingerprint,
+   and the flight recorder in the checkpoint dir; the restart, with
+   `data.read:error@1`, retries once, resumes at round 4, exits 0 and
+   writes a model manifest with fingerprint, learning and drift baseline;
+   max_depth 6 under SM_RESUME_STRICT=true exits non-zero naming max_depth;
+   one read with `data.read:error@1` in this process counts one retry.
+   16c: `train.gradient_poison:nan@3` exits 87 with forensics naming round
+   2; `chip_smoke.py --oom-child` caps the device memory so that the first
+   round cannot allocate and exits 86 with hbm-forensics listing the
+   largest blocks. 16d: 16b's model behind the single-model endpoint
+   (SM_MODEL_TELEMETRY, SM_SERVING_METRICS): 1,000 rows drawn as the
+   training rows keep model_drift_psi under 0.2, 1,000 with features 0-7
+   shifted by 3 sigma drive it above and serving_state to degraded, the
+   four runtime gauges on /metrics; the 1-row p50 of 1,000 requests with
+   the monitor armed and unarmed. Every child prints its launch counts.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -1457,6 +1488,8 @@ ENTRY_SIGTERM_AFTER = 5  # the spot interruption lands after this round's line
 # tests hold a resumed run to the uninterrupted one tree for tree.
 ENTRY_METRIC_TOL, ENTRY_DP_TOL = 1e-2, 5e-2
 ENTRY_COMMAND = [sys.executable, "-m", "sagemaker_xgboost_container_tpu_torch.training.entry"]
+# the same entry point, printing its kernel launch counts as it exits
+ENTRY_CHILD_COMMAND = [sys.executable, os.path.abspath(__file__), "--entry-child"]
 HPO_LINE = re.compile(r"^\[(\d+)\]\t(.*)$")
 HPO_REGEX = ".*\\[[0-9]+\\].*\tvalidation-{}:(\\S+)"  # a real tab here, #011 in CloudWatch
 
@@ -1554,13 +1587,14 @@ def _compare(a, b, X, x_val):
             "roots_differ": roots, "max_dp": float(dp.max()), "mean_dp": float(dp.mean())}
 
 
-def _run_entry_child(env, sigterm_after=None, timeout=600):
-    """`python -m ...training.entry` in a child process -> (exit code,
-    stdout, stderr, seconds); with ``sigterm_after``, SIGTERM once the line
-    of that round is printed."""
+def _run_entry_child(env, sigterm_after=None, timeout=600, command=None):
+    """`python -m ...training.entry` (or `command`) in a child process ->
+    (exit code, stdout, stderr, seconds); with ``sigterm_after``, SIGTERM
+    once the line of that round is printed."""
     t = time.perf_counter()
     proc = subprocess.Popen(
-        ENTRY_COMMAND, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        command or ENTRY_COMMAND, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
     err = []
     drain = threading.Thread(target=lambda: err.extend(proc.stderr), daemon=True)
     drain.start()
@@ -2551,7 +2585,11 @@ def run_kfold(torch, hist, tag, tmp):
     wall = time.perf_counter() - t0
     launches = dict(hist.LAUNCHES)
     cv = _cv_lines(out.getvalue(), rounds)
-    models = sorted(os.listdir(model_dir))
+    # each fold model with its manifest sidecar
+    files = sorted(os.listdir(model_dir))
+    models = [f for f in files if not f.endswith(".manifest")]
+    check(files == sorted(models + [m + ".manifest" for m in models]),
+          "kfold models without their manifests: {}".format(files))
     preds = np.loadtxt(os.path.join(out_dir, "predictions.csv"), delimiter=",")
     # the folds of both repeats ride the class axis together: C = 10
     print("{} | kfold fold-parallel (_kfold 5, _num_cv_round 2, {} rounds, {} rows): wall "
@@ -2609,8 +2647,9 @@ def run_kfold(torch, hist, tag, tmp):
         tag, json.dumps(gaps)), flush=True)
     check(all(g <= KFOLD_MEAN_TOL for g in gaps.values()),
           "CV means differ by {}".format(gaps))
-    check(sorted(os.listdir(os.path.join(tmp, "model-seq"))) == [
-        "xgboost-model-{}".format(i) for i in range(k)], "sequential kfold models")
+    check(sorted(os.listdir(os.path.join(tmp, "model-seq"))) == sorted(
+        "xgboost-model-{}{}".format(i, m) for i in range(k) for m in ("", ".manifest")),
+        "sequential kfold models")
 
 
 # ---------------------------------------------------------------- phase 12
@@ -2681,15 +2720,18 @@ def _poll(fn, done, timeout, what):
 
 
 class _ServerChild:
-    """SERVER_COMMAND in a child process with SAGEMAKER_MULTI_MODEL=true and
-    `env` (the SM_* / SAGEMAKER_* variables of this process left out), on a
-    port it picks; its output goes to <tmp>/<label>.log."""
+    """SERVER_COMMAND in a child process with SAGEMAKER_MULTI_MODEL=true
+    (unless `multi_model` is false) and `env` (the SM_* / SAGEMAKER_*
+    variables of this process left out), on a port it picks; its output
+    goes to <tmp>/<label>.log."""
 
-    def __init__(self, tmp, label, env):
+    def __init__(self, tmp, label, env, multi_model=True):
         self.label = label
         self.log_path = os.path.join(tmp, label + ".log")
         full = {k: v for k, v in os.environ.items() if not k.startswith(("SM_", "SAGEMAKER_"))}
-        full.update(SAGEMAKER_MULTI_MODEL="true", SAGEMAKER_BIND_TO_PORT="0", **env)
+        full.update(SAGEMAKER_BIND_TO_PORT="0", **env)
+        if multi_model:
+            full["SAGEMAKER_MULTI_MODEL"] = "true"
         self._log = open(self.log_path, "w")
         self.proc = subprocess.Popen(SERVER_COMMAND, env=full, stdout=self._log,
                                      stderr=subprocess.STDOUT,
@@ -3420,11 +3462,12 @@ def run_booster_entry(torch, hist, tag, tmp):
     lines = _metric_lines(out.getvalue())
     check(sorted(lines) == list(range(kept[-1], rounds)),
           "resume past the tampered checkpoint trained rounds {}".format(sorted(lines)))
-    check(not os.path.exists(newest + integrity.MANIFEST_SUFFIX),
-          "the rewritten checkpoint kept its stale manifest")
+    # the rewrite replaced the stale sidecar with one of its new bytes
+    check(integrity.check_model_file(newest) == "verified",
+          "the rewritten checkpoint's manifest does not describe it")
     print("{} | tampered checkpoint: one digit of xgboost-checkpoint.{} changed (still valid "
           "JSON, digest no longer its manifest's): resumed from checkpoint {} and trained rounds "
-          "{}-{}; the rewritten checkpoint's stale manifest removed".format(
+          "{}-{}; the rewritten checkpoint's manifest verifies".format(
               tag, kept[-1], kept[-2], kept[-1], rounds - 1), flush=True)
 
 
@@ -4185,6 +4228,494 @@ def run_script_mode(tag, tmp):
           flush=True)
 
 
+# ---------------------------------------------------------------- phase 16
+# the training planes of one host on the main path. The armed run's knobs
+# (the profiler trace dir is added per run)
+PLANES_ENV = {"SM_MODEL_TELEMETRY": "true", "SM_DEVICE_TELEMETRY": "true",
+              "SM_HBM_SAMPLE_EVERY": "1", "SM_TRACE": "true", "SM_TRACE_DEVICE_SYNC": "1"}
+PLANES_KNOBS = tuple(PLANES_ENV) + ("SM_PROFILER_TRACE_DIR", "SM_FAULT_SPEC")
+PLANES_ROUNDS = 10
+FLOOR_ROWS = 1_000  # the round whose device time is LATENCY_FLOOR_MS
+# rows of the session whose rounds count the learning stats' launches and
+# syncs (their number does not depend on the rows; binning 1M costs ~10 s)
+STATS_ROWS = 200_000
+# 16b / 16c: phase 8's channels with the main path's parameters
+DRILL_HP = {"objective": "binary:logistic", "max_depth": "8", "max_bin": "256",
+            "tree_method": "hist", "eta": "0.2", "num_round": "8",
+            "eval_metric": "logloss,auc"}
+DRILL_DEADLINE_S, DRILL_STALL = "5", "training.round_end:sleep:60@4"  # round 3 stalls
+OOM_ROWS, OOM_HEADROOM = 200_000, 1 << 20
+# 16d: 1,000 rows as the training rows were drawn, then with features 0-7
+# shifted by 3 standard deviations; the 1-row load, 1,000 requests
+DRIFT_ROWS, DRIFT_SHIFT, DRIFT_FEATURES, DRIFT_REQUESTS = 1_000, 3.0, 8, 10
+DRIFT_LOAD = (10, 100)  # client threads, requests each
+
+
+def _records(text, metric):
+    needle = '"metric": "{}"'.format(metric)
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{") and needle in line]
+
+
+def _child_launches(out):
+    """The launch counts an `--entry-child` printed before it exited."""
+    found = [json.loads(line) for line in out.splitlines()
+             if line.startswith('{"launches"')]
+    return found[-1]["launches"] if found else None
+
+
+def entry_child():
+    """`chip_smoke.py --entry-child`: the train entry point
+    (`training.entry.main`), printing the kernels' launch counts as it
+    exits, normally or through the watchdog's abort path."""
+    import atexit
+
+    from sagemaker_xgboost_container_tpu_torch.ops import histogram as hist
+    from sagemaker_xgboost_container_tpu_torch.training import entry, watchdog
+
+    def report():
+        print(json.dumps({"launches": dict(hist.LAUNCHES)}), flush=True)
+
+    real_exit = watchdog._exit
+
+    def exit_with_report(code):
+        report()
+        real_exit(code)
+
+    watchdog._exit = exit_with_report
+    atexit.register(report)
+    entry.main()
+
+
+def oom_child(out_dir):
+    """`chip_smoke.py --oom-child DIR`: the main path (depth 8, max_bin 256,
+    28 features; OOM_ROWS rows) with the process's device memory capped,
+    once its session is on the card, at what it holds plus OOM_HEADROOM, so
+    that the first round cannot allocate: the round's OOM path must dump
+    forensics into DIR (SM_TRACE_EXPORT_DIR) and exit 86."""
+    import torch
+
+    import sagemaker_xgboost_container_tpu_torch as pkg
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.ops import histogram as hist
+    from sagemaker_xgboost_container_tpu_torch.training import watchdog
+
+    os.environ["SM_TRACE_EXPORT_DIR"] = out_dir
+    X, y = make_data(OOM_ROWS, N_FEATURES, seed=0)
+
+    class Squeeze:
+        def before_training(self, forest):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            total = torch.cuda.get_device_properties(0).total_memory
+            allowed = torch.cuda.memory_reserved() + OOM_HEADROOM
+            torch.cuda.set_per_process_memory_fraction(allowed / total)
+            print(json.dumps({"fraction": allowed / total, "allowed_bytes": allowed,
+                              "total_bytes": total}), flush=True)
+            return forest
+
+    real_exit = watchdog._exit
+
+    def exit_with_report(code):
+        print(json.dumps({"launches": dict(hist.LAUNCHES)}), flush=True)
+        real_exit(code)
+
+    watchdog._exit = exit_with_report
+    pkg.train(MAIN_PARAMS, DataMatrix(X, y), 1, device=DEVICE, callbacks=[Squeeze()],
+              verbose_eval=False)
+    print("the capped round did not run out of memory", file=sys.stderr, flush=True)
+    return 1
+
+
+def run_planes(torch, hist, pkg, dtrain, dval, tag):
+    """Phase 16: the training planes on one host (see the module docstring)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_planes_") as tmp:
+        _planes_in_process(torch, hist, pkg, dtrain, dval, tag, tmp)
+        sm_env, model_dir = _planes_entry(tag, tmp)
+        _planes_drills(tag, tmp, sm_env)
+        _planes_serve(tag, tmp, model_dir)
+    print("{} | planes phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+class _Evals:
+    """Callback: the run's evals log (no sync of its own)."""
+
+    def after_iteration(self, forest, rnd, evals_log):
+        self.log = {k: dict(v) for k, v in evals_log.items()}
+        return False
+
+
+def _planes_run(torch, hist, pkg, dtrain, dval, env, tmp, label):
+    """The main path through `get_callbacks`' stack with `env` set:
+    -> (forest, stdout, launches, evals log)."""
+    import contextlib
+    import io
+
+    from sagemaker_xgboost_container_tpu_torch.telemetry import device as device_telemetry
+    from sagemaker_xgboost_container_tpu_torch.telemetry import model as model_telemetry
+    from sagemaker_xgboost_container_tpu_torch.telemetry import tracing
+    from sagemaker_xgboost_container_tpu_torch.training import profiling
+    from sagemaker_xgboost_container_tpu_torch.training.callbacks import get_callbacks
+
+    saved = {k: os.environ.pop(k, None) for k in PLANES_KNOBS}
+    os.environ.update(env)
+    # the planes resolve their knobs once a process; start each run afresh
+    for mod in (tracing, device_telemetry, model_telemetry):
+        mod._reset_for_tests()
+    try:
+        _, _, callbacks = get_callbacks(
+            model_dir=os.path.join(tmp, "model-" + label), checkpoint_dir=None,
+            early_stopping_data_name=None, early_stopping_metric=None,
+            early_stopping_rounds=None, save_model_on_termination="false", is_master=True,
+            num_round=PLANES_ROUNDS, num_rows=dtrain.num_row, train_cfg=MAIN_PARAMS)
+        evals = _Evals()
+        callbacks.insert(len(callbacks) - 1, evals)  # RoundTimer stays last
+        hist.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            with profiling.xla_trace():
+                forest = pkg.train(MAIN_PARAMS, dtrain, PLANES_ROUNDS,
+                                   evals=[(dval, "validation")], device=DEVICE,
+                                   callbacks=callbacks, verbose_eval=False)
+            torch.cuda.synchronize()
+        return forest, buf.getvalue(), dict(hist.LAUNCHES), evals.log
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        for mod in (tracing, device_telemetry, model_telemetry):
+            mod._reset_for_tests()
+
+
+def _planes_in_process(torch, hist, pkg, dtrain, dval, tag, tmp):
+    """16a: the main path twice, with no plane armed and with them all."""
+    trace_dir = os.path.join(tmp, "trace")
+    runs = {}
+    for label, env in (("unarmed", {}), ("armed", dict(PLANES_ENV,
+                                                       SM_PROFILER_TRACE_DIR=trace_dir))):
+        forest, out, launches, log = _planes_run(torch, hist, pkg, dtrain, dval, env, tmp,
+                                                 label)
+        rounds = _records(out, "training.round")
+        check(len(rounds) == PLANES_ROUNDS, "{}: {} training.round records".format(
+            label, len(rounds)))
+        check(launches == {"hist_kernel": 8 * PLANES_ROUNDS, "totals_kernel": PLANES_ROUNDS},
+              "{} run launches {}".format(label, launches))
+        steady_ms = sum(r["round_ms"] for r in rounds[2:PLANES_ROUNDS])
+        runs[label] = (forest, out, log, steady_ms)
+        print("{} | planes 16a {}: launches {}; rounds/s over rounds 2-9 {:.3f} (RoundTimer's "
+              "round_ms); validation logloss {:.6f}".format(
+                  tag, label, json.dumps(launches), (PLANES_ROUNDS - 2) / (steady_ms / 1e3),
+                  log["validation"]["logloss"][-1]), flush=True)
+    _, out, log, _ = runs["armed"]
+    learning = _records(out, "training.learning")
+    check(len(learning) == PLANES_ROUNDS, "{} training.learning records".format(len(learning)))
+    check(all(r["grad_nonfinite"] == 0 and r["margin_nonfinite"] == 0 for r in learning),
+          "the armed run saw non-finite gradients")
+    counts = {m: len(_records(out, m)) for m in ("training.summary", "training.attribution",
+                                                 "training.roofline", "training.compiled",
+                                                 "training.trace")}
+    check(all(v == 1 for v in counts.values()), "armed run records: {}".format(counts))
+    (attribution,) = _records(out, "training.attribution")
+    (roofline,) = _records(out, "training.roofline")
+    (compiled,) = _records(out, "training.compiled")
+    (trace,) = _records(out, "training.trace")
+    check(roofline["device_time_source"] == "device_sync" and attribution["device_ms"] > 0,
+          "attribution did not read device_sync: {} {}".format(attribution, roofline))
+    rounds = _records(out, "training.round")
+    check(all({"host_dispatch", "device_sync"} <= set(r["phases_ms"]) for r in rounds),
+          "a round without its host_dispatch / device_sync phases")
+    print("{} | planes 16a armed: attribution total {:.3f} ms, host {:.3f} ms ({} %), device "
+          "{:.3f} ms ({} %), compile {:.3f} ms; roofline {} (source {}), {:.4e} bytes/s and "
+          "{:.4e} adds/s achieved against the counted {:.4e} bytes and {:.4e} adds a round, "
+          "device {:.3f} ms a round; round peak {} bytes".format(
+              tag, attribution["total_ms"], attribution["host_ms"], attribution["host_pct"],
+              attribution["device_ms"], attribution["device_pct"], attribution["compile_ms"],
+              roofline["binding"], roofline["device_time_source"],
+              roofline["achieved_bytes_per_sec"], roofline["achieved_flops_per_sec"],
+              compiled["bytes_per_round"], compiled["flops_per_round"],
+              roofline["device_ms_per_round"], compiled["hbm_peak_bytes"]), flush=True)
+    trace_files = os.listdir(trace_dir)
+    check(trace_files and os.path.basename(trace["path"]) in trace_files,
+          "no profiler trace in {}".format(trace_dir))
+    print("{} | planes 16a armed: torch.profiler trace {} of {} bytes".format(
+        tag, os.path.basename(trace["path"]), os.path.getsize(trace["path"])), flush=True)
+    ll = {k: runs[k][2]["validation"]["logloss"][-1] for k in runs}
+    same = sum(np.array_equal(a.feature, b.feature) and np.array_equal(a.threshold, b.threshold)
+               for a, b in zip(runs["armed"][0].trees, runs["unarmed"][0].trees))
+    tol = SWEEP_METRIC_TOL if same == PLANES_ROUNDS else SWEEP_SPLIT_TOL
+    gap = abs(ll["armed"] - ll["unarmed"]) / max(1.0, abs(ll["unarmed"]))
+    print("{} | planes 16a: armed vs unarmed validation logloss {:.6f} vs {:.6f} (gap {:.3e}, "
+          "tolerance {:.0e}; {} of {} trees alike)".format(
+              tag, ll["armed"], ll["unarmed"], gap, tol, same, PLANES_ROUNDS), flush=True)
+    check(gap <= tol, "the armed run's logloss moved by {:.3e}".format(gap))
+    _planes_memory_and_stats(torch, pkg, dtrain, tag, runs)
+
+
+def _planes_memory_and_stats(torch, pkg, dtrain, tag, runs):
+    """16a: the watermark against the allocator, the learning stats' extra
+    launches and host syncs a round, and the card's latency floor."""
+    from sagemaker_xgboost_container_tpu_torch.models import booster
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+    from sagemaker_xgboost_container_tpu_torch.telemetry import device as device_telemetry
+
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    torch.cuda.synchronize()
+    snap = device_telemetry.sample_device_memory(max_age_s=0.0)
+    allocated = torch.cuda.memory_allocated()
+    print("{} | planes 16a: memory sample {} bytes in use (source {}) against "
+          "memory_allocated {} bytes; peak {}, limit {}".format(
+              tag, snap["total_bytes_in_use"], snap["source"], allocated,
+              snap["peak_bytes_in_use"], snap["bytes_limit"]), flush=True)
+    check(snap["source"] == "memory_stats" and keep.numel() <= snap["total_bytes_in_use"]
+          <= allocated, "the memory sample disagrees with the allocator")
+    del keep
+
+    def session(dm):
+        forest = Forest(objective_name="binary:logistic", base_score=0.5,
+                        num_feature=dm.num_col, device=DEVICE)
+        return booster._TrainingSession(booster.TrainConfig(MAIN_PARAMS), dm, [], forest,
+                                        ["logloss"], torch.device(DEVICE))
+
+    s = session(dtrain.slice(np.arange(STATS_ROWS)))
+    per = {}
+    for flag in (False, True):
+        s.learning_stats = flag
+        _, launches = device_total(torch, lambda: s.run_round(0), iters=3)
+        syncs = host_syncs(torch, lambda: s.run_round(0))
+        per[flag] = (launches, syncs)
+    extra_launches = per[True][0] - per[False][0]
+    extra_syncs = per[True][1] - per[False][1]
+    print("{} | planes 16a: a main-path round ({:,} rows) {:.0f} launches and {} host syncs "
+          "without the learning stats, {:.0f} and {} with them: {:+.0f} launches, {:+d} host "
+          "syncs (torch.profiler; torch's sync debug mode)".format(
+              tag, STATS_ROWS, per[False][0], per[False][1], per[True][0], per[True][1],
+              extra_launches, extra_syncs), flush=True)
+    check(extra_syncs == 0, "the learning stats add {} host syncs a round".format(extra_syncs))
+    small = session(dtrain.slice(np.arange(FLOOR_ROWS)))
+    floor_ms, floor_launches = device_total(torch, lambda: small.run_round(0), iters=5)
+    print("{} | planes 16a: latency floor: a main-path round at {:,} rows takes {:.4f} ms of "
+          "device time ({:.0f} launches, torch.profiler); LATENCY_FLOOR_MS = {}".format(
+              tag, FLOOR_ROWS, floor_ms, floor_launches, device_telemetry.LATENCY_FLOOR_MS),
+          flush=True)
+
+
+def _planes_entry(tag, tmp):
+    """16b: the entry point in child processes: the stalled round (exit 79),
+    the resume with one transient read, the strict resume under another
+    max_depth. -> (the SageMaker tree's env maker, the resumed model's dir)."""
+    from sagemaker_xgboost_container_tpu_torch.data import readers
+    from sagemaker_xgboost_container_tpu_torch.telemetry import REGISTRY
+    from sagemaker_xgboost_container_tpu_torch.utils import faults, integrity
+
+    root = os.path.join(tmp, "entry")
+    _, _, _, train_dir, _, sm_env = _entry_tree(root, {
+        "hyperparameters.json": DRILL_HP,
+        "hyperparameters-depth.json": dict(DRILL_HP, max_depth="6")})
+    ckpt = os.path.join(root, "ckpt-drill")
+
+    def child(env, what):
+        rc, out, err, secs = _run_entry_child(env, timeout=300, command=ENTRY_CHILD_COMMAND)
+        launches = _child_launches(out)
+        print("{} | planes 16b {}: exit {} in {:.3f} s; launches {}".format(
+            tag, what, rc, secs, json.dumps(launches)), flush=True)
+        return rc, out, err, launches
+
+    # the stall: round 3 sleeps 60 s, the 5 s deadline aborts
+    env = sm_env("drill")
+    env.update(SM_ROUND_DEADLINE_S=DRILL_DEADLINE_S, SM_FAULT_SPEC=DRILL_STALL, SM_TRACE="true")
+    rc, out, err, launches = child(env, "stalled round")
+    check(rc == 79, "the stalled job exited {}: {}".format(rc, err[-2000:]))
+    (abort,) = _records(out, "training.abort")
+    check(abort["reason"] == "round_deadline" and abort["stalled_s"] <= 10.0,
+          "abort record {}".format(abort))
+    check(launches == {"hist_kernel": 32, "totals_kernel": 4},
+          "the stalled job's launches {}".format(launches))
+    path2 = os.path.join(ckpt, "xgboost-checkpoint.2")
+    manifest = integrity.read_manifest(path2)
+    check(manifest is not None and integrity.check_model_file(path2) == "verified"
+          and manifest["fingerprint"]["max_depth"] == "8", "checkpoint 2's manifest")
+    check(os.path.exists(os.path.join(ckpt, "flight-recorder-rank0.json")),
+          "no flight-recorder dump in the checkpoint dir")
+    print("{} | planes 16b: abort after {} s stalled (deadline {} s), last round {}; "
+          "checkpoints {}; flight recorder {}".format(
+              tag, abort["stalled_s"], abort["deadline_s"], abort["last_round"],
+              sorted(f for f in os.listdir(ckpt) if not f.endswith(".manifest")),
+              os.path.basename(abort.get("flight_recorder", ""))), flush=True)
+
+    # the restart: resumes after checkpoint 3, one transient read absorbed
+    env = sm_env("drill")
+    env.update(SM_MODEL_TELEMETRY="true", SM_FAULT_SPEC="data.read:error@1")
+    rc, out, err, launches = child(env, "resume with data.read:error@1")
+    check(rc == 0, "the resumed job exited {}: {}".format(rc, err[-2000:]))
+    lines = sorted(_metric_lines(out))
+    check(lines == list(range(4, 8)), "resumed rounds {}".format(lines))
+    check("transient failure at reader.csv" in out + err, "no retry logged by the resumed job")
+    check(launches == {"hist_kernel": 32, "totals_kernel": 4},
+          "the resumed job's launches {}".format(launches))
+    model_dir = os.path.join(root, "model-drill")
+    model = os.path.join(model_dir, "xgboost-model")
+    manifest = integrity.read_manifest(model)
+    check(manifest is not None and integrity.check_model_file(model) == "verified",
+          "the final model's manifest")
+    check(all(manifest.get(k) for k in ("fingerprint", "learning", "drift_baseline")),
+          "the final manifest lacks {}".format(
+              [k for k in ("fingerprint", "learning", "drift_baseline") if not manifest.get(k)]))
+    print("{} | planes 16b: final manifest: fingerprint {}, learning {}, drift baseline of {} "
+          "rows x {} features".format(tag, manifest["fingerprint"], manifest["learning"],
+                                      manifest["drift_baseline"]["rows"],
+                                      len(manifest["drift_baseline"]["features"])), flush=True)
+
+    # another max_depth under SM_RESUME_STRICT: refused, naming the key
+    env = sm_env("drill", "hyperparameters-depth.json")
+    env.update(SM_RESUME_STRICT="true", SM_MODEL_DIR=os.path.join(root, "model-strict"),
+               SM_OUTPUT_DIR=os.path.join(root, "output-strict"))
+    rc, out, err, _ = child(env, "strict resume, max_depth 6")
+    failure = os.path.join(root, "output-strict", "failure")
+    text = open(failure).read() if os.path.exists(failure) else ""
+    check(rc != 0 and "max_depth" in text and "Refusing to resume" in text,
+          "the strict resume exited {}: {}".format(rc, text[-1000:] or err[-1000:]))
+    print("{} | planes 16b: strict resume refused: {}".format(
+        tag, text.strip().splitlines()[0][:160]), flush=True)
+
+    # the retry counted, in this process
+    site = "io_retries_total{site=reader.csv}"
+    before = _registry_value(REGISTRY, site)
+    faults.configure("data.read:error@1")
+    try:
+        dm = readers.get_data_matrix(train_dir, "csv")
+    finally:
+        faults.reset()
+    after = _registry_value(REGISTRY, site)
+    check(after - before == 1 and dm.num_row == ENTRY_TRAIN_ROWS,
+          "io_retries_total moved by {}".format(after - before))
+    print("{} | planes 16b: in-process read with data.read:error@1: {} rows, "
+          "io_retries_total{{site=reader.csv}} +{:.0f}".format(tag, dm.num_row, after - before),
+          flush=True)
+    return sm_env, model_dir
+
+
+def _registry_value(registry, key):
+    from sagemaker_xgboost_container_tpu_torch.telemetry import snapshot_fields
+
+    return snapshot_fields(registry).get(key, 0.0)
+
+
+def _planes_drills(tag, tmp, sm_env):
+    """16c: the numeric-poison drill (exit 87) and the device-OOM drill
+    (exit 86)."""
+    env = sm_env("poison")
+    env.update(SM_MODEL_TELEMETRY="true", SM_FAULT_SPEC="train.gradient_poison:nan@3")
+    rc, out, err, secs = _run_entry_child(env, timeout=300, command=ENTRY_CHILD_COMMAND)
+    launches = _child_launches(out)
+    path = os.path.join(tmp, "entry", "ckpt-poison", "learning-forensics-rank0.json")
+    check(rc == 87 and os.path.exists(path), "the poison drill exited {}: {}".format(
+        rc, err[-2000:]))
+    doc = json.load(open(path))
+    (abort,) = _records(out, "training.abort")
+    check(doc["first_bad_round"] == 2 and abort["round"] == 2,
+          "the poison drill named round {}".format(doc.get("first_bad_round")))
+    print("{} | planes 16c poison: exit 87 in {:.3f} s, launches {}; forensics name round {} "
+          "({} rounds of stats)".format(tag, secs, json.dumps(launches), doc["first_bad_round"],
+                                        len(doc["stats_history"])), flush=True)
+
+    out_dir = os.path.join(tmp, "oom")
+    os.makedirs(out_dir)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--oom-child", out_dir],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t
+    path = os.path.join(out_dir, "hbm-forensics-rank0.json")
+    check(proc.returncode == 86 and os.path.exists(path), "the OOM drill exited {}: {}".format(
+        proc.returncode, proc.stderr[-2000:]))
+    cap = [json.loads(line) for line in proc.stdout.splitlines()
+           if line.startswith('{"fraction"')][0]
+    doc = json.load(open(path))
+    blocks = doc.get("top_live_buffers") or []
+    check(blocks and doc["memory"]["source"] == "memory_stats",
+          "the OOM forensics list no blocks: {}".format(str(doc)[:500]))
+    print("{} | planes 16c OOM: exit 86 in {:.3f} s, launches {}; memory fraction {:.3e} "
+          "allowed {} of {} bytes; forensics: {} blocks, largest {} bytes, {} in use; error "
+          "{}".format(tag, secs, json.dumps(_child_launches(proc.stdout)), cap["fraction"],
+                      cap["allowed_bytes"], cap["total_bytes"], len(blocks),
+                      blocks[0]["total_bytes"], doc["memory"]["total_bytes_in_use"],
+                      doc["error"][:120]), flush=True)
+
+
+def _drift_rows(seed, shift):
+    """DRIFT_ROWS rows drawn as phase 8's training rows were (ENTRY_MISSING
+    of the values missing), features 0-7 moved by `shift` sigma."""
+    X, _ = make_data(DRIFT_ROWS, N_FEATURES, seed=seed)
+    X[np.random.RandomState(seed + 1).rand(*X.shape) < ENTRY_MISSING] = np.nan
+    X[:, :DRIFT_FEATURES] += shift
+    return X
+
+
+def _planes_serve(tag, tmp, model_dir):
+    """16d: 16b's model behind the single-model endpoint with the drift
+    monitor armed: calm traffic, then shifted; the runtime gauges; the
+    1-row p50 armed and unarmed."""
+    import shutil
+
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    serve_dir = os.path.join(tmp, "serve")
+    os.makedirs(serve_dir)
+    for name in ("xgboost-model", "xgboost-model.manifest"):
+        shutil.copy(os.path.join(model_dir, name), serve_dir)
+    on_cpu = Forest.load_model(os.path.join(serve_dir, "xgboost-model"), device="cpu")
+    calm, shifted = _drift_rows(ENTRY_SEED + 7, 0.0), _drift_rows(ENTRY_SEED + 7, DRIFT_SHIFT)
+    one_rows = calm[:50]
+    targets = [("/invocations", one_rows[i:i + 1], on_cpu.predict(one_rows[i:i + 1]))
+               for i in range(len(one_rows))]
+    p50 = {}
+    for label, env in (("armed", {"SM_MODEL_TELEMETRY": "true"}), ("unarmed", {})):
+        server = _ServerChild(tmp, "planes-" + label, dict(
+            env, SM_MODEL_DIR=serve_dir, SM_SERVING_METRICS="true"), multi_model=False)
+        try:
+            server.wait_ready()
+            _poll(lambda: _http(server.base, "/ping")[0], lambda s: s == 200, 120, "/ping")
+            if label == "armed":
+                _drift_traffic(tag, server.base, calm, shifted, on_cpu)
+            lat, wall, failed, statuses = _child_load(server.base, tmp, targets, *DRIFT_LOAD)
+            check(not failed, "{} 1-row load failed: {}".format(label, failed[:5]))
+            p50[label] = float(np.percentile(lat, 50))
+            print("{} | planes 16d {}: 1-row csv load, {} requests from {} client threads: "
+                  "{}, {:.1f} requests/s".format(tag, label, len(lat), DRIFT_LOAD[0],
+                                                 _percentiles(lat), len(lat) / wall), flush=True)
+        finally:
+            server.close()
+    print("{} | planes 16d: 1-row p50 {:.3f} ms with the drift monitor armed, {:.3f} ms "
+          "unarmed".format(tag, p50["armed"], p50["unarmed"]), flush=True)
+
+
+def _drift_traffic(tag, base, calm, shifted, on_cpu):
+    per = DRIFT_ROWS // DRIFT_REQUESTS
+    for what, X in (("calm", calm), ("shifted", shifted)):
+        for k in range(DRIFT_REQUESTS):
+            rows = X[k * per:(k + 1) * per]
+            status, _, body = _http(base, "/invocations", _csv_body(rows), accept="text/csv")
+            check(status == 200, "{} request answered {}".format(what, status))
+            err = np.abs(_decode_scores(body, "text/csv") - on_cpu.predict(rows)).max()
+            check(err <= 1e-5, "{} request off the CPU predict by {}".format(what, err))
+        check(_http(base, "/ping")[0] == 200, "/ping after the {} rows".format(what))
+        scraped = _metrics(base)
+        psi, state = scraped.get("model_drift_psi"), scraped.get("serving_state")
+        print("{} | planes 16d: after {:,} {} rows: model_drift_psi {}, serving_state {} "
+              "(2 = degraded)".format(tag, DRIFT_ROWS, what, psi, state), flush=True)
+        check(psi is not None, "no model_drift_psi on /metrics: the monitor is not armed")
+        if what == "calm":
+            check(psi < 0.2 and state != 2.0, "calm traffic read as drift")
+        else:
+            check(psi > 0.2 and state == 2.0, "shifted traffic not degraded")
+    gauges = {k: scraped.get(k) for k in ("process_rss_bytes", "process_open_fds",
+                                          "process_threads", "device_live_bytes")}
+    print("{} | planes 16d: runtime gauges {}".format(tag, json.dumps(gauges)), flush=True)
+    check(all(v is not None for v in gauges.values()) and gauges["device_live_bytes"] > 0,
+          "runtime gauges missing from /metrics: {}".format(gauges))
+
+
 def main():
     try:
         import torch
@@ -4207,8 +4738,14 @@ def main():
     print("python {} torch {} cuda {}".format(
         sys.version.split()[0], torch.__version__, torch.version.cuda), flush=True)
     try:
+        # the kernels' library is cached by a digest of its sources: remove
+        # it, so that this run builds from the checkout and reports the build
+        import shutil
+
+        shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
         t = time.perf_counter()
         k = _build.kernels()
+        check(k.build_log, "the kernels were loaded, not built")
         print("{} | build: {:.1f} s ({}, nvcc {:.1f} s)".format(
             tag, time.perf_counter() - t, k.route, k.build_s), flush=True)
         report_kernels(k, "hist_", atomic_free=False)
@@ -4244,6 +4781,7 @@ def main():
         run_boosters(torch, hist, pkg, dtrain, dval, tag)
         run_methods(torch, hist, pkg, dtrain, dval, tag)
         run_formats(torch, hist, dval, tag)
+        run_planes(torch, hist, pkg, dtrain, dval, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise
@@ -4276,4 +4814,8 @@ if __name__ == "__main__":
         sys.exit(host_probe(sys.argv[2]))
     if sys.argv[1:2] == ["--load"]:
         sys.exit(load_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--entry-child"]:
+        entry_child()
+    if sys.argv[1:2] == ["--oom-child"]:
+        sys.exit(oom_child(sys.argv[2]))
     sys.exit(main())

@@ -10,5 +10,9 @@ The two histogram kernels of the tree builder are hand-written CUDA
 (``csrc/``), built at first use by ``_build.py``.
 """
 
-from .models.booster import train  # noqa: F401
-from .models.forest import Forest  # noqa: F401
+# the JAX package's version: a manifest's config fingerprint carries it, and
+# one release of the container is one version in both packages
+__version__ = "0.1.0"
+
+from .models.booster import train  # noqa: F401,E402
+from .models.forest import Forest  # noqa: F401,E402

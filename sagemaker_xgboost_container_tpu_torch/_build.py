@@ -3,15 +3,20 @@
 Sources live in ``csrc/``. ``nvcc`` compiles each ``.cu`` file for
 ``sm_90a`` (all at once, one process per file) and links them into a shared
 library with the plain C interface of ``csrc/kernels.h`` under
-``build/torch_kernels/`` beside the package (``build/`` is git-ignored);
-ctypes loads it. No source includes PyTorch's headers, so the build takes
-seconds. Every process builds once, at its first kernel launch.
+``build/torch_kernels/<key>/`` beside the package (``build/`` is
+git-ignored); ctypes loads it. The key is a digest of the sources, the
+headers, the compiler's path and the flags, so a process whose library is
+already built for the same sources loads it (a train job's child process,
+a restarted job); otherwise it builds once, at its first kernel launch,
+and counts the build in ``telemetry/cluster.compile_stats``. No source
+includes PyTorch's headers, so a build takes seconds.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no nvcc.
 """
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -34,25 +39,43 @@ def kernels():
     with _lock:
         if _kernels is None:
             t0 = time.perf_counter()
-            path, log = _nvcc_shared_library()
-            _kernels = _CtypesKernels(path, log, time.perf_counter() - t0)
+            path, log, built = _nvcc_shared_library()
+            _kernels = _CtypesKernels(path, log, time.perf_counter() - t0 if built else 0.0)
+            if built:
+                from .telemetry.cluster import note_build
+
+                note_build(_kernels.build_s)
         return _kernels
 
 
+def _build_key(nvcc, flags):
+    """Digest of everything the library is built from."""
+    h = hashlib.sha256(" ".join([nvcc] + flags).encode())
+    for name in sorted(os.listdir(CSRC_DIR)):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    return h.hexdigest()[:16]
+
+
 def _nvcc_shared_library():
-    """Compile every source in parallel, link, and return the library's path
-    with the compiler's ``-Xptxas -v`` report (registers, shared memory and
-    spills of each kernel)."""
+    """-> (library path, the compiler's ``-Xptxas -v`` report (registers,
+    shared memory and spills of each kernel), True when built here): the
+    library already built from these sources, else every source compiled
+    in parallel and linked."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    flags = [ARCH_FLAG, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-I", CSRC_DIR]
+    out_dir = os.path.join(BUILD_DIR, _build_key(nvcc, flags))
+    path = os.path.join(out_dir, _LIB_NAME)
+    if os.path.exists(path):
+        return path, "", False
+    os.makedirs(out_dir, exist_ok=True)
     # per-process names: processes that build at once do not share files
     tag = str(os.getpid())
-    flags = [ARCH_FLAG, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-I", CSRC_DIR]
     objs, procs = [], []
     for src in CUDA_SOURCES:
-        obj = os.path.join(BUILD_DIR, "{}.{}.o".format(src, tag))
+        obj = os.path.join(out_dir, "{}.{}.o".format(src, tag))
         objs.append(obj)
         procs.append(subprocess.Popen(
             [nvcc] + flags + ["-Xptxas", "-v", "-c", os.path.join(CSRC_DIR, src), "-o", obj],
@@ -64,13 +87,12 @@ def _nvcc_shared_library():
         logs.append(out)
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed on {}:\n{}".format(src, out))
-    tmp = os.path.join(BUILD_DIR, "{}.{}".format(_LIB_NAME, tag))
+    tmp = os.path.join(out_dir, "{}.{}".format(_LIB_NAME, tag))
     subprocess.run([nvcc, ARCH_FLAG, "-shared", "-o", tmp] + objs, check=True)
     for obj in objs:
         os.remove(obj)
-    path = os.path.join(BUILD_DIR, _LIB_NAME)
     os.replace(tmp, path)
-    return path, "".join(logs)
+    return path, "".join(logs), True
 
 
 class _CtypesKernels:

@@ -118,8 +118,11 @@ SAGEMAKER_BATCH = "SAGEMAKER_BATCH"
 
 ONE_THREAD_PER_PROCESS = "1"
 
-# serving supervision exit codes, the JAX package's: distinct non-zero codes
-# above the shell and signal ranges, so the platform restarts the server and
+# supervision exit codes, the JAX package's: distinct non-zero codes above
+# the shell and signal ranges, so the platform restarts the job or server and
 # its log names which supervisor pulled the trigger
+EXIT_ROUND_DEADLINE = 79  # round watchdog: a boosting round exceeded SM_ROUND_DEADLINE_S
 EXIT_DRAIN_TIMEOUT = 83  # SIGTERM drain: requests still in flight past SM_DRAIN_TIMEOUT_S
 EXIT_PREDICT_STUCK = 84  # predict watchdog: a dispatch wedged past SM_PREDICT_STUCK_S (abort)
+EXIT_DEVICE_OOM = 86  # the device allocator ran out inside a round; forensics dumped
+EXIT_NUMERIC_POISON = 87  # learning telemetry: NaN/Inf in gradients or margins; forensics dumped

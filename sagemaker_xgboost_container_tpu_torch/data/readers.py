@@ -16,7 +16,10 @@ with a DataMatrix as destination:
   files (a pure-Python tokenizer); parquet through pyarrow, column by
   column (column 0 the label); recordio-protobuf through the port's own
   wire codec (``data/recordio.py``),
-* the "no labels" UserError and the size and redundancy helpers.
+* the "no labels" UserError and the size and redundancy helpers,
+* every file read under ``utils/retry.retry_transient`` (an ``OSError``
+  retries with jittered backoff, counted in ``io_retries_total{site}``),
+  with the ``data.read`` fault point inside the attempt.
 
 The port depends on neither pandas nor pyarrow: pyarrow is imported only
 when a parquet channel is read, and its absence is a ``UserError`` naming
@@ -38,11 +41,28 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..toolkit import exceptions as exc
+from ..utils.faults import fault_point
+from ..utils.retry import retry_transient
+from ..utils.warn_once import warn_once
 from . import content_types as ct
 from .matrix import DataMatrix
 from .recordio import read_recordio_protobuf
 
 logger = logging.getLogger(__name__)
+
+
+def _read_with_retries(fn, path, site):
+    """One file's read under the transient-retry policy (``utils/retry.py``):
+    an ``OSError`` retries with jittered backoff, a parse or semantic error
+    propagates at once. ``data.read`` is the ingest fault point, inside
+    the attempt."""
+
+    def _attempt():
+        fault_point("data.read", path=path)
+        return fn()
+
+    return retry_transient(_attempt, site=site)
+
 
 MAX_FOLDER_DEPTH = 3
 
@@ -133,18 +153,31 @@ def stage_input_files(data_path):
 _SIDECAR_SUFFIXES = (".group", ".weight")
 
 
-def _skip_empty_files(files):
-    """Drop zero-byte files from a channel listing, with one warning."""
+def _skip_empty_files(files, count=True):
+    """Drop zero-byte files from a channel listing. The first skip in the
+    process warns; with ``count`` every skipped file counts in
+    ``ingest_files_empty_total`` (the validation pass does not count, so a
+    file it skips and the reader's own listing skips again counts once)."""
     kept, empty = [], []
     for f in files:
         try:
             size = os.path.getsize(os.path.realpath(f))
         except OSError:
-            size = -1  # unreadable: the reader reports it
+            size = -1  # unreadable: left to the reader's retry policy
         (empty if size == 0 else kept).append(f)
     if empty:
-        logger.warning(
-            "skipping %d zero-byte file(s) in the channel (first: %s)",
+        if count:
+            from ..telemetry.registry import REGISTRY
+
+            REGISTRY.counter(
+                "ingest_files_empty_total",
+                "Zero-byte channel files skipped during ingest",
+            ).inc(len(empty))
+        warn_once(
+            logger, "ingest.empty_files",
+            "skipping %d zero-byte file(s) in the channel (first: %s); "
+            "further empty files are counted in ingest_files_empty_total "
+            "without logging",
             len(empty),
             os.path.basename(os.path.realpath(empty[0])),
         )
@@ -227,6 +260,16 @@ def _first_line(p):
         return f.readline()
 
 
+def _read_text(p):
+    with open(p, "r", errors="ignore") as f:
+        return f.read()
+
+
+def _read_bytes(p):
+    with open(p, "rb") as f:
+        return f.read()
+
+
 def _validate_libsvm_file(path):
     with open(path, "r", errors="ignore") as f:
         for line in f:
@@ -267,7 +310,7 @@ def validate_data_file_path(data_path, content_type):
             for f in os.listdir(leaf_dir)
             if _is_data_file(leaf_dir, f)
         )
-    files = _skip_empty_files(files)
+    files = _skip_empty_files(files, count=False)  # the reader's own listing counts them
     if parsed == ct.CSV:
         for f in files:
             _sniff_csv_delimiter(_first_line(f))
@@ -282,13 +325,15 @@ def validate_data_file_path(data_path, content_type):
 # ---------------------------------------------------------------------------
 
 
-def _channel_delimiter(files):
+def _channel_delimiter(files, site="reader.csv"):
     """The csv delimiter of the first file, checked against the first line
     of every other file (an un-sniffable line is left to the parser)."""
-    delimiter = _sniff_csv_delimiter(_first_line(files[0]))
+    delimiter = _sniff_csv_delimiter(
+        _read_with_retries(lambda: _first_line(files[0]), files[0], site))
     for f in files[1:]:
+        line = _read_with_retries(lambda f=f: _first_line(f), f, site)
         try:
-            found = _sniff_csv_delimiter(_first_line(f))
+            found = _sniff_csv_delimiter(line)
         except exc.UserError:
             continue
         if found != delimiter:
@@ -363,7 +408,8 @@ def _read_csv_files(path, csv_weights=0):
     if not files:
         return None
     delimiter = _channel_delimiter(files)
-    frames = [_parse_csv_file(f, delimiter) for f in files]
+    frames = [_read_with_retries(lambda f=f: _parse_csv_file(f, delimiter), f, "reader.csv")
+              for f in files]
     width = max(frame.shape[1] for frame in frames)
     data = np.concatenate(
         [
@@ -464,8 +510,7 @@ def _read_libsvm_files(path):
         return None
     parts, sidecar_groups, sidecar_weights = [], [], []
     for f in files:
-        with open(f, "r", errors="ignore") as fh:
-            parsed = parse_libsvm_text(fh.read())
+        parsed = parse_libsvm_text(_read_with_retries(lambda f=f: _read_text(f), f, "reader.libsvm"))
         if parsed is not None:
             parts.append(parsed)
             gf = _companion_file(f, ".group")
@@ -518,7 +563,8 @@ def _read_parquet_files(path):
     files = _list_data_files(path)
     if not files:
         return None
-    tables = [pq.read_table(f) for f in files]
+    tables = [_read_with_retries(lambda f=f: pq.read_table(f), f, "reader.parquet")
+              for f in files]
     data = np.concatenate(
         [np.stack([_parquet_column(c) for c in t.columns], axis=1) if t.num_columns
          else np.zeros((t.num_rows, 0), np.float32) for t in tables], axis=0)
@@ -529,10 +575,8 @@ def _read_recordio_files(path):
     files = _list_data_files(path)
     if not files:
         return None
-    bufs = []
-    for f in files:
-        with open(f, "rb") as fh:
-            bufs.append(fh.read())
+    bufs = [_read_with_retries(lambda f=f: _read_bytes(f), f, "reader.recordio")
+            for f in files]
     features, labels = read_recordio_protobuf(b"".join(bufs))
     return DataMatrix(features, labels=labels)
 

@@ -18,8 +18,22 @@ small node arrays and the metric scalars.
 
 Callback protocol mirrors xgboost's (before_training / after_iteration ->
 bool stop / after_training), which is how early stopping hooks in.
+
+The training planes of the JAX package's gbtree round, env-gated and inert
+by default: with ``SM_MODEL_TELEMETRY`` the round computes the learning
+stats (``learning_stats``, torch reductions) and brings them to the host in
+the round's one copy, the loop emits ``training.learning`` and aborts with
+exit 87 on a poisoned round, and the session captures the drift baseline;
+with ``SM_DEVICE_TELEMETRY`` the first round's counted kernel work becomes
+the ``training.compiled`` record; ``SM_TRACE_DEVICE_SYNC=N`` fences every
+N-th round into ``host_dispatch`` / ``device_sync`` phases. A CUDA
+out-of-memory error inside a round dumps forensics and exits 86. The dart
+loop builds the same session (so it captures the baseline) but, as in the
+JAX package, emits no learning records; gblinear, update and fold-parallel
+CV emit none.
 """
 
+import logging
 import os
 
 import numpy as np
@@ -39,7 +53,11 @@ from ..ops.lossguide import build_tree_lossguide
 from ..ops.predict import forest_leaf_values
 from ..ops.ranking import bucket_group_layout, lambdarank_grad_hess
 from ..ops.tree_build import build_tree, pack_tree, predict_binned, unpack_tree
+from ..telemetry import model as model_telemetry
+from ..telemetry.tracing import DEVICE_SYNC_ENV
 from ..toolkit import exceptions as exc
+from ..utils.envconfig import env_int
+from ..utils.faults import fault_point
 from . import eval_metrics
 from .device_metrics import make_device_metric
 from .forest import Forest, compact_padded_tree
@@ -58,6 +76,31 @@ OBJECTIVE_PARAM_KEYS = (
 )
 # trees traversed together when a resumed run rebuilds its margins
 _RESUME_TREES_PER_PASS = 64
+
+logger = logging.getLogger(__name__)
+
+
+def learning_stats(g, h, margins):
+    """The round's learning stats, f32 [8] in ``DEVICE_STAT_FIELDS`` order
+    (telemetry/model.py), as the JAX package's ``_learning_stats``
+    reduces them: sums and extrema of the finite gradients and hessians,
+    and the NaN/Inf counts of the gradients and of the updated margins.
+    Read-only reductions: nothing here feeds the tree build."""
+    gv, hv, mv = g.reshape(-1), h.reshape(-1), margins.reshape(-1)
+    g_fin, h_fin = torch.isfinite(gv), torch.isfinite(hv)
+    # a Python scalar, not a tensor: a CUDA tensor made from a host value is
+    # a host-to-device copy, a sync on the round path
+    inf = float("inf")
+    return torch.stack([
+        torch.where(g_fin, gv, 0.0).sum(),
+        torch.where(g_fin, gv, inf).min(),
+        torch.where(g_fin, gv, -inf).max(),
+        torch.where(h_fin, hv, 0.0).sum(),
+        torch.where(h_fin, hv, inf).min(),
+        torch.where(h_fin, hv, -inf).max(),
+        (~g_fin).sum().float(),
+        (~torch.isfinite(mv)).sum().float(),
+    ]).float()
 
 
 class TrainConfig:
@@ -267,6 +310,23 @@ class _TrainingSession:
             sampler = Sampler(config, dtrain.num_row, self.bins.shape[1], device)
         self.sampler = sampler
 
+        # the planes, resolved once here on the host, never on the round
+        # path: SM_TRACE_DEVICE_SYNC's fence cadence, the learning stats
+        # (SM_MODEL_TELEMETRY, which also captures the drift baseline from
+        # the binned rows) and the device plane's round cost
+        from ..telemetry import device as device_telemetry
+
+        self._device_sync_every = env_int(DEVICE_SYNC_ENV, 0, minimum=0)
+        self._dispatch_index = 0
+        self.learning_stats = model_telemetry.enabled()
+        self.last_learning_stats = []
+        if self.learning_stats:
+            from ..data.binning import BinnedMatrix
+
+            model_telemetry.capture_drift_baseline(
+                BinnedMatrix(self.bins, self.cuts, self.train_binned.max_bin))
+        self._count_cost = device_telemetry.enabled()
+
         # each metric on the device where it has a device form, else on the
         # host (None), as the JAX package evaluates it
         self.metrics = []
@@ -388,11 +448,122 @@ class _TrainingSession:
     def run_round(self, rnd):
         """Grow round ``rnd``'s ``num_parallel_tree`` trees and update every
         margin -> list of host tree dicts (arrays [max_nodes], or [C,
-        max_nodes] for C classes), one per parallel tree."""
+        max_nodes] for C classes), one per parallel tree; with the learning
+        stats armed, ``last_learning_stats`` holds the round's decoded
+        vector.
+
+        A CUDA out-of-memory error anywhere in the round is terminal (no
+        retry fits a full card): it goes through the OOM forensics dump and
+        the watchdog's abort (exit 86). Every other exception propagates
+        unchanged."""
+        try:
+            return self._run_round(rnd)
+        except Exception as e:
+            from ..telemetry import device as device_telemetry
+
+            if device_telemetry.is_oom_error(e):
+                self._abort_device_oom(e)
+            raise
+
+    def _abort_device_oom(self, exc):
+        """Dump the OOM forensics (largest allocated blocks, allocator
+        stats, round cost, last watermark), then take the watchdog's abort
+        path (checkpoint flush, flight recorder, ``training.abort``) with
+        exit 86."""
+        from ..constants import EXIT_DEVICE_OOM
+        from ..telemetry import device as device_telemetry
+        from ..training import watchdog
+
+        path = device_telemetry.dump_oom_forensics(exc)
+        watchdog.request_abort("device_oom", EXIT_DEVICE_OOM, error=str(exc)[:400],
+                               forensics=path or "")
+
+    def _run_round(self, rnd):
+        """The round, fenced on every N-th call (``SM_TRACE_DEVICE_SYNC``):
+        the host's enqueue timed as the ``host_dispatch`` phase and the wait
+        for the card as ``device_sync``, both into the active
+        ``PhaseRecorder``; then the one device-to-host copy of the packed
+        trees (and the learning stats, in the same copy)."""
+        sampled = (self._device_sync_every > 0
+                   and self._dispatch_index % self._device_sync_every == 0)
+        self._dispatch_index += 1
+        probe = self._cost_probe() if self._count_cost else None
+        if not sampled:
+            stacked, vec = self._dispatch_round(rnd)
+        else:
+            from ..telemetry import active_recorder, compile_stats, span
+
+            pre_build = compile_stats()["seconds"]
+            with span("host_dispatch"):
+                stacked, vec = self._dispatch_round(rnd)
+            # a kernel build inside this round is RoundTimer's `compile`
+            # key: take exactly that overlap out of host_dispatch
+            overlap = compile_stats()["seconds"] - pre_build
+            recorder = active_recorder()
+            if overlap > 0 and recorder is not None:
+                recorder.add("host_dispatch", -overlap)
+            with span("device_sync"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        # the round's one device-to-host copy: the packed trees, and the
+        # learning stats riding on them
+        if vec is None:
+            host = stacked.cpu().numpy()
+            self.last_learning_stats = []
+        else:
+            flat = torch.cat([stacked.reshape(-1), vec]).cpu().numpy()
+            host = flat[:stacked.numel()].reshape(tuple(stacked.shape))
+            self.last_learning_stats = [
+                model_telemetry.decode_device_stats(flat[stacked.numel():])]
+        if probe is not None:
+            self._note_cost(probe)
+        return [unpack_tree(p) for p in host]
+
+    def _cost_probe(self):
+        """Before the session's first round: the kernel-work tally and the
+        device memory, for the device plane's round cost."""
+        from ..ops import histogram
+
+        resident = 0
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+            resident = torch.cuda.memory_allocated(self.device)
+        return dict(histogram.WORK), resident
+
+    def _note_cost(self, probe):
+        """After the first round (its copy to the host has synchronized):
+        one ``training.compiled`` record of the round's counted cost. Runs
+        once a session; best-effort."""
+        from ..ops import histogram
+        from ..telemetry import device as device_telemetry
+
+        self._count_cost = False
+        try:
+            work, resident = probe
+            peak = (torch.cuda.max_memory_allocated(self.device)
+                    if self.device.type == "cuda" else 0)
+            device_telemetry.note_compiled(
+                device_telemetry.cost_from_launches(
+                    histogram.WORK["bytes"] - work["bytes"],
+                    histogram.WORK["adds"] - work["adds"], resident, peak),
+                backend=self.device.type)
+        except Exception as e:
+            logger.warning("round cost count failed (%s); training continues without the "
+                           "training.compiled record", e)
+
+    def _dispatch_round(self, rnd):
+        """Enqueue round ``rnd``: -> (packed trees [P, 10, ...] on the
+        device, learning stats [8] or None)."""
         cfg = self.config
         if self.approx_resketch:
             self._resketch_bins()
+        if fault_point("train.gradient_poison", dispatch=self._dispatch_index - 1):
+            # numeric-poison drill: NaN margins, so that the round's
+            # gradients go NaN through the real pipeline and the guard must
+            # catch them there
+            self.margins = self.margins * float("nan")
         g, h = self.grad_hess(self.margins)
+        g_stat, h_stat = g, h
         if self.num_group > 1:
             # [n, C] -> the builder's contiguous [C, n]
             g, h = g.T.contiguous(), h.T.contiguous()
@@ -431,10 +602,11 @@ class _TrainingSession:
                     o = predict_binned(tree, bins, cfg.predict_depth, self.num_bins)
                     out = o if out is None else out + o
                 margins += out if self.num_group == 1 else out.T
-        # one device-to-host copy for the round's trees
         packed = [pack_tree(tree) for tree in trees]
-        host = (packed[0][None] if len(packed) == 1 else torch.stack(packed)).cpu().numpy()
-        return [unpack_tree(p) for p in host]
+        stacked = packed[0][None] if len(packed) == 1 else torch.stack(packed)
+        if not self.learning_stats:
+            return stacked, None
+        return stacked, learning_stats(g_stat, h_stat, self.margins)
 
     def evaluate(self, feval=None):
         """-> list of (data_name, metric_name, value) per eval set: the eval
@@ -468,6 +640,20 @@ class _TrainingSession:
         if self.num_group > 1:
             prob_matrix = SoftprobMulti.margin_to_prediction(self.objective, margin)
         return self.objective.margin_to_prediction(margin), prob_matrix
+
+
+def _abort_numeric_poison(round_index):
+    """The numeric-health guard tripped (a NaN/Inf count of the round's
+    learning stats went nonzero): dump the learning forensics, naming the
+    first poisoned round, then take the watchdog's abort path with exit
+    87."""
+    from ..constants import EXIT_NUMERIC_POISON
+    from ..training import watchdog
+
+    path = model_telemetry.dump_learning_forensics("numeric_poison",
+                                                   first_bad_round=round_index)
+    watchdog.request_abort("numeric_poison", EXIT_NUMERIC_POISON, round=int(round_index),
+                           forensics=path or "")
 
 
 def train(
@@ -571,6 +757,15 @@ def train(
             trees = [compact_padded_tree({k: v[c] for k, v in t.items()}, session.cuts)
                      for c in range(C) for t in trees_np]
         forest.append_round(trees, [c for c in range(C) for _ in range(P)])
+        if session.last_learning_stats:
+            # the model-quality plane: the round's reductions and the
+            # committed trees' stats -> one training.learning record, then
+            # the numeric-health guard (NaN/Inf -> forensics + exit 87)
+            stats = dict(session.last_learning_stats[0])
+            stats.update(model_telemetry.tree_stats(trees))
+            model_telemetry.note_learning(rnd, stats)
+            if model_telemetry.first_poisoned_round([stats], rnd) is not None:
+                _abort_numeric_poison(rnd)
         results = session.evaluate(feval)
         for data_name, metric_name, value in results:
             evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(value)

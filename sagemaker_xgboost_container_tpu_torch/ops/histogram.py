@@ -22,6 +22,10 @@ import torch
 
 # kernel launch counts, one per wrapper; chip_smoke.py resets and reads them
 LAUNCHES = {"hist_kernel": 0, "totals_kernel": 0}
+# the work of every call of the two wrappers, either route: bytes moved and
+# f32 adds (``hist_work`` / ``totals_work``); the device plane's per-round
+# cost is a difference of two readings (telemetry/device.py)
+WORK = {"bytes": 0, "adds": 0}
 
 # histogram cache a sibling-subtraction build may keep alive (both levels'
 # G and H, f32): the same cap as the JAX package's default
@@ -73,6 +77,28 @@ TotalsPlan = collections.namedtuple(
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def hist_work(n, d, W, B, C=1, bin_bytes=2):
+    """(bytes, adds) of one ``level_histogram`` call, counted as
+    ``chip_smoke.py``'s bound counts them: node ids read for every entry,
+    (g, h) and the bins of the active rows, G and H written; two adds a
+    feature an active entry. Every row counts as active: the node ids live
+    on the card, and counting the active ones would cost a sync."""
+    return (C * n * 4 + C * n * 8 + n * d * bin_bytes + 2 * C * W * d * B * 4,
+            2 * C * n * d)
+
+
+def totals_work(n, W, C=1):
+    """(bytes, adds) of one ``node_totals`` call: (g, h, node) read for
+    every entry, the [2, C, W] totals written, two adds an entry; every row
+    counted active, as in ``hist_work``."""
+    return C * n * 12 + 2 * C * W * 4, 2 * C * n
+
+
+def _note_work(nbytes, adds):
+    WORK["bytes"] += nbytes
+    WORK["adds"] += adds
 
 
 def subtraction_enabled(cache_bytes):
@@ -183,6 +209,9 @@ def level_histogram(bins, grad, hess, node_local, num_nodes, num_bins):
     Returns:
       (G, H): f32 [num_nodes, d, num_bins], or [C, num_nodes, d, num_bins].
     """
+    n, d = bins.shape
+    _note_work(*hist_work(n, d, num_nodes, num_bins, grad.shape[0] if grad.dim() == 2 else 1,
+                          bins.element_size()))
     if bins.device.type == "cpu":
         return _hist_plain(bins, grad, hess, node_local, num_nodes, num_bins)
     return _hist_cuda(bins, grad, hess, node_local, num_nodes, num_bins)
@@ -195,6 +224,7 @@ def node_totals(grad, hess, node_local, num_nodes):
     The last tree level only needs leaf weights, so it skips the widest
     [W, d, B] histogram of the tree and takes these totals instead.
     """
+    _note_work(*totals_work(grad.shape[-1], num_nodes, grad.shape[0] if grad.dim() == 2 else 1))
     if grad.device.type == "cpu":
         return _totals_plain(grad, hess, node_local, num_nodes)
     return _totals_cuda(grad, hess, node_local, num_nodes)

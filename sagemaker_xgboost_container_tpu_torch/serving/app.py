@@ -108,8 +108,10 @@ class ScoringService:
     def predict(self, dtest, content_type, deadline=None):
         if self.batcher is not None:
             serve_utils._check_feature_count(self.model, dtest, get_content_type(content_type))
-            return self.batcher.predict(serve_utils.canonicalize_features(self.model, dtest),
-                                        deadline=deadline)
+            feats = serve_utils.canonicalize_features(self.model, dtest)
+            preds = self.batcher.predict(feats, deadline=deadline)
+            serve_utils.observe_drift(feats, preds)
+            return preds
         result = serve_utils.predict(
             self.model, self.model_format, dtest, content_type, objective=self.objective
         )

@@ -310,8 +310,9 @@ def _invoke(manager, name, environ, start_response):
         first = model[0] if isinstance(model, list) else model
         if batcher is not None:
             serve_utils._check_feature_count(first, dtest, get_content_type(parsed_type))
-            preds = batcher.predict(serve_utils.canonicalize_features(first, dtest),
-                                    deadline=deadline)
+            feats = serve_utils.canonicalize_features(first, dtest)
+            preds = batcher.predict(feats, deadline=deadline)
+            serve_utils.observe_drift(feats, preds)
         else:
             preds = serve_utils.predict(model, entry.fmt, dtest, parsed_type,
                                         objective=first.objective_name)

@@ -139,9 +139,6 @@ def _note_model_verify_fail(stage):
     ).inc()
 
 
-_drift_noted = threading.Event()
-
-
 def _load_verified(path, device=None):
     """Load one model file onto ``device`` through three checks, each
     counted in ``model_verify_fail_total{stage}`` when it fails: ``digest``
@@ -161,10 +158,6 @@ def _load_verified(path, device=None):
             raise integrity.IntegrityError(
                 "Model artifact {} failed digest verification against its manifest: {}".format(
                     path, e))
-        if manifest.get("drift_baseline") and not _drift_noted.is_set():
-            _drift_noted.set()
-            logger.info("%s: the manifest's drift_baseline is ignored (no drift monitor in "
-                        "this package)", path)
     try:
         forest, source_format = load_model_any_format(path, device=device)
     except Exception as e:
@@ -178,7 +171,45 @@ def _load_verified(path, device=None):
         logger.error("MODEL VERIFICATION FAILED (structure): %s: %s", path, e)
         raise integrity.IntegrityError(
             "Model artifact {} is structurally invalid: {}".format(path, e))
+    _maybe_arm_drift(manifest)
     return forest, source_format
+
+
+def _maybe_arm_drift(manifest):
+    """Arm the serving drift monitor from the bin-occupancy baseline the
+    trainer stamped into the model's manifest (``SM_MODEL_TELEMETRY``).
+    The window quacks like a breaker: noted with the lifecycle, sustained
+    PSI above ``SM_DRIFT_PSI_MAX`` shows as DEGRADED, as an SLO burn does
+    (visibility, not shedding). Best-effort: an unarmed plane, a manifest
+    without a baseline or a telemetry failure never fails a load."""
+    if not manifest:
+        return
+    try:
+        from ..telemetry import model as model_telemetry
+
+        window = model_telemetry.maybe_install_drift(manifest.get("drift_baseline"))
+        if window is not None:
+            from . import lifecycle
+
+            lifecycle.observe(window)
+    except Exception:
+        logger.debug("drift monitor arm failed", exc_info=True)
+
+
+def observe_drift(features, predictions=None):
+    """Feed one request's canonicalized host features (the numpy matrix the
+    request decoded into, never a device tensor: a 1-row request pays no
+    copy from the card) and its predictions to the drift window. Inert
+    when the plane is off or no baseline traveled with the model; never
+    raises."""
+    try:
+        from ..telemetry import model as model_telemetry
+
+        window = model_telemetry.active_drift()
+        if window is not None:
+            window.observe(features, predictions)
+    except Exception:
+        logger.debug("drift observe failed", exc_info=True)
 
 
 def get_loaded_booster(model_dir, ensemble=False, device=None):
@@ -273,9 +304,13 @@ def predict(model, model_format, dtest, input_content_type, objective=None):
     if isinstance(model, list):
         outs = [_one(b) for b in boosters]
         if objective in (MULTI_SOFTMAX, BINARY_HINGE):
-            return stats.mode(np.stack(outs), axis=0, keepdims=False).mode
-        return np.mean(outs, axis=0)
-    return _one(model)
+            result = stats.mode(np.stack(outs), axis=0, keepdims=False).mode
+        else:
+            result = np.mean(outs, axis=0)
+    else:
+        result = _one(model)
+    observe_drift(canonicalize_features(boosters[0], dtest), result)
+    return result
 
 
 def is_selectable_inference_output():

@@ -250,6 +250,9 @@ def serving_entrypoint(port=None, block=True, device=None):
     setup_main_logger(__name__)
     if port is None:
         port = int(os.getenv("SAGEMAKER_BIND_TO_PORT", 8080))
+    # RSS / fds / threads / device-bytes gauges for /metrics and the
+    # snapshot records, from start-up on
+    telemetry.register_runtime_gauges()
     # state machine, in-flight latch and (env-gated) predict watchdog; the
     # knobs resolve once, here
     lifecycle = lifecycle_mod.install(lifecycle_mod.ServingLifecycle())

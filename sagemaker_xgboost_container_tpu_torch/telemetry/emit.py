@@ -2,7 +2,7 @@
 
 SageMaker's CloudWatch metric definitions scrape the container's stdout with
 regexes. One record per line, compact JSON, ``"metric"`` first and the
-other keys sorted, so a regex like ``"inflight": ([0-9.]+)`` is stable.
+other keys sorted, so a regex like ``"round_ms": ([0-9.]+)`` is stable.
 Records never contain tabs, keeping them apart from the HPO eval lines
 (``[<iter>]\\t<data>-<metric>:<value>``).
 
@@ -18,6 +18,30 @@ from ..utils.envconfig import env_bool
 STRUCTURED_METRICS_ENV = "SM_STRUCTURED_METRICS"
 
 _write_lock = threading.Lock()
+
+# extra fields merged into every ``training.round`` record
+# (``training/profiling.RoundTimer``), set by a training session for facts
+# only it knows; process-wide, last writer wins, as sessions run one after
+# another
+_round_fields = {}
+_round_fields_lock = threading.Lock()
+
+
+def set_round_fields(**fields):
+    """Merge fields into the per-round record; a value of None removes the
+    key."""
+    with _round_fields_lock:
+        for key, value in fields.items():
+            if value is None:
+                _round_fields.pop(key, None)
+            else:
+                _round_fields[key] = value
+
+
+def get_round_fields():
+    """A copy of the extra per-round fields."""
+    with _round_fields_lock:
+        return dict(_round_fields)
 
 
 def structured_enabled():

@@ -38,8 +38,12 @@ def _label_str(labels, extra=None):
     return "{" + inner + "}"
 
 
-def exposition_response(registry):
-    """-> ``(status, headers, body_bytes)`` of a ``GET /metrics`` response."""
+def exposition_response(registry, refresh=None):
+    """-> ``(status, headers, body_bytes)`` of a ``GET /metrics`` response.
+    ``refresh(registry)``, when given, runs first, so sampled gauges (RSS,
+    device bytes) are current at scrape time."""
+    if refresh is not None:
+        refresh(registry)
     body = render_text(registry).encode("utf-8")
     return (
         "200 OK",

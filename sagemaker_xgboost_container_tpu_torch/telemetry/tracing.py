@@ -13,7 +13,11 @@ and its Chrome-trace / Perfetto JSON dump.
 * **Device sync**: ``SM_TRACE_DEVICE_SYNC=N`` makes every N-th device
   predict wait for the card inside a ``device_sync`` span
   (``torch.cuda.synchronize``), so the trace splits the host's enqueue from
-  the device's work.
+  the device's work. The training round's fence is the booster's own
+  (``models/booster.py``: ``host_dispatch`` / ``device_sync`` phases).
+* **Export**: ``export_traces`` writes this rank's finished spans to
+  ``trace-rank<r>.json`` at the end of a training job; ``record_span`` /
+  ``record_compile`` add already-finished spans (a kernel build).
 
 Everything is gated on ``SM_TRACE``: unset (the default), a call site costs
 one cached-boolean check; no spans, no buffer, no threads, no files.
@@ -38,10 +42,6 @@ TRACE_EXPORT_DIR_ENV = "SM_TRACE_EXPORT_DIR"
 DEVICE_SYNC_ENV = "SM_TRACE_DEVICE_SYNC"
 
 DEFAULT_BUFFER_SPANS = 4096
-
-# one serving process per host: the dump's file name and lane carry rank 0,
-# as the JAX package's single-host processes do
-RANK = 0
 
 # perf_counter base: the trace's timestamps only need to be consistent
 # within the process, and a monotonic clock keeps spans ordered
@@ -83,6 +83,7 @@ _tls = threading.local()
 
 _state_lock = threading.Lock()
 _enabled = None  # cached SM_TRACE verdict; None = not yet resolved
+_rank = 0  # one process per host: rank 0, as the JAX package's single-host processes
 _sync_every = 0  # cached SM_TRACE_DEVICE_SYNC, resolved with _enabled
 _sync_calls = 0
 _recorder = None  # deque of finished Span, created on first use
@@ -102,6 +103,16 @@ def enabled():
     return value
 
 
+def set_rank(rank):
+    """Record this process's rank for the export file names and lanes."""
+    global _rank
+    _rank = int(rank)
+
+
+def get_rank():
+    return _rank
+
+
 def _get_recorder():
     global _recorder
     rec = _recorder
@@ -117,10 +128,11 @@ def _get_recorder():
 def _reset_for_tests():
     """Drop the cached knobs, the ring buffer, live spans and this thread's
     span stack."""
-    global _enabled, _recorder, _sync_every, _sync_calls
+    global _enabled, _recorder, _sync_every, _sync_calls, _rank
     with _state_lock:
         _enabled = None
         _recorder = None
+        _rank = 0
         _sync_every = 0
         _sync_calls = 0
         _live.clear()
@@ -208,6 +220,29 @@ def trace_span(name, attributes=None, parent=None, trace_id=None, root=False):
         finish_span(span)
 
 
+def record_span(name, duration_s=0.0, attributes=None, parent=None):
+    """Record an already-finished span ending now (an event whose duration
+    is reported after the fact, such as a kernel build), parented to this
+    thread's open span unless ``parent`` is given."""
+    if not enabled():
+        return None
+    tid, parent_id = _resolve_parent(parent, None, False)
+    span = Span(name, tid, parent_id, attributes)
+    span.dur_us = max(float(duration_s), 0.0) * 1e6
+    span.start_us = max(span.start_us - span.dur_us, 0.0)
+    recorder = _get_recorder()
+    with _state_lock:
+        recorder.append(span)
+    return span
+
+
+def record_compile(duration_s):
+    """A kernel build (``_build.py``'s nvcc run, the counterpart of an XLA
+    compile) as a span under the open one: a first round's build becomes a
+    visible node of the tree."""
+    return record_span("xla.compile", duration_s, attributes={"kind": "nvcc_build"})
+
+
 def device_sync(device):
     """With ``SM_TRACE`` and ``SM_TRACE_DEVICE_SYNC=N`` set, every N-th call
     on a CUDA ``device`` waits for the card inside a ``device_sync`` span;
@@ -248,18 +283,22 @@ def snapshot_spans(include_open=False):
     return spans
 
 
-def chrome_trace_doc(spans, extra_metadata=None):
+def chrome_trace_doc(spans=None, extra_metadata=None):
     """-> Chrome-trace JSON object: complete ("X") events in microseconds,
     with span, parent and trace ids in ``args`` so the tree survives, plus
-    process and thread name events."""
-    label = "rank {} (os pid {})".format(RANK, os.getpid())
-    events = [{"name": "process_name", "ph": "M", "pid": RANK, "tid": 0,
+    process and thread name events. ``spans`` defaults to the finished
+    ones."""
+    if spans is None:
+        spans = snapshot_spans()
+    rank = get_rank()
+    label = "rank {} (os pid {})".format(rank, os.getpid())
+    events = [{"name": "process_name", "ph": "M", "pid": rank, "tid": 0,
                "args": {"name": label}}]
     thread_names = {}
     for span in spans:
         thread_names.setdefault(span.tid, span.thread_name)
     for tid, tname in sorted(thread_names.items(), key=lambda kv: str(kv[0])):
-        events.append({"name": "thread_name", "ph": "M", "pid": RANK, "tid": tid,
+        events.append({"name": "thread_name", "ph": "M", "pid": rank, "tid": tid,
                        "args": {"name": tname}})
     for span in spans:
         args = dict(span.attributes)
@@ -267,13 +306,41 @@ def chrome_trace_doc(spans, extra_metadata=None):
         args["trace_id"] = span.trace_id
         if span.parent_id:
             args["parent_id"] = span.parent_id
-        events.append({"name": span.name, "cat": "span", "ph": "X", "pid": RANK,
+        events.append({"name": span.name, "cat": "span", "ph": "X", "pid": rank,
                        "tid": span.tid, "ts": round(span.start_us, 3),
                        "dur": round(span.dur_us or 0.0, 3), "args": args})
-    metadata = {"rank": RANK, "os_pid": os.getpid(), "spans": len(spans)}
+    metadata = {"rank": rank, "os_pid": os.getpid(), "spans": len(spans)}
     if extra_metadata:
         metadata.update(extra_metadata)
     return {"traceEvents": events, "displayTimeUnit": "ms", "otherData": metadata}
+
+
+def _write_doc(directory, filename, doc):
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, filename)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+        f.write("\n")
+    return path
+
+
+def export_traces(default_dir=None, filename=None):
+    """End-of-job export: this rank's Chrome trace into
+    ``SM_TRACE_EXPORT_DIR`` (else ``default_dir``, the model dir of a
+    training job) and one ``training.trace_export`` record. -> the path, or
+    None (tracing off, or no directory)."""
+    if not enabled():
+        return None
+    directory = os.environ.get(TRACE_EXPORT_DIR_ENV) or default_dir
+    if not directory:
+        return None
+    doc = chrome_trace_doc()
+    path = _write_doc(directory, filename or "trace-rank{}.json".format(get_rank()), doc)
+    from .emit import emit_metric
+
+    emit_metric("training.trace_export", path=path, spans=doc["otherData"]["spans"])
+    logger.info("exported %d trace spans to %s", doc["otherData"]["spans"], path)
+    return path
 
 
 def dump_flight_recorder(default_dir=None, reason=None, exit_code=None):
@@ -292,11 +359,7 @@ def dump_flight_recorder(default_dir=None, reason=None, exit_code=None):
         extra["exit_code"] = exit_code
     try:
         doc = chrome_trace_doc(snapshot_spans(include_open=True), extra_metadata=extra)
-        os.makedirs(directory, exist_ok=True)
-        path = os.path.join(directory, "flight-recorder-rank{}.json".format(RANK))
-        with open(path, "w") as f:
-            json.dump(doc, f)
-            f.write("\n")
+        path = _write_doc(directory, "flight-recorder-rank{}.json".format(get_rank()), doc)
     except Exception as e:
         logger.error("flight-recorder dump failed (%s); continuing abort", e)
         return None

@@ -157,7 +157,9 @@ def instrument_wsgi(app, registry=None):
                                                  ("Content-Length", str(len(body)))])
                 return _TrackedBody([body], _finish)
             try:
-                status, resp_headers, body = exposition_response(reg)
+                from .cluster import refresh_runtime_gauges
+
+                status, resp_headers, body = exposition_response(reg, refresh_runtime_gauges)
                 start_response(status, resp_headers)
                 _counter(route, "2xx").inc()
             except Exception:

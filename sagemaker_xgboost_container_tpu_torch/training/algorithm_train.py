@@ -50,9 +50,11 @@ from ..data.readers import (
 )
 from ..models import booster
 from ..models.forest import Forest
+from ..telemetry import register_runtime_gauges, span
 from ..toolkit import exceptions as exc
 from . import train_utils
 from .callbacks import get_callbacks
+from .profiling import xla_trace
 from .folds import RepeatedKFold, RepeatedStratifiedKFold
 from .prediction_utils import ValidationPredictionRecorder
 
@@ -105,6 +107,8 @@ def sagemaker_train(
     """Validate config, load data, run train_job on ``device`` (CUDA unless
     given; raises without a GPU unless ``device="cpu"``, once the
     hyperparameters and channels have been validated)."""
+    # RSS / fds / threads / device-bytes gauges, before any kernel work
+    register_runtime_gauges()
     metrics = metrics_mod.initialize()
     hyperparameters = hpv.initialize(metrics)
     validated_train_config = hyperparameters.validate(train_config)
@@ -145,9 +149,10 @@ def sagemaker_train(
         )
 
     dev = resolve_device(device)
-    train_dmatrix, val_dmatrix, train_val_dmatrix = get_validated_data_matrices(
-        train_path, val_path, file_type, csv_weights, is_pipe, combine_train_val,
-    )
+    with span("data_ingest", emit=True):
+        train_dmatrix, val_dmatrix, train_val_dmatrix = get_validated_data_matrices(
+            train_path, val_path, file_type, csv_weights, is_pipe, combine_train_val,
+        )
     missing_validation_data = validation_channel and not val_dmatrix
 
     if num_hosts == 1:
@@ -181,6 +186,8 @@ def train_job(
     train_cfg.pop("_num_devices", None)
     num_round = train_cfg.pop("num_round")
     save_model_on_termination = train_cfg.pop("save_model_on_termination", "false")
+    # fleet.note_status(rounds_planned=) and install_sigquit_handler wait
+    # for the fleet plane, ROADMAP Queue 1 item 5b
 
     tuning_objective_metric_param = train_cfg.pop("_tuning_objective_metric", None)
     eval_metric = train_cfg.get("eval_metric")
@@ -209,7 +216,7 @@ def train_job(
     if val_dmatrix:
         logger.info("Validation matrix has %d rows", val_dmatrix.num_row)
 
-    def callbacks_for(fold=None):
+    def callbacks_for(fold=None, num_rows=None):
         return get_callbacks(
             model_dir=model_dir,
             checkpoint_dir=checkpoint_dir,
@@ -220,6 +227,8 @@ def train_job(
             is_master=is_master,
             fold=fold,
             num_round=num_round,
+            num_rows=num_rows,
+            train_cfg=train_cfg,
         )
 
     try:
@@ -228,18 +237,19 @@ def train_job(
             watchlist = [(train_dmatrix, "train")]
             if val_dmatrix is not None:
                 watchlist.append((val_dmatrix, "validation"))
-            xgb_model, iteration, callbacks = callbacks_for()
-            bst = booster.train(
-                train_cfg,
-                train_dmatrix,
-                num_boost_round=num_round - iteration,
-                evals=watchlist,
-                feval=configured_feval,
-                device=device,
-                callbacks=callbacks,
-                verbose_eval=False,
-                xgb_model=xgb_model,
-            )
+            xgb_model, iteration, callbacks = callbacks_for(num_rows=train_dmatrix.num_row)
+            with xla_trace(), span("train", emit=True):
+                bst = booster.train(
+                    train_cfg,
+                    train_dmatrix,
+                    num_boost_round=num_round - iteration,
+                    evals=watchlist,
+                    feval=configured_feval,
+                    device=device,
+                    callbacks=callbacks,
+                    verbose_eval=False,
+                    xgb_model=xgb_model,
+                )
         else:
             bst = _cross_validate(
                 train_cfg, train_val_dmatrix, kfold, num_round, configured_feval,
@@ -256,16 +266,46 @@ def train_job(
 
     os.makedirs(model_dir, exist_ok=True)
     if is_master:
-        if not isinstance(bst, list):
-            model_location = os.path.join(model_dir, MODEL_NAME)
-            bst.save_model(model_location)
-            logger.debug("Stored trained model at %s", model_location)
-        else:
-            for fold, fold_booster in enumerate(bst):
-                model_location = os.path.join(model_dir, "{}-{}".format(MODEL_NAME, fold))
-                fold_booster.save_model(model_location)
-                logger.debug("Stored trained model %d at %s", fold, model_location)
+        with span("model_save", emit=True):
+            if not isinstance(bst, list):
+                model_location = os.path.join(model_dir, MODEL_NAME)
+                _save_with_manifest(bst, model_location, train_cfg)
+                logger.debug("Stored trained model at %s", model_location)
+            else:
+                for fold, fold_booster in enumerate(bst):
+                    model_location = os.path.join(model_dir, "{}-{}".format(MODEL_NAME, fold))
+                    _save_with_manifest(fold_booster, model_location, train_cfg)
+                    logger.debug("Stored trained model %d at %s", fold, model_location)
+    # end-of-job trace export (SM_TRACE): this rank's Chrome trace beside the
+    # model unless SM_TRACE_EXPORT_DIR names a directory; best-effort
+    from ..telemetry import tracing
+
+    try:
+        tracing.export_traces(default_dir=model_dir)
+    except Exception:
+        logger.exception("trace export failed; training result unaffected")
     return bst
+
+
+def _save_with_manifest(model, model_location, train_cfg):
+    """Save ``model`` and its manifest (digest, config fingerprint, and
+    under ``SM_MODEL_TELEMETRY`` the learning-curve summary and the drift
+    baseline), which serving digest-verifies at load. The manifest is
+    best-effort: an ``OSError`` writing it warns and the model loads
+    manifest-less."""
+    model.save_model(model_location)
+    try:
+        from ..telemetry import model as model_telemetry
+        from ..utils import integrity
+
+        integrity.write_manifest(
+            model_location,
+            fingerprint=integrity.config_fingerprint(train_cfg),
+            learning=model_telemetry.learning_summary(),
+            drift_baseline=model_telemetry.drift_baseline(),
+        )
+    except OSError as e:
+        logger.warning("could not write model manifest for %s: %s", model_location, e)
 
 
 class _EvalsRecorder:
@@ -327,7 +367,8 @@ def _cross_validate(train_cfg, train_val_dmatrix, kfold, num_round, configured_f
         for train_idx, val_idx in splits:
             cv_train = train_val_dmatrix.slice(train_idx)
             cv_val = train_val_dmatrix.slice(val_idx)
-            xgb_model, iteration, callbacks = callbacks_for(fold=len(bst))
+            xgb_model, iteration, callbacks = callbacks_for(fold=len(bst),
+                                                            num_rows=cv_train.num_row)
             recorder = _EvalsRecorder()
             logger.info("Train cross validation fold %d", (len(bst) % kfold) + 1)
             fold_booster = booster.train(

@@ -6,6 +6,9 @@ The EvaluationMonitor line format is load-bearing: SageMaker HPO scrapes
 ``.*\\[[0-9]+\\].*#011validation-<metric>:(\\S+)`` from stdout (the tab
 renders as #011 in CloudWatch), so the monitor prints
 ``[<iter>]<TAB><data>-<metric>:<value:.5f>...`` exactly.
+
+Every callback but the watchdog and ``RoundTimer`` runs inside a
+``_TimedCallback``, whose span feeds the round record's ``phases_ms``.
 """
 
 import logging
@@ -13,23 +16,77 @@ import os
 import signal
 
 from ..constants import MODEL_NAME, XGB_MAXIMIZE_METRICS
+from ..telemetry import span
 from ..toolkit import exceptions as exc
 from . import checkpointing, train_utils
 
 logger = logging.getLogger(__name__)
 
 
-class EvaluationMonitor:
-    """Print one stdout line per round in xgboost's format."""
+class _TimedCallback:
+    """Delegate that times the inner callback's ``after_iteration`` as the
+    named phase (the round record's ``phases_ms`` and the
+    ``training_phase_seconds`` histogram). Unknown attributes forward to
+    ``inner``, so duck-typed checks (dart's ``save_best`` guard) see
+    through it."""
+
+    def __init__(self, inner, phase):
+        self.inner = inner
+        self.phase = phase
+
+    def __getattr__(self, name):
+        # reached only for attributes the wrapper lacks; guard 'inner'
+        # against recursion before __init__ (copy and the like)
+        if name == "inner":
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    def before_training(self, model):
+        if hasattr(self.inner, "before_training"):
+            return self.inner.before_training(model)
+        return model
 
     def after_iteration(self, model, epoch, evals_log):
-        parts = [
-            "{}-{}:{:.5f}".format(data_name, metric_name, values[-1])
+        if not hasattr(self.inner, "after_iteration"):
+            return False
+        with span(self.phase):
+            return self.inner.after_iteration(model, epoch, evals_log)
+
+    def after_training(self, model):
+        if hasattr(self.inner, "after_training"):
+            return self.inner.after_training(model)
+        return model
+
+
+class EvaluationMonitor:
+    """Print one stdout line per round in xgboost's format.
+
+    Under ``SM_MODEL_TELEMETRY`` each printed entry is also emitted as a
+    ``training.eval`` record and folded into the learning curve
+    (``telemetry/model.note_eval``); the stdout line, the HPO contract,
+    stays byte-identical either way."""
+
+    def __init__(self):
+        from ..telemetry import model as model_telemetry
+
+        self._model_telemetry = model_telemetry.enabled() and model_telemetry
+
+    def after_iteration(self, model, epoch, evals_log):
+        fresh = [
+            (data_name, metric_name, values[-1])
             for data_name, metrics in evals_log.items()
             for metric_name, values in metrics.items()
         ]
-        if parts:
-            print("[{}]\t{}".format(epoch, "\t".join(parts)), flush=True)
+        if fresh:
+            print("[{}]\t{}".format(epoch, "\t".join(
+                "{}-{}:{:.5f}".format(d, m, v) for d, m, v in fresh)), flush=True)
+            if self._model_telemetry:
+                from ..telemetry import emit_metric
+
+                for data_name, metric_name, value in fresh:
+                    emit_metric("training.eval", round=int(epoch), dataset=data_name,
+                                name=metric_name, value=float(value))
+                    self._model_telemetry.note_eval(epoch, data_name, metric_name, value)
         return False
 
 
@@ -109,37 +166,57 @@ def get_callbacks(
     is_master,
     fold=None,
     num_round=None,
+    num_rows=None,
+    train_cfg=None,
 ):
     """-> (xgb_model path or None, start iteration, callback list).
 
-    Order: monitor, checkpoint saver (master only), intermediate model +
-    SIGTERM handler, early stopping. A cross-validation ``fold`` keeps its
-    checkpoints in ``model-{fold}`` under ``checkpoint_dir`` and its
-    intermediate model as ``xgboost-model-{fold}``.
+    Order, the JAX package's: monitor, checkpoint saver (master only),
+    intermediate model + SIGTERM handler, early stopping, the round watchdog
+    (``SM_ROUND_DEADLINE_S``), and ``RoundTimer`` last, so each round's
+    record drains the phases the callbacks before it recorded. A
+    cross-validation ``fold`` keeps its checkpoints in ``model-{fold}``
+    under ``checkpoint_dir`` and its intermediate model as
+    ``xgboost-model-{fold}``.
+
+    ``train_cfg``, when given, feeds the integrity layer: its config
+    fingerprint is stamped into every checkpoint manifest and checked
+    against the resume candidate's (a warning, or a refusal under
+    ``SM_RESUME_STRICT=true``). The multi-host consensus guard and the
+    elastic callback are not on one host's path.
     """
+    from ..utils import integrity
+
     if checkpoint_dir and fold is not None:
         checkpoint_dir = os.path.join(checkpoint_dir, "model-{}".format(fold))
+    fingerprint = integrity.config_fingerprint(train_cfg) if train_cfg is not None else None
     xgb_model, iteration = checkpointing.load_checkpoint(checkpoint_dir)
     if xgb_model is not None:
+        if fingerprint is not None:
+            integrity.validate_resume(xgb_model, fingerprint)
         logger.info("Checkpoint loaded from %s", xgb_model)
         logger.info("Resuming from iteration %s", iteration)
 
-    callbacks = [EvaluationMonitor()]
+    callbacks = [_TimedCallback(EvaluationMonitor(), "eval_monitor")]
 
     if checkpoint_dir and is_master:
-        callbacks.append(
-            checkpointing.SaveCheckpointCallBack(checkpoint_dir, num_round=num_round)
-        )
+        callbacks.append(_TimedCallback(
+            checkpointing.SaveCheckpointCallBack(
+                checkpoint_dir, start_iteration=iteration, num_round=num_round,
+                fingerprint=fingerprint),
+            "checkpoint",
+        ))
 
     if save_model_on_termination == "true" and is_master:
         model_name = "{}-{}".format(MODEL_NAME, fold) if fold is not None else MODEL_NAME
-        callbacks.append(
-            checkpointing.SaveIntermediateModelCallBack(model_dir, model_name, is_master)
-        )
+        callbacks.append(_TimedCallback(
+            checkpointing.SaveIntermediateModelCallBack(model_dir, model_name, is_master),
+            "intermediate_save",
+        ))
         add_sigterm_handler(model_dir, is_master)
 
     if early_stopping_data_name and early_stopping_metric and early_stopping_rounds:
-        callbacks.append(
+        callbacks.append(_TimedCallback(
             EarlyStopping(
                 rounds=early_stopping_rounds,
                 data_name=early_stopping_data_name,
@@ -147,7 +224,24 @@ def get_callbacks(
                 # ndcg@10 and map@5 rise as ndcg and map do
                 maximize=early_stopping_metric.partition("@")[0] in XGB_MAXIMIZE_METRICS,
                 save_best=is_master,
-            )
-        )
+            ),
+            "early_stopping",
+        ))
 
+    # round watchdog (SM_ROUND_DEADLINE_S): a stalled round flushes the
+    # checkpoints and exits 79
+    from .watchdog import maybe_round_watchdog
+
+    watchdog = maybe_round_watchdog()
+    if watchdog is not None:
+        callbacks.append(watchdog)
+
+    # LAST: each round's record drains the phases the callbacks above
+    # recorded for that round. Per-round log lines stay opt-in
+    # (SM_ROUND_TIMING); the structured record is the telemetry contract
+    from .profiling import RoundTimer
+
+    round_timing = os.environ.get("SM_ROUND_TIMING", "").lower() in ("1", "true")
+    callbacks.append(RoundTimer(num_rows=num_rows, log_every=10 if round_timing else 0,
+                                fold=fold))
     return xgb_model, iteration, callbacks

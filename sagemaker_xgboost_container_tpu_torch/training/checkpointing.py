@@ -15,12 +15,20 @@ The port's counterpart of ``sagemaker_xgboost_container_tpu/training/checkpointi
   ``.sagemaker-uploaded`` absent),
 * ``SaveIntermediateModelCallBack`` overwrites ``<model_dir>/<model_name>``
   every round so SIGTERM (spot interruption / HPO early stop) always leaves
-  a fresh model behind.
+  a fresh model behind,
+* each checkpoint gets a manifest sidecar (``<name>.manifest``: sha256, byte
+  count, iteration and the job's config fingerprint), written after the
+  model with the same atomic, retried write; the intermediate model gets
+  none (a SIGTERM between its two renames would leave a sidecar describing
+  the previous round's bytes),
+* transient ``OSError``s of a save or a manifest write retry
+  (``utils/retry.py``), with the ``checkpoint.save`` and
+  ``checkpoint.manifest`` fault points inside the attempts,
+* ``flush_checkpoints`` and ``active_checkpoint_dirs`` (a weak registry of
+  the live savers) serve the watchdog's abort path.
 
-The JAX package also writes an integrity manifest beside each checkpoint;
-the port writes none but verifies them on load, so it resumes from the JAX
-package's checkpoints as the JAX package does and the JAX package from the
-port's.
+The manifest schema is the JAX package's, so each package resumes from the
+other's checkpoints and verifies their digests.
 """
 
 import json
@@ -31,8 +39,12 @@ import re
 import tempfile
 import threading
 import time
+import weakref
 
+from ..telemetry.tracing import trace_span
 from ..utils import integrity
+from ..utils.faults import fault_point
+from ..utils.retry import retry_transient
 
 TEMP_FILE_SUFFIX = ".sagemaker-ignore"
 FILE_LOCK_SUFFIX = ".sagemaker-uploading"
@@ -42,6 +54,20 @@ MANIFEST_SUFFIX = integrity.MANIFEST_SUFFIX
 CHECKPOINT_FILENAME = "xgboost-checkpoint"
 
 logger = logging.getLogger(__name__)
+
+# live SaveCheckpointCallBack instances, for the abort path's flush; weak, so
+# a finished run's saver does not linger
+_active_savers = weakref.WeakSet()
+
+
+def _note_verify_fail(reason):
+    from ..telemetry import REGISTRY
+
+    REGISTRY.counter(
+        "checkpoint_verify_fail_total",
+        "Resume candidates rejected by digest or parse validation",
+        {"reason": reason},
+    ).inc()
 
 
 def _checkpoint_usable(path):
@@ -61,14 +87,20 @@ def _checkpoint_usable(path):
             return True
         except integrity.IntegrityError as e:
             logger.warning("checkpoint digest verification failed: %s", e)
+            _note_verify_fail("digest")
             return False
         except OSError:
+            _note_verify_fail("io")
             return False
     try:
         with open(path, "rb") as f:
             json.loads(f.read().decode("utf-8"))
         return True
-    except (OSError, ValueError, UnicodeDecodeError):
+    except OSError:
+        _note_verify_fail("io")
+        return False
+    except (ValueError, UnicodeDecodeError):
+        _note_verify_fail("parse")
         return False
 
 
@@ -116,28 +148,94 @@ def load_checkpoint(checkpoint_dir):
     return None, 0
 
 
-def _atomic_save(model, directory, final_name):
-    """Save ``model`` to a temp file in ``directory``, then rename it to
-    ``final_name``; a failed save leaves no temp file behind. A sidecar of
-    ``final_name`` (a JAX package's manifest of the bytes being replaced)
-    is removed before the rename, so it never describes the new bytes."""
-    with tempfile.NamedTemporaryFile(
-        dir=directory, suffix=TEMP_FILE_SUFFIX, delete=False, mode="w"
-    ) as tf:
-        tmp = tf.name
-    try:
-        model.save_model(tmp)
+def _atomic_save(model, directory, final_name, iteration=None, fingerprint=None):
+    """Save ``model`` to a temp file in ``directory`` and rename it to
+    ``final_name``, retrying transient ``OSError``s; each attempt uses a
+    fresh temp file and removes it when it fails. A sidecar of
+    ``final_name`` is removed before the rename, so it never describes the
+    new bytes.
+
+    With ``iteration`` or ``fingerprint`` (a checkpoint), a manifest
+    (sha256 and byte count of the temp file, taken before the rename, the
+    iteration and the fingerprint) is written after the model: a crash in
+    between leaves a manifest-less checkpoint (the parse fallback), never a
+    manifest of a file that is not there."""
+    digest_box = {}
+    want_manifest = iteration is not None or fingerprint is not None
+
+    def _attempt():
+        fault_point("checkpoint.save", path=final_name)
+        with tempfile.NamedTemporaryFile(
+            dir=directory, suffix=TEMP_FILE_SUFFIX, delete=False, mode="w"
+        ) as tf:
+            tmp = tf.name
         try:
-            os.remove(os.path.join(directory, final_name + MANIFEST_SUFFIX))
-        except OSError:
-            pass
-        os.rename(tmp, os.path.join(directory, final_name))
-    except BaseException:
+            model.save_model(tmp)
+            if want_manifest:
+                digest_box["sha256"] = integrity.file_digest(tmp)
+                digest_box["bytes"] = os.path.getsize(tmp)
+            try:
+                os.remove(os.path.join(directory, final_name + MANIFEST_SUFFIX))
+            except OSError:
+                pass
+            os.rename(tmp, os.path.join(directory, final_name))
+        except BaseException:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            raise
+
+    # with SM_TRACE the save and its manifest nest under the callback's
+    # `checkpoint` phase in the round span: slow storage shows as a fat span
+    with trace_span("checkpoint.save", attributes={"file": final_name}):
+        retry_transient(_attempt, site="checkpoint.save")
+    if not want_manifest:
+        return
+    manifest = integrity.build_manifest(
+        os.path.join(directory, final_name),
+        iteration=iteration,
+        fingerprint=fingerprint,
+        digest=digest_box["sha256"],
+        size=digest_box["bytes"],
+    )
+    _atomic_write_manifest(directory, final_name + MANIFEST_SUFFIX, manifest)
+
+
+def _atomic_write_manifest(directory, manifest_name, manifest):
+    """The manifest sidecar: temp file + rename under ``retry_transient``,
+    each attempt removing its own temp file, the durability of the model
+    write it describes."""
+
+    def _attempt():
+        fault_point("checkpoint.manifest", path=manifest_name)
+        with tempfile.NamedTemporaryFile(
+            dir=directory, suffix=TEMP_FILE_SUFFIX, delete=False, mode="w"
+        ) as tf:
+            tmp = tf.name
+        integrity.dump_manifest_atomic(os.path.join(directory, manifest_name), manifest, tmp)
+
+    with trace_span("checkpoint.manifest", attributes={"file": manifest_name}):
+        retry_transient(_attempt, site="checkpoint.manifest")
+
+
+def active_checkpoint_dirs():
+    """Checkpoint dirs of the live savers: where the abort path's
+    flight-recorder and forensics dumps land when no trace dir is set (the
+    platform uploads the checkpoint channel)."""
+    return [s.checkpoint_dir for s in list(_active_savers) if s.checkpoint_dir]
+
+
+def flush_checkpoints(timeout=10.0):
+    """Abort-path flush: drain every live saver's deleter so the newest
+    checkpoints are settled before the process exits (the saves themselves
+    are synchronous). The join is bounded: a deleter wedged on the storage
+    that caused the abort must not keep the process from its exit."""
+    for saver in list(_active_savers):
         try:
-            os.remove(tmp)
-        except OSError:
-            pass
-        raise
+            saver.stop(timeout=timeout)
+        except Exception:
+            logger.exception("checkpoint flush failed for %r", saver)
 
 
 class SaveCheckpointCallBack:
@@ -145,16 +243,22 @@ class SaveCheckpointCallBack:
 
     SENTINEL = None
 
-    def __init__(self, checkpoint_dir, max_to_keep=5, num_round=None):
+    def __init__(self, checkpoint_dir, start_iteration=0, max_to_keep=5, num_round=None,
+                 fingerprint=None):
         self.checkpoint_dir = checkpoint_dir
         self.max_to_keep = max_to_keep
+        self.start_iteration = start_iteration
         self.num_round = num_round
+        # the config fingerprint stamped into every manifest; a restart's
+        # validate_resume compares it with the live job's
+        self.fingerprint = fingerprint
         os.makedirs(checkpoint_dir, exist_ok=True)
         self.previous_checkpoints = {
             os.path.join(checkpoint_dir, f) for f in os.listdir(checkpoint_dir)
         }
         self.delete_queue = queue.Queue()
         self._start_deleter()
+        _active_savers.add(self)
 
     def format_path(self, iteration):
         return os.path.join(
@@ -162,7 +266,10 @@ class SaveCheckpointCallBack:
         )
 
     def after_iteration(self, model, epoch, evals_log):
-        _atomic_save(model, self.checkpoint_dir, "{}.{}".format(CHECKPOINT_FILENAME, epoch))
+        _atomic_save(model, self.checkpoint_dir, "{}.{}".format(CHECKPOINT_FILENAME, epoch),
+                     iteration=epoch, fingerprint=self.fingerprint)
+        # the /status mirror of the last checkpoint waits for the fleet
+        # plane, ROADMAP Queue 1 item 5b
         self.delete_queue.put(epoch - self.max_to_keep)
         if self.num_round is not None and epoch + 1 >= self.num_round:
             self.stop()
@@ -181,9 +288,17 @@ class SaveCheckpointCallBack:
 
         def _remove(path):
             try:
-                os.remove(path)
-            except OSError:
-                logger.debug("Failed to delete %s", path)
+                try:
+                    os.remove(path)
+                except OSError:
+                    # the checkpoint survived the delete: so does its sidecar
+                    # (load_checkpoint sweeps it once the file is gone)
+                    logger.debug("Failed to delete %s", path)
+                else:
+                    try:
+                        os.remove(path + MANIFEST_SUFFIX)
+                    except OSError:
+                        pass
             finally:
                 self.delete_queue.task_done()
 
@@ -210,7 +325,8 @@ class SaveCheckpointCallBack:
         self.thread.start()
 
     def stop(self, timeout=None):
-        """Drain and join the deleter."""
+        """Drain and join the deleter; ``timeout`` bounds the join on the
+        abort path."""
         if self.thread.is_alive():
             self.delete_queue.put(self.SENTINEL)
             self.thread.join(timeout)

@@ -1,7 +1,8 @@
 """Deterministic fault injection for failure drills.
 
-A serving failure path (a wedged predict dispatch, a slow decode, a drain
-that cannot finish) cannot be produced on demand from real hardware. Each
+A failure path (a wedged predict dispatch, a slow decode, a drain that
+cannot finish, a stalled round, a transient read error, NaN gradients)
+cannot be produced on demand from real hardware. Each
 such spot in the code is a named **fault point**: the code calls
 ``fault_point("serving.decode", ...)`` where the real world could
 misbehave, and the ``SM_FAULT_SPEC`` env var (or ``configure()`` in tests)
@@ -19,6 +20,13 @@ Spec grammar (entries separated by ``;`` or ``,``)::
     batcher.dispatch:sleep:120@2  wedges the 2nd batched dispatch inside the
                                   batcher (the stuck-predict watchdog drill)
     model.load:error@3+           the 3rd model load and every later one fail
+    data.read:error@1             the first channel file read fails once
+                                  (the reader's retry absorbs it)
+    checkpoint.save:error@2       the 2nd checkpoint write fails once;
+                                  checkpoint.manifest is its sidecar's twin
+    training.round_end:sleep:60@4 the 4th round stalls (the watchdog drill)
+    train.gradient_poison:nan@3   the 3rd round's margins turn NaN before its
+                                  gradients (the numeric-poison drill)
 
 Actions: ``error[:msg]`` -> OSError, ``drop`` -> ConnectionError,
 ``sleep:<seconds>``, ``sigterm`` (SIGTERM to this process), ``exit:<code>``

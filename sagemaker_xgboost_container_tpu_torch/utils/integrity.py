@@ -1,18 +1,31 @@
-"""Model-artifact integrity for serving: content digests, manifest sidecars,
-structural validation.
+"""State integrity: content digests, manifest sidecars, resume validation,
+model validation.
 
 * **digests**: sha256 over a file's exact bytes (``file_digest``) and over a
   Forest's trees in a canonical packed byte layout (``forest_digest``);
 * **manifest sidecars**: a versioned JSON file beside a model file
-  (``<name>.manifest``) with the file's digest and byte count. A serving
-  load digest-verifies any artifact whose manifest traveled with it;
+  (``<name>.manifest``) with the file's digest and byte count, and for a
+  checkpoint its iteration and the job's config fingerprint; a final model
+  also carries the learning-curve summary and the drift baseline when
+  ``SM_MODEL_TELEMETRY`` was on. ``training/checkpointing`` writes them
+  beside every checkpoint, ``write_manifest`` beside the final model; a
+  resume and a serving load digest-verify any artifact whose manifest
+  traveled with it;
+* **resume validation** (``validate_resume``): a checkpoint's fingerprint
+  against the live job's; a difference warns, and under
+  ``SM_RESUME_STRICT=true`` refuses (resuming under another binning or
+  objective silently forks the model);
 * **structural validation** (``validate_model``): children in range,
   finite thresholds and leaf values, feature ids in range, consistent tree
   bookkeeping, the invariants the predict traversal assumes.
 
-The manifest schema and ``forest_digest`` are the JAX package's: a manifest
-written by either package verifies in the other, and one model file has
-one forest digest in both.
+The manifest schema, the fingerprint's keys and ``forest_digest`` are the
+JAX package's: a manifest written by either package verifies in the other,
+and one model file has one forest digest in both. The port has no jax, and
+writes ``"jax_version": "absent"`` (what the JAX package writes where jax
+does not import); it adds ``torch_version``, which the JAX package's
+comparison does not read. So a resume across packages names the runtime
+change in ``jax_version``, in both directions.
 """
 
 import hashlib
@@ -27,9 +40,33 @@ logger = logging.getLogger(__name__)
 MANIFEST_SUFFIX = ".manifest"
 MANIFEST_VERSION = 1
 
+RESUME_STRICT_ENV = "SM_RESUME_STRICT"
+
+# config keys whose disagreement between a checkpoint and the live job means
+# the resumed rounds would train under other split candidates or another
+# loss; version and world-size drift are reported too. The JAX package's
+# keys, then the port's own runtime, compared only where both fingerprints
+# carry it
+_FINGERPRINT_KEYS = (
+    "objective",
+    "tree_method",
+    "max_bin",
+    "max_depth",
+    "world_size",
+    "jax_version",
+    "package_version",
+    "torch_version",
+)
+
 
 class IntegrityError(RuntimeError):
     """A model artifact failed digest or structural verification."""
+
+
+def resume_strict():
+    from .envconfig import env_bool
+
+    return env_bool(RESUME_STRICT_ENV, False)
 
 
 # ------------------------------------------------------------------ digests
@@ -86,36 +123,64 @@ def manifest_path(model_path):
     return str(model_path) + MANIFEST_SUFFIX
 
 
-def build_manifest(model_path, iteration=None):
-    """The manifest dict of a model file (the JAX package's schema)."""
+def build_manifest(model_path, iteration=None, fingerprint=None, digest=None, size=None,
+                   membership_log=None, quarantine=None, learning=None, drift_baseline=None):
+    """The manifest dict of a model file: the JAX package's schema, which
+    every writer goes through. ``digest`` / ``size`` stand for the on-disk
+    read where the caller measured the temp file before renaming it.
+    ``membership_log`` and ``quarantine`` are the JAX package's multi-host
+    and streaming-ingest records, None on one host. ``learning`` (the
+    learning-curve summary) and ``drift_baseline`` (the training rows'
+    per-feature bin occupancy) are stamped when ``SM_MODEL_TELEMETRY`` was
+    on."""
     manifest = {
         "manifest_version": MANIFEST_VERSION,
-        "sha256": file_digest(model_path),
-        "bytes": os.path.getsize(model_path),
+        "sha256": digest if digest is not None else file_digest(model_path),
+        "bytes": int(size) if size is not None else os.path.getsize(model_path),
     }
     if iteration is not None:
         manifest["iteration"] = int(iteration)
+    if fingerprint is not None:
+        manifest["fingerprint"] = dict(fingerprint)
+    if membership_log:
+        manifest["membership_log"] = [dict(t) for t in membership_log]
+    if quarantine:
+        manifest["quarantine"] = dict(quarantine)
+    if learning:
+        manifest["learning"] = dict(learning)
+    if drift_baseline:
+        manifest["drift_baseline"] = dict(drift_baseline)
     return manifest
 
 
-def write_manifest(model_path, iteration=None):
-    """Write ``model_path``'s sidecar manifest (sorted-key JSON to a temp
-    file, renamed into place). -> the manifest dict."""
-    manifest = build_manifest(model_path, iteration=iteration)
+def dump_manifest_atomic(target_path, manifest, tmp_path):
+    """Write ``manifest`` as sorted-key JSON to ``tmp_path`` and rename it
+    over ``target_path``, removing the temp file on any failure: the one
+    serialization of both sidecar writers."""
+    try:
+        with open(tmp_path, "w") as f:
+            json.dump(manifest, f, sort_keys=True)
+        os.replace(tmp_path, target_path)
+    except BaseException:
+        try:
+            os.remove(tmp_path)
+        except OSError:
+            pass
+        raise
+
+
+def write_manifest(model_path, iteration=None, fingerprint=None, learning=None,
+                   drift_baseline=None):
+    """Write ``model_path``'s sidecar manifest (the final model's; the
+    checkpoints' go through the checkpoint layer's retried writer).
+    -> the manifest dict."""
+    manifest = build_manifest(model_path, iteration=iteration, fingerprint=fingerprint,
+                              learning=learning, drift_baseline=drift_baseline)
     target = manifest_path(model_path)
     # dot-prefixed temp: the serving loader skips dotfiles, so a crash here
     # never leaves a file that a model-dir scan would try to load
     tmp = os.path.join(os.path.dirname(target) or ".", "." + os.path.basename(target) + ".tmp")
-    try:
-        with open(tmp, "w") as f:
-            json.dump(manifest, f, sort_keys=True)
-        os.replace(tmp, target)
-    except BaseException:
-        try:
-            os.remove(tmp)
-        except OSError:
-            pass
-        raise
+    dump_manifest_atomic(target, manifest, tmp)
     return manifest
 
 
@@ -167,6 +232,126 @@ def check_model_file(model_path):
         return "no_manifest"
     verify_file_against_manifest(model_path, manifest)
     return "verified"
+
+
+# -------------------------------------------------------------- fingerprint
+def config_fingerprint(train_cfg, world_size=1):
+    """The live job's config identity, as stored in checkpoint manifests:
+    the knobs that change split candidates or the loss (objective,
+    tree_method, max_bin, max_depth), the world size (one host here), and
+    the versions: ``jax_version`` (``"absent"``: the port has no jax),
+    ``package_version`` and the port's ``torch_version``."""
+    cfg = dict(train_cfg or {})
+    return {
+        "objective": str(cfg.get("objective", "reg:squarederror")),
+        "tree_method": str(cfg.get("tree_method", "auto")),
+        "max_bin": str(cfg.get("max_bin", "")),
+        "max_depth": str(cfg.get("max_depth", "")),
+        "world_size": int(world_size),
+        "jax_version": "absent",
+        "package_version": _package_version(),
+        "torch_version": _torch_version(),
+    }
+
+
+def _package_version():
+    try:
+        from .. import __version__
+
+        return str(__version__)
+    except Exception:
+        return "unknown"
+
+
+def _torch_version():
+    try:
+        import torch
+
+        return str(torch.__version__)
+    except Exception:
+        return "absent"
+
+
+def fingerprint_mismatches(expected, actual):
+    """[(key, expected, actual), ...] for the keys present in either dict
+    (``torch_version`` only where both carry it)."""
+    expected, actual = expected or {}, actual or {}
+    out = []
+    for key in _FINGERPRINT_KEYS:
+        present = (key in expected and key in actual) if key == "torch_version" \
+            else (key in expected or key in actual)
+        if present:
+            ev, av = expected.get(key), actual.get(key)
+            if str(ev) != str(av):
+                out.append((key, ev, av))
+    return out
+
+
+def _world_size_transition_recorded(old, new, membership_log):
+    """True when the recorded transitions connect checkpoint world size
+    ``old`` to live world size ``new`` in either direction, chains
+    included (the JAX package's elastic resume rule)."""
+    try:
+        old, new = int(old), int(new)
+    except (TypeError, ValueError):
+        return False
+    edges = {}
+    for t in membership_log or []:
+        try:
+            a, b = int(t["old_world_size"]), int(t["new_world_size"])
+        except (KeyError, TypeError, ValueError):
+            continue
+        edges.setdefault(a, set()).add(b)
+        edges.setdefault(b, set()).add(a)
+    seen, frontier = {old}, [old]
+    while frontier:
+        for nxt in edges.get(frontier.pop(), ()):
+            if nxt not in seen:
+                seen.add(nxt)
+                frontier.append(nxt)
+    return new in seen and new != old
+
+
+def validate_resume(checkpoint_path, live_fingerprint, membership_log=None):
+    """Compare the resume candidate's manifest fingerprint with the live
+    job's. A manifest-less checkpoint passes. A mismatch warns naming the
+    keys, and under ``SM_RESUME_STRICT=true`` raises UserError. A
+    ``world_size``-only drift covered by a recorded membership transition
+    (``membership_log``, or the one in the checkpoint's manifest) resumes
+    cleanly, as in the JAX package. -> True when nothing differs."""
+    if checkpoint_path is None:
+        return True
+    manifest = read_manifest(checkpoint_path)
+    if manifest is None or "fingerprint" not in manifest:
+        return True
+    diffs = fingerprint_mismatches(manifest["fingerprint"], live_fingerprint)
+    if not diffs:
+        return True
+    ws_diffs = [d for d in diffs if d[0] == "world_size"]
+    if ws_diffs and len(ws_diffs) == len(diffs):
+        transitions = list(membership_log or []) + list(manifest.get("membership_log") or [])
+        _key, ckpt_ws, live_ws = ws_diffs[0]
+        if _world_size_transition_recorded(ckpt_ws, live_ws, transitions):
+            logger.info("resuming from %s across a recorded membership transition "
+                        "(world size %s -> %s)", checkpoint_path, ckpt_ws, live_ws)
+            return True
+    detail = ", ".join("{}: checkpoint={!r} live={!r}".format(k, ev, av) for k, ev, av in diffs)
+    if resume_strict():
+        from ..toolkit import exceptions as exc
+
+        raise exc.UserError(
+            "Refusing to resume from {}: its config fingerprint disagrees "
+            "with the live job ({}). Align the configuration or clear the "
+            "checkpoint dir; set {}=false to resume anyway (the remaining "
+            "rounds would train under different binning/objective "
+            "semantics).".format(checkpoint_path, detail, RESUME_STRICT_ENV)
+        )
+    logger.warning(
+        "resuming from %s despite a config-fingerprint mismatch (%s); the "
+        "remaining rounds will train under the LIVE config — set %s=true to "
+        "refuse instead", checkpoint_path, detail, RESUME_STRICT_ENV,
+    )
+    return False
 
 
 # --------------------------------------------------------- model validation

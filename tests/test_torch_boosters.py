@@ -373,8 +373,10 @@ def test_kfold_dart_trains_fold_by_fold(tmp_path, monkeypatch):
     algorithm_train.sagemaker_train(hp, {"train": channel}, str(train), None,
                                             str(tmp_path / "model"), ["algo-1"], "algo-1", {},
                                             device="cpu")
-    assert sorted(os.listdir(str(tmp_path / "model"))) == ["xgboost-model-0",
-                                                            "xgboost-model-1"]
+    # each fold model with its manifest, as the JAX package writes them
+    assert sorted(os.listdir(str(tmp_path / "model"))) == [
+        "xgboost-model-0", "xgboost-model-0.manifest", "xgboost-model-1",
+        "xgboost-model-1.manifest"]
     for k in range(2):
         model = Forest.load_model(str(tmp_path / "model" / "xgboost-model-{}".format(k)),
                                   device="cpu")
@@ -412,8 +414,9 @@ def test_entry_checkpoints_and_resumes(kind, tmp_path):
     run(3, "first", True)
     resumed = run(6, "second", True)
     assert resumed.num_boosted_rounds == 6
-    assert sorted(n for n in os.listdir(ckpt)) == [
-        "xgboost-checkpoint.{}".format(i) for i in range(6)]
+    # each checkpoint with its manifest sidecar
+    assert sorted(n for n in os.listdir(ckpt)) == sorted(
+        "xgboost-checkpoint.{}{}".format(i, s) for i in range(6) for s in ("", ".manifest"))
     if kind == "gblinear":
         assert isinstance(resumed, LinearModel)
         whole = run(6, "whole", False)

@@ -1,10 +1,11 @@
 """Resume from checkpoints with integrity manifests, against the JAX
 package's ``load_checkpoint``.
 
-The JAX package writes a ``.manifest`` sidecar (sha256 + byte count) beside
-every checkpoint and resumes only from a checkpoint whose bytes match it.
-The port writes none, verifies them on load, and drops a sidecar of any
-checkpoint name it overwrites.
+Both packages write a ``.manifest`` sidecar (sha256, byte count, iteration,
+config fingerprint) beside every checkpoint and resume only from a
+checkpoint whose bytes match it; a save drops the sidecar of the name it
+overwrites. Saves and manifest writes retry transient errors, and the
+abort path flushes the live savers.
 """
 
 import os
@@ -13,8 +14,10 @@ import numpy as np
 import pytest
 
 from sagemaker_xgboost_container_tpu.training import checkpointing as jax_checkpointing
+from sagemaker_xgboost_container_tpu.utils import integrity as jax_integrity
 from sagemaker_xgboost_container_tpu_torch.models.forest import Forest, Tree
 from sagemaker_xgboost_container_tpu_torch.training import checkpointing
+from sagemaker_xgboost_container_tpu_torch.utils import integrity
 
 
 def _forest(leaf):
@@ -79,10 +82,14 @@ def test_overwriting_a_checkpoint_drops_its_stale_manifest(tmp_path):
     the repaired reader would reject the good new checkpoint."""
     ckpt = str(tmp_path / "ckpt")
     _jax_checkpoints(ckpt, [1, 2])
+    stale = open(_path(ckpt, 2) + ".manifest").read()
     saver = checkpointing.SaveCheckpointCallBack(ckpt, max_to_keep=5)
     saver.after_iteration(_forest(7.5), 2, {})
     saver.stop()
-    assert not os.path.exists(_path(ckpt, 2) + ".manifest")
+    # the stale sidecar is gone; the port's own describes the new bytes
+    assert open(_path(ckpt, 2) + ".manifest").read() != stale
+    for check in (integrity.check_model_file, jax_integrity.check_model_file):
+        assert check(_path(ckpt, 2)) == "verified"
     assert os.path.exists(_path(ckpt, 1) + ".manifest")
     for load in (checkpointing.load_checkpoint, jax_checkpointing.load_checkpoint):
         assert load(ckpt) == (_path(ckpt, 2), 3)
@@ -97,3 +104,61 @@ def test_intermediate_model_overwrite_drops_its_stale_manifest(tmp_path):
     cb = checkpointing.SaveIntermediateModelCallBack(str(model_dir), "xgboost-model", True)
     cb.after_iteration(_forest(1.0), 0, {})
     assert sorted(os.listdir(model_dir)) == ["xgboost-model"]
+
+
+# ------------------------------------------------- manifests, retries, flush
+def test_port_checkpoints_carry_manifests_the_jax_package_reads(tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    fingerprint = integrity.config_fingerprint({"objective": "binary:logistic", "max_depth": 3})
+    saver = checkpointing.SaveCheckpointCallBack(ckpt, max_to_keep=5, fingerprint=fingerprint)
+    for i in range(3):
+        saver.after_iteration(_forest(0.5 + i), i, {})
+    saver.stop()
+    for i in range(3):
+        manifest = jax_integrity.read_manifest(_path(ckpt, i))
+        assert manifest["iteration"] == i and manifest["fingerprint"] == fingerprint
+        assert jax_integrity.check_model_file(_path(ckpt, i)) == "verified"
+        assert manifest == integrity.build_manifest(_path(ckpt, i), iteration=i,
+                                                    fingerprint=fingerprint)
+    assert jax_checkpointing.load_checkpoint(ckpt) == checkpointing.load_checkpoint(ckpt) == (
+        _path(ckpt, 2), 3)
+
+
+def test_retention_removes_each_sidecar_with_its_checkpoint(tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    saver = checkpointing.SaveCheckpointCallBack(ckpt, max_to_keep=2)
+    for i in range(5):
+        saver.after_iteration(_forest(1.0), i, {})
+    saver.stop()
+    assert sorted(os.listdir(ckpt)) == sorted(
+        "xgboost-checkpoint.{}{}".format(i, s) for i in (3, 4) for s in ("", ".manifest"))
+
+
+@pytest.mark.parametrize("spec", ["checkpoint.save:error:EBS blip@1",
+                                  "checkpoint.manifest:error:EBS blip@1"])
+def test_transient_save_errors_retry_and_leave_no_debris(tmp_path, spec):
+    from sagemaker_xgboost_container_tpu_torch.utils import faults
+
+    faults.configure(spec)
+    try:
+        checkpointing._atomic_save(_forest(2.0), str(tmp_path), "xgboost-checkpoint.0",
+                                   iteration=0)
+        assert sum(faults.fault_counts().values()) == 1
+    finally:
+        faults.reset()
+    assert sorted(os.listdir(tmp_path)) == ["xgboost-checkpoint.0",
+                                            "xgboost-checkpoint.0.manifest"]
+    assert integrity.check_model_file(str(tmp_path / "xgboost-checkpoint.0")) == "verified"
+
+
+def test_live_savers_are_flushed_and_forgotten(tmp_path):
+    import gc
+
+    saver = checkpointing.SaveCheckpointCallBack(str(tmp_path / "a"))
+    assert str(tmp_path / "a") in checkpointing.active_checkpoint_dirs()
+    saver.after_iteration(_forest(1.0), 0, {})
+    checkpointing.flush_checkpoints(timeout=5.0)
+    assert not saver.thread.is_alive()
+    del saver
+    gc.collect()
+    assert str(tmp_path / "a") not in checkpointing.active_checkpoint_dirs()

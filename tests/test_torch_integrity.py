@@ -184,15 +184,24 @@ def test_malformed_manifest_is_ignored_in_both(model_files, tmp_path, sidecar):
     assert fmt == "xgb_format" and len(forest.trees) == 4
 
 
-def test_drift_baseline_is_read_and_ignored_once(model_files, tmp_path, caplog):
+def test_drift_baseline_is_read_and_ignored_once(model_files, tmp_path, monkeypatch):
+    """With SM_MODEL_TELEMETRY unset a manifest's drift baseline is read
+    and ignored, load after load, in both packages: no drift window."""
+    from sagemaker_xgboost_container_tpu.telemetry import model as jax_model_telemetry
+    from sagemaker_xgboost_container_tpu_torch.telemetry import model as model_telemetry
+
+    monkeypatch.delenv(model_telemetry.MODEL_TELEMETRY_ENV, raising=False)
+    model_telemetry._reset_for_tests()
+    jax_model_telemetry._reset_for_tests()
     path = _copy(model_files["jax"], tmp_path)
-    jax_integrity.write_manifest(path, drift_baseline={"f0": [0.5, 0.5]})
-    serve_utils._drift_noted.clear()
-    with caplog.at_level(logging.INFO, logger=serve_utils.__name__):
-        for _ in range(2):
-            forest, _ = serve_utils.get_loaded_booster(os.path.dirname(path), device="cpu")
-    notes = [r for r in caplog.records if "drift_baseline" in r.getMessage()]
-    assert len(notes) == 1 and len(forest.trees) == 4
+    jax_integrity.write_manifest(path, drift_baseline={
+        "version": 1, "rows": 2, "features": [{"cuts": [0.0], "fracs": [0.5, 0.5, 0.0]}]})
+    for _ in range(2):
+        forest, _ = serve_utils.get_loaded_booster(os.path.dirname(path), device="cpu")
+        jax_serve_utils.get_loaded_booster(os.path.dirname(path))
+    assert model_telemetry.active_drift() is None
+    assert jax_model_telemetry.active_drift() is None
+    assert len(forest.trees) == 4
 
 
 def test_ensemble_dir_with_manifests_loads_every_model(model_files, tmp_path):
@@ -293,3 +302,133 @@ def test_valid_models_validate_in_both(model_files, kind):
     integrity.validate_model(ours)
     integrity.validate_model([ours, ours])
     jax_integrity.validate_model(jax_compat.load_model_any_format(model_files[kind])[0])
+
+
+# ------------------------------------------------ fingerprints and resumes
+TRAIN_CFG = {"objective": "binary:logistic", "tree_method": "hist", "max_bin": 32,
+             "max_depth": 4}
+
+
+def test_fingerprints_differ_in_jax_version_only():
+    from sagemaker_xgboost_container_tpu_torch import __version__
+    from sagemaker_xgboost_container_tpu import __version__ as jax_package_version
+
+    ours = integrity.config_fingerprint(TRAIN_CFG)
+    ref = jax_integrity.config_fingerprint(TRAIN_CFG)
+    assert ours["jax_version"] == "absent" and ref["jax_version"] != "absent"
+    assert ours["torch_version"] and "torch_version" not in ref
+    assert __version__ == jax_package_version == ours["package_version"]
+    want = [("jax_version", ref["jax_version"], "absent")]
+    assert integrity.fingerprint_mismatches(ref, ours) == want
+    assert jax_integrity.fingerprint_mismatches(ref, ours) == want
+    assert integrity.fingerprint_mismatches(ours, ref) == [(k, b, a) for k, a, b in want]
+    assert integrity.fingerprint_mismatches(ours, dict(ours, torch_version="0")) == [
+        ("torch_version", ours["torch_version"], "0")]
+
+
+def _checkpoint(writer, ckpt, forest):
+    from sagemaker_xgboost_container_tpu.training import checkpointing as jax_checkpointing
+    from sagemaker_xgboost_container_tpu_torch.training import checkpointing
+
+    ck, integ = ((checkpointing, integrity) if writer == "port"
+                 else (jax_checkpointing, jax_integrity))
+    saver = ck.SaveCheckpointCallBack(ckpt, fingerprint=integ.config_fingerprint(TRAIN_CFG))
+    saver.after_iteration(forest, 0, {})
+    saver.stop()
+    return os.path.join(ckpt, "xgboost-checkpoint.0")
+
+
+@pytest.mark.parametrize("writer,reader", [("port", "jax"), ("jax", "port")])
+def test_resume_across_packages_warns_and_strict_refuses(model_files, tmp_path, monkeypatch,
+                                                         caplog, writer, reader):
+    """A checkpoint of one package resumes under the other's
+    ``get_callbacks``: its digest verifies, the runtime change in
+    ``jax_version`` warns, and under SM_RESUME_STRICT=true it refuses,
+    naming the key."""
+    from sagemaker_xgboost_container_tpu.toolkit import exceptions as jax_exc
+    from sagemaker_xgboost_container_tpu.training import callbacks as jax_callbacks
+    from sagemaker_xgboost_container_tpu_torch.toolkit import exceptions as exc
+    from sagemaker_xgboost_container_tpu_torch.training import callbacks
+
+    monkeypatch.delenv(integrity.RESUME_STRICT_ENV, raising=False)
+    forest = compat.load_model_any_format(model_files["port"], device="cpu")[0]
+    path = _checkpoint(writer, str(tmp_path / "ckpt"), forest)
+    integ, cbs, err = ((integrity, callbacks, exc) if reader == "port"
+                       else (jax_integrity, jax_callbacks, jax_exc))
+    assert integ.check_model_file(path) == "verified"
+    live = integ.config_fingerprint(TRAIN_CFG)
+    kwargs = dict(model_dir=str(tmp_path / "model"), checkpoint_dir=str(tmp_path / "ckpt"),
+                  early_stopping_data_name=None, early_stopping_metric=None,
+                  early_stopping_rounds=None, save_model_on_termination="false",
+                  is_master=False, train_cfg=TRAIN_CFG)
+    with caplog.at_level(logging.WARNING):
+        assert integ.validate_resume(path, live) is False
+        xgb_model, iteration, _cbs = cbs.get_callbacks(**kwargs)
+    assert (xgb_model, iteration) == (path, 1)
+    assert any("jax_version" in r.getMessage() for r in caplog.records)
+    monkeypatch.setenv(integrity.RESUME_STRICT_ENV, "true")
+    with pytest.raises(err.UserError, match="jax_version"):
+        cbs.get_callbacks(**kwargs)
+    same = _checkpoint(reader, str(tmp_path / "own"), forest)
+    assert integ.validate_resume(same, live) is True
+
+
+@pytest.mark.parametrize("key,value", [("max_depth", 7), ("objective", "reg:squarederror"),
+                                       ("max_bin", 64)])
+def test_strict_resume_refuses_a_changed_config_naming_it(tmp_path, monkeypatch, model_files,
+                                                          key, value):
+    from sagemaker_xgboost_container_tpu_torch.toolkit import exceptions as exc
+
+    forest = compat.load_model_any_format(model_files["port"], device="cpu")[0]
+    path = _checkpoint("port", str(tmp_path / "ckpt"), forest)
+    live = integrity.config_fingerprint(dict(TRAIN_CFG, **{key: value}))
+    monkeypatch.delenv(integrity.RESUME_STRICT_ENV, raising=False)
+    assert integrity.validate_resume(path, live) is False
+    monkeypatch.setenv(integrity.RESUME_STRICT_ENV, "true")
+    with pytest.raises(exc.UserError, match=key):
+        integrity.validate_resume(path, live)
+    assert integrity.validate_resume(None, live) is True
+
+
+def test_final_model_manifests_verify_across_packages(model_files, tmp_path, monkeypatch):
+    """The port's final model and its manifest (fingerprint, and under
+    SM_MODEL_TELEMETRY the learning summary and drift baseline) verify
+    under the JAX package's check, and the JAX package's under the port's."""
+    from sagemaker_xgboost_container_tpu_torch.telemetry import model as model_telemetry
+    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
+
+    monkeypatch.setenv(model_telemetry.MODEL_TELEMETRY_ENV, "true")
+    model_telemetry._reset_for_tests()
+    try:
+        X, y = _data(400, seed=2)
+        forest = port_train(PARAMS, DataMatrix(X, y), 2, device="cpu", verbose_eval=False)
+        model_telemetry.note_eval(1, "validation", "logloss", 0.5)
+        path = str(tmp_path / "xgboost-model")
+        algorithm_train._save_with_manifest(forest, path, TRAIN_CFG)
+        manifest = jax_integrity.read_manifest(path)
+        assert jax_integrity.check_model_file(path) == "verified"
+        assert manifest["fingerprint"] == integrity.config_fingerprint(TRAIN_CFG)
+        assert manifest["learning"]["best_iteration"] == 1
+        assert manifest["drift_baseline"]["rows"] == 400
+        jax_path = _copy(model_files["jax"], tmp_path, "jaxmodel")
+        jax_integrity.write_manifest(jax_path, fingerprint=jax_integrity.config_fingerprint(
+            TRAIN_CFG))
+        assert integrity.check_model_file(jax_path) == "verified"
+    finally:
+        model_telemetry._reset_for_tests()
+
+
+def test_manifest_write_failure_only_warns(tmp_path, monkeypatch, caplog, model_files):
+    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
+
+    forest = compat.load_model_any_format(model_files["port"], device="cpu")[0]
+
+    def refuse(*args, **kwargs):
+        raise OSError("read-only volume")
+
+    monkeypatch.setattr(integrity, "write_manifest", refuse)
+    path = str(tmp_path / "xgboost-model")
+    with caplog.at_level(logging.WARNING):
+        algorithm_train._save_with_manifest(forest, path, TRAIN_CFG)
+    assert os.path.isfile(path) and not os.path.exists(path + ".manifest")
+    assert any("could not write model manifest" in r.getMessage() for r in caplog.records)

@@ -395,7 +395,9 @@ def test_early_stopping_on_a_cut_ranking_metric_maximizes(metric, maximize, tmp_
         model_dir=str(tmp_path), checkpoint_dir=None, early_stopping_data_name="validation",
         early_stopping_metric=metric, early_stopping_rounds=3,
         save_model_on_termination="false", is_master=True)
-    (stopper,) = [cb for cb in cbs if isinstance(cb, callbacks.EarlyStopping)]
+    # every callback but the watchdog and RoundTimer is wrapped in a _TimedCallback
+    (stopper,) = [cb.inner for cb in cbs
+                  if isinstance(getattr(cb, "inner", None), callbacks.EarlyStopping)]
     assert stopper.maximize is maximize
 
 

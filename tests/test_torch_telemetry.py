@@ -379,13 +379,12 @@ def test_counters_equal_jax_after_the_same_requests(model_dir, monkeypatch):
     got, want = _counters(REGISTRY), _counters(JAX_REGISTRY)
     assert got == want and got[("serving_requests_total",
                                 (("code", "2xx"), ("route", "/invocations")))] == 6.0
-    # the same families, less the JAX package's runtime gauges, which a
-    # scrape refreshes there and the port does not have
+    # the same families, the runtime gauges a scrape refreshes included
     ours_names = {n for n, *_ in REGISTRY.collect()}
     jax_names = {n for n, *_ in JAX_REGISTRY.collect()}
-    assert jax_names - ours_names == {"device_live_bytes", "process_open_fds",
-                                      "process_rss_bytes", "process_threads"}
-    assert ours_names < jax_names
+    assert {"device_live_bytes", "process_open_fds", "process_rss_bytes",
+            "process_threads"} <= ours_names
+    assert ours_names == jax_names
 
 
 def test_app_exception_counts_5xx_and_releases_the_latch():
@@ -509,3 +508,134 @@ def test_port_and_chip_smoke_import_no_jax():
                          text=True, timeout=180)
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.strip().splitlines()[-1]) > 40
+
+
+# ------------------------------------------------------- the training planes
+def test_metrics_render_refreshes_the_runtime_gauges(model_dir, monkeypatch):
+    """``/metrics`` carries the four runtime gauge families of the JAX
+    package, fresh at each scrape (RSS and fds > 0; the device bytes are 0
+    on the CPU, where torch keeps no allocator tally)."""
+    from sagemaker_xgboost_container_tpu_torch.telemetry import cluster
+
+    monkeypatch.setenv(wsgi.METRICS_ENDPOINT_ENV, "true")
+    wsgi_app = app.make_app(app.ScoringService(model_dir, device="cpu"))
+    body = _call(wsgi_app, "/metrics", "GET")[2].decode()
+    values = {}
+    for line in body.splitlines():
+        if line and not line.startswith("#"):
+            name, value = line.rsplit(" ", 1)
+            values[name] = float(value)
+    assert values["process_rss_bytes"] > 0 and values["process_open_fds"] > 0
+    assert values["process_threads"] >= 1 and values["device_live_bytes"] == 0
+    from sagemaker_xgboost_container_tpu.telemetry import cluster as jax_cluster
+
+    for name in ("process_rss_bytes", "process_open_fds", "process_threads",
+                 "device_live_bytes"):
+        assert "# HELP {} ".format(name) in body
+    assert set(cluster.runtime_snapshot()) == set(jax_cluster.runtime_snapshot())
+
+
+def test_runtime_gauge_help_strings_equal_jax():
+    from sagemaker_xgboost_container_tpu.telemetry import cluster as jax_cluster
+    from sagemaker_xgboost_container_tpu_torch.telemetry import cluster
+
+    ours, ref = registry.MetricsRegistry(), jax_registry.MetricsRegistry()
+    cluster.refresh_runtime_gauges(ours)
+    jax_cluster.refresh_runtime_gauges(ref)
+    assert [(n, k, h) for n, k, h, _ in ours.collect()] == \
+        [(n, k, h) for n, k, h, _ in ref.collect()]
+
+
+def test_kernel_builds_count_as_compiles(monkeypatch):
+    from sagemaker_xgboost_container_tpu_torch.telemetry import cluster
+
+    monkeypatch.setenv("SM_TRACE", "true")
+    before = cluster.compile_stats()
+    with tracing.trace_span("round"):
+        cluster.note_build(1.5)
+    after = cluster.compile_stats()
+    assert after["count"] == before["count"] + 1
+    assert after["seconds"] == pytest.approx(before["seconds"] + 1.5)
+    (build,) = [s for s in tracing.snapshot_spans() if s.name == "xla.compile"]
+    assert build.attributes == {"kind": "nvcc_build"} and build.dur_us == 1.5e6
+    (root,) = [s for s in tracing.snapshot_spans() if s.name == "round"]
+    assert build.parent_id == root.span_id
+
+
+def test_round_state_snapshot_equals_jax():
+    from sagemaker_xgboost_container_tpu.telemetry import cluster as jax_cluster
+    from sagemaker_xgboost_container_tpu_torch.telemetry import cluster
+
+    ours, ref = cluster.RoundState(maxlen=8), jax_cluster.RoundState(maxlen=8)
+    assert ours.snapshot() == ref.snapshot()
+    for rnd, seconds in enumerate(np.random.RandomState(3).rand(12)):
+        ours.note_round(rnd, seconds)
+        ref.note_round(rnd, seconds)
+        assert ours.snapshot() == ref.snapshot()
+
+
+def test_round_fields_and_spans_like_jax(capsys):
+    from sagemaker_xgboost_container_tpu.telemetry import spans as jax_spans
+    from sagemaker_xgboost_container_tpu_torch.telemetry import spans
+
+    for mod in (emit, jax_emit):
+        mod.set_round_fields(a=1, b="x")
+        mod.set_round_fields(b=None)
+    assert emit.get_round_fields() == jax_emit.get_round_fields() == {"a": 1}
+    for mod in (emit, jax_emit):
+        mod.set_round_fields(a=None)
+    lines = []
+    for mod in (spans, jax_spans):
+        rec = mod.push_recorder()
+        with mod.span("checkpoint"):
+            pass
+        with mod.span("ingest", emit=True):
+            pass
+        assert mod.active_recorder() is rec and set(rec.drain()) == {"checkpoint", "ingest"}
+        mod.pop_recorder(rec)
+        assert mod.active_recorder() is None
+        lines.append(capsys.readouterr().out)
+    shapes = [sorted(json.loads(line)) for line in lines]
+    assert shapes[0] == shapes[1]
+
+
+def test_phase_recorders_are_thread_local():
+    import threading
+
+    from sagemaker_xgboost_container_tpu_torch.telemetry import spans
+
+    rec = spans.push_recorder()
+    seen = {}
+
+    def other():
+        seen["active"] = spans.active_recorder()
+        with spans.span("fold_work"):
+            pass
+
+    t = threading.Thread(target=other)
+    t.start()
+    t.join(timeout=10)
+    assert not t.is_alive() and seen["active"] is None
+    assert rec.drain() == {}
+    spans.pop_recorder(rec)
+
+
+def test_export_traces_and_rank_like_jax(monkeypatch, tmp_path, capsys):
+    monkeypatch.setenv("SM_TRACE", "1")
+    docs = []
+    for mod, sub in ((tracing, "ours"), (jax_tracing, "ref")):
+        mod.set_rank(2)
+        assert mod.get_rank() == 2
+        with mod.trace_span("round"):
+            mod.record_span("kernel", 0.25, attributes={"k": 1})
+        path = mod.export_traces(default_dir=str(tmp_path / sub))
+        assert os.path.basename(path) == "trace-rank2.json"
+        docs.append(json.loads(open(path).read()))
+        mod.set_rank(0)
+    assert _shape(docs[0]) == _shape(docs[1])
+    records = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+               if "training.trace_export" in line]
+    assert [sorted(r) for r in records[:1]] == [sorted(r) for r in records[1:]]
+    monkeypatch.delenv("SM_TRACE")
+    tracing._reset_for_tests()
+    assert tracing.export_traces(default_dir=str(tmp_path / "off")) is None

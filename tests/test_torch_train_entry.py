@@ -456,7 +456,9 @@ def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monk
                                         "algo-1", {}, device="cpu")
         names = ["xgboost-model-{}".format(k) for k in range(3)] if case == "kfold" else [
             "xgboost-model"]
-        assert sorted(os.listdir(str(tmp_path / "model"))) == names
+        # each model with its manifest, as the JAX package writes them
+        assert sorted(os.listdir(str(tmp_path / "model"))) == sorted(
+            names + [n + ".manifest" for n in names])
         return
     if case == "script_mode":
         code = tmp_path / "code"
