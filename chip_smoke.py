@@ -287,7 +287,34 @@ Phases (each prints its own lines; any failure exits non-zero):
    training rows keep model_drift_psi under 0.2, 1,000 with features 0-7
    shifted by 3 sigma drive it above and serving_state to degraded, the
    four runtime gauges on /metrics; the 1-row p50 of 1,000 requests with
-   the monitor armed and unarmed. Every child prints its launch counts.
+   the monitor armed and unarmed. Every child prints its launch counts;
+17. data-parallel training across ranks. 17a: the main path's rows split
+   unevenly, 500,003 / 499,997, over two ranks, each a child process
+   (`chip_smoke.py --rank-child`) on cuda:0, joined by a gloo process group
+   (`parallel/distributed.init_process_group(..., backend="gloo")`: NCCL
+   refuses two ranks on one device), each with half of the validation rows;
+   10 rounds of `train(group=)`: the two saved models byte-equal, the
+   validation logloss (every rank's partial sums combined) identical on
+   both, falling every round and within ENTRY_METRIC_TOL of one rank's
+   10 rounds on all rows; per rank: rounds/s over rounds 2-9, 8 / 1
+   launches a round, the host syncs of one round (sync debug mode) beside
+   its gloo collectives (each on CUDA tensors waits on the host), the
+   bytes reduced a round against the count from the shapes (128 node
+   histograms x 28 x 257 x 2 x 4 B + 2,048 B of totals = 7,370,752 B) and
+   round_comm_plan, and the collectives' ms a round (host clock around the
+   calls and waits). 17b: `training.entry` (`--entry-child`) in two child
+   processes with SM_HOSTS ["127.0.0.1", "localhost"], each with its half
+   of phase 8's channels (20 rounds), SM_PROCESS_GROUP_BACKEND=gloo,
+   SM_TRACE, SM_FLEET_TRACE and SM_STATUS_PORT: both exit 0 with identical
+   HPO lines, GET /status answers mid-run with the current round, SIGQUIT
+   to rank 1 writes its dump and the job goes on, rank 0 alone writes
+   xgboost-model and a trace-fleet.json with two rank lanes, 8 hist_kernel
+   launches a round each. 17c: the same with SM_ABORT_ON_STALE and
+   heartbeats every second, rank 1 SIGKILLed at its 3rd round end
+   (`training.round_end:kill@3`): rank 0 exits 80 within the process
+   group's timeout plus a margin, with one training.abort record and no
+   model. NCCL and the reduce_scatter lowering do not run here: the box has
+   one GPU, and gloo reduce-scatters no CUDA tensors.
 
 The second line from the end is the kernels JSON line, the last line the
 device JSON line. Needs one CUDA GPU; exits 2 without one.
@@ -4716,6 +4743,411 @@ def _drift_traffic(tag, base, calm, shifted, on_cpu):
           "runtime gauges missing from /metrics: {}".format(gauges))
 
 
+# ---------------------------------------------------------------- phase 17
+
+# 17a: the main path's rows split unevenly over two ranks on the one card
+# (two processes joined by gloo: NCCL refuses two ranks on one device)
+DIST_HOSTS = ["127.0.0.1", "localhost"]   # sorted: rank 0, rank 1
+DIST_SPLIT, DIST_ROUNDS, DIST_SYNC_ROUND = 500_003, 10, 5
+DIST_CHILD_COMMAND = [sys.executable, os.path.abspath(__file__), "--rank-child"]
+# 17b / 17c: the train entry point on two hosts, each with its half of
+# phase 8's channels
+DIST_ENTRY_HP = {"objective": "binary:logistic", "max_depth": "8", "max_bin": "256",
+                 "tree_method": "hist", "eta": "0.2", "num_round": "20",
+                 "eval_metric": "logloss,auc"}
+DIST_ENTRY_ROUNDS = 20
+DIST_ENTRY_COMMAND = ENTRY_CHILD_COMMAND   # prints its launch counts as it exits
+DIST_HEARTBEAT_S, DIST_PG_TIMEOUT_S, DIST_KILL_ROUND = 1.0, 30.0, 3
+
+
+def free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def comm_bytes_from_shapes(max_depth, d, B):
+    """The bytes one depthwise round reduces, counted from the shapes: the
+    root's histogram and one left child a sibling pair at levels 1 to
+    max_depth - 1 (sibling subtraction), each (G, H) f32 [d, B], and the
+    last level's (g, h) f32 node totals."""
+    nodes = 1 + sum(2 ** (level - 1) for level in range(1, max_depth))
+    return nodes * d * B * 2 * 4 + 2 * 2 ** max_depth * 4
+
+
+def rank_child(spec_path):
+    """`chip_smoke.py --rank-child SPEC`: one rank of phase 17a: the
+    process group (gloo, the caller's choice, on cuda:0), this rank's rows of
+    the main path, DIST_ROUNDS rounds of `train(group=)`, and a JSON file of
+    what it measured a round."""
+    import warnings
+
+    import torch
+
+    import sagemaker_xgboost_container_tpu_torch as pkg
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.ops import histogram as hist
+    from sagemaker_xgboost_container_tpu_torch.parallel import collectives, distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, device, rounds = spec["rank"], torch.device(spec["device"]), spec["rounds"]
+    n, n_val, split, sync_round = spec["n_train"], spec["n_val"], spec["split"], spec["sync_round"]
+    cuda = device.type == "cuda"
+    group = distributed.init_process_group(DIST_HOSTS, DIST_HOSTS[rank], device,
+                                           backend="gloo", port=spec["port"])
+    X, y = make_data(n + n_val, N_FEATURES, seed=0)
+    rows = slice(0, split) if rank == 0 else slice(split, n)
+    half = n + n_val // 2
+    vrows = slice(n, half) if rank == 0 else slice(half, n + n_val)
+    marks, launches, comm, syncs = [], [], [], {}
+    recording = warnings.catch_warnings(record=True)
+
+    def mark():
+        if cuda:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        launches.append(dict(hist.LAUNCHES))
+        comm.append({"calls": collectives.STATS["calls"],
+                     "seconds": collectives.STATS["seconds"],
+                     "kinds": dict(collectives.STATS["kinds"])})
+
+    class Meter:
+        def before_training(self, forest):
+            mark()
+            return forest
+
+        def after_iteration(self, forest, rnd, evals_log):
+            if rnd == sync_round and cuda:
+                # the host syncs of one whole round (its collectives, the
+                # metric gather and the round's copy of the trees)
+                torch.cuda.set_sync_debug_mode("default")
+                recording.__exit__(None, None, None)
+                syncs["debug_mode"] = sum("synchronizing CUDA operation" in str(w.message)
+                                          for w in self.seen)
+            mark()
+            self.log = {k: dict(v) for k, v in evals_log.items()}
+            if rnd == sync_round - 1 and cuda:
+                self.seen = recording.__enter__()
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            return False
+
+    meter = Meter()
+    hist.reset_launch_counts()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    forest = pkg.train(MAIN_PARAMS, DataMatrix(X[rows], y[rows]), rounds,
+                       evals=[(DataMatrix(X[vrows], y[vrows]), "validation")], device=device,
+                       group=group, callbacks=[meter], verbose_eval=False)
+    forest.save_model(spec["model"])
+    distributed.destroy_process_group()
+    r0, r1 = 1, rounds - 1      # rounds 2..rounds-1 (1-based)
+    per = r1 - r0
+
+    def per_round(a, b):
+        return {k: (b.get(k, 0) - a.get(k, 0)) / per for k in b}
+
+    result = {
+        "rank": rank, "rows": rows.stop - rows.start, "setup_s": marks[0] - t0,
+        "rounds_per_s": per / (marks[r1 + 1] - marks[r0 + 1]),
+        "launches_per_round": {k: (launches[-1][k] - launches[0][k]) / rounds
+                               for k in launches[-1]},
+        "collective_calls_per_round": (comm[r1 + 1]["calls"] - comm[r0 + 1]["calls"]) / per,
+        "collective_ms_per_round": (comm[r1 + 1]["seconds"] - comm[r0 + 1]["seconds"])
+        * 1e3 / per,
+        "bytes_per_round": per_round(comm[r0 + 1]["kinds"], comm[r1 + 1]["kinds"]),
+        "host_syncs_round": syncs.get("debug_mode"),
+        "sync_round_collectives": comm[sync_round + 1]["calls"] - comm[sync_round]["calls"],
+        "logloss": meter.log["validation"]["logloss"],
+        "backend": "gloo",
+    }
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_distributed(torch, hist, pkg, dtrain, dval, tag):
+    """Phase 17: data-parallel training across ranks (see the module
+    docstring)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        run_two_ranks(torch, pkg, dtrain, dval, tag, tmp)
+        run_two_hosts(tag, tmp)
+        run_host_loss(tag, tmp)
+    print("{} | distributed phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def run_two_ranks(torch, pkg, dtrain, dval, tag, tmp):
+    """17a: two ranks on the card against one rank on all rows."""
+    from sagemaker_xgboost_container_tpu_torch.ops.histogram import round_comm_plan
+
+    log = _RoundLog(torch)
+    pkg.train(MAIN_PARAMS, dtrain, DIST_ROUNDS, evals=[(dval, "validation")], device=DEVICE,
+              callbacks=[log], verbose_eval=False)
+    single = log.logloss
+    port = free_port()
+    procs, specs = [], []
+    for rank in range(2):
+        spec = {"rank": rank, "port": port, "out": os.path.join(tmp, "rank{}.json".format(rank)),
+                "model": os.path.join(tmp, "rank{}-model.json".format(rank)), "device": DEVICE,
+                "rounds": DIST_ROUNDS, "n_train": N_TRAIN, "n_val": N_VAL,
+                "split": DIST_SPLIT, "sync_round": DIST_SYNC_ROUND}
+        specs.append(spec)
+        path = os.path.join(tmp, "spec{}.json".format(rank))
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        procs.append(subprocess.Popen(DIST_CHILD_COMMAND + [path], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=10)
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, "17a: rank {} exited {}: {}".format(rank, p.returncode,
+                                                                     out[-3000:]))
+    res = []
+    for spec in specs:
+        with open(spec["out"]) as f:
+            res.append(json.load(f))
+    with open(specs[0]["model"], "rb") as f0, open(specs[1]["model"], "rb") as f1:
+        same_model = f0.read() == f1.read()
+    want_bytes = comm_bytes_from_shapes(MAIN_PARAMS["max_depth"], N_FEATURES,
+                                        MAIN_PARAMS["max_bin"] + 1)
+    planned = round_comm_plan("depthwise", MAIN_PARAMS["max_depth"], 0, N_FEATURES,
+                              MAIN_PARAMS["max_bin"] + 1, 2, "psum", True)[1]
+    for r in res:
+        reduced = r["bytes_per_round"].get("hist", 0) + r["bytes_per_round"].get("totals", 0)
+        print("{} | two ranks 17a: rank {} ({:,} rows, {} on {}): {:.3f} rounds/s over "
+              "rounds 2-9 (setup {:.1f} s); launches a round {}; host syncs in round {}: {} "
+              "(sync debug mode), with {} {} collectives on {} tensors that round (on CUDA "
+              "each waits for the device on the host); bytes reduced a round {:,} (hist {:,}, "
+              "totals {:,}; from the shapes {:,}; round_comm_plan {:,}); other collective "
+              "bytes a round {}; {:.1f} collectives and {:.3f} ms in them a round (host "
+              "clock)".format(
+                  tag, r["rank"], r["rows"], r["backend"], DEVICE, r["rounds_per_s"],
+                  r["setup_s"], json.dumps(r["launches_per_round"]), DIST_SYNC_ROUND + 1,
+                  r["host_syncs_round"], r["sync_round_collectives"], r["backend"], DEVICE,
+                  int(reduced), int(r["bytes_per_round"].get("hist", 0)),
+                  int(r["bytes_per_round"].get("totals", 0)), want_bytes, planned,
+                  json.dumps({k: v for k, v in r["bytes_per_round"].items()
+                              if k not in ("hist", "totals")}),
+                  r["collective_calls_per_round"], r["collective_ms_per_round"]), flush=True)
+        check(r["launches_per_round"]["hist_kernel"] == 8
+              and r["launches_per_round"]["totals_kernel"] == 1,
+              "17a: rank {} launches a round {}".format(r["rank"], r["launches_per_round"]))
+        check(reduced == want_bytes == planned,
+              "17a: rank {} reduced {} bytes a round, the shapes give {}".format(
+                  r["rank"], reduced, want_bytes))
+    ll = res[0]["logloss"]
+    print("{} | two ranks 17a: validation logloss {} (rank 1 {}); one rank on all rows "
+          "{}; last-round difference {:.3e}; models byte-equal: {}".format(
+              tag, [round(v, 6) for v in ll], "the same" if res[1]["logloss"] == ll else
+              res[1]["logloss"], [round(v, 6) for v in single], abs(ll[-1] - single[-1]),
+              same_model), flush=True)
+    check(same_model, "17a: the two ranks saved different models")
+    check(res[1]["logloss"] == ll, "17a: the ranks printed different metrics")
+    check(len(ll) == DIST_ROUNDS and all(b < a for a, b in zip(ll, ll[1:])),
+          "17a: validation logloss did not fall every round: {}".format(ll))
+    check(abs(ll[-1] - single[-1]) <= ENTRY_METRIC_TOL,
+          "17a: two ranks' logloss {} vs one rank's {}".format(ll[-1], single[-1]))
+
+
+def _dist_entry_hosts(tmp, name, hp, extra):
+    """The SageMaker trees and env of two hosts of one box: each with its
+    half of phase 8's channels, its own model and output dirs, and the
+    ports of the planes (abort ports distinct: both listen on one box)."""
+    X, y = make_data(ENTRY_TRAIN_ROWS + ENTRY_VAL_ROWS, N_FEATURES, seed=ENTRY_SEED)
+    X[np.random.RandomState(ENTRY_SEED + 1).rand(*X.shape) < ENTRY_MISSING] = np.nan
+    n, nv = ENTRY_TRAIN_ROWS, ENTRY_VAL_ROWS
+    ports = {"SM_RENDEZVOUS_PORT": free_port(), "SM_PROCESS_GROUP_PORT": free_port(),
+             "SM_HEARTBEAT_PORT": free_port(), "SM_FLEET_TRACE_PORT": free_port(),
+             "SM_STATUS_PORT": free_port()}
+    envs = []
+    for rank in range(2):
+        root = os.path.join(tmp, "{}-host{}".format(name, rank))
+        t = slice(0, n // 2) if rank == 0 else slice(n // 2, n)
+        v = slice(n, n + nv // 2) if rank == 0 else slice(n + nv // 2, n + nv)
+        _write_csv_channel(os.path.join(root, "train"), X[t], y[t])
+        _write_csv_channel(os.path.join(root, "validation"), X[v], y[v])
+        channel = {"ContentType": "csv", "TrainingInputMode": "File",
+                   "S3DistributionType": "FullyReplicated"}
+        for fname, doc in (("hp.json", hp), ("data.json", {"train": channel,
+                                                             "validation": dict(channel)})):
+            with open(os.path.join(root, fname), "w") as f:
+                json.dump(doc, f)
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("SM_", "SAGEMAKER_"))}
+        env.update({k: str(v) for k, v in ports.items()})
+        env.update({
+            "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+            "SM_INPUT_TRAINING_CONFIG_FILE": os.path.join(root, "hp.json"),
+            "SM_INPUT_DATA_CONFIG_FILE": os.path.join(root, "data.json"),
+            "SM_CHECKPOINT_CONFIG_FILE": os.path.join(root, "none.json"),
+            "SM_CHANNEL_TRAIN": os.path.join(root, "train"),
+            "SM_CHANNEL_VALIDATION": os.path.join(root, "validation"),
+            "SM_MODEL_DIR": os.path.join(root, "model"),
+            "SM_OUTPUT_DIR": os.path.join(root, "output"),
+            "SM_OUTPUT_DATA_DIR": os.path.join(root, "output", "data"),
+            "SM_HOSTS": json.dumps(DIST_HOSTS), "SM_CURRENT_HOST": DIST_HOSTS[rank],
+            "SM_ABORT_PORT": str(free_port()),
+            "SM_PROCESS_GROUP_BACKEND": "gloo",
+            "GRAFT_HEARTBEAT_TIMEOUT_S": str(DIST_PG_TIMEOUT_S),
+        })
+        env.update(extra[rank])
+        envs.append((env, root))
+    return envs
+
+
+class _Child:
+    """A child process whose stdout lines are collected by a thread, with
+    an event set at its first HPO metric line."""
+
+    def __init__(self, command, env):
+        self.proc = subprocess.Popen(command, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        self.lines, self.err = [], []
+        self.first_metric = threading.Event()
+        self.ended_at = None
+        self._threads = [threading.Thread(target=self._read, daemon=True),
+                         threading.Thread(target=lambda: self.err.extend(self.proc.stderr),
+                                          daemon=True)]
+        for th in self._threads:
+            th.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            if HPO_LINE.match(line):
+                self.first_metric.set()
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+
+    def wait(self, timeout):
+        try:
+            self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait(timeout=10)
+            for th in self._threads:
+                th.join(10)
+        return self.proc.returncode
+
+    @property
+    def out(self):
+        return "".join(self.lines)
+
+
+def run_two_hosts(tag, tmp):
+    """17b: the train entry point on two hosts."""
+    extra = [{"SM_TRACE": "true", "SM_FLEET_TRACE": "true", "SM_FLEET_FLUSH_S": "0.5"}] * 2
+    envs = _dist_entry_hosts(tmp, "entry", DIST_ENTRY_HP, extra)
+    t = time.perf_counter()
+    children = [_Child(DIST_ENTRY_COMMAND, env) for env, _root in envs]
+    try:
+        _two_hosts(tag, envs, children, t)
+    finally:
+        for c in children:
+            c.kill()
+
+
+def _two_hosts(tag, envs, children, t):
+    status = None
+    check(children[0].first_metric.wait(300), "17b: rank 0 printed no metric line: {}".format(
+        "".join(children[0].err)[-3000:]))
+    port = envs[0][0]["SM_STATUS_PORT"]
+    deadline = time.monotonic() + 30
+    while status is None and time.monotonic() < deadline:
+        try:
+            with urllib.request.urlopen("http://127.0.0.1:{}/status".format(port),
+                                        timeout=5) as resp:
+                doc = json.loads(resp.read().decode("utf-8"))
+            if doc.get("round", {}).get("round", -1) >= 0:
+                status = doc
+        except (OSError, ValueError):
+            time.sleep(0.05)
+    children[1].proc.send_signal(signal.SIGQUIT)
+    dump = os.path.join(envs[1][1], "model", "fleet-status-rank1.json")
+    deadline = time.monotonic() + 30
+    while not os.path.exists(dump) and time.monotonic() < deadline and \
+            children[1].proc.poll() is None:
+        time.sleep(0.05)
+    dumped = os.path.exists(dump)
+    codes = [c.wait(300) for c in children]
+    wall = time.perf_counter() - t
+    for rank, (code, c) in enumerate(zip(codes, children)):
+        check(code == 0, "17b: host {} exited {}: {}".format(rank, code, "".join(c.err)[-3000:]))
+    lines = [[l for l in c.out.splitlines() if HPO_LINE.match(l)] for c in children]
+    model = os.path.join(envs[0][1], "model", "xgboost-model")
+    with open(os.path.join(envs[0][1], "model", "trace-fleet.json")) as f:
+        lanes = sorted({e["pid"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"})
+    launches = [_child_launches(c.out) for c in children]
+    print("{} | two hosts 17b: both exit 0 in {:.1f} s; {} HPO lines each, identical: {}; "
+          "last {!r}; rank 0's model {} bytes, rank 1 wrote none: {}; trace-fleet.json "
+          "lanes {}; GET /status mid-run: round {} of {} planned; SIGQUIT dump of rank 1: "
+          "{}; launches {}".format(
+              tag, wall, len(lines[0]), lines[0] == lines[1], lines[0][-1] if lines[0] else None,
+              os.path.getsize(model) if os.path.exists(model) else 0,
+              not os.path.exists(os.path.join(envs[1][1], "model", "xgboost-model")), lanes,
+              status and status["round"]["round"], status and status.get("rounds_planned"),
+              dumped, json.dumps(launches)), flush=True)
+    check(len(lines[0]) == DIST_ENTRY_ROUNDS and lines[0] == lines[1],
+          "17b: the hosts printed different HPO lines")
+    check(os.path.exists(model), "17b: rank 0 wrote no model")
+    check(lanes == [0, 1], "17b: trace-fleet.json has lanes {}".format(lanes))
+    check(status is not None, "17b: GET /status never answered with a round")
+    check(dumped, "17b: SIGQUIT wrote no dump")
+    check(all(l and l["hist_kernel"] == 8 * DIST_ENTRY_ROUNDS for l in launches),
+          "17b: launches {}".format(launches))
+
+
+def run_host_loss(tag, tmp):
+    """17c: rank 1 killed at its third round end; rank 0 must exit 80."""
+    common = {"SM_ABORT_ON_STALE": "true", "SM_HEARTBEAT_INTERVAL_S": str(DIST_HEARTBEAT_S),
+              "SM_STRUCTURED_METRICS": "true"}
+    envs = _dist_entry_hosts(tmp, "loss", DIST_ENTRY_HP, [
+        dict(common), dict(common, SM_FAULT_SPEC="training.round_end:kill@{}".format(
+            DIST_KILL_ROUND))])
+    children = [_Child(ENTRY_COMMAND, env) for env, _root in envs]
+    try:
+        _host_loss(tag, envs, children)
+    finally:
+        for c in children:
+            c.kill()
+
+
+def _host_loss(tag, envs, children):
+    code1 = children[1].wait(300)
+    dead_at = time.perf_counter()
+    code0 = children[0].wait(DIST_PG_TIMEOUT_S + 60)
+    after = time.perf_counter() - dead_at
+    out0 = children[0].out
+    aborts = [json.loads(l) for l in out0.splitlines() if l.startswith('{"metric": "training.abort"')]
+    model = os.path.join(envs[0][1], "model", "xgboost-model")
+    lines = [l for l in out0.splitlines() if HPO_LINE.match(l)]
+    print("{} | host loss 17c: rank 1 exit {} at round {}; rank 0 exit {} {:.2f} s after "
+          "(heartbeat every {} s, process group timeout {} s); training.abort records {} "
+          "({}); rank 0 printed {} of {} rounds; model written: {}".format(
+              tag, code1, DIST_KILL_ROUND, code0, after, DIST_HEARTBEAT_S, DIST_PG_TIMEOUT_S,
+              len(aborts), aborts[0].get("reason") if aborts else None, len(lines),
+              DIST_ENTRY_ROUNDS, os.path.exists(model)), flush=True)
+    check(code1 == -signal.SIGKILL, "17c: rank 1 exited {}".format(code1))
+    check(code0 == 80, "17c: rank 0 exited {}: {}".format(code0, "".join(children[0].err)[-3000:]))
+    check(after <= DIST_PG_TIMEOUT_S + 30, "17c: rank 0 took {:.1f} s".format(after))
+    check(len(aborts) == 1, "17c: {} training.abort records".format(len(aborts)))
+    check(not os.path.exists(model), "17c: rank 0 wrote a model")
+
+
+
 def main():
     try:
         import torch
@@ -4782,6 +5214,7 @@ def main():
         run_methods(torch, hist, pkg, dtrain, dval, tag)
         run_formats(torch, hist, dval, tag)
         run_planes(torch, hist, pkg, dtrain, dval, tag)
+        run_distributed(torch, hist, pkg, dtrain, dval, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise
@@ -4818,4 +5251,6 @@ if __name__ == "__main__":
         entry_child()
     if sys.argv[1:2] == ["--oom-child"]:
         sys.exit(oom_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--rank-child"]:
+        sys.exit(rank_child(sys.argv[2]))
     sys.exit(main())

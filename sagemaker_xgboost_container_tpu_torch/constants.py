@@ -122,6 +122,7 @@ ONE_THREAD_PER_PROCESS = "1"
 # the shell and signal ranges, so the platform restarts the job or server and
 # its log names which supervisor pulled the trigger
 EXIT_ROUND_DEADLINE = 79  # round watchdog: a boosting round exceeded SM_ROUND_DEADLINE_S
+EXIT_CLUSTER_ABORT = 80  # coordinated abort: rank 0 declared a peer dead
 EXIT_DRAIN_TIMEOUT = 83  # SIGTERM drain: requests still in flight past SM_DRAIN_TIMEOUT_S
 EXIT_PREDICT_STUCK = 84  # predict watchdog: a dispatch wedged past SM_PREDICT_STUCK_S (abort)
 EXIT_DEVICE_OOM = 86  # the device allocator ran out inside a round; forensics dumped

@@ -31,6 +31,17 @@ out-of-memory error inside a round dumps forensics and exits 86. The dart
 loop builds the same session (so it captures the baseline) but, as in the
 JAX package, emits no learning records; gblinear, update and fold-parallel
 CV emit none.
+
+Data-parallel training, the JAX package's ``train(..., mesh=)``:
+``train(..., group=)`` takes a ``torch.distributed`` process group, one
+process a rank, each rank passing its own rows. Every rank bins with the
+same cuts (``merged_distributed_cuts``: each rank's candidates gathered and
+re-selected), every level's histograms are reduced over the group before
+the split scan (``ops/tree_build``, ``ops/lossguide``), the learning stats
+are reduced as the JAX round reduces them, and the metric lines combine
+every rank's partial statistics, summed in f64 on the host, so every rank
+grows the same trees and prints the same lines. What does not train across
+ranks yet raises ``UserError`` naming it (``refuse_across_ranks``).
 """
 
 import logging
@@ -52,7 +63,9 @@ from ..data.binning import (
 from ..ops.lossguide import build_tree_lossguide
 from ..ops.predict import forest_leaf_values
 from ..ops.ranking import bucket_group_layout, lambdarank_grad_hess
+from ..ops.histogram import hist_comm_impl
 from ..ops.tree_build import build_tree, pack_tree, predict_binned, unpack_tree
+from ..parallel import collectives
 from ..telemetry import model as model_telemetry
 from ..telemetry.tracing import DEVICE_SYNC_ENV
 from ..toolkit import exceptions as exc
@@ -229,6 +242,97 @@ def constraint_tensors(config, d, device):
     return monotone, interaction_sets
 
 
+# what does not train across ranks yet: (test on the config, what, why,
+# the ROADMAP Queue 1 item that brings it)
+_ACROSS_RANKS = (
+    (lambda c: c.objective.startswith("rank:"), "objective={objective!r}",
+     "the query groups need build_sharded_group_layout across ranks", "9b"),
+    (lambda c: c.objective == "survival:cox", "objective='survival:cox'",
+     "its risk sets need the global rows", "9b"),
+    (lambda c: "cox-nloglik" in _metric_list(c), "eval_metric='cox-nloglik'",
+     "it needs the global rows", "9b"),
+    (lambda c: c.booster in ("dart", "gblinear"), "booster={booster!r}",
+     "only gbtree trains across ranks", "9b"),
+    (lambda c: c.process_type == "update", "process_type='update'",
+     "only gbtree trains across ranks", "9b"),
+    (lambda c: c.tree_method in ("exact", "approx"), "tree_method={tree_method!r}",
+     "its cuts would have to be merged every round", "9b"),
+)
+
+
+def _metric_list(config):
+    m = config.eval_metric
+    return [m] if isinstance(m, str) else list(m or [])
+
+
+def refuse_across_ranks(config):
+    """Raise ``UserError`` naming the first option of ``config`` that the
+    port does not train across ranks yet, and the ROADMAP item that will."""
+    for test, what, why, item in _ACROSS_RANKS:
+        if test(config):
+            raise exc.UserError(
+                "{} is not supported across ranks by the PyTorch port yet ({}); "
+                "ROADMAP Queue 1 item {}. Train it on one host.".format(
+                    what.format(**vars(config)), why, item))
+
+
+def merge_cut_candidates(mats, counts, width):
+    """Every rank's cut candidates -> the merged cuts, the JAX package's
+    ``_merged_distributed_cuts`` merge: per feature the sorted union of the
+    finite candidates, thinned to ``width`` evenly spaced picks when
+    longer. ``mats`` [P, d, width] f32 (NaN past each count), ``counts``
+    [P, d]. Deterministic: identical inputs give identical cuts on every
+    rank."""
+    merged = []
+    for f in range(mats.shape[1]):
+        cands = np.concatenate([mats[p, f, :counts[p, f]] for p in range(mats.shape[0])])
+        cands = np.unique(cands[np.isfinite(cands)])
+        if len(cands) > width:
+            picks = np.linspace(0, len(cands) - 1, width).round().astype(int)
+            cands = cands[np.unique(picks)]
+        merged.append(cands.astype(np.float32))
+    return merged
+
+
+def merged_distributed_cuts(dtrain, max_bin, group, device):
+    """Each rank's quantile cuts of its own rows, gathered over ``group``
+    and merged (``merge_cut_candidates``), so that every rank bins with
+    the same thresholds."""
+    local_cuts = compute_cut_points(dtrain.features, dtrain.weights, max_bin, device=device)
+    width = max_bin - 1
+    d = dtrain.num_col
+    mat = np.full((d, width), np.nan, np.float32)
+    counts = np.zeros(d, np.int32)
+    for f, c in enumerate(local_cuts):
+        c = np.asarray(c, np.float32)
+        mat[f, :len(c)] = c
+        counts[f] = len(c)
+    mats = collectives.host_all_gather(mat, group, device)
+    all_counts = collectives.host_all_gather(counts, group, device)
+    return merge_cut_candidates(mats, all_counts, width)
+
+
+def agreed_num_col(dm, group, device):
+    """The widest feature count over the ranks: libsvm shards may end at
+    different columns, and every rank must histogram the same features."""
+    widths = collectives.host_all_gather(np.asarray([dm.num_col], np.int64), group, device)
+    return int(widths.max())
+
+
+def combine_host_metric_entries(results, pairs, finalizers, group, device):
+    """Combine every rank's metric entries -> identical lines on every rank.
+
+    ``results``: [(name, metric, local value or None)] in one order on
+    every rank; ``pairs``: a [E, 2] f64 tensor of each entry's summable
+    stats; ``finalizers[j]``: fn(summed stats) -> float. The stats are
+    gathered and summed over the ranks in f64 on the host."""
+    gathered = collectives.all_gather(pairs, group, kind="metrics").cpu().numpy().astype(
+        np.float64)
+    summed = gathered.sum(axis=0)
+    return [(name, metric, finalizers[j](summed[j]))
+            for j, (name, metric, _v) in enumerate(results)]
+
+
 def print_metric_line(rnd, results):
     """Print round ``rnd``'s (data, metric, value) results as xgboost's
     ``[rnd]<TAB>data-metric:value...`` line (nothing without results)."""
@@ -271,15 +375,25 @@ def _eval_metric_names(config, objective):
 class _TrainingSession:
     """Device state for one training run: bins, margins, eval sets."""
 
-    def __init__(self, config, dtrain, evals, forest, metric_names, device, sampler=None):
+    def __init__(self, config, dtrain, evals, forest, metric_names, device, sampler=None,
+                 group=None):
         self.config = config
         self.device = device
+        self.group = group   # None on one rank
+        self.rank = collectives.world(group)[0]
+        # the collective's lowering, resolved once (GRAFT_HIST_COMM)
+        self.hist_comm = hist_comm_impl() if self.group is not None else "psum"
         self.objective = forest.objective()
         self.num_group = self.objective.num_output_group
         self.objective.validate_labels(dtrain.labels)
 
-        self.train_binned = bin_matrix(dtrain, config.max_bin, exact_cap=config.exact_bin_cap,
-                                       device=device)
+        shared_cuts = None
+        if self.group is not None:
+            # every rank must bin with identical thresholds, or the reduced
+            # histograms mean nothing
+            shared_cuts = merged_distributed_cuts(dtrain, config.max_bin, self.group, device)
+        self.train_binned = bin_matrix(dtrain, config.max_bin, cut_points=shared_cuts,
+                                       exact_cap=config.exact_bin_cap, device=device)
         self.cuts = self.train_binned.cut_points
         self.num_bins = self.train_binned.num_bins
         self.bins = torch.as_tensor(self.train_binned.bins, device=device)
@@ -307,7 +421,8 @@ class _TrainingSession:
         base = self.objective.base_margin(forest.base_score)
         self.margins = self._start_margins(forest, dtrain, base)
         if sampler is None and Sampler.needed(config):
-            sampler = Sampler(config, dtrain.num_row, self.bins.shape[1], device)
+            sampler = Sampler(config, dtrain.num_row, self.bins.shape[1], device,
+                              rank=self.rank if self.group is not None else None)
         self.sampler = sampler
 
         # the planes, resolved once here on the host, never on the round
@@ -576,6 +691,7 @@ class _TrainingSession:
             eta=cfg.eta / cfg.num_parallel_tree,
             max_delta_step=cfg.max_delta_step,
             monotone=self.monotone, interaction_sets=self.interaction_sets,
+            group=self.group, hist_comm=self.hist_comm,
         )
         trees, total = [], None
         for k in range(cfg.num_parallel_tree):
@@ -606,12 +722,22 @@ class _TrainingSession:
         stacked = packed[0][None] if len(packed) == 1 else torch.stack(packed)
         if not self.learning_stats:
             return stacked, None
-        return stacked, learning_stats(g_stat, h_stat, self.margins)
+        vec = learning_stats(g_stat, h_stat, self.margins)
+        if self.group is not None:
+            # sums and counts summed, extrema min / max over the ranks, as
+            # the JAX round's psum / pmin / pmax: one gather
+            every = collectives.all_gather(vec, self.group, kind="stats")
+            sums, mins, maxs = every.sum(0), every.min(0).values, every.max(0).values
+            vec = torch.stack([sums[0], mins[1], maxs[2], sums[3], mins[4], maxs[5],
+                               sums[6], sums[7]])
+        return stacked, vec
 
     def evaluate(self, feval=None):
         """-> list of (data_name, metric_name, value) per eval set: the eval
         metrics, then what ``feval(margin, dm)`` returns for the set's host
         margins ([n] or [n, C]), the JAX package's order."""
+        if self.group is not None:
+            return self._evaluate_across_ranks(feval)
         results = []
         for name, dm, _bins, labels, weights, margins in self.eval_sets:
             m = self.margins if margins is None else margins
@@ -631,6 +757,71 @@ class _TrainingSession:
                 for metric_name, value in feval(m.cpu().numpy(), dm):
                     results.append((name, metric_name, value))
         return results
+
+    def _evaluate_across_ranks(self, feval):
+        """``evaluate`` over every rank's rows, identical on every rank: a
+        metric with a device form combines exactly from each rank's partial
+        statistics; a host metric and a feval combine as a weight-sum
+        weighted mean of the ranks' values, as in the JAX package
+        (distributed xgboost averages python-side metrics so too)."""
+        results, pairs, finalizers = [], [], []
+
+        def weighted_mean(value, wsum):
+            pairs.append(torch.tensor([value * wsum, wsum], dtype=torch.float64,
+                                      device=self.device))
+            finalizers.append(lambda st: float(st[0] / max(st[1], 1e-12)))
+
+        for name, dm, _bins, labels, weights, margins in self.eval_sets:
+            m = self.margins if margins is None else margins
+            w = dm.get_weight()
+            wsum = float(np.sum(w)) if w is not None else float(dm.num_row)
+            host = None
+            for metric_name, metric in self.metrics:
+                if metric is not None:
+                    pairs.append(metric.partial(m, labels, weights).double())
+                    finalizers.append(lambda st, f=metric: float(
+                        f.finalize(torch.as_tensor(st, dtype=torch.float64))))
+                    results.append((name, metric_name, None))
+                    continue
+                if host is None:
+                    host = self._host_predictions(m)
+                preds, prob_matrix = host
+                value = eval_metrics.evaluate(
+                    metric_name, preds, dm.labels, dm.weights, groups=dm.groups,
+                    prob_matrix=prob_matrix)
+                results.append((name, metric_name, value))
+                weighted_mean(value, wsum)
+            if feval is not None:
+                for metric_name, value in feval(m.cpu().numpy(), dm):
+                    results.append((name, metric_name, value))
+                    weighted_mean(value, wsum)
+        if not results:
+            return results
+        return combine_host_metric_entries(results, torch.stack(pairs), finalizers,
+                                           self.group, self.device)
+
+    def note_collectives(self, before):
+        """After a round across ranks: its collectives' host seconds, calls
+        and payload bytes (``collectives.STATS`` against ``before``) as the
+        ``hist_comm_ms`` / ``hist_comm_bytes`` round fields (RoundTimer's
+        collective share), the ``hist_comm_bytes_total`` counter, and a
+        ``collective.dispatch`` span under the open round span (the fleet
+        plane's collective phase). Measured on the host clock: with gloo the
+        wait for the peers, with NCCL the enqueue."""
+        from ..telemetry import REGISTRY, set_round_fields, tracing
+
+        seconds = collectives.STATS["seconds"] - before["seconds"]
+        nbytes = collectives.STATS["bytes"] - before["bytes"]
+        calls = collectives.STATS["calls"] - before["calls"]
+        set_round_fields(hist_comm_ms=round(seconds * 1000.0, 3), hist_comm_bytes=nbytes)
+        REGISTRY.counter(
+            "hist_comm_bytes_total",
+            "Payload bytes of the training rounds' cross-rank collectives",
+            {"impl": self.hist_comm},
+        ).inc(nbytes)
+        if tracing.enabled():
+            tracing.record_span("collective.dispatch", duration_s=seconds, attributes={
+                "impl": self.hist_comm, "bytes": nbytes, "calls": calls, "measured": True})
 
     def _host_predictions(self, margins):
         """(predictions, class probabilities or None) on the host, for the
@@ -667,6 +858,7 @@ def train(
     verbose_eval=True,
     xgb_model=None,
     _sampler=None,
+    group=None,
 ):
     """Train a Forest on ``device`` (CUDA unless given). API mirrors
     ``xgb.train``: ``evals`` is a list of (DataMatrix, name) pairs whose
@@ -682,10 +874,25 @@ def train(
     ``booster=gblinear`` trains a ``gblinear.LinearModel`` (resuming only
     from one), ``booster=dart`` runs ``dart.train_dart`` and
     ``process_type=update`` refreshes or prunes the trees of ``xgb_model``
-    (``update.train_update``), in the JAX package's order of checks."""
+    (``update.train_update``), in the JAX package's order of checks.
+
+    ``group``: a ``torch.distributed`` process group for data-parallel
+    training, or None for one rank (the JAX package's ``mesh=``). Every rank
+    calls ``train`` with the same parameters and its own rows (their counts
+    may differ); every rank returns the same Forest. gbtree with
+    ``tree_method`` hist trains across ranks; what does not raises
+    ``UserError`` (``refuse_across_ranks``)."""
     dev = resolve_device(device)
     config = TrainConfig(params)
     callbacks = list(callbacks or [])
+    if collectives.world(group)[1] > 1:
+        refuse_across_ranks(config)
+        d = agreed_num_col(dtrain, group, dev)
+        padded = dtrain.pad_features(d)
+        evals = [(padded if dm is dtrain else dm.pad_features(d), name) for dm, name in evals]
+        dtrain = padded
+    else:
+        group = None
     if config.process_type == "update" and config.booster == "gblinear":
         # checked before the gblinear branch, which would otherwise boost
         # more rounds where a refresh was asked for
@@ -739,7 +946,7 @@ def train(
                           num_boost_round, dev, verbose_eval=verbose_eval)
     metric_names = _eval_metric_names(config, forest.objective())
     session = _TrainingSession(config, dtrain, list(evals), forest, metric_names, dev,
-                               sampler=_sampler)
+                               sampler=_sampler, group=group)
 
     for cb in callbacks:
         if hasattr(cb, "before_training"):
@@ -749,7 +956,10 @@ def train(
     start_round = forest.num_boosted_rounds
     C, P = session.num_group, config.num_parallel_tree
     for rnd in range(start_round, start_round + num_boost_round):
+        comm_before = dict(collectives.STATS)
         trees_np = session.run_round(rnd)
+        if session.group is not None:
+            session.note_collectives(comm_before)
         # class-major: class 0's P trees, then class 1's, ... (xgboost's layout)
         if C == 1:
             trees = [compact_padded_tree(t, session.cuts) for t in trees_np]

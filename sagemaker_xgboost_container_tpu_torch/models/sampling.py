@@ -18,6 +18,13 @@ port draws them from a ``torch.Generator`` on the training device, seeded by
 drew. Threefry's bits cannot be reproduced in torch: ``train`` takes any
 object with this class's ``draw`` as a private argument, which is how the
 tests replay the JAX package's draws.
+
+Across ranks (``rank`` given) the column masks must be the same on every
+rank while each rank keeps only its own rows: the row keep masks then come
+from a second generator seeded by (seed, round, rank), so that the column
+draws do not depend on the rank's row count (the JAX package likewise
+draws its column subsets from a replicated key and its row masks per
+shard).
 """
 
 import collections
@@ -55,10 +62,12 @@ class Sampler:
 
     ``streams``: independent draws side by side on the builder's class axis
     (the folds of fold-parallel CV); 1 shares one draw across a multiclass
-    round's classes, as the JAX package does."""
+    round's classes, as the JAX package does. ``rank``: this rank's index
+    in data-parallel training (None on one rank)."""
 
-    def __init__(self, config, num_row, num_col, device, streams=1):
+    def __init__(self, config, num_row, num_col, device, streams=1, rank=None):
         self.config = config
+        self.rank = rank
         self.num_row, self.num_col = int(num_row), int(num_col)
         self.device = torch.device(device)
         self.streams = int(streams)
@@ -77,8 +86,13 @@ class Sampler:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(round_seed(cfg.seed, rnd))
 
-        def uniform(*shape):
-            return torch.rand(shape, generator=gen, device=self.device)
+        rows = gen
+        if self.rank is not None:
+            rows = torch.Generator(device=self.device)
+            rows.manual_seed(round_seed(cfg.seed, rnd) ^ round_seed(self.rank + 1, rnd))
+
+        def uniform(*shape, generator=gen):
+            return torch.rand(shape, generator=generator, device=self.device)
 
         tree = None
         if cfg.colsample_bytree < 1.0:
@@ -89,7 +103,7 @@ class Sampler:
         for _ in range(cfg.num_parallel_tree):
             keep = level = node = None
             if cfg.subsample < 1.0:
-                keep = (uniform(S, n) < cfg.subsample).float()
+                keep = (uniform(S, n, generator=rows) < cfg.subsample).float()
                 keep = keep[0] if S == 1 else keep
             if cfg.colsample_bylevel < 1.0:
                 level = (uniform(S, self.levels, d) < cfg.colsample_bylevel).float()

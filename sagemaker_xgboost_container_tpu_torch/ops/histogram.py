@@ -9,6 +9,13 @@ hand-written kernels (``csrc/hist_kernel.cu``, ``csrc/totals_kernel.cu``); on
 a CPU tensor it runs its plain PyTorch version (``_hist_plain``,
 ``_totals_plain``). There is no fallback from one to the other.
 
+Data-parallel training over a process group (``models/booster.train(...,
+group=)``) reduces each rank's level histograms between its local kernel
+launch and its split scan (``apply_hist_collective``, the JAX package's
+``psum`` / ``psum_scatter`` over the mesh's data axis): ``GRAFT_HIST_COMM``
+``psum`` all-reduces the full (G, H) pair, ``reduce_scatter`` hands each rank
+the summed histograms of its contiguous feature slice only.
+
 The histogram kernels add in shared memory with f32 atomics, so the order of
 the additions, and the last bits of every cell, vary from run to run. The
 totals kernels use no atomics and sum in an order fixed by the shapes, so
@@ -17,8 +24,11 @@ same values either differs by a few ulps of the largest partial sum.
 """
 
 import collections
+import os
 
 import torch
+
+from ..parallel import collectives
 
 # kernel launch counts, one per wrapper; chip_smoke.py resets and reads them
 LAUNCHES = {"hist_kernel": 0, "totals_kernel": 0}
@@ -358,3 +368,167 @@ def _totals_cuda(grad, hess, node_local, num_nodes):
     if grad.dim() == 1:
         return out[0, 0], out[1, 0]
     return out[0], out[1]
+
+
+# ------------------------------------------------------ data-axis collectives
+
+# [W]-shaped payloads of the winner merge a gain-scan batch under
+# reduce_scatter: the node-totals broadcast (g, h) and the cross-shard split
+# combine (max gain, min candidate, and the winner's feature, bin and
+# default_left), the JAX package's 7 collectives; the port fuses them into 4
+# calls (``ops/split``), with the same bytes
+MERGE_COLLECTIVES_PER_SCAN = 7
+
+
+def hist_comm_impl():
+    """Cross-rank histogram collective (``GRAFT_HIST_COMM``).
+
+    * ``psum`` (default): all-reduce the full [W, d, B] (G, H) pair to every
+      rank; every rank then runs the identical split scan.
+    * ``reduce_scatter``: each rank receives the summed histograms of only
+      its d/P feature slice and scans just that slice; the winners merge
+      across ranks afterwards (LightGBM's reduce-scatter histogram
+      aggregation). Ring wire bytes: (P-1)/P of the payload against
+      2(P-1)/P.
+    """
+    v = os.environ.get("GRAFT_HIST_COMM", "psum")
+    if v not in ("psum", "reduce_scatter"):
+        raise ValueError("Unknown GRAFT_HIST_COMM=%r; expected psum|reduce_scatter" % v)
+    return v
+
+
+def comm_overlap():
+    """``GRAFT_HIST_OVERLAP`` (default on): a level's collective is issued
+    in two node batches (``overlap_node_batches``), both started before the
+    first batch's scan waits for its result. Each node's histogram is
+    reduced whole by exactly one collective either way, so the trees are
+    the same bit for bit."""
+    return os.environ.get("GRAFT_HIST_OVERLAP", "1") == "1"
+
+
+def overlap_node_batches(num_nodes, enabled):
+    """The contiguous node slices whose histograms are reduced (and
+    gain-scanned) as independent collective -> scan chains: the whole level
+    when overlap is off or there are fewer than 2 nodes, else two halves."""
+    if not enabled or num_nodes < 2:
+        return [slice(0, num_nodes)]
+    half = num_nodes // 2
+    return [slice(0, half), slice(half, num_nodes)]
+
+
+def padded_feature_width(d, axis_size):
+    """Features padded up to a multiple of the rank count, so that every
+    rank owns an equal contiguous column slice under reduce_scatter. The
+    padded columns carry all-zero histograms and zero cut counts, so they
+    never win a split."""
+    return -(-d // axis_size) * axis_size
+
+
+def apply_hist_collective(G, H, group, comm="psum", async_op=False):
+    """Reduce (G, H) level histograms ([..., W, d, B], f32) over ``group``.
+
+    ``psum`` all-reduces the stacked pair (one call); ``reduce_scatter``
+    hands this rank its [..., W, d_pad/P, B] feature slice
+    (``scatter_histograms``). A no-op for a group of None. Returns (G, H),
+    or a ``collectives.Pending`` of it with ``async_op``. Reducing a
+    node-axis slice is the same, bit for bit, as reducing the whole level:
+    every node's payload is summed over the same ranks.
+    """
+    if group is None:
+        return collectives.Pending(None, (G, H)) if async_op else (G, H)
+    if comm == "reduce_scatter":
+        return scatter_histograms(G, H, group, async_op=async_op)
+    pending = collectives.all_reduce(torch.stack([G, H]), group, async_op=True, kind="hist")
+    pending = pending.then(lambda GH: (GH[0], GH[1]))
+    return pending if async_op else pending.wait()
+
+
+def scatter_histograms(G, H, group, async_op=False):
+    """Reduce-scatter (G, H) [..., W, d, B] along the feature dim: ->
+    [..., W, d_pad/P, B] each, the summed histograms of this rank's
+    contiguous feature slice [r*k, (r+1)*k) (the JAX package's
+    ``psum_scatter(..., scatter_dimension=1, tiled=True)``)."""
+    _rank, size = collectives.world(group)
+    lead, (d, B) = tuple(G.shape[:-2]), tuple(G.shape[-2:])
+    k = padded_feature_width(d, size) // size
+    GH = torch.stack([G, H])
+    if k * size != d:
+        GH = torch.nn.functional.pad(GH, (0, 0, 0, k * size - d))
+    rows = 1
+    for s in lead:
+        rows *= s
+    # feature blocks first: [P, 2 * rows * k * B], block r -> rank r
+    blocks = GH.reshape(2, rows, size, k, B).permute(2, 0, 1, 3, 4).reshape(size, -1)
+    pending = collectives.reduce_scatter(blocks.contiguous(), group, async_op=True,
+                                         kind="hist")
+    pending = pending.then(lambda out: tuple(out.reshape((2,) + lead + (k, B))))
+    return pending if async_op else pending.wait()
+
+
+def reduce_node_totals(g_tot, h_tot, group):
+    """The last level's per-node (sum g, sum h) summed over ``group`` (one
+    call for the pair); a no-op for a group of None."""
+    if group is None:
+        return g_tot, h_tot
+    gh = collectives.all_reduce(torch.stack([g_tot, h_tot]), group, kind="totals")
+    return gh[0], gh[1]
+
+
+def _wire_ratio(comm, axis_size):
+    """Per-rank wire bytes per payload byte of a ring collective:
+    all-reduce = reduce-scatter + all-gather = 2(p-1)/p; reduce-scatter
+    alone (p-1)/p."""
+    p = axis_size
+    if p <= 1:
+        return 0.0
+    frac = (p - 1) / p
+    return 2.0 * frac if comm == "psum" else frac
+
+
+def round_comm_plan(grow_policy, max_depth, max_leaves, d, num_bins, axis_size, comm,
+                    subtract, trees_per_round=1):
+    """The collectives of one round -> (entries, wire bytes a round), the
+    JAX package's plan: each entry ``{"kind": "hist"|"totals"|"merge",
+    "shape": local payload shape, "count": n, "bytes": wire bytes of all
+    n}``; ``hist`` entries carry the (G, H) f32 pair (payload times
+    ``_wire_ratio``), ``d`` the full feature width. With ``trees_per_round``
+    C (classes times parallel trees) every payload is C times as large."""
+    if axis_size <= 1:
+        return [], 0
+    d_eff = padded_feature_width(d, axis_size) if comm == "reduce_scatter" else d
+    ratio = _wire_ratio(comm, axis_size)
+    psum_ratio = _wire_ratio("psum", axis_size)
+    hist_widths, merge_widths, totals = [], [], []
+    if grow_policy == "lossguide":
+        hist_widths.append((1, 1))                       # root
+        merge_widths.append((1, 1))
+        if max_leaves > 1:
+            hist_widths.append((1 if subtract else 2, max_leaves - 1))  # per split step
+            merge_widths.append((2, max_leaves - 1))     # both fresh children
+    else:
+        hist_widths.append((1, 1))                       # level 0
+        merge_widths.append((1, 1))
+        for level in range(1, max_depth):
+            hist_widths.append((2 ** (level - 1) if subtract else 2**level, 1))
+            merge_widths.append((2**level, 1))           # full level scan
+        totals.append((2**max_depth, 1))                 # last-level node totals
+    entries = []
+    total_bytes = 0.0
+    for W, count in hist_widths:
+        count *= trees_per_round
+        b = 2 * W * d_eff * num_bins * 4 * ratio * count
+        entries.append({"kind": "hist", "shape": (W, d_eff, num_bins), "count": count,
+                        "bytes": b})
+        total_bytes += b
+    for W, count in totals:
+        count *= trees_per_round
+        b = 2 * W * 4 * psum_ratio * count
+        entries.append({"kind": "totals", "shape": (W,), "count": count, "bytes": b})
+        total_bytes += b
+    if comm == "reduce_scatter":
+        for W, count in merge_widths:
+            count *= trees_per_round
+            b = MERGE_COLLECTIVES_PER_SCAN * W * 4 * psum_ratio * count
+            entries.append({"kind": "merge", "shape": (W,), "count": count, "bytes": b})
+            total_bytes += b
+    return entries, int(total_bytes)

@@ -1,6 +1,6 @@
 """Leaf-wise (lossguide) tree growth: best-gain-first splitting to max_leaves.
 
-The JAX package's ``ops/lossguide.py`` for one device, as an eager loop:
+The JAX package's ``ops/lossguide.py``, as an eager loop:
 
 * node slots are allocated in order (root 0; split step t creates 2t+1 and
   2t+2), with explicit child indices: the tree layout of ``tree_build``;
@@ -26,6 +26,13 @@ candidate is scored, a depth that differs per class; and for the two
 children of split step t, the bynode rows of their slots 2t+1 and 2t+2
 (the root draws none).
 
+Data-parallel training (``group``), as in the JAX package's data-axis
+path: the root's and every step's histograms are reduced over the process
+group before their scan (with subtraction, the left child's; the right one
+is the reduced parent minus it), so every rank keeps the same candidate
+store and picks the same leaf. ``hist_comm`` ``reduce_scatter`` scans this
+rank's feature slice and merges the winners across ranks.
+
 Constraints per slot, as in the JAX package: ``monotone`` in the split scan;
 ``interaction_sets`` alive at each slot (all at the root; the two children of
 a step keep the sets of their parent that hold its split feature), a slot's
@@ -34,8 +41,24 @@ candidate drawn from the features of its alive sets.
 
 import torch
 
-from .histogram import level_histogram, subtraction_enabled
-from .split import combine_masks, find_best_splits, leaf_weight
+from ..parallel import collectives
+from .histogram import (
+    apply_hist_collective,
+    comm_overlap,
+    level_histogram,
+    overlap_node_batches,
+    padded_feature_width,
+    subtraction_enabled,
+)
+from .split import (
+    broadcast_node_totals,
+    combine_masks,
+    combine_splits_across_shards,
+    concat_node_splits,
+    find_best_splits,
+    leaf_weight,
+    shard_feature_slice,
+)
 from .tree_build import MIN_SPLIT_LOSS, row_bin_lookup
 
 
@@ -62,6 +85,8 @@ def build_tree_lossguide(
     masks=None,
     monotone=None,
     interaction_sets=None,
+    group=None,
+    hist_comm="psum",
 ):
     """Grow one leaf-wise tree on grad, hess [n], or C trees on [C, n].
     Returns (tree tensors dict, row_out f32 [n] or [C, n]).
@@ -76,6 +101,7 @@ def build_tree_lossguide(
     and ``node`` [1 or C, 2 * max_leaves - 1, d] (one row per node slot).
     ``monotone``: optional i32 [d] in {-1, 0, 1}; ``interaction_sets``:
     optional bool [S, d], one row a constraint set (``build_tree``'s).
+    ``group`` / ``hist_comm``: data-parallel training, as ``build_tree``.
     """
     single = grad.dim() == 1
     if single:
@@ -118,16 +144,51 @@ def build_tree_lossguide(
     node_depth = full(0, torch.int32)
     node_of_row = torch.zeros((C, n), dtype=torch.int32, device=dev)
 
+    shard, ranks = collectives.world(group)
+    reduce_scatter = hist_comm == "reduce_scatter" and group is not None
+    d_scan = padded_feature_width(d, ranks) // ranks if reduce_scatter else d
+    overlap = group is not None and comm_overlap()
+
+    def scan_slice(t):
+        """A per-feature scan input -> this rank's slice (reduce_scatter)."""
+        if not reduce_scatter or t is None:
+            return t
+        return shard_feature_slice(t, shard, d_scan, ranks)
+
+    scan_cuts, scan_mono = scan_slice(num_cuts.to(dev)), scan_slice(monotone)
+
     def scan(G, H, mask=None):
-        """[C, W, d, B] histograms (and a [C, W or 1, d] mask) -> the split
-        scan's dict of [C, W]."""
+        """Reduced [C, W, d_scan, B] histograms (and a [C, W or 1, d] mask)
+        -> the split scan's dict of [C, W]."""
         W = G.shape[1]
+        Gf, Hf = G.reshape(C * W, d_scan, B), H.reshape(C * W, d_scan, B)
+        totals = broadcast_node_totals(Gf, Hf, shard, group) if reduce_scatter else None
         splits = find_best_splits(
-            G.reshape(C * W, d, B), H.reshape(C * W, d, B), num_cuts,
+            Gf, Hf, scan_cuts,
             reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
-            min_child_weight=min_child_weight, feature_mask=mask, monotone=monotone,
+            min_child_weight=min_child_weight, feature_mask=scan_slice(mask),
+            monotone=scan_mono, totals=totals,
         )
+        if reduce_scatter:
+            splits = combine_splits_across_shards(splits, shard, d_scan, group)
         return {k: v.reshape(C, W) for k, v in splits.items()}
+
+    def reduced_scan(G, H, mask):
+        """Local [C, W, d, B] histograms -> their collective in node
+        batches, each waited on before its batch's scan -> (split dict,
+        reduced G, reduced H)."""
+        pending = [(nsl, apply_hist_collective(G[:, nsl], H[:, nsl], group, hist_comm,
+                                               async_op=True))
+                   for nsl in overlap_node_batches(G.shape[1], overlap)]
+        parts, Gs, Hs = [], [], []
+        for nsl, p in pending:
+            Gb, Hb = p.wait()
+            m = mask[:, nsl] if mask is not None and mask.shape[1] > 1 else mask
+            parts.append(scan(Gb, Hb, m))
+            Gs.append(Gb)
+            Hs.append(Hb)
+        cat = (lambda xs: xs[0] if len(xs) == 1 else torch.cat(xs, dim=1))
+        return concat_node_splits(parts, dim=1), cat(Gs), cat(Hs)
 
     tree_mask = level_masks = node_masks = None
     if masks is not None:
@@ -166,16 +227,19 @@ def build_tree_lossguide(
         node_g[:, slot] = splits["g_total"][:, k]
         node_h[:, slot] = splits["h_total"][:, k]
 
+    # the gate reads the full feature width under both lowerings
     subtract = _subtraction_enabled(max_leaves, d, B)
     G, H = level_histogram(bins, grad, hess, node_of_row, 1, B)
-    if subtract:
-        hist_G = torch.zeros((C, max_nodes, d, B), dtype=torch.float32, device=dev)
-        hist_H = torch.zeros_like(hist_G)
-        hist_G[:, 0], hist_H[:, 0] = G[:, 0], H[:, 0]
     root_mask = scan_mask(node_depth[:, 0])
     if alive is not None:
         root_mask = combine_masks(root_mask, allowed(alive[:, 0]))
-    root = scan(G, H, root_mask)
+    root, G, H = reduced_scan(G, H, root_mask)
+    if subtract:
+        # the reduced histograms of every slot (this rank's feature slice
+        # under reduce_scatter)
+        hist_G = torch.zeros((C, max_nodes, d_scan, B), dtype=torch.float32, device=dev)
+        hist_H = torch.zeros_like(hist_G)
+        hist_G[:, 0], hist_H[:, 0] = G[:, 0], H[:, 0]
     store(0, root, 0, root["gain"][:, 0])
 
     for t in range(max_leaves - 1):
@@ -202,22 +266,6 @@ def build_tree_lossguide(
         depth = node_depth[cls, leaf] + 1
         node_depth[:, id_a] = depth
         node_depth[:, id_b] = depth
-        # the fresh slots hold no row unless the step split
-        if subtract:
-            # histogram only the left child; right = cached parent - left,
-            # zero when the step could not split
-            left_local = torch.where(node_of_row == id_a, 0, -1).int()
-            Ga, Ha = level_histogram(bins, grad, hess, left_local, 1, B)
-            keep = can[:, None, None]
-            Gb = torch.where(keep, hist_G[cls, leaf] - Ga[:, 0], 0.0)
-            Hb = torch.where(keep, hist_H[cls, leaf] - Ha[:, 0], 0.0)
-            hist_G[:, id_a], hist_G[:, id_b] = Ga[:, 0], Gb
-            hist_H[:, id_a], hist_H[:, id_b] = Ha[:, 0], Hb
-            G, H = torch.stack([Ga[:, 0], Gb], dim=1), torch.stack([Ha[:, 0], Hb], dim=1)
-        else:
-            child_local = torch.where(
-                node_of_row == id_a, 0, torch.where(node_of_row == id_b, 1, -1)).int()
-            G, H = level_histogram(bins, grad, hess, child_local, 2, B)
         mask = scan_mask(depth, slice(id_a, id_b + 1))
         if alive is not None:
             # inert where the step cannot split: the children's gains are
@@ -225,7 +273,25 @@ def build_tree_lossguide(
             child_alive = alive[cls, leaf] & sets[:, f.long()].T
             alive[:, id_a], alive[:, id_b] = child_alive, child_alive
             mask = combine_masks(mask, allowed(child_alive))
-        splits = scan(G, H, mask)
+        # the fresh slots hold no row unless the step split
+        if subtract:
+            # histogram only the left child; right = the reduced cached
+            # parent - the reduced left, zero when the step could not split
+            left_local = torch.where(node_of_row == id_a, 0, -1).int()
+            Ga, Ha = apply_hist_collective(
+                *level_histogram(bins, grad, hess, left_local, 1, B), group, hist_comm)
+            keep = can[:, None, None]
+            Gb = torch.where(keep, hist_G[cls, leaf] - Ga[:, 0], 0.0)
+            Hb = torch.where(keep, hist_H[cls, leaf] - Ha[:, 0], 0.0)
+            hist_G[:, id_a], hist_G[:, id_b] = Ga[:, 0], Gb
+            hist_H[:, id_a], hist_H[:, id_b] = Ha[:, 0], Hb
+            G, H = torch.stack([Ga[:, 0], Gb], dim=1), torch.stack([Ha[:, 0], Hb], dim=1)
+            splits = scan(G, H, mask)
+        else:
+            child_local = torch.where(
+                node_of_row == id_a, 0, torch.where(node_of_row == id_b, 1, -1)).int()
+            G, H = level_histogram(bins, grad, hess, child_local, 2, B)
+            splits, _G, _H = reduced_scan(G, H, mask)
         # children at the depth cap never split; those of a step that could
         # not split hold no rows and are never picked
         open_ = (can & (depth < depth_cap))[:, None]

@@ -14,6 +14,8 @@ import collections
 
 import torch
 
+from ..parallel import collectives
+
 # A tree's column-sampling masks (f32 1 = usable, 0 = not), each None when
 # that knob is off, each with a leading axis of 1 (shared by the classes of a
 # multiclass round) or C (one per class axis entry, e.g. CV folds):
@@ -62,6 +64,7 @@ def find_best_splits(
     min_child_weight=1.0,
     feature_mask=None,
     monotone=None,
+    totals=None,
 ):
     """Best (feature, bin, default_dir, gain) per node at one level.
 
@@ -77,6 +80,10 @@ def find_best_splits(
         with +1 (-1) needs its left child's weight at most (at least) its
         right child's; the order of a split's two children only, as in the
         JAX package (no bounds pass down from ancestors).
+      totals: optional (g_total, h_total) f32 [W] overriding the feature-0
+        derivation: needed where G, H are a reduce-scattered feature slice
+        (``broadcast_node_totals``), whose local feature 0 is another global
+        feature on every rank.
 
     Returns dict of per-node tensors (length W): gain f32, feature i32,
     bin i32, default_left bool, plus node totals g_total/h_total f32. Ties
@@ -85,9 +92,12 @@ def find_best_splits(
     """
     W, d, B = G.shape
     nbins = B - 1  # data bins
-    # node totals: every row lands in exactly one bin of feature 0
-    g_total = G[:, 0, :].sum(dim=-1)
-    h_total = H[:, 0, :].sum(dim=-1)
+    if totals is None:
+        # node totals: every row lands in exactly one bin of feature 0
+        g_total = G[:, 0, :].sum(dim=-1)
+        h_total = H[:, 0, :].sum(dim=-1)
+    else:
+        g_total, h_total = totals
 
     g_miss = G[:, :, nbins]  # [W, d]
     h_miss = H[:, :, nbins]
@@ -150,3 +160,70 @@ def leaf_weight(g, h, reg_lambda=1.0, alpha=0.0, max_delta_step=0.0):
     if max_delta_step > 0:
         w = torch.clamp(w, -max_delta_step, max_delta_step)
     return w
+
+
+# ------------------------------------------------------ data-axis merge
+
+
+def combine_splits_across_shards(splits, shard, d_local, group):
+    """Merge per-rank best splits of a feature-sliced scan over ``group``.
+
+    Under ``GRAFT_HIST_COMM=reduce_scatter`` each rank scanned only its
+    feature slice [shard * d_local, (shard + 1) * d_local) of the summed
+    histograms. The winner is the max gain, ties going to the lowest global
+    feature id (the argmax of one scan over every column), and the winner's
+    feature, bin and default_left are summed from the one rank that owns it,
+    so that every rank ends with the same splits. Node totals pass through:
+    ``broadcast_node_totals`` made them identical before the scan. Three
+    calls (max, min, one stacked sum) carry the JAX package's five.
+    """
+    global_feat = splits["feature"] + shard * d_local
+    gain = splits["gain"]
+    best_gain = collectives.all_reduce(gain.clone(), group, op="max", kind="merge")
+    is_tied_winner = gain == best_gain
+    cand = torch.where(is_tied_winner, global_feat, torch.full_like(global_feat, 2**30))
+    win_feat = collectives.all_reduce(cand, group, op="min", kind="merge")
+    i_own = is_tied_winner & (global_feat == win_feat)
+    picked = torch.stack([global_feat, splits["bin"], splits["default_left"].int()])
+    picked = collectives.all_reduce(torch.where(i_own, picked, 0), group, kind="merge")
+    return {
+        "gain": best_gain,
+        "feature": picked[0],
+        "bin": picked[1],
+        "default_left": picked[2] > 0,
+        "g_total": splits["g_total"],
+        "h_total": splits["h_total"],
+    }
+
+
+def concat_node_splits(parts, dim=0):
+    """Concatenate per-node-batch ``find_best_splits`` results along the
+    node axis: the scan is independent per node, so batches concatenate to
+    the whole-level scan bit for bit. A single batch passes through."""
+    if len(parts) == 1:
+        return parts[0]
+    return {k: torch.cat([p[k] for p in parts], dim=dim) for k in parts[0]}
+
+
+def broadcast_node_totals(G, H, shard, group):
+    """Per-node (sum g, sum h) for the reduce_scatter lowering: the rank
+    owning global feature 0 (shard 0) sums its feature-0 bins, the others
+    add zeros, so that every rank's gains use the totals the psum lowering
+    derives, bit for bit. One call for the pair."""
+    gh = torch.stack([G[:, 0, :].sum(dim=-1), H[:, 0, :].sum(dim=-1)])
+    if shard != 0:
+        gh = torch.zeros_like(gh)
+    gh = collectives.all_reduce(gh, group, kind="merge")
+    return gh[0], gh[1]
+
+
+def shard_feature_slice(arr, shard, d_local, axis_size):
+    """This rank's contiguous feature slice of a per-feature tensor [..., d]:
+    zero-padded to ``d_local * axis_size``, then [shard * d_local, (shard +
+    1) * d_local). Zero padding is inert for every consumer: num_cuts 0 = no
+    legal split bin, feature_mask 0 = masked, monotone 0 = unconstrained."""
+    d = arr.shape[-1]
+    d_pad = d_local * axis_size
+    if d_pad != d:
+        arr = torch.nn.functional.pad(arr, (0, d_pad - d))
+    return arr[..., shard * d_local:(shard + 1) * d_local]

@@ -1,4 +1,4 @@
-"""Level-wise tree growth on one device, as an eager loop over levels.
+"""Level-wise tree growth, as an eager loop over levels.
 
 A tree with ``max_depth`` grows into a padded full-binary layout of
 ``2**(max_depth+1) - 1`` node slots (children of i at 2i+1 / 2i+2). Per
@@ -19,6 +19,11 @@ caller (``models/sampling``): level l scans with the tree's column set times
 row l of the level masks times the node masks of its node slots, as the
 JAX package's ``build_tree`` applies its draws.
 
+Data-parallel training (``group``): each rank grows the tree on its own
+rows, and every level's histograms are reduced over the process group
+before the split scan, so every rank commits the same tree (the JAX
+package's ``axis_name`` path of ``build_tree``).
+
 Constraints, as in the JAX package: ``monotone`` orders the two children of
 every split on a constrained feature (``ops/split``); ``interaction_sets``
 keep, per node, the constraint sets still alive (all at the root; a split on
@@ -29,8 +34,26 @@ alive set.
 import numpy as np
 import torch
 
-from .histogram import level_histogram, node_totals, subtraction_enabled
-from .split import combine_masks, find_best_splits, leaf_weight
+from ..parallel import collectives
+from .histogram import (
+    apply_hist_collective,
+    comm_overlap,
+    level_histogram,
+    node_totals,
+    overlap_node_batches,
+    padded_feature_width,
+    reduce_node_totals,
+    subtraction_enabled,
+)
+from .split import (
+    broadcast_node_totals,
+    combine_masks,
+    combine_splits_across_shards,
+    concat_node_splits,
+    find_best_splits,
+    leaf_weight,
+    shard_feature_slice,
+)
 
 MIN_SPLIT_LOSS = 1e-6  # xgboost kRtEps
 
@@ -76,6 +99,8 @@ def build_tree(
     masks=None,
     monotone=None,
     interaction_sets=None,
+    group=None,
+    hist_comm="psum",
 ):
     """Grow one tree on grad, hess [n], or C trees on [C, n] (one per
     class, sharing the bins). Returns (tree tensors dict, row_out f32 [n] or
@@ -85,6 +110,19 @@ def build_tree(
     d] and ``node`` [1 or C, 2**max_depth - 1, d] (one row per node slot of
     the levels that split). ``monotone``: optional i32 [d] in {-1, 0, 1}.
     ``interaction_sets``: optional bool [S, d], one row a constraint set.
+
+    ``group``: the process group of data-parallel training (None: one
+    rank). Each rank passes its own rows; every level's histograms are
+    reduced over the group between the local kernel launch and the split
+    scan (``apply_hist_collective``), so every rank scans the same sums and
+    grows the same tree. With sibling subtraction the collective runs on the
+    left children, and the right ones are the reduced parent minus the
+    reduced left. The last level's node totals are reduced too. A level's
+    collective is issued in two node batches (``GRAFT_HIST_OVERLAP``), each
+    waited on before its batch's scan. ``hist_comm`` ``reduce_scatter``
+    scans only this rank's feature slice and merges the winners across
+    ranks (``combine_splits_across_shards``); its trees equal the ``psum``
+    lowering's bit for bit.
 
     Tree tensors (length ``max_nodes_for_depth(max_depth)``, or [C, that]):
     feature, bin (i32), default_left (bool), is_leaf (bool), leaf_value
@@ -98,6 +136,15 @@ def build_tree(
     d = bins.shape[1]
     dev = bins.device
     max_nodes = max_nodes_for_depth(max_depth)
+    shard, ranks = collectives.world(group)
+    reduce_scatter = hist_comm == "reduce_scatter" and group is not None
+    d_scan = padded_feature_width(d, ranks) // ranks if reduce_scatter else d
+
+    def scan_slice(t):
+        """A per-feature scan input -> this rank's slice (reduce_scatter)."""
+        if not reduce_scatter or t is None:
+            return t
+        return shard_feature_slice(t, shard, d_scan, ranks)
 
     def zeros(dtype):
         return torch.zeros((C, max_nodes), dtype=dtype, device=dev)
@@ -122,9 +169,14 @@ def build_tree(
         sets_f = interaction_sets.to(dev).float()
         alive = torch.ones((C, 1, interaction_sets.shape[0]), dtype=torch.bool, device=dev)
 
+    # the gate reads the full feature width under both lowerings, so that
+    # psum and reduce_scatter take the same build path
     subtract = _subtraction_enabled(max_depth, d, num_bins)
-    G_cache = H_cache = None      # previous level's [C, W/2, d, B] histograms
+    overlap = group is not None and comm_overlap()
+    G_cache = H_cache = None      # previous level's reduced [C, W/2, d_scan, B]
     parent_leaf = None            # previous level's becomes_leaf [C, W/2]
+    scan_cuts = scan_slice(num_cuts.to(dev))
+    scan_mono = scan_slice(monotone)
 
     for level in range(max_depth + 1):
         first = 2**level - 1
@@ -141,7 +193,8 @@ def build_tree(
         if level == max_depth:
             # last level: every surviving node becomes a leaf, and leaf
             # weights need only per-node totals, not a [W, d, B] histogram
-            g_tot, h_tot = node_totals(grad, hess, node_local, width)
+            g_tot, h_tot = reduce_node_totals(
+                *node_totals(grad, hess, node_local, width), group)
             weight = leaf_weight(
                 g_tot, h_tot,
                 reg_lambda=reg_lambda, alpha=alpha, max_delta_step=max_delta_step,
@@ -155,20 +208,35 @@ def build_tree(
 
         if subtract and level > 0:
             # histogram only the LEFT child of each sibling pair; the right
-            # one is parent - left. Parents that leafed routed no rows to
-            # their children, so their pair contribution is zeroed.
+            # one is the reduced parent - the reduced left. Parents that
+            # leafed routed no rows to their children, so their pair
+            # contribution is zeroed. One kernel launch for the level, its
+            # collective issued per node batch of the parents.
             is_left = (node_local % 2) == 0
             left_local = torch.where(at_level & is_left, node_local // 2, minus_one)
-            Gl, Hl = level_histogram(bins, grad, hess, left_local, width // 2, num_bins)
+            Gl_loc, Hl_loc = level_histogram(bins, grad, hess, left_local, width // 2,
+                                             num_bins)
             keep = ~parent_leaf[:, :, None, None]
-            Gr = torch.where(keep, G_cache, 0.0) - Gl
-            Hr = torch.where(keep, H_cache, 0.0) - Hl
-            G = torch.stack([Gl, Gr], dim=2).reshape(C, width, d, num_bins)
-            H = torch.stack([Hl, Hr], dim=2).reshape(C, width, d, num_bins)
+            pending = [(psl, apply_hist_collective(Gl_loc[:, psl], Hl_loc[:, psl], group,
+                                                   hist_comm, async_op=True))
+                       for psl in overlap_node_batches(width // 2, overlap)]
+
+            def batch(psl, reduced):
+                Gl, Hl = reduced
+                Gr = torch.where(keep[:, psl], G_cache[:, psl], 0.0) - Gl
+                Hr = torch.where(keep[:, psl], H_cache[:, psl], 0.0) - Hl
+                w = 2 * Gl.shape[1]
+                return (slice(2 * psl.start, 2 * psl.stop),
+                        torch.stack([Gl, Gr], dim=2).reshape(C, w, d_scan, num_bins),
+                        torch.stack([Hl, Hr], dim=2).reshape(C, w, d_scan, num_bins))
         else:
-            G, H = level_histogram(bins, grad, hess, node_local, width, num_bins)
-        if subtract:
-            G_cache, H_cache = G, H
+            G_loc, H_loc = level_histogram(bins, grad, hess, node_local, width, num_bins)
+            pending = [(nsl, apply_hist_collective(G_loc[:, nsl], H_loc[:, nsl], group,
+                                                   hist_comm, async_op=True))
+                       for nsl in overlap_node_batches(width, overlap)]
+
+            def batch(nsl, reduced):
+                return (nsl,) + tuple(reduced)
 
         feature_mask = None
         if masks is not None:
@@ -182,16 +250,37 @@ def build_tree(
             allowed = ((alive.float() @ sets_f) > 0).float()
             feature_mask = combine_masks(feature_mask, allowed)
         if feature_mask is not None:
-            feature_mask = feature_mask.expand(C, -1, -1)
+            feature_mask = scan_slice(feature_mask.expand(C, -1, -1))
+
+        def scan(nsl, Gb, Hb):
+            """Gain-scan one node batch -> the split dict of [C, w]."""
+            w = Gb.shape[1]
+            mask = feature_mask
+            if mask is not None and mask.shape[1] > 1:
+                mask = mask[:, nsl]
+            Gf, Hf = Gb.reshape(C * w, d_scan, num_bins), Hb.reshape(C * w, d_scan, num_bins)
+            totals = broadcast_node_totals(Gf, Hf, shard, group) if reduce_scatter else None
+            splits = find_best_splits(
+                Gf, Hf, scan_cuts,
+                reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
+                min_child_weight=min_child_weight, feature_mask=mask,
+                monotone=scan_mono, totals=totals,
+            )
+            if reduce_scatter:
+                splits = combine_splits_across_shards(splits, shard, d_scan, group)
+            return {k: v.reshape(C, w) for k, v in splits.items()}
+
         # the split scan works per node: the classes' nodes side by side
-        splits = find_best_splits(
-            G.reshape(C * width, d, num_bins), H.reshape(C * width, d, num_bins),
-            num_cuts,
-            reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
-            min_child_weight=min_child_weight, feature_mask=feature_mask,
-            monotone=monotone,
-        )
-        splits = {k: v.reshape(C, width) for k, v in splits.items()}
+        parts, G_parts, H_parts = [], [], []
+        for nsl, p in pending:
+            nsl, Gb, Hb = batch(nsl, p.wait())
+            parts.append(scan(nsl, Gb, Hb))
+            G_parts.append(Gb)
+            H_parts.append(Hb)
+        splits = concat_node_splits(parts, dim=1)
+        if subtract:
+            G_cache = G_parts[0] if len(G_parts) == 1 else torch.cat(G_parts, dim=1)
+            H_cache = H_parts[0] if len(H_parts) == 1 else torch.cat(H_parts, dim=1)
         weight = leaf_weight(
             splits["g_total"], splits["h_total"],
             reg_lambda=reg_lambda, alpha=alpha, max_delta_step=max_delta_step,

@@ -1,6 +1,7 @@
 """Telemetry: the metrics registry, ``/metrics``, structured stdout records,
-request correlation, spans, the SLO window, and the single-host training
-planes (round state and runtime gauges, the device window, model quality).
+request correlation, spans, the SLO window, the training planes (round
+state and runtime gauges, the device window, model quality), the
+multi-host heartbeats and the fleet plane.
 
 What the rest of the package imports from here::
 
@@ -11,20 +12,30 @@ What the rest of the package imports from here::
     from ..telemetry import register_runtime_gauges  # RSS / fds / threads / device bytes
     from ..telemetry import get_request_id           # serving request correlation
     from ..telemetry import tracing, slo, device, model  # spans / SLO / planes
-
-The fleet plane (``/status``, span shipping) is not ported yet (ROADMAP
-Queue 1 item 5b), nor the heartbeats (item 9).
+    from ..telemetry import start_cluster_telemetry  # heartbeats + rank-0 aggregation
+    from ..telemetry import start_fleet_plane        # span shipping + /status
 """
 
-from . import device, model, slo, tracing  # noqa: F401
+from . import device, fleet, model, slo, tracing  # noqa: F401
 from .cluster import (  # noqa: F401
+    CLUSTER_METRICS_ENV,
+    HEARTBEAT_INTERVAL_ENV,
     ROUND_STATE,
     compile_stats,
     refresh_runtime_gauges,
     register_runtime_gauges,
     runtime_snapshot,
+    start_cluster_telemetry,
+    stop_cluster_telemetry,
 )
 from .correlation import get_request_id  # noqa: F401
+from .fleet import (  # noqa: F401
+    FLEET_TRACE_ENV,
+    STATUS_PORT_ENV,
+    install_sigquit_handler,
+    start_fleet_plane,
+    stop_fleet_plane,
+)
 from .emit import (  # noqa: F401
     STRUCTURED_METRICS_ENV,
     emit_metric,

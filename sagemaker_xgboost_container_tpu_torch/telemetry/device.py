@@ -211,8 +211,9 @@ def note_compiled(cost, mesh_shape=None, rounds_per_dispatch=1, backend=None,
         "Peak device bytes allocated during one boosting round",
     ).set(record["hbm_peak_bytes"])
     emit_metric("training.compiled", **record)
-    # the /status mirror (fleet.note_status) waits for the fleet plane,
-    # ROADMAP Queue 1 item 5b
+    from . import fleet
+
+    fleet.note_status(compiled=record)
     return record
 
 
@@ -241,6 +242,19 @@ def sample_watermark(round_index, registry=None):
         "Live HBM bytes at the last per-round watermark sample",
     ).set(watermark["bytes_in_use"])
     return watermark
+
+
+def watermark_wire():
+    """The latest watermark for the fleet span shipper: None while the
+    plane is unarmed or no round was sampled."""
+    if not enabled():
+        return None
+    with _state_lock:
+        if _last_watermark is None:
+            return None
+        wire = dict(_last_watermark)
+        wire["high_bytes"] = _watermark_high
+        return wire
 
 
 def memory_status():
@@ -310,6 +324,9 @@ def maybe_roofline(device_ms, rounds, source, emit=False, extra=None):
         fields.update(extra)
     if emit:
         emit_metric("training.roofline", **fields)
+        from . import fleet
+
+        fleet.note_status(roofline=fields)
     return fields
 
 

@@ -8,7 +8,7 @@ and its Chrome-trace / Perfetto JSON dump.
 * **Flight recorder**: finished spans land in a ring buffer of
   ``SM_TRACE_BUFFER`` spans. The predict watchdog and the drain abort dump
   the last spans, still-open ones included (flagged ``in_flight``), to
-  ``flight-recorder-rank0.json``: the post-mortem of what was live when the
+  ``flight-recorder-rank<r>.json``: the post-mortem of what was live when the
   process gave up.
 * **Device sync**: ``SM_TRACE_DEVICE_SYNC=N`` makes every N-th device
   predict wait for the card inside a ``device_sync`` span
@@ -18,6 +18,10 @@ and its Chrome-trace / Perfetto JSON dump.
 * **Export**: ``export_traces`` writes this rank's finished spans to
   ``trace-rank<r>.json`` at the end of a training job; ``record_span`` /
   ``record_compile`` add already-finished spans (a kernel build).
+* **Fleet wire**: ``span_to_wire`` / ``events_from_wire`` are the one
+  serialization of a finished span for the local export and for the fleet
+  plane's cross-rank merge (``telemetry/fleet.py``); each span landing in the
+  recorder gets a sequence number, the shipper's drain watermark.
 
 Everything is gated on ``SM_TRACE``: unset (the default), a call site costs
 one cached-boolean check; no spans, no buffer, no threads, no files.
@@ -61,7 +65,7 @@ class Span:
     started it (the thread-local stack is popped by identity)."""
 
     __slots__ = ("trace_id", "span_id", "parent_id", "name", "attributes", "start_us",
-                 "dur_us", "tid", "thread_name")
+                 "dur_us", "tid", "thread_name", "seq")
 
     def __init__(self, name, trace_id, parent_id, attributes=None):
         self.name = name
@@ -73,6 +77,9 @@ class Span:
         self.dur_us = None  # None while open
         self.tid = threading.get_ident()
         self.thread_name = threading.current_thread().name
+        # the recorder-append sequence number, the fleet shipper's drain
+        # watermark (it ships spans with seq above the last shipped)
+        self.seq = None
 
     def context(self):
         return (self.trace_id, self.span_id)
@@ -83,11 +90,12 @@ _tls = threading.local()
 
 _state_lock = threading.Lock()
 _enabled = None  # cached SM_TRACE verdict; None = not yet resolved
-_rank = 0  # one process per host: rank 0, as the JAX package's single-host processes
+_rank = 0  # this process's rank (set_rank, from the multi-host pre-exec)
 _sync_every = 0  # cached SM_TRACE_DEVICE_SYNC, resolved with _enabled
 _sync_calls = 0
 _recorder = None  # deque of finished Span, created on first use
 _live = {}  # span_id -> open Span (for the flight-recorder dump)
+_seq = 0  # recorder appends so far (outlives the ring buffer's drops)
 
 
 def enabled():
@@ -128,13 +136,14 @@ def _get_recorder():
 def _reset_for_tests():
     """Drop the cached knobs, the ring buffer, live spans and this thread's
     span stack."""
-    global _enabled, _recorder, _sync_every, _sync_calls, _rank
+    global _enabled, _recorder, _sync_every, _sync_calls, _rank, _seq
     with _state_lock:
         _enabled = None
         _recorder = None
         _rank = 0
         _sync_every = 0
         _sync_calls = 0
+        _seq = 0
         _live.clear()
     _tls.stack = []
 
@@ -201,8 +210,11 @@ def finish_span(span, **attributes):
     recorder = _get_recorder()  # resolve before the lock (it may take it)
     # append under the state lock: snapshot_spans copies the deque under it,
     # and an append racing that copy would break the abort-path dump
+    global _seq
     with _state_lock:
         _live.pop(span.span_id, None)
+        _seq += 1
+        span.seq = _seq
         recorder.append(span)
 
 
@@ -231,7 +243,10 @@ def record_span(name, duration_s=0.0, attributes=None, parent=None):
     span.dur_us = max(float(duration_s), 0.0) * 1e6
     span.start_us = max(span.start_us - span.dur_us, 0.0)
     recorder = _get_recorder()
+    global _seq
     with _state_lock:
+        _seq += 1
+        span.seq = _seq
         recorder.append(span)
     return span
 
@@ -283,6 +298,52 @@ def snapshot_spans(include_open=False):
     return spans
 
 
+def span_to_wire(span):
+    """The flat-dict form of a finished span: the fleet shipper's wire
+    payload (``telemetry/fleet.py``) and the event builder's input, one
+    serialization for the local export and the cross-rank merge."""
+    wire = {
+        "name": span.name,
+        "trace_id": span.trace_id,
+        "span_id": span.span_id,
+        "start_us": round(span.start_us, 3),
+        "dur_us": round(span.dur_us or 0.0, 3),
+        "tid": span.tid,
+        "thread_name": span.thread_name,
+    }
+    if span.parent_id:
+        wire["parent_id"] = span.parent_id
+    if span.attributes:
+        wire["attributes"] = dict(span.attributes)
+    return wire
+
+
+def events_from_wire(wire_spans, pid, process_label):
+    """Chrome-trace events (process and thread names, complete "X" events)
+    of one pid lane. ``pid`` is the rank, so the ranks' lanes stack in one
+    Perfetto view: the per-rank export and the merged ``trace-fleet.json``
+    both build their lanes here."""
+    events = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+               "args": {"name": process_label}}]
+    thread_names = {}
+    for wire in wire_spans:
+        thread_names.setdefault(wire.get("tid", 0), wire.get("thread_name", ""))
+    for tid, tname in sorted(thread_names.items(), key=lambda kv: str(kv[0])):
+        events.append({"name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                       "args": {"name": tname}})
+    for wire in wire_spans:
+        args = dict(wire.get("attributes") or {})
+        args["span_id"] = wire.get("span_id")
+        args["trace_id"] = wire.get("trace_id")
+        if wire.get("parent_id"):
+            args["parent_id"] = wire["parent_id"]
+        events.append({"name": wire.get("name", "?"), "cat": "span", "ph": "X", "pid": pid,
+                       "tid": wire.get("tid", 0),
+                       "ts": round(float(wire.get("start_us") or 0.0), 3),
+                       "dur": round(float(wire.get("dur_us") or 0.0), 3), "args": args})
+    return events
+
+
 def chrome_trace_doc(spans=None, extra_metadata=None):
     """-> Chrome-trace JSON object: complete ("X") events in microseconds,
     with span, parent and trace ids in ``args`` so the tree survives, plus
@@ -291,24 +352,8 @@ def chrome_trace_doc(spans=None, extra_metadata=None):
     if spans is None:
         spans = snapshot_spans()
     rank = get_rank()
-    label = "rank {} (os pid {})".format(rank, os.getpid())
-    events = [{"name": "process_name", "ph": "M", "pid": rank, "tid": 0,
-               "args": {"name": label}}]
-    thread_names = {}
-    for span in spans:
-        thread_names.setdefault(span.tid, span.thread_name)
-    for tid, tname in sorted(thread_names.items(), key=lambda kv: str(kv[0])):
-        events.append({"name": "thread_name", "ph": "M", "pid": rank, "tid": tid,
-                       "args": {"name": tname}})
-    for span in spans:
-        args = dict(span.attributes)
-        args["span_id"] = span.span_id
-        args["trace_id"] = span.trace_id
-        if span.parent_id:
-            args["parent_id"] = span.parent_id
-        events.append({"name": span.name, "cat": "span", "ph": "X", "pid": rank,
-                       "tid": span.tid, "ts": round(span.start_us, 3),
-                       "dur": round(span.dur_us or 0.0, 3), "args": args})
+    events = events_from_wire([span_to_wire(span) for span in spans], pid=rank,
+                              process_label="rank {} (os pid {})".format(rank, os.getpid()))
     metadata = {"rank": rank, "os_pid": os.getpid(), "spans": len(spans)}
     if extra_metadata:
         metadata.update(extra_metadata)
@@ -345,7 +390,7 @@ def export_traces(default_dir=None, filename=None):
 
 def dump_flight_recorder(default_dir=None, reason=None, exit_code=None):
     """Abort-path dump: the last finished spans plus every open one into
-    ``flight-recorder-rank0.json`` under ``SM_TRACE_EXPORT_DIR`` (else
+    ``flight-recorder-rank<r>.json`` under ``SM_TRACE_EXPORT_DIR`` (else
     ``default_dir``, else the working directory). Never raises: the exit
     must happen even when the disk is what broke. -> the path, or None
     (tracing off, or the write failed)."""

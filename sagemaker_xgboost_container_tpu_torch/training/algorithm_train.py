@@ -27,8 +27,21 @@ side by side in one tree build where ``models/cv_parallel`` allows
 another. ``monotone_constraints`` and ``interaction_constraints`` (the
 strings ``"(1,0,-1)"`` and ``"[[0,1],[2,3]]"`` of hyperparameters.json,
 parsed by their validators) and ``tree_method`` exact and approx train as
-``booster.TrainConfig`` reads them. Not ported yet, refused with a
-``UserError`` naming it: more than one host (``SM_HOSTS``).
+``booster.TrainConfig`` reads them.
+
+More than one host (``SM_HOSTS``) trains data-parallel, the JAX package's
+multi-host branch: the hosts exchange "do I have data?" over the
+rendezvous channel (``parallel/distributed.distributed_run``; hosts
+without data exit 0), and each participant brings up, in order, the
+``torch.distributed`` process group (one rank a host, on its card), the
+abort listener (``SM_ABORT_ON_STALE``), the heartbeat plane
+(``SM_HEARTBEAT_INTERVAL_S``), its tracing rank and the fleet plane
+(``SM_FLEET_TRACE``, ``SM_STATUS_PORT``); then every rank trains on its own
+channel's rows with ``booster.train(..., group=)`` and the master (sorted
+hosts[0]) saves the model. Refused across hosts with a ``UserError``
+naming it: k-fold CV, ``SM_ELASTIC``, ``SM_CONSENSUS_EVERY`` and
+``SM_INGEST_MODE=chunked``, and the options ``booster.refuse_across_ranks``
+names.
 """
 
 import logging
@@ -50,7 +63,8 @@ from ..data.readers import (
 )
 from ..models import booster
 from ..models.forest import Forest
-from ..telemetry import register_runtime_gauges, span
+from ..parallel import distributed
+from ..telemetry import register_runtime_gauges, span, start_cluster_telemetry
 from ..toolkit import exceptions as exc
 from . import train_utils
 from .callbacks import get_callbacks
@@ -127,10 +141,7 @@ def sagemaker_train(
     combine_train_val = "_kfold" in validated_train_config
     num_hosts = len(sm_hosts)
     if num_hosts > 1:
-        raise exc.UserError(
-            "distributed training over {} hosts is not supported by the PyTorch port "
-            "yet; train on one host".format(num_hosts)
-        )
+        _refuse_across_hosts(validated_train_config, combine_train_val)
     if val_path is not None:
         if train_path == val_path or os.path.basename(train_path) == os.path.basename(val_path):
             logger.warning(
@@ -155,25 +166,125 @@ def sagemaker_train(
         )
     missing_validation_data = validation_channel and not val_dmatrix
 
-    if num_hosts == 1:
+    train_args = dict(
+        train_cfg=validated_train_config,
+        train_dmatrix=train_dmatrix,
+        val_dmatrix=val_dmatrix,
+        train_val_dmatrix=train_val_dmatrix,
+        model_dir=model_dir,
+        checkpoint_dir=checkpoint_dir,
+        device=dev,
+    )
+    from ..telemetry import fleet
+
+    if num_hosts > 1:
+        logger.info("Distributed node training with %d hosts: %s", num_hosts, sm_hosts)
+        distributed.wait_hostname_resolution(sm_hosts)
+        include_in_training = True
+        if not train_dmatrix:
+            logger.warning(
+                "Host %s does not have training data and will not be used in "
+                "distributed training. Please divide the training data across "
+                "instances properly.", sm_current_host)
+            include_in_training = False
+        if missing_validation_data:
+            logger.warning(
+                "Host %s does not have validation data in the validation channel and "
+                "will not be used in distributed training.", sm_current_host)
+            include_in_training = False
+
+        def _pre_exec(participating_hosts, current_host):
+            # the JAX package's order: the process group first, then the
+            # abort listener (up before rank 0's aggregator can ever decide
+            # to broadcast), then the heartbeat plane over the participating
+            # hosts (hosts without data already left), the tracing rank, and
+            # the fleet plane last (span shipping needs the rank)
+            distributed.init_process_group(participating_hosts, current_host, dev)
+            from ..telemetry import tracing
+            from .watchdog import start_abort_plane
+
+            start_abort_plane(participating_hosts, current_host)
+            start_cluster_telemetry(participating_hosts, current_host)
+            tracing.set_rank(sorted(participating_hosts).index(current_host))
+            fleet.start_fleet_plane(participating_hosts, current_host)
+
+        try:
+            distributed.distributed_run(
+                exec_fun=train_job,
+                args=train_args,
+                include_in_training=include_in_training,
+                hosts=sm_hosts,
+                current_host=sm_current_host,
+                port=distributed.rendezvous_port(),
+                pre_exec=_pre_exec,
+            )
+        finally:
+            _stop_cluster_planes()
+            fleet.stop_fleet_plane()
+            distributed.destroy_process_group()
+    elif num_hosts == 1:
         if train_dmatrix:
             if missing_validation_data:
                 raise exc.UserError("No data in validation channel path {}".format(val_path))
             logger.info("Single node training.")
-            train_job(
-                train_cfg=validated_train_config,
-                train_dmatrix=train_dmatrix,
-                val_dmatrix=val_dmatrix,
-                train_val_dmatrix=train_val_dmatrix,
-                model_dir=model_dir,
-                checkpoint_dir=checkpoint_dir,
-                is_master=True,
-                device=dev,
-            )
+            # one host still gets the /status endpoint (and, with
+            # SM_FLEET_TRACE, a one-lane merged trace over loopback)
+            fleet.start_fleet_plane([sm_current_host], sm_current_host)
+            try:
+                train_job(is_master=True, **train_args)
+            finally:
+                fleet.stop_fleet_plane()
         else:
             raise exc.UserError("No data in training channel path {}".format(train_path))
     else:
         raise exc.PlatformError("Number of hosts should be an int greater than or equal to 1")
+
+
+# what the port does not run across hosts yet: (env knob, ROADMAP item)
+_HOST_KNOBS_REFUSED = (
+    ("SM_ELASTIC", "9c"),
+    ("SM_CONSENSUS_EVERY", "9c"),
+)
+
+
+def _refuse_across_hosts(train_cfg, combine_train_val):
+    """Raise ``UserError`` naming what a multi-host job asks for that the
+    port does not train across hosts yet, before any data is read."""
+    def refuse(what, item):
+        raise exc.UserError(
+            "{} is not supported across hosts by the PyTorch port yet; ROADMAP Queue 1 "
+            "item {}. Train it on one host.".format(what, item))
+
+    if combine_train_val:
+        refuse("k-fold cross-validation (_kfold)", "9b")
+    for knob, item in _HOST_KNOBS_REFUSED:
+        if os.environ.get(knob, "").strip().lower() not in ("", "0", "false", "off"):
+            refuse("{}={}".format(knob, os.environ[knob]), item)
+    if os.environ.get("SM_INGEST_MODE", "").strip().lower() == "chunked":
+        refuse("streaming ingest (SM_INGEST_MODE=chunked)", "9d")
+    booster.refuse_across_ranks(booster.TrainConfig(dict(train_cfg)))
+
+
+def _training_group():
+    """The process group of a multi-host job (the JAX package's
+    ``_training_mesh``): the default group when one is up with more than
+    one rank, else None."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        return dist.group.WORLD
+    return None
+
+
+def _stop_cluster_planes():
+    """Stop the heartbeat and abort planes. After the last round's
+    collective no peer is needed any more: a peer that finished first and
+    exited must not be declared stale while this host saves."""
+    from ..telemetry.cluster import stop_cluster_telemetry
+    from .watchdog import stop_abort_plane
+
+    stop_cluster_telemetry()
+    stop_abort_plane()
 
 
 def train_job(
@@ -186,8 +297,13 @@ def train_job(
     train_cfg.pop("_num_devices", None)
     num_round = train_cfg.pop("num_round")
     save_model_on_termination = train_cfg.pop("save_model_on_termination", "false")
-    # fleet.note_status(rounds_planned=) and install_sigquit_handler wait
-    # for the fleet plane, ROADMAP Queue 1 item 5b
+    group = _training_group()
+    # planned rounds feed the /status ETA, and kill -3 becomes a live
+    # inspection dump instead of the default core-dump abort
+    from ..telemetry import fleet
+
+    fleet.note_status(rounds_planned=num_round)
+    fleet.install_sigquit_handler(default_dir=model_dir)
 
     tuning_objective_metric_param = train_cfg.pop("_tuning_objective_metric", None)
     eval_metric = train_cfg.get("eval_metric")
@@ -249,7 +365,10 @@ def train_job(
                     callbacks=callbacks,
                     verbose_eval=False,
                     xgb_model=xgb_model,
+                    group=group,
                 )
+            if group is not None:
+                _stop_cluster_planes()
         else:
             bst = _cross_validate(
                 train_cfg, train_val_dmatrix, kfold, num_round, configured_feval,
@@ -284,6 +403,12 @@ def train_job(
         tracing.export_traces(default_dir=model_dir)
     except Exception:
         logger.exception("trace export failed; training result unaffected")
+    # the fleet merge rides next to the per-rank exports: every rank flushes
+    # its shipper, rank 0 writes trace-fleet.json (inert with the plane off)
+    try:
+        fleet.export_fleet_trace(default_dir=model_dir)
+    except Exception:
+        logger.exception("fleet trace export failed; training result unaffected")
     return bst
 
 

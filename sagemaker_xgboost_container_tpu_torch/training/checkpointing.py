@@ -268,8 +268,11 @@ class SaveCheckpointCallBack:
     def after_iteration(self, model, epoch, evals_log):
         _atomic_save(model, self.checkpoint_dir, "{}.{}".format(CHECKPOINT_FILENAME, epoch),
                      iteration=epoch, fingerprint=self.fingerprint)
-        # the /status mirror of the last checkpoint waits for the fleet
-        # plane, ROADMAP Queue 1 item 5b
+        # /status carries the last saved checkpoint: the resume point of a
+        # restart now
+        from ..telemetry import fleet
+
+        fleet.note_status(last_checkpoint={"path": self.format_path(epoch), "round": epoch})
         self.delete_queue.put(epoch - self.max_to_keep)
         if self.num_round is not None and epoch + 1 >= self.num_round:
             self.stop()

@@ -288,7 +288,9 @@ class RoundTimer:
         if self.fold is not None:
             fields["fold"] = self.fold
         emit_metric("training.attribution", **fields)
-        # fleet.note_attribution (the /status mirror) waits for ROADMAP Queue 1 item 5b
+        from ..telemetry import fleet
+
+        fleet.note_attribution(fields)
 
 
 def attribution_fields(total_ms, compile_ms, host_ms, device_ms, collective_ms):

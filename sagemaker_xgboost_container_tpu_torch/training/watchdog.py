@@ -13,12 +13,21 @@ The port's counterpart of the local half of the JAX package's
   numeric-poison guard (exit 87) and the device-OOM path (exit 86).
   Idempotent: concurrent triggers flush once and exit once.
 
-The exit is ``os._exit`` from whichever thread asks, because the main
-thread may be blocked inside a device call that Python cannot unwind.
-The cross-host abort plane (the JAX package's ``start_abort_plane``) comes
-with ROADMAP Queue 1 item 9.
+* **abort plane** (``SM_ABORT_ON_STALE``): every participating host runs
+  an ``AbortListener`` (``parallel/distributed.py``); when rank 0's
+  heartbeat aggregator declares a host stale it broadcasts one abort frame
+  to every peer and aborts itself with ``EXIT_CLUSTER_ABORT`` (80), so the
+  whole cluster exits cleanly instead of waiting in a collective. A
+  collective that fails (gloo raises when a peer's connection closes) takes
+  the same coordinated abort while the plane is up.
 
-Inert by default: no deadline, no thread.
+The exit is ``os._exit`` from whichever thread asks, because the main
+thread may be blocked inside a device call or a collective that Python
+cannot unwind (``torch.distributed`` waits release the interpreter lock,
+so the listener's thread runs while the main thread waits).
+
+Inert by default: no deadline, no thread; ``SM_ABORT_ON_STALE`` unset, no
+listener socket.
 """
 
 import logging
@@ -26,15 +35,16 @@ import os
 import threading
 import time
 
-from ..constants import EXIT_ROUND_DEADLINE
+from ..constants import EXIT_CLUSTER_ABORT, EXIT_ROUND_DEADLINE
 from ..constants import SM_MODEL_DIR as SM_MODEL_DIR_ENV
 from ..telemetry.emit import emit_metric
-from ..utils.envconfig import env_float
+from ..utils.envconfig import env_bool, env_float
 from . import checkpointing
 
 logger = logging.getLogger(__name__)
 
 ROUND_DEADLINE_ENV = "SM_ROUND_DEADLINE_S"
+ABORT_ON_STALE_ENV = "SM_ABORT_ON_STALE"
 
 # test hook: tests replace this to observe the exit instead of dying
 _exit = os._exit
@@ -45,6 +55,10 @@ _aborting = False
 
 def round_deadline_s():
     return env_float(ROUND_DEADLINE_ENV, 0.0, minimum=0.0)
+
+
+def abort_on_stale_enabled():
+    return env_bool(ABORT_ON_STALE_ENV, False)
 
 
 def request_abort(reason, exit_code, **fields):
@@ -92,6 +106,7 @@ def _reset_abort_for_tests():
     global _aborting
     with _abort_lock:
         _aborting = False
+    stop_abort_plane()
 
 
 class RoundWatchdog:
@@ -172,3 +187,118 @@ def maybe_round_watchdog():
     if deadline <= 0:
         return None
     return RoundWatchdog(deadline)
+
+
+# ------------------------------------------------------------- abort plane
+def _frame_exit_code(msg):
+    """Exit code carried by an abort frame, defaulting to the cluster-abort
+    code. Bounded to the supervision range (79-99), so that a malformed
+    frame cannot make a rank exit 0 (the platform would not restart it)."""
+    try:
+        code = int(msg.get("exit_code", EXIT_CLUSTER_ABORT))
+    except (TypeError, ValueError):
+        return EXIT_CLUSTER_ABORT
+    return code if 79 <= code <= 99 else EXIT_CLUSTER_ABORT
+
+
+def _on_abort_frame(msg):
+    request_abort(
+        str(msg.get("reason", "cluster_abort")),
+        _frame_exit_code(msg),
+        source=msg.get("source"),
+    )
+
+
+_listener_lock = threading.Lock()
+_active_listener = None
+_plane_hosts = None   # (sorted participating hosts, this host) while the plane is up
+
+
+def start_abort_plane(hosts, current_host, port=None):
+    """Start this host's abort listener, gated on ``SM_ABORT_ON_STALE``.
+
+    Every participant, rank 0 included, gets a listener; rank 0 also wires
+    its heartbeat aggregator's stale-host detection to
+    :func:`handle_stale_host` (``telemetry/cluster.py``). Returns the
+    listener, or None when the plane is off or there is one host. The
+    active listener is tracked so that :func:`stop_abort_plane` can tear it
+    down.
+    """
+    global _active_listener, _plane_hosts
+    if not abort_on_stale_enabled() or len(hosts) <= 1:
+        return None
+    from ..parallel.distributed import AbortListener
+
+    stop_abort_plane()
+    try:
+        listener = AbortListener(handler=_on_abort_frame, port=port).start()
+    except OSError as e:
+        logger.warning(
+            "abort listener could not bind (%s); this host will rely on the process "
+            "group's timeout instead", e
+        )
+        return None
+    logger.info("abort listener up on port %d (host %s)", listener.port, current_host)
+    with _listener_lock:
+        _active_listener = listener
+        _plane_hosts = (sorted(hosts), current_host)
+    return listener
+
+
+def stop_abort_plane():
+    """Stop the tracked abort listener (teardown, test cleanup)."""
+    global _active_listener, _plane_hosts
+    with _listener_lock:
+        listener, _active_listener = _active_listener, None
+        _plane_hosts = None
+    if listener is not None:
+        try:
+            listener.stop()
+        except Exception:
+            logger.exception("error stopping abort listener")
+
+
+def handle_stale_host(hosts, current_host, stale_rank, stale_host, age_s):
+    """Rank 0's decision for a stale host: the coordinated abort (exit 80).
+    The JAX package's shrink-to-continue (``SM_ELASTIC``) is not ported."""
+    coordinate_abort(
+        hosts, current_host, "stale_host",
+        stale_rank=stale_rank, stale_host=stale_host, age_s=round(age_s, 1),
+    )
+
+
+def coordinate_abort(
+    hosts, current_host, reason, exit_code=EXIT_CLUSTER_ABORT, peer_addrs=None, **fields
+):
+    """Broadcast one abort frame to every peer, then abort locally.
+
+    ``exit_code`` rides inside the frame, so every rank exits with the same
+    code (80 for a stale host or a failed collective). ``peer_addrs``
+    optionally maps hosts to (addr, port) pairs (loopback drills).
+    """
+    from ..parallel.distributed import broadcast_abort
+
+    peers = [h for h in hosts if h != current_host]
+    delivered = broadcast_abort(
+        peers, reason, source=current_host, exit_code=exit_code, peer_addrs=peer_addrs
+    )
+    logger.error("coordinated abort (%s): notified %d/%d peers", reason, delivered, len(peers))
+    request_abort(reason, exit_code, peers_notified=delivered, **fields)
+
+
+def on_collective_failure(error):
+    """A training-path collective raised: a peer is gone. With the abort
+    plane up, the coordinated abort (exit 80, the peers told); otherwise
+    ``PlatformError``, which fails the job."""
+    from ..toolkit import exceptions as exc
+
+    with _listener_lock:
+        plane = _plane_hosts
+    if plane is not None:
+        hosts, current_host = plane
+        coordinate_abort(hosts, current_host, "collective_failed",
+                         error=str(error)[:400])
+        return
+    raise exc.PlatformError(
+        "a collective of the process group failed (a peer lost, or ranks out of step)",
+        caused_by=error)

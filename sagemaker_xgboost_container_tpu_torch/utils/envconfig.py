@@ -86,3 +86,9 @@ def env_bool(name, default):
         return False
     _warn_once(name, raw, "a boolean ({}/{})".format("|".join(_TRUTHY), "|".join(_FALSY)), default)
     return default
+
+
+def env_port(name, default):
+    """A TCP-port knob: ``env_int`` clamped to the valid port range (a value
+    of 0 clamps to 1, never an ephemeral port the peers could not guess)."""
+    return env_int(name, default, minimum=1, maximum=65535)

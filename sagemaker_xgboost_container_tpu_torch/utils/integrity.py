@@ -235,13 +235,29 @@ def check_model_file(model_path):
 
 
 # -------------------------------------------------------------- fingerprint
-def config_fingerprint(train_cfg, world_size=1):
+def _live_world_size():
+    """Ranks of the live ``torch.distributed`` process group, 1 without one
+    (the JAX package's ``jax.process_count()``)."""
+    try:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return int(dist.get_world_size())
+    except Exception:
+        pass
+    return 1
+
+
+def config_fingerprint(train_cfg, world_size=None):
     """The live job's config identity, as stored in checkpoint manifests:
     the knobs that change split candidates or the loss (objective,
-    tree_method, max_bin, max_depth), the world size (one host here), and
-    the versions: ``jax_version`` (``"absent"``: the port has no jax),
-    ``package_version`` and the port's ``torch_version``."""
+    tree_method, max_bin, max_depth), the world size (the live process
+    group's ranks unless given, 1 without one), and the versions:
+    ``jax_version`` (``"absent"``: the port has no jax), ``package_version``
+    and the port's ``torch_version``."""
     cfg = dict(train_cfg or {})
+    if world_size is None:
+        world_size = _live_world_size()
     return {
         "objective": str(cfg.get("objective", "reg:squarederror")),
         "tree_method": str(cfg.get("tree_method", "auto")),

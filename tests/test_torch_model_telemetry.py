@@ -74,7 +74,20 @@ def model_env(monkeypatch):
             mod.uninstall()
 
     reset()
+    # a fresh process's XLA compile accounting: an earlier test in this
+    # process may have installed the JAX package's jax.monitoring compile
+    # listener (its sagemaker_train does), and the JAX rounds' records then
+    # carry a "compile" phase that a fresh process's do not
+    import jax.monitoring
+    from sagemaker_xgboost_container_tpu.telemetry import cluster as jax_cluster
+
+    listener = jax_cluster._on_jax_duration_event
+    installed = jax_cluster._compile_listener_installed
+    if installed:
+        jax.monitoring.unregister_event_duration_listener(listener)
     yield monkeypatch
+    if installed:
+        jax.monitoring.register_event_duration_secs_listener(listener)
     reset()
 
 
