@@ -314,10 +314,33 @@ Phases (each prints its own lines; any failure exits non-zero):
    (`training.round_end:kill@3`): rank 0 exits 80 within the process
    group's timeout plus a margin, with one training.abort record and no
    model. NCCL and the reduce_scatter lowering do not run here: the box has
-   one GPU, and gloo reduce-scatters no CUDA tensors.
+   one GPU, and gloo reduce-scatters no CUDA tensors;
+18. the options that train across ranks, each on two gloo ranks on cuda:0
+   (one pair of `chip_smoke.py --rank-child` processes for all of them, with
+   GRAFT_HEARTBEAT_TIMEOUT_S=5 and heartbeats every second), each against
+   one rank on all rows: the two models byte-equal, the metric lines
+   identical, the last-round validation metric within OPTION_TOL x max(1,
+   |metric|) of one rank's; per rank rounds/s over rounds 2 to the last,
+   launches (8 / 1 a round where a tree grows, 0 for gblinear and update),
+   collectives, their ms and their bytes a round by kind. 18f first: rank 1
+   sleeps 12 s before the first collective while its heartbeat thread
+   beats, and rank 0 must wait for it. 18a: tree_method=approx on phase
+   17a's split, 6 rounds, with the re-sketch and the cut gather timed
+   (CUDA-synchronized around `_resketch_bins`) and the candidate bytes
+   gathered a round. 18b: dart (phase 13a's parameters, 6 rounds),
+   gblinear (phase 13b's, 10 rounds) and update (refresh and prune, gamma
+   1, of a 10-round hist model on the labels with 10 % flipped). 18c:
+   phase 10a's MSLR-shaped rank:ndcg, whole queries to each rank (1,000 /
+   1,000 and 250 / 250), 5 rounds. 18d: survival:cox with cox-nloglik on
+   200k x 28 rows split 120,007 / 79,993 (20k validation rows split 11,003
+   / 8,997), 6 rounds. 18e: `_kfold=3` through the train entry point on two
+   hosts (17b's channels, 10 rounds a fold): both exit 0 with identical
+   metric lines, rank 0 saves the three fold models, each host writes the
+   out-of-fold predictions of its own rows.
 
-The second line from the end is the kernels JSON line, the last line the
-device JSON line. Needs one CUDA GPU; exits 2 without one.
+At the end, one wall-time line a phase. The second line from the end is
+the kernels JSON line, the last line the device JSON line. Needs one CUDA
+GPU; exits 2 without one.
 """
 
 import contextlib
@@ -4793,6 +4816,8 @@ def rank_child(spec_path):
 
     with open(spec_path) as f:
         spec = json.load(f)
+    if spec.get("phase") == 18:
+        return option_rank_child(spec)
     rank, device, rounds = spec["rank"], torch.device(spec["device"]), spec["rounds"]
     n, n_val, split, sync_round = spec["n_train"], spec["n_val"], spec["split"], spec["sync_round"]
     cuda = device.type == "cuda"
@@ -5135,7 +5160,8 @@ def _host_loss(tag, envs, children):
     model = os.path.join(envs[0][1], "model", "xgboost-model")
     lines = [l for l in out0.splitlines() if HPO_LINE.match(l)]
     print("{} | host loss 17c: rank 1 exit {} at round {}; rank 0 exit {} {:.2f} s after "
-          "(heartbeat every {} s, process group timeout {} s); training.abort records {} "
+          "(heartbeat every {} s, GRAFT_HEARTBEAT_TIMEOUT_S {} s, the collectives' timeout "
+          "SM_COLLECTIVE_TIMEOUT_S's default); training.abort records {} "
           "({}); rank 0 printed {} of {} rounds; model written: {}".format(
               tag, code1, DIST_KILL_ROUND, code0, after, DIST_HEARTBEAT_S, DIST_PG_TIMEOUT_S,
               len(aborts), aborts[0].get("reason") if aborts else None, len(lines),
@@ -5146,6 +5172,375 @@ def _host_loss(tag, envs, children):
     check(len(aborts) == 1, "17c: {} training.abort records".format(len(aborts)))
     check(not os.path.exists(model), "17c: rank 0 wrote a model")
 
+
+
+# ---------------------------------------------------------------- phase 18
+
+# 18a-18d: the options that train across ranks, each on two gloo ranks on
+# the card (phase 17a's harness, one child process pair for all of them),
+# against one rank on all rows: a last-round validation metric within
+# OPTION_TOL x max(1, |metric|), the two ranks' models byte-equal and their
+# metric lines identical
+OPTION_TOL = 2e-3
+APPROX_DIST_PARAMS = dict(MAIN_PARAMS, tree_method="approx")
+OPTION_ROUNDS = {"approx": 6, "dart": 6, "gblinear": 10, "update": 10, "ndcg": 5, "cox": 6}
+# 18c: phase 10a's MSLR-shaped queries, whole queries to each rank
+RANK_DIST_SPLIT, RANK_DIST_VAL_SPLIT = RANK_QUERIES // 2, RANK_VAL_QUERIES // 2
+# 18d: survival:cox on 200k x 28 rows split unevenly, with 20k validation
+# rows (split unevenly too); a third of the labels censored
+COX_PARAMS = {"objective": "survival:cox", "max_depth": 8, "max_bin": 256, "eta": 0.2,
+              "tree_method": "hist", "eval_metric": ["cox-nloglik"]}
+COX_ROWS, COX_VAL, COX_SPLIT, COX_VAL_SPLIT = 200_000, 20_000, 120_007, 11_003
+# 18e: k-fold CV through the entry point on two hosts (phase 17b's trees)
+KFOLD_DIST_HP = dict(DIST_ENTRY_HP, num_round="10", _kfold="3")
+KFOLD_DIST_ROUNDS = 10
+# 18f: rank 1 reaches its first collective SLOW_PEER_S late, past the
+# heartbeat timeout, while its heartbeat thread beats every second
+SLOW_PEER_S, SLOW_HEARTBEAT_TIMEOUT_S, SLOW_HEARTBEAT_S = 12.0, 5.0, 1.0
+# the sizes the rank children take from their spec (a rehearsal on the CPU
+# sets them small in the parent)
+OPTION_SIZES = ("N_TRAIN", "N_VAL", "DIST_SPLIT", "RANK_QUERIES", "RANK_VAL_QUERIES",
+                "RANK_FEATURES", "RANK_DIST_SPLIT", "RANK_DIST_VAL_SPLIT", "COX_ROWS", "COX_VAL",
+                "COX_SPLIT", "COX_VAL_SPLIT")
+
+
+def make_cox(n, d, seed):
+    """Survival rows: the main path's features, event times from an
+    exponential whose rate follows a few of them, a third censored (the
+    label's sign, xgboost's convention)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, d).astype(np.float32)
+    risk = 0.8 * X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + np.sin(X[:, 3])
+    t = (rng.exponential(np.exp(-risk)) * 100 + 1).astype(np.float32)
+    return X, np.where(rng.rand(n) < 1 / 3, -t, t).astype(np.float32)
+
+
+def option_data(case, rank=None):
+    """(train (X, y, groups), validation (X, y, groups)) of an option case:
+    all rows (``rank`` None) or that rank's share."""
+    if case == "ndcg":
+        X, y, sizes = make_ranking(RANK_QUERIES, RANK_FEATURES, seed=0)
+        Xv, yv, sizes_v = make_ranking(RANK_VAL_QUERIES, RANK_FEATURES, seed=1)
+        parts = []
+        for A, b, s, q in ((X, y, sizes, RANK_DIST_SPLIT), (Xv, yv, sizes_v, RANK_DIST_VAL_SPLIT)):
+            if rank is None:
+                parts.append((A, b, s))
+                continue
+            cut = int(s[:q].sum())
+            rows = slice(0, cut) if rank == 0 else slice(cut, None)
+            parts.append((A[rows], b[rows], s[:q] if rank == 0 else s[q:]))
+        return parts
+    if case == "cox":
+        X, y = make_cox(COX_ROWS + COX_VAL, N_FEATURES, seed=18)
+        n, split, vsplit = COX_ROWS, COX_SPLIT, COX_ROWS + COX_VAL_SPLIT
+    else:
+        X, y = make_data(N_TRAIN + N_VAL, N_FEATURES, seed=0)
+        n, split, vsplit = N_TRAIN, DIST_SPLIT, N_TRAIN + N_VAL // 2
+        if case == "update":
+            y = y.copy()
+            flip = np.random.RandomState(15).rand(len(y)) < UPDATE_FLIP
+            y[flip] = 1.0 - y[flip]
+    if rank is None:
+        return (X[:n], y[:n], None), (X[n:], y[n:], None)
+    t = slice(0, split) if rank == 0 else slice(split, n)
+    v = slice(n, vsplit) if rank == 0 else slice(vsplit, len(y))
+    return (X[t], y[t], None), (X[v], y[v], None)
+
+
+OPTION_PARAMS = {"approx": APPROX_DIST_PARAMS, "dart": DART_PARAMS,
+                 "gblinear": GBLINEAR_PARAMS, "update": UPDATE_PARAMS, "ndcg": RANK_PARAMS,
+                 "cox": COX_PARAMS}
+OPTION_METRIC = {"approx": "logloss", "dart": "logloss", "gblinear": "logloss",
+                 "update": "logloss", "ndcg": "ndcg@10", "cox": "cox-nloglik"}
+
+
+def _train_option(torch, case, train, val, device, group=None, xgb_model=None):
+    """Train option case ``case`` -> what it measured: rounds/s over rounds
+    2 to the last, launches, collectives and bytes a round by kind, the
+    approx re-sketch's ms a round (CUDA-synchronized around it), the
+    validation log and the saved model's sha256."""
+    import hashlib
+
+    import sagemaker_xgboost_container_tpu_torch as pkg
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models import booster
+    from sagemaker_xgboost_container_tpu_torch.ops import histogram as hist
+    from sagemaker_xgboost_container_tpu_torch.parallel import collectives
+
+    cuda = torch.device(device).type == "cuda"
+    marks, launches, comm, sketch = [], [], [], []
+
+    def mark():
+        if cuda:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        launches.append(dict(hist.LAUNCHES))
+        comm.append({"calls": collectives.STATS["calls"],
+                     "seconds": collectives.STATS["seconds"],
+                     "kinds": dict(collectives.STATS["kinds"])})
+
+    class Meter:
+        def before_training(self, model):
+            mark()
+            return model
+
+        def after_iteration(self, model, rnd, evals_log):
+            mark()
+            self.log = list(evals_log["validation"][OPTION_METRIC[case]])
+            return False
+
+    resketch = booster._TrainingSession._resketch_bins
+
+    def timed_resketch(session):
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        resketch(session)
+        if cuda:
+            torch.cuda.synchronize()
+        sketch.append(time.perf_counter() - t)
+
+    meter = Meter()
+    hist.reset_launch_counts()
+    collectives.reset_stats()
+    booster._TrainingSession._resketch_bins = timed_resketch
+    try:
+        model = pkg.train(OPTION_PARAMS[case], DataMatrix(*train[:2], groups=train[2]),
+                          OPTION_ROUNDS[case], evals=[(DataMatrix(*val[:2], groups=val[2]),
+                                                       "validation")],
+                          device=device, group=group, callbacks=[meter], verbose_eval=False,
+                          xgb_model=xgb_model)
+    finally:
+        booster._TrainingSession._resketch_bins = resketch
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_option_") as tmp:
+        path = os.path.join(tmp, "model.json")
+        model.save_model(path)
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    rounds = len(marks) - 1
+    per = rounds - 1
+    last = comm[-1]
+    return {
+        "rounds_per_s": per / (marks[-1] - marks[1]),
+        "launches_per_round": {k: (launches[-1][k] - launches[0][k]) / rounds
+                               for k in launches[-1]},
+        "collective_calls_per_round": (last["calls"] - comm[1]["calls"]) / per,
+        "collective_ms_per_round": (last["seconds"] - comm[1]["seconds"]) * 1e3 / per,
+        "bytes_per_round": {k: (v - comm[1]["kinds"].get(k, 0)) / per
+                            for k, v in last["kinds"].items()},
+        "resketch_ms": [s * 1e3 for s in sketch],
+        "log": meter.log, "digest": digest, "rounds": rounds,
+    }
+
+
+def option_rank_child(spec):
+    """`chip_smoke.py --rank-child SPEC` for phase 18: one rank of the
+    option cases, in one process group with the heartbeat plane up; first
+    the slow-peer drill (18f: rank 1 sleeps before the first collective),
+    then each case in ``spec["cases"]`` on this rank's rows."""
+    import torch
+
+    from sagemaker_xgboost_container_tpu_torch.parallel import collectives, distributed
+    from sagemaker_xgboost_container_tpu_torch.telemetry import cluster
+
+    rank, device = spec["rank"], torch.device(spec["device"])
+    globals().update(spec["sizes"])
+    group = distributed.init_process_group(DIST_HOSTS, DIST_HOSTS[rank], device,
+                                           backend="gloo", port=spec["port"])
+    plane = cluster.start_cluster_telemetry(DIST_HOSTS, DIST_HOSTS[rank])
+    result = {"rank": rank, "collective_timeout_s": distributed.process_group_timeout()}
+    sent = plane.sender._m_sent
+    before = sent.value
+    t = time.perf_counter()
+    if rank == 1:
+        time.sleep(spec["slow_s"])
+    collectives.host_all_gather(np.asarray([rank], np.int64), group, device)
+    result["first_collective_s"] = time.perf_counter() - t
+    result["beats_before_it"] = sent.value - before
+    for case in spec["cases"]:
+        train, val = option_data(case, rank)
+        result[case] = _train_option(torch, case, train, val, device, group=group,
+                                     xgb_model=spec["base"] if case == "update" else None)
+    cluster.stop_cluster_telemetry()
+    distributed.destroy_process_group()
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_options(torch, hist, pkg, tag):
+    """Phase 18: the options that train across ranks (see the module
+    docstring)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as tmp:
+        run_option_ranks(torch, pkg, tag, tmp)
+        run_kfold_hosts(tag, tmp)
+    print("{} | options across ranks phase: {:.1f} s".format(tag, time.perf_counter() - t),
+          flush=True)
+
+
+def run_option_ranks(torch, pkg, tag, tmp):
+    """18a-18d and 18f: one rank on all rows, then the two-rank child pair."""
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+
+    # the 10-round hist model that 18b's update refreshes and prunes
+    base = os.path.join(tmp, "base.json")
+    (X, y, _g), (Xv, yv, _gv) = option_data("approx")
+    pkg.train(MAIN_PARAMS, DataMatrix(X, y), OPTION_ROUNDS["update"], device=DEVICE,
+              verbose_eval=False).save_model(base)
+    cases = list(OPTION_ROUNDS)
+    single = {}
+    t = time.perf_counter()
+    for case in cases:
+        train, val = option_data(case)
+        single[case] = _train_option(torch, case, train, val, DEVICE,
+                                     xgb_model=base if case == "update" else None)
+    single_s = time.perf_counter() - t
+    port, hb_port = free_port(), free_port()
+    env = dict(os.environ, GRAFT_HEARTBEAT_TIMEOUT_S=str(SLOW_HEARTBEAT_TIMEOUT_S),
+               SM_HEARTBEAT_INTERVAL_S=str(SLOW_HEARTBEAT_S), SM_HEARTBEAT_PORT=str(hb_port))
+    env.pop("SM_COLLECTIVE_TIMEOUT_S", None)
+    procs, specs = [], []
+    t = time.perf_counter()
+    for rank in range(2):
+        spec = {"phase": 18, "rank": rank, "port": port, "device": DEVICE, "cases": cases,
+                "base": base, "slow_s": SLOW_PEER_S,
+                "sizes": {k: globals()[k] for k in OPTION_SIZES},
+                "out": os.path.join(tmp, "option-rank{}.json".format(rank))}
+        specs.append(spec)
+        path = os.path.join(tmp, "option-spec{}.json".format(rank))
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        procs.append(subprocess.Popen(DIST_CHILD_COMMAND + [path], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True, env=env))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=10)
+    pair_s = time.perf_counter() - t
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, "18: rank {} exited {}: {}".format(rank, p.returncode,
+                                                                    out[-3000:]))
+    res = []
+    for spec in specs:
+        with open(spec["out"]) as f:
+            res.append(json.load(f))
+    print("{} | options 18: one rank on all rows, {} cases, {:.1f} s; the two-rank child "
+          "pair {:.1f} s".format(tag, len(cases), single_s, pair_s), flush=True)
+    # 18f
+    r0, r1 = res
+    print("{} | slow peer 18f: GRAFT_HEARTBEAT_TIMEOUT_S={} and SM_COLLECTIVE_TIMEOUT_S unset "
+          "(the process group's timeout {} s); rank 1 slept {} s before the first collective "
+          "and sent {} heartbeats meanwhile (every {} s); rank 0 waited {:.2f} s in it; both "
+          "ranks exit 0".format(tag, SLOW_HEARTBEAT_TIMEOUT_S, r0["collective_timeout_s"],
+                                SLOW_PEER_S, r1["beats_before_it"], SLOW_HEARTBEAT_S,
+                                r0["first_collective_s"]), flush=True)
+    check(r0["first_collective_s"] > SLOW_HEARTBEAT_TIMEOUT_S,
+          "18f: rank 0 did not wait past the heartbeat timeout")
+    check(r1["beats_before_it"] >= SLOW_PEER_S / SLOW_HEARTBEAT_S / 2,
+          "18f: rank 1 sent {} heartbeats while it slept".format(r1["beats_before_it"]))
+    labels = {"approx": "18a approx", "dart": "18b dart", "gblinear": "18b gblinear",
+              "update": "18b update", "ndcg": "18c rank:ndcg", "cox": "18d survival:cox"}
+    for case in cases:
+        a, b, one = r0[case], r1[case], single[case]
+        metric = OPTION_METRIC[case]
+        diff = abs(a["log"][-1] - one["log"][-1])
+        for r in (a, b):
+            print("{} | {} rank: {:.3f} rounds/s over rounds 2-{}; launches a round {}; {:.1f} "
+                  "collectives and {:.3f} ms in them a round (host clock); bytes a round by "
+                  "kind {}{}".format(
+                      tag, labels[case], r["rounds_per_s"], r["rounds"],
+                      json.dumps(r["launches_per_round"]), r["collective_calls_per_round"],
+                      r["collective_ms_per_round"], json.dumps(r["bytes_per_round"]),
+                      "; re-sketch + cut gather {:.3f} ms a round (mean of rounds 2-{})".format(
+                          float(np.mean(r["resketch_ms"][1:])), r["rounds"])
+                      if r["resketch_ms"] else ""), flush=True)
+        print("{} | {}: validation {} {} (rank 1 {}); one rank on all rows {} ({:.3f} "
+              "rounds/s{}); last-round difference {:.3e}; models byte-equal: {}".format(
+                  tag, labels[case], metric, [round(v, 6) for v in a["log"]],
+                  "the same" if b["log"] == a["log"] else b["log"],
+                  [round(v, 6) for v in one["log"]], one["rounds_per_s"],
+                  ", re-sketch {:.3f} ms a round".format(float(np.mean(one["resketch_ms"][1:])))
+                  if one["resketch_ms"] else "", diff, a["digest"] == b["digest"]), flush=True)
+        check(a["digest"] == b["digest"], "{}: the two ranks saved different models".format(
+            labels[case]))
+        check(a["log"] == b["log"], "{}: the ranks printed different metrics".format(
+            labels[case]))
+        check(len(a["log"]) == OPTION_ROUNDS[case] and np.all(np.isfinite(a["log"])),
+              "{}: metric log {}".format(labels[case], a["log"]))
+        check(diff <= OPTION_TOL * max(1.0, abs(one["log"][-1])),
+              "{}: {} {} against one rank's {}".format(labels[case], metric, a["log"][-1],
+                                                       one["log"][-1]))
+        kernels = case not in ("gblinear", "update")
+        for r in (a, b):
+            want = ({"hist_kernel": 8, "totals_kernel": 1} if kernels
+                    else {"hist_kernel": 0, "totals_kernel": 0})
+            check(all(r["launches_per_round"].get(k, 0) == v for k, v in want.items()),
+                  "{}: launches a round {}".format(labels[case], r["launches_per_round"]))
+        if case == "approx":
+            check(all(r["bytes_per_round"].get("cuts", 0) > 0 for r in (a, b)),
+                  "18a: no cut gather a round")
+        if case == "cox":
+            check(all(r["bytes_per_round"].get("rows", 0) > 0 for r in (a, b)),
+                  "18d: no global-row gather a round")
+
+
+def run_kfold_hosts(tag, tmp):
+    """18e: `_kfold=3` through the entry point on two hosts."""
+    envs = _dist_entry_hosts(tmp, "kfold", KFOLD_DIST_HP, [{}, {}])
+    t = time.perf_counter()
+    children = [_Child(DIST_ENTRY_COMMAND, env) for env, _root in envs]
+    try:
+        codes = [c.wait(400) for c in children]
+    finally:
+        for c in children:
+            c.kill()
+    wall = time.perf_counter() - t
+    for rank, (code, c) in enumerate(zip(codes, children)):
+        check(code == 0, "18e: host {} exited {}: {}".format(rank, code, "".join(c.err)[-3000:]))
+    lines = [[l for l in c.out.splitlines() if HPO_LINE.match(l)] for c in children]
+    rows, preds = [], []
+    for rank, (_env, root) in enumerate(envs):
+        path = os.path.join(root, "output", "data", "predictions.csv")
+        check(os.path.exists(path), "18e: host {} wrote no out-of-fold file".format(rank))
+        preds.append(np.loadtxt(path, delimiter=","))
+        n, nv = ENTRY_TRAIN_ROWS, ENTRY_VAL_ROWS
+        rows.append(n // 2 + nv // 2 if rank == 0 else n - n // 2 + nv - nv // 2)
+    models = sorted(f for f in os.listdir(os.path.join(envs[0][1], "model"))
+                    if f.startswith("xgboost-model") and not f.endswith(".manifest"))
+    launches = [_child_launches(c.out) for c in children]
+    print("{} | k-fold 18e: _kfold=3 on two hosts, {} rounds a fold: both exit 0 in {:.1f} s; "
+          "{} HPO lines each, identical: {}; CV line {!r}; out-of-fold rows {} (want {}); rank "
+          "0's models {}; launches {}".format(
+              tag, KFOLD_DIST_ROUNDS, wall, len(lines[0]), lines[0] == lines[1],
+              lines[0][-1] if lines[0] else None, [len(p) for p in preds], rows, models,
+              json.dumps(launches)), flush=True)
+    check(lines[0] == lines[1] and len(lines[0]) == 3 * KFOLD_DIST_ROUNDS + 1,
+          "18e: the hosts printed different metric lines")
+    check([len(p) for p in preds] == rows and all(np.all(np.isfinite(p)) for p in preds),
+          "18e: out-of-fold rows {}".format([len(p) for p in preds]))
+    check(models == ["xgboost-model-{}".format(k) for k in range(3)],
+          "18e: rank 0's models {}".format(models))
+    check(all(l and l["hist_kernel"] == 8 * 3 * KFOLD_DIST_ROUNDS for l in launches),
+          "18e: launches {}".format(launches))
+
+
+
+# (phase, wall seconds) of this run, printed at its end
+PHASE_WALL = []
+
+
+def phase(name, fn, *args):
+    """Run phase ``name`` (``fn(*args)``) and note its wall time."""
+    t = time.perf_counter()
+    out = fn(*args)
+    PHASE_WALL.append((name, time.perf_counter() - t))
+    return out
 
 
 def main():
@@ -5182,39 +5577,47 @@ def main():
             tag, time.perf_counter() - t, k.route, k.build_s), flush=True)
         report_kernels(k, "hist_", atomic_free=False)
         report_kernels(k, "totals_", atomic_free=True)
+        PHASE_WALL.append(("1 build", time.perf_counter() - t))
 
         results = {}
-        for n, d, W, B, dt, kind, timed in HIST_CASES:
-            r = hist_case(torch, hist, n, d, W, B, dt, kind, 10 + W, timed, tag)
-            if r is not None:
-                results["hist W={} {}".format(W, kind)] = r
-        for n, d, W, B, dt, kind, timed, C in HIST_CLASS_CASES:
-            hist_case(torch, hist, n, d, W, B, dt, kind, 40 + W + C, timed, tag, classes=C)
-        results["hist exact"] = hist_exact_width(torch, hist, tag)
-        for n, d, W, B, dt, kind, timed in HIST_WIDE_CASES:
-            hist_case(torch, hist, n, d, W, B, dt, kind, 60 + W, timed, tag)
-        for n, W, kind, timed in TOTALS_CASES:
-            r = totals_case(torch, hist, n, W, kind, 3 + W, timed, tag)
-            if r is not None:
-                results["totals"] = r
-        for n, W, kind, timed, C in TOTALS_CLASS_CASES:
-            totals_case(torch, hist, n, W, kind, 30 + W + C, timed, tag, classes=C)
 
-        launches, dtrain, dval = run_slice(torch, hist, pkg, tag)
-        run_small_parity(torch, pkg, tag)
-        run_profile(torch, pkg, dtrain, dval, tag)
-        run_serve(torch, pkg, hist, tag)
-        run_entry(torch, hist, tag)
-        run_multiclass(torch, hist, pkg, tag)
-        run_ranking(torch, hist, pkg, tag)
-        run_lossguide(torch, hist, pkg, dtrain, dval, tag)
-        run_sampling(torch, hist, pkg, dtrain, dval, tag)
-        run_mme(torch, hist, tag)
-        run_boosters(torch, hist, pkg, dtrain, dval, tag)
-        run_methods(torch, hist, pkg, dtrain, dval, tag)
-        run_formats(torch, hist, dval, tag)
-        run_planes(torch, hist, pkg, dtrain, dval, tag)
-        run_distributed(torch, hist, pkg, dtrain, dval, tag)
+        def hist_cases():
+            for n, d, W, B, dt, kind, timed in HIST_CASES:
+                r = hist_case(torch, hist, n, d, W, B, dt, kind, 10 + W, timed, tag)
+                if r is not None:
+                    results["hist W={} {}".format(W, kind)] = r
+            for n, d, W, B, dt, kind, timed, C in HIST_CLASS_CASES:
+                hist_case(torch, hist, n, d, W, B, dt, kind, 40 + W + C, timed, tag, classes=C)
+            results["hist exact"] = hist_exact_width(torch, hist, tag)
+            for n, d, W, B, dt, kind, timed in HIST_WIDE_CASES:
+                hist_case(torch, hist, n, d, W, B, dt, kind, 60 + W, timed, tag)
+
+        def totals_cases():
+            for n, W, kind, timed in TOTALS_CASES:
+                r = totals_case(torch, hist, n, W, kind, 3 + W, timed, tag)
+                if r is not None:
+                    results["totals"] = r
+            for n, W, kind, timed, C in TOTALS_CLASS_CASES:
+                totals_case(torch, hist, n, W, kind, 30 + W + C, timed, tag, classes=C)
+
+        phase("2 hist_kernel", hist_cases)
+        phase("3 totals_kernel", totals_cases)
+        launches, dtrain, dval = phase("4 slice", run_slice, torch, hist, pkg, tag)
+        phase("5 small parity", run_small_parity, torch, pkg, tag)
+        phase("6 profile", run_profile, torch, pkg, dtrain, dval, tag)
+        phase("7 serve", run_serve, torch, pkg, hist, tag)
+        phase("8 train entry", run_entry, torch, hist, tag)
+        phase("9 multiclass", run_multiclass, torch, hist, pkg, tag)
+        phase("10a ranking", run_ranking, torch, hist, pkg, tag)
+        phase("10b lossguide", run_lossguide, torch, hist, pkg, dtrain, dval, tag)
+        phase("11 sampling", run_sampling, torch, hist, pkg, dtrain, dval, tag)
+        phase("12 mme", run_mme, torch, hist, tag)
+        phase("13 boosters", run_boosters, torch, hist, pkg, dtrain, dval, tag)
+        phase("14 methods", run_methods, torch, hist, pkg, dtrain, dval, tag)
+        phase("15 formats", run_formats, torch, hist, dval, tag)
+        phase("16 planes", run_planes, torch, hist, pkg, dtrain, dval, tag)
+        phase("17 distributed", run_distributed, torch, hist, pkg, dtrain, dval, tag)
+        phase("18 options across ranks", run_options, torch, hist, pkg, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise
@@ -5224,6 +5627,10 @@ def main():
 
             shutil.rmtree(MODEL_ROOT, ignore_errors=True)
 
+    total = sum(seconds for _name, seconds in PHASE_WALL)
+    for name, seconds in PHASE_WALL:
+        print("{} | wall phase {}: {:.1f} s ({:.1%} of {:.1f} s)".format(
+            tag, name, seconds, seconds / total, total), flush=True)
     kernels = []
     for name, key in (("hist_kernel", HIST_MAIN), ("totals_kernel", "totals")):
         r = results[key]

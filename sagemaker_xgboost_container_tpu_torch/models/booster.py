@@ -40,8 +40,12 @@ re-selected), every level's histograms are reduced over the group before
 the split scan (``ops/tree_build``, ``ops/lossguide``), the learning stats
 are reduced as the JAX round reduces them, and the metric lines combine
 every rank's partial statistics, summed in f64 on the host, so every rank
-grows the same trees and prints the same lines. What does not train across
-ranks yet raises ``UserError`` naming it (``refuse_across_ranks``).
+grows the same trees and prints the same lines. Across ranks,
+``tree_method=approx`` merges every rank's hessian-weighted candidates each
+round, ``survival:cox`` and ``cox-nloglik`` compute on the gathered global
+rows (``GlobalRows``), a ranking objective's ranks each own whole query
+groups, and dart, gblinear and ``process_type=update`` take the group too;
+``tree_method=exact`` raises ``UserError`` (``refuse_across_ranks``).
 """
 
 import logging
@@ -59,6 +63,7 @@ from ..data.binning import (
     cut_lists,
     device_apply,
     device_cut_points,
+    pad_cut_points,
 )
 from ..ops.lossguide import build_tree_lossguide
 from ..ops.predict import forest_leaf_values
@@ -242,38 +247,16 @@ def constraint_tensors(config, d, device):
     return monotone, interaction_sets
 
 
-# what does not train across ranks yet: (test on the config, what, why,
-# the ROADMAP Queue 1 item that brings it)
-_ACROSS_RANKS = (
-    (lambda c: c.objective.startswith("rank:"), "objective={objective!r}",
-     "the query groups need build_sharded_group_layout across ranks", "9b"),
-    (lambda c: c.objective == "survival:cox", "objective='survival:cox'",
-     "its risk sets need the global rows", "9b"),
-    (lambda c: "cox-nloglik" in _metric_list(c), "eval_metric='cox-nloglik'",
-     "it needs the global rows", "9b"),
-    (lambda c: c.booster in ("dart", "gblinear"), "booster={booster!r}",
-     "only gbtree trains across ranks", "9b"),
-    (lambda c: c.process_type == "update", "process_type='update'",
-     "only gbtree trains across ranks", "9b"),
-    (lambda c: c.tree_method in ("exact", "approx"), "tree_method={tree_method!r}",
-     "its cuts would have to be merged every round", "9b"),
-)
-
-
-def _metric_list(config):
-    m = config.eval_metric
-    return [m] if isinstance(m, str) else list(m or [])
-
-
 def refuse_across_ranks(config):
-    """Raise ``UserError`` naming the first option of ``config`` that the
-    port does not train across ranks yet, and the ROADMAP item that will."""
-    for test, what, why, item in _ACROSS_RANKS:
-        if test(config):
-            raise exc.UserError(
-                "{} is not supported across ranks by the PyTorch port yet ({}); "
-                "ROADMAP Queue 1 item {}. Train it on one host.".format(
-                    what.format(**vars(config)), why, item))
+    """Raise ``UserError`` for the one option that does not train across
+    ranks, ``tree_method=exact``, with the JAX package's message: its cuts
+    are every distinct value of the rows, which no rank sees all of
+    (libxgboost's exact updater is single-machine too)."""
+    if config.tree_method == "exact":
+        raise exc.UserError(
+            "tree_method='exact' does not support distributed training (it doesn't in "
+            "XGBoost either); use tree_method='hist'."
+        )
 
 
 def merge_cut_candidates(mats, counts, width):
@@ -294,22 +277,80 @@ def merge_cut_candidates(mats, counts, width):
     return merged
 
 
-def merged_distributed_cuts(dtrain, max_bin, group, device):
-    """Each rank's quantile cuts of its own rows, gathered over ``group``
-    and merged (``merge_cut_candidates``), so that every rank bins with
-    the same thresholds."""
-    local_cuts = compute_cut_points(dtrain.features, dtrain.weights, max_bin, device=device)
-    width = max_bin - 1
-    d = dtrain.num_col
-    mat = np.full((d, width), np.nan, np.float32)
-    counts = np.zeros(d, np.int32)
-    for f, c in enumerate(local_cuts):
+def candidate_matrix(cuts, width):
+    """One rank's cut lists -> (f32 [d, width] candidates, NaN past each
+    count; i32 [d] counts): what ``merged_distributed_cuts`` gathers."""
+    mat = np.full((len(cuts), width), np.nan, np.float32)
+    counts = np.zeros(len(cuts), np.int32)
+    for f, c in enumerate(cuts):
         c = np.asarray(c, np.float32)
         mat[f, :len(c)] = c
         counts[f] = len(c)
-    mats = collectives.host_all_gather(mat, group, device)
-    all_counts = collectives.host_all_gather(counts, group, device)
+    return mat, counts
+
+
+def gather_merged_cuts(mat, counts, group, width, kind):
+    """This rank's candidates (f32 [d, width], NaN past each count; [d]
+    counts; tensors on the group's device) gathered over ``group`` and
+    merged on the host (``merge_cut_candidates``) -> the merged cut lists,
+    the same on every rank."""
+    mats = collectives.all_gather(mat, group, kind=kind).cpu().numpy()
+    all_counts = collectives.all_gather(counts, group, kind=kind).cpu().numpy()
     return merge_cut_candidates(mats, all_counts, width)
+
+
+def merged_distributed_cuts(dtrain, max_bin, group, device, weights=None):
+    """Each rank's quantile cuts of its own rows, gathered over ``group``
+    and merged, so that every rank bins with the same thresholds: the JAX
+    package's ``_merged_distributed_cuts``. ``weights``: sketch weights in
+    place of the rows' own (the approx re-sketch passes the current
+    hessians)."""
+    kind = "setup" if weights is None else "cuts"
+    if weights is None:
+        weights = dtrain.weights
+    width = max_bin - 1
+    mat, counts = candidate_matrix(
+        compute_cut_points(dtrain.features, weights, max_bin, device=device), width)
+    return gather_merged_cuts(torch.as_tensor(mat, device=device),
+                              torch.as_tensor(counts, device=device), group, width, kind)
+
+
+class GlobalRows:
+    """Every rank's rows of one matrix, gathered in rank order over
+    ``group``: the global rows that the Cox risk sets and ``cox-nloglik``
+    need (the JAX package's ``_agreed_pad`` and ``all_gather``). The ranks
+    agree on one padded row count, the largest; each pads its own rows to
+    it, and the padding carries label 0 and weight 0, so it drops out of
+    every cumulative sum (ranks may hold uneven shards, ``ShardedByS3Key``,
+    and a gather needs equal shapes). Labels and weights are gathered once;
+    each round gathers the margins only."""
+
+    def __init__(self, labels, weights, group, device):
+        self.group, self.device = group, device
+        self.n = int(len(labels))
+        counts = collectives.host_all_gather(np.asarray([self.n], np.int64), group, device)
+        self.n_max = int(counts.max())
+        self.offset = collectives.world(group)[0] * self.n_max
+        self.labels = self.gather(labels, kind="setup")
+        self.weights = self.gather(weights, kind="setup")
+
+    def gather(self, x, kind="rows"):
+        """This rank's [n, ...] -> the global [P * n_max, ...] on the device."""
+        x = torch.as_tensor(x, device=self.device)
+        if self.n_max > self.n:
+            x = torch.cat([x, x.new_zeros((self.n_max - self.n,) + tuple(x.shape[1:]))])
+        every = collectives.all_gather(x, self.group, kind=kind)
+        return every.reshape((-1,) + tuple(x.shape[1:]))
+
+    def own(self, x):
+        """This rank's segment of a global [P * n_max, ...] tensor."""
+        return x[self.offset:self.offset + self.n]
+
+    def grad_hess(self, objective, margins):
+        """The objective's (g, h) of this rank's rows, computed on the
+        global rows (the JAX package's ``cox_mesh_grad_hess``)."""
+        g, h = objective.grad_hess(self.gather(margins), self.labels, self.weights)
+        return self.own(g), self.own(h)
 
 
 def agreed_num_col(dm, group, device):
@@ -326,11 +367,63 @@ def combine_host_metric_entries(results, pairs, finalizers, group, device):
     every rank; ``pairs``: a [E, 2] f64 tensor of each entry's summable
     stats; ``finalizers[j]``: fn(summed stats) -> float. The stats are
     gathered and summed over the ranks in f64 on the host."""
-    gathered = collectives.all_gather(pairs, group, kind="metrics").cpu().numpy().astype(
-        np.float64)
+    gathered = collectives.all_gather(pairs.to(device), group, kind="metrics").cpu().numpy(
+    ).astype(np.float64)
     summed = gathered.sum(axis=0)
     return [(name, metric, finalizers[j](summed[j]))
             for j, (name, metric, _v) in enumerate(results)]
+
+
+def _is_ranking_metric(name):
+    return name.split("@")[0] in ("ndcg", "map")
+
+
+def _weight_sum(dm):
+    w = dm.get_weight()
+    return float(np.sum(w)) if w is not None else float(dm.num_row)
+
+
+class MetricCombiner:
+    """One round's metric entries across ranks, combined into identical
+    lines on every rank (``combine_host_metric_entries``):
+
+    * ``stats``: a metric with a device form, exactly from each rank's
+      partial statistics;
+    * ``mean``: a value weighted by what it averages over: a ranking
+      metric (``ndcg``, ``map``, with or without ``@k``) by the rank's query
+      groups, so that the line is the mean over every group of every rank,
+      as xgboost's distributed ranking metrics are; a host metric or a
+      feval by the rank's weight sum (the JAX package's weighted mean); a
+      value computed on the global rows by 1 (identical on every rank)."""
+
+    def __init__(self, group, device):
+        self.group, self.device = group, device
+        self.results, self.pairs, self.finalizers = [], [], []
+
+    def stats(self, name, metric_name, stats, finalize):
+        self.results.append((name, metric_name, None))
+        self.pairs.append(stats.double().cpu())
+        self.finalizers.append(lambda st: float(finalize(torch.as_tensor(st,
+                                                                          dtype=torch.float64))))
+
+    def mean(self, name, metric_name, value, weight):
+        self.results.append((name, metric_name, value))
+        self.pairs.append(torch.tensor([value * weight, weight], dtype=torch.float64))
+        self.finalizers.append(lambda st: float(st[0] / max(st[1], 1e-12)))
+
+    def host_metric(self, name, dm, metric_name, value):
+        """A metric evaluated on the host over this rank's rows of ``dm``."""
+        if _is_ranking_metric(metric_name):
+            weight = float(len(dm.groups)) if dm.groups is not None else 1.0
+        else:
+            weight = _weight_sum(dm)
+        self.mean(name, metric_name, value, weight)
+
+    def lines(self):
+        if not self.results:
+            return []
+        return combine_host_metric_entries(self.results, torch.stack(self.pairs),
+                                           self.finalizers, self.group, self.device)
 
 
 def print_metric_line(rnd, results):
@@ -341,26 +434,64 @@ def print_metric_line(rnd, results):
             rnd, "\t".join("{}-{}:{:.5f}".format(d, m, v) for d, m, v in results)), flush=True)
 
 
-def evaluate_host_lines(entries, metric_names, feval, objective, num_group):
+def evaluate_host_lines(entries, metric_names, feval, objective, num_group, group=None,
+                        device=None, objective_params=None, rows_cache=None):
     """Host metric lines of ``entries``, (data name, DataMatrix, numpy
     margin) each: every eval metric on the host (``eval_metrics``), then
     what ``feval(margin, dm)`` returns, the JAX package's order. The dart,
-    gblinear and update loops evaluate so, as the JAX package's do."""
+    gblinear and update loops evaluate so, as the JAX package's do.
+
+    Across ranks (``group``), identical lines on every rank, as the JAX
+    package's multi-process branch: a metric with a device form combines
+    exactly from each rank's partial statistics (f64 on the host), and
+    ``cox-nloglik`` is evaluated on the global rows (labels and weights
+    gathered once an entry into ``rows_cache``, the margins each round);
+    the rest combine as ``MetricCombiner`` weights them."""
+    comb = MetricCombiner(group, device) if group is not None else None
     results = []
-    for name, dm, margin in entries:
+    for i, (name, dm, margin) in enumerate(entries):
         preds = prob_matrix = None
         for metric in metric_names:
+            dmf = None
+            if comb is not None:
+                dmf = make_device_metric(metric, objective.name, num_group,
+                                         objective_params or {})
+            if dmf is not None and dmf.needs_global_rows:
+                if i not in rows_cache:
+                    rows_cache[i] = GlobalRows(np.asarray(dm.labels, np.float32),
+                                               np.asarray(dm.get_weight(), np.float32),
+                                               group, device)
+                rows = rows_cache[i]
+                m_g = rows.gather(np.asarray(margin, np.float32)).cpu().numpy().astype(
+                    np.float64)
+                value = eval_metrics.evaluate(
+                    metric, objective.margin_to_prediction(m_g),
+                    rows.labels.cpu().numpy().astype(np.float64),
+                    rows.weights.cpu().numpy().astype(np.float64))
+                comb.mean(name, metric, value, 1.0)
+                continue
+            if dmf is not None:
+                f64 = [torch.as_tensor(np.asarray(a), dtype=torch.float64)
+                       for a in (margin, dm.labels, dm.get_weight())]
+                comb.stats(name, metric, dmf.partial(*f64), dmf.finalize)
+                continue
             if preds is None:
                 preds = objective.margin_to_prediction(margin)
                 if num_group > 1:
                     prob_matrix = SoftprobMulti.margin_to_prediction(objective, margin)
             value = eval_metrics.evaluate(metric, preds, dm.labels, dm.weights,
                                           groups=dm.groups, prob_matrix=prob_matrix)
-            results.append((name, metric, value))
+            if comb is not None:
+                comb.host_metric(name, dm, metric, value)
+            else:
+                results.append((name, metric, value))
         if feval is not None:
             for metric_name, value in feval(margin, dm):
-                results.append((name, metric_name, value))
-    return results
+                if comb is not None:
+                    comb.mean(name, metric_name, value, _weight_sum(dm))
+                else:
+                    results.append((name, metric_name, value))
+    return comb.lines() if comb is not None else results
 
 
 def _eval_metric_names(config, objective):
@@ -416,8 +547,22 @@ class _TrainingSession:
         self.rank_blocks = None
         if self.objective.needs_groups:
             groups = [dtrain.num_row] if dtrain.groups is None else dtrain.groups
+            if self.group is not None and int(np.sum(groups)) != dtrain.num_row:
+                # across ranks each rank owns whole query groups: its
+                # pairs never reach another rank's rows
+                raise exc.UserError(
+                    "rank {}'s query groups cover {} rows, but it holds {}: each host's "
+                    "channel must hold whole query groups".format(
+                        self.rank, int(np.sum(groups)), dtrain.num_row))
             self.rank_blocks = [torch.as_tensor(b, device=device)
                                 for b in bucket_group_layout(groups)]
+        # across ranks survival:cox computes its gradients on the gathered
+        # global rows, and cox-nloglik its value (GlobalRows)
+        self.global_rows = None
+        self._eval_rows = {}    # eval set index -> GlobalRows (cox-nloglik)
+        if self.group is not None and self.objective.name == "survival:cox":
+            self.global_rows = GlobalRows(dtrain.labels, dtrain.get_weight(), self.group,
+                                          device)
         base = self.objective.base_margin(forest.base_score)
         self.margins = self._start_margins(forest, dtrain, base)
         if sampler is None and Sampler.needed(config):
@@ -521,7 +666,7 @@ class _TrainingSession:
         round's trees). Trees already committed keep the cuts they were
         built with: each round's trees are compacted to float thresholds
         before the next re-sketch."""
-        _g, h = self.objective.grad_hess(self.margins, self.labels, self.weights)
+        _g, h = self.pointwise_grad_hess(self.margins)
         if h.dim() == 2:
             h = h.sum(dim=1)
         max_bin = self.train_binned.max_bin
@@ -530,6 +675,8 @@ class _TrainingSession:
                 self._feats_dev = torch.as_tensor(self._dtrain.features, dtype=torch.float32,
                                                   device=self.device)
             mids, n_cuts = device_cut_points(self._feats_dev, h, max_bin - 1)
+            if self.group is not None:
+                mids, n_cuts = self._merge_device_cuts(mids, n_cuts, max_bin - 1)
             self.bins = device_apply(self._feats_dev, mids, n_cuts, max_bin)
             for i, entry in enumerate(self.eval_sets):
                 if entry[2] is None:
@@ -542,7 +689,11 @@ class _TrainingSession:
             self.cuts = cut_lists(mids, n_cuts)
             return
         feats = self._dtrain.features
-        cuts = compute_cut_points(feats, h.cpu().numpy(), max_bin)
+        if self.group is not None:
+            cuts = merged_distributed_cuts(self._dtrain, max_bin, self.group, self.device,
+                                           weights=h.cpu().numpy())
+        else:
+            cuts = compute_cut_points(feats, h.cpu().numpy(), max_bin)
         self.bins = torch.as_tensor(apply_cut_points(feats, cuts, max_bin), device=self.device)
         for entry in self.eval_sets:
             if entry[2] is not None:
@@ -552,13 +703,30 @@ class _TrainingSession:
                                         device=self.device)
         self.cuts = cuts
 
+    def _merge_device_cuts(self, mids, n_cuts, width):
+        """Across ranks under the device lowering: this rank's candidates
+        (``device_cut_points``' padded mids) gathered and merged as
+        ``merged_distributed_cuts`` merges them -> the merged cuts, padded,
+        on the device."""
+        pad = torch.arange(width, device=mids.device)[None, :] >= n_cuts[:, None]
+        mat = torch.where(pad, torch.full((), float("nan"), device=mids.device), mids)
+        return pad_cut_points(gather_merged_cuts(mat, n_cuts, self.group, width, "cuts"),
+                              self.device)
+
+    def pointwise_grad_hess(self, margins):
+        """The objective's own (g, h) at ``margins``; survival:cox across
+        ranks on the global rows."""
+        if self.global_rows is not None:
+            return self.global_rows.grad_hess(self.objective, margins)
+        return self.objective.grad_hess(margins, self.labels, self.weights)
+
     def grad_hess(self, margins):
         """The objective's (g, h) at ``margins`` ([n] or [n, C]), over the
         query groups for a ranking objective."""
         if self.rank_blocks is not None:
             return lambdarank_grad_hess(margins, self.labels, self.weights,
                                         self.rank_blocks, scheme=self.objective.scheme)
-        return self.objective.grad_hess(margins, self.labels, self.weights)
+        return self.pointwise_grad_hess(margins)
 
     def run_round(self, rnd):
         """Grow round ``rnd``'s ``num_parallel_tree`` trees and update every
@@ -761,27 +929,24 @@ class _TrainingSession:
     def _evaluate_across_ranks(self, feval):
         """``evaluate`` over every rank's rows, identical on every rank: a
         metric with a device form combines exactly from each rank's partial
-        statistics; a host metric and a feval combine as a weight-sum
-        weighted mean of the ranks' values, as in the JAX package
-        (distributed xgboost averages python-side metrics so too)."""
-        results, pairs, finalizers = [], [], []
-
-        def weighted_mean(value, wsum):
-            pairs.append(torch.tensor([value * wsum, wsum], dtype=torch.float64,
-                                      device=self.device))
-            finalizers.append(lambda st: float(st[0] / max(st[1], 1e-12)))
-
-        for name, dm, _bins, labels, weights, margins in self.eval_sets:
+        statistics, ``cox-nloglik`` is computed on the gathered global
+        rows, and a host metric and a feval combine as ``MetricCombiner``
+        weights them (a weight-sum weighted mean as in the JAX package,
+        whose distributed xgboost averages python-side metrics so; the
+        ranking metrics over the query groups)."""
+        comb = MetricCombiner(self.group, self.device)
+        for i, (name, dm, _bins, labels, weights, margins) in enumerate(self.eval_sets):
             m = self.margins if margins is None else margins
-            w = dm.get_weight()
-            wsum = float(np.sum(w)) if w is not None else float(dm.num_row)
             host = None
             for metric_name, metric in self.metrics:
+                if metric is not None and metric.needs_global_rows:
+                    rows = self._rows_of(i, labels, weights)
+                    comb.mean(name, metric_name,
+                              float(metric(rows.gather(m), rows.labels, rows.weights)), 1.0)
+                    continue
                 if metric is not None:
-                    pairs.append(metric.partial(m, labels, weights).double())
-                    finalizers.append(lambda st, f=metric: float(
-                        f.finalize(torch.as_tensor(st, dtype=torch.float64))))
-                    results.append((name, metric_name, None))
+                    comb.stats(name, metric_name, metric.partial(m, labels, weights),
+                               metric.finalize)
                     continue
                 if host is None:
                     host = self._host_predictions(m)
@@ -789,16 +954,20 @@ class _TrainingSession:
                 value = eval_metrics.evaluate(
                     metric_name, preds, dm.labels, dm.weights, groups=dm.groups,
                     prob_matrix=prob_matrix)
-                results.append((name, metric_name, value))
-                weighted_mean(value, wsum)
+                comb.host_metric(name, dm, metric_name, value)
             if feval is not None:
                 for metric_name, value in feval(m.cpu().numpy(), dm):
-                    results.append((name, metric_name, value))
-                    weighted_mean(value, wsum)
-        if not results:
-            return results
-        return combine_host_metric_entries(results, torch.stack(pairs), finalizers,
-                                           self.group, self.device)
+                    comb.mean(name, metric_name, value, _weight_sum(dm))
+        return comb.lines()
+
+    def _rows_of(self, i, labels, weights):
+        """The global rows of eval set ``i`` (the training rows' own where
+        they are the training matrix), gathered at first use."""
+        if self.eval_sets[i][5] is None and self.global_rows is not None:
+            return self.global_rows
+        if i not in self._eval_rows:
+            self._eval_rows[i] = GlobalRows(labels, weights, self.group, self.device)
+        return self._eval_rows[i]
 
     def note_collectives(self, before):
         """After a round across ranks: its collectives' host seconds, calls
@@ -879,9 +1048,10 @@ def train(
     ``group``: a ``torch.distributed`` process group for data-parallel
     training, or None for one rank (the JAX package's ``mesh=``). Every rank
     calls ``train`` with the same parameters and its own rows (their counts
-    may differ); every rank returns the same Forest. gbtree with
-    ``tree_method`` hist trains across ranks; what does not raises
-    ``UserError`` (``refuse_across_ranks``)."""
+    may differ; a ranking objective's ranks hold whole query groups); every
+    rank returns the same model. Every booster, objective and tree method
+    trains across ranks but ``tree_method=exact``, which raises
+    ``UserError`` before any collective (``refuse_across_ranks``)."""
     dev = resolve_device(device)
     config = TrainConfig(params)
     callbacks = list(callbacks or [])
@@ -911,7 +1081,7 @@ def train(
                 raise exc.UserError("Checkpoint {} is not a gblinear model".format(xgb_model))
         return train_linear(config, dtrain, num_boost_round, evals=list(evals), feval=feval,
                             callbacks=callbacks, initial_model=initial, device=dev,
-                            verbose_eval=verbose_eval)
+                            verbose_eval=verbose_eval, group=group)
 
     if xgb_model is None:
         objective_params = {
@@ -938,12 +1108,12 @@ def train(
         from .update import train_update
 
         return train_update(config, forest, dtrain, list(evals), feval, callbacks,
-                            num_boost_round, verbose_eval=verbose_eval)
+                            num_boost_round, verbose_eval=verbose_eval, group=group)
     if config.booster == "dart":
         from .dart import train_dart
 
         return train_dart(config, forest, dtrain, list(evals), feval, callbacks,
-                          num_boost_round, dev, verbose_eval=verbose_eval)
+                          num_boost_round, dev, verbose_eval=verbose_eval, group=group)
     metric_names = _eval_metric_names(config, forest.objective())
     session = _TrainingSession(config, dtrain, list(evals), forest, metric_names, dev,
                                sampler=_sampler, group=group)

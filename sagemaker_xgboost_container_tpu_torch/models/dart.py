@@ -29,6 +29,15 @@ threefry there, so those level masks differ between the packages). As in
 the JAX package, ``colsample_bynode`` and the monotone and interaction
 constraints are not applied, and ``tree_method=approx`` re-sketches the cuts
 before each round's dropout draw.
+
+Across ranks (``group``), as the JAX package's multi-process dart: every
+rank's session bins with the merged cuts and reduces each level's
+histograms; the draws come from the shared seed, so every rank drops the
+same units and draws the same columns; a ``subsample`` draw covers the
+global padded rows (every rank padded to the largest count) and each rank
+keeps its own segment, so the ranks' generators stay in step; a resumed
+run's contributions are each rank's own rows'; the metric lines combine as
+in gbtree.
 """
 
 import logging
@@ -69,8 +78,9 @@ def _resumed_units(forest, session, dtrain):
 
 
 def train_dart(config, forest, dtrain, evals, feval, callbacks, num_boost_round, device,
-               verbose_eval=True):
-    """Train ``num_boost_round`` dart rounds onto ``forest`` on ``device``."""
+               verbose_eval=True, group=None):
+    """Train ``num_boost_round`` dart rounds onto ``forest`` on ``device``,
+    across the ranks of ``group`` when one is given."""
     from .booster import (_TrainingSession, _eval_metric_names, evaluate_host_lines,
                           print_metric_line)
 
@@ -99,9 +109,17 @@ def train_dart(config, forest, dtrain, evals, feval, callbacks, num_boost_round,
     metric_names = _eval_metric_names(config, forest.objective())
     # the eval sets are predicted with the whole (rescaled) forest each
     # round, so the session holds the training rows only
-    session = _TrainingSession(config, dtrain, [], forest, metric_names, device)
+    session = _TrainingSession(config, dtrain, [], forest, metric_names, device, group=group)
     nclass = session.num_group
     n, d = session.bins.shape
+    draw_rows, own = n, slice(0, n)
+    if group is not None and config.subsample < 1.0:
+        from ..parallel import collectives
+
+        rank, size = collectives.world(group)
+        n_max = int(collectives.host_all_gather(np.asarray([n], np.int64), group,
+                                                device).max())
+        draw_rows, own = size * n_max, slice(rank * n_max, rank * n_max + n)
     eval_x = [None if dm is dtrain
               else torch.as_tensor(dm.features, dtype=torch.float32, device=device)
               for dm, _name in evals]
@@ -113,6 +131,7 @@ def train_dart(config, forest, dtrain, evals, feval, callbacks, num_boost_round,
     rng = np.random.RandomState(config.seed)
 
     evals_log = {}
+    rows_cache = {}   # eval entry -> its global rows (cox-nloglik across ranks)
     for cb in callbacks:
         if hasattr(cb, "before_training"):
             forest = cb.before_training(forest) or forest
@@ -151,8 +170,9 @@ def train_dart(config, forest, dtrain, evals, feval, callbacks, num_boost_round,
             mask[rng.choice(d, size=k, replace=False)] = 1.0
             tree_mask = torch.as_tensor(mask, device=device)[None]
         if config.subsample < 1.0:
-            keep = torch.as_tensor((rng.uniform(size=n) < config.subsample).astype(np.float32),
-                                   device=device)
+            keep = torch.as_tensor(
+                (rng.uniform(size=draw_rows)[own] < config.subsample).astype(np.float32),
+                device=device)
             keep = keep[:, None] if nclass > 1 else keep
             g, h = g * keep, h * keep
         level_seed = int(rng.randint(2**31))
@@ -171,7 +191,8 @@ def train_dart(config, forest, dtrain, evals, feval, callbacks, num_boost_round,
             session.bins, g, h, session.num_cuts, max_depth=config.max_depth,
             num_bins=session.num_bins, reg_lambda=config.reg_lambda, alpha=config.alpha,
             gamma=config.gamma, min_child_weight=config.min_child_weight, eta=1.0,
-            max_delta_step=config.max_delta_step, masks=masks)
+            max_delta_step=config.max_delta_step, masks=masks, group=session.group,
+            hist_comm=session.hist_comm)
         if nclass > 1:
             row_out = row_out.T
 
@@ -215,7 +236,10 @@ def train_dart(config, forest, dtrain, evals, feval, callbacks, num_boost_round,
             margin = (session.margins.cpu().numpy() if xe is None
                       else forest.predict_margin(xe))
             entries.append((name, dm, margin))
-        results = evaluate_host_lines(entries, metric_names, feval, session.objective, nclass)
+        results = evaluate_host_lines(entries, metric_names, feval, session.objective, nclass,
+                                      group=session.group, device=device,
+                                      objective_params=config.objective_params,
+                                      rows_cache=rows_cache)
         for data_name, metric_name, value in results:
             evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(value)
         if verbose_eval:

@@ -12,12 +12,16 @@ _EPS = 1e-15
 
 
 class DeviceMetric:
-    """A decomposable metric: ``partial`` -> f32 stats -> ``finalize``."""
+    """A decomposable metric: ``partial`` -> f32 stats -> ``finalize``.
+    ``needs_global_rows``: the stats of two row sets do not sum to the
+    stats of their union (``cox-nloglik``: a row's risk set spans every
+    row), so across ranks the metric is computed on the gathered rows."""
 
-    def __init__(self, name, partial, finalize):
+    def __init__(self, name, partial, finalize, needs_global_rows=False):
         self.name = name
         self.partial = partial
         self.finalize = finalize
+        self.needs_global_rows = needs_global_rows
 
     def __call__(self, margins, labels, weights):
         return self.finalize(self.partial(margins, labels, weights))
@@ -140,7 +144,8 @@ def make_device_metric(name, objective_name, num_group=1, params=None):
         return wm(term, post=lambda x: 2.0 * x)
     if base == "cox-nloglik":
         return DeviceMetric(name, _cox_stats,
-                            lambda s: s[0] / torch.clamp(s[1], min=1e-12))
+                            lambda s: s[0] / torch.clamp(s[1], min=1e-12),
+                            needs_global_rows=True)
     if base == "tweedie-nloglik":
         rho = float(suffix) if suffix else float(params.get("tweedie_variance_power", 1.5))
 

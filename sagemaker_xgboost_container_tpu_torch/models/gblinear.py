@@ -15,6 +15,15 @@ hessian sums of every feature, ``x_j^2 . h``, do not change within a round,
 so they are one matmul before the sweep, where the JAX package takes them
 feature by feature inside its ``lax.scan``.
 
+Across ranks (``group``), the JAX package's gblinear on a data mesh: each
+rank holds its own rows, and every sum over rows is all-reduced over the
+group, so every rank makes the same weight updates. The hessian sums of all
+features go in one all-reduce a round, since they do not change within it;
+each feature step's ``x_j . g`` in one small all-reduce (the sweep is
+sequential: a step reads the gradient that the step before it left); the
+bias's (sum g, sum h) in one. ``survival:cox`` computes its gradients on the
+gathered global rows (``booster.GlobalRows``).
+
 Model format: xgboost gblinear JSON, byte for byte the JAX package's
 ``LinearModel.save_json`` (weights feature-major, then the per-group bias).
 """
@@ -206,11 +215,13 @@ def _fit_width(x, d):
 
 
 def train_linear(config, dtrain, num_boost_round, evals=(), feval=None, callbacks=None,
-                 initial_model=None, device=None, verbose_eval=True):
+                 initial_model=None, device=None, verbose_eval=True, group=None):
     """Train a LinearModel on ``device``; the loop contract of
     ``booster.train`` (callbacks, metric lines, absolute round numbers).
-    ``initial_model``: a LinearModel to continue from (checkpoint resume)."""
-    from .booster import _eval_metric_names, evaluate_host_lines, print_metric_line
+    ``initial_model``: a LinearModel to continue from (checkpoint resume).
+    ``group``: the process group of data-parallel training, or None."""
+    from ..parallel import collectives
+    from .booster import GlobalRows, _eval_metric_names, evaluate_host_lines, print_metric_line
 
     dev = resolve_device(device)
     callbacks = list(callbacks or [])
@@ -233,6 +244,12 @@ def train_linear(config, dtrain, num_boost_round, evals=(), feval=None, callback
     base = objective.base_margin(config.base_score)
     lam, alpha, eta = config.reg_lambda, config.alpha, config.eta
     lambda_bias = float(config.objective_params.get("lambda_bias", 0.0))
+    global_rows = None
+    if group is not None and config.objective == "survival:cox":
+        global_rows = GlobalRows(dtrain.labels, dtrain.get_weight(), group, dev)
+
+    def allsum(t):
+        return collectives.all_reduce(t, group, kind="linear")
 
     if initial_model is not None:
         w = torch.as_tensor(initial_model.weights.reshape(d, G), device=dev).clone()
@@ -245,22 +262,30 @@ def train_linear(config, dtrain, num_boost_round, evals=(), feval=None, callback
 
     def one_round():
         margins = x @ w + b[None, :] + base
-        g, h = objective.grad_hess(margins[:, 0] if G == 1 else margins, labels, weights_row)
+        margins = margins[:, 0] if G == 1 else margins
+        if global_rows is not None:
+            g, h = global_rows.grad_hess(objective, margins)
+        else:
+            g, h = objective.grad_hess(margins, labels, weights_row)
         # [G, n]: each feature's step reads and updates contiguous rows
         gT = (g[None] if G == 1 else g.T).contiguous()
         hT = (h[None] if G == 1 else h.T).contiguous()
-        hw = torch.matmul(xT_sq, hT.T) + lam            # [d, G], fixed for the round
+        hw = allsum(torch.matmul(xT_sq, hT.T)) + lam    # [d, G], fixed for the round
         shrink = alpha / hw
         for j in range(d):
             w_j = w[j]
-            gw = torch.addmv(w_j, gT, xT[j], beta=lam)   # x_j . g + lambda * w_j
+            if group is None:
+                gw = torch.addmv(w_j, gT, xT[j], beta=lam)   # x_j . g + lambda * w_j
+            else:
+                gw = allsum(torch.mv(gT, xT[j])) + lam * w_j
             raw = w_j - gw / hw[j]
             new_w = torch.sign(raw) * torch.clamp_min(raw.abs() - shrink[j], 0.0)
             delta = eta * (new_w - w_j)
             gT.addcmul_(hT * xT[j], delta[:, None])
             w_j += delta
-        gb = gT.sum(dim=1) + lambda_bias * b
-        hb = hT.sum(dim=1) + lambda_bias
+        gh = allsum(torch.stack([gT.sum(dim=1), hT.sum(dim=1)]))
+        gb = gh[0] + lambda_bias * b
+        hb = gh[1] + lambda_bias
         b.sub_(eta * gb / torch.clamp_min(hb, 1e-6))
 
     model = LinearModel(
@@ -276,6 +301,7 @@ def train_linear(config, dtrain, num_boost_round, evals=(), feval=None, callback
     metric_names = _eval_metric_names(config, objective)
     model.rounds = start_round
     evals_log = {}
+    rows_cache = {}   # eval entry -> its global rows (cox-nloglik across ranks)
     for cb in callbacks:
         if hasattr(cb, "before_training"):
             model = cb.before_training(model) or model
@@ -289,7 +315,9 @@ def train_linear(config, dtrain, num_boost_round, evals=(), feval=None, callback
         for (dm, name), xe in zip(evals, eval_x):
             margin = (xe @ w + b[None, :] + base).cpu().numpy()
             entries.append((name, dm, margin[:, 0] if G == 1 else margin))
-        results = evaluate_host_lines(entries, metric_names, feval, objective, G)
+        results = evaluate_host_lines(entries, metric_names, feval, objective, G, group=group,
+                                      device=dev, objective_params=config.objective_params,
+                                      rows_cache=rows_cache)
         for data_name, metric_name, value in results:
             evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(value)
         if verbose_eval:

@@ -18,6 +18,13 @@ The port's counterpart of ``sagemaker_xgboost_container_tpu/models/update.py``
 
 Rows are routed on the device (``ops.predict.forest_leaf_nodes``); the
 node statistics and both updaters are host numpy in float64.
+
+Across ranks (``group``), as the JAX package's multi-process update (and
+libxgboost's TreeRefresher under Rabit): each rank routes its own rows, and
+every tree's per-node (sum_g, sum_h) is gathered in float32 and summed in
+float64 in rank order before the refresh and prune math, so every rank
+updates the trees identically. ``survival:cox`` computes its gradients on
+the gathered global rows (``booster.GlobalRows``).
 """
 
 import numpy as np
@@ -45,14 +52,17 @@ def _score(g, h, reg_lambda, alpha):
     return (t * t) / (h + reg_lambda)
 
 
-def _refresh_tree(tree, leaf_of_row, g, h, config, refresh_leaf):
+def _refresh_tree(tree, leaf_of_row, g, h, config, refresh_leaf, combine=None):
     """Rebuild the node stats of ``tree`` from the rows routed to each of
-    its leaves; with ``refresh_leaf`` also its leaf values."""
+    its leaves; with ``refresh_leaf`` also its leaf values. ``combine``
+    (across ranks) sums the per-leaf stats [2, nodes] over the ranks."""
     n_nodes = tree.num_nodes
     G = np.zeros(n_nodes, np.float64)
     H = np.zeros(n_nodes, np.float64)
     np.add.at(G, leaf_of_row, g)
     np.add.at(H, leaf_of_row, h)
+    if combine is not None:
+        G, H = combine(np.stack([G, H]))
     order, _depth = _node_depth_order(tree)
     for node in order:  # children accumulate into parents, deepest first
         p = tree.parent[node]
@@ -98,10 +108,11 @@ def _prune_tree(tree, gamma, eta):
 
 
 def train_update(config, forest, dtrain, evals, feval, callbacks, num_boost_round,
-                 verbose_eval=True):
+                 verbose_eval=True, group=None):
     """Apply the refresh / prune updaters to ``forest`` over ``dtrain`` on
-    the forest's device."""
-    from .booster import _eval_metric_names, evaluate_host_lines, print_metric_line
+    the forest's device, across the ranks of ``group`` when one is given."""
+    from ..parallel import collectives
+    from .booster import GlobalRows, _eval_metric_names, evaluate_host_lines, print_metric_line
 
     updaters = [u.strip() for u in str(config.objective_params.get("updater", "refresh"))
                 .split(",") if u.strip()]
@@ -130,14 +141,28 @@ def train_update(config, forest, dtrain, evals, feval, callbacks, num_boost_roun
                                                        device=dev)
               for dm, _name in evals]
 
+    combine = global_rows = None
+    if group is not None:
+        def combine(stats):
+            every = collectives.host_all_gather(stats.astype(np.float32), group, dev,
+                                                kind="update")
+            return every.astype(np.float64).sum(axis=0)
+
+        if objective.name == "survival:cox":
+            global_rows = GlobalRows(dtrain.labels, dtrain.get_weight(), group, dev)
+
     rounds = min(num_boost_round, forest.num_boosted_rounds)
     metric_names = _eval_metric_names(config, objective)
     evals_log = {}
+    rows_cache = {}   # eval entry -> its global rows (cox-nloglik across ranks)
     for cb in callbacks:
         if hasattr(cb, "before_training"):
             forest = cb.before_training(forest) or forest
     for rnd in range(rounds):
-        g, h = objective.grad_hess(margins, labels, weights)
+        if global_rows is not None:
+            g, h = global_rows.grad_hess(objective, margins)
+        else:
+            g, h = objective.grad_hess(margins, labels, weights)
         g = g.cpu().numpy().astype(np.float64)
         h = h.cpu().numpy().astype(np.float64)
         t0, t1 = forest.iteration_indptr[rnd], forest.iteration_indptr[rnd + 1]
@@ -149,7 +174,7 @@ def train_update(config, forest, dtrain, evals, feval, callbacks, num_boost_roun
             # values replaced only when refresh was asked for
             _refresh_tree(tree, leaf_nodes[:, j], g if g.ndim == 1 else g[:, cls],
                           h if h.ndim == 1 else h[:, cls], config,
-                          refresh_leaf and "refresh" in updaters)
+                          refresh_leaf and "refresh" in updaters, combine=combine)
             if "prune" in updaters:
                 _prune_tree(tree, config.gamma, config.eta)
         forest.release()  # the stacked trees changed
@@ -166,7 +191,10 @@ def train_update(config, forest, dtrain, evals, feval, callbacks, num_boost_roun
 
         entries = [(name, dm, forest.predict_margin(xe, iteration_range=(0, rnd + 1)))
                    for (dm, name), xe in zip(evals, eval_x)]
-        results = evaluate_host_lines(entries, metric_names, feval, objective, G_out)
+        results = evaluate_host_lines(entries, metric_names, feval, objective, G_out,
+                                      group=group, device=dev,
+                                      objective_params=config.objective_params,
+                                      rows_cache=rows_cache)
         for data_name, metric_name, value in results:
             evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(value)
         if verbose_eval:

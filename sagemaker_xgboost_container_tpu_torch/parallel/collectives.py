@@ -7,9 +7,11 @@ Every training-path collective goes through here, so that
 * a group of None (one rank) is a no-op on every call, and the one-rank
   paths stay the code they were;
 * ``STATS`` counts the calls, the local payload bytes (also by ``kind``:
-  "hist", "totals", "merge", "stats", "metrics", "setup") and the host
-  seconds spent in the calls and their waits (``chip_smoke.py`` phase 17
-  reads them a round);
+  "hist", "totals", "merge", "stats", "metrics", "setup", and "cuts" for
+  approx's candidates, "rows" for the global rows of Cox, "linear" for
+  gblinear's sums, "update" for the refresh's node statistics) and the host
+  seconds spent in the calls and their waits (``chip_smoke.py`` phases 17
+  and 18 read them a round);
 * a collective that fails (a peer died: gloo raises when its connection
   closes, NCCL when its watchdog times out) takes the watchdog's
   coordinated abort (exit 80) when the abort plane is up, and otherwise

@@ -475,9 +475,14 @@ PROCESS_GROUP_PORT_ENV = "SM_PROCESS_GROUP_PORT"
 # group (``nccl`` / ``gloo``); unset, the backend follows the device
 PROCESS_GROUP_BACKEND_ENV = "SM_PROCESS_GROUP_BACKEND"
 DEFAULT_PROCESS_GROUP_PORT = 12355
-# the JAX package's bound on how long a survivor waits for a dead peer
-# (jax.distributed's heartbeat timeout); here the process group's timeout
-PROCESS_GROUP_TIMEOUT_ENV = "GRAFT_HEARTBEAT_TIMEOUT_S"
+# how long one collective may wait for its peers (gloo's default, 30
+# minutes). Not GRAFT_HEARTBEAT_TIMEOUT_S: that is the JAX package's
+# heartbeat timeout, and a peer that is slow but alive keeps beating, so it
+# must not bound a collective. A dead peer fails the next collective at
+# once (its connection closes); a wedged one is the heartbeat and abort
+# planes' (telemetry/cluster.py, training/watchdog.py)
+PROCESS_GROUP_TIMEOUT_ENV = "SM_COLLECTIVE_TIMEOUT_S"
+DEFAULT_COLLECTIVE_TIMEOUT_S = 1800.0
 
 
 def rendezvous_port():
@@ -489,7 +494,7 @@ def process_group_port():
 
 
 def process_group_timeout():
-    return env_float(PROCESS_GROUP_TIMEOUT_ENV, 100.0, minimum=1.0)
+    return env_float(PROCESS_GROUP_TIMEOUT_ENV, DEFAULT_COLLECTIVE_TIMEOUT_S, minimum=1.0)
 
 
 def default_backend(device):
@@ -507,10 +512,11 @@ def init_process_group(hosts, current_host, device, backend=None, port=None, tim
     CUDA, ``gloo`` for the CPU) unless ``backend`` or
     ``SM_PROCESS_GROUP_BACKEND`` names one: the caller's explicit choice
     (two ranks sharing one card need ``gloo``, since NCCL refuses two ranks
-    on one device). ``timeout_s`` (default
-    ``GRAFT_HEARTBEAT_TIMEOUT_S``, 100 s) bounds how long a collective waits
-    for a dead peer, in place of gloo's 30 minutes. A failure raises
-    ``PlatformError``: a rank that cannot reach its peers fails the job.
+    on one device). ``timeout_s`` (default ``SM_COLLECTIVE_TIMEOUT_S``,
+    1800 s) bounds how long one collective waits for its peers: long, since
+    a rank's host work between collectives (a sketch, a fold's setup) is
+    uneven across ranks. A failure raises ``PlatformError``: a rank that
+    cannot reach its peers fails the job.
     """
     import torch
     import torch.distributed as dist

@@ -38,10 +38,13 @@ abort listener (``SM_ABORT_ON_STALE``), the heartbeat plane
 (``SM_HEARTBEAT_INTERVAL_S``), its tracing rank and the fleet plane
 (``SM_FLEET_TRACE``, ``SM_STATUS_PORT``); then every rank trains on its own
 channel's rows with ``booster.train(..., group=)`` and the master (sorted
-hosts[0]) saves the model. Refused across hosts with a ``UserError``
-naming it: k-fold CV, ``SM_ELASTIC``, ``SM_CONSENSUS_EVERY`` and
-``SM_INGEST_MODE=chunked``, and the options ``booster.refuse_across_ranks``
-names.
+hosts[0]) saves the model. k-fold CV across hosts runs the sequential fold
+loop, as the JAX package does there: each host splits its own rows, every
+fold trains with ``train(group=)``, the CV metric lines are the same on
+every host, and each host writes the out-of-fold predictions of its own
+rows. Refused across hosts with a ``UserError`` naming it:
+``SM_ELASTIC``, ``SM_CONSENSUS_EVERY`` and ``SM_INGEST_MODE=chunked``, and
+``tree_method=exact`` (``booster.refuse_across_ranks``).
 """
 
 import logging
@@ -141,7 +144,7 @@ def sagemaker_train(
     combine_train_val = "_kfold" in validated_train_config
     num_hosts = len(sm_hosts)
     if num_hosts > 1:
-        _refuse_across_hosts(validated_train_config, combine_train_val)
+        _refuse_across_hosts(validated_train_config)
     if val_path is not None:
         if train_path == val_path or os.path.basename(train_path) == os.path.basename(val_path):
             logger.warning(
@@ -247,16 +250,14 @@ _HOST_KNOBS_REFUSED = (
 )
 
 
-def _refuse_across_hosts(train_cfg, combine_train_val):
+def _refuse_across_hosts(train_cfg):
     """Raise ``UserError`` naming what a multi-host job asks for that the
-    port does not train across hosts yet, before any data is read."""
+    port does not train across hosts, before any data is read."""
     def refuse(what, item):
         raise exc.UserError(
             "{} is not supported across hosts by the PyTorch port yet; ROADMAP Queue 1 "
             "item {}. Train it on one host.".format(what, item))
 
-    if combine_train_val:
-        refuse("k-fold cross-validation (_kfold)", "9b")
     for knob, item in _HOST_KNOBS_REFUSED:
         if os.environ.get(knob, "").strip().lower() not in ("", "0", "false", "off"):
             refuse("{}={}".format(knob, os.environ[knob]), item)
@@ -373,8 +374,10 @@ def train_job(
             bst = _cross_validate(
                 train_cfg, train_val_dmatrix, kfold, num_round, configured_feval,
                 callbacks_for, checkpoint_dir, early_stopping_rounds,
-                save_model_on_termination, device,
+                save_model_on_termination, device, group,
             )
+            if group is not None:
+                _stop_cluster_planes()
     except Exception as e:
         for customer_error_message in CUSTOMER_ERRORS:
             if customer_error_message in str(e):
@@ -446,10 +449,12 @@ class _EvalsRecorder:
 
 def _cross_validate(train_cfg, train_val_dmatrix, kfold, num_round, configured_feval,
                     callbacks_for, checkpoint_dir, early_stopping_rounds,
-                    save_model_on_termination, device):
+                    save_model_on_termination, device, group=None):
     """Repeated k-fold CV over the train+validation rows -> the fold models,
     fold by fold; writes the out-of-fold predictions and prints the CV
-    metric lines."""
+    metric lines. Across hosts (``group``) the rows are this host's, every
+    fold trains over the group, and the fold-parallel path is skipped (the
+    JAX package's ``_try_parallel_cv`` declines more than one process)."""
     num_cv_round = train_cfg.pop("_num_cv_round", 1)
     logger.info(
         "Run %s-round of %s-fold cross validation with %s rows",
@@ -476,10 +481,12 @@ def _cross_validate(train_cfg, train_val_dmatrix, kfold, num_round, configured_f
     )
     splits = list(rkf.split(X=range(train_val_dmatrix.num_row), y=y))
 
-    parallel = _try_parallel_cv(
-        train_cfg, train_val_dmatrix, splits, num_round, kfold, checkpoint_dir,
-        early_stopping_rounds, configured_feval, save_model_on_termination, device,
-    )
+    parallel = None
+    if group is None:
+        parallel = _try_parallel_cv(
+            train_cfg, train_val_dmatrix, splits, num_round, kfold, checkpoint_dir,
+            early_stopping_rounds, configured_feval, save_model_on_termination, device,
+        )
     if parallel is not None:
         bst, evals_results = parallel
         for k, (_train_idx, val_idx) in enumerate(splits):
@@ -506,6 +513,7 @@ def _cross_validate(train_cfg, train_val_dmatrix, kfold, num_round, configured_f
                 callbacks=callbacks + [recorder],
                 verbose_eval=False,
                 xgb_model=xgb_model,
+                group=group,
             )
             bst.append(fold_booster)
             evals_results.append(recorder.log)

@@ -246,7 +246,7 @@ def test_fingerprint_carries_the_groups_world_size(ranks, tmp_path, monkeypatch,
         integrity.validate_resume(str(path), live)
 
 
-# ---------------------------------------------------------------- refusals
+# ------------------------------------------- refused before, trained now
 @pytest.mark.parametrize("params, named", [
     ({"objective": "rank:ndcg"}, "rank:ndcg"),
     ({"objective": "rank:pairwise"}, "rank:pairwise"),
@@ -258,12 +258,26 @@ def test_fingerprint_carries_the_groups_world_size(ranks, tmp_path, monkeypatch,
     ({"tree_method": "approx"}, "approx"),
     ({"tree_method": "exact"}, "exact"),
 ])
-def test_options_refused_across_ranks(params, named):
+def test_options_refused_across_ranks(ranks, params, named):
+    """Only ``tree_method=exact`` is refused across ranks, with the JAX
+    package's message; every other option that was refused trains over the
+    rank pair, both ranks committing one model and printing one log
+    (``tests/test_torch_distributed_options.py`` holds each to the JAX
+    mesh)."""
     config = booster.TrainConfig(params)
-    with pytest.raises(exc.UserError, match=named) as err:
-        booster.refuse_across_ranks(config)
-    assert "ROADMAP Queue 1 item 9b" in str(err.value)
-    # one rank trains them
+    if named == "exact":
+        with pytest.raises(exc.UserError, match=named) as err:
+            booster.refuse_across_ranks(config)
+        assert "does not support distributed training (it doesn't in XGBoost either); " \
+            "use tree_method='hist'." in str(err.value)
+        assert "ROADMAP" not in str(err.value)
+        return
+    booster.refuse_across_ranks(config)
+    i = ur.ONCE_REFUSED.index(params)
+    (raw0, log0), (raw1, log1) = (ranks[r]["once refused", i] for r in range(2))
+    assert raw0 == raw1, named
+    assert log0 == log1 and all(len(v) == 2 for v in log0["train"].values()), named
+    # one rank trains them as before
     booster.refuse_across_ranks(booster.TrainConfig({"objective": "binary:logistic"}))
 
 
@@ -276,8 +290,8 @@ def test_train_refuses_before_any_collective(monkeypatch):
     monkeypatch.setattr(collectives, "all_gather",
                         lambda *a, **k: pytest.fail("a collective ran"))
     dm = DataMatrix(np.zeros((10, 2), np.float32), labels=np.zeros(10, np.float32))
-    with pytest.raises(exc.UserError, match="booster='dart'"):
-        booster.train({"booster": "dart"}, dm, 1, device="cpu", group=object())
+    with pytest.raises(exc.UserError, match="tree_method='exact'"):
+        booster.train({"tree_method": "exact"}, dm, 1, device="cpu", group=object())
 
 
 def test_one_rank_group_is_the_plain_path():

@@ -17,10 +17,13 @@ import urllib.request
 import numpy as np
 import pytest
 
+from sagemaker_xgboost_container_tpu.telemetry import cluster as jax_cluster
 from sagemaker_xgboost_container_tpu.telemetry import fleet as jax_fleet
+from sagemaker_xgboost_container_tpu.telemetry import model as jax_model
 from sagemaker_xgboost_container_tpu.telemetry import tracing as jax_tracing
 from sagemaker_xgboost_container_tpu.telemetry.registry import MetricsRegistry as JaxRegistry
-from sagemaker_xgboost_container_tpu_torch.telemetry import fleet, tracing
+from sagemaker_xgboost_container_tpu_torch.telemetry import cluster, fleet, tracing
+from sagemaker_xgboost_container_tpu_torch.telemetry import model as model_telemetry
 from sagemaker_xgboost_container_tpu_torch.telemetry.registry import MetricsRegistry
 from tests.util_ports import free_port
 
@@ -31,7 +34,11 @@ def fleet_env(monkeypatch):
                  fleet.STATUS_PORT_ENV, "SM_TRACE_EXPORT_DIR", "SM_DEVICE_TELEMETRY"):
         monkeypatch.delenv(knob, raising=False)
     monkeypatch.setenv("SM_TRACE", "1")
-    for mod in (tracing, fleet, jax_tracing, jax_fleet):
+    # /status also renders the round state and the learning stats, which
+    # a training test earlier in the same worker may have left behind
+    for state in (cluster.ROUND_STATE, jax_cluster.ROUND_STATE):
+        state.reset()
+    for mod in (tracing, fleet, model_telemetry, jax_tracing, jax_fleet, jax_model):
         mod._reset_for_tests()
     yield monkeypatch
     for mod in (tracing, fleet, jax_tracing, jax_fleet):

@@ -9,7 +9,8 @@ process group.
   shards, with a two-lane ``trace-fleet.json``;
 * host loss: the survivor exits 80 (the coordinated abort) well within the
   heartbeat timeout, leaves one ``training.abort`` record and no model;
-* options that do not train across hosts yet are refused by name.
+* what does not train across hosts is refused by name (k-fold CV across
+  hosts: ``tests/test_torch_distributed_options.py``).
 """
 
 import json
@@ -200,7 +201,9 @@ def test_host_loss_survivor_exits_80(tmp_path):
     (code0, out0, err0, root0), (code1, _out1, _err1, _root1) = outs
     assert code1 == -9
     assert code0 == 80, err0[-3000:]
-    assert elapsed < 20 + 60        # the process group's timeout plus a margin
+    # the closed connection fails rank 0's next collective at once: well
+    # within GRAFT_HEARTBEAT_TIMEOUT_S plus a margin
+    assert elapsed < 20 + 60
     aborts = [line for line in out0.splitlines() if '"training.abort"' in line]
     assert len(aborts) == 1, out0[-2000:]
     assert not os.path.exists(os.path.join(root0, "model", "xgboost-model"))
@@ -209,16 +212,15 @@ def test_host_loss_survivor_exits_80(tmp_path):
 
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("hp, env, named", [
-    ({"_kfold": "3"}, {}, "k-fold"),
     ({}, {"SM_ELASTIC": "1"}, "SM_ELASTIC"),
     ({}, {"SM_CONSENSUS_EVERY": "5"}, "SM_CONSENSUS_EVERY"),
     ({}, {"SM_INGEST_MODE": "chunked"}, "SM_INGEST_MODE=chunked"),
-    ({"objective": "rank:ndcg"}, {}, "rank:ndcg"),
-    ({"booster": "gblinear"}, {}, "gblinear"),
-    ({"tree_method": "approx"}, {}, "approx"),
+    ({"tree_method": "exact"}, {}, "tree_method='exact'"),
 ])
 def test_entry_refuses_across_hosts(tmp_path, monkeypatch, hp, env, named):
-    """Refused by name before any data is read or any peer contacted."""
+    """Refused by name before any data is read or any peer contacted: the
+    knobs of ROADMAP items not ported yet, naming the item, and
+    ``tree_method=exact`` with the JAX package's message."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     monkeypatch.setattr(algorithm_train.distributed, "wait_hostname_resolution",
@@ -232,4 +234,7 @@ def test_entry_refuses_across_hosts(tmp_path, monkeypatch, hp, env, named):
         algorithm_train.sagemaker_train(
             dict(ur.ENTRY_HP, **hp), {"train": channel}, str(train_dir), None,
             str(tmp_path / "model"), ur.CLUSTER_HOSTS, "127.0.0.1", {}, device="cpu")
-    assert "ROADMAP Queue 1 item 9" in str(err.value)
+    if "exact" in named:
+        assert "it doesn't in XGBoost either" in str(err.value)
+    else:
+        assert "ROADMAP Queue 1 item 9" in str(err.value)

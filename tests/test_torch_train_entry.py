@@ -417,28 +417,40 @@ def test_entry_module_needs_a_gpu(tmp_path):
 
 @pytest.mark.parametrize("case,match", [
     ("kfold", r"k-fold cross-validation \(_kfold\)"),
-    ("multi_host", r"k-fold cross-validation \(_kfold\) is not supported across hosts"),
+    ("multi_host", None),
     ("script_mode", "script mode"),
     ("parquet", "parquet"),
     ("custom_metric", "custom metrics.*accuracy"),
     ("booster", "booster='dart'"),
 ])
 def test_left_out_paths_raise_user_error_naming_them(case, match, tmp_path, monkeypatch):
-    """What the port does not train (k-fold CV across more than one host)
-    raises a UserError naming it, before any peer is contacted; k-fold CV,
-    parquet channels, the custom metrics, script mode and booster=dart,
-    which it trains now, run to their models."""
+    """k-fold CV, parquet channels, the custom metrics, script mode and
+    booster=dart run to their models; k-fold CV across two hosts is no
+    longer refused, and goes on to contact its peer
+    (``tests/test_torch_distributed_options.py`` runs it on two hosts)."""
     tree = _tree(str(tmp_path), "csv")
     hp, hosts = dict(BASE_HP), ["algo-1"]
     if case == "kfold":
         hp["_kfold"] = "3"
     elif case == "multi_host":
-        # two hosts train since data-parallel training; k-fold CV across
-        # them does not yet
+        # k-fold CV across two hosts trains: past the checks, the job waits
+        # for its peer's name to resolve
         hosts = ["algo-1", "algo-2"]
         hp["_kfold"] = "3"
+
+        class PeerContacted(Exception):
+            pass
+
+        def contacted(hosts):
+            raise PeerContacted(hosts)
+
         monkeypatch.setattr(algorithm_train.distributed, "wait_hostname_resolution",
-                            lambda hosts: pytest.fail("a peer was contacted"))
+                            contacted)
+        with pytest.raises(PeerContacted):
+            algorithm_train.sagemaker_train(hp, tree["data_config"], tree["train_path"],
+                                            tree["val_path"], str(tmp_path / "model"), hosts,
+                                            "algo-1", {}, device="cpu")
+        return
     elif case == "parquet":
         pa = pytest.importorskip("pyarrow")
         import pyarrow.parquet as pq

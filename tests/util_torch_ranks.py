@@ -16,10 +16,17 @@ import numpy as np
 from tests.util_ports import free_port
 
 
-def _rank_main(target, rank, world, port, q, args):
+def _rank_main(target, rank, world, port, q, args, own_group):
     try:
         import torch.distributed as dist
 
+        if own_group:
+            # the target brings its own process group up on ``port``
+            result = target(rank, world, port, *args)
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            q.put((rank, "ok", result))
+            return
         dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{}".format(port),
                                 world_size=world, rank=rank)
         try:
@@ -31,16 +38,18 @@ def _rank_main(target, rank, world, port, q, args):
         q.put((rank, "error", traceback.format_exc()))
 
 
-def run_ranks(target, args=(), world=2, timeout=180.0):
+def run_ranks(target, args=(), world=2, timeout=180.0, own_group=False):
     """Run ``target(rank, world, group, *args)`` on ``world`` spawned gloo
-    ranks -> their results in rank order. Raises on a rank's error or a
+    ranks -> their results in rank order (with ``own_group``,
+    ``target(rank, world, port, *args)``, which brings up its own process
+    group on the free loopback ``port``). Raises on a rank's error or a
     timeout; never leaves a process behind."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_rank_main, args=(target, r, world, port, q, args))
+    procs = [ctx.Process(target=_rank_main, args=(target, r, world, port, q, args, own_group))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -234,6 +243,8 @@ def distributed_suite(rank, world, group):
         out["train", name, "reduce_scatter"] = train_case(rank, world, group, name,
                                                           "reduce_scatter")
     out["world_size"] = integrity.config_fingerprint({})["world_size"]
+    for i, params in enumerate(ONCE_REFUSED):
+        out["once refused", i] = train_once_refused(rank, group, params)
     return out
 
 
@@ -291,3 +302,278 @@ def entry_reference(rank, world, group):
     forest = train(params, dtrain, 4, evals=[(dtrain, "train"), (dval, "validation")],
                    device="cpu", group=group, verbose_eval=False)
     return forest_arrays(forest), forest.predict(entry_data()[0][0])
+
+
+# ----------------------------------------- the options trained across ranks
+def ranking_data(n_groups, d, seed):
+    """Integer-valued features, relevance labels 0-4 and query groups of
+    5-24 documents -> (X, y, group sizes)."""
+    rng = np.random.RandomState(seed)
+    sizes = rng.randint(5, 25, size=n_groups)
+    n = int(sizes.sum())
+    X = rng.randint(0, 16, size=(n, d)).astype(np.float32)
+    score = X[:, 0] - 0.5 * X[:, 1] + 0.25 * X[:, 2] + rng.randn(n) * 2
+    y = np.clip(np.round(score / 4 + 2), 0, 4).astype(np.float32)
+    return X, y, sizes
+
+
+def cox_data(n, d, seed):
+    """Integer-valued features, 5 % of them missing (so that every split's
+    default direction is decided by rows, not by an f32 rounding tie), and
+    survival labels: event times > 0, a third of them censored (negative)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randint(0, 16, size=(n, d)).astype(np.float32)
+    risk = 0.2 * X[:, 0] - 0.1 * X[:, 1]
+    X[rng.rand(n, d) < 0.05] = np.nan
+    t = np.round(rng.exponential(np.exp(-risk)) * 100 + 1).astype(np.float32)
+    censored = rng.rand(n) < 1 / 3
+    return X, np.where(censored, -t, t).astype(np.float32)
+
+
+# name -> (params, rounds, data kind). "split" is rank 0's rows (for the
+# ranking cases, its query groups)
+OPTION_CASES = {
+    "approx": ({"objective": "binary:logistic", "tree_method": "approx", "max_depth": 4,
+                "eta": 0.3, "eval_metric": ["logloss"]}, 4, "binary"),
+    "dart": ({"objective": "binary:logistic", "booster": "dart", "max_depth": 4, "eta": 0.3,
+              "rate_drop": 0.3, "one_drop": 1, "seed": 5, "eval_metric": ["logloss"]}, 5,
+             "binary"),
+    "gblinear": ({"objective": "binary:logistic", "booster": "gblinear", "eta": 0.5,
+                  "lambda": 0.5, "alpha": 0.01, "eval_metric": ["logloss", "error"]}, 4,
+                 "binary"),
+    "update": ({"objective": "binary:logistic", "process_type": "update",
+                "updater": "refresh,prune", "gamma": 2.0, "max_depth": 4, "eta": 0.3,
+                "eval_metric": ["logloss"]}, 4, "binary"),
+    "ndcg": ({"objective": "rank:ndcg", "max_depth": 4, "eta": 0.3,
+              "eval_metric": ["ndcg@5", "map"]}, 3, "ranking"),
+    "pairwise": ({"objective": "rank:pairwise", "max_depth": 4, "eta": 0.3,
+                  "eval_metric": ["ndcg"]}, 3, "ranking"),
+    "cox": ({"objective": "survival:cox", "max_depth": 4, "eta": 0.3,
+             "eval_metric": ["cox-nloglik"]}, 4, "cox"),
+}
+OPTION_ROWS, OPTION_SPLIT = 1000, 500        # binary cases
+RANK_GROUPS, RANK_SPLIT = 80, 30            # ranking cases: query groups
+COX_ROWS, COX_SPLIT = 1003, 700             # uneven, ShardedByS3Key-style
+# the base model that the update case refreshes and prunes: trained on
+# every row, then updated on labels with a share flipped
+UPDATE_BASE = ({"objective": "binary:logistic", "max_depth": 4, "eta": 0.3}, 4)
+UPDATE_FLIP = 0.15
+
+
+def option_data(name):
+    """(X, y, group sizes or None) of case ``name`` over all rows."""
+    kind = OPTION_CASES[name][2]
+    if kind == "ranking":
+        return ranking_data(RANK_GROUPS, 5, seed=21)
+    if kind == "cox":
+        X, y = cox_data(COX_ROWS, 5, seed=22)
+        return X, y, None
+    X, y = level_data(OPTION_ROWS, 5, seed=23)
+    if name == "update":
+        flip = np.random.RandomState(24).rand(len(y)) < UPDATE_FLIP
+        y = np.where(flip, 1.0 - y, y).astype(np.float32)
+    return X, y, None
+
+
+def option_shard(name, rank):
+    """Rank ``rank``'s DataMatrix arguments (X, y, groups) of case ``name``."""
+    X, y, sizes = option_data(name)
+    kind = OPTION_CASES[name][2]
+    if kind == "ranking":
+        cut = int(sizes[:RANK_SPLIT].sum())
+        rows = slice(0, cut) if rank == 0 else slice(cut, None)
+        groups = sizes[:RANK_SPLIT] if rank == 0 else sizes[RANK_SPLIT:]
+        return X[rows], y[rows], groups
+    split = COX_SPLIT if kind == "cox" else OPTION_SPLIT
+    rows = slice(0, split) if rank == 0 else slice(split, None)
+    return X[rows], y[rows], None
+
+
+def update_base_model():
+    """The saved bytes of the update case's base model (the port on the
+    CPU, every row of the unflipped labels)."""
+    import tempfile
+
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.booster import train
+
+    X, y = level_data(OPTION_ROWS, 5, seed=23)
+    params, rounds = UPDATE_BASE
+    forest = train(dict(params), DataMatrix(X, labels=y), rounds, device="cpu",
+                   verbose_eval=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "base.json")
+        forest.save_model(path)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def _model_arrays(model):
+    if hasattr(model, "trees"):
+        return forest_arrays(model)
+    return {"weights": np.asarray(model.weights), "bias": np.asarray(model.bias)}
+
+
+def train_option(rank, world, group, name, base=None):
+    """Train option case ``name`` on this rank's rows over ``group`` ->
+    (model arrays, predictions of all rows, the saved model's bytes, the
+    metric log, the collectives' calls by kind)."""
+    import tempfile
+
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.booster import train
+    from sagemaker_xgboost_container_tpu_torch.parallel import collectives
+
+    params, rounds, _kind = OPTION_CASES[name]
+    X, y, groups = option_shard(name, rank)
+    dm = DataMatrix(X, labels=y, groups=groups)
+
+    class Log:
+        log = None
+
+        def after_iteration(self, model, rnd, evals_log):
+            Log.log = {k: dict(v) for k, v in evals_log.items()}
+            return False
+
+    with tempfile.TemporaryDirectory() as tmp:
+        xgb_model = None
+        if base is not None:
+            xgb_model = os.path.join(tmp, "base.json")
+            with open(xgb_model, "wb") as f:
+                f.write(base)
+        collectives.reset_stats()
+        model = train(dict(params), dm, rounds, evals=[(dm, "train")], device="cpu",
+                      group=group, callbacks=[Log()], verbose_eval=False, xgb_model=xgb_model)
+        kinds = dict(collectives.STATS["kinds"])
+        path = os.path.join(tmp, "model.json")
+        model.save_model(path)
+        with open(path, "rb") as f:
+            raw = f.read()
+    return _model_arrays(model), model.predict(option_data(name)[0]), raw, Log.log, kinds
+
+
+def options_suite(rank, world, group):
+    """Everything ``tests/test_torch_distributed_options.py`` needs from one
+    rank pair: each option case trained across the two ranks, and the
+    merged approx cuts of one hessian-weighted sketch."""
+    import torch
+
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.booster import merged_distributed_cuts
+
+    out = {"update base": update_base_model()}
+    for name in OPTION_CASES:
+        out[name] = train_option(rank, world, group, name,
+                                 base=out["update base"] if name == "update" else None)
+    X, _y, _g = option_shard("approx", rank)
+    h = sketch_weights(rank)
+    out["merged cuts"] = merged_distributed_cuts(DataMatrix(X), 32, group, torch.device("cpu"),
+                                                 weights=h)
+    return out
+
+
+def sketch_weights(rank):
+    """Rank ``rank``'s hessian-like sketch weights for the merged-cut test."""
+    return np.random.RandomState(30 + rank).rand(OPTION_SPLIT).astype(np.float32) + 0.05
+
+
+# --------------------------------------------------------- the slow peer
+SLOW_PEER_SLEEP_S, SLOW_PEER_HEARTBEAT_S = 6.0, 0.5
+
+
+def slow_peer_rank(rank, world, port):
+    """One rank of the slow-peer drill: the port's process group (under
+    the test's ``GRAFT_HEARTBEAT_TIMEOUT_S``), the heartbeat plane, and the
+    binary case trained over them, rank 1 sleeping ``SLOW_PEER_SLEEP_S``
+    before its merged-cut gather while its heartbeat thread beats ->
+    (the saved model's bytes, heartbeats rank 1 sent during its sleep)."""
+    import time as time_mod
+
+    import torch
+
+    from sagemaker_xgboost_container_tpu_torch.models import booster
+    from sagemaker_xgboost_container_tpu_torch.parallel import distributed
+    from sagemaker_xgboost_container_tpu_torch.telemetry import cluster
+
+    group = distributed.init_process_group(CLUSTER_HOSTS, CLUSTER_HOSTS[rank],
+                                           torch.device("cpu"), backend="gloo", port=port)
+    plane = cluster.start_cluster_telemetry(CLUSTER_HOSTS, CLUSTER_HOSTS[rank])
+    beats = {}
+    merged = booster.merged_distributed_cuts
+
+    def slow_merged(*args, **kwargs):
+        if rank == 1:
+            sent = plane.sender._m_sent
+            before = sent.value
+            time_mod.sleep(SLOW_PEER_SLEEP_S)
+            beats["during_sleep"] = sent.value - before
+        return merged(*args, **kwargs)
+
+    booster.merged_distributed_cuts = slow_merged
+    try:
+        _trees, _preds, raw, _log = train_case(rank, world, group, "binary", "psum")
+    finally:
+        booster.merged_distributed_cuts = merged
+        cluster.stop_cluster_telemetry()
+    return raw, beats.get("during_sleep")
+
+
+# the options that were refused across ranks before they trained there:
+# each trains a small case over the rank pair of tests/test_torch_distributed.py
+ONCE_REFUSED = (
+    {"objective": "rank:ndcg"},
+    {"objective": "rank:pairwise"},
+    {"objective": "survival:cox"},
+    {"eval_metric": "cox-nloglik"},
+    {"booster": "dart"},
+    {"booster": "gblinear"},
+    {"process_type": "update"},
+    {"tree_method": "approx"},
+)
+
+
+def train_once_refused(rank, group, params):
+    """Two rounds of ``params`` on this rank's share of a small data set of
+    the option's kind -> (the saved model's bytes, the metric log)."""
+    import tempfile
+
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.booster import train
+
+    params = dict(params, max_depth=3)
+    groups = None
+    if params.get("objective", "").startswith("rank:"):
+        X, y, sizes = ranking_data(20, 4, seed=40)
+        cut = int(sizes[:8].sum())
+        rows = slice(0, cut) if rank == 0 else slice(cut, None)
+        groups = sizes[:8] if rank == 0 else sizes[8:]
+    else:
+        if "cox" in params.get("objective", "") + str(params.get("eval_metric", "")):
+            X, y = cox_data(301, 4, seed=41)
+            if "objective" not in params:
+                # cox-nloglik of a squared-error fit: times on its scale
+                y = y / 100
+        else:
+            X, y = level_data(300, 4, seed=42)
+        rows = slice(0, 170) if rank == 0 else slice(170, None)
+    dm = DataMatrix(X[rows], labels=y[rows], groups=groups)
+
+    class Log:
+        log = None
+
+        def after_iteration(self, model, rnd, evals_log):
+            Log.log = {k: dict(v) for k, v in evals_log.items()}
+            return False
+
+    with tempfile.TemporaryDirectory() as tmp:
+        xgb_model = None
+        if params.get("process_type") == "update":
+            xgb_model = os.path.join(tmp, "base.json")
+            train({"max_depth": 3}, DataMatrix(X, labels=y), 2, device="cpu",
+                  verbose_eval=False).save_model(xgb_model)
+        model = train(params, dm, 2, evals=[(dm, "train")], device="cpu", group=group,
+                      callbacks=[Log()], verbose_eval=False, xgb_model=xgb_model)
+        path = os.path.join(tmp, "model.json")
+        model.save_model(path)
+        with open(path, "rb") as f:
+            return f.read(), Log.log
