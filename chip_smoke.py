@@ -275,7 +275,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    under SM_ROUND_DEADLINE_S=5 exits 79 with one training.abort record,
    checkpoint 2 with a manifest that verifies and carries the fingerprint,
    and the flight recorder in the checkpoint dir; the restart, with
-   `data.read:error@1`, retries once, resumes at round 4, exits 0 and
+   `data.chunk:error@1` (the training channel, 67,249,980 bytes, is over
+   SM_INGEST_CHUNK_BYTES' 64 MiB, so the job streams it; the child pins
+   SM_INGEST_MODE=chunked), retries once, resumes at round 4, exits 0 and
    writes a model manifest with fingerprint, learning and drift baseline;
    max_depth 6 under SM_RESUME_STRICT=true exits non-zero naming max_depth;
    one read with `data.read:error@1` in this process counts one retry.
@@ -337,6 +339,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    hosts (17b's channels, 10 rounds a fold): both exit 0 with identical
    metric lines, rank 0 saves the three fold models, each host writes the
    out-of-fold predictions of its own rows.
+19. streaming (chunked) ingest through the train entry point, in
+   `--entry-child` processes (each under a launcher that reaps it with
+   os.wait4 for its peak RSS, and with CHIP_SMOKE_INGEST_REPORT set, so
+   that it prints the sha256 of the bins and cuts its session got and the
+   chunks it read). 19a: the main path's 1M + 100k rows rounded to 2^-9
+   (exact sketch) as csv channels of 366,000,000 + 36,600,000 bytes, 5
+   rounds, SM_INGEST_MODE=whole and auto with 16 MiB chunks at once: auto
+   streams (the channel is over 64 MiB), both sessions get the same bins
+   and cuts, the models are byte-equal or within phase 8's tolerance (the
+   card's histograms add in a varying order); each child's ingest time,
+   chunks, time before the first round, rounds/s and peak RSS. 19b on
+   phase 8's channels at 4 MiB chunks with a corrupt file beside the
+   training file: skip exits 0 with ingest-quarantine.json and the same
+   quarantine in the model's manifest, fail exits 85 with one
+   training.abort, chunked with tree_method=approx exits 1 with the JAX
+   package's refusal. 19c: two hosts, chunked, the channels split 120,007
+   / 79,993 (30,001 / 19,999 validation): both exit 0, the same cuts,
+   identical lines, byte-equal models (every rank saves a copy), the
+   validation logloss within OPTION_TOL x max(1, |logloss|) of 19b's one
+   host on the same rows.
 
 At the end, one wall-time line a phase. The second line from the end is
 the kernels JSON line, the last line the device JSON line. Needs one CUDA
@@ -4333,7 +4355,62 @@ def entry_child():
 
     watchdog._exit = exit_with_report
     atexit.register(report)
+    if os.environ.get("CHIP_SMOKE_INGEST_REPORT"):
+        _report_ingest(atexit)
     entry.main()
+
+
+def _digest(*arrays):
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _report_ingest(atexit):
+    """Phase 19's view of an `--entry-child` (CHIP_SMOKE_INGEST_REPORT set):
+    what ingest gave the session (pre-binned or floats), sha256 digests of
+    the bins and cuts the session trains and evaluates on, the streaming
+    plane's chunks a channel; with MODEL_COPY, every rank saves its model
+    there. Printed as one `{"ingest": ...}` line at exit."""
+    from sagemaker_xgboost_container_tpu_torch.data import streaming
+    from sagemaker_xgboost_container_tpu_torch.data.binning import BinnedMatrix
+    from sagemaker_xgboost_container_tpu_torch.models import booster
+    from sagemaker_xgboost_container_tpu_torch.telemetry import REGISTRY, snapshot_fields
+    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
+
+    doc = {"chunks": {}}
+    init, ingest, train_job = (booster._TrainingSession.__init__, streaming.ingest_channel,
+                               algorithm_train.train_job)
+
+    def session_init(self, config, dtrain, evals, *args, **kwargs):
+        init(self, config, dtrain, evals, *args, **kwargs)
+        doc["kind"] = "binned" if isinstance(dtrain, BinnedMatrix) else "floats"
+        doc["cuts"] = _digest(*self.cuts)
+        doc["bins"] = _digest(np.asarray(self.train_binned.bins), self.labels.cpu().numpy())
+        doc["eval_bins"] = [_digest(e[2].cpu().numpy(), e[3].cpu().numpy())
+                            for e in self.eval_sets if e[2] is not None]
+
+    def ingest_channel(*args, **kwargs):
+        key = "ingest_chunks_total{status=ok}"
+        before = snapshot_fields(REGISTRY).get(key, 0.0)
+        out = ingest(*args, **kwargs)
+        doc["chunks"][kwargs.get("channel", "train")] = int(
+            snapshot_fields(REGISTRY).get(key, 0.0) - before)
+        return out
+
+    def copy_model(*args, **kwargs):
+        bst = train_job(*args, **kwargs)
+        if os.environ.get("MODEL_COPY"):
+            bst.save_model(os.environ["MODEL_COPY"])
+        return bst
+
+    booster._TrainingSession.__init__ = session_init
+    streaming.ingest_channel = ingest_channel
+    algorithm_train.train_job = copy_model
+    atexit.register(lambda: print(json.dumps({"ingest": doc}), flush=True))
 
 
 def oom_child(out_dir):
@@ -4593,14 +4670,16 @@ def _planes_entry(tag, tmp):
               sorted(f for f in os.listdir(ckpt) if not f.endswith(".manifest")),
               os.path.basename(abort.get("flight_recorder", ""))), flush=True)
 
-    # the restart: resumes after checkpoint 3, one transient read absorbed
+    # the restart: resumes after checkpoint 3, one transient chunk read
+    # absorbed (the job streams its channel, as it would by default)
     env = sm_env("drill")
-    env.update(SM_MODEL_TELEMETRY="true", SM_FAULT_SPEC="data.read:error@1")
-    rc, out, err, launches = child(env, "resume with data.read:error@1")
+    env.update(SM_MODEL_TELEMETRY="true", SM_FAULT_SPEC="data.chunk:error@1",
+               SM_INGEST_MODE="chunked")
+    rc, out, err, launches = child(env, "resume with data.chunk:error@1")
     check(rc == 0, "the resumed job exited {}: {}".format(rc, err[-2000:]))
     lines = sorted(_metric_lines(out))
     check(lines == list(range(4, 8)), "resumed rounds {}".format(lines))
-    check("transient failure at reader.csv" in out + err, "no retry logged by the resumed job")
+    check("transient failure at ingest.chunk" in out + err, "no retry logged by the resumed job")
     check(launches == {"hist_kernel": 32, "totals_kernel": 4},
           "the resumed job's launches {}".format(launches))
     model_dir = os.path.join(root, "model-drill")
@@ -4985,21 +5064,23 @@ def run_two_ranks(torch, pkg, dtrain, dval, tag, tmp):
           "17a: two ranks' logloss {} vs one rank's {}".format(ll[-1], single[-1]))
 
 
-def _dist_entry_hosts(tmp, name, hp, extra):
+def _dist_entry_hosts(tmp, name, hp, extra, split=None):
     """The SageMaker trees and env of two hosts of one box: each with its
-    half of phase 8's channels, its own model and output dirs, and the
-    ports of the planes (abort ports distinct: both listen on one box)."""
+    half of phase 8's channels (or host 0 the first ``split`` = (training,
+    validation) rows), its own model and output dirs, and the ports of the
+    planes (abort ports distinct: both listen on one box)."""
     X, y = make_data(ENTRY_TRAIN_ROWS + ENTRY_VAL_ROWS, N_FEATURES, seed=ENTRY_SEED)
     X[np.random.RandomState(ENTRY_SEED + 1).rand(*X.shape) < ENTRY_MISSING] = np.nan
     n, nv = ENTRY_TRAIN_ROWS, ENTRY_VAL_ROWS
+    h, hv = split or (n // 2, nv // 2)
     ports = {"SM_RENDEZVOUS_PORT": free_port(), "SM_PROCESS_GROUP_PORT": free_port(),
              "SM_HEARTBEAT_PORT": free_port(), "SM_FLEET_TRACE_PORT": free_port(),
              "SM_STATUS_PORT": free_port()}
     envs = []
     for rank in range(2):
         root = os.path.join(tmp, "{}-host{}".format(name, rank))
-        t = slice(0, n // 2) if rank == 0 else slice(n // 2, n)
-        v = slice(n, n + nv // 2) if rank == 0 else slice(n + nv // 2, n + nv)
+        t = slice(0, h) if rank == 0 else slice(h, n)
+        v = slice(n, n + hv) if rank == 0 else slice(n + hv, n + nv)
         _write_csv_channel(os.path.join(root, "train"), X[t], y[t])
         _write_csv_channel(os.path.join(root, "validation"), X[v], y[v])
         channel = {"ContentType": "csv", "TrainingInputMode": "File",
@@ -5031,12 +5112,14 @@ def _dist_entry_hosts(tmp, name, hp, extra):
 
 
 class _Child:
-    """A child process whose stdout lines are collected by a thread, with
-    an event set at its first HPO metric line."""
+    """A child process, in a session of its own so that ``kill`` reaches
+    what it starts, whose stdout lines are collected by a thread, with an
+    event set at its first HPO metric line and the time its output ended."""
 
     def __init__(self, command, env):
+        self.started_at = time.perf_counter()
         self.proc = subprocess.Popen(command, env=env, stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True)
+                                     stderr=subprocess.PIPE, text=True, start_new_session=True)
         self.lines, self.err = [], []
         self.first_metric = threading.Event()
         self.ended_at = None
@@ -5051,17 +5134,18 @@ class _Child:
             self.lines.append(line)
             if HPO_LINE.match(line):
                 self.first_metric.set()
+        self.ended_at = time.perf_counter()
 
     def kill(self):
         if self.proc.poll() is None:
-            self.proc.kill()
+            os.killpg(self.proc.pid, signal.SIGKILL)
 
     def wait(self, timeout):
         try:
             self.proc.wait(timeout=timeout)
         finally:
             if self.proc.poll() is None:
-                self.proc.kill()
+                self.kill()
                 self.proc.wait(timeout=10)
             for th in self._threads:
                 th.join(10)
@@ -5531,6 +5615,323 @@ def run_kfold_hosts(tag, tmp):
 
 
 
+# phase 19: streaming (chunked) ingest through the train entry point.
+# 19a: the main path's rows rounded to EXACT_GRID (at most 3,905 distinct
+# values a feature, so the ingest's sketch stays exact and its cuts are the
+# whole-file reader's bit for bit) as csv channels of N_TRAIN + N_VAL rows,
+# each value written "%+.9f" (every multiple of 2^-9 exactly), trained 5
+# rounds with SM_INGEST_MODE=whole and with auto at 16 MiB chunks
+STREAM_HP = {"objective": "binary:logistic", "max_depth": "8", "max_bin": "256",
+             "tree_method": "hist", "eta": "0.2", "num_round": "5", "eval_metric": "logloss"}
+STREAM_ROUNDS = 5
+STREAM_CHUNK_BYTES = 16 << 20
+STREAM_DEFAULT_CHUNK_BYTES = 64 << 20   # SM_INGEST_CHUNK_BYTES' default
+# 19b / 19c: phase 8's 200k + 50k channels in 4 MiB chunks; the drills with
+# a corrupt file beside the training file; two hosts split unevenly, as
+# ShardedByS3Key splits a channel
+STREAM_DRILL_CHUNK_BYTES = 4 << 20
+STREAM_HOST_SPLIT = (120_007, 30_001)   # host 0's training and validation rows
+STREAM_CORRUPT = "1.0,junk,2.0\n0.0\n1.0,2.0,3.0,4.0,5.0,6.0,7.0,8.0,9.0\n"
+STREAM_REFUSAL = ("SM_INGEST_MODE=chunked is not supported for this job (tree_method=approx "
+                  "re-sketches from float features)")
+
+
+def write_grid_csv(path, X, y):
+    """A csv channel of rows on the EXACT_GRID (|value| < 10), written
+    vectorized: each value "%+.9f" (12 bytes, exact), the label one digit.
+    -> bytes written."""
+    k = np.rint(X / EXACT_GRID).astype(np.int64)
+    lo, hi = int(k.min()), int(k.max())
+    table = np.frombuffer(b"".join(("%+.9f" % (v * EXACT_GRID)).encode()
+                                   for v in range(lo, hi + 1)), np.uint8).reshape(-1, 12)
+    n, d = X.shape
+    out = np.empty((n, 13 * d + 2), np.uint8)
+    out[:, 0] = ord("0") + y.astype(np.uint8)
+    body = out[:, 1:13 * d + 1].reshape(n, d, 13)
+    body[:, :, 0] = ord(",")
+    body[:, :, 1:] = table[k - lo]
+    out[:, -1] = ord("\n")
+    os.makedirs(path)
+    with open(os.path.join(path, "data.csv"), "wb") as f:
+        f.write(out.tobytes())
+    return out.size
+
+
+# runs a command, reaps it with os.wait4, prints its peak RSS and exits
+# with its code
+WAIT4_LAUNCHER = (
+    "import json, os, sys\n"
+    "pid = os.posix_spawn(sys.argv[1], sys.argv[1:], os.environ)\n"
+    "_, status, usage = os.wait4(pid, 0)\n"
+    "print(json.dumps({'wait4': {'maxrss_kb': usage.ru_maxrss}}), flush=True)\n"
+    "code = os.waitstatus_to_exitcode(status)\n"
+    "sys.exit(code if code >= 0 else 128 - code)\n")
+
+
+def _wait4_child(command, env):
+    """``command`` as a ``_Child`` under WAIT4_LAUNCHER, for its peak RSS: a
+    process's ru_maxrss starts from the high-water mark of the process that
+    spawned it (fork or vfork, then exec), which here is this process,
+    several GiB by phase 19."""
+    return _Child([sys.executable, "-c", WAIT4_LAUNCHER] + list(command), env)
+
+
+def _maxrss_mb(out):
+    found = [json.loads(line)["wait4"] for line in out.splitlines()
+             if line.startswith('{"wait4"')]
+    return found[-1]["maxrss_kb"] / 1024.0 if found else float("nan")
+
+
+def _wait_all(children, timeout):
+    """{name: _Child} -> {name: exit code}; every child is killed when the
+    first wait fails."""
+    try:
+        return {name: c.wait(timeout) for name, c in children.items()}
+    finally:
+        for c in children.values():
+            c.kill()
+
+
+def _ingest_report(out):
+    found = [json.loads(line)["ingest"] for line in out.splitlines()
+             if line.startswith('{"ingest"')]
+    return found[-1] if found else None
+
+
+def _phase_seconds(out, name):
+    return sum(r["seconds"] for r in _records(out, "training.phase") if r["phase"] == name)
+
+
+def _rounds_per_s(out):
+    """Rounds/s over rounds 1.. of the child's `training.round` records."""
+    ms = [r["round_ms"] for r in _records(out, "training.round")][1:]
+    return len(ms) / (sum(ms) / 1000.0) if ms else float("nan")
+
+
+def _last_metric(out, key):
+    lines = _metric_lines(out)
+    return lines[max(lines)][key] if lines else float("nan")
+
+
+def run_streaming(torch, hist, tag):
+    """Phase 19: streaming ingest through the train entry point (see the
+    module docstring)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        _stream_main(tag, tmp)
+        _stream_drills(tag, tmp)
+    print("{} | streaming phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _stream_main(tag, tmp):
+    """19a: whole against auto on the main path's rows."""
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    X, y = exact_rows()
+    t = time.perf_counter()
+    train_dir, val_dir = os.path.join(tmp, "main", "train"), os.path.join(tmp, "main", "val")
+    size = write_grid_csv(train_dir, X[:N_TRAIN], y[:N_TRAIN])
+    write_grid_csv(val_dir, X[N_TRAIN:], y[N_TRAIN:])
+    wrote = time.perf_counter() - t
+    check(size > STREAM_DEFAULT_CHUNK_BYTES, "19a: the channel is {} bytes".format(size))
+    conf = os.path.join(tmp, "main", "config")
+    os.makedirs(conf)
+    channel = {"ContentType": "csv", "TrainingInputMode": "File",
+               "S3DistributionType": "FullyReplicated"}
+    for name, doc in (("hp.json", STREAM_HP),
+                      ("data.json", {"train": channel, "validation": dict(channel)})):
+        with open(os.path.join(conf, name), "w") as f:
+            json.dump(doc, f)
+    children = {}
+    for mode in ("whole", "auto"):
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("SM_", "SAGEMAKER_"))}
+        env.update({
+            "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+            "SM_INPUT_TRAINING_CONFIG_FILE": os.path.join(conf, "hp.json"),
+            "SM_INPUT_DATA_CONFIG_FILE": os.path.join(conf, "data.json"),
+            "SM_CHECKPOINT_CONFIG_FILE": os.path.join(conf, "none.json"),
+            "SM_CHANNEL_TRAIN": train_dir, "SM_CHANNEL_VALIDATION": val_dir,
+            "SM_MODEL_DIR": os.path.join(tmp, "main", "model-" + mode),
+            "SM_OUTPUT_DIR": os.path.join(tmp, "main", "output-" + mode),
+            "SM_HOSTS": '["algo-1"]', "SM_CURRENT_HOST": "algo-1",
+            "SM_INGEST_MODE": mode, "SM_INGEST_CHUNK_BYTES": str(STREAM_CHUNK_BYTES),
+            "CHIP_SMOKE_INGEST_REPORT": "1"})
+        children[mode] = _wait4_child(ENTRY_CHILD_COMMAND, env)
+    codes = _wait_all(children, 600)
+    reports = {}
+    for mode, c in children.items():
+        check(codes[mode] == 0, "19a {}: exit {}: {}".format(mode, codes[mode],
+                                                             "".join(c.err)[-3000:]))
+        reports[mode] = rep = _ingest_report(c.out)
+        launches = _child_launches(c.out)
+        train_s = _phase_seconds(c.out, "train")
+        rounds_s = sum(r["round_ms"] for r in _records(c.out, "training.round")) / 1000.0
+        print("{} | streaming 19a {}: exit 0 in {:.1f} s (both children at once); peak RSS "
+              "{:.1f} MiB (os.wait4); ingest {:.3f} s ({}; chunks {}); train span {:.3f} s, "
+              "of it {:.3f} s before the first round (binning, upload); {:.3f} rounds/s over "
+              "rounds 1-{}; launches {}; validation logloss {}".format(
+                  tag, mode, c.ended_at - c.started_at, _maxrss_mb(c.out),
+                  _phase_seconds(c.out, "data_ingest"),
+                  rep and rep.get("kind"), rep and json.dumps(rep["chunks"]), train_s,
+                  train_s - rounds_s, _rounds_per_s(c.out), STREAM_ROUNDS - 1,
+                  json.dumps(launches), round(_last_metric(c.out, "validation-logloss"), 6)),
+              flush=True)
+        check(launches == {"hist_kernel": 8 * STREAM_ROUNDS, "totals_kernel": STREAM_ROUNDS},
+              "19a {}: launches {}".format(mode, launches))
+    whole, auto = reports["whole"], reports["auto"]
+    check(whole["kind"] == "floats" and auto["kind"] == "binned",
+          "19a: whole ingested {}, auto {}".format(whole["kind"], auto["kind"]))
+    check(auto["chunks"].get("train", 0) >= size // STREAM_CHUNK_BYTES,
+          "19a: auto read {} training chunks".format(auto["chunks"]))
+    paths = [os.path.join(tmp, "main", "model-" + m, "xgboost-model") for m in ("whole", "auto")]
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        same_bytes = a.read() == b.read()
+    same_ingest = all(whole[k] == auto[k] for k in ("cuts", "bins", "eval_bins"))
+    models = [Forest.load_model(p, device="cpu") for p in paths]
+    cmp = _compare(models[0], models[1], X[:20_000], X[N_TRAIN:N_TRAIN + 10_000])
+    lw, la = (_last_metric(children[m].out, "validation-logloss") for m in ("whole", "auto"))
+    print("{} | streaming 19a: {:,} + {:,} rows x {} written as {:,} + {:,} bytes of csv in "
+          "{:.1f} s; cuts, training bins and validation bins the session got: whole {} / {} / "
+          "{}, auto {} / {} / {} (sha256), equal: {}; model files byte-equal: {}; trees {}; "
+          "last validation logloss {:.6f} / {:.6f}".format(
+              tag, N_TRAIN, N_VAL, N_FEATURES, size, os.path.getsize(os.path.join(
+                  val_dir, "data.csv")), wrote, whole["cuts"], whole["bins"],
+              whole["eval_bins"], auto["cuts"], auto["bins"], auto["eval_bins"], same_ingest,
+              same_bytes, json.dumps(cmp), lw, la), flush=True)
+    check(same_ingest, "19a: the chunked ingest differs from the whole-file path's")
+    # on the card the histograms add with f32 atomics in a varying order, so
+    # two runs of one job on the same bins may differ in a leaf's last bits
+    # (phase 8): byte-equal files are reported, the runs held to phase 8's
+    # tolerance
+    check(same_bytes or (abs(lw - la) <= ENTRY_METRIC_TOL and cmp["mean_dp"] <= ENTRY_DP_TOL),
+          "19a: whole and auto models differ beyond phase 8's tolerance: {}".format(cmp))
+
+
+def _stream_drills(tag, tmp):
+    """19b: a corrupt chunk under skip (exit 0, quarantine) and fail (exit
+    85), chunked with approx (refused); 19c: two hosts, chunked."""
+    from sagemaker_xgboost_container_tpu_torch.utils import integrity
+
+    drill_hp = dict(STREAM_HP, eval_metric="logloss,auc")
+    root = os.path.join(tmp, "drills")
+    _, _, _, train_dir, _, sm_env = _entry_tree(root, {
+        "hyperparameters.json": drill_hp,
+        "hyperparameters-approx.json": dict(drill_hp, tree_method="approx")})
+    corrupt_dir = os.path.join(root, "data", "train-corrupt")
+    os.makedirs(corrupt_dir)
+    os.symlink(os.path.join(train_dir, "data.csv"), os.path.join(corrupt_dir, "data.csv"))
+    with open(os.path.join(corrupt_dir, "zz-corrupt.csv"), "w") as f:
+        f.write(STREAM_CORRUPT)
+    chunked = {"SM_INGEST_MODE": "chunked",
+               "SM_INGEST_CHUNK_BYTES": str(STREAM_DRILL_CHUNK_BYTES),
+               "SM_IO_RETRY_ATTEMPTS": "1", "CHIP_SMOKE_INGEST_REPORT": "1"}
+    envs = {}
+    for run, action in (("skip", "skip"), ("fail", "fail")):
+        env = sm_env(run)
+        env.update(chunked, SM_CHANNEL_TRAIN=corrupt_dir, SM_INGEST_BAD_CHUNK_ACTION=action,
+                   SM_TRACE="true")
+        envs[run] = env
+    envs["approx"] = dict(sm_env("approx", "hyperparameters-approx.json"), **chunked)
+    hosts = _dist_entry_hosts(
+        os.path.join(tmp, "hosts"), "stream", drill_hp,
+        [dict(chunked, MODEL_COPY=os.path.join(tmp, "hosts", "copy-{}".format(r)))
+         for r in range(2)], split=STREAM_HOST_SPLIT)
+    ingest_port = str(free_port())
+    for env, _root in hosts:
+        env["SM_INGEST_PORT"] = ingest_port
+    children = {run: _wait4_child(ENTRY_CHILD_COMMAND, env) for run, env in envs.items()}
+    children.update({"host{}".format(r): _wait4_child(ENTRY_CHILD_COMMAND, env)
+                     for r, (env, _root) in enumerate(hosts)})
+    codes = _wait_all(children, 600)
+    for run, c in children.items():
+        print("{} | streaming 19{} {}: exit {} in {:.1f} s (five children at once); peak RSS "
+              "{:.1f} MiB; ingest {:.3f} s; launches {}; ingest {}".format(
+                  tag, "c" if run.startswith("host") else "b", run, codes[run],
+                  c.ended_at - c.started_at, _maxrss_mb(c.out),
+                  _phase_seconds(c.out, "data_ingest"),
+                  json.dumps(_child_launches(c.out)), json.dumps(_ingest_report(c.out))),
+              flush=True)
+
+    # 19b skip: exit 0, the corrupt file's chunk quarantined
+    c = children["skip"]
+    check(codes["skip"] == 0, "19b skip: exit {}: {}".format(codes["skip"],
+                                                             "".join(c.err)[-3000:]))
+    model_dir = envs["skip"]["SM_MODEL_DIR"]
+    qpath = os.path.join(model_dir, "ingest-quarantine.json")
+    check(os.path.exists(qpath), "19b skip: no ingest-quarantine.json")
+    with open(qpath) as f:
+        quarantine = json.load(f)
+    manifest = integrity.read_manifest(os.path.join(model_dir, "xgboost-model"))
+    check(manifest is not None and manifest.get("quarantine") == quarantine,
+          "19b skip: the manifest's quarantine {}".format(manifest and manifest.get("quarantine")))
+    check(quarantine["chunks_skipped"] == 1 and quarantine["skipped_chunks"][0][
+        "file"].endswith("zz-corrupt.csv"), "19b skip: quarantine {}".format(quarantine))
+    check(_child_launches(c.out) == {"hist_kernel": 8 * STREAM_ROUNDS,
+                                     "totals_kernel": STREAM_ROUNDS},
+          "19b skip: launches {}".format(_child_launches(c.out)))
+    print("{} | streaming 19b skip: quarantine {} chunk(s), {} rows, {} bytes ({}: {}); "
+          "manifest quarantine equal to ingest-quarantine.json".format(
+              tag, quarantine["chunks_skipped"], quarantine["rows_skipped"],
+              quarantine["bytes_skipped"],
+              os.path.basename(quarantine["skipped_chunks"][0]["file"]),
+              quarantine["skipped_chunks"][0]["error"][:80]), flush=True)
+    # fail: exit 85, one training.abort, the flight recorder, no model
+    c = children["fail"]
+    aborts = _records(c.out, "training.abort")
+    fail_dir = envs["fail"]["SM_MODEL_DIR"]
+    check(codes["fail"] == 85 and len(aborts) == 1 and aborts[0]["reason"] == "ingest_failed"
+          and aborts[0]["ingest_reason"] == "bad_chunk",
+          "19b fail: exit {}, aborts {}: {}".format(codes["fail"], aborts,
+                                                    "".join(c.err)[-2000:]))
+    check(not os.path.exists(os.path.join(fail_dir, "xgboost-model")), "19b fail: a model")
+    print("{} | streaming 19b fail: exit 85; training.abort {}; flight recorder {}".format(
+        tag, aborts[0]["detail"][:120], os.path.exists(os.path.join(
+            fail_dir, "flight-recorder-rank0.json"))), flush=True)
+    # approx: refused with the JAX package's UserError
+    c = children["approx"]
+    failure = os.path.join(envs["approx"]["SM_OUTPUT_DIR"], "failure")
+    text = open(failure).read() if os.path.exists(failure) else ""
+    check(codes["approx"] == 1 and STREAM_REFUSAL in text,
+          "19b approx: exit {}: {}".format(codes["approx"], text[-1000:]
+                                           or "".join(c.err)[-1000:]))
+    print("{} | streaming 19b approx: exit 1: {}".format(tag, text.strip().splitlines()[0][:200]),
+          flush=True)
+
+    # 19c: two hosts, chunked
+    host = [children["host0"], children["host1"]]
+    for r, c in enumerate(host):
+        check(codes["host{}".format(r)] == 0, "19c: host {} exited {}: {}".format(
+            r, codes["host{}".format(r)], "".join(c.err)[-3000:]))
+    reports = [_ingest_report(c.out) for c in host]
+    lines = [[l for l in c.out.splitlines() if HPO_LINE.match(l)] for c in host]
+    blobs = []
+    for path in (os.path.join(hosts[0][1], "model", "xgboost-model"),
+                 os.path.join(tmp, "hosts", "copy-0"), os.path.join(tmp, "hosts", "copy-1")):
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+    two = _last_metric(host[0].out, "validation-logloss")
+    one = _last_metric(children["skip"].out, "validation-logloss")
+    print("{} | streaming 19c: hosts of {:,} / {:,} training and {:,} / {:,} validation rows; "
+          "both exit 0; cuts {} / {} (sha256), equal: {}; {} HPO lines each, identical: {}; "
+          "models byte-equal (rank 0's file, both ranks' copies): {}; validation logloss "
+          "{:.6f} against one host's {:.6f} (19b skip, the same rows): {:.3e}".format(
+              tag, STREAM_HOST_SPLIT[0], ENTRY_TRAIN_ROWS - STREAM_HOST_SPLIT[0],
+              STREAM_HOST_SPLIT[1], ENTRY_VAL_ROWS - STREAM_HOST_SPLIT[1], reports[0]["cuts"],
+              reports[1]["cuts"], reports[0]["cuts"] == reports[1]["cuts"], len(lines[0]),
+              lines[0] == lines[1], blobs[0] == blobs[1] == blobs[2], two, one, abs(two - one)),
+          flush=True)
+    check(all(r["kind"] == "binned" for r in reports), "19c: the hosts did not stream")
+    check(reports[0]["cuts"] == reports[1]["cuts"], "19c: the hosts binned with other cuts")
+    check(len(lines[0]) == STREAM_ROUNDS and lines[0] == lines[1],
+          "19c: the hosts printed different HPO lines")
+    check(blobs[0] == blobs[1] == blobs[2], "19c: the hosts' models differ")
+    check(abs(two - one) <= OPTION_TOL * max(1.0, abs(one)),
+          "19c: validation logloss {} against one host's {}".format(two, one))
+    check(all(_child_launches(c.out) == {"hist_kernel": 8 * STREAM_ROUNDS,
+                                         "totals_kernel": STREAM_ROUNDS} for c in host),
+          "19c: launches {}".format([_child_launches(c.out) for c in host]))
+
+
 # (phase, wall seconds) of this run, printed at its end
 PHASE_WALL = []
 
@@ -5618,6 +6019,7 @@ def main():
         phase("16 planes", run_planes, torch, hist, pkg, dtrain, dval, tag)
         phase("17 distributed", run_distributed, torch, hist, pkg, dtrain, dval, tag)
         phase("18 options across ranks", run_options, torch, hist, pkg, tag)
+        phase("19 streaming ingest", run_streaming, torch, hist, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

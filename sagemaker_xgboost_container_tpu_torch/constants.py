@@ -125,5 +125,6 @@ EXIT_ROUND_DEADLINE = 79  # round watchdog: a boosting round exceeded SM_ROUND_D
 EXIT_CLUSTER_ABORT = 80  # coordinated abort: rank 0 declared a peer dead
 EXIT_DRAIN_TIMEOUT = 83  # SIGTERM drain: requests still in flight past SM_DRAIN_TIMEOUT_S
 EXIT_PREDICT_STUCK = 84  # predict watchdog: a dispatch wedged past SM_PREDICT_STUCK_S (abort)
+EXIT_INGEST_FAILED = 85  # streaming ingest: a bad chunk, skip budget or plan divergence
 EXIT_DEVICE_OOM = 86  # the device allocator ran out inside a round; forensics dumped
 EXIT_NUMERIC_POISON = 87  # learning telemetry: NaN/Inf in gradients or margins; forensics dumped

@@ -28,18 +28,81 @@ from ..toolkit import exceptions as exc
 
 
 class BinnedMatrix:
-    """Bin-index features + cut points + labels/weights."""
+    """Bin-index features + cut points + labels/weights/groups.
 
-    def __init__(self, bins, cut_points, max_bin, labels=None, weights=None):
+    ``models/booster.train`` also takes one directly as a pre-binned
+    training or eval input: the streaming ingest (``data/streaming.py``)
+    makes one without ever holding the float channel, and the session then
+    skips its own sketch and binning and trusts these cuts. A pre-binned
+    matrix has no ``features``: what needs floats goes through
+    ``rep_block``, bounded blocks of representative values that route
+    through every tree exactly as the original floats do.
+    """
+
+    def __init__(self, bins, cut_points, max_bin, labels=None, weights=None, groups=None,
+                 feature_names=None):
         self.bins = bins                  # uint8/uint16 [n, d]; max_bin == missing
         self.cut_points = cut_points      # list of d float32 ascending arrays
         self.max_bin = int(max_bin)       # missing-bin index; num_bins = max_bin + 1
         self.labels = labels
         self.weights = weights
+        self.groups = groups
+        self.feature_names = list(feature_names) if feature_names is not None else None
+
+    @property
+    def num_row(self):
+        return self.bins.shape[0]
+
+    @property
+    def num_col(self):
+        return self.bins.shape[1]
 
     @property
     def num_bins(self):
         return self.max_bin + 1
+
+    def get_label(self):
+        return self.labels if self.labels is not None else np.empty(0, dtype=np.float32)
+
+    def get_weight(self):
+        if self.weights is None:
+            return np.ones(self.num_row, dtype=np.float32)
+        return self.weights
+
+    @property
+    def features(self):
+        # a pre-binned matrix reaching a float-features consumer is a wiring
+        # bug: never hand out representative values where the original
+        # floats are expected
+        raise exc.AlgorithmError(
+            "BinnedMatrix has no float features (chunked ingest never "
+            "materializes the channel); use rep_block() for routing-exact "
+            "representative values or gate this path off pre-binned input"
+        )
+
+    def rep_block(self, start, end):
+        """Representative float rows ``[start:end)``, routing-exact.
+
+        Every committed threshold is a cut of ``cut_points``, and a value in
+        bin b satisfies ``v < cut[i]`` iff ``b <= i``. The representative
+        of bin b >= 1 is ``cut[b-1]``, of bin 0 the f32 just below
+        ``cut[0]``, of the missing bin NaN: each satisfies the same
+        equivalence, so a prediction from these blocks routes every row to
+        the leaf its original floats reach."""
+        bins = np.asarray(self.bins[start:end])
+        out = np.empty(bins.shape, np.float32)
+        for f in range(self.num_col):
+            cuts = np.asarray(self.cut_points[f], np.float32)
+            lookup = np.full(self.max_bin + 1, np.nan, np.float32)
+            if cuts.size:
+                # both arguments f32: nextafter of an f32 against a Python
+                # float goes through f64 and rounds back onto cuts[0]
+                lookup[0] = np.nextafter(cuts[0], np.float32(-np.inf))
+                lookup[1:cuts.size + 1] = cuts
+            else:
+                lookup[0] = 0.0  # no cuts: never split on, the value is inert
+            out[:, f] = lookup[bins[:, f]]
+        return out
 
 
 def _select_cuts(sorted_values, sorted_weights, max_cuts):
@@ -72,12 +135,36 @@ def _select_cuts(sorted_values, sorted_weights, max_cuts):
     return mids.astype(np.float32)
 
 
+def cuts_from_summaries(summaries, max_bin):
+    """Per-feature cuts from merged (distinct values, weight sums) summaries,
+    one pair a feature (the streaming ingest's sketch, ``data/streaming.py``):
+    values strictly ascending f32, weights the total weight seen at each.
+    Runs the host ``_select_cuts``: ``np.unique`` over distinct values is
+    the identity, so the cumulative weight at each run end is
+    ``cumsum(weights)``, and for unit (and f32-exact integer) row weights
+    the cuts are bitwise those of ``compute_cut_points`` over the flat
+    channel. Float row weights can differ in the last ulp of a cumulative
+    sum (summed chunk by chunk), which can move a quantile pick on the edge
+    by one distinct value."""
+    if max_bin is None:
+        raise exc.UserError(
+            "tree_method='exact' (max_bin=None) is not supported by chunked "
+            "ingest; use tree_method='hist' or SM_INGEST_MODE=whole."
+        )
+    max_cuts = max_bin - 1
+    return [
+        _select_cuts(np.asarray(values, np.float32), np.asarray(weights, np.float32), max_cuts)
+        for values, weights in summaries
+    ]
+
+
 def _sketch_impl(device=None):
     """host | device lowering of the sketch (``GRAFT_SKETCH_IMPL``, default
     auto). ``auto`` takes the device lowering where ``device`` is a CUDA
     device, the port's counterpart of the JAX package's choice on the TPU:
-    the approx re-sketch passes its session's device; every initial sketch
-    passes none and keeps the host lowering."""
+    the approx re-sketch and ``apply_cut_points`` pass their session's
+    device; every initial cut selection passes none and keeps the host
+    lowering."""
     v = os.environ.get("GRAFT_SKETCH_IMPL", "auto")
     if v == "auto":
         return "device" if device is not None and torch.device(device).type == "cuda" else "host"
@@ -200,6 +287,18 @@ def compute_cut_points(features, weights=None, max_bin=256, device=None):
             torch.as_tensor(np.asarray(w, np.float32), device=dev), max_cuts)
         return cut_lists(mids, n_cuts)
     cuts = []
+    if weights is None:
+        # unit weights: the sorted values alone decide the cuts, so a sort
+        # (no permutation to carry weights) of each contiguous column, several
+        # times faster than the stable argsort. Equal values may come in
+        # another order (-0.0 and 0.0), which no cut sees: a cut is a
+        # midpoint of distinct values
+        ones = np.ones(n, np.float32)
+        for col in np.ascontiguousarray(np.asarray(features).T):
+            col = np.sort(col)
+            valid = n - int(np.count_nonzero(np.isnan(col)))  # NaN sorts last
+            cuts.append(_select_cuts(col[:valid], ones[:valid], max_cuts))
+        return cuts
     order = np.argsort(features, axis=0, kind="stable")
     for f in range(d):
         col = features[order[:, f], f]
@@ -222,11 +321,13 @@ def pad_cut_points(cut_points, device):
 
 def apply_cut_points(features, cut_points, max_bin, device=None):
     """Map float features to bin indices; NaN -> missing bin (== max_bin).
-    Under the device lowering the searchsorted runs on ``device`` (the CPU
-    when None) and the bins come back to the host."""
+    Under the device lowering (``_sketch_impl(device)``: ``auto`` on a CUDA
+    ``device``, as the JAX package applies on the TPU) the searchsorted runs
+    on ``device`` (the CPU when None) and the bins come back to the host;
+    either lowering gives the same bins."""
     n, d = features.shape
     dtype = np.uint8 if max_bin + 1 <= 256 else np.uint16
-    if n > 0 and d > 0 and _sketch_impl() == "device":
+    if n > 0 and d > 0 and _sketch_impl(device) == "device":
         dev = torch.device("cpu") if device is None else torch.device(device)
         mids, n_cuts = pad_cut_points(cut_points, dev)
         feats = torch.as_tensor(np.asarray(features, np.float32), device=dev)
@@ -275,5 +376,6 @@ def bin_matrix(dmatrix, max_bin=256, cut_points=None, exact_cap=None, device=Non
         )
     bins = apply_cut_points(dmatrix.features, cut_points, max_bin, device=device)
     return BinnedMatrix(
-        bins, cut_points, max_bin, labels=dmatrix.labels, weights=dmatrix.weights
+        bins, cut_points, max_bin, labels=dmatrix.labels, weights=dmatrix.weights,
+        groups=dmatrix.groups,
     )

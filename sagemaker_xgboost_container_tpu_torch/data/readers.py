@@ -265,6 +265,13 @@ def _read_text(p):
         return f.read()
 
 
+def decode_text(raw):
+    """Bytes of a text channel -> str exactly as ``_read_text`` reads the
+    file (the locale's encoding, undecodable bytes dropped, universal
+    newlines), so a byte range of a file parses as that part of the file."""
+    return io.TextIOWrapper(io.BytesIO(raw), errors="ignore").read()
+
+
 def _read_bytes(p):
     with open(p, "rb") as f:
         return f.read()
@@ -391,16 +398,23 @@ def _with_nan_for_empty_fields(text, d):
     return text
 
 
-def _parse_csv_file(path, delimiter):
-    """One csv file -> float32 [rows, cols]: numpy's C parser where every
-    field is a number or empty, the general path otherwise."""
-    with open(path, "r", errors="ignore") as f:
-        text = f.read()
+def parse_csv_text(text, delimiter):
+    """csv text -> float32 [rows, cols]: numpy's C parser where every field
+    is a number or empty, the general path otherwise. The whole-file reader
+    and the streaming ingest's chunks (``data/streaming.py``) both parse
+    here, so a value parses to the same float either way."""
+    if not text.strip():
+        return np.empty((0, 0), np.float32)
     try:
         return np.loadtxt(io.StringIO(_with_nan_for_empty_fields(text, delimiter)),
                           delimiter=delimiter, dtype=np.float32, ndmin=2, comments=None)
     except ValueError:
         return _parse_csv_rows(text, delimiter)
+
+
+def _parse_csv_file(path, delimiter):
+    """One csv file -> float32 [rows, cols] (``parse_csv_text``)."""
+    return parse_csv_text(_read_text(path), delimiter)
 
 
 def _read_csv_files(path, csv_weights=0):
@@ -555,19 +569,31 @@ def _parquet_column(column):
     return column.to_numpy(zero_copy_only=False).astype(np.float32)
 
 
-def _read_parquet_files(path):
+def parquet_table_matrix(table):
+    """A pyarrow table -> f32 [rows, columns] (``_parquet_column`` each):
+    the whole-file reader's and the streaming ingest's conversion."""
+    if not table.num_columns:
+        return np.zeros((table.num_rows, 0), np.float32)
+    return np.stack([_parquet_column(c) for c in table.columns], axis=1)
+
+
+def import_parquet():
+    """``pyarrow.parquet``, or the UserError naming pyarrow."""
     try:
         import pyarrow.parquet as pq
     except ImportError as e:
         raise exc.UserError(PARQUET_NEEDS_PYARROW_ERROR, caused_by=e)
+    return pq
+
+
+def _read_parquet_files(path):
+    pq = import_parquet()
     files = _list_data_files(path)
     if not files:
         return None
     tables = [_read_with_retries(lambda f=f: pq.read_table(f), f, "reader.parquet")
               for f in files]
-    data = np.concatenate(
-        [np.stack([_parquet_column(c) for c in t.columns], axis=1) if t.num_columns
-         else np.zeros((t.num_rows, 0), np.float32) for t in tables], axis=0)
+    data = np.concatenate([parquet_table_matrix(t) for t in tables], axis=0)
     return DataMatrix(data[:, 1:], labels=data[:, 0])
 
 

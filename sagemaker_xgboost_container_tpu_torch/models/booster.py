@@ -46,6 +46,15 @@ round, ``survival:cox`` and ``cox-nloglik`` compute on the gathered global
 rows (``GlobalRows``), a ranking objective's ranks each own whole query
 groups, and dart, gblinear and ``process_type=update`` take the group too;
 ``tree_method=exact`` raises ``UserError`` (``refuse_across_ranks``).
+
+Pre-binned input, the JAX package's: ``train`` takes a ``BinnedMatrix``
+(the streaming ingest's, ``data/streaming.py``) as the training matrix and
+as eval sets. The session then skips its sketch and binning (and, across
+ranks, the merged-cut gather: the ingest agreed the cuts), refuses a
+``max_bin`` other than the ingest's, refuses an eval set binned with other
+cuts, keeps approx's first sketch, and rebuilds a resumed forest's margins
+from ``rep_block`` blocks of representative values. gblinear, dart and
+``process_type=update`` need the floats and raise ``UserError``.
 """
 
 import logging
@@ -56,6 +65,7 @@ import torch
 
 from .._device import resolve_device
 from ..data.binning import (
+    BinnedMatrix,
     _sketch_impl,
     apply_cut_points,
     bin_matrix,
@@ -94,6 +104,9 @@ OBJECTIVE_PARAM_KEYS = (
 )
 # trees traversed together when a resumed run rebuilds its margins
 _RESUME_TREES_PER_PASS = 64
+# rows of representative values a block when a pre-binned matrix's margins
+# are rebuilt (BinnedMatrix.rep_block)
+_REP_BLOCK_ROWS = 1 << 16
 
 logger = logging.getLogger(__name__)
 
@@ -518,13 +531,25 @@ class _TrainingSession:
         self.num_group = self.objective.num_output_group
         self.objective.validate_labels(dtrain.labels)
 
+        pre_binned = isinstance(dtrain, BinnedMatrix)
         shared_cuts = None
-        if self.group is not None:
+        if self.group is not None and not pre_binned:
             # every rank must bin with identical thresholds, or the reduced
-            # histograms mean nothing
+            # histograms mean nothing (a pre-binned matrix's ingest agreed
+            # its cuts across the ranks already)
             shared_cuts = merged_distributed_cuts(dtrain, config.max_bin, self.group, device)
-        self.train_binned = bin_matrix(dtrain, config.max_bin, cut_points=shared_cuts,
-                                       exact_cap=config.exact_bin_cap, device=device)
+        if pre_binned:
+            # a silently reinterpreted bin width would corrupt every
+            # histogram: the config must resolve the ingest's max_bin
+            if config.max_bin is None or int(config.max_bin) != dtrain.max_bin:
+                raise exc.UserError(
+                    "Pre-binned training data was ingested with max_bin={} but the "
+                    "training config resolves max_bin={}; re-ingest or align the "
+                    "hyperparameters.".format(dtrain.max_bin, config.max_bin))
+            self.train_binned = dtrain
+        else:
+            self.train_binned = bin_matrix(dtrain, config.max_bin, cut_points=shared_cuts,
+                                           exact_cap=config.exact_bin_cap, device=device)
         self.cuts = self.train_binned.cut_points
         self.num_bins = self.train_binned.num_bins
         self.bins = torch.as_tensor(self.train_binned.bins, device=device)
@@ -538,6 +563,11 @@ class _TrainingSession:
         # initial sketch
         self.approx_resketch = (config.tree_method == "approx"
                                 and os.environ.get("GRAFT_APPROX_RESKETCH", "1") != "0")
+        if self.approx_resketch and pre_binned:
+            # the re-sketch needs the float channel the ingest never held
+            logger.warning("tree_method='approx' with pre-binned input keeps the ingest-time "
+                           "sketch (no per-iteration re-binning).")
+            self.approx_resketch = False
         self._dtrain = dtrain
         self._feats_dev = None       # train features on the device (device sketch)
         self.labels = torch.as_tensor(dtrain.labels, device=device)
@@ -581,8 +611,6 @@ class _TrainingSession:
         self.learning_stats = model_telemetry.enabled()
         self.last_learning_stats = []
         if self.learning_stats:
-            from ..data.binning import BinnedMatrix
-
             model_telemetry.capture_drift_baseline(
                 BinnedMatrix(self.bins, self.cuts, self.train_binned.max_bin))
         self._count_cost = device_telemetry.enabled()
@@ -608,8 +636,20 @@ class _TrainingSession:
             if dm is dtrain:
                 self.eval_sets.append([name, dm, None, self.labels, self.weights, None])
                 continue
-            binned = bin_matrix(dm, self.train_binned.max_bin, cut_points=self.cuts,
-                                device=device)
+            if isinstance(dm, BinnedMatrix):
+                # its bin indices mean thresholds only with the training cuts
+                if dm.max_bin != self.train_binned.max_bin or not (
+                        dm.cut_points is self.cuts
+                        or (len(dm.cut_points) == len(self.cuts)
+                            and all(np.array_equal(a, b)
+                                    for a, b in zip(dm.cut_points, self.cuts)))):
+                    raise exc.AlgorithmError(
+                        "pre-binned eval set {!r} was binned with different cut points than "
+                        "the training data".format(name))
+                binned = dm
+            else:
+                binned = bin_matrix(dm, self.train_binned.max_bin, cut_points=self.cuts,
+                                    device=device)
             self.eval_sets.append([
                 name,
                 dm,
@@ -627,10 +667,12 @@ class _TrainingSession:
         resumed run's margins equal an uninterrupted run's bit for bit."""
         shape = (dm.num_row,) if self.num_group == 1 else (dm.num_row, self.num_group)
         margins = torch.full(shape, base, dtype=torch.float32, device=self.device)
-        if forest.trees:
-            x = torch.as_tensor(dm.features, device=self.device)
-            indptr = forest.iteration_indptr
-            rounds = len(indptr) - 1
+        if not forest.trees:
+            return margins
+        indptr = forest.iteration_indptr
+        rounds = len(indptr) - 1
+        for lo_row, x in _feature_row_blocks(dm, self.device):
+            m = margins[lo_row:lo_row + x.shape[0]]
             r = 0
             while r < rounds:
                 # the trees of whole rounds, up to _RESUME_TREES_PER_PASS a pass
@@ -641,13 +683,13 @@ class _TrainingSession:
                 _, stacked = forest._stack(lo, hi)
                 leaves = forest_leaf_values(stacked, x)
                 for rr in range(r, r_hi):
-                    total = torch.zeros_like(margins)
+                    total = torch.zeros_like(m)
                     for t in range(indptr[rr], indptr[rr + 1]):
                         if self.num_group == 1:
                             total += leaves[:, t - lo]
                         else:
                             total[:, forest.tree_info[t]] += leaves[:, t - lo]
-                    margins += total
+                    m += total
                 r = r_hi
         return margins
 
@@ -1002,6 +1044,21 @@ class _TrainingSession:
         return self.objective.margin_to_prediction(margin), prob_matrix
 
 
+def _feature_row_blocks(dm, device):
+    """(first row, f32 [rows, d] on ``device``) blocks of ``dm``'s rows for
+    a traversal: a DataMatrix's floats in one block; a pre-binned matrix's
+    ``rep_block`` representatives, ``_REP_BLOCK_ROWS`` at a time (the JAX
+    package's ``_predict_margin_rows``), which route every row to the leaf
+    its original floats reach, so the margins are bitwise those of the
+    floats, without ever holding the float channel."""
+    if not isinstance(dm, BinnedMatrix):
+        yield 0, torch.as_tensor(dm.features, device=device)
+        return
+    for lo in range(0, dm.num_row, _REP_BLOCK_ROWS):
+        yield lo, torch.as_tensor(dm.rep_block(lo, min(lo + _REP_BLOCK_ROWS, dm.num_row)),
+                                  device=device)
+
+
 def _abort_numeric_poison(round_index):
     """The numeric-health guard tripped (a NaN/Inf count of the round's
     learning stats went nonzero): dump the learning forensics, naming the
@@ -1055,12 +1112,23 @@ def train(
     dev = resolve_device(device)
     config = TrainConfig(params)
     callbacks = list(callbacks or [])
+    if isinstance(dtrain, BinnedMatrix) and (
+            config.booster != "gbtree" or config.process_type != "default"):
+        # gblinear fits the raw floats, and dart and update traverse them:
+        # representative values would silently change the model
+        raise exc.UserError(
+            "Pre-binned training input (chunked ingest) requires booster='gbtree' with "
+            "process_type='default'; got booster={!r} process_type={!r}. Use "
+            "SM_INGEST_MODE=whole.".format(config.booster, config.process_type))
     if collectives.world(group)[1] > 1:
         refuse_across_ranks(config)
-        d = agreed_num_col(dtrain, group, dev)
-        padded = dtrain.pad_features(d)
-        evals = [(padded if dm is dtrain else dm.pad_features(d), name) for dm, name in evals]
-        dtrain = padded
+        if not isinstance(dtrain, BinnedMatrix):
+            # a pre-binned matrix's ingest agreed the width across ranks
+            d = agreed_num_col(dtrain, group, dev)
+            padded = dtrain.pad_features(d)
+            evals = [(padded if dm is dtrain else dm.pad_features(d), name)
+                     for dm, name in evals]
+            dtrain = padded
     else:
         group = None
     if config.process_type == "update" and config.booster == "gblinear":

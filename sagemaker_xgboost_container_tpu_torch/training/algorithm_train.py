@@ -43,8 +43,18 @@ loop, as the JAX package does there: each host splits its own rows, every
 fold trains with ``train(group=)``, the CV metric lines are the same on
 every host, and each host writes the out-of-fold predictions of its own
 rows. Refused across hosts with a ``UserError`` naming it:
-``SM_ELASTIC``, ``SM_CONSENSUS_EVERY`` and ``SM_INGEST_MODE=chunked``, and
-``tree_method=exact`` (``booster.refuse_across_ranks``).
+``SM_ELASTIC`` and ``SM_CONSENSUS_EVERY``, and ``tree_method=exact``
+(``booster.refuse_across_ranks``).
+
+Channel ingest (``_streaming_plan``, the JAX package's): ``SM_INGEST_MODE``
+``auto`` (default) streams the channels chunk by chunk into pre-binned
+matrices (``data/streaming.py``) on one host whose training channel is
+larger than one chunk and whose config trains from bins; ``chunked``
+forces that path on any number of hosts and refuses a config it cannot
+serve; ``whole`` keeps the whole-file readers. A failure of the chunked
+plane exits 85 (``EXIT_INGEST_FAILED``) with a flight-recorder dump, and
+the chunks a job skipped (``SM_INGEST_BAD_CHUNK_ACTION=skip``) are written
+to ``ingest-quarantine.json`` and stamped into the model's manifest.
 """
 
 import logging
@@ -78,11 +88,58 @@ from .prediction_utils import ValidationPredictionRecorder
 logger = logging.getLogger(__name__)
 
 
+def _streaming_plan(train_cfg, train_size, combine_train_val, is_pipe, num_hosts):
+    """Whole-file or chunked ingest -> (use_streaming, max_bin, cfg).
+
+    ``SM_INGEST_MODE=chunked`` forces the chunked path and raises on a
+    config it cannot serve rather than falling back; ``whole`` keeps the
+    whole-file readers; ``auto`` streams a supported one-host job whose
+    local training channel is larger than one chunk. Across hosts ``auto``
+    stays whole-file: the choice must be the same on every rank before any
+    rendezvous exists, and local channel sizes (``ShardedByS3Key``) are not;
+    a forced ``chunked`` is the same everywhere by construction.
+    """
+    from ..data import streaming
+
+    cfg = streaming.resolve_ingest_config()
+    if train_cfg is None or is_pipe:
+        if cfg.mode == "chunked":
+            raise exc.UserError(
+                "SM_INGEST_MODE=chunked is not supported for {}; use "
+                "SM_INGEST_MODE=whole.".format(
+                    "Pipe-mode input" if is_pipe
+                    else "jobs without a validated training config"))
+        return False, None, cfg
+    if cfg.mode == "whole":
+        return False, None, cfg
+    ok, why, max_bin = streaming.supports_streaming(train_cfg)
+    if combine_train_val and ok:
+        ok, why = False, "k-fold CV slices float features per fold"
+    if cfg.mode == "chunked":
+        if not ok:
+            raise exc.UserError(
+                "SM_INGEST_MODE=chunked is not supported for this job ({}); use "
+                "SM_INGEST_MODE=whole or adjust the config.".format(why))
+        return True, max_bin, cfg
+    if not ok or num_hosts > 1:
+        return False, None, cfg
+    return train_size > cfg.chunk_bytes, max_bin, cfg
+
+
 def get_validated_data_matrices(
     train_path, validate_path, content_type, csv_weights=0, is_pipe=False,
-    combine_train_val=False,
+    combine_train_val=False, train_cfg=None, sm_hosts=None, sm_current_host=None,
+    device=None,
 ):
-    """Size/format-check both channels and parse them into DataMatrix objects."""
+    """Size/format-check both channels and parse them into DataMatrix objects.
+
+    Where ``_streaming_plan`` arms the streaming plane, the channels are
+    ingested chunk by chunk into pre-binned matrices instead
+    (``data/streaming.py``, binned on ``device``): the training channel
+    makes the cuts (agreed across ``sm_hosts``), the validation channel is
+    binned with them. The chunked plane's failures raise
+    ``streaming.IngestError``; the caller turns them into exit 85.
+    """
     train_size = get_size(train_path, is_pipe) if train_path else 0
     val_size = get_size(validate_path, is_pipe) if validate_path else 0
 
@@ -91,6 +148,48 @@ def get_validated_data_matrices(
             validate_data_file_path(train_path, content_type)
         if val_size > 0:
             validate_data_file_path(validate_path, content_type)
+
+    num_hosts = len(sm_hosts) if sm_hosts else 1
+    use_streaming, max_bin, cfg = _streaming_plan(
+        train_cfg, train_size, combine_train_val, is_pipe, num_hosts)
+    if use_streaming:
+        from ..data import streaming
+
+        if streaming.channel_has_sidecars(content_type, train_path, validate_path):
+            if cfg.mode == "chunked":
+                raise exc.UserError(
+                    "SM_INGEST_MODE=chunked cannot honor libsvm .weight/.group sidecar "
+                    "files; remove them or use SM_INGEST_MODE=whole.")
+            logger.info("channel carries libsvm .weight/.group sidecar files; using the "
+                        "whole-file readers (chunked ingest cannot honor them)")
+            use_streaming = False
+    if use_streaming:
+        hosts = sm_hosts if num_hosts > 1 else None
+        # the job's quarantine record and skip budget start empty: a second
+        # job in this process must not inherit the last one's
+        streaming.reset_ingest_state()
+        logger.info("Streaming (chunked) channel ingest armed: max_bin=%d, %d host(s)",
+                    max_bin, num_hosts)
+        # every host joins the exchange whatever its channel holds (a host
+        # without data sends an empty sketch and gets None): its peers must
+        # never wait for its summary
+        train_dmatrix = streaming.ingest_channel(
+            train_path, content_type, max_bin, channel="train", csv_weights=csv_weights,
+            hosts=hosts, current_host=sm_current_host, device=device)
+        val_dmatrix = None
+        if validate_path is not None and (val_size > 0 or num_hosts > 1):
+            val_dmatrix = streaming.ingest_channel(
+                validate_path, content_type, max_bin, channel="validation",
+                csv_weights=csv_weights,
+                cut_points=train_dmatrix.cut_points if train_dmatrix else None,
+                hosts=hosts, current_host=sm_current_host, device=device)
+            if train_dmatrix is None:
+                # a host without training rows joined the validation
+                # exchange, but its validation rows were sketched against
+                # themselves: they must not reach an eval; the host leaves
+                # through the no-data path
+                val_dmatrix = None
+        return train_dmatrix, val_dmatrix, train_dmatrix
 
     train_dmatrix = (
         get_data_matrix(train_path, content_type, csv_weights=csv_weights, is_pipe=is_pipe)
@@ -164,9 +263,22 @@ def sagemaker_train(
 
     dev = resolve_device(device)
     with span("data_ingest", emit=True):
-        train_dmatrix, val_dmatrix, train_val_dmatrix = get_validated_data_matrices(
-            train_path, val_path, file_type, csv_weights, is_pipe, combine_train_val,
-        )
+        from ..data import streaming
+
+        try:
+            train_dmatrix, val_dmatrix, train_val_dmatrix = get_validated_data_matrices(
+                train_path, val_path, file_type, csv_weights, is_pipe, combine_train_val,
+                train_cfg=validated_train_config, sm_hosts=sm_hosts,
+                sm_current_host=sm_current_host, device=dev,
+            )
+        except streaming.IngestError as e:
+            # the chunked plane's failure contract: every rank reached this
+            # verdict from the same allgathered state; flight-recorder dump
+            # and EXIT_INGEST_FAILED (85) on each
+            streaming.abort_on_ingest_failure(e)
+            # reached only where the exit is faked (tests): the failure file
+            # names the ingest error
+            raise exc.PlatformError(str(e))
     missing_validation_data = validation_channel and not val_dmatrix
 
     train_args = dict(
@@ -261,8 +373,6 @@ def _refuse_across_hosts(train_cfg):
     for knob, item in _HOST_KNOBS_REFUSED:
         if os.environ.get(knob, "").strip().lower() not in ("", "0", "false", "off"):
             refuse("{}={}".format(knob, os.environ[knob]), item)
-    if os.environ.get("SM_INGEST_MODE", "").strip().lower() == "chunked":
-        refuse("streaming ingest (SM_INGEST_MODE=chunked)", "9d")
     booster.refuse_across_ranks(booster.TrainConfig(dict(train_cfg)))
 
 
@@ -388,6 +498,15 @@ def train_job(
 
     os.makedirs(model_dir, exist_ok=True)
     if is_master:
+        from ..data import streaming
+
+        try:
+            # the chunks the job skipped, beside the model (absent when none)
+            qpath = streaming.write_quarantine_manifest(model_dir)
+            if qpath:
+                logger.warning("ingest quarantine manifest written to %s", qpath)
+        except OSError as e:
+            logger.warning("could not write ingest quarantine manifest: %s", e)
         with span("model_save", emit=True):
             if not isinstance(bst, list):
                 model_location = os.path.join(model_dir, MODEL_NAME)
@@ -416,19 +535,22 @@ def train_job(
 
 
 def _save_with_manifest(model, model_location, train_cfg):
-    """Save ``model`` and its manifest (digest, config fingerprint, and
+    """Save ``model`` and its manifest (digest, config fingerprint, the
+    streaming ingest's quarantine record where the job skipped chunks, and
     under ``SM_MODEL_TELEMETRY`` the learning-curve summary and the drift
     baseline), which serving digest-verifies at load. The manifest is
     best-effort: an ``OSError`` writing it warns and the model loads
     manifest-less."""
     model.save_model(model_location)
     try:
+        from ..data import streaming
         from ..telemetry import model as model_telemetry
         from ..utils import integrity
 
         integrity.write_manifest(
             model_location,
             fingerprint=integrity.config_fingerprint(train_cfg),
+            quarantine=streaming.quarantine_record(),
             learning=model_telemetry.learning_summary(),
             drift_baseline=model_telemetry.drift_baseline(),
         )

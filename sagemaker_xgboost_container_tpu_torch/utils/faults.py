@@ -22,6 +22,8 @@ Spec grammar (entries separated by ``;`` or ``,``)::
     model.load:error@3+           the 3rd model load and every later one fail
     data.read:error@1             the first channel file read fails once
                                   (the reader's retry absorbs it)
+    data.chunk:error@2+           the streaming ingest's 2nd chunk read and
+                                  every later one fail (skip and budget drills)
     checkpoint.save:error@2       the 2nd checkpoint write fails once;
                                   checkpoint.manifest is its sidecar's twin
     training.round_end:sleep:60@4 the 4th round stalls (the watchdog drill)

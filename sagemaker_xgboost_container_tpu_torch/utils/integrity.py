@@ -169,13 +169,16 @@ def dump_manifest_atomic(target_path, manifest, tmp_path):
         raise
 
 
-def write_manifest(model_path, iteration=None, fingerprint=None, learning=None,
-                   drift_baseline=None):
+def write_manifest(model_path, iteration=None, fingerprint=None, quarantine=None,
+                   learning=None, drift_baseline=None):
     """Write ``model_path``'s sidecar manifest (the final model's; the
     checkpoints' go through the checkpoint layer's retried writer).
-    -> the manifest dict."""
+    ``quarantine``: the streaming ingest's record of the chunks the job
+    skipped (``data/streaming.quarantine_record``), None when it skipped
+    none. -> the manifest dict."""
     manifest = build_manifest(model_path, iteration=iteration, fingerprint=fingerprint,
-                              learning=learning, drift_baseline=drift_baseline)
+                              quarantine=quarantine, learning=learning,
+                              drift_baseline=drift_baseline)
     target = manifest_path(model_path)
     # dot-prefixed temp: the serving loader skips dotfiles, so a crash here
     # never leaves a file that a model-dir scan would try to load

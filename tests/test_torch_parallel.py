@@ -214,13 +214,15 @@ def test_host_loss_survivor_exits_80(tmp_path):
 @pytest.mark.parametrize("hp, env, named", [
     ({}, {"SM_ELASTIC": "1"}, "SM_ELASTIC"),
     ({}, {"SM_CONSENSUS_EVERY": "5"}, "SM_CONSENSUS_EVERY"),
-    ({}, {"SM_INGEST_MODE": "chunked"}, "SM_INGEST_MODE=chunked"),
+    ({"tree_method": "approx"}, {"SM_INGEST_MODE": "chunked"}, "SM_INGEST_MODE=chunked"),
     ({"tree_method": "exact"}, {}, "tree_method='exact'"),
 ])
 def test_entry_refuses_across_hosts(tmp_path, monkeypatch, hp, env, named):
-    """Refused by name before any data is read or any peer contacted: the
-    knobs of ROADMAP items not ported yet, naming the item, and
-    ``tree_method=exact`` with the JAX package's message."""
+    """Refused by name before any peer is contacted: the knobs of ROADMAP
+    items not ported yet, naming the item; ``tree_method=exact`` with the
+    JAX package's message; and streaming ingest with a config it cannot
+    serve (approx re-sketches from floats) with the JAX package's
+    ``UserError``."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     monkeypatch.setattr(algorithm_train.distributed, "wait_hostname_resolution",
@@ -236,5 +238,12 @@ def test_entry_refuses_across_hosts(tmp_path, monkeypatch, hp, env, named):
             str(tmp_path / "model"), ur.CLUSTER_HOSTS, "127.0.0.1", {}, device="cpu")
     if "exact" in named:
         assert "it doesn't in XGBoost either" in str(err.value)
+    elif "INGEST" in named:
+        import importlib
+
+        jax_at = importlib.import_module("sagemaker_xgboost_container_tpu.training.algorithm_train")
+        with pytest.raises(jax_at.exc.UserError) as jax_err:
+            jax_at._streaming_plan(dict(ur.ENTRY_HP, **hp), 1, False, False, 2)
+        assert str(err.value) == str(jax_err.value)
     else:
         assert "ROADMAP Queue 1 item 9" in str(err.value)
