@@ -359,6 +359,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    identical lines, byte-equal models (every rank saves a copy), the
    validation logloss within OPTION_TOL x max(1, |logloss|) of 19b's one
    host on the same rows.
+20. the elastic shrink and the consensus guard through the train entry
+   point: three `--entry-child` hosts of one box (127.0.0.1, 127.0.0.2,
+   localhost) on cuda:0 over gloo, each with its third of the main path's
+   1M + 100k rows (on 19a's 2^-9 grid), depth 8, max_bin 256, 12 rounds,
+   SM_CONSENSUS_EVERY=1, heartbeats every 0.5 s (stale after 6), a
+   checkpoint dir a host, every rank saving its model (MODEL_COPY). 20a:
+   uninterrupted: all exit 0, byte-equal models, 12 checks a rank, 96 / 12
+   launches; the consensus check's ms a round (the `consensus` phase of
+   the round records) and rounds/s a rank. 20b: SM_ELASTIC=1 and rank 2
+   SIGKILLed at its 5th round end: the survivors exit 0 with byte-equal
+   12-round models, one 3 -> 2 transition (surviving ranks [0, 1]) in the
+   records and the model's manifest, rounds 1-5 equal to rank 0's
+   checkpoint of round 5, 8 / 1 launches a round after the reform, the
+   validation logloss within ELASTIC_LOGLOSS_TOL of 20a's; the seconds from
+   the kill to the new generation's first round and rounds/s a rank before
+   and after. 20c (two hosts, rank 1's digest perturbed by the
+   `consensus.check` fault) and 20d (20b's kill with `rendezvous.reform`
+   faulted) at once: 20c exits 81 on both with one training.divergence
+   record each carrying both digests, 20d's survivors exit 82 with a
+   flight-recorder dump each.
 
 At the end, one wall-time line a phase. The second line from the end is
 the kernels JSON line, the last line the device JSON line. Needs one CUDA
@@ -4328,24 +4348,36 @@ def _records(text, metric):
     return [json.loads(line) for line in text.splitlines() if line.startswith("{") and needle in line]
 
 
-def _child_launches(out):
-    """The launch counts an `--entry-child` printed before it exited."""
+def _child_report(out):
+    """What an `--entry-child` printed before it exited: its launch counts
+    and consensus checks ({} if nothing)."""
     found = [json.loads(line) for line in out.splitlines()
              if line.startswith('{"launches"')]
-    return found[-1]["launches"] if found else None
+    return found[-1] if found else {}
+
+
+def _child_launches(out):
+    """The launch counts an `--entry-child` printed before it exited."""
+    return _child_report(out).get("launches")
 
 
 def entry_child():
     """`chip_smoke.py --entry-child`: the train entry point
-    (`training.entry.main`), printing the kernels' launch counts as it
-    exits, normally or through the watchdog's abort path."""
+    (`training.entry.main`), printing the kernels' launch counts (and the
+    consensus checks it made) as it exits, normally or through the
+    watchdog's abort path, and the launch counts again at an elastic
+    reform (`{"reform_launches": ...}`). With MODEL_COPY, every rank saves
+    its model there."""
     import atexit
 
     from sagemaker_xgboost_container_tpu_torch.ops import histogram as hist
-    from sagemaker_xgboost_container_tpu_torch.training import entry, watchdog
+    from sagemaker_xgboost_container_tpu_torch.telemetry import REGISTRY, snapshot_fields
+    from sagemaker_xgboost_container_tpu_torch.training import (algorithm_train, elastic, entry,
+                                                                watchdog)
 
     def report():
-        print(json.dumps({"launches": dict(hist.LAUNCHES)}), flush=True)
+        print(json.dumps({"launches": dict(hist.LAUNCHES), "consensus_checks": int(
+            snapshot_fields(REGISTRY).get("consensus_checks_total", 0))}), flush=True)
 
     real_exit = watchdog._exit
 
@@ -4355,6 +4387,22 @@ def entry_child():
 
     watchdog._exit = exit_with_report
     atexit.register(report)
+    perform_reform = elastic.perform_reform
+
+    def reform_with_report(*args, **kwargs):
+        print(json.dumps({"reform_launches": dict(hist.LAUNCHES)}), flush=True)
+        return perform_reform(*args, **kwargs)
+
+    elastic.perform_reform = reform_with_report
+    if os.environ.get("MODEL_COPY"):
+        train_job = algorithm_train.train_job
+
+        def copy_model(*args, **kwargs):
+            bst = train_job(*args, **kwargs)
+            bst.save_model(os.environ["MODEL_COPY"])
+            return bst
+
+        algorithm_train.train_job = copy_model
     if os.environ.get("CHIP_SMOKE_INGEST_REPORT"):
         _report_ingest(atexit)
     entry.main()
@@ -4373,17 +4421,15 @@ def _report_ingest(atexit):
     """Phase 19's view of an `--entry-child` (CHIP_SMOKE_INGEST_REPORT set):
     what ingest gave the session (pre-binned or floats), sha256 digests of
     the bins and cuts the session trains and evaluates on, the streaming
-    plane's chunks a channel; with MODEL_COPY, every rank saves its model
-    there. Printed as one `{"ingest": ...}` line at exit."""
+    plane's chunks a channel. Printed as one `{"ingest": ...}` line at
+    exit."""
     from sagemaker_xgboost_container_tpu_torch.data import streaming
     from sagemaker_xgboost_container_tpu_torch.data.binning import BinnedMatrix
     from sagemaker_xgboost_container_tpu_torch.models import booster
     from sagemaker_xgboost_container_tpu_torch.telemetry import REGISTRY, snapshot_fields
-    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
 
     doc = {"chunks": {}}
-    init, ingest, train_job = (booster._TrainingSession.__init__, streaming.ingest_channel,
-                               algorithm_train.train_job)
+    init, ingest = booster._TrainingSession.__init__, streaming.ingest_channel
 
     def session_init(self, config, dtrain, evals, *args, **kwargs):
         init(self, config, dtrain, evals, *args, **kwargs)
@@ -4401,15 +4447,8 @@ def _report_ingest(atexit):
             snapshot_fields(REGISTRY).get(key, 0.0) - before)
         return out
 
-    def copy_model(*args, **kwargs):
-        bst = train_job(*args, **kwargs)
-        if os.environ.get("MODEL_COPY"):
-            bst.save_model(os.environ["MODEL_COPY"])
-        return bst
-
     booster._TrainingSession.__init__ = session_init
     streaming.ingest_channel = ingest_channel
-    algorithm_train.train_job = copy_model
     atexit.register(lambda: print(json.dumps({"ingest": doc}), flush=True))
 
 
@@ -5113,14 +5152,15 @@ def _dist_entry_hosts(tmp, name, hp, extra, split=None):
 
 class _Child:
     """A child process, in a session of its own so that ``kill`` reaches
-    what it starts, whose stdout lines are collected by a thread, with an
-    event set at its first HPO metric line and the time its output ended."""
+    what it starts, whose stdout lines are collected by a thread (each with
+    the host clock at its arrival), with an event set at its first HPO
+    metric line and the time its output ended."""
 
     def __init__(self, command, env):
         self.started_at = time.perf_counter()
         self.proc = subprocess.Popen(command, env=env, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True, start_new_session=True)
-        self.lines, self.err = [], []
+        self.lines, self.stamps, self.err = [], [], []
         self.first_metric = threading.Event()
         self.ended_at = None
         self._threads = [threading.Thread(target=self._read, daemon=True),
@@ -5131,6 +5171,7 @@ class _Child:
 
     def _read(self):
         for line in self.proc.stdout:
+            self.stamps.append(time.perf_counter())
             self.lines.append(line)
             if HPO_LINE.match(line):
                 self.first_metric.set()
@@ -5932,6 +5973,294 @@ def _stream_drills(tag, tmp):
           "19c: launches {}".format([_child_launches(c.out) for c in host]))
 
 
+# ---------------------------------------------------------------- phase 20
+
+# the elastic plane and the consensus guard through the train entry point:
+# three hosts of one box, each with its third of the main path's rows (the
+# 2^-9 grid of phase 19, so the csv is exact), on cuda:0 over gloo
+ELASTIC_HOSTS = ["127.0.0.1", "127.0.0.2", "localhost"]   # sorted: rank 0, 1, 2
+ELASTIC_ROUNDS, ELASTIC_KILL_AT = 12, 5   # rank 2 dies at its 5th round end
+ELASTIC_HP = {"objective": "binary:logistic", "max_depth": "8", "max_bin": "256",
+              "tree_method": "hist", "eta": "0.2", "num_round": str(ELASTIC_ROUNDS),
+              "eval_metric": "logloss"}
+# heartbeats every 0.5 s, a host stale after 6 missed (3 s, 17c's threshold)
+ELASTIC_PLANES = {"SM_HEARTBEAT_INTERVAL_S": "0.5", "SM_STALE_HEARTBEATS": "6",
+                  "SM_STRUCTURED_METRICS": "true", "SM_PROCESS_GROUP_BACKEND": "gloo",
+                  "SM_CONSENSUS_EVERY": "1"}
+ELASTIC_LOGLOSS_TOL = 1e-2
+ELASTIC_TREE_KEYS = ("feature", "threshold", "default_left", "left", "right", "value")
+
+
+def run_elastic(torch, hist, tag):
+    """Phase 20: the elastic shrink and the consensus guard (see the module
+    docstring)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as tmp:
+        channels = _elastic_channels(tmp)
+        ref = _elastic_consensus_run(tag, tmp, channels)
+        _elastic_shrink_run(tag, tmp, channels, ref)
+        _elastic_drills(tag, tmp, channels)
+    print("{} | elastic phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _elastic_channels(tmp):
+    """Each host's third of the main path's training and validation rows
+    as csv channels -> [(train dir, validation dir)] by rank."""
+    X, y = exact_rows()
+    n, nv, k = N_TRAIN, N_VAL, len(ELASTIC_HOSTS)
+    cuts, vcuts = np.linspace(0, n, k + 1).astype(int), np.linspace(n, n + nv, k + 1).astype(int)
+    out = []
+    for rank in range(k):
+        root = os.path.join(tmp, "channels", str(rank))
+        t, v = slice(cuts[rank], cuts[rank + 1]), slice(vcuts[rank], vcuts[rank + 1])
+        write_grid_csv(os.path.join(root, "train"), X[t], y[t])
+        write_grid_csv(os.path.join(root, "validation"), X[v], y[v])
+        out.append((os.path.join(root, "train"), os.path.join(root, "validation")))
+    return out
+
+
+def _elastic_hosts(tmp, name, channels, extra):
+    """`--entry-child` processes of len(extra) hosts (the first of
+    ELASTIC_HOSTS), host r on channels[r] with ELASTIC_PLANES and extra[r],
+    its own model, checkpoint, output dirs and abort port, every rank
+    saving its model (MODEL_COPY) -> [(_Child, root)]."""
+    hosts = ELASTIC_HOSTS[:len(extra)]
+    pg = free_port()
+    ports = {"SM_RENDEZVOUS_PORT": free_port(), "SM_PROCESS_GROUP_PORT": pg,
+             "SM_HEARTBEAT_PORT": free_port(), "SM_CONSENSUS_PORT": free_port(),
+             "SM_REFORM_PORT": free_port(), "SM_FLEET_TRACE_PORT": free_port()}
+    out = []
+    for rank, more in enumerate(extra):
+        root = os.path.join(tmp, name, str(rank))
+        os.makedirs(os.path.join(root, "output"))
+        channel = {"ContentType": "csv", "TrainingInputMode": "File",
+                   "S3DistributionType": "FullyReplicated"}
+        for fname, doc in (("hp.json", ELASTIC_HP),
+                           ("data.json", {"train": channel, "validation": dict(channel)}),
+                           ("checkpoint.json", {"LocalPath": os.path.join(root, "checkpoints")})):
+            with open(os.path.join(root, fname), "w") as f:
+                json.dump(doc, f)
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("SM_", "SAGEMAKER_"))}
+        env.update({k: str(v) for k, v in ports.items()})
+        env.update(ELASTIC_PLANES)
+        env.update({
+            "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+            "SM_INPUT_TRAINING_CONFIG_FILE": os.path.join(root, "hp.json"),
+            "SM_INPUT_DATA_CONFIG_FILE": os.path.join(root, "data.json"),
+            "SM_CHECKPOINT_CONFIG_FILE": os.path.join(root, "checkpoint.json"),
+            "SM_CHANNEL_TRAIN": channels[rank][0], "SM_CHANNEL_VALIDATION": channels[rank][1],
+            "SM_MODEL_DIR": os.path.join(root, "model"),
+            "SM_OUTPUT_DIR": os.path.join(root, "output"),
+            "SM_OUTPUT_DATA_DIR": os.path.join(root, "output", "data"),
+            "SM_HOSTS": json.dumps(hosts), "SM_CURRENT_HOST": hosts[rank],
+            "SM_ABORT_PORT": str(free_port()),
+            "MODEL_COPY": os.path.join(root, "output", "rank-model"),
+        })
+        env.update(more)
+        out.append((_Child(ENTRY_CHILD_COMMAND, env), root))
+    return out
+
+
+def _wait_hosts(children, timeout):
+    """[(_Child, root)] -> exit codes in order (``_wait_all``)."""
+    codes = _wait_all(dict(enumerate(c for c, _root in children)), timeout)
+    return [codes[i] for i in range(len(children))]
+
+
+def _round_records(out):
+    return {r["round"]: r for r in _records(out, "training.round")}
+
+
+def _breakdown(records, rounds):
+    """Mean ms a round over ``rounds`` of a child's round records: the
+    round, each callback phase, the rest (build_eval: the tree build and the
+    evaluation) and the collectives' host ms (hist_comm_ms)."""
+    picked = [records[r] for r in rounds if r in records]
+    if not picked:
+        return {}
+    keys = {"round_ms", "hist_comm_ms"} | {k for r in picked for k in r.get("phases_ms", {})}
+    out = {}
+    for k in sorted(keys):
+        vals = [r.get(k, r.get("phases_ms", {}).get(k)) for r in picked]
+        vals = [v for v in vals if v is not None]
+        if vals:
+            out[k] = round(sum(vals) / len(vals), 3)
+    return out
+
+
+def _rate(records, rounds):
+    ms = [records[r]["round_ms"] for r in rounds if r in records]
+    return len(ms) / (sum(ms) / 1000.0) if ms else float("nan")
+
+
+def _same_bytes(paths):
+    blobs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    return all(b == blobs[0] for b in blobs)
+
+
+def _elastic_consensus_run(tag, tmp, channels):
+    """20a: three hosts, a consensus check every round, uninterrupted ->
+    the last validation logloss of rank 0."""
+    children = _elastic_hosts(tmp, "20a", channels, [{}, {}, {}])
+    t = time.perf_counter()
+    codes = _wait_hosts(children, 600)
+    wall = time.perf_counter() - t
+    for rank, ((c, _root), code) in enumerate(zip(children, codes)):
+        check(code == 0, "20a: host {} exited {}: {}".format(rank, code, "".join(c.err)[-3000:]))
+    reports = [_child_report(c.out) for c, _root in children]
+    recs = [_round_records(c.out) for c, _root in children]
+    steady = range(1, ELASTIC_ROUNDS)
+    ll = _last_metric(children[0][0].out, "validation-logloss")
+    same = _same_bytes([os.path.join(root, "output", "rank-model") for _c, root in children])
+    lines = [[l for l in c.out.splitlines() if HPO_LINE.match(l)] for c, _root in children]
+    print("{} | elastic 20a: three hosts exit {} in {:.1f} s (one card, gloo); consensus "
+          "checks a rank {}; consensus ms a check (rounds 1-{}) {}; rounds/s a rank (rounds "
+          "1-{}) {}; rank 0's mean ms a round {}; models byte-equal: {}; HPO lines "
+          "identical: {}; launches {}; last validation logloss {:.6f}".format(
+              tag, codes, wall, [r.get("consensus_checks") for r in reports],
+              ELASTIC_ROUNDS - 1, [_breakdown(r, steady).get("consensus") for r in recs],
+              ELASTIC_ROUNDS - 1, [round(_rate(r, steady), 3) for r in recs],
+              json.dumps(_breakdown(recs[0], steady)), same,
+              lines[0] == lines[1] == lines[2], json.dumps([r.get("launches") for r in reports]),
+              ll), flush=True)
+    check(all(r.get("consensus_checks") == ELASTIC_ROUNDS for r in reports),
+          "20a: consensus checks {}".format([r.get("consensus_checks") for r in reports]))
+    check(same, "20a: the ranks' models differ")
+    check(len(lines[0]) == ELASTIC_ROUNDS and lines[0] == lines[1] == lines[2],
+          "20a: the hosts printed different HPO lines")
+    check(all(r.get("launches") == {"hist_kernel": 8 * ELASTIC_ROUNDS,
+                                    "totals_kernel": ELASTIC_ROUNDS} for r in reports),
+          "20a: launches {}".format([r.get("launches") for r in reports]))
+    return ll
+
+
+def _elastic_shrink_run(tag, tmp, channels, ref_logloss):
+    """20b: 20a with SM_ELASTIC=1 and rank 2 killed at its 5th round end."""
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+    from sagemaker_xgboost_container_tpu_torch.utils import integrity
+
+    elastic_env = {"SM_ELASTIC": "1"}
+    children = _elastic_hosts(tmp, "20b", channels, [
+        dict(elastic_env), dict(elastic_env),
+        dict(elastic_env, SM_FAULT_SPEC="training.round_end:kill@{}".format(ELASTIC_KILL_AT))])
+    (c0, root0), (c1, root1), (c2, _root2) = children
+    try:
+        code2 = c2.wait(600)
+        killed_at = c2.ended_at or time.perf_counter()
+        codes = [c0.wait(600), c1.wait(600), code2]
+    finally:
+        for c, _root in children:
+            c.kill()
+    for rank, c in ((0, c0), (1, c1)):
+        check(codes[rank] == 0, "20b: survivor {} exited {}: {}".format(
+            rank, codes[rank], "".join(c.err)[-3000:]))
+    check(code2 == -signal.SIGKILL, "20b: rank 2 exited {}".format(code2))
+    transitions = [_records(c.out, "training.membership") for c in (c0, c1)]
+    model = os.path.join(root0, "model", "xgboost-model")
+    manifest = integrity.read_manifest(model) or {}
+    log = manifest.get("membership_log") or []
+    final = Forest.load_model(model, device="cpu")
+    ckpt = Forest.load_model(os.path.join(root0, "checkpoints", "xgboost-checkpoint.{}".format(
+        ELASTIC_KILL_AT - 1)), device="cpu")
+    head_same = len(ckpt.trees) == ELASTIC_KILL_AT and all(
+        np.array_equal(getattr(a, k), getattr(b, k))
+        for a, b in zip(final.trees[:ELASTIC_KILL_AT], ckpt.trees) for k in ELASTIC_TREE_KEYS)
+    same = _same_bytes([os.path.join(r, "output", "rank-model") for r in (root0, root1)])
+    # the new generation's first round: rank 0's first training.round line
+    # after its training.membership line, on this process's clock
+    member_at = next(i for i, l in enumerate(c0.lines) if '"training.membership"' in l) \
+        if transitions[0] else len(c0.lines)
+    first_after = next((c0.stamps[i] for i in range(member_at, len(c0.lines))
+                        if c0.lines[i].startswith('{"metric": "training.round"')), None)
+    to_first_round = (first_after - killed_at) if first_after is not None else float("nan")
+    recs = [_round_records(c.out) for c in (c0, c1)]
+    before, after = range(1, ELASTIC_KILL_AT), range(ELASTIC_KILL_AT + 1, ELASTIC_ROUNDS)
+    reports = [_child_report(c.out) for c in (c0, c1)]
+    at_reform = [([json.loads(l)["reform_launches"] for l in c.out.splitlines()
+                   if l.startswith('{"reform_launches"')] or [{}])[0] for c in (c0, c1)]
+    per_round_after = [{k: (r.get("launches", {}).get(k, 0) - a.get(k, 0)) /
+                        float(ELASTIC_ROUNDS - ELASTIC_KILL_AT)
+                        for k in ("hist_kernel", "totals_kernel")}
+                       for r, a in zip(reports, at_reform)]
+    ll = _last_metric(c0.out, "validation-logloss")
+    rounds_printed = [sorted(_metric_lines(c.out)) for c in (c0, c1)]
+    print("{} | elastic 20b: rank 2 killed at its round-{} end (exit {}); survivors exit {}; "
+          "{:.3f} s from the kill to the new generation's first round (rank 0); membership "
+          "{}; manifest membership_log {}; rounds 1-{} equal to checkpoint {}: {}; survivor "
+          "models byte-equal: {} ({} rounds); rounds/s a rank before (rounds 1-{}) {} and "
+          "after (rounds {}-{}) the shrink {}; rank 0's mean ms a round before {} and after "
+          "{}; launches at the reform {}, a round after it {}; consensus checks {}; last "
+          "validation logloss {:.6f} against 20a's {:.6f}".format(
+              tag, ELASTIC_KILL_AT - 1, code2, codes[:2], to_first_round,
+              json.dumps(transitions[0]), json.dumps(log), ELASTIC_KILL_AT,
+              ELASTIC_KILL_AT - 1, head_same, same, final.num_boosted_rounds,
+              ELASTIC_KILL_AT - 1, [round(_rate(r, before), 3) for r in recs],
+              ELASTIC_KILL_AT + 1, ELASTIC_ROUNDS - 1, [round(_rate(r, after), 3) for r in recs],
+              json.dumps(_breakdown(recs[0], before)), json.dumps(_breakdown(recs[0], after)),
+              json.dumps(at_reform), json.dumps(per_round_after),
+              [r.get("consensus_checks") for r in reports], ll, ref_logloss), flush=True)
+    check(transitions[0] == transitions[1] and len(transitions[0]) == 1,
+          "20b: membership records {}".format(transitions))
+    t = transitions[0][0]
+    check((t["old_world_size"], t["new_world_size"], t["surviving_ranks"]) == (3, 2, [0, 1]),
+          "20b: transition {}".format(t))
+    check(len(log) == 1 and log[0]["surviving_ranks"] == [0, 1]
+          and (log[0]["old_world_size"], log[0]["new_world_size"]) == (3, 2),
+          "20b: the manifest's membership_log is {}".format(log))
+    check(final.num_boosted_rounds == ELASTIC_ROUNDS, "20b: {} rounds".format(
+        final.num_boosted_rounds))
+    check(head_same, "20b: rounds 1-{} differ from the checkpoint".format(ELASTIC_KILL_AT))
+    check(same, "20b: the survivors' models differ")
+    check(all(p == list(range(ELASTIC_ROUNDS)) for p in rounds_printed),
+          "20b: rounds printed {}".format(rounds_printed))
+    check(all(p == {"hist_kernel": 8.0, "totals_kernel": 1.0} for p in per_round_after),
+          "20b: launches a round after the shrink {}".format(per_round_after))
+    check(abs(ll - ref_logloss) <= ELASTIC_LOGLOSS_TOL,
+          "20b: logloss {} against 20a's {}".format(ll, ref_logloss))
+
+
+def _elastic_drills(tag, tmp, channels):
+    """20c (two hosts, rank 1's digest perturbed: exit 81) and 20d (three
+    hosts, rank 2 killed, the reform faulted: exit 82 with a flight-recorder
+    dump), at once."""
+    t = time.perf_counter()
+    c = _elastic_hosts(tmp, "20c", channels, [
+        {}, {"SM_FAULT_SPEC": "consensus.check:error@3"}])
+    reform_fault = {"SM_ELASTIC": "1", "SM_TRACE": "true", "SM_IO_RETRY_ATTEMPTS": "2",
+                    "SM_FAULT_SPEC": "rendezvous.reform:error:injected reform outage"}
+    d = _elastic_hosts(tmp, "20d", channels, [
+        dict(reform_fault), dict(reform_fault),
+        {"SM_ELASTIC": "1", "SM_FAULT_SPEC": "training.round_end:kill@{}".format(
+            ELASTIC_KILL_AT)}])
+    codes = _wait_hosts(c + d, 600)
+    wall = time.perf_counter() - t
+    divergence = [_records(ch.out, "training.divergence") for ch, _root in c]
+    aborts = [_records(ch.out, "training.abort") for ch, _root in c + d]
+    dumps = [a[0].get("flight_recorder") if a else None for a in aborts[2:4]]
+    print("{} | elastic 20c / 20d (five children at once, {:.1f} s): 20c exits {}, "
+          "training.divergence records {}; 20d exits {}, abort reasons {}, flight-recorder "
+          "dumps {}".format(
+              tag, wall, codes[:2], json.dumps(divergence), codes[2:],
+              [a[0]["reason"] if a else None for a in aborts[2:]],
+              [p if p and os.path.exists(p) else None for p in dumps]), flush=True)
+    for rank in range(2):
+        check(codes[rank] == 81, "20c: host {} exited {}: {}".format(
+            rank, codes[rank], "".join(c[rank][0].err)[-3000:]))
+        recs = divergence[rank]
+        check(len(recs) == 1 and set(recs[0]["digests"]) == {"0", "1"}
+              and recs[0]["digests"]["0"] != recs[0]["digests"]["1"],
+              "20c: host {}'s divergence records {}".format(rank, recs))
+    for rank in range(2):
+        check(codes[2 + rank] == 82, "20d: survivor {} exited {}: {}".format(
+            rank, codes[2 + rank], "".join(d[rank][0].err)[-3000:]))
+        check(dumps[rank] and os.path.exists(dumps[rank]),
+              "20d: survivor {} left no flight-recorder dump".format(rank))
+    check(codes[4] == -signal.SIGKILL, "20d: rank 2 exited {}".format(codes[4]))
+
+
 # (phase, wall seconds) of this run, printed at its end
 PHASE_WALL = []
 
@@ -6020,6 +6349,7 @@ def main():
         phase("17 distributed", run_distributed, torch, hist, pkg, dtrain, dval, tag)
         phase("18 options across ranks", run_options, torch, hist, pkg, tag)
         phase("19 streaming ingest", run_streaming, torch, hist, tag)
+        phase("20 elastic and consensus", run_elastic, torch, hist, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

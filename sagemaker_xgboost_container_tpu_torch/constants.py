@@ -123,6 +123,8 @@ ONE_THREAD_PER_PROCESS = "1"
 # its log names which supervisor pulled the trigger
 EXIT_ROUND_DEADLINE = 79  # round watchdog: a boosting round exceeded SM_ROUND_DEADLINE_S
 EXIT_CLUSTER_ABORT = 80  # coordinated abort: rank 0 declared a peer dead
+EXIT_CONSENSUS_DIVERGENCE = 81  # cross-rank tree-digest guard: ranks committed different ensembles
+EXIT_REFORM_FAILED = 82   # elastic shrink: survivor re-rendezvous failed; restart at the old membership
 EXIT_DRAIN_TIMEOUT = 83  # SIGTERM drain: requests still in flight past SM_DRAIN_TIMEOUT_S
 EXIT_PREDICT_STUCK = 84  # predict watchdog: a dispatch wedged past SM_PREDICT_STUCK_S (abort)
 EXIT_INGEST_FAILED = 85  # streaming ingest: a bad chunk, skip budget or plan divergence

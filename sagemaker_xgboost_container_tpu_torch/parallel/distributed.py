@@ -17,11 +17,18 @@ are ``torch.distributed`` calls over the process group that
 ``init_process_group`` brings up (coordinator = sorted hosts[0], the JAX
 package's ``maybe_init_jax_distributed``), one process a rank: the
 histogram all-reduce or reduce-scatter between a rank's local kernel launch
-and its split scan (``ops/histogram.apply_hist_collective``). The elastic
-membership reform of the JAX package is not ported.
+and its split scan (``ops/histogram.apply_hist_collective``).
+
+The elastic membership reform (``training/elastic.py``, ``SM_ELASTIC``):
+the survivors of a shrink re-rendezvous over ``SM_REFORM_PORT``
+(``reform_cluster``), then ``reform_process_group`` tears the old process
+group down (bounded) and brings a new one up over the survivors, its store
+on ``SM_PROCESS_GROUP_PORT`` plus the shrink generation, so that it never
+meets the old store's port.
 """
 
 import datetime
+import gc
 import json
 import logging
 import os
@@ -247,9 +254,13 @@ class Cluster:
             finally:
                 server.close()
             return ordered
-        # worker: connect with retry (master may be slow to bind)
+        # worker: connect with retry (master may be slow to bind), backing
+        # off from 10 ms to 1 s: an exchange a round (the consensus guard)
+        # whose master binds a moment after this worker arrives must not
+        # pay a whole second for it
         deadline = time.monotonic() + timeout
         last_err = None
+        delay = 0.01
         while time.monotonic() < deadline:
             try:
                 sock = socket.create_connection((self.master_host, self.port), timeout=10)
@@ -263,7 +274,8 @@ class Cluster:
                     sock.close()
             except (ConnectionError, OSError) as e:
                 last_err = e
-                time.sleep(1.0)
+                time.sleep(delay)
+                delay = min(delay * 2, 1.0)
         raise exc.PlatformError(
             "Could not synchronize with master {}".format(self.master_host),
             caused_by=last_err,
@@ -351,8 +363,10 @@ class AbortListener:
 
         Two ranks detecting the same dead host broadcast frames that differ
         only in ``source``; the event key drops it, so the second delivery
-        is a logged no-op instead of a double-fired abort. Distinct frames
-        (a different reason) still pass.
+        is a logged no-op instead of a double-fired abort or shrink.
+        Distinct frames (a later shrink generation, a different reason)
+        still pass; a ``verb: "shrink"`` frame reaches the handler like an
+        abort (``training/watchdog._on_abort_frame`` tells them apart).
         Dispatch is serialized under a lock so racing deliveries can't
         interleave — the first frame's verdict (exit code, survivor set)
         settles before the next is even considered.
@@ -405,8 +419,11 @@ def broadcast_abort(
     merge into the frame.
     ``peer_addrs`` optionally maps a host to its ``(addr, port)`` pair
     (loopback drills, where every "host" is 127.0.0.1 on a distinct port);
-    unmapped hosts resolve by name on the default port."""
+    without it, each host's listener port as it announced it at the
+    rendezvous (``distributed_run``), else the default port."""
     default_port = abort_port() if port is None else port
+    if peer_addrs is None and port is None:
+        peer_addrs = announced_abort_addrs()
     frame = {"type": "abort", "reason": reason, "source": source}
     if exit_code is not None:
         frame["exit_code"] = int(exit_code)
@@ -430,6 +447,73 @@ def broadcast_abort(
             logger.warning("abort broadcast to %s:%d failed: %s", addr, target_port, e)
     return delivered
 
+# {host: (host, abort listener port)} as each host announced it at the
+# rendezvous: several "hosts" of one box listen on distinct ports
+_abort_addrs = {}
+
+
+def _note_abort_ports(membership):
+    global _abort_addrs
+    _abort_addrs = {m["host"]: (m["host"], int(m["abort_port"])) for m in membership
+                    if isinstance(m, dict) and m.get("abort_port")}
+
+
+def announced_abort_addrs():
+    """{host: (addr, port)} of the abort listeners announced at the
+    rendezvous (empty before one)."""
+    return dict(_abort_addrs)
+
+
+REFORM_PORT_ENV = "SM_REFORM_PORT"
+# NOT the rendezvous (9099), heartbeat (9199), abort (9299) or consensus
+# (9399) ports: survivors re-rendezvous while the dead host's half-open
+# conversations on those ports may still be draining
+DEFAULT_REFORM_PORT = 9499
+
+
+def reform_port():
+    return env_port(REFORM_PORT_ENV, DEFAULT_REFORM_PORT)
+
+
+def reform_cluster(survivors, current_host, generation, payload=None, port=None, timeout=60.0,
+                   master_addr=None):
+    """Survivor re-rendezvous: one bounded allgather over the shrunken host
+    list -> (new Cluster, rank-ordered membership payloads).
+
+    The JAX package's: every survivor runs the same retried,
+    deadline-bounded ``Cluster.synchronize`` on ``SM_REFORM_PORT``,
+    exchanging ``{host, generation, ...payload}``, under ``utils.retry``
+    (site ``rendezvous.reform``: one port-rebind race must not turn a
+    survivable shrink into exit 82) with the ``rendezvous.reform`` fault
+    point inside each attempt. A reply of another generation is a hard
+    error: that survivor missed (or double-counted) a membership transition,
+    and the two sides would disagree on the world size. ``master_addr``
+    overrides the survivor master's address (loopback drills).
+    """
+    cluster = Cluster(survivors, current_host, port=reform_port() if port is None else port)
+    if master_addr is not None:
+        cluster.master_host = master_addr
+    message = {"host": current_host, "generation": int(generation)}
+    message.update(payload or {})
+
+    def _handshake():
+        fault_point("rendezvous.reform", host=current_host, generation=generation,
+                    survivors=len(survivors))
+        return cluster.synchronize(message, timeout=timeout)
+
+    from ..utils.retry import retry_transient
+
+    membership = retry_transient(_handshake, site="rendezvous.reform",
+                                 retry_on=(OSError, exc.PlatformError))
+    generations = {int(m.get("generation", -1)) for m in membership}
+    if generations != {int(generation)}:
+        raise exc.PlatformError(
+            "cluster reform handshake mixed shrink generations {} (expected {}): a "
+            "survivor missed a membership transition; aborting reform rather than "
+            "training under disagreeing world sizes".format(sorted(generations), generation))
+    return cluster, membership
+
+
 def distributed_run(
     exec_fun, args, include_in_training, hosts, current_host, port=DEFAULT_PORT, pre_exec=None
 ):
@@ -445,8 +529,10 @@ def distributed_run(
     """
     cluster = Cluster(hosts, current_host, port=port)
     membership = cluster.synchronize(
-        {"host": current_host, "include_in_training": bool(include_in_training)}
+        {"host": current_host, "include_in_training": bool(include_in_training),
+         "abort_port": abort_port()}
     )
+    _note_abort_ports(membership)
     participating = sorted(
         m["host"] for m in membership if m["include_in_training"]
     )
@@ -560,3 +646,67 @@ def destroy_process_group():
 
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+
+
+PROCESS_GROUP_TEARDOWN_S = 30.0
+
+
+def teardown_process_group(timeout_s=PROCESS_GROUP_TEARDOWN_S):
+    """Tear the default process group down under a deadline -> None.
+
+    The elastic reform's teardown: an NCCL group is aborted (its
+    communicators may be stuck on the dead peer), any other destroyed, on a
+    thread joined for ``timeout_s``, so that a hung teardown cannot wedge a
+    survivor; it raises ``PlatformError`` instead. A gloo group closes its
+    connections only once nothing references it any more, so the caller
+    drops its references first; the collection here frees the rest, and a
+    survivor blocked on this rank in a collective fails at once instead of
+    waiting out the collective timeout.
+    """
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        gc.collect()
+        return
+    from ..telemetry.tracing import trace_span
+
+    def _teardown():
+        c10d = dist.distributed_c10d
+        abort = getattr(c10d, "_abort_process_group", None)
+        if dist.get_backend() == "nccl" and abort is not None:
+            abort()
+        else:
+            dist.destroy_process_group()
+
+    errors = []
+
+    def _run():
+        try:
+            _teardown()
+        except Exception as e:  # a failed teardown of a broken group
+            errors.append(e)
+
+    with trace_span("reform.teardown"):
+        worker = threading.Thread(target=_run, daemon=True, name="process-group-teardown")
+        worker.start()
+        worker.join(timeout_s)
+        if worker.is_alive():
+            raise exc.PlatformError(
+                "the old process group did not tear down within {:.0f}s".format(timeout_s))
+        if errors:
+            logger.warning("process group teardown raised (%s); continuing", errors[0])
+        gc.collect()
+
+
+def reform_process_group(survivors, current_host, device, generation):
+    """Re-form the default process group over the sorted ``survivors``
+    (rank = index) after a shrink -> the new group.
+
+    The old group is torn down first (``teardown_process_group``, bounded;
+    a no-op when the drain already did it). The new group's store listens
+    on ``SM_PROCESS_GROUP_PORT`` + ``generation``: the old store's port may
+    still be in TIME_WAIT, or held by the dead peer's half-open connections.
+    """
+    teardown_process_group()
+    return init_process_group(survivors, current_host, device,
+                              port=process_group_port() + int(generation))

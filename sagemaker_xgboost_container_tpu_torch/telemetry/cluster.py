@@ -20,8 +20,9 @@ the process runtime gauges, and the multi-host heartbeats.
   per-rank ``cluster_*`` gauges and detects stragglers (a host whose
   round p50 exceeds ``SM_STRAGGLER_FACTOR`` x its peers' median) and stale
   hosts (``SM_STALE_HEARTBEATS`` missed intervals); with
-  ``SM_ABORT_ON_STALE`` a stale host triggers the coordinated abort
-  (``training/watchdog.py``). ``SM_CLUSTER_METRICS`` serves rank 0's
+  ``SM_ABORT_ON_STALE`` a stale host triggers the coordinated abort, with
+  ``SM_ELASTIC`` a shrink to the survivors where the floors allow
+  (``training/watchdog.py``, ``training/elastic.py``). ``SM_CLUSTER_METRICS`` serves rank 0's
   registry as Prometheus text.
 
 With ``SM_HEARTBEAT_INTERVAL_S`` unset the heartbeat plane is inert:
@@ -759,12 +760,14 @@ def start_cluster_telemetry(hosts, current_host, registry=None):
     metrics_server = None
     if rank == 0:
         on_stale = None
+        from ..training.elastic import is_active as elastic_active
         from ..training.watchdog import abort_on_stale_enabled
 
-        if abort_on_stale_enabled():
-            # promote detection into action: the coordinated abort, once per
-            # stale episode. The lazy import inside the hook keeps the
-            # telemetry package free of import cycles.
+        if abort_on_stale_enabled() or elastic_active():
+            # promote detection into action, once per stale episode: a
+            # shrink (SM_ELASTIC) or the coordinated abort, as the watchdog
+            # decides. The lazy import inside the hook keeps the telemetry
+            # package free of import cycles.
             def on_stale(stale_rank, stale_host, age_s):
                 from ..training.watchdog import handle_stale_host
 

@@ -60,7 +60,9 @@ FLEET_FLUSH_ENV = "SM_FLEET_FLUSH_S"
 STATUS_PORT_ENV = "SM_STATUS_PORT"
 
 # the control-plane port ladder, the JAX package's: 9099 rendezvous, 9199
-# heartbeat, 9299 abort, 9399 consensus, 9499 reform, 9599 ingest
+# heartbeat, 9299 abort, 9399 consensus, 9499 reform, 9599 ingest; the
+# process group's store listens on SM_PROCESS_GROUP_PORT (12355), and after
+# the g-th elastic shrink on SM_PROCESS_GROUP_PORT + g
 DEFAULT_FLEET_PORT = 9699
 DEFAULT_FLUSH_S = 2.0
 FLEET_VERSION = 1
@@ -744,9 +746,11 @@ class StatusServer:
         if self._collector is not None:
             doc["skew"] = self._collector.skew_snapshot(last=5)
             doc["fleet_spans"] = self._collector.span_counts()
-        # the JAX package's elastic membership log: without elastic reform
-        # the membership never changes, so it stays empty
-        doc["membership_log"] = []
+        # the elastic membership log: one entry a shrink (empty while the
+        # membership never changed)
+        from ..training.elastic import membership_log
+
+        doc["membership_log"] = membership_log()
         from .slo import active_window
 
         window = active_window()

@@ -34,17 +34,24 @@ multi-host branch: the hosts exchange "do I have data?" over the
 rendezvous channel (``parallel/distributed.distributed_run``; hosts
 without data exit 0), and each participant brings up, in order, the
 ``torch.distributed`` process group (one rank a host, on its card), the
-abort listener (``SM_ABORT_ON_STALE``), the heartbeat plane
-(``SM_HEARTBEAT_INTERVAL_S``), its tracing rank and the fleet plane
+elastic membership (``SM_ELASTIC``), the abort listener
+(``SM_ABORT_ON_STALE`` or ``SM_ELASTIC``), the heartbeat plane
+(``SM_HEARTBEAT_INTERVAL_S``), the consensus membership
+(``SM_CONSENSUS_EVERY``), its tracing rank and the fleet plane
 (``SM_FLEET_TRACE``, ``SM_STATUS_PORT``); then every rank trains on its own
 channel's rows with ``booster.train(..., group=)`` and the master (sorted
-hosts[0]) saves the model. k-fold CV across hosts runs the sequential fold
-loop, as the JAX package does there: each host splits its own rows, every
-fold trains with ``train(group=)``, the CV metric lines are the same on
-every host, and each host writes the out-of-fold predictions of its own
-rows. Refused across hosts with a ``UserError`` naming it:
-``SM_ELASTIC`` and ``SM_CONSENSUS_EVERY``, and ``tree_method=exact``
-(``booster.refuse_across_ranks``).
+hosts[0]) saves the model. With ``SM_ELASTIC`` the single-model branch
+runs under ``elastic.supervised_train``: after a shrink the survivors
+re-form the process group, agree one resume point (rank 0's last verified
+checkpoint, sent to every survivor over the new group, since only the
+master writes checkpoints) and train the remaining rounds over the new
+group, the cuts merged again over the survivors' rows. k-fold CV across
+hosts runs the sequential fold loop, as the JAX package does there: each
+host splits its own rows, every fold trains with ``train(group=)``, the CV
+metric lines are the same on every host, and each host writes the
+out-of-fold predictions of its own rows; a dead host takes the coordinated
+abort there. Refused across hosts with the JAX package's ``UserError``:
+``tree_method=exact`` (``booster.refuse_across_ranks``).
 
 Channel ingest (``_streaming_plan``, the JAX package's): ``SM_INGEST_MODE``
 ``auto`` (default) streams the channels chunk by chunk into pre-binned
@@ -59,6 +66,8 @@ to ``ingest-quarantine.json`` and stamped into the model's manifest.
 
 import logging
 import os
+import shutil
+import tempfile
 
 import numpy as np
 
@@ -310,16 +319,29 @@ def sagemaker_train(
 
         def _pre_exec(participating_hosts, current_host):
             # the JAX package's order: the process group first, then the
-            # abort listener (up before rank 0's aggregator can ever decide
-            # to broadcast), then the heartbeat plane over the participating
-            # hosts (hosts without data already left), the tracing rank, and
-            # the fleet plane last (span shipping needs the rank)
+            # elastic membership (its SM_ELASTIC snapshot gates the abort
+            # listener), the abort listener (up before rank 0's aggregator
+            # can ever decide to broadcast), the heartbeat plane over the
+            # participating hosts (hosts without data already left), the
+            # consensus membership, the tracing rank, and the fleet plane
+            # last (span shipping needs the rank)
             distributed.init_process_group(participating_hosts, current_host, dev)
             from ..telemetry import tracing
+            from . import consensus, elastic
             from .watchdog import start_abort_plane
 
+            if combine_train_val:
+                # k-fold CV trains a callback stack a fold, with no single
+                # resume point to re-form around: the plane stays
+                # unregistered and a dead host takes the coordinated abort
+                if elastic.resolve_elastic_config().enabled:
+                    logger.warning("SM_ELASTIC is not supported for k-fold CV jobs; a dead "
+                                   "host takes the coordinated abort")
+            else:
+                elastic.register_cluster(participating_hosts, current_host)
             start_abort_plane(participating_hosts, current_host)
             start_cluster_telemetry(participating_hosts, current_host)
+            consensus.register_cluster(participating_hosts, current_host)
             tracing.set_rank(sorted(participating_hosts).index(current_host))
             fleet.start_fleet_plane(participating_hosts, current_host)
 
@@ -355,24 +377,9 @@ def sagemaker_train(
         raise exc.PlatformError("Number of hosts should be an int greater than or equal to 1")
 
 
-# what the port does not run across hosts yet: (env knob, ROADMAP item)
-_HOST_KNOBS_REFUSED = (
-    ("SM_ELASTIC", "9c"),
-    ("SM_CONSENSUS_EVERY", "9c"),
-)
-
-
 def _refuse_across_hosts(train_cfg):
-    """Raise ``UserError`` naming what a multi-host job asks for that the
-    port does not train across hosts, before any data is read."""
-    def refuse(what, item):
-        raise exc.UserError(
-            "{} is not supported across hosts by the PyTorch port yet; ROADMAP Queue 1 "
-            "item {}. Train it on one host.".format(what, item))
-
-    for knob, item in _HOST_KNOBS_REFUSED:
-        if os.environ.get(knob, "").strip().lower() not in ("", "0", "false", "off"):
-            refuse("{}={}".format(knob, os.environ[knob]), item)
+    """Raise the JAX package's ``UserError`` for what does not train
+    across hosts (``tree_method=exact``), before any data is read."""
     booster.refuse_across_ranks(booster.TrainConfig(dict(train_cfg)))
 
 
@@ -398,17 +405,73 @@ def _stop_cluster_planes():
     stop_abort_plane()
 
 
+def _agree_resume_point(checkpoint_dir, device, tmp_dir):
+    """After a shrink: every survivor resumes where rank 0 does -> (model
+    path or None, iteration).
+
+    Only the master writes checkpoints, so a survivor re-reading its own
+    directory would restart at round 0 while rank 0 resumes at round k, and
+    their collectives would be out of step at once. Rank 0 reads its last
+    verified checkpoint (``load_checkpoint``; none: round 0) and broadcasts
+    the iteration and the file's bytes over the new group; every other rank
+    writes the bytes under ``tmp_dir`` and resumes from that file.
+    """
+    import torch
+    import torch.distributed as dist
+
+    from . import checkpointing
+
+    group = _training_group()
+    rank = dist.get_rank() if group is not None else 0
+    path, iteration, data = None, 0, b""
+    if rank == 0:
+        path, iteration = checkpointing.load_checkpoint(checkpoint_dir)
+        if path is not None:
+            with open(path, "rb") as f:
+                data = f.read()
+    if group is None:
+        return path, iteration
+    head = torch.tensor([iteration, len(data)], dtype=torch.int64, device=device)
+    dist.broadcast(head, src=0, group=group)
+    iteration, nbytes = (int(v) for v in head.cpu().tolist())
+    if nbytes:
+        if rank == 0:
+            buf = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(device)
+        else:
+            buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        dist.broadcast(buf, src=0, group=group)
+        if rank != 0:
+            path = os.path.join(tmp_dir, "{}.{}".format(checkpointing.CHECKPOINT_FILENAME,
+                                                        iteration - 1))
+            with open(path, "wb") as f:
+                f.write(buf.cpu().numpy().tobytes())
+    logger.info("elastic: every survivor resumes at iteration %d (%s)", iteration,
+                "rank 0's checkpoint" if nbytes else "no checkpoint: round 0")
+    return path, iteration
+
+
 def train_job(
     train_cfg, train_dmatrix, val_dmatrix, train_val_dmatrix, model_dir, checkpoint_dir,
     is_master, device=None,
 ):
     """Run boosting (or repeated k-fold CV) on this node on ``device``; save
-    the model(s) (master only)."""
+    the model(s) (master only).
+
+    With the elastic plane armed (``SM_ELASTIC``) the single-model branch
+    runs under ``elastic.supervised_train``: a shrink unwinds the boosting
+    loop, the survivors re-rendezvous, ``_on_reform`` re-forms the process
+    group and the planes over them and agrees the resume point, and
+    ``_train_once`` rebuilds the callbacks and the session over the new
+    group. ``is_master`` survives a shrink: the master is the sorted-first
+    host, and only its aggregator proposes a shrink (a dead master is not
+    survivable: the survivors exit 80)."""
     train_cfg = dict(train_cfg)
     train_cfg.pop("_num_devices", None)
     num_round = train_cfg.pop("num_round")
     save_model_on_termination = train_cfg.pop("save_model_on_termination", "false")
-    group = _training_group()
+    # no reference to the group is held here: an elastic reform can only
+    # close the old group's connections once nothing references it
+    multi_rank = _training_group() is not None
     # planned rounds feed the /status ETA, and kill -3 becomes a live
     # inspection dump instead of the default core-dump abort
     from ..telemetry import fleet
@@ -461,32 +524,68 @@ def train_job(
     try:
         kfold = train_cfg.pop("_kfold", None)
         if kfold is None:
+            from . import elastic
+
             watchlist = [(train_dmatrix, "train")]
             if val_dmatrix is not None:
                 watchlist.append((val_dmatrix, "validation"))
-            xgb_model, iteration, callbacks = callbacks_for(num_rows=train_dmatrix.num_row)
-            with xla_trace(), span("train", emit=True):
-                bst = booster.train(
-                    train_cfg,
-                    train_dmatrix,
-                    num_boost_round=num_round - iteration,
-                    evals=watchlist,
-                    feval=configured_feval,
-                    device=device,
-                    callbacks=callbacks,
-                    verbose_eval=False,
-                    xgb_model=xgb_model,
-                    group=group,
-                )
-            if group is not None:
+            agreed = {}
+
+            def _train_once():
+                xgb_model, iteration, callbacks = callbacks_for(num_rows=train_dmatrix.num_row)
+                if "resume" in agreed:
+                    xgb_model, iteration = agreed.pop("resume")
+                try:
+                    with xla_trace(), span("train", emit=True):
+                        return booster.train(
+                            train_cfg,
+                            train_dmatrix,
+                            num_boost_round=num_round - iteration,
+                            evals=watchlist,
+                            feval=configured_feval,
+                            device=device,
+                            callbacks=callbacks,
+                            verbose_eval=False,
+                            xgb_model=xgb_model,
+                            group=_training_group(),
+                        )
+                except elastic.ReformRequested:
+                    # the abandoned generation's threads (the round
+                    # watchdog's monitor, the checkpoint deleter) must not
+                    # outlive it
+                    elastic.drain_callbacks(callbacks)
+                    raise
+
+            def _on_reform(new_hosts, current_host):
+                # the process group first (as at start-up), then the planes
+                # over the survivors, then the one resume point
+                from ..telemetry import tracing
+                from .watchdog import start_abort_plane
+
+                distributed.reform_process_group(new_hosts, current_host, device,
+                                                 elastic.generation())
+                start_abort_plane(new_hosts, current_host)
+                start_cluster_telemetry(new_hosts, current_host)
+                tracing.set_rank(sorted(new_hosts).index(current_host))
+                fleet.start_fleet_plane(new_hosts, current_host)
+                if "dir" not in agreed:
+                    agreed["dir"] = tempfile.mkdtemp(prefix="elastic-resume-")
+                agreed["resume"] = _agree_resume_point(checkpoint_dir, device, agreed["dir"])
+
+            try:
+                bst = elastic.supervised_train(_train_once, on_reform=_on_reform)
+            finally:
+                if "dir" in agreed:
+                    shutil.rmtree(agreed["dir"], ignore_errors=True)
+            if multi_rank:
                 _stop_cluster_planes()
         else:
             bst = _cross_validate(
                 train_cfg, train_val_dmatrix, kfold, num_round, configured_feval,
                 callbacks_for, checkpoint_dir, early_stopping_rounds,
-                save_model_on_termination, device, group,
+                save_model_on_termination, device, _training_group(),
             )
-            if group is not None:
+            if multi_rank:
                 _stop_cluster_planes()
     except Exception as e:
         for customer_error_message in CUSTOMER_ERRORS:
@@ -536,7 +635,8 @@ def train_job(
 
 def _save_with_manifest(model, model_location, train_cfg):
     """Save ``model`` and its manifest (digest, config fingerprint, the
-    streaming ingest's quarantine record where the job skipped chunks, and
+    elastic membership log after a shrink, the streaming ingest's
+    quarantine record where the job skipped chunks, and
     under ``SM_MODEL_TELEMETRY`` the learning-curve summary and the drift
     baseline), which serving digest-verifies at load. The manifest is
     best-effort: an ``OSError`` writing it warns and the model loads
@@ -547,9 +647,12 @@ def _save_with_manifest(model, model_location, train_cfg):
         from ..telemetry import model as model_telemetry
         from ..utils import integrity
 
+        from . import elastic
+
         integrity.write_manifest(
             model_location,
             fingerprint=integrity.config_fingerprint(train_cfg),
+            membership_log=elastic.membership_log() or None,
             quarantine=streaming.quarantine_record(),
             learning=model_telemetry.learning_summary(),
             drift_baseline=model_telemetry.drift_baseline(),

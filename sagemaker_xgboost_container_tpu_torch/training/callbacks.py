@@ -171,10 +171,12 @@ def get_callbacks(
 ):
     """-> (xgb_model path or None, start iteration, callback list).
 
-    Order, the JAX package's: monitor, checkpoint saver (master only),
-    intermediate model + SIGTERM handler, early stopping, the round watchdog
-    (``SM_ROUND_DEADLINE_S``), and ``RoundTimer`` last, so each round's
-    record drains the phases the callbacks before it recorded. A
+    Order, the JAX package's: monitor, the consensus guard
+    (``SM_CONSENSUS_EVERY``), checkpoint saver (master only), intermediate
+    model + SIGTERM handler, the elastic drain point (``SM_ELASTIC``), early
+    stopping, the round watchdog (``SM_ROUND_DEADLINE_S``), and
+    ``RoundTimer`` last, so each round's record drains the phases the
+    callbacks before it recorded. A
     cross-validation ``fold`` keeps its checkpoints in ``model-{fold}``
     under ``checkpoint_dir`` and its intermediate model as
     ``xgboost-model-{fold}``.
@@ -182,10 +184,11 @@ def get_callbacks(
     ``train_cfg``, when given, feeds the integrity layer: its config
     fingerprint is stamped into every checkpoint manifest and checked
     against the resume candidate's (a warning, or a refusal under
-    ``SM_RESUME_STRICT=true``). The multi-host consensus guard and the
-    elastic callback are not on one host's path.
+    ``SM_RESUME_STRICT=true``); a world-size change that the elastic
+    membership log records resumes cleanly.
     """
     from ..utils import integrity
+    from . import elastic
 
     if checkpoint_dir and fold is not None:
         checkpoint_dir = os.path.join(checkpoint_dir, "model-{}".format(fold))
@@ -193,17 +196,27 @@ def get_callbacks(
     xgb_model, iteration = checkpointing.load_checkpoint(checkpoint_dir)
     if xgb_model is not None:
         if fingerprint is not None:
-            integrity.validate_resume(xgb_model, fingerprint)
+            integrity.validate_resume(xgb_model, fingerprint,
+                                      membership_log=elastic.membership_log())
         logger.info("Checkpoint loaded from %s", xgb_model)
         logger.info("Resuming from iteration %s", iteration)
 
     callbacks = [_TimedCallback(EvaluationMonitor(), "eval_monitor")]
 
+    # the consensus guard (SM_CONSENSUS_EVERY): before the checkpoint saver,
+    # so that on the round it finds a divergence the abort comes before that
+    # round's checkpoint, and a restart resumes from a round that passed
+    from .consensus import maybe_consensus_guard
+
+    guard = maybe_consensus_guard()
+    if guard is not None:
+        callbacks.append(_TimedCallback(guard, "consensus"))
+
     if checkpoint_dir and is_master:
         callbacks.append(_TimedCallback(
             checkpointing.SaveCheckpointCallBack(
                 checkpoint_dir, start_iteration=iteration, num_round=num_round,
-                fingerprint=fingerprint),
+                fingerprint=fingerprint, membership_provider=elastic.membership_log),
             "checkpoint",
         ))
 
@@ -214,6 +227,13 @@ def get_callbacks(
             "intermediate_save",
         ))
         add_sigterm_handler(model_dir, is_master)
+
+    # the elastic drain point (SM_ELASTIC): after the savers, so the round
+    # that just finished is on disk before the loop unwinds, and before
+    # early stopping, so a reform round never counts as stagnation
+    elastic_cb = elastic.maybe_elastic_callback()
+    if elastic_cb is not None:
+        callbacks.append(_TimedCallback(elastic_cb, "elastic"))
 
     if early_stopping_data_name and early_stopping_metric and early_stopping_rounds:
         callbacks.append(_TimedCallback(

@@ -17,7 +17,8 @@ The port's counterpart of ``sagemaker_xgboost_container_tpu/training/checkpointi
   every round so SIGTERM (spot interruption / HPO early stop) always leaves
   a fresh model behind,
 * each checkpoint gets a manifest sidecar (``<name>.manifest``: sha256, byte
-  count, iteration and the job's config fingerprint), written after the
+  count, iteration, the job's config fingerprint and, after an elastic
+  shrink, the membership log (``training/elastic.py``)), written after the
   model with the same atomic, retried write; the intermediate model gets
   none (a SIGTERM between its two renames would leave a sidecar describing
   the previous round's bytes),
@@ -148,7 +149,8 @@ def load_checkpoint(checkpoint_dir):
     return None, 0
 
 
-def _atomic_save(model, directory, final_name, iteration=None, fingerprint=None):
+def _atomic_save(model, directory, final_name, iteration=None, fingerprint=None,
+                 membership_log=None):
     """Save ``model`` to a temp file in ``directory`` and rename it to
     ``final_name``, retrying transient ``OSError``s; each attempt uses a
     fresh temp file and removes it when it fails. A sidecar of
@@ -157,7 +159,8 @@ def _atomic_save(model, directory, final_name, iteration=None, fingerprint=None)
 
     With ``iteration`` or ``fingerprint`` (a checkpoint), a manifest
     (sha256 and byte count of the temp file, taken before the rename, the
-    iteration and the fingerprint) is written after the model: a crash in
+    iteration, the fingerprint and the membership log) is written after the
+    model: a crash in
     between leaves a manifest-less checkpoint (the parse fallback), never a
     manifest of a file that is not there."""
     digest_box = {}
@@ -198,6 +201,7 @@ def _atomic_save(model, directory, final_name, iteration=None, fingerprint=None)
         fingerprint=fingerprint,
         digest=digest_box["sha256"],
         size=digest_box["bytes"],
+        membership_log=membership_log,
     )
     _atomic_write_manifest(directory, final_name + MANIFEST_SUFFIX, manifest)
 
@@ -244,7 +248,7 @@ class SaveCheckpointCallBack:
     SENTINEL = None
 
     def __init__(self, checkpoint_dir, start_iteration=0, max_to_keep=5, num_round=None,
-                 fingerprint=None):
+                 fingerprint=None, membership_provider=None):
         self.checkpoint_dir = checkpoint_dir
         self.max_to_keep = max_to_keep
         self.start_iteration = start_iteration
@@ -252,6 +256,9 @@ class SaveCheckpointCallBack:
         # the config fingerprint stamped into every manifest; a restart's
         # validate_resume compares it with the live job's
         self.fingerprint = fingerprint
+        # elastic membership: a callable -> the transition log, called at
+        # every save, so a shrink lands in the very next sidecar
+        self.membership_provider = membership_provider
         os.makedirs(checkpoint_dir, exist_ok=True)
         self.previous_checkpoints = {
             os.path.join(checkpoint_dir, f) for f in os.listdir(checkpoint_dir)
@@ -267,7 +274,9 @@ class SaveCheckpointCallBack:
 
     def after_iteration(self, model, epoch, evals_log):
         _atomic_save(model, self.checkpoint_dir, "{}.{}".format(CHECKPOINT_FILENAME, epoch),
-                     iteration=epoch, fingerprint=self.fingerprint)
+                     iteration=epoch, fingerprint=self.fingerprint,
+                     membership_log=(self.membership_provider()
+                                     if self.membership_provider else None))
         # /status carries the last saved checkpoint: the resume point of a
         # restart now
         from ..telemetry import fleet

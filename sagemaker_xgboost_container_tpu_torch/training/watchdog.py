@@ -13,21 +13,27 @@ The port's counterpart of the local half of the JAX package's
   numeric-poison guard (exit 87) and the device-OOM path (exit 86).
   Idempotent: concurrent triggers flush once and exit once.
 
-* **abort plane** (``SM_ABORT_ON_STALE``): every participating host runs
-  an ``AbortListener`` (``parallel/distributed.py``); when rank 0's
-  heartbeat aggregator declares a host stale it broadcasts one abort frame
-  to every peer and aborts itself with ``EXIT_CLUSTER_ABORT`` (80), so the
-  whole cluster exits cleanly instead of waiting in a collective. A
-  collective that fails (gloo raises when a peer's connection closes) takes
-  the same coordinated abort while the plane is up.
+* **abort plane** (``SM_ABORT_ON_STALE``, or ``SM_ELASTIC``): every
+  participating host runs an ``AbortListener``
+  (``parallel/distributed.py``); when rank 0's heartbeat aggregator
+  declares a host stale it broadcasts one abort frame to every peer and
+  aborts itself with ``EXIT_CLUSTER_ABORT`` (80), so the whole cluster exits
+  cleanly instead of waiting in a collective. A collective that fails (gloo
+  raises when a peer's connection closes) takes the same coordinated abort
+  while the plane is up.
+* **elastic shrink** (``SM_ELASTIC``, ``training/elastic.py``): rank 0's
+  verdict becomes a shrink where the floors allow, carried by ``verb:
+  "shrink"`` frames on the same channel, and a failed collective waits for
+  that verdict (up to ``SM_REFORM_DRAIN_TIMEOUT_S``) and unwinds the round
+  with ``ReformRequested`` instead of exiting 80.
 
 The exit is ``os._exit`` from whichever thread asks, because the main
 thread may be blocked inside a device call or a collective that Python
 cannot unwind (``torch.distributed`` waits release the interpreter lock,
 so the listener's thread runs while the main thread waits).
 
-Inert by default: no deadline, no thread; ``SM_ABORT_ON_STALE`` unset, no
-listener socket.
+Inert by default: no deadline, no thread; ``SM_ABORT_ON_STALE`` and
+``SM_ELASTIC`` unset, no listener socket.
 """
 
 import logging
@@ -202,6 +208,13 @@ def _frame_exit_code(msg):
 
 
 def _on_abort_frame(msg):
+    if msg.get("verb") == "shrink":
+        # a survivor set, not an exit: the shrink plane takes it (and aborts
+        # where this host was itself declared dead)
+        from . import elastic
+
+        elastic.on_shrink_frame(msg)
+        return
     request_abort(
         str(msg.get("reason", "cluster_abort")),
         _frame_exit_code(msg),
@@ -215,17 +228,20 @@ _plane_hosts = None   # (sorted participating hosts, this host) while the plane 
 
 
 def start_abort_plane(hosts, current_host, port=None):
-    """Start this host's abort listener, gated on ``SM_ABORT_ON_STALE``.
+    """Start this host's abort listener, gated on ``SM_ABORT_ON_STALE`` or
+    an armed elastic plane (its shrink frames come over the same channel).
 
     Every participant, rank 0 included, gets a listener; rank 0 also wires
     its heartbeat aggregator's stale-host detection to
     :func:`handle_stale_host` (``telemetry/cluster.py``). Returns the
     listener, or None when the plane is off or there is one host. The
     active listener is tracked so that :func:`stop_abort_plane` can tear it
-    down.
+    down (a membership reform rebinds it).
     """
     global _active_listener, _plane_hosts
-    if not abort_on_stale_enabled() or len(hosts) <= 1:
+    from . import elastic
+
+    if not (abort_on_stale_enabled() or elastic.is_active()) or len(hosts) <= 1:
         return None
     from ..parallel.distributed import AbortListener
 
@@ -259,10 +275,29 @@ def stop_abort_plane():
 
 
 def handle_stale_host(hosts, current_host, stale_rank, stale_host, age_s):
-    """Rank 0's decision for a stale host: the coordinated abort (exit 80).
-    The JAX package's shrink-to-continue (``SM_ELASTIC``) is not ported."""
+    """Rank 0's decision for a stale host: with the elastic plane armed and
+    its floors satisfied, a shrink to the survivors; otherwise the
+    coordinated abort (exit 80), as with ``SM_ELASTIC`` unset.
+
+    One transition at a time: a stale verdict while a reform is in flight
+    is deferred, not folded in (a second proposal would reuse the
+    generation with a survivor set that still holds the first dead host).
+    The re-formed cluster's aggregator re-detects a host still dead.
+    """
+    from . import elastic
+
+    if elastic.is_active() and elastic.pending_reform() is not None:
+        logger.warning("stale host %s (rank %d) detected while a membership reform is in "
+                       "flight; deferring to the re-formed cluster's aggregator", stale_host,
+                       stale_rank)
+        return
+    survivors = elastic.propose_survivors(stale_host)
+    if survivors is not None:
+        elastic.coordinate_shrink(survivors, "stale_host", stale_rank=stale_rank,
+                                  stale_host=stale_host, age_s=round(age_s, 1))
+        return
     coordinate_abort(
-        hosts, current_host, "stale_host",
+        hosts, current_host, "stale_host", peer_addrs=elastic.peer_addrs(),
         stale_rank=stale_rank, stale_host=stale_host, age_s=round(age_s, 1),
     )
 
@@ -287,13 +322,31 @@ def coordinate_abort(
 
 
 def on_collective_failure(error):
-    """A training-path collective raised: a peer is gone. With the abort
-    plane up, the coordinated abort (exit 80, the peers told); otherwise
-    ``PlatformError``, which fails the job."""
+    """A training-path collective raised: a peer is gone.
+
+    With the elastic plane armed, the death shows here within a fraction of
+    a second, before rank 0 can call the host stale: wait up to
+    ``SM_REFORM_DRAIN_TIMEOUT_S`` for the shrink verdict and raise
+    ``ReformRequested`` out of the round (its partial work is discarded).
+    Without a verdict (the plane gave up, or rank 0 itself died: not
+    survivable), and with the abort plane up otherwise, the coordinated
+    abort (exit 80, the peers told); with no plane, ``PlatformError``, which
+    fails the job."""
     from ..toolkit import exceptions as exc
+    from . import elastic
 
     with _listener_lock:
         plane = _plane_hosts
+    if plane is not None and elastic.is_active():
+        wait_s = elastic.drain_timeout_s()
+        logger.warning("a collective failed (%s); waiting up to %.0fs for the shrink verdict",
+                       str(error)[:200], wait_s)
+        from ..telemetry.cluster import ROUND_STATE
+
+        req = elastic.await_reform(wait_s, epoch=ROUND_STATE.snapshot()["round"])
+        if req is not None:
+            raise req
+        logger.error("no shrink verdict within %.0fs; taking the coordinated abort", wait_s)
     if plane is not None:
         hosts, current_host = plane
         coordinate_abort(hosts, current_host, "collective_failed",

@@ -102,8 +102,15 @@ def forest_digest(model):
     (i64), so (3 nodes + 5) never collides with (5 + 3). Before the node
     count come the categorical nodes in id order: node id and set size
     (i64), then the set (i64), so {1: [2]} never collides with
-    {1: [], 2: []}."""
+    {1: [], 2: []}. A linear model (gblinear, no trees) digests its weights
+    and bias (f32), after the bytes ``linear``: the JAX package's digest."""
     h = hashlib.sha256()
+    if getattr(model, "trees", None) is None:
+        h.update(b"linear")
+        for name in ("weights", "bias"):
+            h.update(np.ascontiguousarray(
+                np.asarray(getattr(model, name, np.zeros(0)), np.float32)).tobytes())
+        return h.hexdigest()
     h.update(np.asarray(model.tree_info, np.int32).tobytes())
     h.update(np.asarray(model.iteration_indptr, np.int64).tobytes())
     for tree in model.trees:
@@ -170,13 +177,15 @@ def dump_manifest_atomic(target_path, manifest, tmp_path):
 
 
 def write_manifest(model_path, iteration=None, fingerprint=None, quarantine=None,
-                   learning=None, drift_baseline=None):
+                   learning=None, drift_baseline=None, membership_log=None):
     """Write ``model_path``'s sidecar manifest (the final model's; the
     checkpoints' go through the checkpoint layer's retried writer).
     ``quarantine``: the streaming ingest's record of the chunks the job
     skipped (``data/streaming.quarantine_record``), None when it skipped
-    none. -> the manifest dict."""
+    none; ``membership_log``: the elastic plane's transitions, None when the
+    membership never changed. -> the manifest dict."""
     manifest = build_manifest(model_path, iteration=iteration, fingerprint=fingerprint,
+                              membership_log=membership_log,
                               quarantine=quarantine, learning=learning,
                               drift_baseline=drift_baseline)
     target = manifest_path(model_path)

@@ -9,8 +9,9 @@ process group.
   shards, with a two-lane ``trace-fleet.json``;
 * host loss: the survivor exits 80 (the coordinated abort) well within the
   heartbeat timeout, leaves one ``training.abort`` record and no model;
-* what does not train across hosts is refused by name (k-fold CV across
-  hosts: ``tests/test_torch_distributed_options.py``).
+* what does not train across hosts is refused by name, and the elastic and
+  consensus knobs are not (k-fold CV across hosts:
+  ``tests/test_torch_distributed_options.py``).
 """
 
 import json
@@ -212,16 +213,13 @@ def test_host_loss_survivor_exits_80(tmp_path):
 
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("hp, env, named", [
-    ({}, {"SM_ELASTIC": "1"}, "SM_ELASTIC"),
-    ({}, {"SM_CONSENSUS_EVERY": "5"}, "SM_CONSENSUS_EVERY"),
     ({"tree_method": "approx"}, {"SM_INGEST_MODE": "chunked"}, "SM_INGEST_MODE=chunked"),
     ({"tree_method": "exact"}, {}, "tree_method='exact'"),
 ])
 def test_entry_refuses_across_hosts(tmp_path, monkeypatch, hp, env, named):
-    """Refused by name before any peer is contacted: the knobs of ROADMAP
-    items not ported yet, naming the item; ``tree_method=exact`` with the
-    JAX package's message; and streaming ingest with a config it cannot
-    serve (approx re-sketches from floats) with the JAX package's
+    """Refused by name before any peer is contacted: ``tree_method=exact``
+    with the JAX package's message, and streaming ingest with a config it
+    cannot serve (approx re-sketches from floats) with the JAX package's
     ``UserError``."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -238,12 +236,42 @@ def test_entry_refuses_across_hosts(tmp_path, monkeypatch, hp, env, named):
             str(tmp_path / "model"), ur.CLUSTER_HOSTS, "127.0.0.1", {}, device="cpu")
     if "exact" in named:
         assert "it doesn't in XGBoost either" in str(err.value)
-    elif "INGEST" in named:
+    else:
         import importlib
 
         jax_at = importlib.import_module("sagemaker_xgboost_container_tpu.training.algorithm_train")
         with pytest.raises(jax_at.exc.UserError) as jax_err:
             jax_at._streaming_plan(dict(ur.ENTRY_HP, **hp), 1, False, False, 2)
         assert str(err.value) == str(jax_err.value)
-    else:
-        assert "ROADMAP Queue 1 item 9" in str(err.value)
+
+
+class _Rendezvous(Exception):
+    pass
+
+
+@pytest.mark.parametrize("env", [
+    {"SM_ELASTIC": "1"},
+    {"SM_CONSENSUS_EVERY": "5"},
+    {"SM_ELASTIC": "true", "SM_CONSENSUS_EVERY": "1", "SM_ELASTIC_MIN_HOSTS": "2"},
+])
+def test_entry_accepts_elastic_and_consensus_knobs(tmp_path, monkeypatch, env):
+    """``SM_ELASTIC`` and ``SM_CONSENSUS_EVERY`` train across hosts: a
+    multi-host job with them reads its data and reaches the rendezvous (the
+    drills: ``tests/test_torch_elastic_drills.py``,
+    ``tests/test_torch_consensus.py``)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+
+    def reached(hosts):
+        raise _Rendezvous(hosts)
+
+    monkeypatch.setattr(algorithm_train.distributed, "wait_hostname_resolution", reached)
+    channel = {"ContentType": "text/csv", "TrainingInputMode": "File",
+               "S3DistributionType": "FullyReplicated"}
+    train_dir = tmp_path / "train"
+    train_dir.mkdir()
+    (train_dir / "data.csv").write_text("1,0.5\n0,0.25\n")
+    with pytest.raises(_Rendezvous):
+        algorithm_train.sagemaker_train(
+            dict(ur.ENTRY_HP), {"train": channel}, str(train_dir), None,
+            str(tmp_path / "model"), ur.CLUSTER_HOSTS, "127.0.0.1", {}, device="cpu")
