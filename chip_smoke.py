@@ -379,6 +379,25 @@ Phases (each prints its own lines; any failure exits non-zero):
    faulted) at once: 20c exits 81 on both with one training.divergence
    record each carrying both digests, 20d's survivors exit 82 with a
    flight-recorder dump each.
+21. one training process per local GPU through the train entry point
+   (`--entry-child` processes; `SM_LOCAL_RANKS`, `parallel/local.py`) on
+   19a's channels (the main path's 1M + 100k rows on the 2^-9 grid,
+   whole-file ingest), 10 rounds. 21a: no SM_LOCAL_RANKS, one card: no
+   process spawned, 80 / 10 launches, the model within phase 8's tolerance
+   of 21b's. 21b: SM_LOCAL_RANKS=2 over gloo, both ranks on cuda:0: exit 0,
+   one model, each HPO line once, 80 / 10 launches on each rank (the worker
+   prints its own, `local_rank_child`), the session's cuts' sha256 equal to
+   21a's, the validation logloss within OPTION_TOL x max(1, |logloss|) of
+   21a's; rounds/s a rank over rounds 2-9, the histogram collective's ms a
+   round, each process's peak RSS (the leader's os.wait4, and VmRSS sampled
+   every 50 ms in each), the seconds from start to the first round. 21c:
+   two entry hosts x SM_LOCAL_RANKS=2 (four gloo ranks on the card) on
+   phase 8's channels halved: both exit 0, host 0 alone writes the model;
+   at the same time the same job with host 1's local rank 1 SIGKILLed at
+   its 3rd round end (`SM_LOCAL_FAULT_SPEC`): both hosts exit 80, the
+   failure file names the dead rank, no worker is left. 21d, only with two
+   GPUs: 21b over NCCL between two cards under both GRAFT_HIST_COMM
+   lowerings; else it prints `nccl_local: not run (1 GPU)`.
 
 At the end, one wall-time line a phase. The second line from the end is
 the kernels JSON line, the last line the device JSON line. Needs one CUDA
@@ -4375,9 +4394,12 @@ def entry_child():
     from sagemaker_xgboost_container_tpu_torch.training import (algorithm_train, elastic, entry,
                                                                 watchdog)
 
+    _sample_rss()
+
     def report():
         print(json.dumps({"launches": dict(hist.LAUNCHES), "consensus_checks": int(
-            snapshot_fields(REGISTRY).get("consensus_checks_total", 0))}), flush=True)
+            snapshot_fields(REGISTRY).get("consensus_checks_total", 0)),
+            "rss_peak_mb": _rss_peak_mb()}), flush=True)
 
     real_exit = watchdog._exit
 
@@ -4405,7 +4427,75 @@ def entry_child():
         algorithm_train.train_job = copy_model
     if os.environ.get("CHIP_SMOKE_INGEST_REPORT"):
         _report_ingest(atexit)
+    from sagemaker_xgboost_container_tpu_torch.parallel import local
+
+    spawn = local.spawn_local_ranks
+
+    def spawn_counted(topo, spec, _target, on_failure):
+        # the workers report their own launch counts as they finish
+        return spawn(topo, spec, local_rank_child, on_failure)
+
+    local.spawn_local_ranks = spawn_counted
     entry.main()
+
+
+_RSS_PEAK = {}
+
+
+def _rss_mb():
+    """This process's resident set now (VmRSS), MiB."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024.0
+    except OSError:
+        pass
+    return float("nan")
+
+
+def _sample_rss(every_s=0.05):
+    """Track this process's peak VmRSS from a daemon thread, sampled every
+    ``every_s``: the card's sandbox kernel reports no VmHWM, and a spawned
+    process's ru_maxrss starts from its spawner's."""
+    def run():
+        while True:
+            rss = _rss_mb()
+            if not rss <= _RSS_PEAK.get("mb", 0.0):
+                _RSS_PEAK["mb"] = rss
+            time.sleep(every_s)
+
+    threading.Thread(target=run, daemon=True, name="rss-sampler").start()
+
+
+def _rss_peak_mb():
+    """This process's peak resident set as sampled (``_sample_rss``), MiB."""
+    return max(_RSS_PEAK.get("mb", float("nan")), _rss_mb())
+
+
+def local_rank_child(local_rank, spec, parent_pid, err_path):
+    """A local rank that an `--entry-child` leader spawns (phase 21): the
+    port's worker entry (`training.entry.local_rank_main`), printing one
+    `{"rank_launches": ...}` line (its launch counts, its collectives'
+    calls and host seconds, its peak RSS) as its training returns."""
+    from sagemaker_xgboost_container_tpu_torch.ops import histogram as hist
+    from sagemaker_xgboost_container_tpu_torch.parallel import collectives
+    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train, entry
+
+    _sample_rss()
+    run = algorithm_train.run_local_rank
+
+    def counted(rank, worker_spec):
+        try:
+            return run(rank, worker_spec)
+        finally:
+            print(json.dumps({"rank_launches": dict(hist.LAUNCHES), "local_rank": rank,
+                              "collective_calls": collectives.STATS["calls"],
+                              "collective_s": round(collectives.STATS["seconds"], 6),
+                              "rss_peak_mb": _rss_peak_mb()}), flush=True)
+
+    algorithm_train.run_local_rank = counted
+    entry.local_rank_main(local_rank, spec, parent_pid, err_path)
 
 
 def _digest(*arrays):
@@ -6262,6 +6352,245 @@ def _elastic_drills(tag, tmp, channels):
 
 
 # (phase, wall seconds) of this run, printed at its end
+# ---------------------------------------------------------------- phase 21
+
+# one training process per local GPU (SM_LOCAL_RANKS, parallel/local.py)
+# through the train entry point. The box has one card, so two local ranks
+# share it over gloo (NCCL refuses two ranks on one device); 21d runs NCCL
+# between two cards only where there are two
+LOCAL_ROUNDS = 10
+LOCAL_HP = dict(STREAM_HP, num_round=str(LOCAL_ROUNDS))
+LOCAL_HOSTS_HP = dict(DIST_ENTRY_HP, num_round=str(LOCAL_ROUNDS))
+LOCAL_KILL_ROUND = 3
+LOCAL_PIDS = re.compile(r"spawned local ranks .* pids \[([0-9, ]*)\]")
+
+
+def run_local_ranks(torch, tag):
+    """Phase 21: local ranks through the train entry point (see the module
+    docstring)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_local_") as tmp:
+        _local_one_host(tag, tmp)
+        _local_two_hosts(tag, tmp)
+        _local_nccl(torch, tag, tmp)
+    print("{} | local ranks phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _local_env(tmp, name, train_dir, val_dir, hp, extra):
+    """The env of one host's `--entry-child` on the given channels."""
+    root = os.path.join(tmp, name)
+    os.makedirs(root)
+    channel = {"ContentType": "csv", "TrainingInputMode": "File",
+               "S3DistributionType": "FullyReplicated"}
+    for fname, doc in (("hp.json", hp),
+                       ("data.json", {"train": channel, "validation": dict(channel)})):
+        with open(os.path.join(root, fname), "w") as f:
+            json.dump(doc, f)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("SM_", "SAGEMAKER_"))}
+    env.update({
+        "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+        "SM_INPUT_TRAINING_CONFIG_FILE": os.path.join(root, "hp.json"),
+        "SM_INPUT_DATA_CONFIG_FILE": os.path.join(root, "data.json"),
+        "SM_CHECKPOINT_CONFIG_FILE": os.path.join(root, "none.json"),
+        "SM_CHANNEL_TRAIN": train_dir, "SM_CHANNEL_VALIDATION": val_dir,
+        "SM_MODEL_DIR": os.path.join(root, "model"),
+        "SM_OUTPUT_DIR": os.path.join(root, "output"),
+        "SM_OUTPUT_DATA_DIR": os.path.join(root, "output", "data"),
+        "SM_HOSTS": '["algo-1"]', "SM_CURRENT_HOST": "algo-1",
+        "SM_PROCESS_GROUP_PORT": str(free_port()),
+        "SM_INGEST_MODE": "whole", "CHIP_SMOKE_INGEST_REPORT": "1"})
+    env.update(extra)
+    return env, root
+
+
+def _rank_reports(out):
+    """{local rank: the `{"rank_launches": ...}` line} of a leader's workers."""
+    return {r["local_rank"]: r for r in (json.loads(line) for line in out.splitlines()
+                                         if line.startswith('{"rank_launches"'))}
+
+
+def _local_pids(out):
+    return [int(v) for m in LOCAL_PIDS.finditer(out) for v in m.group(1).split(",")
+            if v.strip()]
+
+
+def _pid_alive(pid):
+    try:
+        with open("/proc/{}/stat".format(pid)) as f:
+            return f.read().rsplit(")", 1)[-1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _first_round_s(child):
+    """Seconds from the child's start to its first HPO line."""
+    for stamp, line in zip(child.stamps, child.lines):
+        if HPO_LINE.match(line):
+            return stamp - child.started_at
+    return float("nan")
+
+
+def _local_one_host(tag, tmp):
+    """21a: one rank (no SM_LOCAL_RANKS) and 21b: SM_LOCAL_RANKS=2 over
+    gloo on the one card, on 19a's channels at the main path's width."""
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    X, y = exact_rows()
+    train_dir, val_dir = os.path.join(tmp, "main", "train"), os.path.join(tmp, "main", "val")
+    write_grid_csv(train_dir, X[:N_TRAIN], y[:N_TRAIN])
+    write_grid_csv(val_dir, X[N_TRAIN:], y[N_TRAIN:])
+    runs = {}
+    for name, extra in (("21a", {}), ("21b", {"SM_LOCAL_RANKS": "2",
+                                              "SM_PROCESS_GROUP_BACKEND": "gloo"})):
+        env, root = _local_env(tmp, name, train_dir, val_dir, LOCAL_HP, extra)
+        child = _wait4_child(ENTRY_CHILD_COMMAND, env)
+        code = child.wait(600)
+        check(code == 0, "{}: exit {}: {}".format(name, code, "".join(child.err)[-3000:]))
+        runs[name] = (child, root)
+    (a, root_a), (b, root_b) = runs["21a"], runs["21b"]
+    lines = {n: [l for l in c.out.splitlines() if HPO_LINE.match(l)]
+             for n, (c, _r) in runs.items()}
+    ll = {n: _last_metric(c.out, "validation-logloss") for n, (c, _r) in runs.items()}
+    ingest = {n: _ingest_report(c.out) for n, (c, _r) in runs.items()}
+    launches = {n: _child_launches(c.out) for n, (c, _r) in runs.items()}
+    workers = _rank_reports(b.out)
+    want = {"hist_kernel": 8 * LOCAL_ROUNDS, "totals_kernel": LOCAL_ROUNDS}
+    models = [Forest.load_model(os.path.join(r, "model", "xgboost-model"), device="cpu")
+              for r in (root_a, root_b)]
+    cmp = _compare(models[0], models[1], X[:20_000], X[N_TRAIN:N_TRAIN + 10_000])
+    records = _records(b.out, "training.round")[1:LOCAL_ROUNDS - 1]   # rounds 2-9
+    rate = len(records) / (sum(r["round_ms"] for r in records) / 1000.0)
+    comm_ms = float(np.mean([r.get("hist_comm_ms", 0.0) for r in records]))
+    worker = workers.get(1, {})
+    rounds_s_a = _records(a.out, "training.round")[1:LOCAL_ROUNDS - 1]
+    rate_a = len(rounds_s_a) / (sum(r["round_ms"] for r in rounds_s_a) / 1000.0)
+    print("{} | local 21a (no SM_LOCAL_RANKS): exit 0, spawned {} process(es); launches {}; "
+          "{:.3f} rounds/s over rounds 2-9; peak RSS {:.1f} MiB (os.wait4); {:.1f} s from "
+          "start to the first round; last validation logloss {:.6f}".format(
+              tag, len(_local_pids(a.out)), json.dumps(launches["21a"]), rate_a,
+              _maxrss_mb(a.out), _first_round_s(a), ll["21a"]), flush=True)
+    print("{} | local 21b (SM_LOCAL_RANKS=2, gloo, both ranks on cuda:0): exit 0; {} HPO "
+          "lines, each once: {}; launches leader {} / local rank 1 {}; cuts sha256 {} "
+          "(21a's {}); {:.3f} rounds/s a rank over rounds 2-9; histogram collective "
+          "{:.3f} ms a round (leader's records), local rank 1's collectives {} calls "
+          "{:.3f} s in all; peak RSS: the leader's os.wait4 {:.1f} MiB; VmRSS sampled every "
+          "50 ms: leader {:.1f} MiB, local rank 1 {:.1f} MiB; {:.1f} s from "
+          "start to the first round; last validation logloss {:.6f} (21a's {:.6f}); "
+          "against 21a: {}".format(
+              tag, len(lines["21b"]), len(set(lines["21b"])) == len(lines["21b"]),
+              json.dumps(launches["21b"]), json.dumps(worker.get("rank_launches")),
+              ingest["21b"]["cuts"], ingest["21a"]["cuts"], rate, comm_ms,
+              worker.get("collective_calls"), worker.get("collective_s", float("nan")),
+              _maxrss_mb(b.out), _child_report(b.out).get("rss_peak_mb", float("nan")),
+              worker.get("rss_peak_mb", float("nan")), _first_round_s(b), ll["21b"], ll["21a"],
+              json.dumps(cmp)), flush=True)
+    check(not _local_pids(a.out) and not _rank_reports(a.out),
+          "21a: a process was spawned without SM_LOCAL_RANKS")
+    check(launches["21a"] == want, "21a: launches {}".format(launches["21a"]))
+    check(abs(ll["21a"] - ll["21b"]) <= ENTRY_METRIC_TOL and cmp["mean_dp"] <= ENTRY_DP_TOL,
+          "21a: one rank's model and 21b's differ beyond phase 8's tolerance: {}".format(cmp))
+    check(len(_local_pids(b.out)) == 1 and sorted(workers) == [1],
+          "21b: workers {} / reports {}".format(_local_pids(b.out), sorted(workers)))
+    check(len(lines["21b"]) == LOCAL_ROUNDS and len(set(lines["21b"])) == LOCAL_ROUNDS,
+          "21b: HPO lines {}".format(lines["21b"]))
+    check(sorted(os.listdir(os.path.join(root_b, "model"))) ==
+          ["xgboost-model", "xgboost-model.manifest"], "21b: model dir {}".format(
+              os.listdir(os.path.join(root_b, "model"))))
+    check(launches["21b"] == want and worker.get("rank_launches") == want,
+          "21b: launches {} / {}".format(launches["21b"], worker.get("rank_launches")))
+    check(ingest["21b"]["cuts"] == ingest["21a"]["cuts"],
+          "21b: the session's cuts are not one rank's on all the rows")
+    check(abs(ll["21b"] - ll["21a"]) <= OPTION_TOL * max(1.0, abs(ll["21a"])),
+          "21b: validation logloss {} vs one rank's {}".format(ll["21b"], ll["21a"]))
+
+
+def _local_two_hosts(tag, tmp):
+    """21c: two entry hosts x SM_LOCAL_RANKS=2 (four gloo ranks on the
+    card) on phase 8's channels halved, uninterrupted and, at the same
+    time, with local rank 1 of host 1 SIGKILLed at its 3rd round end."""
+    common = {"SM_LOCAL_RANKS": "2"}
+    runs = {
+        "ok": _dist_entry_hosts(tmp, "local-ok", LOCAL_HOSTS_HP, [dict(common)] * 2),
+        "kill": _dist_entry_hosts(tmp, "local-kill", dict(LOCAL_HOSTS_HP, num_round="40"), [
+            dict(common), dict(common, SM_LOCAL_FAULT_SPEC="1=training.round_end:kill@{}".format(
+                LOCAL_KILL_ROUND))]),
+    }
+    t = time.perf_counter()
+    children = {name: [_Child(ENTRY_CHILD_COMMAND, env) for env, _root in envs]
+                for name, envs in runs.items()}
+    try:
+        codes = {name: [c.wait(400) for c in cs] for name, cs in children.items()}
+    finally:
+        for cs in children.values():
+            for c in cs:
+                c.kill()
+    wall = time.perf_counter() - t
+    ok, kill = children["ok"], children["kill"]
+    lines = [[l for l in c.out.splitlines() if HPO_LINE.match(l)] for c in ok]
+    want = {"hist_kernel": 8 * LOCAL_ROUNDS, "totals_kernel": LOCAL_ROUNDS}
+    launches = [[_child_launches(c.out)] + [r["rank_launches"] for _k, r in sorted(
+        _rank_reports(c.out).items())] for c in ok]
+    models = [os.path.exists(os.path.join(root, "model", "xgboost-model"))
+              for _env, root in runs["ok"]]
+    pids = [p for c in kill for p in _local_pids(c.out)]
+    deadline = time.monotonic() + 10
+    while any(_pid_alive(p) for p in pids) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    left = [p for p in pids if _pid_alive(p)]
+    with open(os.path.join(runs["kill"][1][1], "output", "failure")) as f:
+        failure = f.read()
+    print("{} | local 21c (two hosts x SM_LOCAL_RANKS=2, four gloo ranks on cuda:0; both "
+          "runs at once, {:.1f} s): exits {}; {} HPO lines a host, identical: {}; models "
+          "written by host 0 / host 1: {} / {}; launches (leader, local rank 1) by host {}; "
+          "kill of host 1's local rank 1 at its round {}: exits {}, host 1's failure file "
+          "{!r}, worker pids {} left alive: {}".format(
+              tag, wall, codes["ok"], len(lines[0]), lines[0] == lines[1], models[0],
+              models[1], json.dumps(launches), LOCAL_KILL_ROUND, codes["kill"],
+              failure[:160], pids, left), flush=True)
+    for rank, (code, c) in enumerate(zip(codes["ok"], ok)):
+        check(code == 0, "21c: host {} exited {}: {}".format(rank, code,
+                                                             "".join(c.err)[-3000:]))
+    check(len(lines[0]) == LOCAL_ROUNDS and lines[0] == lines[1],
+          "21c: HPO lines {} / {}".format(len(lines[0]), len(lines[1])))
+    check(models == [True, False], "21c: models written {}".format(models))
+    check(all(l == [want, want] for l in launches), "21c: launches {}".format(launches))
+    check(codes["kill"] == [80, 80], "21c: the kill run exited {}: {}".format(
+        codes["kill"], "".join(kill[0].err)[-2000:]))
+    check(len(pids) == 2 and not left, "21c: worker pids {}, alive {}".format(pids, left))
+    check("local rank 1" in failure, "21c: failure file {!r}".format(failure))
+
+
+def _local_nccl(torch, tag, tmp):
+    """21d: 21b over NCCL between two cards, under both GRAFT_HIST_COMM
+    lowerings, where the box has two."""
+    if torch.cuda.device_count() < 2:
+        print("{} | nccl_local: not run (1 GPU)".format(tag), flush=True)
+        return
+    X, y = exact_rows()
+    train_dir, val_dir = os.path.join(tmp, "nccl", "train"), os.path.join(tmp, "nccl", "val")
+    write_grid_csv(train_dir, X[:N_TRAIN], y[:N_TRAIN])
+    write_grid_csv(val_dir, X[N_TRAIN:], y[N_TRAIN:])
+    want = {"hist_kernel": 8 * LOCAL_ROUNDS, "totals_kernel": LOCAL_ROUNDS}
+    for comm in ("psum", "reduce_scatter"):
+        env, _root = _local_env(tmp, "21d-" + comm, train_dir, val_dir, LOCAL_HP,
+                                {"SM_LOCAL_RANKS": "2", "GRAFT_HIST_COMM": comm})
+        child = _wait4_child(ENTRY_CHILD_COMMAND, env)
+        code = child.wait(600)
+        check(code == 0, "21d {}: exit {}: {}".format(comm, code, "".join(child.err)[-3000:]))
+        records = _records(child.out, "training.round")[1:LOCAL_ROUNDS - 1]
+        worker = _rank_reports(child.out).get(1, {})
+        print("{} | nccl_local 21d {}: exit 0; {:.3f} rounds/s a rank over rounds 2-9; "
+              "histogram collective {:.3f} ms a round; launches {} / {}; last validation "
+              "logloss {:.6f}".format(
+                  tag, comm, len(records) / (sum(r["round_ms"] for r in records) / 1000.0),
+                  float(np.mean([r.get("hist_comm_ms", 0.0) for r in records])),
+                  json.dumps(_child_launches(child.out)),
+                  json.dumps(worker.get("rank_launches")),
+                  _last_metric(child.out, "validation-logloss")), flush=True)
+        check(_child_launches(child.out) == want and worker.get("rank_launches") == want,
+              "21d {}: launches".format(comm))
+
+
 PHASE_WALL = []
 
 
@@ -6350,6 +6679,7 @@ def main():
         phase("18 options across ranks", run_options, torch, hist, pkg, tag)
         phase("19 streaming ingest", run_streaming, torch, hist, tag)
         phase("20 elastic and consensus", run_elastic, torch, hist, tag)
+        phase("21 local ranks", run_local_ranks, torch, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

@@ -424,7 +424,10 @@ def initialize(metrics):
         CategoricalHyperparameter(
             name="use_dask_gpu_training", range=["true", "false"], required=False
         ),
-        # Internal: cap the number of devices used for training.
+        # Internal: cap the devices used for training. The port trains one
+        # process a local GPU (parallel/local.py); each host runs
+        # min(visible GPUs, _num_devices // hosts, at least 1) of them, and
+        # SM_LOCAL_RANKS, when set, overrides it.
         IntegerHyperparameter(
             name="_num_devices", range=Interval(min_closed=1), required=False, tunable=False
         ),

@@ -45,7 +45,11 @@ grows the same trees and prints the same lines. Across ranks,
 round, ``survival:cox`` and ``cox-nloglik`` compute on the gathered global
 rows (``GlobalRows``), a ranking objective's ranks each own whole query
 groups, and dart, gblinear and ``process_type=update`` take the group too;
-``tree_method=exact`` raises ``UserError`` (``refuse_across_ranks``).
+``tree_method=exact`` raises ``UserError`` across hosts
+(``refuse_across_ranks``). The local ranks of one host (one process a GPU,
+``parallel/local.py``) bin with their host's cuts instead of a merge: the
+leader's sketch of all the host's rows (``local.host_cuts``), so that one
+host's ranks bin as the JAX one-host mesh does, exact included.
 
 Pre-binned input, the JAX package's: ``train`` takes a ``BinnedMatrix``
 (the streaming ingest's, ``data/streaming.py``) as the training matrix and
@@ -80,7 +84,7 @@ from ..ops.predict import forest_leaf_values
 from ..ops.ranking import bucket_group_layout, lambdarank_grad_hess
 from ..ops.histogram import hist_comm_impl
 from ..ops.tree_build import build_tree, pack_tree, predict_binned, unpack_tree
-from ..parallel import collectives
+from ..parallel import collectives, local
 from ..telemetry import model as model_telemetry
 from ..telemetry.tracing import DEVICE_SYNC_ENV
 from ..toolkit import exceptions as exc
@@ -536,8 +540,13 @@ class _TrainingSession:
         if self.group is not None and not pre_binned:
             # every rank must bin with identical thresholds, or the reduced
             # histograms mean nothing (a pre-binned matrix's ingest agreed
-            # its cuts across the ranks already)
-            shared_cuts = merged_distributed_cuts(dtrain, config.max_bin, self.group, device)
+            # its cuts across the ranks already). Local ranks bin with their
+            # host's cuts, as the JAX one-host mesh bins all its rows
+            if local.topology() is not None:
+                shared_cuts = local.host_cuts(dtrain, config.max_bin, self.group, device)
+            else:
+                shared_cuts = merged_distributed_cuts(dtrain, config.max_bin, self.group,
+                                                      device)
         if pre_binned:
             # a silently reinterpreted bin width would corrupt every
             # histogram: the config must resolve the ingest's max_bin
@@ -1107,8 +1116,10 @@ def train(
     calls ``train`` with the same parameters and its own rows (their counts
     may differ; a ranking objective's ranks hold whole query groups); every
     rank returns the same model. Every booster, objective and tree method
-    trains across ranks but ``tree_method=exact``, which raises
-    ``UserError`` before any collective (``refuse_across_ranks``)."""
+    trains across ranks but ``tree_method=exact`` across hosts, which raises
+    ``UserError`` before any collective (``refuse_across_ranks``); the local
+    ranks of one host (``parallel/local.py``) train it, as the JAX one-host
+    mesh does."""
     dev = resolve_device(device)
     config = TrainConfig(params)
     callbacks = list(callbacks or [])
@@ -1121,11 +1132,14 @@ def train(
             "process_type='default'; got booster={!r} process_type={!r}. Use "
             "SM_INGEST_MODE=whole.".format(config.booster, config.process_type))
     if collectives.world(group)[1] > 1:
-        refuse_across_ranks(config)
+        if local.num_hosts_of(group) > 1:
+            refuse_across_ranks(config)
         if not isinstance(dtrain, BinnedMatrix):
             # a pre-binned matrix's ingest agreed the width across ranks
             d = agreed_num_col(dtrain, group, dev)
             padded = dtrain.pad_features(d)
+            if padded is not dtrain:
+                padded.host_rows = getattr(dtrain, "host_rows", None)
             evals = [(padded if dm is dtrain else dm.pad_features(d), name)
                      for dm, name in evals]
             dtrain = padded

@@ -42,6 +42,23 @@ def build_group_layout(groups, max_group_size=None):
     return row_index
 
 
+def assign_groups(groups, n_shards):
+    """Deal whole query groups to ``n_shards`` shards -> each shard's group
+    indices in channel order: the JAX package's
+    ``build_sharded_group_layout`` assignment, longest group first onto the
+    shard with the fewest rows (ties to the lowest shard), so that the
+    shards' row counts balance and no group straddles two shards."""
+    sizes = np.asarray(groups, np.int64)
+    order = np.argsort(-sizes, kind="stable")
+    assign = [[] for _ in range(n_shards)]
+    loads = np.zeros(n_shards, np.int64)
+    for g in order:
+        s = int(np.argmin(loads))
+        assign[s].append(int(g))
+        loads[s] += sizes[g]
+    return [sorted(a) for a in assign]
+
+
 def chunk_group_layout(row_index, group_chunk=GROUP_CHUNK):
     """[G, M] layout -> blocks of ``group_chunk`` groups, the JAX package's
     chunking."""

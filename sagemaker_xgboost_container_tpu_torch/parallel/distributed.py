@@ -515,27 +515,36 @@ def reform_cluster(survivors, current_host, generation, payload=None, port=None,
 
 
 def distributed_run(
-    exec_fun, args, include_in_training, hosts, current_host, port=DEFAULT_PORT, pre_exec=None
+    exec_fun, args, include_in_training, hosts, current_host, port=DEFAULT_PORT, pre_exec=None,
+    local_ranks=1,
 ):
     """Membership-aware distributed execution (the reference's rabit_run).
 
-    1. allgather {host, include_in_training};
+    1. allgather {host, include_in_training} (and ``local_ranks``, this
+       host's training ranks, when above 1);
     2. hosts without data log and exit(0) — the cluster re-forms without them;
-    3. ``pre_exec(participating_hosts, current_host)`` runs on every
-       participant (the process group over the re-formed cluster, and the
-       planes);
+    3. ``pre_exec(participating_hosts, current_host, local_ranks)`` runs on
+       every participant (the process group over the re-formed cluster, and
+       the planes), ``local_ranks`` the least over the participants: every
+       host trains that many ranks;
     4. the rest run ``exec_fun(**args, is_master=...)`` where master is the
        first participating host in sorted order.
     """
     cluster = Cluster(hosts, current_host, port=port)
-    membership = cluster.synchronize(
-        {"host": current_host, "include_in_training": bool(include_in_training),
-         "abort_port": abort_port()}
-    )
+    payload = {"host": current_host, "include_in_training": bool(include_in_training),
+               "abort_port": abort_port()}
+    if local_ranks > 1:
+        payload["local_ranks"] = int(local_ranks)
+    membership = cluster.synchronize(payload)
     _note_abort_ports(membership)
     participating = sorted(
         m["host"] for m in membership if m["include_in_training"]
     )
+    agreed = min([int(m.get("local_ranks", 1)) for m in membership
+                  if m["include_in_training"]] or [1])
+    if agreed != local_ranks:
+        logger.warning("hosts agreed on %d local rank(s) a host (this host offered %d)",
+                       agreed, local_ranks)
     if not participating:
         raise exc.UserError(
             "Not a single machine in the cluster has training data; "
@@ -547,7 +556,7 @@ def distributed_run(
         )
         return None
     if pre_exec is not None:
-        pre_exec(participating, current_host)
+        pre_exec(participating, current_host, agreed)
     is_master = participating[0] == current_host
     args = dict(args)
     args["is_master"] = is_master
@@ -588,13 +597,17 @@ def default_backend(device):
     return "nccl" if device.type == "cuda" else "gloo"
 
 
-def init_process_group(hosts, current_host, device, backend=None, port=None, timeout_s=None):
+def init_process_group(hosts, current_host, device, backend=None, port=None, timeout_s=None,
+                       rank=None, world_size=None):
     """Bring up the ``torch.distributed`` process group of the participating
     ``hosts`` -> the group (``torch.distributed.group.WORLD``).
 
     The coordinator is sorted ``hosts[0]`` and a rank is its index in the
-    sorted list, as the JAX package's ``maybe_init_jax_distributed``. One
-    rank a host, on ``device``. The backend follows the device (``nccl`` for
+    sorted list, as the JAX package's ``maybe_init_jax_distributed``, on
+    ``device``; with local ranks (``parallel/local.py``) the caller passes
+    the global ``rank`` (host index x L + local rank) and ``world_size``
+    (hosts x L), and a CUDA rank's card is made current before the group
+    forms. The backend follows the device (``nccl`` for
     CUDA, ``gloo`` for the CPU) unless ``backend`` or
     ``SM_PROCESS_GROUP_BACKEND`` names one: the caller's explicit choice
     (two ranks sharing one card need ``gloo``, since NCCL refuses two ranks
@@ -608,21 +621,22 @@ def init_process_group(hosts, current_host, device, backend=None, port=None, tim
     import torch.distributed as dist
 
     ordered = sorted(hosts)
-    rank = ordered.index(current_host)
+    if rank is None:
+        rank = ordered.index(current_host)
+    if world_size is None:
+        world_size = len(ordered)
     backend = backend or os.environ.get(PROCESS_GROUP_BACKEND_ENV) or default_backend(device)
     port = process_group_port() if port is None else port
     timeout_s = process_group_timeout() if timeout_s is None else timeout_s
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        logger.warning(
-            "host %s has %d GPUs; the port trains one rank a host, on %s",
-            current_host, torch.cuda.device_count(), device)
     try:
         if device.type == "cuda" and device.index is not None:
             torch.cuda.set_device(device)
         dist.init_process_group(
             backend,
-            init_method="tcp://{}:{}".format(ordered[0], port),
-            world_size=len(ordered),
+            # one host's local ranks meet on loopback
+            init_method="tcp://{}:{}".format(ordered[0] if len(ordered) > 1 else "127.0.0.1",
+                                             port),
+            world_size=world_size,
             rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s),
         )
@@ -635,7 +649,7 @@ def init_process_group(hosts, current_host, device, backend=None, port=None, tim
                 backend, len(ordered)),
             caused_by=e,
         )
-    logger.info("process group up: rank %d of %d (%s, %s)", rank, len(ordered), backend,
+    logger.info("process group up: rank %d of %d (%s, %s)", rank, world_size, backend,
                 device)
     return dist.group.WORLD
 

@@ -33,7 +33,7 @@ More than one host (``SM_HOSTS``) trains data-parallel, the JAX package's
 multi-host branch: the hosts exchange "do I have data?" over the
 rendezvous channel (``parallel/distributed.distributed_run``; hosts
 without data exit 0), and each participant brings up, in order, the
-``torch.distributed`` process group (one rank a host, on its card), the
+``torch.distributed`` process group (hosts x L ranks), the
 elastic membership (``SM_ELASTIC``), the abort listener
 (``SM_ABORT_ON_STALE`` or ``SM_ELASTIC``), the heartbeat plane
 (``SM_HEARTBEAT_INTERVAL_S``), the consensus membership
@@ -52,6 +52,19 @@ metric lines are the same on every host, and each host writes the
 out-of-fold predictions of its own rows; a dead host takes the coordinated
 abort there. Refused across hosts with the JAX package's ``UserError``:
 ``tree_method=exact`` (``booster.refuse_across_ranks``).
+
+Every local GPU trains, the JAX package's ``_training_mesh`` over a host's
+devices as one process a GPU (``parallel/local.py``): L local ranks a host
+(``SM_LOCAL_RANKS``, else the visible GPUs capped by the host's share of
+``_num_devices``; one where ``SM_ELASTIC`` is armed). The leader (the
+process the platform started) reads the channels once into shared memory
+(``local.HostMatrix``), joins the rendezvous (the hosts agree on the least
+L), spawns local ranks 1..L-1 (``training.entry.local_rank_main`` ->
+``run_local_rank``) and trains as local rank 0; every rank deals itself its
+shard in ``train_job`` (k-fold CV: of each fold's rows, split alike on every
+rank of a host) and bins with the host's cuts. Only the leader prints metric
+lines, runs the planes and writes the out-of-fold predictions, and only
+global rank 0 saves; a dead worker ends the host with exit 80.
 
 Channel ingest (``_streaming_plan``, the JAX package's): ``SM_INGEST_MODE``
 ``auto`` (default) streams the channels chunk by chunk into pre-binned
@@ -85,7 +98,7 @@ from ..data.readers import (
 )
 from ..models import booster
 from ..models.forest import Forest
-from ..parallel import distributed
+from ..parallel import distributed, local
 from ..telemetry import register_runtime_gauges, span, start_cluster_telemetry
 from ..toolkit import exceptions as exc
 from . import train_utils
@@ -266,11 +279,12 @@ def sagemaker_train(
 
     if validated_train_config.pop("use_dask_gpu_training", "false") == "true":
         raise exc.UserError(
-            "use_dask_gpu_training is not supported by the PyTorch port: it trains on "
-            "one GPU; remove this hyperparameter."
+            "use_dask_gpu_training is not supported by the PyTorch port: it trains one "
+            "process on every local GPU without Dask; remove this hyperparameter."
         )
 
     dev = resolve_device(device)
+    local_size = _local_ranks(num_hosts, validated_train_config.pop("_num_devices", None), dev)
     with span("data_ingest", emit=True):
         from ..data import streaming
 
@@ -289,6 +303,12 @@ def sagemaker_train(
             # names the ingest error
             raise exc.PlatformError(str(e))
     missing_validation_data = validation_channel and not val_dmatrix
+    if num_hosts == 1 and local_size > 1:
+        # the one-host checks of the single-rank branch, before any spawn
+        if not train_dmatrix:
+            raise exc.UserError("No data in training channel path {}".format(train_path))
+        if missing_validation_data:
+            raise exc.UserError("No data in validation channel path {}".format(val_path))
 
     train_args = dict(
         train_cfg=validated_train_config,
@@ -301,9 +321,18 @@ def sagemaker_train(
     )
     from ..telemetry import fleet
 
-    if num_hosts > 1:
-        logger.info("Distributed node training with %d hosts: %s", num_hosts, sm_hosts)
-        distributed.wait_hostname_resolution(sm_hosts)
+    host_matrices = {}
+    if local_size > 1 and train_dmatrix:
+        # the host's channels in shared memory, once: every local rank
+        # trains on its shard of them, and the leader drops its own copy
+        host_matrices = _publish_host_matrices(train_args)
+        train_dmatrix, val_dmatrix, train_val_dmatrix = (train_args[k] for k in _MATRIX_KEYS)
+
+    if num_hosts > 1 or local_size > 1:
+        logger.info("Distributed node training with %d hosts: %s (%d local rank(s) a host)",
+                    num_hosts, sm_hosts, local_size)
+        if num_hosts > 1:
+            distributed.wait_hostname_resolution(sm_hosts)
         include_in_training = True
         if not train_dmatrix:
             logger.warning(
@@ -317,15 +346,28 @@ def sagemaker_train(
                 "will not be used in distributed training.", sm_current_host)
             include_in_training = False
 
-        def _pre_exec(participating_hosts, current_host):
+        def _pre_exec(participating_hosts, current_host, local_ranks=1):
             # the JAX package's order: the process group first, then the
             # elastic membership (its SM_ELASTIC snapshot gates the abort
             # listener), the abort listener (up before rank 0's aggregator
             # can ever decide to broadcast), the heartbeat plane over the
             # participating hosts (hosts without data already left), the
             # consensus membership, the tracing rank, and the fleet plane
-            # last (span shipping needs the rank)
-            distributed.init_process_group(participating_hosts, current_host, dev)
+            # last (span shipping needs the rank). With local ranks the
+            # workers start first (each joins the group itself) and the
+            # planes stay one a host, in this leader
+            ordered = sorted(participating_hosts)
+            topo = local.Topology(len(ordered), ordered.index(current_host), local_ranks, 0)
+            rank_dev = dev
+            if topo.local_size > 1:
+                rank_dev = local.rank_device(dev, 0)
+                train_args["device"] = rank_dev
+                _spawn_workers(topo, participating_hosts, current_host, dev, train_args,
+                               host_matrices, checkpoint_dir)
+                fleet.note_status(local_ranks=topo.local_size, local_devices=[
+                    str(local.rank_device(dev, r)) for r in range(topo.local_size)])
+            distributed.init_process_group(participating_hosts, current_host, rank_dev,
+                                           rank=topo.global_rank, world_size=topo.world_size)
             from ..telemetry import tracing
             from . import consensus, elastic
             from .watchdog import start_abort_plane
@@ -345,20 +387,37 @@ def sagemaker_train(
             tracing.set_rank(sorted(participating_hosts).index(current_host))
             fleet.start_fleet_plane(participating_hosts, current_host)
 
+        finished = False
+
+        def _train_job(**kwargs):
+            bst = train_job(**kwargs)
+            # the workers' collectives are over: from here a worker's exit
+            # (its teardown) is no longer this host's failure
+            local.quiet_local_ranks()
+            return bst
+
         try:
             distributed.distributed_run(
-                exec_fun=train_job,
+                exec_fun=_train_job,
                 args=train_args,
                 include_in_training=include_in_training,
                 hosts=sm_hosts,
                 current_host=sm_current_host,
                 port=distributed.rendezvous_port(),
                 pre_exec=_pre_exec,
+                local_ranks=local_size,
             )
+            finished = True
         finally:
             _stop_cluster_planes()
             fleet.stop_fleet_plane()
+            # the workers first: this process may hold the group's store
+            for _rank, message in local.stop_local_ranks(graceful=finished):
+                logger.warning("after training: %s", message)
             distributed.destroy_process_group()
+            local.set_topology(None)
+            for m in host_matrices.values():
+                m.close()
     elif num_hosts == 1:
         if train_dmatrix:
             if missing_validation_data:
@@ -375,6 +434,96 @@ def sagemaker_train(
             raise exc.UserError("No data in training channel path {}".format(train_path))
     else:
         raise exc.PlatformError("Number of hosts should be an int greater than or equal to 1")
+
+
+def _local_ranks(num_hosts, num_devices_cap, device):
+    """L, this host's training ranks (``parallel/local.local_world_size``);
+    1 where the elastic plane is armed: a shrink re-forms one rank a host."""
+    from . import elastic
+
+    n = local.local_world_size(num_hosts, num_devices_cap, device)
+    if n > 1 and elastic.resolve_elastic_config().enabled:
+        from ..utils.warn_once import warn_once
+
+        warn_once(logger, "local.elastic",
+                  "SM_ELASTIC is armed: training one rank a host, not %d local ranks "
+                  "(elastic reform with local ranks is not supported yet)", n)
+        return 1
+    return n
+
+
+_MATRIX_KEYS = ("train_dmatrix", "val_dmatrix", "train_val_dmatrix")
+
+
+def _publish_host_matrices(train_args):
+    """Place each distinct matrix of ``train_args`` in shared memory and
+    point ``train_args`` at the shared copy -> {key: HostMatrix}."""
+    published, out = {}, {}
+    for key in _MATRIX_KEYS:
+        dm = train_args.get(key)
+        if dm is None:
+            continue
+        if id(dm) not in published:
+            published[id(dm)] = local.HostMatrix.publish(dm)
+        out[key] = published[id(dm)]
+        train_args[key] = out[key].matrix
+    return out
+
+
+def _spawn_workers(topo, hosts, current_host, device, train_args, host_matrices,
+                   checkpoint_dir):
+    """Start local ranks 1..L-1 of ``topo`` over the shared matrices
+    (``training.entry.local_rank_main``)."""
+    from . import entry
+    from .watchdog import on_local_rank_failure
+
+    unique = []
+    for m in host_matrices.values():
+        if m not in unique:
+            unique.append(m)
+    spec = {
+        "hosts": list(hosts), "current_host": current_host,
+        "num_hosts": topo.num_hosts, "host_index": topo.host_index,
+        "local_size": topo.local_size, "device": str(device),
+        "train_cfg": dict(train_args["train_cfg"]),
+        # each distinct shared matrix once, and the keys that name it
+        "matrices": [m.descriptor for m in unique],
+        "matrix_keys": {k: unique.index(m) for k, m in host_matrices.items()},
+        "model_dir": train_args["model_dir"], "checkpoint_dir": checkpoint_dir,
+    }
+    local.spawn_local_ranks(topo, spec, entry.local_rank_main, on_local_rank_failure)
+    local.set_topology(topo)
+    local.share_host_threads(topo.local_size)
+
+
+def run_local_rank(local_rank, spec):
+    """The body of a spawned local rank: attach the host's shared matrices,
+    join the process group as global rank host index x L + local rank, and
+    train this rank's shard (``train_job`` with ``is_master=False``: it
+    prints no metric lines and saves nothing)."""
+    import torch
+
+    topo = local.Topology(spec["num_hosts"], spec["host_index"], spec["local_size"],
+                          local_rank)
+    local.set_topology(topo)
+    local.share_host_threads(topo.local_size)
+    attached = [local.HostMatrix.attach(desc) for desc in spec["matrices"]]
+    mats = {key: attached[i].matrix for key, i in spec["matrix_keys"].items()}
+    dev = local.rank_device(torch.device(spec["device"]), local_rank)
+    try:
+        distributed.init_process_group(spec["hosts"], spec["current_host"], dev,
+                                       rank=topo.global_rank, world_size=topo.world_size)
+        train_job(spec["train_cfg"], mats.get("train_dmatrix"), mats.get("val_dmatrix"),
+                  mats.get("train_val_dmatrix"), spec["model_dir"], spec["checkpoint_dir"],
+                  is_master=False, device=dev)
+    finally:
+        try:
+            distributed.destroy_process_group()
+        except Exception as e:  # a peer's teardown got there first
+            logger.warning("process group teardown: %s", e)
+        mats.clear()
+        for m in attached:
+            m.close()
 
 
 def _refuse_across_hosts(train_cfg):
@@ -466,7 +615,6 @@ def train_job(
     host, and only its aggregator proposes a shrink (a dead master is not
     survivable: the survivors exit 80)."""
     train_cfg = dict(train_cfg)
-    train_cfg.pop("_num_devices", None)
     num_round = train_cfg.pop("num_round")
     save_model_on_termination = train_cfg.pop("save_model_on_termination", "false")
     # no reference to the group is held here: an elastic reform can only
@@ -498,6 +646,12 @@ def train_job(
         elif eval_metric:
             early_stopping_metric = eval_metric[-1]
 
+    topo = local.topology()
+    if topo is not None and "_kfold" not in train_cfg:
+        # this local rank's shard of the host's rows (k-fold CV deals each
+        # fold's rows instead)
+        train_dmatrix = local.shard_matrix(train_dmatrix, topo)
+        val_dmatrix = local.shard_matrix(val_dmatrix, topo)
     logger.info(
         "Train matrix has %d rows and %d columns",
         train_dmatrix.num_row,
@@ -616,6 +770,10 @@ def train_job(
                     model_location = os.path.join(model_dir, "{}-{}".format(MODEL_NAME, fold))
                     _save_with_manifest(fold_booster, model_location, train_cfg)
                     logger.debug("Stored trained model %d at %s", fold, model_location)
+    if local.is_worker():
+        # the host's trace is its leader's lane, as under JAX (one process
+        # a host)
+        return bst
     # end-of-job trace export (SM_TRACE): this rank's Chrome trace beside the
     # model unless SM_TRACE_EXPORT_DIR names a directory; best-effort
     from ..telemetry import tracing
@@ -681,6 +839,10 @@ def _cross_validate(train_cfg, train_val_dmatrix, kfold, num_round, configured_f
     fold trains over the group, and the fold-parallel path is skipped (the
     JAX package's ``_try_parallel_cv`` declines more than one process)."""
     num_cv_round = train_cfg.pop("_num_cv_round", 1)
+    topo = local.topology()
+    # a local rank that is not its host's leader trains its share of each
+    # fold and leaves the predictions and the CV lines to the leader
+    leader = not local.is_worker()
     logger.info(
         "Run %s-round of %s-fold cross validation with %s rows",
         num_cv_round,
@@ -693,17 +855,28 @@ def _cross_validate(train_cfg, train_val_dmatrix, kfold, num_round, configured_f
     objective = train_cfg.get("objective") or ""
     classification_problem = bool(num_class) or objective.startswith("binary:")
     y = train_val_dmatrix.get_label() if classification_problem else None
+    random_state = None
+    if topo is not None:
+        # the local ranks of a host split its rows identically: the
+        # leader's draw of a seed, sent to its workers
+        from ..parallel import collectives
+
+        seed = np.random.randint(0, 2**31 - 1) if leader else 0
+        seeds = collectives.host_all_gather(np.asarray([seed], np.int64), group, device)
+        random_state = int(seeds[topo.host_index * topo.local_size][0])
+        logger.info("k-fold splits of the host's rows seeded with %d", random_state)
     rkf = (
-        RepeatedStratifiedKFold(n_splits=kfold, n_repeats=num_cv_round)
+        RepeatedStratifiedKFold(n_splits=kfold, n_repeats=num_cv_round,
+                                random_state=random_state)
         if y is not None
-        else RepeatedKFold(n_splits=kfold, n_repeats=num_cv_round)
+        else RepeatedKFold(n_splits=kfold, n_repeats=num_cv_round, random_state=random_state)
     )
     val_pred = ValidationPredictionRecorder(
         y_true=train_val_dmatrix.get_label(),
         num_cv_round=num_cv_round,
         classification=classification_problem,
         output_data_dir=os.environ[SM_OUTPUT_DATA_DIR],
-    )
+    ) if leader else None
     splits = list(rkf.split(X=range(train_val_dmatrix.num_row), y=y))
 
     parallel = None
@@ -722,8 +895,16 @@ def _cross_validate(train_cfg, train_val_dmatrix, kfold, num_round, configured_f
                 print_cv_metric(num_round, evals_results[k + 1 - kfold: k + 1])
     else:
         for train_idx, val_idx in splits:
-            cv_train = train_val_dmatrix.slice(train_idx)
-            cv_val = train_val_dmatrix.slice(val_idx)
+            if topo is not None:
+                # this rank's share of the fold: contiguous runs of the
+                # fold's rows; the leader's shard carries the whole fold's
+                # training rows for the host's cuts
+                cv_train = train_val_dmatrix.slice(local.shard_indices(train_idx, topo))
+                cv_train.host_rows = train_val_dmatrix.slice(train_idx) if leader else None
+                cv_val = train_val_dmatrix.slice(local.shard_indices(val_idx, topo))
+            else:
+                cv_train = train_val_dmatrix.slice(train_idx)
+                cv_val = train_val_dmatrix.slice(val_idx)
             xgb_model, iteration, callbacks = callbacks_for(fold=len(bst),
                                                             num_rows=cv_train.num_row)
             recorder = _EvalsRecorder()
@@ -742,10 +923,18 @@ def _cross_validate(train_cfg, train_val_dmatrix, kfold, num_round, configured_f
             )
             bst.append(fold_booster)
             evals_results.append(recorder.log)
+            if not leader:
+                continue
+            if topo is not None:
+                # every rank holds the same model: the leader predicts all
+                # of its host's held-out rows, in channel order
+                cv_val = train_val_dmatrix.slice(val_idx)
             val_pred.record(val_idx, fold_booster.predict(cv_val.features))
             if len(bst) % kfold == 0:
                 logger.info("The metrics of round %d cross validation", len(bst) // kfold)
                 print_cv_metric(num_round, evals_results[-kfold:])
+    if not leader:
+        return bst
     val_pred.save()
     if num_cv_round > 1:
         logger.info("The overall metrics of %s-round cross validation", num_cv_round)

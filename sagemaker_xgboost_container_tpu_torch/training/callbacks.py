@@ -149,6 +149,9 @@ def add_sigterm_handler(model_dir, is_master):
     """On SIGTERM: master cleans stale files from model_dir, all exit 0."""
 
     def _cleanup_and_exit(signo, frame):
+        from ..parallel import local
+
+        local.kill_local_ranks()
         if is_master:
             train_utils.cleanup_dir(model_dir, MODEL_NAME)
         os._exit(0)
@@ -201,14 +204,21 @@ def get_callbacks(
         logger.info("Checkpoint loaded from %s", xgb_model)
         logger.info("Resuming from iteration %s", iteration)
 
-    callbacks = [_TimedCallback(EvaluationMonitor(), "eval_monitor")]
+    from ..parallel import local
+
+    # a host's workers (its local ranks other than the leader) print no
+    # metric lines (the HPO regex reads one line a round a host) and no
+    # round records, run no consensus guard (one digest a host) and no round
+    # watchdog (the leader's takes the host down)
+    worker = local.is_worker()
+    callbacks = [] if worker else [_TimedCallback(EvaluationMonitor(), "eval_monitor")]
 
     # the consensus guard (SM_CONSENSUS_EVERY): before the checkpoint saver,
     # so that on the round it finds a divergence the abort comes before that
     # round's checkpoint, and a restart resumes from a round that passed
     from .consensus import maybe_consensus_guard
 
-    guard = maybe_consensus_guard()
+    guard = None if worker else maybe_consensus_guard()
     if guard is not None:
         callbacks.append(_TimedCallback(guard, "consensus"))
 
@@ -252,7 +262,7 @@ def get_callbacks(
     # checkpoints and exits 79
     from .watchdog import maybe_round_watchdog
 
-    watchdog = maybe_round_watchdog()
+    watchdog = None if worker else maybe_round_watchdog()
     if watchdog is not None:
         callbacks.append(watchdog)
 
@@ -262,6 +272,8 @@ def get_callbacks(
     from .profiling import RoundTimer
 
     round_timing = os.environ.get("SM_ROUND_TIMING", "").lower() in ("1", "true")
-    callbacks.append(RoundTimer(num_rows=num_rows, log_every=10 if round_timing else 0,
-                                fold=fold))
+    # (a worker's keeps the round-end fault point, and emits nothing)
+    callbacks.append(RoundTimer(num_rows=num_rows,
+                                log_every=10 if round_timing and not worker else 0,
+                                emit_structured=not worker, fold=fold))
     return xgb_model, iteration, callbacks

@@ -175,6 +175,40 @@ def _write_failure_file(message):
         pass
 
 
+def local_rank_main(local_rank, spec, parent_pid, err_path):
+    """The entry of a spawned local rank (``parallel/local.py``): it dies
+    with its leader, arms its own fault spec (``SM_LOCAL_FAULT_SPEC``),
+    trains its shard (``algorithm_train.run_local_rank``) and exits 0, or
+    writes its error text to ``err_path``, which the leader puts in the
+    host's failure file, and exits 1. It prints no metric lines."""
+    from ..parallel import local
+    from ..utils import faults
+    from ..utils.logging_config import setup_main_logger
+
+    local.die_with_parent(parent_pid)
+    setup_main_logger(__name__)
+    spec_text = local.local_fault_spec(local_rank)
+    if spec_text is not None:
+        faults.configure(spec_text)
+    try:
+        from .algorithm_train import run_local_rank
+
+        run_local_rank(local_rank, spec)
+    except BaseException as e:
+        logger.exception("local rank %d failed", local_rank)
+        if isinstance(e, exc.BaseToolkitError):
+            message = e.public_failure_message()
+        else:
+            message = exc.convert_to_algorithm_error(e).public_failure_message()
+        try:
+            with open(err_path, "w") as f:
+                f.write(message)
+        except OSError:
+            pass
+        os._exit(1)
+    os._exit(0)
+
+
 def main(device=None):
     """Run the entry point on ``device`` (CUDA unless given) and exit 0, or
     1 after writing the failure file."""

@@ -105,6 +105,10 @@ def request_abort(reason, exit_code, **fields):
     except Exception:
         logger.exception("flight-recorder dump failed; exiting anyway")
     emit_metric("training.abort", reason=reason, exit_code=exit_code, **fields)
+    # the host's local ranks go down with it, reaped here (parallel/local.py)
+    from ..parallel import local
+
+    local.kill_local_ranks()
     _exit(exit_code)
 
 
@@ -352,6 +356,50 @@ def on_collective_failure(error):
         coordinate_abort(hosts, current_host, "collective_failed",
                          error=str(error)[:400])
         return
+    from ..parallel import local
+
+    workers = local.active_local_ranks()
+    if workers is not None:
+        # a leader whose peer died: its host fails as a dead peer fails it,
+        # with a dead worker's error text in the failure file
+        deadline = time.monotonic() + 2.0
+        while not workers.failures() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        failed = workers.failures()
+        on_local_rank_failure(failed[0][0] if failed else None,
+                              failed[0][1] if failed else "a collective failed: {}".format(
+                                  str(error)[:400]))
+        return
     raise exc.PlatformError(
         "a collective of the process group failed (a peer lost, or ranks out of step)",
         caused_by=error)
+
+
+_local_failure_lock = threading.Lock()
+LOCAL_FAILURE_WAIT_S = 30.0
+
+
+def on_local_rank_failure(local_rank, message):
+    """A local rank of this host died (``parallel/local.py``'s watcher), or
+    a collective of the leader failed: the host fails as with a dead peer.
+    The failure file gets the first caller's ``message`` (the worker's error
+    text: the watcher and a failed collective can report one death at once,
+    and the exit must not cut a second write short); with the abort plane up
+    every host is told (exit 80 everywhere), else this host exits 80."""
+    from .entry import _write_failure_file
+
+    if not _local_failure_lock.acquire(blocking=False):
+        # the first caller is taking the process down: do not race it back
+        # into the job's own error path (exit 1)
+        time.sleep(LOCAL_FAILURE_WAIT_S)
+        return
+    _write_failure_file(message)
+    with _listener_lock:
+        plane = _plane_hosts
+    if plane is not None:
+        hosts, current_host = plane
+        coordinate_abort(hosts, current_host, "local_rank_failed", local_rank=local_rank,
+                         error=message[:400])
+        return
+    request_abort("local_rank_failed", EXIT_CLUSTER_ABORT, local_rank=local_rank,
+                  error=message[:400])
