@@ -81,7 +81,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    `training.algorithm_train.sagemaker_train` runs the same job in this
    process: 8 hist_kernel and 1 totals_kernel launches a round, the wall
    time split into channel read, binning and upload, rounds and model
-   save, and the model against the child's. Then a spot interruption:
+   save, and the model against the child's. Then a spot interruption
+   (its two children run one after the other, beside the first child):
    SIGTERM to a child with save_model_on_termination after round 5 leaves
    an intermediate model and checkpoints, and a rerun on the same
    checkpoint dir resumes from the last checkpoint, keeps its trees
@@ -281,7 +282,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    writes a model manifest with fingerprint, learning and drift baseline;
    max_depth 6 under SM_RESUME_STRICT=true exits non-zero naming max_depth;
    one read with `data.read:error@1` in this process counts one retry.
-   16c: `train.gradient_poison:nan@3` exits 87 with forensics naming round
+   16c, its two children at once and beside 16b's:
+   `train.gradient_poison:nan@3` exits 87 with forensics naming round
    2; `chip_smoke.py --oom-child` caps the device memory so that the first
    round cannot allocate and exits 86 with hbm-forensics listing the
    largest blocks. 16d: 16b's model behind the single-model endpoint
@@ -398,6 +400,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    failure file names the dead rank, no worker is left. 21d, only with two
    GPUs: 21b over NCCL between two cards under both GRAFT_HIST_COMM
    lowerings; else it prints `nccl_local: not run (1 GPU)`.
+22. the elastic shrink with local ranks: phase 20's three `--entry-child`
+   hosts and channels, each host SM_ELASTIC=1 and SM_LOCAL_RANKS=2 (six
+   gloo ranks on the card), host 2's local rank 1 SIGKILLed at its round-5
+   end (`SM_LOCAL_FAULT_SPEC`): host 2 exits 80 and hosts 0-1 exit 0 with
+   byte-equal 12-round models, one 3 -> 2 transition (surviving ranks [0,
+   1]), rounds 1-5 equal to host 0's checkpoint of round 5, 8 / 1 launches
+   a round after the reform on every surviving rank (each prints its
+   counts as the reform begins), the validation logloss within
+   ELASTIC_LOGLOSS_TOL of 20a's; rounds/s a rank before and after, the
+   seconds from the kill to the new generation's first round, the
+   histogram collective's ms a round and each process's peak RSS. NCCL's
+   reform between local cards does not run here: it prints `nccl: not run
+   (1 GPU)`.
 
 At the end, one wall-time line a phase. The second line from the end is
 the kernels JSON line, the last line the device JSON line. Needs one CUDA
@@ -1796,8 +1811,13 @@ def _entry(torch, hist, tag, tmp):
         return sorted(int(f.rsplit(".", 1)[1]) for f in os.listdir(d)
                       if re.match(r"^xgboost-checkpoint\.\d+$", f))
 
-    # ---- 1. the entry point as SageMaker starts it, in a child process
-    rc, out, err, child_s = _run_entry_child(sm_env("full"))
+    # ---- 1. the entry point as SageMaker starts it, in a child process,
+    # beside the spot interruption's two children (3.)
+    full_child = _in_background(_run_entry_child, sm_env("full"))
+    try:
+        spot = _entry_spot(sm_env, checkpoints)
+    finally:
+        rc, out, err, child_s = full_child()
     check(rc == 0, "the train entry point exited {}: {} {}".format(rc, failure("full"), err[-2000:]))
     model_path = os.path.join(tmp, "model-full", "xgboost-model")
     check(os.path.exists(model_path), "no xgboost-model written")
@@ -1884,30 +1904,18 @@ def _entry(torch, hist, tag, tmp):
               cmp["mean_dp"], json.dumps({k: float("{:.3e}".format(v)) for k, v in gaps.items()})),
           flush=True)
 
-    # ---- 3. spot interruption: SIGTERM, then a rerun resumes from the checkpoint
-    rc, out, err, spot_s = _run_entry_child(sm_env("spot", "hyperparameters-spot.json"),
-                                            sigterm_after=ENTRY_SIGTERM_AFTER)
-    check(rc == 0, "SIGTERM: the entry point exited {}: {}".format(rc, err[-2000:]))
-    killed_at = max(_metric_lines(out))
-    spot_model = os.path.join(tmp, "model-spot", "xgboost-model")
-    check(os.path.exists(spot_model), "no intermediate model after SIGTERM")
-    intermediate = Forest.load_model(spot_model, device="cpu")
-    kept = checkpoints("spot")
+    # ---- 3. spot interruption: SIGTERM, then a rerun resumes from the
+    # checkpoint (run above, beside 1.)
+    (killed_at, intermediate, kept, spot_s, resume_s, resumed_lines, resumed,
+     resumed_from) = spot
     check(intermediate.num_boosted_rounds >= ENTRY_SIGTERM_AFTER and kept,
           "intermediate model of {} rounds, checkpoints {}".format(
               intermediate.num_boosted_rounds, kept))
     check(killed_at < rounds - 1, "SIGTERM landed after the last round")
-    rc, out, err, resume_s = _run_entry_child(sm_env("spot", "hyperparameters-spot.json"))
-    check(rc == 0, "resume: the entry point exited {}: {} {}".format(
-        rc, failure("spot"), err[-2000:]))
-    resumed_lines = _metric_lines(out)
     check(min(resumed_lines) == kept[-1] + 1 and max(resumed_lines) == rounds - 1,
           "resumed rounds {}..{}, want {}..{}".format(
               min(resumed_lines), max(resumed_lines), kept[-1] + 1, rounds - 1))
-    resumed = Forest.load_model(spot_model, device="cpu")
     # the resumed model carries the checkpoint's trees unchanged ...
-    resumed_from = Forest.load_model(os.path.join(
-        tmp, "ckpt-spot", "xgboost-checkpoint.{}".format(kept[-1])), device="cpu")
     carried = resumed_from.save_json()
     resumed_from.trees = resumed.trees[:len(resumed_from.trees)]
     check(resumed_from.save_json() == carried,
@@ -1938,6 +1946,36 @@ def _entry(torch, hist, tag, tmp):
     print("{} | entry model served: {} validation rows as csv in {:.3f} ms, max_abs_err {:.3e} "
           "against the CPU predict; serve launches {}".format(
               tag, len(x_val), serve_ms, err, json.dumps(dict(hist.LAUNCHES))), flush=True)
+
+
+def _entry_spot(sm_env, checkpoints):
+    """Phase 8's spot interruption: SIGTERM to a child with
+    save_model_on_termination after round ENTRY_SIGTERM_AFTER, then a rerun
+    on its checkpoint dir -> (the last round printed before the SIGTERM,
+    the intermediate model, the checkpoints it left, both children's wall
+    s, the rerun's metric lines, its model, and the checkpoint it resumed
+    from)."""
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    env = sm_env("spot", "hyperparameters-spot.json")
+    rc, out, err, spot_s = _run_entry_child(env, sigterm_after=ENTRY_SIGTERM_AFTER)
+    check(rc == 0, "SIGTERM: the entry point exited {}: {}".format(rc, err[-2000:]))
+    killed_at = max(_metric_lines(out))
+    spot_model = os.path.join(env["SM_MODEL_DIR"], "xgboost-model")
+    check(os.path.exists(spot_model), "no intermediate model after SIGTERM")
+    intermediate = Forest.load_model(spot_model, device="cpu")
+    kept = checkpoints("spot")
+    check(kept, "no checkpoint after SIGTERM")
+    rc, out, err, resume_s = _run_entry_child(sm_env("spot", "hyperparameters-spot.json"))
+    failure = os.path.join(env["SM_OUTPUT_DIR"], "failure")
+    check(rc == 0, "resume: the entry point exited {}: {} {}".format(
+        rc, open(failure).read()[-2000:] if os.path.exists(failure) else None, err[-2000:]))
+    resumed = Forest.load_model(spot_model, device="cpu")
+    resumed_from = Forest.load_model(os.path.join(os.path.dirname(env["SM_MODEL_DIR"]),
+                                                  "ckpt-spot", "xgboost-checkpoint.{}".format(
+                                                      kept[-1])), device="cpu")
+    return (killed_at, intermediate, kept, spot_s, resume_s, _metric_lines(out), resumed,
+            resumed_from)
 
 
 def make_multiclass(n, d, seed):
@@ -4397,9 +4435,9 @@ def entry_child():
     _sample_rss()
 
     def report():
-        print(json.dumps({"launches": dict(hist.LAUNCHES), "consensus_checks": int(
+        _say({"launches": dict(hist.LAUNCHES), "consensus_checks": int(
             snapshot_fields(REGISTRY).get("consensus_checks_total", 0)),
-            "rss_peak_mb": _rss_peak_mb()}), flush=True)
+            "rss_peak_mb": _rss_peak_mb()})
 
     real_exit = watchdog._exit
 
@@ -4412,7 +4450,7 @@ def entry_child():
     perform_reform = elastic.perform_reform
 
     def reform_with_report(*args, **kwargs):
-        print(json.dumps({"reform_launches": dict(hist.LAUNCHES)}), flush=True)
+        _say({"reform_launches": dict(hist.LAUNCHES)})
         return perform_reform(*args, **kwargs)
 
     elastic.perform_reform = reform_with_report
@@ -4437,6 +4475,14 @@ def entry_child():
 
     local.spawn_local_ranks = spawn_counted
     entry.main()
+
+
+def _say(doc):
+    """One JSON line on stdout in one write: a host's local ranks share its
+    stdout, and a line printed in two writes (the text, then the newline)
+    could take another process's line into it."""
+    sys.stdout.write(json.dumps(doc) + "\n")
+    sys.stdout.flush()
 
 
 _RSS_PEAK = {}
@@ -4474,13 +4520,15 @@ def _rss_peak_mb():
 
 
 def local_rank_child(local_rank, spec, parent_pid, err_path):
-    """A local rank that an `--entry-child` leader spawns (phase 21): the
-    port's worker entry (`training.entry.local_rank_main`), printing one
+    """A local rank that an `--entry-child` leader spawns (phases 21, 22):
+    the port's worker entry (`training.entry.local_rank_main`), printing one
     `{"rank_launches": ...}` line (its launch counts, its collectives'
-    calls and host seconds, its peak RSS) as its training returns."""
+    calls and host seconds, its peak RSS) as its training returns, and its
+    launch counts as an elastic reform begins (`{"reform_launches": ...,
+    "local_rank": ...}`)."""
     from sagemaker_xgboost_container_tpu_torch.ops import histogram as hist
     from sagemaker_xgboost_container_tpu_torch.parallel import collectives
-    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train, entry
+    from sagemaker_xgboost_container_tpu_torch.training import algorithm_train, elastic, entry
 
     _sample_rss()
     run = algorithm_train.run_local_rank
@@ -4489,12 +4537,19 @@ def local_rank_child(local_rank, spec, parent_pid, err_path):
         try:
             return run(rank, worker_spec)
         finally:
-            print(json.dumps({"rank_launches": dict(hist.LAUNCHES), "local_rank": rank,
-                              "collective_calls": collectives.STATS["calls"],
-                              "collective_s": round(collectives.STATS["seconds"], 6),
-                              "rss_peak_mb": _rss_peak_mb()}), flush=True)
+            _say({"rank_launches": dict(hist.LAUNCHES), "local_rank": rank,
+                  "collective_calls": collectives.STATS["calls"],
+                  "collective_s": round(collectives.STATS["seconds"], 6),
+                  "rss_peak_mb": _rss_peak_mb()})
 
     algorithm_train.run_local_rank = counted
+    perform_reform = elastic.perform_reform
+
+    def reform_with_report(*args, **kwargs):
+        _say({"reform_launches": dict(hist.LAUNCHES), "local_rank": local_rank})
+        return perform_reform(*args, **kwargs)
+
+    elastic.perform_reform = reform_with_report
     entry.local_rank_main(local_rank, spec, parent_pid, err_path)
 
 
@@ -4539,7 +4594,7 @@ def _report_ingest(atexit):
 
     booster._TrainingSession.__init__ = session_init
     streaming.ingest_channel = ingest_channel
-    atexit.register(lambda: print(json.dumps({"ingest": doc}), flush=True))
+    atexit.register(lambda: _say({"ingest": doc}))
 
 
 def oom_child(out_dir):
@@ -4583,14 +4638,44 @@ def oom_child(out_dir):
 
 
 def run_planes(torch, hist, pkg, dtrain, dval, tag):
-    """Phase 16: the training planes on one host (see the module docstring)."""
+    """Phase 16: the training planes on one host (see the module docstring).
+    16c's two children run beside 16b's three, which follow one another."""
     t = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_planes_") as tmp:
         _planes_in_process(torch, hist, pkg, dtrain, dval, tag, tmp)
-        sm_env, model_dir = _planes_entry(tag, tmp)
-        _planes_drills(tag, tmp, sm_env)
+        _, _, _, train_dir, _, sm_env = _entry_tree(os.path.join(tmp, "entry"), {
+            "hyperparameters.json": DRILL_HP,
+            "hyperparameters-depth.json": dict(DRILL_HP, max_depth="6")})
+        drills = _in_background(_planes_drills, tag, tmp, sm_env)
+        try:
+            model_dir = _planes_entry(tag, tmp, sm_env, train_dir)
+        finally:
+            drills()
         _planes_serve(tag, tmp, model_dir)
     print("{} | planes phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _in_background(fn, *args):
+    """Start ``fn(*args)`` on a thread -> a function that waits for it and
+    returns its result or raises its exception."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:  # re-raised by the waiter
+            box["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box.get("out")
+
+    return wait
 
 
 class _Evals:
@@ -4756,18 +4841,16 @@ def _planes_memory_and_stats(torch, pkg, dtrain, tag, runs):
           flush=True)
 
 
-def _planes_entry(tag, tmp):
-    """16b: the entry point in child processes: the stalled round (exit 79),
-    the resume with one transient read, the strict resume under another
-    max_depth. -> (the SageMaker tree's env maker, the resumed model's dir)."""
+def _planes_entry(tag, tmp, sm_env, train_dir):
+    """16b: the entry point in child processes on the SageMaker tree under
+    ``tmp``/entry (``sm_env``): the stalled round (exit 79), the resume with
+    one transient read, the strict resume under another max_depth. -> the
+    resumed model's dir."""
     from sagemaker_xgboost_container_tpu_torch.data import readers
     from sagemaker_xgboost_container_tpu_torch.telemetry import REGISTRY
     from sagemaker_xgboost_container_tpu_torch.utils import faults, integrity
 
     root = os.path.join(tmp, "entry")
-    _, _, _, train_dir, _, sm_env = _entry_tree(root, {
-        "hyperparameters.json": DRILL_HP,
-        "hyperparameters-depth.json": dict(DRILL_HP, max_depth="6")})
     ckpt = os.path.join(root, "ckpt-drill")
 
     def child(env, what):
@@ -4850,7 +4933,7 @@ def _planes_entry(tag, tmp):
     print("{} | planes 16b: in-process read with data.read:error@1: {} rows, "
           "io_retries_total{{site=reader.csv}} +{:.0f}".format(tag, dm.num_row, after - before),
           flush=True)
-    return sm_env, model_dir
+    return model_dir
 
 
 def _registry_value(registry, key):
@@ -4861,10 +4944,16 @@ def _registry_value(registry, key):
 
 def _planes_drills(tag, tmp, sm_env):
     """16c: the numeric-poison drill (exit 87) and the device-OOM drill
-    (exit 86)."""
+    (exit 86), at once."""
+    out_dir = os.path.join(tmp, "oom")
+    os.makedirs(out_dir)
+    oom = _in_background(_oom_drill, out_dir)
     env = sm_env("poison")
     env.update(SM_MODEL_TELEMETRY="true", SM_FAULT_SPEC="train.gradient_poison:nan@3")
-    rc, out, err, secs = _run_entry_child(env, timeout=300, command=ENTRY_CHILD_COMMAND)
+    try:
+        rc, out, err, secs = _run_entry_child(env, timeout=300, command=ENTRY_CHILD_COMMAND)
+    finally:
+        proc, oom_s = oom()
     launches = _child_launches(out)
     path = os.path.join(tmp, "entry", "ckpt-poison", "learning-forensics-rank0.json")
     check(rc == 87 and os.path.exists(path), "the poison drill exited {}: {}".format(
@@ -4877,13 +4966,6 @@ def _planes_drills(tag, tmp, sm_env):
           "({} rounds of stats)".format(tag, secs, json.dumps(launches), doc["first_bad_round"],
                                         len(doc["stats_history"])), flush=True)
 
-    out_dir = os.path.join(tmp, "oom")
-    os.makedirs(out_dir)
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--oom-child", out_dir],
-                          capture_output=True, text=True, timeout=300,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    secs = time.perf_counter() - t
     path = os.path.join(out_dir, "hbm-forensics-rank0.json")
     check(proc.returncode == 86 and os.path.exists(path), "the OOM drill exited {}: {}".format(
         proc.returncode, proc.stderr[-2000:]))
@@ -4895,10 +4977,19 @@ def _planes_drills(tag, tmp, sm_env):
           "the OOM forensics list no blocks: {}".format(str(doc)[:500]))
     print("{} | planes 16c OOM: exit 86 in {:.3f} s, launches {}; memory fraction {:.3e} "
           "allowed {} of {} bytes; forensics: {} blocks, largest {} bytes, {} in use; error "
-          "{}".format(tag, secs, json.dumps(_child_launches(proc.stdout)), cap["fraction"],
+          "{}".format(tag, oom_s, json.dumps(_child_launches(proc.stdout)), cap["fraction"],
                       cap["allowed_bytes"], cap["total_bytes"], len(blocks),
                       blocks[0]["total_bytes"], doc["memory"]["total_bytes_in_use"],
                       doc["error"][:120]), flush=True)
+
+
+def _oom_drill(out_dir):
+    """`chip_smoke.py --oom-child out_dir` -> (its CompletedProcess, wall s)."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--oom-child", out_dir],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, time.perf_counter() - t
 
 
 def _drift_rows(seed, shift):
@@ -6081,15 +6172,19 @@ ELASTIC_LOGLOSS_TOL = 1e-2
 ELASTIC_TREE_KEYS = ("feature", "threshold", "default_left", "left", "right", "value")
 
 
+# phase 20's channels and 20a's last validation logloss, kept for phase 22
+ELASTIC_KEPT = {}
+
+
 def run_elastic(torch, hist, tag):
     """Phase 20: the elastic shrink and the consensus guard (see the module
-    docstring)."""
+    docstring). Its channels stay for phase 22 (removed there, or at exit)."""
     t = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as tmp:
-        channels = _elastic_channels(tmp)
-        ref = _elastic_consensus_run(tag, tmp, channels)
-        _elastic_shrink_run(tag, tmp, channels, ref)
-        _elastic_drills(tag, tmp, channels)
+    tmp = ELASTIC_KEPT["tmp"] = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    channels = ELASTIC_KEPT["channels"] = _elastic_channels(tmp)
+    ref = ELASTIC_KEPT["logloss"] = _elastic_consensus_run(tag, tmp, channels)
+    _elastic_shrink_run(tag, tmp, channels, ref)
+    _elastic_drills(tag, tmp, channels)
     print("{} | elastic phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
 
 
@@ -6269,8 +6364,7 @@ def _elastic_shrink_run(tag, tmp, channels, ref_logloss):
     recs = [_round_records(c.out) for c in (c0, c1)]
     before, after = range(1, ELASTIC_KILL_AT), range(ELASTIC_KILL_AT + 1, ELASTIC_ROUNDS)
     reports = [_child_report(c.out) for c in (c0, c1)]
-    at_reform = [([json.loads(l)["reform_launches"] for l in c.out.splitlines()
-                   if l.startswith('{"reform_launches"')] or [{}])[0] for c in (c0, c1)]
+    at_reform = [_reform_launches(c.out) for c in (c0, c1)]
     per_round_after = [{k: (r.get("launches", {}).get(k, 0) - a.get(k, 0)) /
                         float(ELASTIC_ROUNDS - ELASTIC_KILL_AT)
                         for k in ("hist_kernel", "totals_kernel")}
@@ -6310,6 +6404,14 @@ def _elastic_shrink_run(tag, tmp, channels, ref_logloss):
           "20b: launches a round after the shrink {}".format(per_round_after))
     check(abs(ll - ref_logloss) <= ELASTIC_LOGLOSS_TOL,
           "20b: logloss {} against 20a's {}".format(ll, ref_logloss))
+
+
+def _reform_launches(out, local_rank=0):
+    """The launch counts a rank printed as its elastic reform began
+    (`{"reform_launches": ...}`; a worker's line names its local rank)."""
+    found = [json.loads(l) for l in out.splitlines() if l.startswith('{"reform_launches"')]
+    return ([r["reform_launches"] for r in found if r.get("local_rank", 0) == local_rank]
+            or [{}])[0]
 
 
 def _elastic_drills(tag, tmp, channels):
@@ -6591,6 +6693,102 @@ def _local_nccl(torch, tag, tmp):
               "21d {}: launches".format(comm))
 
 
+# ---------------------------------------------------------------- phase 22
+
+# elastic shrink-to-continue with local ranks: phase 20's three hosts, each
+# SM_LOCAL_RANKS=2 (six gloo ranks on the one card), host 2's local rank 1
+# killed at its round-5 end: host 2 exits 80, hosts 0-1 shrink to 2 x 2
+ELASTIC_LOCAL_ENV = {"SM_ELASTIC": "1", "SM_LOCAL_RANKS": "2"}
+
+
+def run_elastic_local(torch, tag):
+    """Phase 22: the elastic shrink with two local ranks a host (see the
+    module docstring), on phase 20's channels."""
+    import shutil
+
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    t = time.perf_counter()
+    tmp, channels, ref_logloss = (ELASTIC_KEPT[k] for k in ("tmp", "channels", "logloss"))
+    children = _elastic_hosts(tmp, "22", channels, [
+        dict(ELASTIC_LOCAL_ENV), dict(ELASTIC_LOCAL_ENV),
+        dict(ELASTIC_LOCAL_ENV, SM_LOCAL_FAULT_SPEC="1=training.round_end:kill@{}".format(
+            ELASTIC_KILL_AT))])
+    (c0, root0), (c1, root1), (c2, _root2) = children
+    codes = _wait_hosts(children, 600)
+    for rank, (c, _root) in enumerate(children):
+        want = 80 if rank == 2 else 0
+        check(codes[rank] == want, "22: host {} exited {} (want {}): {}".format(
+            rank, codes[rank], want, "".join(c.err)[-3000:]))
+    # the kill: host 2's leader logs its worker's death as it sees it
+    killed_at = next((c2.stamps[i] for i, l in enumerate(c2.lines)
+                      if "local rank 1 failed" in l), c2.ended_at)
+    transitions = [_records(c.out, "training.membership") for c in (c0, c1)]
+    model = os.path.join(root0, "model", "xgboost-model")
+    final = Forest.load_model(model, device="cpu")
+    ckpt = Forest.load_model(os.path.join(root0, "checkpoints", "xgboost-checkpoint.{}".format(
+        ELASTIC_KILL_AT - 1)), device="cpu")
+    head_same = len(ckpt.trees) == ELASTIC_KILL_AT and all(
+        np.array_equal(getattr(a, k), getattr(b, k))
+        for a, b in zip(final.trees[:ELASTIC_KILL_AT], ckpt.trees) for k in ELASTIC_TREE_KEYS)
+    same = _same_bytes([os.path.join(r, "output", "rank-model") for r in (root0, root1)])
+    member_at = next((i for i, l in enumerate(c0.lines) if '"training.membership"' in l),
+                     len(c0.lines))
+    first_after = next((c0.stamps[i] for i in range(member_at, len(c0.lines))
+                        if c0.lines[i].startswith('{"metric": "training.round"')), None)
+    to_first_round = (first_after - killed_at) if first_after is not None else float("nan")
+    recs = [_round_records(c.out) for c in (c0, c1)]
+    before, after = range(1, ELASTIC_KILL_AT), range(ELASTIC_KILL_AT + 1, ELASTIC_ROUNDS)
+    # every rank's launches a round after the reform: (at exit - at the
+    # reform) over the rounds after it; the leader, then its worker
+    rounds_after = float(ELASTIC_ROUNDS - ELASTIC_KILL_AT)
+    per_round_after, rss = [], []
+    for c in (c0, c1):
+        worker = _rank_reports(c.out).get(1, {})
+        for final_counts, local_rank in ((_child_launches(c.out), 0),
+                                         (worker.get("rank_launches"), 1)):
+            at = _reform_launches(c.out, local_rank)
+            per_round_after.append({k: ((final_counts or {}).get(k, 0) - at.get(k, 0)) /
+                                    rounds_after for k in ("hist_kernel", "totals_kernel")})
+        rss += [_child_report(c.out).get("rss_peak_mb"), worker.get("rss_peak_mb")]
+    ll = _last_metric(c0.out, "validation-logloss")
+    rounds_printed = [sorted(_metric_lines(c.out)) for c in (c0, c1)]
+    print("{} | elastic local 22 (three hosts x SM_LOCAL_RANKS=2, six gloo ranks on cuda:0): "
+          "host 2's local rank 1 killed at its round-{} end; exits {}; {:.3f} s from the kill "
+          "to the new generation's first round (host 0); membership {}; rounds 1-{} equal to "
+          "checkpoint {}: {}; survivor models byte-equal: {} ({} rounds); rounds/s a rank "
+          "before (rounds 1-{}) {} and after (rounds {}-{}) the shrink {} (the leaders' "
+          "records; a host's ranks run in step); histogram collective ms a round before {} "
+          "and after {}; launches a round after the reform, host 0 leader / worker, host 1 "
+          "leader / worker {}; peak RSS MiB (VmRSS sampled) {}; last validation logloss "
+          "{:.6f} against 20a's {:.6f}".format(
+              tag, ELASTIC_KILL_AT - 1, codes, to_first_round, json.dumps(transitions[0]),
+              ELASTIC_KILL_AT, ELASTIC_KILL_AT - 1, head_same, same, final.num_boosted_rounds,
+              ELASTIC_KILL_AT - 1, [round(_rate(r, before), 3) for r in recs],
+              ELASTIC_KILL_AT + 1, ELASTIC_ROUNDS - 1, [round(_rate(r, after), 3) for r in recs],
+              [_breakdown(r, before).get("hist_comm_ms") for r in recs],
+              [_breakdown(r, after).get("hist_comm_ms") for r in recs],
+              json.dumps(per_round_after), rss, ll, ref_logloss), flush=True)
+    print("{} | elastic local 22: nccl: not run (1 GPU)".format(tag), flush=True)
+    check(transitions[0] == transitions[1] and len(transitions[0]) == 1,
+          "22: membership records {}".format(transitions))
+    tr = transitions[0][0]
+    check((tr["old_world_size"], tr["new_world_size"], tr["surviving_ranks"]) == (3, 2, [0, 1]),
+          "22: transition {}".format(tr))
+    check(final.num_boosted_rounds == ELASTIC_ROUNDS, "22: {} rounds".format(
+        final.num_boosted_rounds))
+    check(head_same, "22: rounds 1-{} differ from the checkpoint".format(ELASTIC_KILL_AT))
+    check(same, "22: the survivors' models differ")
+    check(all(p == list(range(ELASTIC_ROUNDS)) for p in rounds_printed),
+          "22: rounds printed {}".format(rounds_printed))
+    check(all(p == {"hist_kernel": 8.0, "totals_kernel": 1.0} for p in per_round_after),
+          "22: launches a round after the shrink {}".format(per_round_after))
+    check(abs(ll - ref_logloss) <= ELASTIC_LOGLOSS_TOL,
+          "22: logloss {} against 20a's {}".format(ll, ref_logloss))
+    shutil.rmtree(ELASTIC_KEPT.pop("tmp"), ignore_errors=True)
+    print("{} | elastic local phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
 PHASE_WALL = []
 
 
@@ -6680,14 +6878,17 @@ def main():
         phase("19 streaming ingest", run_streaming, torch, hist, tag)
         phase("20 elastic and consensus", run_elastic, torch, hist, tag)
         phase("21 local ranks", run_local_ranks, torch, tag)
+        phase("22 elastic with local ranks", run_elastic_local, torch, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise
     finally:
-        if MODEL_ROOT is not None:
-            import shutil
+        import shutil
 
+        if MODEL_ROOT is not None:
             shutil.rmtree(MODEL_ROOT, ignore_errors=True)
+        if "tmp" in ELASTIC_KEPT:
+            shutil.rmtree(ELASTIC_KEPT["tmp"], ignore_errors=True)
 
     total = sum(seconds for _name, seconds in PHASE_WALL)
     for name, seconds in PHASE_WALL:

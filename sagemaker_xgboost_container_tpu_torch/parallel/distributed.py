@@ -712,9 +712,12 @@ def teardown_process_group(timeout_s=PROCESS_GROUP_TEARDOWN_S):
         gc.collect()
 
 
-def reform_process_group(survivors, current_host, device, generation):
+def reform_process_group(survivors, current_host, device, generation, rank=None,
+                         world_size=None):
     """Re-form the default process group over the sorted ``survivors``
-    (rank = index) after a shrink -> the new group.
+    (rank = index, or with local ranks the caller's ``rank`` = new host
+    index x L + local rank of ``world_size`` = survivors x L) after a
+    shrink -> the new group.
 
     The old group is torn down first (``teardown_process_group``, bounded;
     a no-op when the drain already did it). The new group's store listens
@@ -723,4 +726,5 @@ def reform_process_group(survivors, current_host, device, generation):
     """
     teardown_process_group()
     return init_process_group(survivors, current_host, device,
-                              port=process_group_port() + int(generation))
+                              port=process_group_port() + int(generation), rank=rank,
+                              world_size=world_size)

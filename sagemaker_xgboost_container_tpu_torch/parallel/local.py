@@ -25,6 +25,14 @@ rank.
   its workers, and a worker's death aborts the host (exit 80) with the
   worker's error text in the failure file; the leader reaps its workers on
   every exit path (``stop_local_ranks``, ``kill_local_ranks``).
+* Each worker holds the read end of a control pipe from its leader
+  (``listen_to_leader``): the leader's verdicts, an elastic ``reform``
+  (``relay_to_workers``, once the survivors' rendezvous has committed) and
+  an ``abort`` with its exit code, sent before the workers are reaped. The
+  heartbeat, abort, consensus and fleet planes stay one a host, in the
+  leader. L is fixed for the job: an elastic reform re-forms the same L
+  ranks a host over the surviving hosts (``Topology.after_shrink``) and
+  spawns nothing.
 
 L == 1 spawns nothing and leaves every path as it was.
 """
@@ -50,6 +58,9 @@ LOCAL_RANKS_ENV = "SM_LOCAL_RANKS"
 LOCAL_FAULT_SPEC_ENV = "SM_LOCAL_FAULT_SPEC"
 # how long a finished leader waits for its workers to exit
 WORKER_JOIN_TIMEOUT_S = 120.0
+# how long an aborting leader waits for its workers to take its exit code
+# before it kills them
+WORKER_ABORT_WAIT_S = 2.0
 
 
 class Topology:
@@ -73,6 +84,12 @@ class Topology:
     @property
     def is_leader(self):
         return self.local_rank == 0
+
+    def after_shrink(self, survivors, current_host):
+        """This rank's place among the sorted ``survivors`` of a shrink: the
+        same local rank of the same L, at its host's new index."""
+        return Topology(len(survivors), sorted(survivors).index(current_host),
+                        self.local_size, self.local_rank)
 
     def __repr__(self):
         return "Topology(hosts={}, host={}, local_size={}, local_rank={})".format(
@@ -366,8 +383,9 @@ class LocalRanks:
     error files and the watcher that turns a worker's death into the host's
     failure."""
 
-    def __init__(self, procs, err_dir, on_failure):
+    def __init__(self, procs, err_dir, on_failure, controls=None):
         self.procs = procs            # {local rank: Process}
+        self.controls = controls or {}  # {local rank: write end of its control pipe}
         self.err_dir = err_dir
         self.on_failure = on_failure
         self.sigterm_hooked = False
@@ -413,6 +431,27 @@ class LocalRanks:
                     self.on_failure(r, message)
                     return
 
+    def relay(self, msg):
+        """Send ``msg`` to every live worker -> the local ranks reached."""
+        reached = []
+        for r, conn in sorted(self.controls.items()):
+            if not self.procs[r].is_alive():
+                continue
+            try:
+                conn.send(msg)
+                reached.append(r)
+            except (OSError, ValueError):
+                pass  # the worker is gone; its watcher reports it
+        return reached
+
+    def _close_controls(self):
+        for conn in self.controls.values():
+            try:
+                conn.close()
+            except OSError:
+                pass
+        self.controls = {}
+
     def stop(self, graceful=True, timeout=WORKER_JOIN_TIMEOUT_S):
         """Reap every worker (after ``timeout`` for them to finish when
         ``graceful``, else at once) -> the failures, as ``failures()``."""
@@ -425,6 +464,7 @@ class LocalRanks:
                 p.kill()
             p.join(10)
         failed = self.failures() if graceful else []
+        self._close_controls()
         shutil.rmtree(self.err_dir, ignore_errors=True)
         return failed
 
@@ -438,7 +478,8 @@ def active_local_ranks():
 
 def spawn_local_ranks(topo, spec, target, on_failure):
     """Start local ranks 1..L-1 of ``topo`` with the ``spawn`` context, each
-    running ``target(local_rank, spec, parent pid, error file)``; the
+    running ``target(local_rank, spec, parent pid, error file)``, its spec
+    holding the read end of its control pipe as ``spec["control"]``; the
     caller stays local rank 0 -> the ``LocalRanks`` handle. From the main
     thread: a worker's ``PR_SET_PDEATHSIG`` fires when the thread that
     started it exits."""
@@ -447,20 +488,49 @@ def spawn_local_ranks(topo, spec, target, on_failure):
 
     ctx = mp.get_context("spawn")
     err_dir = tempfile.mkdtemp(prefix="local-ranks-")
-    procs = {}
+    procs, controls = {}, {}
     for r in range(1, topo.local_size):
         err = os.path.join(err_dir, "local-rank-{}.err".format(r))
-        p = ctx.Process(target=target, args=(r, spec, os.getpid(), err),
+        reader, writer = ctx.Pipe(duplex=False)
+        p = ctx.Process(target=target, args=(r, dict(spec, control=reader), os.getpid(), err),
                         name="local-rank-{}".format(r))
         p.start()
-        procs[r] = p
+        reader.close()
+        procs[r], controls[r] = p, writer
     logger.info("spawned local ranks 1..%d of host %d (global ranks %d..%d of %d), pids %s",
                 topo.local_size - 1, topo.host_index, topo.global_rank + 1,
                 topo.global_rank + topo.local_size - 1, topo.world_size,
                 [p.pid for p in procs.values()])
-    _active = LocalRanks(procs, err_dir, on_failure)
+    _active = LocalRanks(procs, err_dir, on_failure, controls)
     _active.sigterm_hooked = _reap_on_sigterm()
     return _active
+
+
+def relay_to_workers(msg):
+    """The leader's verdict ``msg`` to its workers -> the local ranks
+    reached (none without workers)."""
+    handle = _active
+    return handle.relay(msg) if handle is not None else []
+
+
+def listen_to_leader(conn, handler):
+    """A worker: call ``handler(msg)`` for each verdict on its control pipe
+    ``conn``, from a daemon thread, until the pipe closes (the leader is
+    gone, and this process with it)."""
+    def run():
+        while True:
+            try:
+                msg = conn.recv()
+            except (EOFError, OSError):
+                return
+            try:
+                handler(msg)
+            except Exception:
+                logger.exception("local rank: the leader's verdict %r failed", msg)
+
+    t = threading.Thread(target=run, daemon=True, name="leader-verdicts")
+    t.start()
+    return t
 
 
 def _reap_on_sigterm():
@@ -498,13 +568,19 @@ def stop_local_ranks(graceful=True):
     return failed
 
 
-def kill_local_ranks():
-    """Kill and reap this leader's workers at once: every abort path (exits
-    79-87) and SIGTERM run it before the process exits."""
+def kill_local_ranks(exit_code=None):
+    """Kill and reap this leader's workers: every abort path (exits 79-87)
+    and SIGTERM run it before the process exits. With ``exit_code`` the
+    workers are first told to exit with it (an ``abort`` verdict) and given
+    ``WORKER_ABORT_WAIT_S``; the ones left are killed."""
     handle = _active
     if handle is None:
         return
     handle._stop.set()
+    if exit_code is not None and handle.relay({"verb": "abort", "exit_code": int(exit_code)}):
+        deadline = time.monotonic() + WORKER_ABORT_WAIT_S
+        for p in handle.procs.values():
+            p.join(max(0.0, deadline - time.monotonic()))
     for p in handle.procs.values():
         if p.is_alive():
             try:

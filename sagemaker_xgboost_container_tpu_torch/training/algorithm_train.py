@@ -56,7 +56,7 @@ abort there. Refused across hosts with the JAX package's ``UserError``:
 Every local GPU trains, the JAX package's ``_training_mesh`` over a host's
 devices as one process a GPU (``parallel/local.py``): L local ranks a host
 (``SM_LOCAL_RANKS``, else the visible GPUs capped by the host's share of
-``_num_devices``; one where ``SM_ELASTIC`` is armed). The leader (the
+``_num_devices``). The leader (the
 process the platform started) reads the channels once into shared memory
 (``local.HostMatrix``), joins the rendezvous (the hosts agree on the least
 L), spawns local ranks 1..L-1 (``training.entry.local_rank_main`` ->
@@ -64,7 +64,13 @@ L), spawns local ranks 1..L-1 (``training.entry.local_rank_main`` ->
 shard in ``train_job`` (k-fold CV: of each fold's rows, split alike on every
 rank of a host) and bins with the host's cuts. Only the leader prints metric
 lines, runs the planes and writes the out-of-fold predictions, and only
-global rank 0 saves; a dead worker ends the host with exit 80.
+global rank 0 saves; a dead worker ends the host with exit 80. With
+``SM_ELASTIC`` the workers register the membership in relay mode and take
+their leader's verdicts over a control pipe: after a shrink every rank of
+every surviving host re-forms the group (the same L, at its host's new
+index), the cuts are merged again over the surviving hosts, and a dead
+worker is its host's death (its leader exits 80 alone and rank 0 shrinks
+the host away; on rank 0's host it is a dead master: exit 80 everywhere).
 
 Channel ingest (``_streaming_plan``, the JAX package's): ``SM_INGEST_MODE``
 ``auto`` (default) streams the channels chunk by chunk into pre-binned
@@ -356,31 +362,33 @@ def sagemaker_train(
             # last (span shipping needs the rank). With local ranks the
             # workers start first (each joins the group itself) and the
             # planes stay one a host, in this leader
+            from ..telemetry import tracing
+            from . import consensus, elastic
+            from .watchdog import start_abort_plane
+
             ordered = sorted(participating_hosts)
             topo = local.Topology(len(ordered), ordered.index(current_host), local_ranks, 0)
+            # the elastic knobs, resolved once: this leader and its workers
+            # register the same snapshot. k-fold CV trains a callback stack a
+            # fold, with no single resume point to re-form around: the plane
+            # stays unregistered and a dead host takes the coordinated abort
+            elastic_cfg = None if combine_train_val else elastic.resolve_elastic_config()
             rank_dev = dev
             if topo.local_size > 1:
                 rank_dev = local.rank_device(dev, 0)
                 train_args["device"] = rank_dev
                 _spawn_workers(topo, participating_hosts, current_host, dev, train_args,
-                               host_matrices, checkpoint_dir)
+                               host_matrices, checkpoint_dir, elastic_cfg)
                 fleet.note_status(local_ranks=topo.local_size, local_devices=[
                     str(local.rank_device(dev, r)) for r in range(topo.local_size)])
             distributed.init_process_group(participating_hosts, current_host, rank_dev,
                                            rank=topo.global_rank, world_size=topo.world_size)
-            from ..telemetry import tracing
-            from . import consensus, elastic
-            from .watchdog import start_abort_plane
-
-            if combine_train_val:
-                # k-fold CV trains a callback stack a fold, with no single
-                # resume point to re-form around: the plane stays
-                # unregistered and a dead host takes the coordinated abort
+            if elastic_cfg is None:
                 if elastic.resolve_elastic_config().enabled:
                     logger.warning("SM_ELASTIC is not supported for k-fold CV jobs; a dead "
                                    "host takes the coordinated abort")
             else:
-                elastic.register_cluster(participating_hosts, current_host)
+                elastic.register_cluster(participating_hosts, current_host, config=elastic_cfg)
             start_abort_plane(participating_hosts, current_host)
             start_cluster_telemetry(participating_hosts, current_host)
             consensus.register_cluster(participating_hosts, current_host)
@@ -437,19 +445,11 @@ def sagemaker_train(
 
 
 def _local_ranks(num_hosts, num_devices_cap, device):
-    """L, this host's training ranks (``parallel/local.local_world_size``);
-    1 where the elastic plane is armed: a shrink re-forms one rank a host."""
-    from . import elastic
-
-    n = local.local_world_size(num_hosts, num_devices_cap, device)
-    if n > 1 and elastic.resolve_elastic_config().enabled:
-        from ..utils.warn_once import warn_once
-
-        warn_once(logger, "local.elastic",
-                  "SM_ELASTIC is armed: training one rank a host, not %d local ranks "
-                  "(elastic reform with local ranks is not supported yet)", n)
-        return 1
-    return n
+    """L, this host's training ranks (``parallel/local.local_world_size``),
+    resolved once at start: an elastic reform keeps it (the JAX package
+    re-applies its ``_num_devices`` cap over the survivors' devices; the
+    port spawns no worker at a reform)."""
+    return local.local_world_size(num_hosts, num_devices_cap, device)
 
 
 _MATRIX_KEYS = ("train_dmatrix", "val_dmatrix", "train_val_dmatrix")
@@ -471,9 +471,11 @@ def _publish_host_matrices(train_args):
 
 
 def _spawn_workers(topo, hosts, current_host, device, train_args, host_matrices,
-                   checkpoint_dir):
+                   checkpoint_dir, elastic_cfg=None):
     """Start local ranks 1..L-1 of ``topo`` over the shared matrices
-    (``training.entry.local_rank_main``)."""
+    (``training.entry.local_rank_main``); with ``elastic_cfg`` (the
+    leader's ``ElasticConfig``) they register the membership in relay
+    mode."""
     from . import entry
     from .watchdog import on_local_rank_failure
 
@@ -490,6 +492,7 @@ def _spawn_workers(topo, hosts, current_host, device, train_args, host_matrices,
         "matrices": [m.descriptor for m in unique],
         "matrix_keys": {k: unique.index(m) for k, m in host_matrices.items()},
         "model_dir": train_args["model_dir"], "checkpoint_dir": checkpoint_dir,
+        "elastic": elastic_cfg,
     }
     local.spawn_local_ranks(topo, spec, entry.local_rank_main, on_local_rank_failure)
     local.set_topology(topo)
@@ -497,12 +500,19 @@ def _spawn_workers(topo, hosts, current_host, device, train_args, host_matrices,
 
 
 def run_local_rank(local_rank, spec):
-    """The body of a spawned local rank: attach the host's shared matrices,
-    join the process group as global rank host index x L + local rank, and
-    train this rank's shard (``train_job`` with ``is_master=False``: it
-    prints no metric lines and saves nothing)."""
+    """The body of a spawned local rank: listen to its leader's verdicts,
+    attach the host's shared matrices, join the process group as global
+    rank host index x L + local rank, register the elastic membership in
+    relay mode where the leader registered it, and train this rank's shard
+    (``train_job`` with ``is_master=False``: it prints no metric lines and
+    saves nothing)."""
     import torch
 
+    from . import elastic
+    from .watchdog import on_leader_verdict
+
+    if spec.get("control") is not None:
+        local.listen_to_leader(spec["control"], on_leader_verdict)
     topo = local.Topology(spec["num_hosts"], spec["host_index"], spec["local_size"],
                           local_rank)
     local.set_topology(topo)
@@ -513,6 +523,9 @@ def run_local_rank(local_rank, spec):
     try:
         distributed.init_process_group(spec["hosts"], spec["current_host"], dev,
                                        rank=topo.global_rank, world_size=topo.world_size)
+        if spec.get("elastic") is not None:
+            elastic.register_cluster(spec["hosts"], spec["current_host"],
+                                     config=spec["elastic"], relay=True)
         train_job(spec["train_cfg"], mats.get("train_dmatrix"), mats.get("val_dmatrix"),
                   mats.get("train_val_dmatrix"), spec["model_dir"], spec["checkpoint_dir"],
                   is_master=False, device=dev)
@@ -711,17 +724,34 @@ def train_job(
                     raise
 
             def _on_reform(new_hosts, current_host):
-                # the process group first (as at start-up), then the planes
-                # over the survivors, then the one resume point
+                # with local ranks, the leader's verdict to its workers once
+                # the survivors' rendezvous has committed, and every rank's
+                # place at its host's new index; then the process group (as
+                # at start-up), the planes over the survivors (the leader's),
+                # and the one resume point
                 from ..telemetry import tracing
                 from .watchdog import start_abort_plane
 
+                rank = world = None
+                topo_now = local.topology()
+                if topo_now is not None:
+                    if topo_now.is_leader:
+                        t = elastic.membership_log()[-1]
+                        local.relay_to_workers({
+                            "verb": "reform", "generation": t["generation"],
+                            "survivors": t["hosts"], "epoch": t["epoch"],
+                            "reason": t["reason"]})
+                    topo_now = topo_now.after_shrink(new_hosts, current_host)
+                    local.set_topology(topo_now)
+                    rank, world = topo_now.global_rank, topo_now.world_size
                 distributed.reform_process_group(new_hosts, current_host, device,
-                                                 elastic.generation())
-                start_abort_plane(new_hosts, current_host)
-                start_cluster_telemetry(new_hosts, current_host)
-                tracing.set_rank(sorted(new_hosts).index(current_host))
-                fleet.start_fleet_plane(new_hosts, current_host)
+                                                 elastic.generation(), rank=rank,
+                                                 world_size=world)
+                if not local.is_worker():
+                    start_abort_plane(new_hosts, current_host)
+                    start_cluster_telemetry(new_hosts, current_host)
+                    tracing.set_rank(sorted(new_hosts).index(current_host))
+                    fleet.start_fleet_plane(new_hosts, current_host)
                 if "dir" not in agreed:
                     agreed["dir"] = tempfile.mkdtemp(prefix="elastic-resume-")
                 agreed["resume"] = _agree_resume_point(checkpoint_dir, device, agreed["dir"])

@@ -14,6 +14,7 @@ Every callback but the watchdog and ``RoundTimer`` runs inside a
 import logging
 import os
 import signal
+import sys
 
 from ..constants import MODEL_NAME, XGB_MAXIMIZE_METRICS
 from ..telemetry import span
@@ -78,8 +79,12 @@ class EvaluationMonitor:
             for metric_name, values in metrics.items()
         ]
         if fresh:
-            print("[{}]\t{}".format(epoch, "\t".join(
-                "{}-{}:{:.5f}".format(d, m, v) for d, m, v in fresh)), flush=True)
+            # one write: a host's local ranks share its stdout, and where
+            # Python's output is unbuffered print writes the text and the
+            # newline apart, so a worker's log line could land between them
+            sys.stdout.write("[{}]\t{}\n".format(epoch, "\t".join(
+                "{}-{}:{:.5f}".format(d, m, v) for d, m, v in fresh)))
+            sys.stdout.flush()
             if self._model_telemetry:
                 from ..telemetry import emit_metric
 

@@ -35,6 +35,18 @@ rendezvous for a peer that no longer exists. With ``SM_ELASTIC=1``:
    append-only ``membership_log`` stamped into every later checkpoint
    manifest.
 
+With local ranks (``SM_LOCAL_RANKS``, ``parallel/local.py``) the planes
+stay one a host, in its leader; a host's workers register the membership
+in *relay* mode (the leader's config snapshot, no listener). A worker whose
+collective fails unwinds at once with :class:`CollectiveLost` and tears its
+process group down (a peer blocked on it then fails too, instead of
+waiting out the collective timeout), then waits for its leader's verdict.
+The leader relays the verdict over the workers' control pipes once the
+survivors' rendezvous has committed; every rank then re-forms the group as
+global rank new host index x L + local rank, L fixed across reforms. Each
+reform runs under a deadline (``SM_REFORM_TIMEOUT_S``): a reform that
+cannot complete with the workers exits 82 on every survivor.
+
 Inert by default: ``SM_ELASTIC`` unset means no callback, no state, and
 the same kill still ends in the coordinated exit 80.
 """
@@ -103,6 +115,15 @@ class ReformRequested(Exception):
                 generation, reason, self.survivors))
 
 
+class CollectiveLost(ReformRequested):
+    """Raised out of a worker's failed collective before any verdict
+    (``watchdog.on_collective_failure``): :func:`supervised_train` tears
+    the process group down, then waits for the leader's relayed verdict."""
+
+    def __init__(self, epoch=None):
+        super(CollectiveLost, self).__init__([], "collective_lost", 0, epoch=epoch)
+
+
 class _State:
     def __init__(self):
         self.lock = threading.Lock()
@@ -116,19 +137,26 @@ class _State:
         self.pending = None
         self.draining = False  # a reform is past the drain (being executed)
         self.drain_timer = None
+        self.relay = False     # a host's worker: its leader relays the verdicts
+        self.reforming = False  # perform_reform is running
+        self.reform_timer = None
 
 
 _state = _State()
 
 
-def register_cluster(hosts, current_host, config=None, peer_addrs=None):
+def register_cluster(hosts, current_host, config=None, peer_addrs=None, relay=False):
     """Record the membership and resolve the elastic knobs; once at
-    start-up on every participant (``algorithm_train._pre_exec``)."""
+    start-up on every participant (``algorithm_train._pre_exec``). A host's
+    worker registers with ``relay`` and its leader's ``config``: it decides
+    nothing and takes its verdicts from its leader
+    (``algorithm_train.run_local_rank``)."""
     with _state.lock:
         _state.hosts = sorted(hosts)
         _state.current_host = current_host
         _state.config = config if config is not None else resolve_elastic_config()
         _state.peer_addrs = dict(peer_addrs) if peer_addrs else None
+        _state.relay = bool(relay)
         world = len(_state.hosts)
         cfg = _state.config
     REGISTRY.gauge("cluster_world_size",
@@ -143,9 +171,10 @@ def register_cluster(hosts, current_host, config=None, peer_addrs=None):
 def _reset_for_tests():
     global _state
     with _state.lock:
-        timer = _state.drain_timer
-    if timer is not None:
-        timer.cancel()
+        timers = (_state.drain_timer, _state.reform_timer)
+    for timer in timers:
+        if timer is not None:
+            timer.cancel()
     _state = _State()
 
 
@@ -153,6 +182,18 @@ def is_active():
     with _state.lock:
         return (_state.hosts is not None and _state.config is not None
                 and _state.config.enabled)
+
+
+def is_relay():
+    """True in a host's worker registered in relay mode."""
+    with _state.lock:
+        return _state.relay
+
+
+def reform_in_flight():
+    """True from a verdict's arrival until its reform has completed."""
+    with _state.lock:
+        return _state.pending is not None or _state.reforming
 
 
 def current_hosts():
@@ -351,8 +392,9 @@ class ElasticMembershipCallback:
     def after_iteration(self, model, epoch, evals_log):
         req = pending_reform()
         if req is not None:
+            # a relayed verdict carries its leader's epoch
             raise ReformRequested(req["survivors"], req["reason"], req["generation"],
-                                  epoch=epoch)
+                                  epoch=req["epoch"] if req.get("epoch") is not None else epoch)
         return False
 
 
@@ -392,12 +434,20 @@ def perform_reform(req, on_reform=None, master_addr=None, port=None):
         current_host = _state.current_host
         cfg = _state.config
         old_hosts = list(_state.hosts or [])
+        relay = _state.relay
         # this rank drained and is executing the reform: disarm the
-        # wedged-drain demotion
+        # wedged-drain demotion, and bound the reform itself
         _state.draining = True
+        _state.reforming = True
         timer, _state.drain_timer = _state.drain_timer, None
+        deadline = cfg.reform_timeout_s if cfg else 60.0
+        reform_timer = threading.Timer(deadline, _reform_deadline_expired,
+                                       args=(req.generation, deadline))
+        reform_timer.daemon = True
+        _state.reform_timer = reform_timer
     if timer is not None:
         timer.cancel()
+    reform_timer.start()
     reason = req.reason
     try:
         with trace_span("cluster.reform", attributes={
@@ -405,15 +455,20 @@ def perform_reform(req, on_reform=None, master_addr=None, port=None):
                 "old_world_size": len(old_hosts), "new_world_size": len(req.survivors)}):
             with trace_span("reform.drain"):
                 _teardown_planes()
-            with trace_span("reform.rendezvous"):
-                from ..parallel.distributed import reform_cluster
+            cluster = None
+            if not relay:
+                # a worker's leader has already met the other survivors
+                with trace_span("reform.rendezvous"):
+                    from ..parallel.distributed import reform_cluster
 
-                cluster, _membership = reform_cluster(
-                    req.survivors, current_host, req.generation,
-                    timeout=cfg.reform_timeout_s if cfg else 60.0,
-                    master_addr=master_addr, port=port)
+                    cluster, _membership = reform_cluster(
+                        req.survivors, current_host, req.generation,
+                        timeout=cfg.reform_timeout_s if cfg else 60.0,
+                        master_addr=master_addr, port=port)
             transition = _commit_transition(req, old_hosts)
-            emit_metric("training.membership", **transition)
+            if not relay:
+                # one record a host, its leader's
+                emit_metric("training.membership", **transition)
             REGISTRY.counter("elastic_shrink_total",
                              "Completed shrink-to-continue membership transitions",
                              {"reason": reason}).inc()
@@ -425,10 +480,12 @@ def perform_reform(req, on_reform=None, master_addr=None, port=None):
             consensus.register_cluster(req.survivors, current_host)
             if on_reform is not None:
                 on_reform(list(req.survivors), current_host)
+        _end_reform()
         logger.warning("elastic: reform complete; training continues at world size %d "
                        "(generation %d)", len(req.survivors), req.generation)
         return cluster
     except Exception as e:
+        _end_reform()
         logger.exception("elastic: reform FAILED at generation %d (%s); aborting this "
                          "survivor with exit %d: a restart resumes at the old membership",
                          req.generation, e, EXIT_REFORM_FAILED)
@@ -437,6 +494,32 @@ def perform_reform(req, on_reform=None, master_addr=None, port=None):
         watchdog.request_abort("reform_failed", EXIT_REFORM_FAILED, generation=req.generation,
                                survivors=list(req.survivors), error=str(e)[:400])
         raise
+
+
+def _end_reform():
+    with _state.lock:
+        _state.reforming = False
+        timer, _state.reform_timer = _state.reform_timer, None
+    if timer is not None:
+        timer.cancel()
+
+
+def _reform_deadline_expired(generation_armed, deadline_s):
+    """Timer body: the reform of ``generation_armed`` did not complete
+    within ``SM_REFORM_TIMEOUT_S`` (a survivor or a worker never joined the
+    new process group, or the resume point never came): exit 82, as a
+    faulted reform does."""
+    with _state.lock:
+        stale = _state.reforming and _state.generation <= generation_armed
+    if not stale:
+        return
+    from . import watchdog
+
+    logger.error("elastic: reform (generation %d) did not complete within %.0fs; aborting "
+                 "this survivor with exit %d", generation_armed, deadline_s, EXIT_REFORM_FAILED)
+    watchdog.request_abort("reform_failed", EXIT_REFORM_FAILED, generation=generation_armed,
+                           error="the reform did not complete within {:.0f}s".format(
+                               deadline_s))
 
 
 def _teardown_planes():
@@ -513,11 +596,35 @@ def supervised_train(train_once, on_reform=None, master_addr=None, reform_port=N
     while True:
         try:
             result = train_once()
+        except CollectiveLost as e:
+            lost_epoch, req = e.epoch, None
         except ReformRequested as e:
             req = ReformRequested(e.survivors, e.reason, e.generation, epoch=e.epoch)
         else:
             _disarm_pending("training completed before the drain point; no rounds remain")
             return result
+        if req is None:
+            req = _await_relayed_verdict(lost_epoch)
         logger.warning("elastic: training unwound for reform at epoch %s (generation %d, "
                        "reason %s)", req.epoch, req.generation, req.reason)
         perform_reform(req, on_reform=on_reform, master_addr=master_addr, port=reform_port)
+
+
+def _await_relayed_verdict(epoch):
+    """A worker whose collective failed, unwound: tear its process group
+    down (its frames are gone, so its connections close and a peer blocked
+    on it fails too), then wait up to ``SM_REFORM_DRAIN_TIMEOUT_S`` for its
+    leader's verdict -> the request. Without one the worker fails (its
+    leader, if alive, takes the host down)."""
+    from ..parallel.distributed import teardown_process_group
+    from ..toolkit import exceptions as exc
+
+    teardown_process_group()
+    wait_s = drain_timeout_s()
+    logger.warning("a collective failed; the process group is down, waiting up to %.0fs for "
+                   "the leader's verdict", wait_s)
+    req = await_reform(wait_s, epoch=epoch)
+    if req is None:
+        raise exc.PlatformError("a collective failed and no reform verdict came from this "
+                                "host's leader within {:.0f}s".format(wait_s))
+    return req

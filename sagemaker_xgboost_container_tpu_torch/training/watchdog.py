@@ -26,6 +26,12 @@ The port's counterpart of the local half of the JAX package's
   "shrink"`` frames on the same channel, and a failed collective waits for
   that verdict (up to ``SM_REFORM_DRAIN_TIMEOUT_S``) and unwinds the round
   with ``ReformRequested`` instead of exiting 80.
+* **local ranks** (``parallel/local.py``): the planes are the leader's; it
+  relays its verdicts to its workers (``on_leader_verdict``: a reform, or
+  an abort with its exit code). Under ``SM_ELASTIC`` a dead worker is its
+  host's death: the leader exits 80 alone and rank 0 shrinks the host away
+  (rank 0's own host cannot be survived: exit 80 everywhere, as before);
+  during a reform it exits 82.
 
 The exit is ``os._exit`` from whichever thread asks, because the main
 thread may be blocked inside a device call or a collective that Python
@@ -41,7 +47,7 @@ import os
 import threading
 import time
 
-from ..constants import EXIT_CLUSTER_ABORT, EXIT_ROUND_DEADLINE
+from ..constants import EXIT_CLUSTER_ABORT, EXIT_REFORM_FAILED, EXIT_ROUND_DEADLINE
 from ..constants import SM_MODEL_DIR as SM_MODEL_DIR_ENV
 from ..telemetry.emit import emit_metric
 from ..utils.envconfig import env_bool, env_float
@@ -105,10 +111,11 @@ def request_abort(reason, exit_code, **fields):
     except Exception:
         logger.exception("flight-recorder dump failed; exiting anyway")
     emit_metric("training.abort", reason=reason, exit_code=exit_code, **fields)
-    # the host's local ranks go down with it, reaped here (parallel/local.py)
+    # the host's local ranks go down with it, told the exit code and reaped
+    # here (parallel/local.py)
     from ..parallel import local
 
-    local.kill_local_ranks()
+    local.kill_local_ranks(exit_code)
     _exit(exit_code)
 
 
@@ -209,6 +216,27 @@ def _frame_exit_code(msg):
     except (TypeError, ValueError):
         return EXIT_CLUSTER_ABORT
     return code if 79 <= code <= 99 else EXIT_CLUSTER_ABORT
+
+
+def on_leader_verdict(msg):
+    """A worker's side of its leader's control pipe (``parallel/local.py``):
+    ``reform`` arms the relayed reform (the leader's survivors, generation,
+    epoch and reason); ``abort`` exits with the leader's code at once, from
+    this thread (the main thread may be inside a collective), leaving the
+    record, the checkpoint flush and the dumps to the leader."""
+    verb = msg.get("verb")
+    if verb == "reform":
+        from . import elastic
+
+        elastic.request_reform(msg["survivors"], msg.get("reason", "shrink"),
+                               generation=msg["generation"], epoch=msg.get("epoch"))
+    elif verb == "abort":
+        code = _frame_exit_code(msg)
+        logger.error("the host's leader is aborting (exit %d); this local rank exits with it",
+                     code)
+        _exit(code)
+    else:
+        logger.warning("ignoring an unknown verdict from the leader: %r", msg)
 
 
 def _on_abort_frame(msg):
@@ -335,18 +363,26 @@ def on_collective_failure(error):
     Without a verdict (the plane gave up, or rank 0 itself died: not
     survivable), and with the abort plane up otherwise, the coordinated
     abort (exit 80, the peers told); with no plane, ``PlatformError``, which
-    fails the job."""
+    fails the job. A host's worker under the elastic plane waits nothing
+    here: it raises the verdict its leader relayed, else
+    ``elastic.CollectiveLost``."""
+    from ..telemetry.cluster import ROUND_STATE
     from ..toolkit import exceptions as exc
     from . import elastic
 
+    if elastic.is_active() and elastic.is_relay():
+        # a host's worker: unwind now, so that supervised_train tears the
+        # group down (a peer blocked on this rank then fails too) before it
+        # waits for the leader's verdict; one already relayed is raised
+        epoch = ROUND_STATE.snapshot()["round"]
+        req = elastic.await_reform(0.0, epoch=epoch)
+        raise req if req is not None else elastic.CollectiveLost(epoch=epoch)
     with _listener_lock:
         plane = _plane_hosts
     if plane is not None and elastic.is_active():
         wait_s = elastic.drain_timeout_s()
         logger.warning("a collective failed (%s); waiting up to %.0fs for the shrink verdict",
                        str(error)[:200], wait_s)
-        from ..telemetry.cluster import ROUND_STATE
-
         req = elastic.await_reform(wait_s, epoch=ROUND_STATE.snapshot()["round"])
         if req is not None:
             raise req
@@ -384,8 +420,17 @@ def on_local_rank_failure(local_rank, message):
     a collective of the leader failed: the host fails as with a dead peer.
     The failure file gets the first caller's ``message`` (the worker's error
     text: the watcher and a failed collective can report one death at once,
-    and the exit must not cut a second write short); with the abort plane up
-    every host is told (exit 80 everywhere), else this host exits 80."""
+    and the exit must not cut a second write short). Then:
+
+    * during an elastic reform, this host exits 82 (a reform that cannot
+      complete with its workers); the other survivors' reforms fail at
+      their deadline;
+    * under ``SM_ELASTIC`` on a host other than rank 0's, this host alone
+      exits 80: rank 0 finds it stale and shrinks it away;
+    * otherwise, with the abort plane up, every host is told (exit 80
+      everywhere; a dead worker on rank 0's host is a dead master), else
+      this host exits 80."""
+    from . import elastic
     from .entry import _write_failure_file
 
     if not _local_failure_lock.acquire(blocking=False):
@@ -396,6 +441,17 @@ def on_local_rank_failure(local_rank, message):
     _write_failure_file(message)
     with _listener_lock:
         plane = _plane_hosts
+    if elastic.is_active() and elastic.reform_in_flight():
+        pending = elastic.pending_reform()
+        request_abort("reform_failed", EXIT_REFORM_FAILED, local_rank=local_rank,
+                      generation=pending["generation"] if pending else elastic.generation(),
+                      error=message[:400])
+        return
+    if (plane is not None and elastic.is_active()
+            and sorted(plane[0]).index(plane[1]) != 0):
+        request_abort("local_rank_failed", EXIT_CLUSTER_ABORT, local_rank=local_rank,
+                      error=message[:400])
+        return
     if plane is not None:
         hosts, current_host = plane
         coordinate_abort(hosts, current_host, "local_rank_failed", local_rank=local_rank,

@@ -248,9 +248,24 @@ def check_model_file(model_path):
 
 # -------------------------------------------------------------- fingerprint
 def _live_world_size():
-    """Ranks of the live ``torch.distributed`` process group, 1 without one
-    (the JAX package's ``jax.process_count()``)."""
+    """Hosts of the live job, as the JAX package counts them: the elastic
+    membership's world size once it is registered (it follows a shrink),
+    else the hosts of this process's local-rank topology (L training
+    processes a host are one host, as the JAX one-host mesh is one
+    process), else the ranks of the live ``torch.distributed`` group (one a
+    host where there is no topology), else 1. A host's workers read the
+    same value as their leader."""
     try:
+        from ..training import elastic
+
+        world = elastic.world_size()
+        if world > 0:
+            return int(world)
+        from ..parallel import local
+
+        topo = local.topology()
+        if topo is not None:
+            return topo.num_hosts
         import torch.distributed as dist
 
         if dist.is_available() and dist.is_initialized():
@@ -263,8 +278,8 @@ def _live_world_size():
 def config_fingerprint(train_cfg, world_size=None):
     """The live job's config identity, as stored in checkpoint manifests:
     the knobs that change split candidates or the loss (objective,
-    tree_method, max_bin, max_depth), the world size (the live process
-    group's ranks unless given, 1 without one), and the versions:
+    tree_method, max_bin, max_depth), the world size (the live job's hosts
+    unless given, ``_live_world_size``), and the versions:
     ``jax_version`` (``"absent"``: the port has no jax), ``package_version``
     and the port's ``torch_version``."""
     cfg = dict(train_cfg or {})

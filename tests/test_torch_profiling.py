@@ -38,8 +38,10 @@ def _clean(monkeypatch):
             mod.reset()
         for mod in (device, jax_device, tracing):
             mod._reset_for_tests()
-        emit.set_round_fields(probe=None)
-        jax_emit.set_round_fields(probe=None)
+        # every round field, not only this file's probe: a multi-rank run
+        # earlier in the process leaves its session's fields (hist_comm_*)
+        for mod in (emit, jax_emit):
+            mod.set_round_fields(**{k: None for k in mod.get_round_fields()})
 
     reset()
     yield

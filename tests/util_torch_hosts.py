@@ -7,8 +7,11 @@ its own channels (``HOST_ROWS`` x ``HOST_FEATURES`` rows a host, made from a
 seed), model, checkpoint and output dirs and abort port; the other ports
 are shared and free. The three hosts' names all resolve to loopback and sort
 as rank 0, 1, 2. The child prints, as it exits, one ``{"drill": ...}``
-line: the model it trained (path under its output dir; every rank saves
-one) and the consensus checks it made.
+line: the model it trained (path under its output dir; every host's leader
+saves one), the consensus checks it made and the sha256 of the cuts of the
+last training session it built (after a shrink, the re-formed one's). With
+``SM_LOCAL_RANKS`` each host is its leader and the workers it spawns
+(``tests/test_torch_elastic_local.py``).
 """
 
 import json
@@ -32,12 +35,24 @@ PLANE_ENV = {"SM_HEARTBEAT_INTERVAL_S": "0.5", "SM_STALE_HEARTBEATS": "10",
              "SM_STRUCTURED_METRICS": "true", "SM_IO_RETRY_BACKOFF_S": "0.05"}
 
 CHILD = """
-import atexit, json, os
+import atexit, hashlib, json, os
+import numpy as np
+from sagemaker_xgboost_container_tpu_torch.models import booster
 from sagemaker_xgboost_container_tpu_torch.telemetry import REGISTRY, snapshot_fields
 from sagemaker_xgboost_container_tpu_torch.training import algorithm_train, entry, watchdog
 
 doc = {}
 train_job = algorithm_train.train_job
+session_init = booster._TrainingSession.__init__
+
+def digest_cuts(self, *args, **kwargs):
+    session_init(self, *args, **kwargs)
+    h = hashlib.sha256()
+    for c in self.cuts:
+        h.update(np.ascontiguousarray(np.asarray(c, np.float32)).tobytes())
+    doc["cuts"] = h.hexdigest()
+
+booster._TrainingSession.__init__ = digest_cuts
 
 def keep_model(*args, **kwargs):
     bst = train_job(*args, **kwargs)
@@ -97,8 +112,11 @@ def free_port_pair():
     raise RuntimeError("no free port pair")
 
 
-def start_hosts(tmp, n, extra, hp=None, checkpoints=True):
-    """Start ``n`` hosts (``extra[rank]``: env of each) -> [(Popen, root)]."""
+def start_hosts(tmp, n, extra, hp=None, checkpoints=True, same_validation=False):
+    """Start ``n`` hosts (``extra[rank]``: env of each) -> [(Popen, root)].
+    A checkpoint dir already under a host's root is kept (a resume). With
+    ``same_validation`` every host holds host 0's validation rows, so that
+    the job's validation metric reads the same rows at any world size."""
     hosts = HOSTS[:n]
     shared = {"SM_RENDEZVOUS_PORT": free_port(), "SM_PROCESS_GROUP_PORT": free_port_pair(),
               "SM_HEARTBEAT_PORT": free_port(), "SM_CONSENSUS_PORT": free_port(),
@@ -107,6 +125,8 @@ def start_hosts(tmp, n, extra, hp=None, checkpoints=True):
     for rank in range(n):
         root = os.path.join(str(tmp), "host{}".format(rank))
         (X, y), (Xv, yv) = host_rows(rank)
+        if same_validation:
+            Xv, yv = host_rows(0)[1]
         _write_csv(os.path.join(root, "train"), X, y)
         _write_csv(os.path.join(root, "validation"), Xv, yv)
         channel = {"ContentType": "csv", "TrainingInputMode": "File",
