@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 
 Phases (each prints its own lines; any failure exits non-zero):
 
-1. build the CUDA kernels from csrc/ with nvcc (into build/torch_kernels/),
+1. build the CUDA kernels from csrc/ with nvcc (into build/torch_kernels/,
+   or under GRAFT_COMPILE_CACHE_DIR),
    printing the build time, the -Xptxas -v report of the hist_* and totals_*
    kernels and the atomic instructions they compiled to (the totals_*
    kernels must have none);
@@ -61,7 +62,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    1-row load again from threads of the server's own process, which share
    its interpreter lock), each beside the in-process predict time,
    the device predict's H2D/traversal/D2H split (CUDA events), the
-   batcher's counts and the host/device predict counts, and the 100-row
+   batcher's counts, the host/device predict counts and the host
+   predicts' traversal route (every one native), and the 100-row
    load once more under torch.profiler for the device's busy share and
    kernel launches per device predict; then SIGTERM with a request in
    flight, which must still be answered before the listener closes. Last,
@@ -122,7 +124,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    1e-5 of the largest |g| and |h|), the saved model predicting 10k
    validation rows on the GPU against the CPU; then `sagemaker_train` with
    rank:pairwise over libsvm channels with qid: tokens, one metric line a
-   round. 10b: bench.py's BENCH_TASK=lossguide on the main path's rows
+   round, every libsvm file parsed by the native tokenizer. 10b: bench.py's
+   BENCH_TASK=lossguide on the main path's rows
    (binary:logistic, max_leaves 255, max_depth 0, eta 0.2, 5 rounds): one
    hist_kernel launch for the root and one a split step (255 a tree), no
    totals_kernel launch, validation logloss falling every round, rounds/s
@@ -413,6 +416,16 @@ Phases (each prints its own lines; any failure exits non-zero):
    histogram collective's ms a round and each process's peak RSS. NCCL's
    reform between local cards does not run here: it prints `nccl: not run
    (1 GPU)`.
+
+23. the native data plane (data/native.py over native/fastdata.cpp): its
+   cache removed, the library built with g++ (route and seconds printed;
+   the run fails unless it loads); ~60 MB of seeded libsvm text (200k rows
+   x 28 features with weights and qid:) parsed by the native tokenizer on
+   its default threads and on one (GRAFT_PARSE_THREADS=1), a tenth of it by
+   the Python tokenizer too: MB/s of each, the pieces equal; phase 7's
+   model's 1-row and 32-row host predict_margin, native and
+   GRAFT_HOST_PREDICT_IMPL=numpy: the median us of 200 calls each, the
+   answers within 1e-6.
 
 At the end, one wall-time line a phase. The second line from the end is
 the kernels JSON line, the last line the device JSON line. Needs one CUDA
@@ -1320,6 +1333,7 @@ def host_probe(model_path):
     torch is imported."""
     import torch
 
+    from sagemaker_xgboost_container_tpu_torch.data import native
     from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
     from sagemaker_xgboost_container_tpu_torch.serving import serve_utils
 
@@ -1339,6 +1353,7 @@ def host_probe(model_path):
         for _ in range(100):
             forest.predict(x[:n], iteration_range=rng)
         out["host_predict_{}_ms".format(n)] = (time.perf_counter() - t) * 10
+    out["native_routes"] = dict(native.NATIVE_ROUTES)
     print(json.dumps(out))
     return 0
 
@@ -1354,6 +1369,7 @@ def run_serve(torch, pkg, hist, tag):
 def _serve(torch, pkg, hist, tag, tmp):
     from wsgiref.simple_server import make_server
 
+    from sagemaker_xgboost_container_tpu_torch.data import native
     from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
     from sagemaker_xgboost_container_tpu_torch.data.recordio import write_recordio_protobuf
     from sagemaker_xgboost_container_tpu_torch.models import compat
@@ -1373,6 +1389,7 @@ def _serve(torch, pkg, hist, tag, tmp):
     os.makedirs(ubj_dir)
     path = os.path.join(json_dir, "xgboost-model")
     forest.save_model(path)
+    keep_model("serve", path)   # phase 23 times its host predict
     with open(os.path.join(ubj_dir, "xgboost-model"), "wb") as f:
         f.write(compat.encode_ubjson(json.loads(forest.save_json())))
     nodes = max(t.num_nodes for t in forest.trees)
@@ -1477,6 +1494,7 @@ def _serve(torch, pkg, hist, tag, tmp):
             x = x_all[:n]
             before = service.batcher.stats()
             forest_mod.reset_predict_counts()
+            native.reset_native_routes()
             if where == "child process":
                 lat, wall, errs, statuses = _child_load(
                     client.base, tmp, [("/invocations", x, ref[:n])], threads, per_thread)
@@ -1487,6 +1505,7 @@ def _serve(torch, pkg, hist, tag, tmp):
             check(len(lat) == threads * per_thread and not errs,
                   "{} wrong or failed answers at {} rows: {}".format(len(errs), n, errs[:5]))
             counts = dict(forest_mod.PREDICTS)
+            routes = dict(native.NATIVE_ROUTES)
             after = service.batcher.stats()
             delta = {k: after[k] - before[k] for k in after}
             inproc = []
@@ -1496,15 +1515,19 @@ def _serve(torch, pkg, hist, tag, tmp):
                 inproc.append((time.perf_counter() - t) * 1e3)
             split = ("H2D {:.4f} + traversal {:.4f} + D2H {:.4f} ms (CUDA events), "
                      "{:.4f} ms host clock".format(*_device_split(torch, served, x, rounds))
-                     if n > forest_mod.HOST_PREDICT_ROWS else "host path (numpy), no transfer")
+                     if n > forest_mod._host_predict_rows() else "host path, no transfer")
             print("{} | serve {} rows, {} client thread(s) x {} requests ({}): {}; {:.1f} "
                   "requests/s; in-process Forest.predict median {:.3f} ms; device predict "
                   "split: {}; batcher requests {} inline {} dispatches {} coalesced {}; "
-                  "predicts host {} device {}".format(
+                  "predicts host {} device {}; host traversals native {} numpy {}".format(
                       tag, n, threads, per_thread, where, _percentiles(lat), len(lat) / wall,
                       float(np.median(inproc)), split, delta["requests"], delta["inline"],
                       delta["dispatches"], delta["coalesced"], counts["host"],
-                      counts["device"]), flush=True)
+                      counts["device"], routes["predict_native"], routes["predict_numpy"]),
+                  flush=True)
+            if counts["host"]:
+                check(routes["predict_native"] == counts["host"] and not routes["predict_numpy"],
+                      "host predicts {} but native traversals {}".format(counts, routes))
             if n == 100:
                 check(counts["device"] > 0, "the 100-row traffic made no device predict")
 
@@ -2346,6 +2369,7 @@ def _ranking_entry(torch, hist, tag, tmp):
     import contextlib
     import io
 
+    from sagemaker_xgboost_container_tpu_torch.data import native
     from sagemaker_xgboost_container_tpu_torch.training import algorithm_train
 
     (q_train, q_val), d = RANK_ENTRY_QUERIES, RANK_FEATURES
@@ -2357,6 +2381,7 @@ def _ranking_entry(torch, hist, tag, tmp):
     channel = {"ContentType": "text/libsvm", "TrainingInputMode": "File",
                "S3DistributionType": "FullyReplicated"}
     hist.reset_launch_counts()
+    native.reset_native_routes()
     out = io.StringIO()
     t = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -2368,10 +2393,13 @@ def _ranking_entry(torch, hist, tag, tmp):
     entry_s = time.perf_counter() - t
     lines = _metric_lines(out.getvalue())
     rounds = int(RANK_ENTRY_HP["num_round"])
+    parses = {k: native.NATIVE_ROUTES[k] for k in ("parse_native", "parse_python")}
     print("{} | ranking entry point (rank:pairwise, libsvm with qid:, {} + {} queries, {} + "
-          "{} rows): {:.3f} s, launches {}; last line {}".format(
+          "{} rows): {:.3f} s, launches {}; libsvm parses by route {}; last line {}".format(
               tag, q_train, q_val, n, len(y) - n, entry_s, json.dumps(dict(hist.LAUNCHES)),
-              json.dumps(lines.get(rounds - 1))), flush=True)
+              json.dumps(parses), json.dumps(lines.get(rounds - 1))), flush=True)
+    check(parses["parse_native"] > 0 and not parses["parse_python"],
+          "the libsvm channels parsed by route {}".format(parses))
     check(sorted(lines) == list(range(rounds)), "metric lines for rounds {}".format(sorted(lines)))
     for metric in ("ndcg@5", "map@10"):
         for data in ("train", "validation"):
@@ -6789,6 +6817,150 @@ def run_elastic_local(torch, tag):
     print("{} | elastic local phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
 
 
+# ---------------------------------------------------------------- phase 23
+NATIVE_ROWS = 200_000             # ~60 MB of libsvm text at N_FEATURES
+NATIVE_PYTHON_SHARE = 10          # the Python tokenizer parses a tenth of it
+NATIVE_PREDICT_CALLS = 200        # host predicts a payload size and route
+NATIVE_PREDICT_TOL = 1e-6
+
+
+def native_libsvm_text(n, d, seed):
+    """Seeded libsvm rows (str each) of ``n`` rows x ``d`` features as
+    users write them: ``label:weight qid:q 0:v ... d-1:v``, query ids in
+    runs of about 20 rows, values on a 1e-4 grid as "%.7g" prints them."""
+    rng = np.random.RandomState(seed)
+    X = np.round(rng.randn(n, d) * 10.0, 4)
+    labels = rng.randint(0, 2, n)
+    weights = np.round(rng.rand(n) * 2.0 + 0.5, 3)
+    qids = np.cumsum(rng.rand(n) < 0.05)
+    fmt = "%d:%.4g qid:%d " + " ".join("{}:%.7g".format(j) for j in range(d)) + "\n"
+    return [fmt % ((labels[i], weights[i], qids[i]) + tuple(X[i])) for i in range(n)]
+
+
+def _same_parse(a, b):
+    return (a[0].shape == b[0].shape
+            and all(np.array_equal(getattr(a[0], k), getattr(b[0], k))
+                    for k in ("indptr", "indices", "data"))
+            and all((x is None and y is None) or np.array_equal(x, y)
+                    for x, y in zip(a[1:], b[1:])))
+
+
+def _median_us(fn, calls):
+    times = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e6)
+    return float(np.median(times))
+
+
+def run_native(tag):
+    """Phase 23: the native data plane (``data/native.py`` over
+    ``native/fastdata.cpp``) on the card's host (see the module
+    docstring)."""
+    import shutil
+
+    from sagemaker_xgboost_container_tpu_torch.data import native, readers
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    t0 = time.perf_counter()
+    # ---- the library, built from the checkout's source
+    shutil.rmtree(native.cache_dir(), ignore_errors=True)
+    native._reset_for_tests()
+    check(native.native_available() and native.forest_predictor_available(),
+          "23: the native library did not load")
+    info = native.load_info()
+    check(info["route"] in ("built", "packaged"), "23: library {}".format(info))
+    print("{} | native library: {} in {:.3f} s ({})".format(
+        tag, info["route"], info["build_s"], info["path"]), flush=True)
+
+    # ---- the tokenizer: native on the default threads and on one, Python
+    # on a tenth of the text
+    t = time.perf_counter()
+    rows = native_libsvm_text(NATIVE_ROWS, N_FEATURES, seed=23)
+    text = "".join(rows)
+    part = "".join(rows[:NATIVE_ROWS // NATIVE_PYTHON_SHARE])
+    make_s = time.perf_counter() - t
+    mb, part_mb = len(text) / 1e6, len(part) / 1e6
+    parsed, rates = {}, {}
+    saved = os.environ.pop(native.PARSE_THREADS_ENV, None)
+    try:
+        for label, threads, body in (("native", None, text), ("native 1 thread", "1", text),
+                                     ("native slice", "1", part)):
+            if threads is not None:
+                os.environ[native.PARSE_THREADS_ENV] = threads
+            native.reset_native_routes()
+            t = time.perf_counter()
+            parsed[label] = readers.parse_libsvm_text(body)
+            rates[label] = len(body) / 1e6 / (time.perf_counter() - t)
+            check(native.NATIVE_ROUTES["parse_native"] == 1,
+                  "23: {} parse took route {}".format(label, native.NATIVE_ROUTES))
+    finally:
+        os.environ.pop(native.PARSE_THREADS_ENV, None)
+        if saved is not None:
+            os.environ[native.PARSE_THREADS_ENV] = saved
+    real = native.parse_libsvm_native
+    native.parse_libsvm_native = lambda data: None
+    try:
+        t = time.perf_counter()
+        parsed["python"] = readers.parse_libsvm_text(part)
+        rates["python"] = part_mb / (time.perf_counter() - t)
+    finally:
+        native.parse_libsvm_native = real
+    threads = native._parse_threads(len(text))
+    csr, labels, weights, qids = parsed["native"]
+    check(csr.shape == (NATIVE_ROWS, N_FEATURES) and weights is not None and qids is not None,
+          "23: parsed {} weights {} qids {}".format(csr.shape, weights is not None,
+                                                    qids is not None))
+    same_threads = _same_parse(parsed["native"], parsed["native 1 thread"])
+    same_python = _same_parse(parsed["native slice"], parsed["python"])
+    print("{} | native parse: {:.1f} MB of libsvm ({} rows x {} features, weights and qid:; "
+          "made in {:.3f} s): native {} threads {:.1f} MB/s, native 1 thread {:.1f} MB/s; "
+          "Python tokenizer on {:.1f} MB ({} rows) {:.1f} MB/s (native 1 thread on the same "
+          "{:.1f} MB/s); threaded == 1 thread: {}; native == Python on the slice: {}".format(
+              tag, mb, NATIVE_ROWS, N_FEATURES, make_s, threads, rates["native"],
+              rates["native 1 thread"], part_mb, NATIVE_ROWS // NATIVE_PYTHON_SHARE,
+              rates["python"], rates["native slice"], same_threads, same_python), flush=True)
+    check(same_threads, "23: the threaded parse differs from the one-thread parse")
+    check(same_python, "23: the native parse differs from the Python tokenizer's")
+
+    # ---- the small-payload traversal: phase 7's model, native and numpy
+    check("serve" in MODELS, "23 needs phase 7's model")
+    forest = Forest.load_model(os.path.join(MODELS["serve"], "xgboost-model"), device=DEVICE)
+    rounds = (0, SERVE_BEST_ITERATION + 1)
+    x, _ = make_data(32, N_FEATURES, seed=24)
+    x[np.random.RandomState(25).rand(*x.shape) < 0.02] = np.nan
+    us, answers, routes = {}, {}, {}
+    saved = os.environ.pop("GRAFT_HOST_PREDICT_IMPL", None)
+    try:
+        for impl in ("native", "numpy"):
+            os.environ["GRAFT_HOST_PREDICT_IMPL"] = impl
+            native.reset_native_routes()
+            for n in (1, 32):
+                answers[impl, n] = forest.predict_margin(x[:n], iteration_range=rounds)
+                us[impl, n] = _median_us(
+                    lambda: forest.predict_margin(x[:n], iteration_range=rounds),
+                    NATIVE_PREDICT_CALLS)
+            routes[impl] = dict(native.NATIVE_ROUTES)
+    finally:
+        os.environ.pop("GRAFT_HOST_PREDICT_IMPL", None)
+        if saved is not None:
+            os.environ["GRAFT_HOST_PREDICT_IMPL"] = saved
+    err = max(float(np.abs(answers["native", n] - answers["numpy", n]).max()) for n in (1, 32))
+    calls = 2 * (NATIVE_PREDICT_CALLS + 1)
+    print("{} | native host predict (phase 7's model, {} trees of up to {} nodes, median of "
+          "{} calls): 1 row native {:.1f} us, numpy {:.1f} us; 32 rows native {:.1f} us, "
+          "numpy {:.1f} us; native against numpy max_abs_err {:.3e}; routes {}".format(
+              tag, forest.iteration_indptr[rounds[1]], max(t.num_nodes for t in forest.trees),
+              NATIVE_PREDICT_CALLS, us["native", 1], us["numpy", 1], us["native", 32],
+              us["numpy", 32], err, json.dumps(routes)), flush=True)
+    check(err <= NATIVE_PREDICT_TOL, "23: native and numpy host predicts differ by {}".format(err))
+    check(routes["native"]["predict_native"] == calls and not routes["native"]["predict_numpy"]
+          and routes["numpy"]["predict_numpy"] == calls,
+          "23: host traversal routes {}".format(routes))
+    print("{} | native phase: {:.1f} s".format(tag, time.perf_counter() - t0), flush=True)
+
+
 PHASE_WALL = []
 
 
@@ -6826,7 +6998,7 @@ def main():
         # it, so that this run builds from the checkout and reports the build
         import shutil
 
-        shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+        shutil.rmtree(_build.build_dir(), ignore_errors=True)
         t = time.perf_counter()
         k = _build.kernels()
         check(k.build_log, "the kernels were loaded, not built")
@@ -6879,6 +7051,7 @@ def main():
         phase("20 elastic and consensus", run_elastic, torch, hist, tag)
         phase("21 local ranks", run_local_ranks, torch, tag)
         phase("22 elastic with local ranks", run_elastic_local, torch, tag)
+        phase("23 native data plane", run_native, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

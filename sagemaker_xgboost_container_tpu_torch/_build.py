@@ -3,8 +3,9 @@
 Sources live in ``csrc/``. ``nvcc`` compiles each ``.cu`` file for
 ``sm_90a`` (all at once, one process per file) and links them into a shared
 library with the plain C interface of ``csrc/kernels.h`` under
-``build/torch_kernels/<key>/`` beside the package (``build/`` is
-git-ignored); ctypes loads it. The key is a digest of the sources, the
+``build_dir()/<key>/`` (``torch_kernels/`` of ``utils/compile_cache``'s
+root: ``GRAFT_COMPILE_CACHE_DIR``, else the git-ignored ``build/`` beside
+the package); ctypes loads it. The key is a digest of the sources, the
 headers, the compiler's path and the flags, so a process whose library is
 already built for the same sources loads it (a train job's child process,
 a restarted job); otherwise it builds once, at its first kernel launch,
@@ -22,9 +23,10 @@ import subprocess
 import threading
 import time
 
+from .utils import compile_cache
+
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 CUDA_SOURCES = ("hist_kernel.cu", "totals_kernel.cu")
 ARCH_FLAG = "-gencode=arch=compute_90a,code=sm_90a"
 _LIB_NAME = "libsagemaker_xgboost_torch_kernels.so"
@@ -48,6 +50,11 @@ def kernels():
         return _kernels
 
 
+def build_dir():
+    """The directory the kernels' libraries are cached under."""
+    return compile_cache.cache_dir("torch_kernels")
+
+
 def _build_key(nvcc, flags):
     """Digest of everything the library is built from."""
     h = hashlib.sha256(" ".join([nvcc] + flags).encode())
@@ -66,7 +73,7 @@ def _nvcc_shared_library():
 
     nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
     flags = [ARCH_FLAG, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-I", CSRC_DIR]
-    out_dir = os.path.join(BUILD_DIR, _build_key(nvcc, flags))
+    out_dir = os.path.join(build_dir(), _build_key(nvcc, flags))
     path = os.path.join(out_dir, _LIB_NAME)
     if os.path.exists(path):
         return path, "", False

@@ -13,7 +13,8 @@ with a DataMatrix as destination:
 * readers: csv with a sniffed delimiter, label in column 0 (weight in column
   1 when csv_weights=1), parsed with numpy; libsvm with optional
   ``label:weight`` and ``qid:`` tokens and ``.weight``/``.group`` sidecar
-  files (a pure-Python tokenizer); parquet through pyarrow, column by
+  files (the native C++ tokenizer of ``data/native.py``, a Python one
+  where it does not load); parquet through pyarrow, column by
   column (column 0 the label); recordio-protobuf through the port's own
   wire codec (``data/recordio.py``),
 * the "no labels" UserError and the size and redundancy helpers,
@@ -45,6 +46,7 @@ from ..utils.faults import fault_point
 from ..utils.retry import retry_transient
 from ..utils.warn_once import warn_once
 from . import content_types as ct
+from . import native
 from .matrix import DataMatrix
 from .recordio import read_recordio_protobuf
 
@@ -450,7 +452,23 @@ def parse_libsvm_text(text, num_col=None):
 
     Accepts ``<label>(:<weight>) (qid:<q>) <idx>:<val> ...``. Indices are
     taken verbatim as 0-based column ids, matching xgboost's file parser.
+    Uses the native C++ tokenizer (``data/native.py``) where it loads; the
+    Python tokenizer below is the fallback and the behavioural spec.
     """
+    try:
+        parsed = native.parse_libsvm_native(text)
+    except ValueError as e:
+        raise exc.UserError(str(e), caused_by=e)
+    if parsed is not None:
+        native.count_route("parse_native")
+        (values, indices, indptr), labels_arr, weights_arr, qids_arr = parsed
+        n = len(labels_arr)
+        if n == 0:
+            return None
+        width = num_col or (int(indices.max()) + 1 if len(indices) else 1)
+        csr = sp.csr_matrix((values, indices, indptr), shape=(n, width))
+        return csr, labels_arr, weights_arr, qids_arr
+    native.count_route("parse_python")
     labels, weights, qids = [], [], []
     data, indices, indptr = [], [], [0]
     has_weights = has_qids = False

@@ -520,6 +520,15 @@ def _eval_metric_names(config, objective):
     return list(metrics)
 
 
+def _clear_comm_round_fields():
+    """Drop the collective keys from the per-round record (the JAX
+    package's ``_set_comm_round_fields``): a one-rank session that follows
+    a multi-rank one in the same process must not report its collectives."""
+    from ..telemetry import set_round_fields
+
+    set_round_fields(hist_comm=None, hist_comm_bytes=None, hist_comm_ms=None)
+
+
 class _TrainingSession:
     """Device state for one training run: bins, margins, eval sets."""
 
@@ -531,6 +540,9 @@ class _TrainingSession:
         self.rank = collectives.world(group)[0]
         # the collective's lowering, resolved once (GRAFT_HIST_COMM)
         self.hist_comm = hist_comm_impl() if self.group is not None else "psum"
+        # no session inherits an earlier one's collectives: only a session
+        # that runs them publishes them (note_collectives)
+        _clear_comm_round_fields()
         self.objective = forest.objective()
         self.num_group = self.objective.num_output_group
         self.objective.validate_labels(dtrain.labels)
@@ -1207,41 +1219,44 @@ def train(
     evals_log = {}
     start_round = forest.num_boosted_rounds
     C, P = session.num_group, config.num_parallel_tree
-    for rnd in range(start_round, start_round + num_boost_round):
-        comm_before = dict(collectives.STATS)
-        trees_np = session.run_round(rnd)
-        if session.group is not None:
-            session.note_collectives(comm_before)
-        # class-major: class 0's P trees, then class 1's, ... (xgboost's layout)
-        if C == 1:
-            trees = [compact_padded_tree(t, session.cuts) for t in trees_np]
-        else:
-            trees = [compact_padded_tree({k: v[c] for k, v in t.items()}, session.cuts)
-                     for c in range(C) for t in trees_np]
-        forest.append_round(trees, [c for c in range(C) for _ in range(P)])
-        if session.last_learning_stats:
-            # the model-quality plane: the round's reductions and the
-            # committed trees' stats -> one training.learning record, then
-            # the numeric-health guard (NaN/Inf -> forensics + exit 87)
-            stats = dict(session.last_learning_stats[0])
-            stats.update(model_telemetry.tree_stats(trees))
-            model_telemetry.note_learning(rnd, stats)
-            if model_telemetry.first_poisoned_round([stats], rnd) is not None:
-                _abort_numeric_poison(rnd)
-        results = session.evaluate(feval)
-        for data_name, metric_name, value in results:
-            evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(value)
-        if verbose_eval:
-            print_metric_line(rnd, results)
-        stops = [
-            cb.after_iteration(forest, rnd, evals_log)
-            for cb in callbacks
-            if hasattr(cb, "after_iteration")
-        ]
-        if any(stops):
-            break
+    try:
+        for rnd in range(start_round, start_round + num_boost_round):
+            comm_before = dict(collectives.STATS)
+            trees_np = session.run_round(rnd)
+            if session.group is not None:
+                session.note_collectives(comm_before)
+            # class-major: class 0's P trees, then class 1's, ... (xgboost's layout)
+            if C == 1:
+                trees = [compact_padded_tree(t, session.cuts) for t in trees_np]
+            else:
+                trees = [compact_padded_tree({k: v[c] for k, v in t.items()}, session.cuts)
+                         for c in range(C) for t in trees_np]
+            forest.append_round(trees, [c for c in range(C) for _ in range(P)])
+            if session.last_learning_stats:
+                # the model-quality plane: the round's reductions and the
+                # committed trees' stats -> one training.learning record, then
+                # the numeric-health guard (NaN/Inf -> forensics + exit 87)
+                stats = dict(session.last_learning_stats[0])
+                stats.update(model_telemetry.tree_stats(trees))
+                model_telemetry.note_learning(rnd, stats)
+                if model_telemetry.first_poisoned_round([stats], rnd) is not None:
+                    _abort_numeric_poison(rnd)
+            results = session.evaluate(feval)
+            for data_name, metric_name, value in results:
+                evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(value)
+            if verbose_eval:
+                print_metric_line(rnd, results)
+            stops = [
+                cb.after_iteration(forest, rnd, evals_log)
+                for cb in callbacks
+                if hasattr(cb, "after_iteration")
+            ]
+            if any(stops):
+                break
 
-    for cb in callbacks:
-        if hasattr(cb, "after_training"):
-            forest = cb.after_training(forest) or forest
+        for cb in callbacks:
+            if hasattr(cb, "after_training"):
+                forest = cb.after_training(forest) or forest
+    finally:
+        _clear_comm_round_fields()
     return forest

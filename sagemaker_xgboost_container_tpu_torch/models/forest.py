@@ -22,11 +22,21 @@ from .._device import resolve_device
 from ..ops.predict import forest_leaf_nodes, forest_predict_margin, host_predict_margin
 from ..telemetry import tracing
 from ..toolkit import exceptions as exc
+from ..utils.envconfig import env_int
 from . import objectives as objectives_mod
 
-# payloads up to this many rows predict with the numpy host traversal: a
-# device round trip costs more than the traversal itself
+
+# GRAFT_HOST_PREDICT_ROWS' default
 HOST_PREDICT_ROWS = 32
+
+
+def _host_predict_rows():
+    """Payloads of up to this many rows predict on the host (the native
+    traversal, or numpy), where a device round trip costs more than the
+    traversal itself: ``GRAFT_HOST_PREDICT_ROWS``, default
+    ``HOST_PREDICT_ROWS``; 0 sends every payload to the device."""
+    return env_int("GRAFT_HOST_PREDICT_ROWS", HOST_PREDICT_ROWS)
+
 
 # predict_margin calls by path, for showing where served traffic ran
 PREDICTS = {"host": 0, "device": 0}
@@ -329,7 +339,7 @@ class Forest:
         if host is None:
             return np.full(n if groups == 1 else (n, groups), base, np.float32)
         tree_info = self.tree_info[tree_lo:tree_hi]
-        if 0 < n <= HOST_PREDICT_ROWS:
+        if 0 < n <= _host_predict_rows():
             _count_predict("host")
             if isinstance(features, torch.Tensor):
                 features = features.cpu().numpy()

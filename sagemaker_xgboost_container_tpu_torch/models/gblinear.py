@@ -38,7 +38,7 @@ import torch
 from .._device import resolve_device
 from ..telemetry import tracing
 from . import objectives as objectives_mod
-from .forest import HOST_PREDICT_ROWS, _count_predict, _parse_base_score
+from .forest import _count_predict, _host_predict_rows, _parse_base_score
 
 logger = logging.getLogger(__name__)
 
@@ -52,7 +52,7 @@ class LinearModel:
     ``predict_margin``, ``objective()``, ``num_output_group``,
     ``num_boosted_rounds``, ``attr``/``set_attr``, ``save_model``, ``to``,
     ``release``). ``device``: where ``predict`` runs payloads of more than
-    ``HOST_PREDICT_ROWS`` rows (CUDA unless given; raises when CUDA is asked
+    ``_host_predict_rows()`` rows (CUDA unless given; raises when CUDA is asked
     for and absent)."""
 
     def __init__(self, weights, bias, objective_name, base_score, num_feature, num_class=0,
@@ -121,7 +121,7 @@ class LinearModel:
         has no rounds to slice), as in the JAX package."""
         base = self.objective().base_margin(self.base_score)
         n = features.shape[0]
-        if 0 < n <= HOST_PREDICT_ROWS or self.num_feature == 0:
+        if 0 < n <= _host_predict_rows() or self.num_feature == 0:
             _count_predict("host")
             if isinstance(features, torch.Tensor):
                 features = features.cpu().numpy()

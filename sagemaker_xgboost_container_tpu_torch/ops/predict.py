@@ -3,7 +3,8 @@
 The forest is laid out as [T, N] node arrays (``Forest._stack``); traversal
 is ``depth`` rounds of vectorized gather/compare over [rows x trees]. The
 same rules run as torch ops on the forest's device (``forest_predict_margin``)
-and as numpy on the host for tiny payloads (``host_predict_margin``).
+and on the host for tiny payloads (``host_predict_margin``: the native C++
+traversal, or its numpy twin).
 
 Rules (xgboost semantics): NaN-missing follows ``default_left``; a
 numerical node sends a row right when ``v >= threshold``; a categorical node
@@ -12,8 +13,14 @@ BYO xgboost models) by ``categorical_go_right``; leaves self-loop via
 left/right == own index.
 """
 
+import os
+
 import numpy as np
 import torch
+
+from ..data import native
+
+HOST_PREDICT_IMPL_ENV = "GRAFT_HOST_PREDICT_IMPL"
 
 
 def categorical_go_right(v, miss, dfl, cat_mask, t_idx, node):
@@ -124,12 +131,28 @@ def host_leaf_nodes(stacked, x):
     return node
 
 
-def host_predict_margin(stacked, x, num_output_group=1, base_margin=0.0, tree_info=None):
-    """Host forest margin (numpy) with the contract of ``forest_predict_margin``."""
+def _host_leaf_values(stacked, x):
+    """[n, T] leaf values of each tree on the host: the C++ traversal
+    (``native/fastdata.cpp`` ``forest_leaf_values``, a few microseconds for
+    a 1-row request where numpy pays its per-operation overhead), with the
+    numpy twin where the library does not load or refuses the forest.
+    ``GRAFT_HOST_PREDICT_IMPL=numpy`` forces the twin."""
+    x = np.asarray(x, np.float32)
+    if os.environ.get(HOST_PREDICT_IMPL_ENV, "native") != "numpy":
+        leaf = native.forest_leaf_values_native(stacked, x)
+        if leaf is not None:
+            native.count_route("predict_native")
+            return leaf
+    native.count_route("predict_numpy")
     node = host_leaf_nodes(stacked, x)
     leaf_value = np.asarray(stacked["leaf_value"])
     T = leaf_value.shape[0]
-    leaf = leaf_value[np.arange(T)[None, :], node]        # [n, T]
+    return leaf_value[np.arange(T)[None, :], node]
+
+
+def host_predict_margin(stacked, x, num_output_group=1, base_margin=0.0, tree_info=None):
+    """Host forest margin with the contract of ``forest_predict_margin``."""
+    leaf = _host_leaf_values(stacked, x)                  # [n, T]
     if num_output_group == 1:
         return leaf.sum(axis=1) + np.float32(base_margin)
     out = np.zeros((x.shape[0], num_output_group), np.float32)

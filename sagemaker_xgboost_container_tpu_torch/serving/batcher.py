@@ -23,7 +23,7 @@ import time
 
 import numpy as np
 
-from ..models.forest import HOST_PREDICT_ROWS
+from ..models.forest import _host_predict_rows
 from ..telemetry import POW2_BUCKETS, REGISTRY, get_request_id, tracing
 from ..utils.faults import fault_point
 from . import lifecycle
@@ -196,7 +196,7 @@ class PredictBatcher:
         # the numpy traversal cannot hang, so forgoing the queue path's
         # wait-timeout is safe.
         if (
-            0 < feats.shape[0] <= HOST_PREDICT_ROWS
+            0 < feats.shape[0] <= _host_predict_rows()
             and self._queue.empty()
             and self._exec_lock.acquire(blocking=False)
         ):

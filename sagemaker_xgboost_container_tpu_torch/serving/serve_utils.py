@@ -36,10 +36,11 @@ from ..constants import (
     REG_SQUAREDERR,
     REG_TWEEDIE,
 )
+from ..data import native
 from ..data.content_types import CSV, LIBSVM, RECORDIO_PROTOBUF, get_content_type
 from ..data.recordio import _frame, encode_float32_tensor, encode_record
 from ..models.compat import PKL_FORMAT, XGB_FORMAT, load_model_any_format  # noqa: F401
-from ..models.forest import HOST_PREDICT_ROWS
+from ..models.forest import _host_predict_rows
 from ..telemetry import REGISTRY
 from ..utils import integrity
 from ..utils.faults import fault_point
@@ -267,18 +268,26 @@ def best_iteration_range(forest):
 
 
 def warmup_predict_async(model):
-    """Predict HOST_PREDICT_ROWS + 1 zero rows, the smallest payload that
-    takes the device path, on a daemon thread at model load. That pays for
-    the device context on this process and the upload of the stacked trees
-    off the request path, so the first request does not. A failed warmup
-    only logs; the request that follows then raises the same error."""
+    """On a daemon thread at model load: load (or build) the native host
+    traversal, then predict ``_host_predict_rows() + 1`` zero rows, the
+    smallest payload that takes the device path. That pays for the g++
+    build, the device context on this process and the upload of the
+    stacked trees off the request path, so the first request does not. A
+    failed warmup only logs; the request that follows then raises the same
+    error. ``GRAFT_PREDICT_WARMUP=0`` (false, off, no) turns it off and
+    returns None; any other value, typos included, keeps it on. -> the
+    thread."""
+    if os.getenv("GRAFT_PREDICT_WARMUP", "1").lower() in ("0", "false", "off", "no"):
+        return None
 
     def _warm():
         try:
+            native.forest_predictor_available()
+            rows = _host_predict_rows() + 1
             for m in model if isinstance(model, list) else [model]:
                 if m.num_feature > 0:
                     m.predict(
-                        np.zeros((HOST_PREDICT_ROWS + 1, m.num_feature), np.float32),
+                        np.zeros((rows, m.num_feature), np.float32),
                         iteration_range=best_iteration_range(m),
                     )
         except Exception:  # a failed warmup must never break serving

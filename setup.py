@@ -35,6 +35,26 @@ fastdata_ext = Extension(
     optional=True,
 )
 
+# the PyTorch port's own copy of the same library (its loader,
+# sagemaker_xgboost_container_tpu_torch/data/native.py, reads only this one)
+torch_fastdata_ext = Extension(
+    "sagemaker_xgboost_container_tpu_torch._fastdata",
+    sources=["native/fastdata.cpp"],
+    extra_compile_args=["-O3", "-pthread"],
+    extra_link_args=["-pthread"],
+    optional=True,
+)
+
+# the port's dependency contract, loaded by path as the JAX package's is:
+# installed with `pip install .[torch]`
+_torch_contract = runpy.run_path(
+    os.path.join(
+        os.path.dirname(os.path.abspath(__file__)),
+        "sagemaker_xgboost_container_tpu_torch",
+        "version_contract.py",
+    )
+)
+
 
 setup(
     name="sagemaker_xgboost_container_tpu",
@@ -51,14 +71,18 @@ setup(
         # CUDA sources of the PyTorch port, built at first use (_build.py)
         "sagemaker_xgboost_container_tpu_torch": ["csrc/*.cu", "csrc/*.h"],
     },
-    ext_modules=[fastdata_ext],
+    ext_modules=[fastdata_ext, torch_fastdata_ext],
     python_requires=">=3.10",
     install_requires=_contract["install_requires"](),
+    extras_require={"torch": _torch_contract["install_requires"]()},
     entry_points={
         "console_scripts": [
             # the container CMDs (reference setup.py:34-38)
             "train=sagemaker_xgboost_container_tpu.training.entry:main",
             "serve=sagemaker_xgboost_container_tpu.serving.server:main",
+            # the PyTorch port's
+            "train-torch=sagemaker_xgboost_container_tpu_torch.training.entry:main",
+            "serve-torch=sagemaker_xgboost_container_tpu_torch.serving.server:main",
         ]
     },
     classifiers=[

@@ -348,10 +348,11 @@ def _series(name):
     return 'batcher="{}"'.format(name) in prometheus.render_text(REGISTRY)
 
 
-def test_unload_and_eviction_release_threads_tensors_and_series(model_dirs):
+def test_unload_and_eviction_release_threads_tensors_and_series(model_dirs, monkeypatch):
     """Load, predict on the device path (stacked trees), unload or evict:
     the batcher and warmup threads end, the forest's device copies go, the
     batcher series go, and no thread started here is left."""
+    monkeypatch.delenv("GRAFT_PREDICT_WARMUP")  # the port's warmup thread on
     manager = mme.ModelManager(max_models=1, device="cpu")
     baseline = set(threading.enumerate())
     X = _data(40, seed=8)  # above the host-path rows: the device path
@@ -376,7 +377,8 @@ def test_unload_and_eviction_release_threads_tensors_and_series(model_dirs):
                                entry.model.predict(X), rtol=0, atol=0)
 
 
-def test_duplicate_load_keeps_the_loaded_model(model_dirs):
+def test_duplicate_load_keeps_the_loaded_model(model_dirs, monkeypatch):
+    monkeypatch.delenv("GRAFT_PREDICT_WARMUP")  # the port's warmup thread on
     manager = mme.ModelManager(device="cpu")
     manager.load("a", model_dirs["bin"])
     manager.get("a").warmup.join(30)

@@ -529,6 +529,9 @@ def test_predict_errors_map_to_status(error, status):
 
 
 def test_job_queue_full_answers_503_with_retry_after(models, monkeypatch):
+    # the port's warmup on (the module turns the JAX apps' off): it is
+    # waited for below
+    monkeypatch.delenv("GRAFT_PREDICT_WARMUP", raising=False)
     monkeypatch.setenv("SAGEMAKER_MODEL_JOB_QUEUE_SIZE", "1")
     service = app.ScoringService(models["json"], device="cpu")
     wsgi = app.make_app(service)

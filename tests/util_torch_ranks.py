@@ -577,3 +577,37 @@ def train_once_refused(rank, group, params):
         model.save_model(path)
         with open(path, "rb") as f:
             return f.read(), Log.log
+
+
+# -------------------------------------- the round fields after a session
+def comm_fields_after_ranks(rank, world, group):
+    """Train on this rank's half across the ranks, then on it alone in the
+    same process, each under a ``RoundTimer`` -> (the first run's
+    ``training.round`` records, the second run's, the second run's
+    ``training.attribution`` record)."""
+    import contextlib
+    import io
+    import json
+
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.booster import train
+    from sagemaker_xgboost_container_tpu_torch.training.profiling import RoundTimer
+
+    X, y = level_data(400, 4, seed=43)
+    rows = slice(0, 200) if rank == 0 else slice(200, None)
+    dm = DataMatrix(X[rows], labels=y[rows])
+    params = {"objective": "binary:logistic", "max_depth": 3, "eta": 0.3}
+    outs = []
+    for run_group in (group, None):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            train(dict(params), dm, 3, device="cpu", group=run_group,
+                  callbacks=[RoundTimer(log_every=0)], verbose_eval=False)
+        outs.append([json.loads(line) for line in buf.getvalue().splitlines()
+                     if line.startswith('{"metric": ')])
+
+    def records(out, metric):
+        return [r for r in out if r["metric"] == metric]
+
+    return (records(outs[0], "training.round"), records(outs[1], "training.round"),
+            records(outs[1], "training.attribution")[-1])
