@@ -525,9 +525,12 @@ RANK_PARAMS = {"objective": "rank:ndcg", "max_depth": 8, "max_bin": 256, "tree_m
                "eta": 0.1, "eval_metric": ["ndcg@10", "map@10"]}
 RANK_GRAD_QUERIES, N_RANK_PREDICT = 200, 10_000
 # the train entry point on a libsvm channel with qid: tokens
+# (one round a dispatch: the phase reads a line a round of the host-evaluated
+# ranking metrics, which the entry point's default K would print once a
+# dispatch; phase 24 checks that cadence)
 RANK_ENTRY_QUERIES, RANK_ENTRY_HP = (60, 20), {
     "objective": "rank:pairwise", "num_round": "5", "max_depth": "6", "max_bin": "64",
-    "eta": "0.3", "eval_metric": "ndcg@5,map@10"}
+    "eta": "0.3", "eval_metric": "ndcg@5,map@10", "_rounds_per_dispatch": "1"}
 # phase 10b: bench.py's BENCH_TASK=lossguide on the main path's rows
 LOSSGUIDE_PARAMS = {"objective": "binary:logistic", "grow_policy": "lossguide",
                     "max_leaves": 255, "max_depth": 0, "max_bin": 256, "tree_method": "hist",
@@ -2500,7 +2503,10 @@ RF_PARAMS = {"objective": "binary:logistic", "num_parallel_tree": 100, "subsampl
 KFOLD_HP = {"objective": "binary:logistic", "max_depth": "5", "max_bin": "256",
             "tree_method": "hist", "eta": "0.2", "num_round": "20", "_kfold": "5",
             "_num_cv_round": "2", "eval_metric": "logloss,auc"}
-KFOLD_FEVAL_HP = dict(KFOLD_HP, _num_cv_round="1", eval_metric="accuracy,f1,auc")
+# (one round a dispatch: the phase counts a feval line a round of every fold,
+# which the entry point's default K would print once a dispatch)
+KFOLD_FEVAL_HP = dict(KFOLD_HP, _num_cv_round="1", eval_metric="accuracy,f1,auc",
+                      _rounds_per_dispatch="1")
 # the CV means of the fold-parallel and the sequential runs: other splits and
 # other cuts (the whole matrix against each fold's rows), so only this close
 KFOLD_MEAN_TOL = 1e-2
@@ -5871,8 +5877,12 @@ def run_kfold_hosts(tag, tmp):
 # whole-file reader's bit for bit) as csv channels of N_TRAIN + N_VAL rows,
 # each value written "%+.9f" (every multiple of 2^-9 exactly), trained 5
 # rounds with SM_INGEST_MODE=whole and with auto at 16 MiB chunks
+# (one round a dispatch: 19a and 21 read rounds/s from the children's
+# per-round records, which under the entry point's default K land once a
+# dispatch, all of its rounds at once)
 STREAM_HP = {"objective": "binary:logistic", "max_depth": "8", "max_bin": "256",
-             "tree_method": "hist", "eta": "0.2", "num_round": "5", "eval_metric": "logloss"}
+             "tree_method": "hist", "eta": "0.2", "num_round": "5", "eval_metric": "logloss",
+             "_rounds_per_dispatch": "1"}
 STREAM_ROUNDS = 5
 STREAM_CHUNK_BYTES = 16 << 20
 STREAM_DEFAULT_CHUNK_BYTES = 64 << 20   # SM_INGEST_CHUNK_BYTES' default
@@ -6961,6 +6971,423 @@ def run_native(tag):
     print("{} | native phase: {:.1f} s".format(tag, time.perf_counter() - t0), flush=True)
 
 
+# ---------------------------------------------------------------- phase 24
+# K boosting rounds a dispatch (_rounds_per_dispatch), replayed from the
+# session's captured CUDA graph (models/round_graph.py), on phase 4's main
+# path: K=1 (eager) against K=8 (captured), each over DISPATCH_ROUNDS
+# rounds: the first dispatch (its warm-up round and capture), rounds 8-15
+# timed on the host clock, rounds 16-23 under torch.profiler (CPU and CUDA
+# activity: the host's launch calls and the device's kernels)
+DISPATCH_K, DISPATCH_ROUNDS = 8, 24
+DISPATCH_TIMED, DISPATCH_PROFILED = (7, 15), (15, 23)   # after these rounds' lines
+# the runtime calls that put work on the card, counted on the host
+RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                    "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                    "cudaMemsetAsync")
+# phase 11a's sampled configuration with every kind of draw, K=8 on the
+# main path's rows: each replay's masks against the eager draws of its round
+DISPATCH_SAMPLED = dict(CHURN_PARAMS, colsample_bytree=0.8, colsample_bylevel=0.8,
+                        colsample_bynode=0.8)
+DISPATCH_SAMPLED_ROUNDS = 10
+# trees K=8 against K=1 on rows whose splits have well-separated gains:
+# integer features of 16 levels (every level its own bin, every step a
+# cut) and a label that steps on features 0, 1 and 2 with strengths 3,
+# 1.5 and 0.75, so that a depth-3 tree splits on the three steps and no
+# other candidate comes within the histograms' f32 rounding of them; each
+# case also timed over rounds 9-16, K=8's second dispatch (all replays)
+STEP_FEATURES, STEP_ROUNDS, STEP_TIMED = 28, 16, (7, 15)
+STEP_PARAMS = {"objective": "binary:logistic", "max_depth": 3, "max_bin": 256, "eta": 0.1,
+               "tree_method": "hist"}
+# (name, params over STEP_PARAMS, rows, query size or None): depthwise
+# growth, lossguide's steps, and the ranking pair pass over queries of 50
+# rows (the step label as relevance), each captured at K=8
+STEP_CASES = (("depthwise", {}, 100_000, None),
+              ("lossguide", {"grow_policy": "lossguide", "max_leaves": 8}, 50_000, None),
+              ("rank:ndcg", {"objective": "rank:ndcg"}, 50_000, 50))
+# the kernels each wrapper call launches: one hist_kernel and one
+# totals_partial a call, with the other partition / reduce kernels
+HIST_KERNELS = ("hist_count", "hist_scan", "hist_scatter", "hist_kernel", "hist_reduce")
+TOTALS_KERNELS = ("totals_partial", "totals_reduce")
+# the train entry point under its default K (8): no checkpoint directory
+# and a feval (accuracy), so the host evaluates once a dispatch and prints
+# its lines at rounds 7, 15 and the last, 19
+DISPATCH_ENTRY_ROWS = (50_000, 10_000)
+DISPATCH_ENTRY_HP = {"objective": "binary:logistic", "max_depth": "6", "max_bin": "256",
+                     "tree_method": "hist", "eta": "0.2", "num_round": "20",
+                     "eval_metric": "logloss,accuracy"}
+
+
+def make_steps(n, d, seed):
+    rng = np.random.RandomState(seed)
+    X = rng.randint(0, 16, size=(n, d)).astype(np.float32)
+    logit = 3.0 * (X[:, 0] >= 8) + 1.5 * (X[:, 1] >= 8) + 0.75 * (X[:, 2] >= 8) - 2.6
+    y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+    return X, y
+
+
+class _Sessions:
+    """Records every training session ``train`` builds (its dispatch plan,
+    capture state and graph), each capture's hist_* / totals_* kernel nodes
+    (``_graph_kernel_nodes``, read before the session frees its graph), and
+    each replay's draws as the graph saw them (``keep_draws``)."""
+
+    def __init__(self, keep_draws=False):
+        from sagemaker_xgboost_container_tpu_torch.models import booster, round_graph
+
+        self.booster, self.round_graph = booster, round_graph
+        self.sessions, self.replayed, self.kernel_nodes = [], [], []
+        self.keep_draws = keep_draws
+
+    def __enter__(self):
+        spy = self
+        plan = self.real_plan = self.booster._TrainingSession._plan_dispatch
+        replay = self.real_replay = self.round_graph.RoundGraph.replay
+        capture = self.real_capture = self.round_graph.RoundGraph.capture
+
+        def plan_dispatch(session, config, has_feval):
+            plan(session, config, has_feval)
+            spy.sessions.append(session)
+
+        def capture_read(graph, draws):
+            capture(graph, draws)
+            spy.kernel_nodes.append(_graph_kernel_nodes(graph.graph))
+
+        def replay_kept(graph, draws):
+            out = replay(graph, draws)
+            if spy.keep_draws:
+                spy.replayed.append(_flat_draws(graph.static_draws))
+            return out
+
+        self.booster._TrainingSession._plan_dispatch = plan_dispatch
+        self.round_graph.RoundGraph.replay = replay_kept
+        self.round_graph.RoundGraph.capture = capture_read
+        return self
+
+    def __exit__(self, *exc_info):
+        self.booster._TrainingSession._plan_dispatch = self.real_plan
+        self.round_graph.RoundGraph.replay = self.real_replay
+        self.round_graph.RoundGraph.capture = self.real_capture
+
+
+def _flat_draws(tree):
+    """The tensors of a draw structure, in order, on the host."""
+    if tree is None:
+        return []
+    if hasattr(tree, "shape"):
+        return [tree.detach().cpu()]
+    return [t for x in tree for t in _flat_draws(x)]
+
+
+def _graph_kernel_nodes(graph):
+    """{kernel name: its nodes} of the hist_* and totals_* kernels in a
+    captured ``torch.cuda.CUDAGraph`` (kept with ``keep_graph``), read from
+    the graph itself through libcuda: ``cuGraphGetNodes``, each kernel
+    node's function (``cuGraphKernelNodeGetParams_v2``) and its name
+    (``cuFuncGetName``, or ``cuKernelGetName`` for a node that holds a
+    library kernel)."""
+    import ctypes
+
+    lib = ctypes.CDLL("libcuda.so.1")
+    handle = graph.raw_cuda_graph()
+    handle = ctypes.c_void_p(handle if isinstance(handle, int) else int(handle.getPtr()))
+    count = ctypes.c_size_t(0)
+    if lib.cuGraphGetNodes(handle, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if lib.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    out = {name: 0 for name in HIST_KERNELS + TOTALS_KERNELS}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value != 0:   # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern at 56 (72 bytes)
+        params = (ctypes.c_uint64 * 16)()
+        if lib.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), params) != 0:
+            raise RuntimeError("cuGraphKernelNodeGetParams_v2 failed")
+        name = ctypes.c_char_p()
+        if params[0]:
+            rc = lib.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params[0]))
+        else:
+            rc = lib.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params[7]))
+        if rc != 0 or not name.value:
+            raise RuntimeError("a kernel node's name: error {}".format(rc))
+        # the mangled name: the kernel's own name after its length (the
+        # anonymous namespace spells the file's name, hist_kernel_cu)
+        text = name.value.decode(errors="replace")
+        for key in out:
+            if "{}{}".format(len(key), key) in text:
+                out[key] += 1
+    return out
+
+
+def _runtime_calls(torch, prof):
+    """{runtime call: count} of the launch calls a profiled window made."""
+    out = {}
+    for evt in prof.key_averages():
+        if evt.key in RUNTIME_LAUNCHES and evt.device_type != torch.autograd.DeviceType.CUDA:
+            out[evt.key] = out.get(evt.key, 0) + int(evt.count)
+    return out
+
+
+def _dispatch_run(torch, hist, pkg, K, dtrain, dval):
+    """The main path at K rounds a dispatch, timed and profiled -> dict."""
+    from sagemaker_xgboost_container_tpu_torch.telemetry import device as device_telemetry
+
+    marks, logloss = {}, []
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    (t0, t1), (p0, p1) = DISPATCH_TIMED, DISPATCH_PROFILED
+
+    class Window:
+        def after_iteration(self, forest, rnd, evals_log):
+            torch.cuda.synchronize()
+            marks[rnd] = time.perf_counter()
+            logloss[:] = evals_log["validation"]["logloss"]
+            if rnd == p0:
+                # after the timed window's last mark: the profiler's first
+                # start in a process takes seconds
+                prof.start()
+            elif rnd == p1:
+                prof.stop()
+            return False
+
+    os.environ["SM_DEVICE_TELEMETRY"] = "true"
+    device_telemetry._reset_for_tests()
+    hist.reset_launch_counts()
+    try:
+        with _Sessions() as spy:
+            forest = pkg.train(dict(MAIN_PARAMS, _rounds_per_dispatch=K), dtrain,
+                               DISPATCH_ROUNDS, evals=[(dval, "validation")], device=DEVICE,
+                               callbacks=[Window()], verbose_eval=False)
+        compiled = device_telemetry.last_compiled() or {}
+    finally:
+        os.environ.pop("SM_DEVICE_TELEMETRY", None)
+        device_telemetry._reset_for_tests()
+    launches = dict(hist.LAUNCHES)
+    rows = _device_rows(torch, prof, p1 - p0)
+    calls = _runtime_calls(torch, prof)
+    (session,) = spy.sessions
+    graph = session.graph
+    host_ms = (marks[t1] - marks[t0]) * 1e3 / (t1 - t0)
+    return {"K": K, "forest": forest, "launches": launches, "logloss": list(logloss),
+            "rps": (t1 - t0) / (marks[t1] - marks[t0]),
+            "rps_2_9": 8.0 / (marks[9] - marks[1]), "host_ms": host_ms,
+            "device_ms": rows[1], "kernels_a_round": rows[2], "busy": rows[1] / host_ms,
+            "hist_calls": rows[4]("hist_"), "totals_calls": rows[4]("totals_"),
+            "profiled": {name: rows[4](name) for name in HIST_KERNELS + TOTALS_KERNELS},
+            "graph_kernels": spy.kernel_nodes[0] if spy.kernel_nodes else None,
+            "runtime_calls": calls,
+            "host_launches": sum(calls.values()) / float(p1 - p0),
+            "captured": session.captured, "reason": session.capture_reason,
+            "nodes": graph.nodes if graph is not None else None,
+            "graph_launches": dict(graph.launches) if graph is not None else None,
+            "compiled": {k: compiled.get(k) for k in ("dispatch_graph", "dispatch_graph_reason",
+                                                      "rounds_per_dispatch")}}
+
+
+def run_dispatch(torch, hist, pkg, dtrain, dval, tag):
+    """Phase 24: _rounds_per_dispatch on the card (see the constants)."""
+    t = time.perf_counter()
+    runs = {K: _dispatch_run(torch, hist, pkg, K, dtrain, dval) for K in (1, DISPATCH_K)}
+    for K, r in sorted(runs.items()):
+        print("{} | dispatch K={}: {} ({}); rounds/s {:.3f} over rounds {}-{} ({:.3f} over "
+              "rounds 2-9); host launch calls a round {:.1f} ({}); device kernels a round "
+              "{:.0f}, device {:.3f} ms a round, busy {:.1%} of an unprofiled round ({:.3f} "
+              "ms); hist_* / totals_* kernels a round in the profile of rounds {}-{} {:.3f} / "
+              "{:.3f}, by kernel {}; graph nodes {}, of them kernels {}; the counters' advance "
+              "a capture {}; training.compiled {}".format(
+                  tag, K, "captured" if r["captured"] else "eager", r["reason"], r["rps"],
+                  DISPATCH_TIMED[0] + 1, DISPATCH_TIMED[1], r["rps_2_9"], r["host_launches"],
+                  json.dumps(r["runtime_calls"]), r["kernels_a_round"], r["device_ms"],
+                  r["busy"], r["host_ms"], DISPATCH_PROFILED[0] + 1, DISPATCH_PROFILED[1],
+                  r["hist_calls"], r["totals_calls"], json.dumps(r["profiled"]), r["nodes"],
+                  json.dumps(r["graph_kernels"]), json.dumps(r["graph_launches"]),
+                  json.dumps(r["compiled"])), flush=True)
+        check(r["launches"] == {"hist_kernel": 8 * DISPATCH_ROUNDS,
+                                "totals_kernel": DISPATCH_ROUNDS},
+              "24: K={} launches {} over {} rounds".format(K, r["launches"], DISPATCH_ROUNDS))
+        # falling every round over the first 10, and lower at the end
+        ll = r["logloss"]
+        check(len(ll) == DISPATCH_ROUNDS and all(b < a for a, b in zip(ll[:10], ll[1:10]))
+              and ll[-1] < ll[9], "24: K={} validation logloss did not fall: {}".format(K, ll))
+    one, k8 = runs[1], runs[DISPATCH_K]
+    check(not one["captured"] and k8["captured"],
+          "24: K=1 {} ({}), K={} {} ({})".format(one["captured"], one["reason"], DISPATCH_K,
+                                                 k8["captured"], k8["reason"]))
+    check(k8["compiled"]["dispatch_graph"] == "captured"
+          and k8["compiled"]["rounds_per_dispatch"] == DISPATCH_K,
+          "24: training.compiled {}".format(k8["compiled"]))
+    check(k8["graph_launches"] == {"hist_kernel": 8, "totals_kernel": 1},
+          "24: a capture recorded {}".format(k8["graph_launches"]))
+    # measured, not counted: the captured graph's own kernel nodes, which
+    # every replay launches, hold 8 level_histogram calls (each of its five
+    # kernels 8 times) and 1 node_totals call (its two kernels once) a
+    # round, exactly; the profile of K=8's replayed rounds 16-23 as many a
+    # round, to within half a launch (the profiler can lose a few kernel
+    # records; a kernel lost or doubled in the graph moves it by 1)
+    a_round = dict({name: 8 for name in HIST_KERNELS}, **{n: 1 for n in TOTALS_KERNELS})
+    check(k8["graph_kernels"] == a_round,
+          "24: the captured graph holds kernel nodes {}".format(k8["graph_kernels"]))
+    check(all(abs(k8["profiled"][name] - n) < 0.5 for name, n in a_round.items()),
+          "24: the profiled replays ran {} kernels a round".format(k8["profiled"]))
+    print("{} | dispatch: K={} captured {:.3f} rounds/s against K=1 eager {:.3f} ({:.2f}x); "
+          "host launch calls a round {:.1f} against {:.1f}".format(
+              tag, DISPATCH_K, k8["rps"], one["rps"], k8["rps"] / one["rps"],
+              k8["host_launches"], one["host_launches"]), flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dispatch_") as tmp:
+        entry = _dispatch_entry_start(tmp)
+        try:
+            _dispatch_sampled(torch, hist, pkg, dtrain, dval, tag)
+            _dispatch_trees(torch, pkg, tag)
+        finally:
+            code = entry.wait(600)
+        _dispatch_entry_check(entry, code, tag)
+    print("{} | dispatch phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _dispatch_sampled(torch, hist, pkg, dtrain, dval, tag):
+    """24: the sampled configuration captured, each replay's masks bit for
+    bit the eager draws of its round."""
+    from sagemaker_xgboost_container_tpu_torch.models.booster import TrainConfig
+    from sagemaker_xgboost_container_tpu_torch.models.sampling import Sampler
+
+    params = dict(DISPATCH_SAMPLED, _rounds_per_dispatch=DISPATCH_K)
+    hist.reset_launch_counts()
+    with _Sessions(keep_draws=True) as spy:
+        pkg.train(params, dtrain, DISPATCH_SAMPLED_ROUNDS, evals=[(dval, "validation")],
+                  device=DEVICE, verbose_eval=False)
+    launches = dict(hist.LAUNCHES)
+    (session,) = spy.sessions
+    eager = Sampler(TrainConfig(params), dtrain.num_row, dtrain.num_col, DEVICE)
+    same = [all(torch.equal(a, b) for a, b in zip(got, _flat_draws(eager.draw(rnd))))
+            and len(got) == len(_flat_draws(eager.draw(rnd)))
+            for rnd, got in enumerate(spy.replayed, start=1)]
+    depth = DISPATCH_SAMPLED["max_depth"]
+    print("{} | dispatch sampled (churn + colsample_bytree/bylevel/bynode 0.8, K={}, {} "
+          "rounds): {} ({}); replays {}, masks bit for bit the eager draws of their round: "
+          "{}/{} ({} tensors a round); launches {}".format(
+              tag, DISPATCH_K, DISPATCH_SAMPLED_ROUNDS,
+              "captured" if session.captured else "eager", session.capture_reason,
+              len(spy.replayed), sum(same), len(same),
+              len(spy.replayed[0]) if spy.replayed else 0, json.dumps(launches)), flush=True)
+    check(session.captured and len(spy.replayed) == DISPATCH_SAMPLED_ROUNDS - 1 and all(same),
+          "24: sampled replays {} of {}, masks equal {}".format(
+              len(spy.replayed), DISPATCH_SAMPLED_ROUNDS - 1, same))
+    check(launches == {"hist_kernel": depth * DISPATCH_SAMPLED_ROUNDS,
+                       "totals_kernel": DISPATCH_SAMPLED_ROUNDS},
+          "24: sampled launches {}".format(launches))
+
+
+def _dispatch_trees(torch, pkg, tag):
+    """24: K=8's trees against K=1's on the step fixture, for each of
+    STEP_CASES, K=8 captured."""
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+
+    for name, extra, rows, query in STEP_CASES:
+        X, y = make_steps(rows, STEP_FEATURES, seed=3)
+        Xv, yv = make_steps(rows // 10, STEP_FEATURES, seed=4)
+        groups = [None, None] if query is None else [np.full(rows // query, query),
+                                                     np.full(rows // 10 // query, query)]
+        params = dict(STEP_PARAMS, **extra)
+        forests, rps, state = {}, {}, {}
+        for K in (1, DISPATCH_K):
+            marks = {}
+
+            class Marks:
+                def after_iteration(self, forest, rnd, evals_log):
+                    torch.cuda.synchronize()
+                    marks[rnd] = time.perf_counter()
+                    return False
+
+            with _Sessions() as spy:
+                forests[K] = pkg.train(
+                    dict(params, _rounds_per_dispatch=K), DataMatrix(X, y, groups=groups[0]),
+                    STEP_ROUNDS, evals=[(DataMatrix(Xv, yv, groups=groups[1]), "validation")],
+                    device=DEVICE, callbacks=[Marks()], verbose_eval=False)
+            (session,) = spy.sessions
+            state[K] = (session.captured, session.capture_reason)
+            t0, t1 = STEP_TIMED
+            rps[K] = (t1 - t0) / (marks[t1] - marks[t0])
+        a, b = forests[1], forests[DISPATCH_K]
+        same = []
+        leaf = 0.0
+        for ta, tb in zip(a.trees, b.trees):
+            ok = (ta.num_nodes == tb.num_nodes and (ta.left == tb.left).all()
+                  and (ta.feature == tb.feature).all() and (ta.threshold == tb.threshold).all()
+                  and (ta.default_left == tb.default_left).all()
+                  and (ta.is_leaf == tb.is_leaf).all())
+            same.append(bool(ok))
+            if ok:
+                leaf = max(leaf, float(np.abs(ta.value - tb.value).max()))
+        dp = float(np.abs(a.predict(Xv) - b.predict(Xv)).max())
+        roots = [int(t.feature[0]) for t in a.trees]
+        print("{} | dispatch trees {} (steps {} x {}, depth 3, {} rounds): K={} {} ({}), K=1 "
+              "{}; rounds/s over rounds {}-{} {:.3f} against {:.3f} ({:.2f}x); feature / bin / "
+              "default_left / is_leaf equal in {}/{} trees, leaf values within {:.3e}; "
+              "predictions within {:.3e}; root features {}".format(
+                  tag, name, rows, STEP_FEATURES, STEP_ROUNDS, DISPATCH_K,
+                  "captured" if state[DISPATCH_K][0] else "eager", state[DISPATCH_K][1],
+                  "captured" if state[1][0] else "eager", STEP_TIMED[0] + 1, STEP_TIMED[1],
+                  rps[DISPATCH_K], rps[1], rps[DISPATCH_K] / rps[1], sum(same), len(same),
+                  leaf, dp, roots), flush=True)
+        check(state[DISPATCH_K][0] and not state[1][0],
+              "24: {}: K={} {}, K=1 {}".format(name, DISPATCH_K, state[DISPATCH_K], state[1]))
+        check(len(same) == STEP_ROUNDS and all(same) and leaf <= 1e-5,
+              "24: {}: K={} trees differ from K=1's: {} (leaf {})".format(
+                  name, DISPATCH_K, same, leaf))
+
+
+def _dispatch_entry_start(tmp):
+    """24: the train entry point's child under the default K, started."""
+    n, nv = DISPATCH_ENTRY_ROWS
+    X, y = make_data(n + nv, N_FEATURES, seed=ENTRY_SEED)
+    train_dir, val_dir = os.path.join(tmp, "train"), os.path.join(tmp, "validation")
+    _write_csv_channel(train_dir, X[:n], y[:n])
+    _write_csv_channel(val_dir, X[n:], y[n:])
+    channel = {"ContentType": "csv", "TrainingInputMode": "File",
+               "S3DistributionType": "FullyReplicated"}
+    for name, doc in (("hp.json", DISPATCH_ENTRY_HP),
+                      ("data.json", {"train": channel, "validation": dict(channel)})):
+        with open(os.path.join(tmp, name), "w") as f:
+            json.dump(doc, f)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("SM_", "SAGEMAKER_"))}
+    env.update({
+        "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)),
+        "SM_INPUT_TRAINING_CONFIG_FILE": os.path.join(tmp, "hp.json"),
+        "SM_INPUT_DATA_CONFIG_FILE": os.path.join(tmp, "data.json"),
+        "SM_CHECKPOINT_CONFIG_FILE": os.path.join(tmp, "none.json"),
+        "SM_CHANNEL_TRAIN": train_dir, "SM_CHANNEL_VALIDATION": val_dir,
+        "SM_MODEL_DIR": os.path.join(tmp, "model"), "SM_OUTPUT_DIR": os.path.join(tmp, "output"),
+        "SM_OUTPUT_DATA_DIR": os.path.join(tmp, "output", "data"),
+        "SM_HOSTS": '["algo-1"]', "SM_CURRENT_HOST": "algo-1"})
+    return _Child(ENTRY_CHILD_COMMAND, env)
+
+
+def _dispatch_entry_check(child, code, tag):
+    rounds = int(DISPATCH_ENTRY_HP["num_round"])
+    want = sorted({r for r in range(rounds) if r % DISPATCH_K == DISPATCH_K - 1} | {rounds - 1})
+    lines = _metric_lines(child.out)
+    report = _child_report(child.out)
+    wall = (child.ended_at or time.perf_counter()) - child.started_at
+    print("{} | dispatch entry point (default K, no checkpoint directory, feval accuracy, {} "
+          "rounds): exit {} in {:.1f} s; HPO lines at rounds {} (want {}); last line {}; "
+          "launches {}".format(tag, rounds, code, wall, sorted(lines), want,
+                               json.dumps(lines.get(rounds - 1)),
+                               json.dumps(report.get("launches"))), flush=True)
+    check(code == 0, "24: the entry point exited {}: {}".format(code, "".join(child.err)[-3000:]))
+    check(sorted(lines) == want and all(
+        "validation-accuracy" in lines[r] and "validation-logloss" in lines[r] for r in want),
+        "24: HPO lines at {}".format(sorted(lines)))
+    check(re.search(HPO_REGEX.format("accuracy"), child.out), "24: no HPO line for accuracy")
+    depth = int(DISPATCH_ENTRY_HP["max_depth"])
+    check(report.get("launches") == {"hist_kernel": depth * rounds, "totals_kernel": rounds},
+          "24: entry launches {}".format(report.get("launches")))
+
+
 PHASE_WALL = []
 
 
@@ -7052,6 +7479,7 @@ def main():
         phase("21 local ranks", run_local_ranks, torch, tag)
         phase("22 elastic with local ranks", run_elastic_local, torch, tag)
         phase("23 native data plane", run_native, tag)
+        phase("24 rounds a dispatch", run_dispatch, torch, hist, pkg, dtrain, dval, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

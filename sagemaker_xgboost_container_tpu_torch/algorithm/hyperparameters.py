@@ -431,8 +431,10 @@ def initialize(metrics):
         IntegerHyperparameter(
             name="_num_devices", range=Interval(min_closed=1), required=False, tunable=False
         ),
-        # Internal: trees per device dispatch in the JAX package; the port
-        # builds one tree a round whatever its value.
+        # Internal: boosting rounds a device dispatch (models/booster.py);
+        # on one CUDA rank they replay from a captured CUDA graph. The train
+        # entry point defaults it to SM_ROUNDS_PER_DISPATCH_DEFAULT (8) when
+        # nothing must be saved every round.
         IntegerHyperparameter(
             name="_rounds_per_dispatch",
             range=Interval(min_closed=1),

@@ -16,6 +16,16 @@ mask and the split scan by feature masks, drawn each round by
 ``models/sampling``. The only host work per round is pulling the trees'
 small node arrays and the metric scalars.
 
+``_rounds_per_dispatch`` K, the JAX package's fused dispatch: a dispatch
+enqueues K rounds and copies their trees, per-round device metrics and
+learning stats to the host once; the rounds then commit one at a time. On
+one CUDA rank the round body is captured once a session as a CUDA graph and
+replayed (``models/round_graph``); elsewhere the K rounds run eagerly.
+Metrics that cannot ride the copy (a feval, a metric without a device form,
+a ranking objective) are evaluated on the host once a dispatch, at its last
+round, as in the JAX package; a dispatch never builds past the last round
+asked for, so that evaluation sees the committed forest.
+
 Callback protocol mirrors xgboost's (before_training / after_iteration ->
 bool stop / after_training), which is how early stopping hooks in.
 
@@ -24,9 +34,9 @@ by default: with ``SM_MODEL_TELEMETRY`` the round computes the learning
 stats (``learning_stats``, torch reductions) and brings them to the host in
 the round's one copy, the loop emits ``training.learning`` and aborts with
 exit 87 on a poisoned round, and the session captures the drift baseline;
-with ``SM_DEVICE_TELEMETRY`` the first round's counted kernel work becomes
+with ``SM_DEVICE_TELEMETRY`` the first dispatch's counted kernel work becomes
 the ``training.compiled`` record; ``SM_TRACE_DEVICE_SYNC=N`` fences every
-N-th round into ``host_dispatch`` / ``device_sync`` phases. A CUDA
+N-th dispatch into ``host_dispatch`` / ``device_sync`` phases. A CUDA
 out-of-memory error inside a round dumps forensics and exits 86. The dart
 loop builds the same session (so it captures the baseline) but, as in the
 JAX package, emits no learning records; gblinear, update and fold-parallel
@@ -61,6 +71,7 @@ from ``rep_block`` blocks of representative values. gblinear, dart and
 ``process_type=update`` need the floats and raise ``UserError``.
 """
 
+import collections
 import logging
 import os
 
@@ -94,6 +105,7 @@ from . import eval_metrics
 from .device_metrics import make_device_metric
 from .forest import Forest, compact_padded_tree
 from .objectives import SoftprobMulti, create_objective
+from .round_graph import RoundGraph, capture_decision
 from .sampling import Sampler
 
 # objective hyperparameters carried into the saved model
@@ -113,6 +125,11 @@ _RESUME_TREES_PER_PASS = 64
 _REP_BLOCK_ROWS = 1 << 16
 
 logger = logging.getLogger(__name__)
+
+# One dispatch's rounds on the host: ``trees``, per round the list of its
+# host tree dicts (one per parallel tree); ``metrics``, the per-round device
+# metric values [k, n_sets, n_metrics] or None
+Dispatch = collections.namedtuple("Dispatch", ["trees", "metrics"])
 
 
 def learning_stats(g, h, margins):
@@ -214,6 +231,9 @@ class TrainConfig:
         self.colsample_bylevel = float(p.get("colsample_bylevel", 1.0))
         self.colsample_bynode = float(p.get("colsample_bynode", 1.0))
         self.num_parallel_tree = int(p.get("num_parallel_tree", 1) or 1)
+        # internal: boosting rounds a device dispatch (the session may force
+        # it to 1, and decides whether they replay from a CUDA graph)
+        self.rounds_per_dispatch = int(p.get("_rounds_per_dispatch", 1) or 1)
         self.objective = p.get("objective", "reg:squarederror")
         self.num_class = int(p.get("num_class", 0) or 0)
         self.base_score = float(p.get("base_score", 0.5))
@@ -520,6 +540,27 @@ def _eval_metric_names(config, objective):
     return list(metrics)
 
 
+_approx_k_forcing_warned = False
+
+
+def _warn_approx_k_forcing_once(requested):
+    """Warn, once a process, that approx's re-sketch forces K -> 1, with the
+    JAX package's words: the cuts are re-selected before every round, which
+    a K-round dispatch would do once every K rounds. Every CV fold and
+    elastic generation builds a session anew, hence once a process."""
+    global _approx_k_forcing_warned
+    if _approx_k_forcing_warned:
+        return
+    _approx_k_forcing_warned = True
+    logger.warning(
+        "tree_method='approx' re-sketches candidates before every "
+        "boosting iteration; forcing _rounds_per_dispatch=%d -> 1 "
+        "(set GRAFT_APPROX_RESKETCH=0 to keep batched dispatches "
+        "with a single global sketch).",
+        requested,
+    )
+
+
 def _clear_comm_round_fields():
     """Drop the collective keys from the per-round record (the JAX
     package's ``_set_comm_round_fields``): a one-rank session that follows
@@ -533,7 +574,7 @@ class _TrainingSession:
     """Device state for one training run: bins, margins, eval sets."""
 
     def __init__(self, config, dtrain, evals, forest, metric_names, device, sampler=None,
-                 group=None):
+                 group=None, has_feval=False):
         self.config = config
         self.device = device
         self.group = group   # None on one rank
@@ -611,6 +652,9 @@ class _TrainingSession:
         # global rows, and cox-nloglik its value (GlobalRows)
         self.global_rows = None
         self._eval_rows = {}    # eval set index -> GlobalRows (cox-nloglik)
+        # the collectives of a dispatch's per-round metric evaluation across
+        # ranks, kept out of its rounds' own (note_collectives)
+        self._eval_comm = {"seconds": 0.0, "bytes": 0, "calls": 0}
         if self.group is not None and self.objective.name == "survival:cox":
             self.global_rows = GlobalRows(dtrain.labels, dtrain.get_weight(), self.group,
                                           device)
@@ -679,6 +723,50 @@ class _TrainingSession:
                 torch.as_tensor(dm.get_weight(), device=device),
                 self._start_margins(forest, dm, base),
             ])
+        self._plan_dispatch(config, has_feval)
+
+    def _plan_dispatch(self, config, has_feval):
+        """K rounds a dispatch, as the JAX package's session plans them:
+        approx's re-sketch forces K = 1 (with its warning, once a process);
+        under K > 1 the per-round metric values ride the dispatch's one
+        copy when every metric has a device form and there is no feval and
+        no ranking objective (``device_batched_metrics``), else the host
+        evaluates once a dispatch, at its last round (``host_eval_batched``).
+        Then the static capture decision, logged once with its reason."""
+        from ..telemetry import REGISTRY
+
+        K = max(1, config.rounds_per_dispatch)
+        if self.approx_resketch and K > 1:
+            _warn_approx_k_forcing_once(K)
+            K = 1
+        self.rounds_per_dispatch = K
+        self.device_batched_metrics = bool(
+            K > 1 and self.eval_sets and self.metrics and not has_feval
+            and not self.objective.needs_groups
+            and all(m is not None for _name, m in self.metrics))
+        self.host_eval_batched = K > 1 and bool(self.eval_sets) and not (
+            self.device_batched_metrics)
+        if self.host_eval_batched:
+            logger.info(
+                "_rounds_per_dispatch=%d with eval metrics that cannot ride back from the "
+                "device: keeping the fused dispatch; host metrics are computed once per "
+                "dispatch (every %d rounds).", K, K)
+        REGISTRY.gauge(
+            "dispatch_fused_rounds",
+            "Boosting rounds fused into one device dispatch per round "
+            "program (the lax.scan length K of the fused round pipeline)",
+        ).set(K)
+        self.captured, self.capture_reason = capture_decision(
+            self.device, K, self.group, config, self.approx_resketch)
+        self.graph = RoundGraph(self._round_body) if self.captured else None
+        self._slots = None   # the captured session's static [K, ...] outputs
+        logger.info("round dispatch: %d round(s) a dispatch, %s (%s)", K,
+                    "captured" if self.captured else "eager", self.capture_reason)
+
+    def release_graph(self):
+        """Free the captured round and its memory pool (the session's end)."""
+        if self.graph is not None:
+            self.graph.release()
 
     def _start_margins(self, forest, dm, base):
         """Margins of ``dm``'s rows before the first new round ([n], or
@@ -792,18 +880,25 @@ class _TrainingSession:
         return self.pointwise_grad_hess(margins)
 
     def run_round(self, rnd):
-        """Grow round ``rnd``'s ``num_parallel_tree`` trees and update every
-        margin -> list of host tree dicts (arrays [max_nodes], or [C,
-        max_nodes] for C classes), one per parallel tree; with the learning
-        stats armed, ``last_learning_stats`` holds the round's decoded
-        vector.
+        """Round ``rnd`` alone, a dispatch of one round -> its host tree
+        dicts, one per parallel tree."""
+        return self.run_rounds(rnd, 1).trees[0]
 
-        A CUDA out-of-memory error anywhere in the round is terminal (no
+    def run_rounds(self, rnd, rounds_left):
+        """One dispatch of min(K, ``rounds_left``) rounds from ``rnd`` ->
+        ``Dispatch``: ``trees``, per round the list of its host tree dicts
+        (arrays [max_nodes], or [C, max_nodes] for C classes), one per
+        parallel tree; ``metrics``, the per-round device metric values [k,
+        n_sets, n_metrics] (f64 numpy) under ``device_batched_metrics``,
+        else None. With the learning stats armed, ``last_learning_stats``
+        holds each round's decoded vector.
+
+        A CUDA out-of-memory error anywhere in the dispatch is terminal (no
         retry fits a full card): it goes through the OOM forensics dump and
         the watchdog's abort (exit 86). Every other exception propagates
         unchanged."""
         try:
-            return self._run_round(rnd)
+            return self._run_rounds(rnd, min(self.rounds_per_dispatch, rounds_left))
         except Exception as e:
             from ..telemetry import device as device_telemetry
 
@@ -824,25 +919,24 @@ class _TrainingSession:
         watchdog.request_abort("device_oom", EXIT_DEVICE_OOM, error=str(exc)[:400],
                                forensics=path or "")
 
-    def _run_round(self, rnd):
-        """The round, fenced on every N-th call (``SM_TRACE_DEVICE_SYNC``):
+    def _run_rounds(self, rnd, k):
+        """The dispatch, fenced on every N-th one (``SM_TRACE_DEVICE_SYNC``):
         the host's enqueue timed as the ``host_dispatch`` phase and the wait
         for the card as ``device_sync``, both into the active
-        ``PhaseRecorder``; then the one device-to-host copy of the packed
-        trees (and the learning stats, in the same copy)."""
+        ``PhaseRecorder``; then the dispatch's one device-to-host copy."""
         sampled = (self._device_sync_every > 0
                    and self._dispatch_index % self._device_sync_every == 0)
         self._dispatch_index += 1
         probe = self._cost_probe() if self._count_cost else None
         if not sampled:
-            stacked, vec = self._dispatch_round(rnd)
+            outs, values = self._enqueue_rounds(rnd, k)
         else:
             from ..telemetry import active_recorder, compile_stats, span
 
             pre_build = compile_stats()["seconds"]
             with span("host_dispatch"):
-                stacked, vec = self._dispatch_round(rnd)
-            # a kernel build inside this round is RoundTimer's `compile`
+                outs, values = self._enqueue_rounds(rnd, k)
+            # a kernel build inside this dispatch is RoundTimer's `compile`
             # key: take exactly that overlap out of host_dispatch
             overlap = compile_stats()["seconds"] - pre_build
             recorder = active_recorder()
@@ -851,22 +945,90 @@ class _TrainingSession:
             with span("device_sync"):
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-        # the round's one device-to-host copy: the packed trees, and the
-        # learning stats riding on them
-        if vec is None:
-            host = stacked.cpu().numpy()
-            self.last_learning_stats = []
-        else:
-            flat = torch.cat([stacked.reshape(-1), vec]).cpu().numpy()
-            host = flat[:stacked.numel()].reshape(tuple(stacked.shape))
-            self.last_learning_stats = [
-                model_telemetry.decode_device_stats(flat[stacked.numel():])]
+        out = self._to_host(outs, values, k)
         if probe is not None:
-            self._note_cost(probe)
-        return [unpack_tree(p) for p in host]
+            self._note_cost(probe, k)
+        return out
+
+    def _enqueue_rounds(self, rnd, k):
+        """Enqueue rounds ``rnd`` .. ``rnd + k - 1`` -> (the round body's
+        outputs stacked [k, ...] on the device, metrics and learning stats
+        None where not computed; across ranks under
+        ``device_batched_metrics``, each round's metric values [k, n_sets,
+        n_metrics] from ``_evaluate_across_ranks`` after its round, else
+        None). A captured session runs its first round eagerly (a real
+        round, the warm-up), captures the body before its second, and
+        replays the graph for every later one, each replay's outputs copied
+        into slot j of the static [K, ...] buffers."""
+        per_round, values = [], None
+        if self.group is not None and self.device_batched_metrics:
+            values = np.zeros((k, len(self.eval_sets), len(self.metrics)), np.float64)
+        for j in range(k):
+            if self.approx_resketch:
+                self._resketch_bins()
+            if j == 0 and fault_point("train.gradient_poison",
+                                      dispatch=self._dispatch_index - 1):
+                # numeric-poison drill: NaN margins, so that the round's
+                # gradients go NaN through the real pipeline and the guard
+                # must catch them there (in place: a graph reads this tensor)
+                self.margins.mul_(float("nan"))
+            draws = self.sampler.draw(rnd + j) if self.sampler is not None else None
+            if self.graph is None:
+                per_round.append(self._round_body(draws))
+                if values is not None:
+                    # the rounds run eagerly across ranks and wait on their
+                    # collectives anyway: K=1's evaluation, a round at a
+                    # time (its collectives are not the round's own)
+                    before = dict(collectives.STATS)
+                    lines = self._evaluate_across_ranks(None)
+                    for key in self._eval_comm:
+                        self._eval_comm[key] += collectives.STATS[key] - before[key]
+                    values[j] = np.asarray([v for _d, _m, v in lines]).reshape(values.shape[1:])
+                continue
+            if self._slots is None:
+                out = self._round_body(draws)
+                self._slots = [None if t is None else
+                               torch.empty((self.rounds_per_dispatch,) + tuple(t.shape),
+                                           dtype=t.dtype, device=t.device) for t in out]
+            else:
+                if not self.graph.armed:
+                    self.graph.capture(draws)
+                out = self.graph.replay(draws)
+            for slot, t in zip(self._slots, out):
+                if slot is not None:
+                    slot[j].copy_(t)
+        if self.graph is not None:
+            return [None if s is None else s[:k] for s in self._slots], values
+        return [None if first is None else torch.stack([o[i] for o in per_round])
+                for i, first in enumerate(per_round[0])], values
+
+    def _to_host(self, outs, values, k):
+        """The dispatch's one device-to-host copy: the packed trees, the
+        metric values and the learning stats in one flat f64 tensor (the
+        trees alone in f32). ``values``: the metric values already on the
+        host (across ranks), else None."""
+        packed, metrics, stats = outs
+        parts = [packed.reshape(-1)]
+        if metrics is not None:
+            parts.append(metrics.reshape(-1))
+        if stats is not None:
+            parts.append(stats.reshape(-1))
+        if len(parts) == 1:
+            flat = packed.cpu().numpy().reshape(-1)
+        else:
+            flat = torch.cat([p.double() for p in parts]).cpu().numpy()
+        n = packed.numel()
+        host = flat[:n].reshape(tuple(packed.shape))
+        if metrics is not None:
+            m = metrics.numel()
+            values = flat[n:n + m].reshape(tuple(metrics.shape))
+            n += m
+        self.last_learning_stats = [] if stats is None else [
+            model_telemetry.decode_device_stats(row) for row in flat[n:].reshape(k, -1)]
+        return Dispatch([[unpack_tree(p) for p in host[j]] for j in range(k)], values)
 
     def _cost_probe(self):
-        """Before the session's first round: the kernel-work tally and the
+        """Before the session's first dispatch: the kernel-work tally and the
         device memory, for the device plane's round cost."""
         from ..ops import histogram
 
@@ -876,10 +1038,11 @@ class _TrainingSession:
             resident = torch.cuda.memory_allocated(self.device)
         return dict(histogram.WORK), resident
 
-    def _note_cost(self, probe):
-        """After the first round (its copy to the host has synchronized):
-        one ``training.compiled`` record of the round's counted cost. Runs
-        once a session; best-effort."""
+    def _note_cost(self, probe, k):
+        """After the first dispatch (its copy to the host has synchronized):
+        one ``training.compiled`` record of its ``k`` rounds' counted cost,
+        with the dispatch's graph state (``captured`` or ``eager``) and its
+        reason. Runs once a session; best-effort."""
         from ..ops import histogram
         from ..telemetry import device as device_telemetry
 
@@ -888,32 +1051,30 @@ class _TrainingSession:
             work, resident = probe
             peak = (torch.cuda.max_memory_allocated(self.device)
                     if self.device.type == "cuda" else 0)
-            device_telemetry.note_compiled(
-                device_telemetry.cost_from_launches(
-                    histogram.WORK["bytes"] - work["bytes"],
-                    histogram.WORK["adds"] - work["adds"], resident, peak),
-                backend=self.device.type)
+            cost = device_telemetry.cost_from_launches(
+                histogram.WORK["bytes"] - work["bytes"],
+                histogram.WORK["adds"] - work["adds"], resident, peak)
+            cost["dispatch_graph"] = "captured" if self.captured else "eager"
+            cost["dispatch_graph_reason"] = self.capture_reason
+            device_telemetry.note_compiled(cost, rounds_per_dispatch=k,
+                                           backend=self.device.type)
         except Exception as e:
             logger.warning("round cost count failed (%s); training continues without the "
                            "training.compiled record", e)
 
-    def _dispatch_round(self, rnd):
-        """Enqueue round ``rnd``: -> (packed trees [P, 10, ...] on the
-        device, learning stats [8] or None)."""
+    def _round_body(self, draws):
+        """One round on the device, the region a capture records: the
+        gradients, the round's ``num_parallel_tree`` trees (C per tree for C
+        classes), the training and eval margins, the per-round metrics and
+        the packing -> (packed trees [P, 10, ...], the metrics or None,
+        the learning stats [8] or None). It updates the session's tensors
+        in place and, on one rank, makes no host sync."""
         cfg = self.config
-        if self.approx_resketch:
-            self._resketch_bins()
-        if fault_point("train.gradient_poison", dispatch=self._dispatch_index - 1):
-            # numeric-poison drill: NaN margins, so that the round's
-            # gradients go NaN through the real pipeline and the guard must
-            # catch them there
-            self.margins = self.margins * float("nan")
         g, h = self.grad_hess(self.margins)
         g_stat, h_stat = g, h
         if self.num_group > 1:
             # [n, C] -> the builder's contiguous [C, n]
             g, h = g.T.contiguous(), h.T.contiguous()
-        draws = self.sampler.draw(rnd) if self.sampler is not None else None
         common = dict(
             num_bins=self.num_bins, max_depth=cfg.max_depth,
             reg_lambda=cfg.reg_lambda, alpha=cfg.alpha, gamma=cfg.gamma,
@@ -951,8 +1112,10 @@ class _TrainingSession:
                 margins += out if self.num_group == 1 else out.T
         packed = [pack_tree(tree) for tree in trees]
         stacked = packed[0][None] if len(packed) == 1 else torch.stack(packed)
+        metrics = (self._round_metrics()
+                   if self.device_batched_metrics and self.group is None else None)
         if not self.learning_stats:
-            return stacked, None
+            return stacked, metrics, None
         vec = learning_stats(g_stat, h_stat, self.margins)
         if self.group is not None:
             # sums and counts summed, extrema min / max over the ranks, as
@@ -961,7 +1124,18 @@ class _TrainingSession:
             sums, mins, maxs = every.sum(0), every.min(0).values, every.max(0).values
             vec = torch.stack([sums[0], mins[1], maxs[2], sums[3], mins[4], maxs[5],
                                sums[6], sums[7]])
-        return stacked, vec
+        return stacked, metrics, vec
+
+    def _round_metrics(self):
+        """The round's device metrics on one rank, kept on the device as the
+        JAX scan stacks its ``metrics_all``: f64 [n_sets, n_metrics] (each
+        metric's own dtype, widened)."""
+        rows = []
+        for _name, _dm, _bins, labels, weights, margins in self.eval_sets:
+            m = self.margins if margins is None else margins
+            rows.append(torch.stack([metric(m, labels, weights).double()
+                                     for _n, metric in self.metrics]))
+        return torch.stack(rows)
 
     def evaluate(self, feval=None):
         """-> list of (data_name, metric_name, value) per eval set: the eval
@@ -1032,20 +1206,24 @@ class _TrainingSession:
             self._eval_rows[i] = GlobalRows(labels, weights, self.group, self.device)
         return self._eval_rows[i]
 
-    def note_collectives(self, before):
-        """After a round across ranks: its collectives' host seconds, calls
-        and payload bytes (``collectives.STATS`` against ``before``) as the
-        ``hist_comm_ms`` / ``hist_comm_bytes`` round fields (RoundTimer's
-        collective share), the ``hist_comm_bytes_total`` counter, and a
+    def note_collectives(self, before, k):
+        """After a dispatch of ``k`` rounds across ranks: its rounds'
+        collectives' host seconds, calls and payload bytes
+        (``collectives.STATS`` against ``before``, less the per-round metric
+        evaluation's) as the per-round ``hist_comm_ms`` / ``hist_comm_bytes``
+        round fields (the dispatch's over ``k``: RoundTimer's collective
+        share a round), the ``hist_comm_bytes_total`` counter, and a
         ``collective.dispatch`` span under the open round span (the fleet
-        plane's collective phase). Measured on the host clock: with gloo the
-        wait for the peers, with NCCL the enqueue."""
+        plane's collective phase), both at the dispatch's totals. Measured
+        on the host clock: with gloo the wait for the peers, with NCCL the
+        enqueue."""
         from ..telemetry import REGISTRY, set_round_fields, tracing
 
-        seconds = collectives.STATS["seconds"] - before["seconds"]
-        nbytes = collectives.STATS["bytes"] - before["bytes"]
-        calls = collectives.STATS["calls"] - before["calls"]
-        set_round_fields(hist_comm_ms=round(seconds * 1000.0, 3), hist_comm_bytes=nbytes)
+        seconds, nbytes, calls = (collectives.STATS[key] - before[key] - self._eval_comm[key]
+                                  for key in ("seconds", "bytes", "calls"))
+        self._eval_comm = dict.fromkeys(self._eval_comm, 0)
+        set_round_fields(hist_comm_ms=round(seconds * 1000.0 / k, 3),
+                         hist_comm_bytes=int(round(nbytes / k)))
         REGISTRY.counter(
             "hist_comm_bytes_total",
             "Payload bytes of the training rounds' cross-rank collectives",
@@ -1210,7 +1388,7 @@ def train(
                           num_boost_round, dev, verbose_eval=verbose_eval, group=group)
     metric_names = _eval_metric_names(config, forest.objective())
     session = _TrainingSession(config, dtrain, list(evals), forest, metric_names, dev,
-                               sampler=_sampler, group=group)
+                               sampler=_sampler, group=group, has_feval=feval is not None)
 
     for cb in callbacks:
         if hasattr(cb, "before_training"):
@@ -1218,45 +1396,65 @@ def train(
 
     evals_log = {}
     start_round = forest.num_boosted_rounds
+    end_round = start_round + num_boost_round
     C, P = session.num_group, config.num_parallel_tree
+    rnd, stop = start_round, False
     try:
-        for rnd in range(start_round, start_round + num_boost_round):
+        # one dispatch builds min(K, rounds left) rounds; they commit one at
+        # a time, and a stop mid-dispatch discards the rest of it
+        while rnd < end_round and not stop:
             comm_before = dict(collectives.STATS)
-            trees_np = session.run_round(rnd)
+            batch = session.run_rounds(rnd, end_round - rnd)
             if session.group is not None:
-                session.note_collectives(comm_before)
-            # class-major: class 0's P trees, then class 1's, ... (xgboost's layout)
-            if C == 1:
-                trees = [compact_padded_tree(t, session.cuts) for t in trees_np]
-            else:
-                trees = [compact_padded_tree({k: v[c] for k, v in t.items()}, session.cuts)
-                         for c in range(C) for t in trees_np]
-            forest.append_round(trees, [c for c in range(C) for _ in range(P)])
-            if session.last_learning_stats:
-                # the model-quality plane: the round's reductions and the
-                # committed trees' stats -> one training.learning record, then
-                # the numeric-health guard (NaN/Inf -> forensics + exit 87)
-                stats = dict(session.last_learning_stats[0])
-                stats.update(model_telemetry.tree_stats(trees))
-                model_telemetry.note_learning(rnd, stats)
-                if model_telemetry.first_poisoned_round([stats], rnd) is not None:
-                    _abort_numeric_poison(rnd)
-            results = session.evaluate(feval)
-            for data_name, metric_name, value in results:
-                evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(value)
-            if verbose_eval:
-                print_metric_line(rnd, results)
-            stops = [
-                cb.after_iteration(forest, rnd, evals_log)
-                for cb in callbacks
-                if hasattr(cb, "after_iteration")
-            ]
-            if any(stops):
-                break
+                session.note_collectives(comm_before, len(batch.trees))
+            for j, trees_np in enumerate(batch.trees):
+                # class-major: class 0's P trees, then class 1's, ... (xgboost's layout)
+                if C == 1:
+                    trees = [compact_padded_tree(t, session.cuts) for t in trees_np]
+                else:
+                    trees = [compact_padded_tree({k: v[c] for k, v in t.items()}, session.cuts)
+                             for c in range(C) for t in trees_np]
+                forest.append_round(trees, [c for c in range(C) for _ in range(P)])
+                if j < len(session.last_learning_stats):
+                    # the model-quality plane: the round's reductions and the
+                    # committed trees' stats -> one training.learning record,
+                    # then the numeric-health guard (NaN/Inf -> forensics +
+                    # exit 87)
+                    stats = dict(session.last_learning_stats[j])
+                    stats.update(model_telemetry.tree_stats(trees))
+                    model_telemetry.note_learning(rnd, stats)
+                    if model_telemetry.first_poisoned_round([stats], rnd) is not None:
+                        _abort_numeric_poison(rnd)
+                if batch.metrics is not None:
+                    results = [(name, metric_name, float(batch.metrics[j, si, i]))
+                               for si, (name, *_rest) in enumerate(session.eval_sets)
+                               for i, (metric_name, _m) in enumerate(session.metrics)]
+                elif not session.host_eval_batched or j == len(batch.trees) - 1:
+                    # the host cadence under K > 1: once a dispatch, at its
+                    # last round, whose margins are the committed forest's (a
+                    # dispatch builds no round past the last one asked for)
+                    results = session.evaluate(feval)
+                else:
+                    results = []
+                for data_name, metric_name, value in results:
+                    evals_log.setdefault(data_name, {}).setdefault(metric_name, []).append(
+                        value)
+                if verbose_eval:
+                    print_metric_line(rnd, results)
+                stops = [
+                    cb.after_iteration(forest, rnd, evals_log)
+                    for cb in callbacks
+                    if hasattr(cb, "after_iteration")
+                ]
+                rnd += 1
+                if any(stops):
+                    stop = True
+                    break
 
         for cb in callbacks:
             if hasattr(cb, "after_training"):
                 forest = cb.after_training(forest) or forest
     finally:
+        session.release_graph()
         _clear_comm_round_fields()
     return forest

@@ -9,6 +9,11 @@ is one ``level_histogram`` launch, and each tree one ``node_totals``
 launch, for all F folds. The JAX package vmaps its builder over the folds
 and shards them over devices; on one GPU the class axis does it.
 
+``_rounds_per_dispatch`` K runs K rounds a dispatch, as the JAX package's
+scan does: their trees and metric values reach the host in one copy. The
+rounds run eagerly (the session's CUDA graph, ``models/round_graph``, is
+not used here).
+
 Scope, as in the JAX package: gbtree, depthwise growth, one output group,
 ``num_parallel_tree`` 1, no ranking or Cox objective, and metrics with a
 device form, without a feval. The entry point falls back to the sequential
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 
 from ..data.binning import bin_matrix
+from ..telemetry import REGISTRY
 from ..ops.tree_build import build_tree, pack_tree, unpack_tree
 from .booster import constraint_tensors
 from .device_metrics import make_device_metric
@@ -84,9 +90,18 @@ def train_cv_parallel(config, dmatrix, splits, num_boost_round, metric_names, fo
     if sampler is None and Sampler.needed(config):
         sampler = Sampler(config, n, d, device, streams=F)
 
-    evals_results = [{"train": {m: [] for m in metric_names},
-                      "validation": {m: [] for m in metric_names}} for _ in range(F)]
-    for rnd in range(num_boost_round):
+    # K rounds a dispatch, as the JAX package's scan: their trees and
+    # metric values reach the host in one copy
+    k_rounds = max(1, config.rounds_per_dispatch)
+    REGISTRY.gauge(
+        "dispatch_fused_rounds",
+        "Boosting rounds fused into one device dispatch per round "
+        "program (the lax.scan length K of the fused round pipeline)",
+    ).set(k_rounds)
+
+    def fold_round(rnd):
+        """Round ``rnd`` of every fold -> (packed trees [10, F, max_nodes],
+        metric values [F, n_metrics, 2]) on the device."""
         g, h = objective.grad_hess(margins, labels, train_w)
         masks = None
         if sampler is not None:
@@ -100,17 +115,30 @@ def train_cv_parallel(config, dmatrix, splits, num_boost_round, metric_names, fo
             max_delta_step=config.max_delta_step, masks=masks, monotone=monotone,
             interaction_sets=interaction_sets,
         )
-        margins += row_out
+        margins.add_(row_out)
         # per fold: each metric on the training rows, then the held-out ones
-        stats = torch.stack([fn(margins[k], labels, w[k]) for k in range(F)
+        stats = torch.stack([fn(margins[k], labels, w[k]).double() for k in range(F)
                              for fn in metric_fns for w in (train_w, val_w)])
-        trees = unpack_tree(pack_tree(tree))
-        values = stats.cpu().numpy().reshape(F, len(metric_fns), 2)
-        for k in range(F):
-            forests[k].append_round(
-                [compact_padded_tree({key: v[k] for key, v in trees.items()},
-                                     binned.cut_points)], [0])
-            for i, m in enumerate(metric_names):
-                evals_results[k]["train"][m].append(float(values[k, i, 0]))
-                evals_results[k]["validation"][m].append(float(values[k, i, 1]))
+        return pack_tree(tree), stats.reshape(F, len(metric_fns), 2)
+
+    evals_results = [{"train": {m: [] for m in metric_names},
+                      "validation": {m: [] for m in metric_names}} for _ in range(F)]
+    rnd = 0
+    while rnd < num_boost_round:
+        outs = [fold_round(r) for r in range(rnd, min(rnd + k_rounds, num_boost_round))]
+        packed = torch.stack([p for p, _ in outs])
+        flat = torch.cat([packed.reshape(-1).double()]
+                         + [s.reshape(-1) for _, s in outs]).cpu().numpy()
+        host = flat[:packed.numel()].reshape(tuple(packed.shape))
+        values = flat[packed.numel():].reshape(len(outs), F, len(metric_fns), 2)
+        for j in range(len(outs)):
+            trees = unpack_tree(host[j])
+            for k in range(F):
+                forests[k].append_round(
+                    [compact_padded_tree({key: v[k] for key, v in trees.items()},
+                                         binned.cut_points)], [0])
+                for i, m in enumerate(metric_names):
+                    evals_results[k]["train"][m].append(float(values[j, k, i, 0]))
+                    evals_results[k]["validation"][m].append(float(values[j, k, i, 1]))
+        rnd += len(outs)
     return forests, evals_results

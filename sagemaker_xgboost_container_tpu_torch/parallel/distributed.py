@@ -284,6 +284,9 @@ class Cluster:
 
 # --------------------------------------------------------------- abort plane
 def abort_port():
+    # graftlint: disable=capture-env-read not captured: reached from the round only
+    # through a failed collective's abort (across ranks, which run eagerly) or the
+    # kernels' first build (the eager warm-up round)
     return env_port(ABORT_PORT_ENV, DEFAULT_ABORT_PORT)
 
 

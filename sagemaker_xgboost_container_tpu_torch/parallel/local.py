@@ -520,6 +520,8 @@ def listen_to_leader(conn, handler):
     def run():
         while True:
             try:
+                # graftlint: disable=socket-unbounded a multiprocessing pipe, not a
+                # socket: it closes when the leader does, and the worker with it
                 msg = conn.recv()
             except (EOFError, OSError):
                 return

@@ -307,6 +307,8 @@ class PredictBatcher:
             if nxt is _STOP or nxt.features.shape[1] != first.features.shape[1]:
                 # the stop mark or a different width: deferred to the next
                 # turn (the caller holds _exec_lock)
+                # graftlint: disable=shared-state-unlocked the only caller, _worker,
+                # holds _exec_lock around every _drain_batch call
                 self._carry = nxt
                 break
             batch.append(nxt)

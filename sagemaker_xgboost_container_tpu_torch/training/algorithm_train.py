@@ -673,6 +673,16 @@ def train_job(
     if val_dmatrix:
         logger.info("Validation matrix has %d rows", val_dmatrix.num_row)
 
+    # several boosting rounds a device dispatch by default, as the JAX
+    # package batches them, where no artifact must land every round (the
+    # checkpoints and the SIGTERM save of intermediate models do). Metrics
+    # without a device form keep the batch and print once a dispatch
+    # (models/booster.py); an explicit _rounds_per_dispatch always wins
+    if (not checkpoint_dir and save_model_on_termination != "true"
+            and "_rounds_per_dispatch" not in train_cfg):
+        train_cfg["_rounds_per_dispatch"] = int(
+            os.environ.get("SM_ROUNDS_PER_DISPATCH_DEFAULT", "8"))
+
     def callbacks_for(fold=None, num_rows=None):
         return get_callbacks(
             model_dir=model_dir,

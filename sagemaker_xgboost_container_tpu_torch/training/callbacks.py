@@ -62,6 +62,11 @@ class _TimedCallback:
 class EvaluationMonitor:
     """Print one stdout line per round in xgboost's format.
 
+    Under the host cadence of K rounds a dispatch (metrics without a device
+    form are evaluated once a dispatch, ``models/booster.py``) the rounds
+    in between add no entries, and print nothing: their round index beside
+    the previous values would misreport.
+
     Under ``SM_MODEL_TELEMETRY`` each printed entry is also emitted as a
     ``training.eval`` record and folded into the learning curve
     (``telemetry/model.note_eval``); the stdout line, the HPO contract,
@@ -71,6 +76,7 @@ class EvaluationMonitor:
         from ..telemetry import model as model_telemetry
 
         self._model_telemetry = model_telemetry.enabled() and model_telemetry
+        self._entries_seen = 0
 
     def after_iteration(self, model, epoch, evals_log):
         fresh = [
@@ -78,7 +84,9 @@ class EvaluationMonitor:
             for data_name, metrics in evals_log.items()
             for metric_name, values in metrics.items()
         ]
-        if fresh:
+        total = sum(len(values) for metrics in evals_log.values() for values in metrics.values())
+        if fresh and total != self._entries_seen:
+            self._entries_seen = total
             # one write: a host's local ranks share its stdout, and where
             # Python's output is unbuffered print writes the text and the
             # newline apart, so a worker's log line could land between them
@@ -112,6 +120,7 @@ class EarlyStopping:
         self.best_score = None
         self.best_iteration = 0
         self.stagnation = 0
+        self._entries_seen = 0
 
     def _improved(self, score):
         if self.best_score is None:
@@ -120,14 +129,20 @@ class EarlyStopping:
 
     def after_iteration(self, model, epoch, evals_log):
         series = evals_log.get(self.data_name, {}).get(self.metric_name)
-        if not series:
+        if not series or len(series) == self._entries_seen:
+            # no fresh value this round (the host cadence evaluates once a
+            # K-round dispatch): a repeat is no evidence, no decision
             return False
+        self._entries_seen = len(series)
         score = series[-1]
         if self._improved(score):
             self.best_score = score
             self.best_iteration = epoch
             self.stagnation = 0
             return False
+        # patience counts rounds since the best one, not fresh values: under
+        # the once-a-dispatch cadence a count of values would multiply
+        # early_stopping_rounds by K
         self.stagnation = epoch - self.best_iteration
         return self.stagnation >= self.rounds
 

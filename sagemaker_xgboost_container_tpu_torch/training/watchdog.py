@@ -102,6 +102,9 @@ def request_abort(reason, exit_code, **fields):
         from ..telemetry import tracing
 
         dirs = checkpointing.active_checkpoint_dirs()
+        # graftlint: disable=capture-env-read not captured: reached from the round only
+        # through a failed collective's abort (across ranks, which run eagerly) or the
+        # kernels' first build (the eager warm-up round)
         dump_dir = dirs[0] if dirs else (os.environ.get(SM_MODEL_DIR_ENV) or None)
         dump_path = tracing.dump_flight_recorder(
             default_dir=dump_dir, reason=reason, exit_code=exit_code

@@ -43,6 +43,9 @@ def maybe_enable_compile_cache():
 
 
 def _resolve():
+    # graftlint: disable=capture-env-read not captured: reached from the round only
+    # through a failed collective's abort (across ranks, which run eagerly) or the
+    # kernels' first build (the eager warm-up round)
     path = os.environ.get(COMPILE_CACHE_ENV, "").strip()
     if not path:
         return ""

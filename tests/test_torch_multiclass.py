@@ -190,7 +190,11 @@ def test_sagemaker_entry_point_trains_multiclass(tmp_path, capsys):
     ("reg:pseudohubererror", "mphe"), ("survival:aft", "aft-nloglik"),
 ])
 def test_default_metric_reaches_the_hpo_lines(tmp_path, capsys, objective, metric):
-    hp = {"num_round": "2", "max_depth": "3", "max_bin": "16", "objective": objective}
+    # one round a dispatch: mphe and aft-nloglik have no device form, and
+    # under the entry point's default K the host evaluates them once a
+    # dispatch, where this test reads a line a round
+    hp = {"num_round": "2", "max_depth": "3", "max_bin": "16", "objective": objective,
+          "_rounds_per_dispatch": "1"}
     if objective.startswith("multi:"):
         hp["num_class"] = "3"
     # class ids, or (for the others) class ids + 1: positive counts and times

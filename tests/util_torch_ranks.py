@@ -611,3 +611,63 @@ def comm_fields_after_ranks(rank, world, group):
 
     return (records(outs[0], "training.round"), records(outs[1], "training.round"),
             records(outs[1], "training.attribution")[-1])
+
+
+# ------------------------------------------- K rounds a dispatch, across ranks
+# name -> (params, rounds, data kind): trained at one round a dispatch and at
+# K, each rank on its own rows; device metrics land every round (each
+# evaluated after its round, as at K=1), a host metric (aucpr) once a
+# dispatch
+DISPATCH_CASES = {
+    "device-metrics": ({"objective": "binary:logistic", "max_depth": 4, "eta": 0.3,
+                        "eval_metric": ["logloss", "auc", "error"]}, 7, "binary"),
+    "host-metric": ({"objective": "binary:logistic", "max_depth": 4, "eta": 0.3,
+                     "eval_metric": ["aucpr", "logloss"]}, 7, "binary"),
+    "cox": ({"objective": "survival:cox", "max_depth": 4, "eta": 0.3,
+             "eval_metric": ["cox-nloglik"]}, 7, "cox"),
+}
+
+
+def dispatch_suite(rank, world, group, K):
+    """Every DISPATCH_CASES case at K=1 and at ``K`` on this rank's rows ->
+    {name: {k: (trees, metric log, the rounds that added values, each
+    round's (hist_comm_bytes, hist_comm_ms) from its ``training.round``
+    record)}}."""
+    import contextlib
+    import io
+    import json
+
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models.booster import train
+    from sagemaker_xgboost_container_tpu_torch.training.profiling import RoundTimer
+
+    out = {}
+    for name, (params, rounds, kind) in DISPATCH_CASES.items():
+        X, y, _groups = option_shard("cox" if kind == "cox" else "approx", rank)
+        dm = DataMatrix(X, labels=y)
+        out[name] = {}
+        for k in (1, K):
+            fresh, seen = [], [0]
+
+            class Log:
+                log = None
+
+                def after_iteration(self, model, rnd, evals_log):
+                    total = sum(len(v) for m in evals_log.values() for v in m.values())
+                    if total != seen[0]:
+                        seen[0] = total
+                        fresh.append(rnd)
+                    Log.log = {d: {m: list(v) for m, v in ms.items()}
+                               for d, ms in evals_log.items()}
+                    return False
+
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                forest = train(dict(params, _rounds_per_dispatch=k), dm, rounds,
+                               evals=[(dm, "train")], device="cpu", group=group,
+                               callbacks=[Log(), RoundTimer(log_every=0)], verbose_eval=False)
+            comm = [(r["hist_comm_bytes"], r["hist_comm_ms"])
+                    for r in map(json.loads, buf.getvalue().splitlines())
+                    if r.get("metric") == "training.round"]
+            out[name][k] = (forest_arrays(forest), Log.log, fresh, comm)
+    return out
