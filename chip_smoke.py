@@ -30,7 +30,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    tree_method=exact's width: the main path's rows rounded to multiples of
    2^-9 and binned at every distinct value (B printed: 3,906), timed
    at W=64 with level 7's left children; untimed at B=8,193 (one feature a
-   CTA) and B=20,001 (bins tiled, two CTAs a feature), 1M x 28;
+   CTA) and B=20,001 (bins tiled, two CTAs a feature), 1M x 28; then a
+   rank of phase 25a's grid, timed: u16 [500,000, 14], B=257, W=64 with
+   level 7's left children;
 3. totals_kernel (totals_partial and totals_reduce behind node_totals)
    against its plain version, and two calls against each other bitwise:
    timed at n=1M, W=256 with nodes drawn from [-1, W) (CUDA events around
@@ -427,6 +429,24 @@ Phases (each prints its own lines; any failure exits non-zero):
    GRAFT_HOST_PREDICT_IMPL=numpy: the median us of 200 calls each, the
    answers within 1e-6.
 
+25. the feature axis, `train(grid=)` over a data x feature grid of gloo
+   ranks on the card: 25a, the main path's rows and parameters for
+   GRID_ROUNDS rounds on a 2 x 2 grid (four `--rank-child` processes, each
+   rank its data shard's half of the rows and its feature shard's 14 of
+   the 28 columns): every rank's staged bins [500,000, 14], its launches
+   (8 / 1 a round), its collectives a round by kind (hist, totals, merge,
+   route) against `round_comm_plan`'s bytes, rounds/s a rank; rank 0's
+   profile of rounds 2-9 with 8 calls of each hist_* kernel and 1 of each
+   totals_* kernel a round; the four models byte-equal, the global training
+   margins' sha256 equal on every rank, the validation logloss within
+   GRID_LOGLOSS_TOL of one rank on all rows. 25b, the step fixture
+   (depthwise, lossguide and multi:softprob, GRID_STEP_ROUNDS rounds) on a
+   1 x 2 grid (two more rank processes at once), a 2 x 2 grid and a 2 x 2
+   grid under GRAFT_HIST_COMM=reduce_scatter: every grid's trees equal one
+   CUDA rank's, psum's and reduce_scatter's byte-equal or, where the card's
+   histograms summed in another order, equal in every split and leaf. NCCL
+   on a grid does not run: it prints `nccl_grid: not run (1 GPU)`.
+
 At the end, one wall-time line a phase. The second line from the end is
 the kernels JSON line, the last line the device JSON line. Needs one CUDA
 GPU; exits 2 without one.
@@ -488,6 +508,11 @@ EXACT_GRID = 2.0 ** -9
 HIST_WIDE_CASES = (
     (1_000_000, 28, 64, 8_193, np.uint16, "left", False),
     (1_000_000, 28, 16, 20_001, np.uint16, "random", False),
+)
+# a rank of phase 25a's 2 x 2 grid: its data shard's rows at its feature
+# shard's width (28 columns over 2 feature shards), level 7's left children
+HIST_SHARD_CASES = (
+    (500_000, 14, 64, 257, np.uint16, "left", True),
 )
 # the timed hist case whose numbers go into the kernels line
 HIST_MAIN = "hist W=64 left"
@@ -5151,6 +5176,8 @@ def rank_child(spec_path):
         spec = json.load(f)
     if spec.get("phase") == 18:
         return option_rank_child(spec)
+    if spec.get("phase") == 25:
+        return grid_rank_child(spec)
     rank, device, rounds = spec["rank"], torch.device(spec["device"]), spec["rounds"]
     n, n_val, split, sync_round = spec["n_train"], spec["n_val"], spec["split"], spec["sync_round"]
     cuda = device.type == "cuda"
@@ -7388,6 +7415,392 @@ def _dispatch_entry_check(child, code, tag):
           "24: entry launches {}".format(report.get("launches")))
 
 
+# ---------------------------------------------------------------- phase 25
+# the feature axis: train(grid=) over a data x feature grid of gloo ranks on
+# the card (NCCL refuses two ranks on one device; the box has one GPU).
+# 25a: the main path's rows on a 2 x 2 grid, GRID_ROUNDS rounds, rank 0
+# profiling rounds 2-9 (after round 1's line to after round 9's)
+GRID_ROUNDS, GRID_PROFILED = 10, (0, 8)
+GRID_LOGLOSS_TOL = 2e-3
+# 25b: the step fixture on a 1 x 2 grid, a 2 x 2 grid and a 2 x 2 grid
+# under GRAFT_HIST_COMM=reduce_scatter against one CUDA rank on all rows
+GRID_STEP_ROUNDS = 3
+GRID_STEP_CASES = (("depthwise", {}, 50_000),
+                   ("lossguide", {"grow_policy": "lossguide", "max_leaves": 8}, 50_000),
+                   ("multi:softprob", {"objective": "multi:softprob", "num_class": 3}, 50_000))
+GRID_TIMEOUT_S = 300
+
+
+def make_steps_multi(n, d, seed):
+    """The step fixture with three classes: each class's logit steps on its
+    own features (class 0 on feature 0, class 1 on features 1 and 2)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randint(0, 16, size=(n, d)).astype(np.float32)
+    logits = np.stack([3.0 * (X[:, 0] >= 8) - 1.5,
+                       1.5 * (X[:, 1] >= 8) + 0.75 * (X[:, 2] >= 8) - 0.5,
+                       np.zeros(n)], axis=1)
+    p = np.exp(logits - logits.max(axis=1, keepdims=True))
+    p /= p.sum(axis=1, keepdims=True)
+    u = rng.rand(n, 1)
+    return X, (u > np.cumsum(p, axis=1)).sum(axis=1).astype(np.float32)
+
+
+def grid_step_data(name, rows):
+    """(X, y) of a 25b case over all rows."""
+    if name == "multi:softprob":
+        return make_steps_multi(rows, STEP_FEATURES, seed=5)
+    return make_steps(rows, STEP_FEATURES, seed=3)
+
+
+def _grid_shard(n, data_rank, n_data):
+    """Data shard ``data_rank`` of ``n_data``'s rows of ``n``: contiguous
+    halves (all rows on one data shard)."""
+    if n_data == 1:
+        return slice(0, n)
+    half = n // 2
+    return slice(0, half) if data_rank == 0 else slice(half, n)
+
+
+def grid_rank_child(spec):
+    """`chip_smoke.py --rank-child SPEC` for phase 25: one rank of a grid
+    (`build_grid(spec["F"])` over a gloo group of spec["world"] ranks on the
+    card): 25b's step cases under each lowering in spec["comms"], each model
+    saved; then, with spec["main"], 25a: the main path on this rank's data
+    shard, timed, its collectives a round by kind, rank 0 profiling rounds
+    2-9, its staged bins and the digest of the global training margins."""
+    import torch
+    import torch.distributed as dist
+
+    import sagemaker_xgboost_container_tpu_torch as pkg
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.parallel.grid import build_grid
+
+    t0 = time.perf_counter()
+    rank, world, device = spec["rank"], spec["world"], torch.device(spec["device"])
+    globals().update(spec["sizes"])
+    warm = None
+    if rank == 0 and spec["main"] and device.type == "cuda":
+        # a process's first profiler session takes seconds to start, and
+        # every rank would wait for rank 0's: start one on a thread of its
+        # own now, beside 25b, so that 25a's profile starts at once
+        def warm_up():
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+                torch.ones(1, device=device).add_(1)
+                torch.cuda.synchronize(device)
+
+        warm = threading.Thread(target=warm_up, daemon=True)
+        warm.start()
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{}".format(spec["port"]),
+                            world_size=world, rank=rank)
+    grid = build_grid(spec["F"])
+    result = {"rank": rank, "place": [grid.data_rank, grid.feature_rank, grid.n_data,
+                                      grid.n_feature], "steps": {},
+              "stage_s": {"grid": time.perf_counter() - t0}}
+    for name, extra, rows in GRID_STEP_CASES:
+        X, y = grid_step_data(name, rows)
+        own = _grid_shard(rows, grid.data_rank, grid.n_data)
+        for comm in spec["comms"]:
+            os.environ["GRAFT_HIST_COMM"] = comm
+            try:
+                forest = pkg.train(dict(STEP_PARAMS, **extra), DataMatrix(X[own], y[own]),
+                                   GRID_STEP_ROUNDS, device=device, grid=grid,
+                                   verbose_eval=False)
+            finally:
+                os.environ.pop("GRAFT_HIST_COMM", None)
+            path = os.path.join(spec["dir"], "{}-{}-{}-rank{}.json".format(
+                spec["label"], name.replace(":", "_"), comm, rank))
+            forest.save_model(path)
+            result["steps"][name, comm] = path
+    result["steps"] = [[k[0], k[1], v] for k, v in result["steps"].items()]
+    result["stage_s"]["25b"] = time.perf_counter() - t0
+    if spec["main"]:
+        if warm is not None:
+            warm.join()
+        result["main"] = _grid_main(grid, device, rank, spec)
+        result["stage_s"]["25a"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    with open(spec["out"], "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _grid_main(grid, device, rank, spec):
+    """25a on one grid rank -> what it measured (see ``grid_rank_child``)."""
+    import hashlib
+
+    import torch
+
+    import sagemaker_xgboost_container_tpu_torch as pkg
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.ops import histogram as hist
+    from sagemaker_xgboost_container_tpu_torch.parallel import collectives
+
+    cuda = device.type == "cuda"
+
+    X, y = make_data(N_TRAIN + N_VAL, N_FEATURES, seed=0)
+    rows = _grid_shard(N_TRAIN, grid.data_rank, grid.n_data)
+    vrows = _grid_shard(N_VAL, grid.data_rank, grid.n_data)
+    Xv, yv = X[N_TRAIN:][vrows], y[N_TRAIN:][vrows]
+    marks, comm, log = [], [], []
+    p0, p1 = GRID_PROFILED
+    prof = None
+    if rank == 0 and cuda:
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+
+    def mark():
+        if cuda:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        comm.append(collectives.stats_snapshot())
+
+    class Meter:
+        def before_training(self, forest):
+            mark()
+            return forest
+
+        def after_iteration(self, forest, rnd, evals_log):
+            mark()
+            log[:] = evals_log["validation"]["logloss"]
+            if prof is not None and rnd == p0:
+                prof.start()
+            elif prof is not None and rnd == p1:
+                torch.cuda.synchronize()
+                prof.stop()
+            return False
+
+    hist.reset_launch_counts()
+    collectives.reset_stats()
+    t0 = time.perf_counter()
+    with _Sessions() as spy:
+        forest = pkg.train(MAIN_PARAMS, DataMatrix(X[rows], y[rows]), GRID_ROUNDS,
+                           evals=[(DataMatrix(Xv, yv), "validation")], device=device,
+                           grid=grid, callbacks=[Meter()], verbose_eval=False)
+    (session,) = spy.sessions
+    forest.save_model(spec["model"])
+    # the global training margins, gathered over the data group, on every rank
+    margins = collectives.all_gather(session.margins, grid.data_group, kind="check")
+    digest = hashlib.sha256(margins.cpu().numpy().tobytes()).hexdigest()
+    # rounds 2-9: after round 1's line to after round 9's
+    r0, r1 = p0 + 1, p1 + 1
+    per = r1 - r0
+    delta = collectives.stats_delta(comm[r0], comm[r1])
+    out = {"rows": rows.stop - rows.start, "setup_s": marks[0] - t0,
+           "rounds_per_s": per / (marks[r1] - marks[r0]),
+           "round_s": [b - a for a, b in zip(marks, marks[1:])],
+           "launches": dict(hist.LAUNCHES),
+           "bins": [list(session.bins.shape), str(session.bins.dtype),
+                    session.bins.numel() * session.bins.element_size()],
+           "comm": {k: {"bytes": v["bytes"] / per, "ms": v["seconds"] * 1e3 / per,
+                        "calls": v["calls"] / per} for k, v in delta["kinds"].items()},
+           "comm_ms": delta["seconds"] * 1e3 / per, "logloss": list(log),
+           "margins": digest, "captured": session.captured, "reason": session.capture_reason,
+           "model": spec["model"]}
+    if prof is not None:
+        drows = _device_rows(torch, prof, per)
+        out["profile"] = {"device_ms": drows[1], "kernels": drows[2],
+                          "hist_ms": drows[3]("hist_"), "totals_ms": drows[3]("totals_"),
+                          "calls": {name: drows[4](name)
+                                    for name in HIST_KERNELS + TOTALS_KERNELS}}
+    return out
+
+
+def _start_grid(tmp, label, world, F, comms, main):
+    """Start the ranks of one grid -> (processes, specs)."""
+    port = free_port()
+    procs, specs = [], []
+    sizes = {k: globals()[k] for k in ("N_TRAIN", "N_VAL", "GRID_STEP_CASES",
+                                       "GRID_STEP_ROUNDS", "GRID_ROUNDS", "GRID_PROFILED")}
+    for rank in range(world):
+        spec = {"phase": 25, "rank": rank, "world": world, "F": F, "port": port,
+                "device": DEVICE, "comms": list(comms), "main": main, "label": label,
+                "dir": tmp, "sizes": sizes,
+                "out": os.path.join(tmp, "{}-rank{}.json".format(label, rank)),
+                "model": os.path.join(tmp, "{}-rank{}-model.json".format(label, rank))}
+        path = os.path.join(tmp, "{}-spec{}.json".format(label, rank))
+        with open(path, "w") as f:
+            json.dump(spec, f)
+        specs.append(spec)
+        procs.append(subprocess.Popen(DIST_CHILD_COMMAND + [path], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    return procs, specs
+
+
+def _wait_grid(procs, specs, label):
+    """Wait for one grid's ranks -> their results; fails on a rank's exit."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=GRID_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=10)
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, "25: {} rank {} exited {}: {}".format(
+            label, rank, p.returncode, out[-3000:]))
+    res = []
+    for spec in specs:
+        with open(spec["out"]) as f:
+            res.append(json.load(f))
+    return res
+
+
+def run_feature_axis(torch, hist, pkg, dtrain, dval, tag):
+    """Phase 25: the feature axis on the card (see the module docstring)."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_grid_") as tmp:
+        four = _start_grid(tmp, "2x2", 4, 2, ("psum", "reduce_scatter"), True)
+        two = _start_grid(tmp, "1x2", 2, 2, ("psum",), False)
+        try:
+            refs = _grid_references(torch, pkg, dtrain, dval)
+        finally:
+            res4 = _wait_grid(*four, "2x2")
+            res2 = _wait_grid(*two, "1x2")
+        _grid_main_checks(res4, refs, tag)
+        _grid_step_checks(pkg, res4, res2, refs, tag)
+    print("{} | nccl_grid: not run (1 GPU)".format(tag), flush=True)
+    print("{} | feature axis phase: {:.1f} s".format(tag, time.perf_counter() - t), flush=True)
+
+
+def _grid_references(torch, pkg, dtrain, dval):
+    """One CUDA rank on all rows: the main path's GRID_ROUNDS rounds (the
+    validation logloss, the staged bins' bytes) and 25b's step cases."""
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+
+    log = _RoundLog(torch)
+    with _Sessions() as spy:
+        pkg.train(MAIN_PARAMS, dtrain, GRID_ROUNDS, evals=[(dval, "validation")],
+                  device=DEVICE, callbacks=[log], verbose_eval=False)
+    (session,) = spy.sessions
+    refs = {"logloss": list(log.logloss),
+            "rounds_per_s": (len(log.times) - 2) / (log.times[-1] - log.times[1]),
+            "bins": [list(session.bins.shape), str(session.bins.dtype),
+                     session.bins.numel() * session.bins.element_size()], "steps": {}}
+    for name, extra, rows in GRID_STEP_CASES:
+        X, y = grid_step_data(name, rows)
+        refs["steps"][name] = pkg.train(dict(STEP_PARAMS, **extra), DataMatrix(X, y),
+                                        GRID_STEP_ROUNDS, device=DEVICE, verbose_eval=False)
+    return refs
+
+
+def _grid_main_checks(res, refs, tag):
+    """25a's checks and lines."""
+    from sagemaker_xgboost_container_tpu_torch.ops.histogram import (
+        padded_feature_width,
+        round_comm_plan,
+    )
+
+    d_local = padded_feature_width(N_FEATURES, 2) // 2
+    models = []
+    for r in res:
+        with open(r["main"]["model"], "rb") as f:
+            models.append(f.read())
+    main = [r["main"] for r in res]
+    for r, m in zip(res, main):
+        plan = round_comm_plan("depthwise", MAIN_PARAMS["max_depth"], 0, d_local,
+                               MAIN_PARAMS["max_bin"] + 1, 2, "psum", True, feature_shards=2,
+                               rows=m["rows"])[0]
+        planned = {}
+        for e in plan:
+            planned[e["kind"]] = planned.get(e["kind"], 0) + e["bytes"]
+        print("{} | grid 25a: rank {} (data {} feature {} of 2 x 2, {:,} rows): {:.3f} rounds/s "
+              "over rounds 2-9 (one rank on all rows {:.3f}; setup {:.1f} s; each round's s {}; "
+              "the child's s at its grid, 25b's end, 25a's end {}); {} ({}); "
+              "launches {}; bins {} {} {:,} bytes (one rank {} {:,}); collectives a round by "
+              "kind {} ({:.3f} ms in all, host clock); planned bytes a round {}".format(
+                  tag, r["rank"], r["place"][0], r["place"][1], m["rows"], m["rounds_per_s"],
+                  refs["rounds_per_s"], m["setup_s"], [round(x, 3) for x in m["round_s"]],
+                  json.dumps({k: round(v, 1) for k, v in r["stage_s"].items()}),
+                  "captured" if m["captured"] else "eager",
+                  m["reason"], json.dumps(m["launches"]), m["bins"][0], m["bins"][1],
+                  m["bins"][2], refs["bins"][0], refs["bins"][2],
+                  json.dumps({k: {"bytes": round(v["bytes"]), "ms": round(v["ms"], 3),
+                                  "calls": v["calls"]} for k, v in sorted(m["comm"].items())}),
+                  m["comm_ms"], json.dumps({k: int(v) for k, v in sorted(planned.items())})),
+              flush=True)
+        check(m["bins"][0] == [m["rows"], d_local],
+              "25a: rank {} staged bins {}".format(r["rank"], m["bins"]))
+        check(m["launches"] == {"hist_kernel": 8 * GRID_ROUNDS, "totals_kernel": GRID_ROUNDS},
+              "25a: rank {} launches {}".format(r["rank"], m["launches"]))
+        for kind in ("hist", "totals", "merge", "route"):
+            check(abs(m["comm"].get(kind, {"bytes": -1})["bytes"] - planned[kind]) < 0.5,
+                  "25a: rank {} {} bytes a round {} against the plan's {}".format(
+                      r["rank"], kind, m["comm"].get(kind), planned[kind]))
+    prof = main[0].get("profile")
+    check(prof is not None, "25a: rank 0 recorded no profile")
+    if prof is not None:
+        print("{} | grid 25a: rank 0's profile of rounds 2-9: device {:.3f} ms a round (rank "
+              "0's kernels only; {:.1f} launches), hist_* {:.3f} ms, totals_* {:.3f} ms, kernel "
+              "calls a round {}".format(tag, prof["device_ms"], prof["kernels"],
+                                        prof["hist_ms"], prof["totals_ms"],
+                                        json.dumps(prof["calls"])), flush=True)
+        # each wrapper call launches its five hist_* / two totals_* kernels
+        a_round = dict({name: 8 for name in HIST_KERNELS}, **{n: 1 for n in TOTALS_KERNELS})
+        check(all(abs(prof["calls"][name] - n) < 0.5 for name, n in a_round.items()),
+              "25a: rank 0's profiled rounds ran {} kernels a round".format(prof["calls"]))
+    ll = main[0]["logloss"]
+    diff = abs(ll[-1] - refs["logloss"][-1])
+    same_models = all(m == models[0] for m in models)
+    same_margins = all(m["margins"] == main[0]["margins"] for m in main)
+    print("{} | grid 25a: validation logloss {} (every rank the same: {}); one rank on all rows "
+          "{}; round-{} difference {:.3e}; four models byte-equal: {}; global training margins' "
+          "sha256 equal on the four ranks: {} ({}...)".format(
+              tag, [round(v, 6) for v in ll], all(m["logloss"] == ll for m in main),
+              [round(v, 6) for v in refs["logloss"]], GRID_ROUNDS, diff, same_models,
+              same_margins, main[0]["margins"][:16]), flush=True)
+    check(same_models, "25a: the four ranks saved different models")
+    check(same_margins, "25a: the ranks' global training margins differ")
+    check(all(m["logloss"] == ll for m in main), "25a: the ranks printed different metrics")
+    check(len(ll) == GRID_ROUNDS and all(b < a for a, b in zip(ll, ll[1:])),
+          "25a: validation logloss did not fall every round: {}".format(ll))
+    check(diff <= GRID_LOGLOSS_TOL, "25a: grid logloss {} vs one rank's {}".format(
+        ll[-1], refs["logloss"][-1]))
+
+
+def _grid_step_checks(pkg, res4, res2, refs, tag):
+    """25b's checks and lines: each grid's trees against one CUDA rank's,
+    and psum's against reduce_scatter's."""
+    from sagemaker_xgboost_container_tpu_torch.models.forest import Forest
+
+    runs = {}
+    for label, res in (("1x2", res2), ("2x2", res4)):
+        for r in res:
+            for name, comm, path in r["steps"]:
+                with open(path, "rb") as f:
+                    runs.setdefault((label, name, comm), []).append([f.read(), path])
+    for models in runs.values():
+        # the ranks' files are compared as bytes; the first is read as trees
+        models[0][1] = Forest.load_model(models[0][1], device="cpu")
+    for name, _extra, rows in GRID_STEP_CASES:
+        X, _y = grid_step_data(name, rows)
+        ref = refs["steps"][name]
+        for key in (("1x2", name, "psum"), ("2x2", name, "psum"),
+                    ("2x2", name, "reduce_scatter")):
+            models = runs[key]
+            same_ranks = all(raw == models[0][0] for raw, _f in models)
+            forest = models[0][1]
+            same = [_same_tree(ta, tb, X) for ta, tb in zip(forest.trees, ref.trees)]
+            print("{} | grid 25b {} {} {}: ranks byte-equal {}; trees equal to one CUDA "
+                  "rank's (feature, bin, default_left where missing reaches, is_leaf; leaves "
+                  "within 1e-5) {}/{}; root features {}".format(
+                      tag, key[0], name, key[2], same_ranks, sum(same), len(ref.trees),
+                      [int(t.feature[0]) for t in forest.trees]), flush=True)
+            check(same_ranks, "25b: {} ranks saved different models".format(key))
+            check(len(same) == len(ref.trees) and all(same),
+                  "25b: {} trees differ from one rank's: {}".format(key, same))
+        (a_raw, a), (b_raw, b) = runs["2x2", name, "psum"][0], runs["2x2", name,
+                                                                    "reduce_scatter"][0]
+        same = [_same_tree(ta, tb, X) for ta, tb in zip(a.trees, b.trees)]
+        print("{} | grid 25b 2x2 {}: psum and reduce_scatter models byte-equal: {}; trees "
+              "equal {}/{}".format(tag, name, a_raw == b_raw, sum(same), len(same)), flush=True)
+        # the card's histograms sum in a varying order (f32 shared atomics),
+        # so two runs match in their splits and leaves, not in every bit of
+        # the inner nodes' gains and hessian sums
+        check(a_raw == b_raw or (len(same) == len(a.trees) and all(same)),
+              "25b: {}: psum and reduce_scatter differ: {}".format(name, same))
+
+
 PHASE_WALL = []
 
 
@@ -7447,6 +7860,9 @@ def main():
             results["hist exact"] = hist_exact_width(torch, hist, tag)
             for n, d, W, B, dt, kind, timed in HIST_WIDE_CASES:
                 hist_case(torch, hist, n, d, W, B, dt, kind, 60 + W, timed, tag)
+            for n, d, W, B, dt, kind, timed in HIST_SHARD_CASES:
+                results["hist d_local"] = hist_case(torch, hist, n, d, W, B, dt, kind, 70 + W,
+                                                    timed, tag)
 
         def totals_cases():
             for n, W, kind, timed in TOTALS_CASES:
@@ -7480,6 +7896,7 @@ def main():
         phase("22 elastic with local ranks", run_elastic_local, torch, tag)
         phase("23 native data plane", run_native, tag)
         phase("24 rounds a dispatch", run_dispatch, torch, hist, pkg, dtrain, dval, tag)
+        phase("25 feature axis", run_feature_axis, torch, hist, pkg, dtrain, dval, tag)
     except Exception as e:  # every phase failure ends the run non-zero
         print("FAILED: {}: {}".format(type(e).__name__, e), file=sys.stderr, flush=True)
         raise

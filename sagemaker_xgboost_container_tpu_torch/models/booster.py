@@ -61,6 +61,20 @@ groups, and dart, gblinear and ``process_type=update`` take the group too;
 leader's sketch of all the host's rows (``local.host_cuts``), so that one
 host's ranks bin as the JAX one-host mesh does, exact included.
 
+The feature axis, the JAX package's ``train(mesh=)`` over a ``("data",
+"feature")`` mesh: ``train(..., grid=)`` takes a ``parallel/grid.Grid``.
+Every collective over rows runs over its data group, as above; each rank
+bins all its rows' columns with the data group's merged cuts and keeps only
+its feature shard's slice of them on the device (the columns padded to a
+multiple of the feature shards with always-missing ones), and the builders
+merge the split winners and route the rows over the feature group
+(``ops/tree_build``). Eval sets keep every column. gblinear and
+``process_type=update`` train on the data group with every column, as the
+JAX package's read only the mesh's data axis; dart grows its trees on the
+grid. A grid on one host trains ``tree_method=exact`` with the cuts of the
+union of its data shards' distinct values (``merged_exact_cuts``), the cuts
+of all its rows; a grid over hosts refuses it.
+
 Pre-binned input, the JAX package's: ``train`` takes a ``BinnedMatrix``
 (the streaming ingest's, ``data/streaming.py``) as the training matrix and
 as eval sets. The session then skips its sketch and binning (and, across
@@ -93,7 +107,8 @@ from ..data.binning import (
 from ..ops.lossguide import build_tree_lossguide
 from ..ops.predict import forest_leaf_values
 from ..ops.ranking import bucket_group_layout, lambdarank_grad_hess
-from ..ops.histogram import hist_comm_impl
+from ..ops.split import shard_feature_slice
+from ..ops.histogram import hist_comm_impl, padded_feature_width
 from ..ops.tree_build import build_tree, pack_tree, predict_binned, unpack_tree
 from ..parallel import collectives, local
 from ..telemetry import model as model_telemetry
@@ -336,6 +351,32 @@ def gather_merged_cuts(mat, counts, group, width, kind):
     return merge_cut_candidates(mats, all_counts, width)
 
 
+def merged_exact_cuts(dtrain, group, device):
+    """``tree_method=exact``'s cuts over every rank's rows of ``group``:
+    each rank's distinct values a feature gathered, and the cuts of their
+    union, which are the midpoints of all the rows' adjacent distinct
+    values, as ``compute_cut_points(..., max_bin=None)`` of all the rows
+    selects them."""
+    from ..data.binning import _select_cuts
+
+    feats = np.asarray(dtrain.features, np.float32)
+    distinct = [np.unique(col[~np.isnan(col)]) for col in feats.T]
+    longest = max((len(v) for v in distinct), default=0)
+    width = max(1, int(collectives.host_all_gather(np.asarray([longest], np.int64), group,
+                                                   device).max()))
+    mat, counts = candidate_matrix(distinct, width)
+    mats = collectives.all_gather(torch.as_tensor(mat, device=device), group,
+                                  kind="setup").cpu().numpy()
+    all_counts = collectives.all_gather(torch.as_tensor(counts, device=device), group,
+                                        kind="setup").cpu().numpy()
+    cuts = []
+    for f in range(mats.shape[1]):
+        union = np.unique(np.concatenate(
+            [mats[p, f, :all_counts[p, f]] for p in range(mats.shape[0])]))
+        cuts.append(_select_cuts(union, np.ones(len(union), np.float32), max(len(union), 1)))
+    return cuts
+
+
 def merged_distributed_cuts(dtrain, max_bin, group, device, weights=None):
     """Each rank's quantile cuts of its own rows, gathered over ``group``
     and merged, so that every rank bins with the same thresholds: the JAX
@@ -567,18 +608,26 @@ def _clear_comm_round_fields():
     a multi-rank one in the same process must not report its collectives."""
     from ..telemetry import set_round_fields
 
-    set_round_fields(hist_comm=None, hist_comm_bytes=None, hist_comm_ms=None)
+    set_round_fields(hist_comm=None, hist_comm_bytes=None, hist_comm_ms=None,
+                     hist_comm_kinds=None)
 
 
 class _TrainingSession:
     """Device state for one training run: bins, margins, eval sets."""
 
     def __init__(self, config, dtrain, evals, forest, metric_names, device, sampler=None,
-                 group=None, has_feval=False):
+                 group=None, has_feval=False, grid=None):
         self.config = config
         self.device = device
-        self.group = group   # None on one rank
+        self.group = group   # None on one rank (a grid's data group, None on one data shard)
         self.rank = collectives.world(group)[0]
+        # the feature axis: a grid of more than one feature shard
+        self.feature_group = grid.feature_group if grid is not None and grid.n_feature > 1 \
+            else None
+        self.n_feature_shards = grid.n_feature if self.feature_group is not None else 1
+        self.feature_rank = grid.feature_rank if self.feature_group is not None else 0
+        # collectives run across ranks on either axis
+        self.across_ranks = self.group is not None or self.feature_group is not None
         # the collective's lowering, resolved once (GRAFT_HIST_COMM)
         self.hist_comm = hist_comm_impl() if self.group is not None else "psum"
         # no session inherits an earlier one's collectives: only a session
@@ -595,8 +644,11 @@ class _TrainingSession:
             # histograms mean nothing (a pre-binned matrix's ingest agreed
             # its cuts across the ranks already). Local ranks bin with their
             # host's cuts, as the JAX one-host mesh bins all its rows
-            if local.topology() is not None:
+            if local.topology() is not None and grid is None:
                 shared_cuts = local.host_cuts(dtrain, config.max_bin, self.group, device)
+            elif config.max_bin is None:
+                # exact on a grid of one host (train refuses it over hosts)
+                shared_cuts = merged_exact_cuts(dtrain, self.group, device)
             else:
                 shared_cuts = merged_distributed_cuts(dtrain, config.max_bin, self.group,
                                                       device)
@@ -614,12 +666,22 @@ class _TrainingSession:
                                            exact_cap=config.exact_bin_cap, device=device)
         self.cuts = self.train_binned.cut_points
         self.num_bins = self.train_binned.num_bins
-        self.bins = torch.as_tensor(self.train_binned.bins, device=device)
-        self.num_cuts = torch.as_tensor(
-            np.asarray([len(c) for c in self.cuts], np.int32), device=device
-        )
-        self.monotone, self.interaction_sets = constraint_tensors(
-            config, self.bins.shape[1], device)
+        self.num_col = self.train_binned.num_col    # the real global width
+        # the feature shard's columns of the padded global width
+        self.d_local = padded_feature_width(self.num_col, self.n_feature_shards) // (
+            self.n_feature_shards)
+        full_bins = torch.as_tensor(self.train_binned.bins, device=device)
+        self._stage_bins(full_bins, torch.as_tensor(
+            np.asarray([len(c) for c in self.cuts], np.int32), device=device))
+        self.monotone, self.interaction_sets = constraint_tensors(config, self.num_col, device)
+        if self.feature_group is not None:
+            # monotone per local column; the interaction sets span the padded
+            # global columns (the builders slice each node's mask)
+            if self.monotone is not None:
+                self.monotone = self.local_columns(self.monotone)
+            if self.interaction_sets is not None:
+                self.interaction_sets = shard_feature_slice(
+                    self.interaction_sets, 0, self.d_local * self.n_feature_shards, 1)
         # tree_method=approx: the cuts re-sketched from the hessians before
         # every round (_resketch_bins); GRAFT_APPROX_RESKETCH=0 keeps the
         # initial sketch
@@ -652,16 +714,20 @@ class _TrainingSession:
         # global rows, and cox-nloglik its value (GlobalRows)
         self.global_rows = None
         self._eval_rows = {}    # eval set index -> GlobalRows (cox-nloglik)
-        # the collectives of a dispatch's per-round metric evaluation across
-        # ranks, kept out of its rounds' own (note_collectives)
-        self._eval_comm = {"seconds": 0.0, "bytes": 0, "calls": 0}
+        # the collectives of a dispatch's per-round metric evaluations across
+        # ranks (``collectives.stats_delta``s), kept out of its rounds' own
+        # (note_collectives)
+        self._eval_comm = []
         if self.group is not None and self.objective.name == "survival:cox":
             self.global_rows = GlobalRows(dtrain.labels, dtrain.get_weight(), self.group,
                                           device)
         base = self.objective.base_margin(forest.base_score)
         self.margins = self._start_margins(forest, dtrain, base)
         if sampler is None and Sampler.needed(config):
-            sampler = Sampler(config, dtrain.num_row, self.bins.shape[1], device,
+            # the columns drawn over the real global width (the builders
+            # slice them), the rows by data shard: a feature group's ranks
+            # hold the same rows and draw the same keep masks
+            sampler = Sampler(config, dtrain.num_row, self.num_col, device,
                               rank=self.rank if self.group is not None else None)
         self.sampler = sampler
 
@@ -677,7 +743,7 @@ class _TrainingSession:
         self.last_learning_stats = []
         if self.learning_stats:
             model_telemetry.capture_drift_baseline(
-                BinnedMatrix(self.bins, self.cuts, self.train_binned.max_bin))
+                BinnedMatrix(full_bins, self.cuts, self.train_binned.max_bin))
         self._count_cost = device_telemetry.enabled()
 
         # each metric on the device where it has a device form, else on the
@@ -757,11 +823,34 @@ class _TrainingSession:
             "program (the lax.scan length K of the fused round pipeline)",
         ).set(K)
         self.captured, self.capture_reason = capture_decision(
-            self.device, K, self.group, config, self.approx_resketch)
+            self.device, K, self.group if self.group is not None else self.feature_group,
+            config, self.approx_resketch)
         self.graph = RoundGraph(self._round_body) if self.captured else None
         self._slots = None   # the captured session's static [K, ...] outputs
         logger.info("round dispatch: %d round(s) a dispatch, %s (%s)", K,
                     "captured" if self.captured else "eager", self.capture_reason)
+
+    def local_columns(self, t, fill=0):
+        """A per-feature tensor of the real global width -> this feature
+        shard's columns (itself without a feature axis)."""
+        if self.feature_group is None:
+            return t
+        return shard_feature_slice(t, self.feature_rank, self.d_local, self.n_feature_shards,
+                                   fill)
+
+    def _stage_bins(self, bins, num_cuts):
+        """The training rows' bins [n, d] and cut counts [d] (every column,
+        on the device) -> the session's: this feature shard's columns, the
+        padded ones always missing with no cut."""
+        self.bins = self.local_columns(bins, fill=self.num_bins - 1)
+        self.num_cuts = self.local_columns(num_cuts.int())
+
+    def builder_axes(self):
+        """The builders' arguments of the ranks' axes: the data group and
+        its lowering, and the feature axis."""
+        return dict(group=self.group, hist_comm=self.hist_comm,
+                    feature_group=self.feature_group,
+                    n_feature_shards=self.n_feature_shards, d_global=self.num_col)
 
     def release_graph(self):
         """Free the captured round and its memory pool (the session's end)."""
@@ -828,7 +917,7 @@ class _TrainingSession:
             mids, n_cuts = device_cut_points(self._feats_dev, h, max_bin - 1)
             if self.group is not None:
                 mids, n_cuts = self._merge_device_cuts(mids, n_cuts, max_bin - 1)
-            self.bins = device_apply(self._feats_dev, mids, n_cuts, max_bin)
+            self._stage_bins(device_apply(self._feats_dev, mids, n_cuts, max_bin), n_cuts)
             for i, entry in enumerate(self.eval_sets):
                 if entry[2] is None:
                     continue
@@ -836,7 +925,6 @@ class _TrainingSession:
                     self._eval_feats_dev[i] = torch.as_tensor(
                         entry[1].features, dtype=torch.float32, device=self.device)
                 entry[2] = device_apply(self._eval_feats_dev[i], mids, n_cuts, max_bin)
-            self.num_cuts = n_cuts.int()
             self.cuts = cut_lists(mids, n_cuts)
             return
         feats = self._dtrain.features
@@ -845,13 +933,13 @@ class _TrainingSession:
                                            weights=h.cpu().numpy())
         else:
             cuts = compute_cut_points(feats, h.cpu().numpy(), max_bin)
-        self.bins = torch.as_tensor(apply_cut_points(feats, cuts, max_bin), device=self.device)
+        self._stage_bins(
+            torch.as_tensor(apply_cut_points(feats, cuts, max_bin), device=self.device),
+            torch.as_tensor(np.asarray([len(c) for c in cuts], np.int32), device=self.device))
         for entry in self.eval_sets:
             if entry[2] is not None:
                 entry[2] = torch.as_tensor(
                     apply_cut_points(entry[1].features, cuts, max_bin), device=self.device)
-        self.num_cuts = torch.as_tensor(np.asarray([len(c) for c in cuts], np.int32),
-                                        device=self.device)
         self.cuts = cuts
 
     def _merge_device_cuts(self, mids, n_cuts, width):
@@ -979,10 +1067,9 @@ class _TrainingSession:
                     # the rounds run eagerly across ranks and wait on their
                     # collectives anyway: K=1's evaluation, a round at a
                     # time (its collectives are not the round's own)
-                    before = dict(collectives.STATS)
+                    before = collectives.stats_snapshot()
                     lines = self._evaluate_across_ranks(None)
-                    for key in self._eval_comm:
-                        self._eval_comm[key] += collectives.STATS[key] - before[key]
+                    self._eval_comm.append(collectives.stats_delta(before))
                     values[j] = np.asarray([v for _d, _m, v in lines]).reshape(values.shape[1:])
                 continue
             if self._slots is None:
@@ -1083,7 +1170,7 @@ class _TrainingSession:
             eta=cfg.eta / cfg.num_parallel_tree,
             max_delta_step=cfg.max_delta_step,
             monotone=self.monotone, interaction_sets=self.interaction_sets,
-            group=self.group, hist_comm=self.hist_comm,
+            **self.builder_axes(),
         )
         trees, total = [], None
         for k in range(cfg.num_parallel_tree):
@@ -1209,21 +1296,36 @@ class _TrainingSession:
     def note_collectives(self, before, k):
         """After a dispatch of ``k`` rounds across ranks: its rounds'
         collectives' host seconds, calls and payload bytes
-        (``collectives.STATS`` against ``before``, less the per-round metric
-        evaluation's) as the per-round ``hist_comm_ms`` / ``hist_comm_bytes``
-        round fields (the dispatch's over ``k``: RoundTimer's collective
-        share a round), the ``hist_comm_bytes_total`` counter, and a
+        (``collectives.STATS`` against the snapshot ``before``, less the
+        per-round metric evaluations') as the per-round ``hist_comm_ms`` /
+        ``hist_comm_bytes`` round fields (the dispatch's over ``k``:
+        RoundTimer's collective share a round) and, by kind,
+        ``hist_comm_kinds`` ({kind: {"bytes", "ms", "calls"}} a round: the
+        histograms' "hist" and "totals" apart from a grid's "merge" and
+        "route"), the ``hist_comm_bytes_total`` counter, and a
         ``collective.dispatch`` span under the open round span (the fleet
         plane's collective phase), both at the dispatch's totals. Measured
         on the host clock: with gloo the wait for the peers, with NCCL the
         enqueue."""
         from ..telemetry import REGISTRY, set_round_fields, tracing
 
-        seconds, nbytes, calls = (collectives.STATS[key] - before[key] - self._eval_comm[key]
-                                  for key in ("seconds", "bytes", "calls"))
-        self._eval_comm = dict.fromkeys(self._eval_comm, 0)
+        delta = collectives.stats_delta(before)
+        for ev in self._eval_comm:
+            for key in ("seconds", "bytes", "calls"):
+                delta[key] -= ev[key]
+            for kind, part in ev["kinds"].items():
+                mine = delta["kinds"].get(kind)
+                if mine is not None:
+                    for key in ("seconds", "bytes", "calls"):
+                        mine[key] -= part[key]
+        self._eval_comm = []
+        seconds, nbytes, calls = delta["seconds"], delta["bytes"], delta["calls"]
+        kinds = {kind: {"bytes": int(round(v["bytes"] / k)),
+                        "ms": round(v["seconds"] * 1000.0 / k, 3),
+                        "calls": round(v["calls"] / k, 3)}
+                 for kind, v in sorted(delta["kinds"].items()) if v["calls"] > 0}
         set_round_fields(hist_comm_ms=round(seconds * 1000.0 / k, 3),
-                         hist_comm_bytes=int(round(nbytes / k)))
+                         hist_comm_bytes=int(round(nbytes / k)), hist_comm_kinds=kinds)
         REGISTRY.counter(
             "hist_comm_bytes_total",
             "Payload bytes of the training rounds' cross-rank collectives",
@@ -1284,6 +1386,7 @@ def train(
     xgb_model=None,
     _sampler=None,
     group=None,
+    grid=None,
 ):
     """Train a Forest on ``device`` (CUDA unless given). API mirrors
     ``xgb.train``: ``evals`` is a list of (DataMatrix, name) pairs whose
@@ -1309,10 +1412,24 @@ def train(
     trains across ranks but ``tree_method=exact`` across hosts, which raises
     ``UserError`` before any collective (``refuse_across_ranks``); the local
     ranks of one host (``parallel/local.py``) train it, as the JAX one-host
-    mesh does."""
+    mesh does.
+
+    ``grid``: a ``parallel/grid.Grid`` of data x feature shards in place of
+    ``group`` (the JAX package's 2-D ``mesh=``): the ranks of one data shard
+    pass the same rows, and each keeps only its feature shard's columns of
+    their bins. gbtree (either growth policy, every objective, sampling and
+    the constraints) and dart grow their trees over both axes; gblinear and
+    ``process_type=update`` train over the data group. ``tree_method=exact``
+    trains on a grid of one host and raises ``UserError`` on one over
+    hosts. Every rank returns the same model."""
     dev = resolve_device(device)
     config = TrainConfig(params)
     callbacks = list(callbacks or [])
+    if grid is not None:
+        if group is not None:
+            raise exc.UserError("train() takes a process group (group=) or a grid (grid=), "
+                                "not both")
+        group = grid.data_group if grid.n_data > 1 else None
     if isinstance(dtrain, BinnedMatrix) and (
             config.booster != "gbtree" or config.process_type != "default"):
         # gblinear fits the raw floats, and dart and update traverse them:
@@ -1321,12 +1438,14 @@ def train(
             "Pre-binned training input (chunked ingest) requires booster='gbtree' with "
             "process_type='default'; got booster={!r} process_type={!r}. Use "
             "SM_INGEST_MODE=whole.".format(config.booster, config.process_type))
-    if collectives.world(group)[1] > 1:
-        if local.num_hosts_of(group) > 1:
+    across = grid.world if grid is not None and grid.n_data * grid.n_feature > 1 else group
+    if collectives.world(across)[1] > 1:
+        hosts = grid.n_hosts if grid is not None else local.num_hosts_of(group)
+        if hosts > 1:
             refuse_across_ranks(config)
         if not isinstance(dtrain, BinnedMatrix):
             # a pre-binned matrix's ingest agreed the width across ranks
-            d = agreed_num_col(dtrain, group, dev)
+            d = agreed_num_col(dtrain, across, dev)
             padded = dtrain.pad_features(d)
             if padded is not dtrain:
                 padded.host_rows = getattr(dtrain, "host_rows", None)
@@ -1351,6 +1470,8 @@ def train(
             initial, _fmt = load_model_any_format(xgb_model, device=dev)
             if not isinstance(initial, LinearModel):
                 raise exc.UserError("Checkpoint {} is not a gblinear model".format(xgb_model))
+        # whole columns over the data group, as the JAX package's gblinear
+        # reads only the mesh's data axis
         return train_linear(config, dtrain, num_boost_round, evals=list(evals), feval=feval,
                             callbacks=callbacks, initial_model=initial, device=dev,
                             verbose_eval=verbose_eval, group=group)
@@ -1385,10 +1506,12 @@ def train(
         from .dart import train_dart
 
         return train_dart(config, forest, dtrain, list(evals), feval, callbacks,
-                          num_boost_round, dev, verbose_eval=verbose_eval, group=group)
+                          num_boost_round, dev, verbose_eval=verbose_eval, group=group,
+                          grid=grid)
     metric_names = _eval_metric_names(config, forest.objective())
     session = _TrainingSession(config, dtrain, list(evals), forest, metric_names, dev,
-                               sampler=_sampler, group=group, has_feval=feval is not None)
+                               sampler=_sampler, group=group, has_feval=feval is not None,
+                               grid=grid)
 
     for cb in callbacks:
         if hasattr(cb, "before_training"):
@@ -1403,9 +1526,9 @@ def train(
         # one dispatch builds min(K, rounds left) rounds; they commit one at
         # a time, and a stop mid-dispatch discards the rest of it
         while rnd < end_round and not stop:
-            comm_before = dict(collectives.STATS)
+            comm_before = collectives.stats_snapshot()
             batch = session.run_rounds(rnd, end_round - rnd)
-            if session.group is not None:
+            if session.across_ranks:
                 session.note_collectives(comm_before, len(batch.trees))
             for j, trees_np in enumerate(batch.trees):
                 # class-major: class 0's P trees, then class 1's, ... (xgboost's layout)

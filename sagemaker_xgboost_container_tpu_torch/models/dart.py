@@ -38,6 +38,11 @@ global padded rows (every rank padded to the largest count) and each rank
 keeps its own segment, so the ranks' generators stay in step; a resumed
 run's contributions are each rank's own rows'; the metric lines combine as
 in gbtree.
+
+On a grid (``grid``), as the JAX package's dart on a 2-D mesh: the
+session keeps each rank's feature shard of the bins and the trees grow over
+both axes (``ops/tree_build``); the column draws cover the real global
+width, which the builder slices.
 """
 
 import logging
@@ -78,9 +83,10 @@ def _resumed_units(forest, session, dtrain):
 
 
 def train_dart(config, forest, dtrain, evals, feval, callbacks, num_boost_round, device,
-               verbose_eval=True, group=None):
+               verbose_eval=True, group=None, grid=None):
     """Train ``num_boost_round`` dart rounds onto ``forest`` on ``device``,
-    across the ranks of ``group`` when one is given."""
+    across the ranks of ``group`` (a grid's data group) when one is given,
+    and over ``grid``'s feature axis."""
     from .booster import (_TrainingSession, _eval_metric_names, evaluate_host_lines,
                           print_metric_line)
 
@@ -109,9 +115,10 @@ def train_dart(config, forest, dtrain, evals, feval, callbacks, num_boost_round,
     metric_names = _eval_metric_names(config, forest.objective())
     # the eval sets are predicted with the whole (rescaled) forest each
     # round, so the session holds the training rows only
-    session = _TrainingSession(config, dtrain, [], forest, metric_names, device, group=group)
+    session = _TrainingSession(config, dtrain, [], forest, metric_names, device, group=group,
+                               grid=grid)
     nclass = session.num_group
-    n, d = session.bins.shape
+    n, d = session.bins.shape[0], session.num_col
     draw_rows, own = n, slice(0, n)
     if group is not None and config.subsample < 1.0:
         from ..parallel import collectives
@@ -191,8 +198,7 @@ def train_dart(config, forest, dtrain, evals, feval, callbacks, num_boost_round,
             session.bins, g, h, session.num_cuts, max_depth=config.max_depth,
             num_bins=session.num_bins, reg_lambda=config.reg_lambda, alpha=config.alpha,
             gamma=config.gamma, min_child_weight=config.min_child_weight, eta=1.0,
-            max_delta_step=config.max_delta_step, masks=masks, group=session.group,
-            hist_comm=session.hist_comm)
+            max_delta_step=config.max_delta_step, masks=masks, **session.builder_axes())
         if nclass > 1:
             row_out = row_out.T
 

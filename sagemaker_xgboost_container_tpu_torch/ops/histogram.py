@@ -374,11 +374,13 @@ def _totals_cuda(grad, hess, node_local, num_nodes):
 
 # ------------------------------------------------------ data-axis collectives
 
-# [W]-shaped payloads of the winner merge a gain-scan batch under
-# reduce_scatter: the node-totals broadcast (g, h) and the cross-shard split
-# combine (max gain, min candidate, and the winner's feature, bin and
-# default_left), the JAX package's 7 collectives; the port fuses them into 4
-# calls (``ops/split``), with the same bytes
+# [W]-shaped f32 / i32 payloads of the winner merge a gain-scan batch (under
+# reduce_scatter, and over a grid's feature group): the node-totals
+# broadcast (g, h) and the cross-shard split combine (max gain, min
+# candidate, and the winner's feature, bin and default_left), the JAX
+# package's 7 collectives; the port fuses them into 3 calls (``ops/split``:
+# the totals, one int64 max of (gain, feature) and one stacked sum), with
+# the same bytes
 MERGE_COLLECTIVES_PER_SCAN = 7
 
 
@@ -490,49 +492,69 @@ def _wire_ratio(comm, axis_size):
 
 
 def round_comm_plan(grow_policy, max_depth, max_leaves, d, num_bins, axis_size, comm,
-                    subtract, trees_per_round=1):
+                    subtract, trees_per_round=1, feature_shards=1, rows=0):
     """The collectives of one round -> (entries, wire bytes a round), the
-    JAX package's plan: each entry ``{"kind": "hist"|"totals"|"merge",
-    "shape": local payload shape, "count": n, "bytes": wire bytes of all
-    n}``; ``hist`` entries carry the (G, H) f32 pair (payload times
-    ``_wire_ratio``), ``d`` the full feature width. With ``trees_per_round``
-    C (classes times parallel trees) every payload is C times as large."""
-    if axis_size <= 1:
-        return [], 0
-    d_eff = padded_feature_width(d, axis_size) if comm == "reduce_scatter" else d
-    ratio = _wire_ratio(comm, axis_size)
-    psum_ratio = _wire_ratio("psum", axis_size)
-    hist_widths, merge_widths, totals = [], [], []
-    if grow_policy == "lossguide":
-        hist_widths.append((1, 1))                       # root
-        merge_widths.append((1, 1))
-        if max_leaves > 1:
-            hist_widths.append((1 if subtract else 2, max_leaves - 1))  # per split step
-            merge_widths.append((2, max_leaves - 1))     # both fresh children
+    JAX package's plan of the data axis: each entry ``{"kind":
+    "hist"|"totals"|"merge", "shape": local payload shape, "count": n,
+    "bytes": wire bytes of all n}``; ``hist`` entries carry the (G, H) f32
+    pair (payload times ``_wire_ratio``), ``d`` the width each data shard
+    histograms: the full feature width, or a feature shard's on a grid.
+    With ``trees_per_round`` C (classes times parallel trees) every payload
+    is C times as large.
+
+    ``feature_shards`` F > 1 adds the feature group's entries (``"axis":
+    "feature"``): the split merge of every scan (``merge``, the node-totals
+    broadcast and the winner merge, ``MERGE_COLLECTIVES_PER_SCAN`` [W]
+    payloads, after the data axis's own under reduce_scatter: the
+    hierarchical merge) and the routing decisions of every level that
+    splits, or every lossguide step (``route``, one uint8 a row of the
+    ``rows`` this data shard holds, a tree)."""
+    lossguide = grow_policy == "lossguide"
+    if lossguide:
+        # the root, then both fresh children of each split step
+        scans = [(1, 1)] + ([(2, max_leaves - 1)] if max_leaves > 1 else [])
+        steps = max_leaves - 1
     else:
-        hist_widths.append((1, 1))                       # level 0
-        merge_widths.append((1, 1))
-        for level in range(1, max_depth):
-            hist_widths.append((2 ** (level - 1) if subtract else 2**level, 1))
-            merge_widths.append((2**level, 1))           # full level scan
-        totals.append((2**max_depth, 1))                 # last-level node totals
+        scans = [(2**level, 1) for level in range(max_depth)]   # every level that splits
+        steps = max_depth
     entries = []
-    total_bytes = 0.0
-    for W, count in hist_widths:
-        count *= trees_per_round
-        b = 2 * W * d_eff * num_bins * 4 * ratio * count
-        entries.append({"kind": "hist", "shape": (W, d_eff, num_bins), "count": count,
-                        "bytes": b})
-        total_bytes += b
-    for W, count in totals:
-        count *= trees_per_round
-        b = 2 * W * 4 * psum_ratio * count
-        entries.append({"kind": "totals", "shape": (W,), "count": count, "bytes": b})
-        total_bytes += b
-    if comm == "reduce_scatter":
-        for W, count in merge_widths:
+    if axis_size > 1:
+        d_eff = padded_feature_width(d, axis_size) if comm == "reduce_scatter" else d
+        ratio = _wire_ratio(comm, axis_size)
+        psum_ratio = _wire_ratio("psum", axis_size)
+        if lossguide:
+            # the root, then one or both children a split step
+            hist = [(1, 1)] + ([(1 if subtract else 2, max_leaves - 1)] if max_leaves > 1
+                               else [])
+        else:
+            hist = [(1, 1)] + [(2 ** (level - 1) if subtract else 2**level, 1)
+                               for level in range(1, max_depth)]
+        for W, count in hist:
             count *= trees_per_round
-            b = MERGE_COLLECTIVES_PER_SCAN * W * 4 * psum_ratio * count
-            entries.append({"kind": "merge", "shape": (W,), "count": count, "bytes": b})
-            total_bytes += b
-    return entries, int(total_bytes)
+            entries.append({"kind": "hist", "shape": (W, d_eff, num_bins), "count": count,
+                            "bytes": 2 * W * d_eff * num_bins * 4 * ratio * count})
+        if not lossguide:
+            # the last level's node totals, always all-reduced
+            W, count = 2**max_depth, trees_per_round
+            entries.append({"kind": "totals", "shape": (W,), "count": count,
+                            "bytes": 2 * W * 4 * psum_ratio * count})
+        if comm == "reduce_scatter":
+            entries += _merge_entries(scans, psum_ratio, trees_per_round)
+    if feature_shards > 1:
+        ratio = _wire_ratio("psum", feature_shards)
+        entries += [dict(e, axis="feature")
+                    for e in _merge_entries(scans, ratio, trees_per_round)]
+        count = steps * trees_per_round
+        entries.append({"kind": "route", "shape": (rows,), "count": count,
+                        "bytes": rows * ratio * count, "axis": "feature"})
+    return entries, int(sum(e["bytes"] for e in entries))
+
+
+def _merge_entries(scans, ratio, trees_per_round):
+    """The winner merge's entries of ``scans``, (nodes a scan, scans) pairs."""
+    out = []
+    for W, count in scans:
+        count *= trees_per_round
+        out.append({"kind": "merge", "shape": (W,), "count": count,
+                    "bytes": MERGE_COLLECTIVES_PER_SCAN * W * 4 * ratio * count})
+    return out

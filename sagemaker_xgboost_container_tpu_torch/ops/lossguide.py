@@ -33,6 +33,13 @@ is the reduced parent minus it), so every rank keeps the same candidate
 store and picks the same leaf. ``hist_comm`` ``reduce_scatter`` scans this
 rank's feature slice and merges the winners across ranks.
 
+The feature axis (``feature_group``), as ``build_tree`` takes it: the root's
+and every step's scan runs on this feature shard's columns and merges over
+the feature group (``merged_scan``), so every shard keeps the same
+candidate store with global feature ids; a step's rows are routed by the
+shard that owns the picked leaf's feature, its decisions summed over the
+group (``route_rows``).
+
 Constraints per slot, as in the JAX package: ``monotone`` in the split scan;
 ``interaction_sets`` alive at each slot (all at the root; the two children of
 a step keep the sets of their parent that hold its split feature), a slot's
@@ -51,15 +58,13 @@ from .histogram import (
     subtraction_enabled,
 )
 from .split import (
-    broadcast_node_totals,
+    column_shard_helpers,
     combine_masks,
-    combine_splits_across_shards,
     concat_node_splits,
-    find_best_splits,
     leaf_weight,
     shard_feature_slice,
 )
-from .tree_build import MIN_SPLIT_LOSS, row_bin_lookup
+from .tree_build import MIN_SPLIT_LOSS, merged_scan, route_rows
 
 
 def _subtraction_enabled(max_leaves, d, num_bins):
@@ -87,6 +92,9 @@ def build_tree_lossguide(
     interaction_sets=None,
     group=None,
     hist_comm="psum",
+    feature_group=None,
+    n_feature_shards=1,
+    d_global=None,
 ):
     """Grow one leaf-wise tree on grad, hess [n], or C trees on [C, n].
     Returns (tree tensors dict, row_out f32 [n] or [C, n]).
@@ -101,7 +109,9 @@ def build_tree_lossguide(
     and ``node`` [1 or C, 2 * max_leaves - 1, d] (one row per node slot).
     ``monotone``: optional i32 [d] in {-1, 0, 1}; ``interaction_sets``:
     optional bool [S, d], one row a constraint set (``build_tree``'s).
-    ``group`` / ``hist_comm``: data-parallel training, as ``build_tree``.
+    ``group`` / ``hist_comm``: data-parallel training, and
+    ``feature_group`` / ``n_feature_shards`` / ``d_global``: the feature
+    axis, as ``build_tree`` takes them.
     """
     single = grad.dim() == 1
     if single:
@@ -148,6 +158,11 @@ def build_tree_lossguide(
     reduce_scatter = hist_comm == "reduce_scatter" and group is not None
     d_scan = padded_feature_width(d, ranks) // ranks if reduce_scatter else d
     overlap = group is not None and comm_overlap()
+    feat_shard = collectives.world(feature_group)[0] if feature_group is not None else None
+    _d_draw, pad_cols, local_cols = column_shard_helpers(feat_shard, d, n_feature_shards,
+                                                         d_global)
+    scan_params = dict(reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
+                       min_child_weight=min_child_weight)
 
     def scan_slice(t):
         """A per-feature scan input -> this rank's slice (reduce_scatter)."""
@@ -158,19 +173,13 @@ def build_tree_lossguide(
     scan_cuts, scan_mono = scan_slice(num_cuts.to(dev)), scan_slice(monotone)
 
     def scan(G, H, mask=None):
-        """Reduced [C, W, d_scan, B] histograms (and a [C, W or 1, d] mask)
-        -> the split scan's dict of [C, W]."""
+        """Reduced [C, W, d_scan, B] histograms (and a [C, W or 1, d] mask
+        at the padded global width) -> the split scan's dict of [C, W]."""
         W = G.shape[1]
-        Gf, Hf = G.reshape(C * W, d_scan, B), H.reshape(C * W, d_scan, B)
-        totals = broadcast_node_totals(Gf, Hf, shard, group) if reduce_scatter else None
-        splits = find_best_splits(
-            Gf, Hf, scan_cuts,
-            reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
-            min_child_weight=min_child_weight, feature_mask=scan_slice(mask),
-            monotone=scan_mono, totals=totals,
-        )
-        if reduce_scatter:
-            splits = combine_splits_across_shards(splits, shard, d_scan, group)
+        splits = merged_scan(
+            G.reshape(C * W, d_scan, B), H.reshape(C * W, d_scan, B), scan_cuts,
+            scan_slice(local_cols(mask)), scan_mono, scan_params, shard, group,
+            reduce_scatter, feat_shard, feature_group, d)
         return {k: v.reshape(C, W) for k, v in splits.items()}
 
     def reduced_scan(G, H, mask):
@@ -200,14 +209,15 @@ def build_tree_lossguide(
 
     def scan_mask(depth, slots=None):
         """The mask of nodes at ``depth`` ([C], a class's own), in node
-        ``slots`` -> [C, len(slots) or 1, d], or None without sampling."""
+        ``slots`` -> [C, len(slots) or 1, d] at the padded global width, or
+        None without sampling."""
         level = None
         if level_masks is not None:
             level = level_masks[cls, torch.clamp(depth, max=depth_cap).long()][:, None, :]
         node = None
         if node_masks is not None and slots is not None:
             node = node_masks[:, slots].expand(C, -1, -1)
-        return combine_masks(tree_mask, level, node)
+        return pad_cols(combine_masks(tree_mask, level, node))
 
     # interaction constraints: the sets alive at each slot, [C, max_nodes, S]
     alive = sets = None
@@ -258,8 +268,8 @@ def build_tree_lossguide(
         cand["gain"].index_put_((cls, leaf), neg_inf)  # picked: never again
 
         # route the leaf's rows to the fresh children
-        row_bin = row_bin_lookup(bins, f[:, None].expand(C, n))
-        go_right = torch.where(row_bin == B - 1, ~dl[:, None], row_bin > b[:, None])
+        go_right = route_rows(bins, f[:, None].expand(C, n), b[:, None], dl[:, None], B,
+                              feature_group, feat_shard)
         in_leaf = (node_of_row == leaf[:, None].int()) & can[:, None]
         node_of_row = torch.where(in_leaf, id_a + go_right.int(), node_of_row)  # id_b = id_a + 1
 

@@ -12,6 +12,7 @@ under column sampling, by a feature mask.
 
 import collections
 
+import numpy as np
 import torch
 
 from ..parallel import collectives
@@ -165,29 +166,43 @@ def leaf_weight(g, h, reg_lambda=1.0, alpha=0.0, max_delta_step=0.0):
 # ------------------------------------------------------ data-axis merge
 
 
+def _order_key(gain):
+    """f32 gains -> int64 keys in the same order (-0.0 taken as 0.0): the
+    float's bits, its lower 31 flipped where it is negative."""
+    bits = (gain + 0.0).view(torch.int32).long()
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+def _key_gain(key):
+    """``_order_key``'s inverse -> the f32 gains."""
+    key = torch.where(key < 0, key ^ 0x7FFFFFFF, key)
+    return key.int().view(torch.float32)
+
+
 def combine_splits_across_shards(splits, shard, d_local, group):
     """Merge per-rank best splits of a feature-sliced scan over ``group``.
 
-    Under ``GRAFT_HIST_COMM=reduce_scatter`` each rank scanned only its
-    feature slice [shard * d_local, (shard + 1) * d_local) of the summed
-    histograms. The winner is the max gain, ties going to the lowest global
-    feature id (the argmax of one scan over every column), and the winner's
-    feature, bin and default_left are summed from the one rank that owns it,
-    so that every rank ends with the same splits. Node totals pass through:
-    ``broadcast_node_totals`` made them identical before the scan. Three
-    calls (max, min, one stacked sum) carry the JAX package's five.
+    Each rank scanned only its feature slice [shard * d_local, (shard + 1) *
+    d_local): under ``GRAFT_HIST_COMM=reduce_scatter`` a slice of the summed
+    histograms, on a grid its feature shard's columns. The winner is the
+    max gain, ties going to the lowest global feature id (the argmax of one
+    scan over every column), and the winner's feature, bin and default_left
+    are summed from the one rank that owns it, so that every rank ends with
+    the same splits. Node totals pass through: ``broadcast_node_totals`` /
+    ``share_node_totals`` made them identical before the scan. Two calls
+    carry the JAX package's five, with its bytes: one max of an int64 key
+    a node (the gain's order key above the complement of the feature id,
+    so that the max is the lexicographic max of (gain, -feature)) and one
+    stacked sum.
     """
     global_feat = splits["feature"] + shard * d_local
-    gain = splits["gain"]
-    best_gain = collectives.all_reduce(gain.clone(), group, op="max", kind="merge")
-    is_tied_winner = gain == best_gain
-    cand = torch.where(is_tied_winner, global_feat, torch.full_like(global_feat, 2**30))
-    win_feat = collectives.all_reduce(cand, group, op="min", kind="merge")
-    i_own = is_tied_winner & (global_feat == win_feat)
+    key = (_order_key(splits["gain"]) << 32) | (0x7FFFFFFF - global_feat.long())
+    best = collectives.all_reduce(key.clone(), group, op="max", kind="merge")
+    i_own = key == best
     picked = torch.stack([global_feat, splits["bin"], splits["default_left"].int()])
     picked = collectives.all_reduce(torch.where(i_own, picked, 0), group, kind="merge")
     return {
-        "gain": best_gain,
+        "gain": _key_gain(best >> 32),
         "feature": picked[0],
         "bin": picked[1],
         "default_left": picked[2] > 0,
@@ -210,20 +225,65 @@ def broadcast_node_totals(G, H, shard, group):
     owning global feature 0 (shard 0) sums its feature-0 bins, the others
     add zeros, so that every rank's gains use the totals the psum lowering
     derives, bit for bit. One call for the pair."""
-    gh = torch.stack([G[:, 0, :].sum(dim=-1), H[:, 0, :].sum(dim=-1)])
+    return share_node_totals(G[:, 0, :].sum(dim=-1), H[:, 0, :].sum(dim=-1), shard, group)
+
+
+def share_node_totals(g_total, h_total, shard, group):
+    """Shard 0's per-node (sum g, sum h) on every rank of ``group``: the
+    other ranks add exact zeros. Over a feature group this hands every
+    feature shard the totals of global feature 0's bins, which are the
+    totals one rank holding every column derives: each feature shard would
+    otherwise sum the bins of its own local column 0, another feature, whose
+    sums agree with them mathematically but not in their last bits. One
+    call for the pair."""
+    gh = torch.stack([g_total, h_total])
     if shard != 0:
         gh = torch.zeros_like(gh)
     gh = collectives.all_reduce(gh, group, kind="merge")
     return gh[0], gh[1]
 
 
-def shard_feature_slice(arr, shard, d_local, axis_size):
+def shard_feature_slice(arr, shard, d_local, axis_size, fill=0):
     """This rank's contiguous feature slice of a per-feature tensor [..., d]:
-    zero-padded to ``d_local * axis_size``, then [shard * d_local, (shard +
-    1) * d_local). Zero padding is inert for every consumer: num_cuts 0 = no
-    legal split bin, feature_mask 0 = masked, monotone 0 = unconstrained."""
-    d = arr.shape[-1]
-    d_pad = d_local * axis_size
-    if d_pad != d:
-        arr = torch.nn.functional.pad(arr, (0, d_pad - d))
-    return arr[..., shard * d_local:(shard + 1) * d_local]
+    padded with ``fill`` to ``d_local * axis_size``, then [shard * d_local,
+    (shard + 1) * d_local). Zero padding is inert for every consumer of the
+    scan: num_cuts 0 = no legal split bin, feature_mask 0 = masked,
+    monotone 0 = unconstrained; a feature shard's bins pad with the missing
+    bin, so that a padded column is always missing."""
+    own = arr[..., shard * d_local:min((shard + 1) * d_local, arr.shape[-1])]
+    if own.shape[-1] == d_local:
+        return own.contiguous()
+    dtype = arr.dtype
+    if dtype == torch.uint16:
+        # few CPU ops take uint16: work on its int16 bit pattern
+        own, fill = own.view(torch.int16), int(np.uint16(fill).view(np.int16))
+    pad = torch.full(tuple(own.shape[:-1]) + (d_local - own.shape[-1],), fill,
+                     dtype=own.dtype, device=own.device)
+    out = torch.cat([own, pad], dim=-1)
+    return out.view(dtype) if dtype == torch.uint16 else out
+
+
+def column_shard_helpers(feat_shard, d_local, n_feature_shards, d_global):
+    """The column-draw convention of the feature axis, shared by both tree
+    builders: a column mask is drawn over the REAL global width ``d_draw``
+    (one rank holding every column never pads, and every feature shard
+    draws the same masks), zero-padded to the padded global width, then
+    sliced to this feature shard's columns. Returns ``(d_draw, pad_cols,
+    local_cols)``: ``pad_cols`` pads a [..., d_draw] mask to [..., d_local *
+    n_feature_shards], ``local_cols`` slices a padded global mask to this
+    shard's [..., d_local] (the identity without a feature axis,
+    ``feat_shard`` None)."""
+    d_total = d_local * n_feature_shards
+    d_draw = int(d_global) if d_global is not None else d_total
+
+    def pad_cols(mask):
+        if mask is None or mask.shape[-1] == d_total:
+            return mask
+        return torch.nn.functional.pad(mask, (0, d_total - mask.shape[-1]))
+
+    def local_cols(mask):
+        if feat_shard is None or mask is None:
+            return mask
+        return mask[..., feat_shard * d_local:(feat_shard + 1) * d_local]
+
+    return d_draw, pad_cols, local_cols

@@ -24,6 +24,18 @@ rows, and every level's histograms are reduced over the process group
 before the split scan, so every rank commits the same tree (the JAX
 package's ``axis_name`` path of ``build_tree``).
 
+The feature axis (``feature_group``, the JAX package's ``feature_axis_name``
+path): ``bins`` holds only this feature shard's ``d_local`` columns of the
+padded global width. The scan runs on the local columns; the winners merge
+over the feature group by max gain, ties going to the lowest global feature
+id (``combine_splits_across_shards``), so the emitted feature ids are
+global; the node totals are feature shard 0's, broadcast before the scan
+(``share_node_totals``); and only the shard that owns a node's split
+feature can route its rows, so each level sums the owners' decisions over
+the feature group (``route_rows``). Under ``reduce_scatter`` the two
+compose: the data group scatters the local columns again, and the winners
+merge over the data group first, then over the feature group.
+
 Constraints, as in the JAX package: ``monotone`` orders the two children of
 every split on a constrained feature (``ops/split``); ``interaction_sets``
 keep, per node, the constraint sets still alive (all at the root; a split on
@@ -47,12 +59,14 @@ from .histogram import (
 )
 from .split import (
     broadcast_node_totals,
+    column_shard_helpers,
     combine_masks,
     combine_splits_across_shards,
     concat_node_splits,
     find_best_splits,
     leaf_weight,
     shard_feature_slice,
+    share_node_totals,
 )
 
 MIN_SPLIT_LOSS = 1e-6  # xgboost kRtEps
@@ -67,6 +81,51 @@ def row_bin_lookup(bins, feat_idx):
     else:
         picked = torch.gather(bins, 1, index).int()
     return picked[:, 0] if feat_idx.dim() == 1 else picked.T
+
+
+def route_rows(bins, feature, split_bin, default_left, num_bins, feature_group=None,
+               feature_shard=0):
+    """Each row's routing decision (True: the right child) for per-row
+    global split features ``feature`` [n] or [C, n] (``split_bin`` and
+    ``default_left`` broadcast against it). Without a feature axis the row's
+    own bin decides. Over a feature group only the shard that owns the
+    feature holds its column: it decides, the other shards add zeros, and
+    the decisions are summed over the group (one uint8 all-reduce, the JAX
+    package's int32 ``psum``; at most one owner adds a 1)."""
+    d = bins.shape[1]
+    if feature_group is None:
+        row_bin = row_bin_lookup(bins, feature)
+        return torch.where(row_bin == num_bins - 1, ~default_left, row_bin > split_bin)
+    lo = feature_shard * d
+    owner = (feature >= lo) & (feature < lo + d)
+    row_bin = row_bin_lookup(bins, torch.clamp(feature - lo, 0, d - 1))
+    decision = torch.where(row_bin == num_bins - 1, ~default_left, row_bin > split_bin)
+    votes = (decision & owner).to(torch.uint8)
+    return collectives.all_reduce(votes, feature_group, kind="route") > 0
+
+
+def merged_scan(G, H, num_cuts, mask, monotone, scan_params, shard, group, reduce_scatter,
+                feature_shard, feature_group, d_local):
+    """The split scan of reduced [N, d_scan, B] histograms with the merges
+    of both axes -> the split dict of [N]: under ``reduce_scatter`` the
+    totals broadcast from the data group's shard 0 and the winners merge
+    over the data group (feature ids then index the ``d_local`` columns of
+    this feature shard); over a feature group the totals are feature shard
+    0's and the winners merge over the feature group, with global feature
+    ids. Shared by both builders."""
+    d_scan = G.shape[1]
+    totals = broadcast_node_totals(G, H, shard, group) if reduce_scatter else None
+    if feature_group is not None:
+        if totals is None:
+            totals = (G[:, 0, :].sum(dim=-1), H[:, 0, :].sum(dim=-1))
+        totals = share_node_totals(*totals, feature_shard, feature_group)
+    splits = find_best_splits(G, H, num_cuts, feature_mask=mask, monotone=monotone,
+                              totals=totals, **scan_params)
+    if reduce_scatter:
+        splits = combine_splits_across_shards(splits, shard, d_scan, group)
+    if feature_group is not None:
+        splits = combine_splits_across_shards(splits, feature_shard, d_local, feature_group)
+    return splits
 
 
 def max_nodes_for_depth(max_depth):
@@ -101,6 +160,9 @@ def build_tree(
     interaction_sets=None,
     group=None,
     hist_comm="psum",
+    feature_group=None,
+    n_feature_shards=1,
+    d_global=None,
 ):
     """Grow one tree on grad, hess [n], or C trees on [C, n] (one per
     class, sharing the bins). Returns (tree tensors dict, row_out f32 [n] or
@@ -110,6 +172,14 @@ def build_tree(
     d] and ``node`` [1 or C, 2**max_depth - 1, d] (one row per node slot of
     the levels that split). ``monotone``: optional i32 [d] in {-1, 0, 1}.
     ``interaction_sets``: optional bool [S, d], one row a constraint set.
+
+    ``feature_group``: the feature axis (None: every column on this rank).
+    ``bins`` [n, d_local], ``num_cuts`` and ``monotone`` are then this
+    feature shard's slice of the padded global width ``d_local *
+    n_feature_shards``; ``masks`` stay at the real global width
+    ``d_global`` and ``interaction_sets`` at the padded global width, and
+    each level's masks are sliced to the local columns
+    (``column_shard_helpers``). The tree's feature ids are global.
 
     ``group``: the process group of data-parallel training (None: one
     rank). Each rank passes its own rows; every level's histograms are
@@ -139,6 +209,11 @@ def build_tree(
     shard, ranks = collectives.world(group)
     reduce_scatter = hist_comm == "reduce_scatter" and group is not None
     d_scan = padded_feature_width(d, ranks) // ranks if reduce_scatter else d
+    feat_shard = collectives.world(feature_group)[0] if feature_group is not None else None
+    _d_draw, pad_cols, local_cols = column_shard_helpers(feat_shard, d, n_feature_shards,
+                                                         d_global)
+    scan_params = dict(reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
+                       min_child_weight=min_child_weight)
 
     def scan_slice(t):
         """A per-feature scan input -> this rank's slice (reduce_scatter)."""
@@ -238,19 +313,21 @@ def build_tree(
             def batch(nsl, reduced):
                 return (nsl,) + tuple(reduced)
 
+        # the masks at the global width (drawn over the real columns, then
+        # padded), sliced to this feature shard's columns
         feature_mask = None
         if masks is not None:
-            feature_mask = combine_masks(
+            feature_mask = pad_cols(combine_masks(
                 None if masks.tree is None else masks.tree[:, None, :],
                 None if masks.level is None else masks.level[:, level, None, :],
                 None if masks.node is None else masks.node[:, sl],
-            )
+            ))
         if alive is not None:
             # [C, W, S] @ [S, d]: a feature of some alive set
             allowed = ((alive.float() @ sets_f) > 0).float()
             feature_mask = combine_masks(feature_mask, allowed)
         if feature_mask is not None:
-            feature_mask = scan_slice(feature_mask.expand(C, -1, -1))
+            feature_mask = scan_slice(local_cols(feature_mask).expand(C, -1, -1))
 
         def scan(nsl, Gb, Hb):
             """Gain-scan one node batch -> the split dict of [C, w]."""
@@ -258,16 +335,10 @@ def build_tree(
             mask = feature_mask
             if mask is not None and mask.shape[1] > 1:
                 mask = mask[:, nsl]
-            Gf, Hf = Gb.reshape(C * w, d_scan, num_bins), Hb.reshape(C * w, d_scan, num_bins)
-            totals = broadcast_node_totals(Gf, Hf, shard, group) if reduce_scatter else None
-            splits = find_best_splits(
-                Gf, Hf, scan_cuts,
-                reg_lambda=reg_lambda, alpha=alpha, gamma=gamma,
-                min_child_weight=min_child_weight, feature_mask=mask,
-                monotone=scan_mono, totals=totals,
-            )
-            if reduce_scatter:
-                splits = combine_splits_across_shards(splits, shard, d_scan, group)
+            splits = merged_scan(
+                Gb.reshape(C * w, d_scan, num_bins), Hb.reshape(C * w, d_scan, num_bins),
+                scan_cuts, mask, scan_mono, scan_params, shard, group, reduce_scatter,
+                feat_shard, feature_group, d)
             return {k: v.reshape(C, w) for k, v in splits.items()}
 
         # the split scan works per node: the classes' nodes side by side
@@ -301,13 +372,9 @@ def build_tree(
         # --- route rows ----------------------------------------------------
         row_leafed = at_level & per_row(becomes_leaf)
         row_out = torch.where(row_leafed, eta * per_row(weight), row_out)
-        row_bin = row_bin_lookup(bins, per_row(splits["feature"]))
-        is_missing = row_bin == (num_bins - 1)
-        go_right = torch.where(
-            is_missing,
-            ~per_row(splits["default_left"]),
-            row_bin > per_row(splits["bin"]),
-        )
+        go_right = route_rows(bins, per_row(splits["feature"]), per_row(splits["bin"]),
+                              per_row(splits["default_left"]), num_bins, feature_group,
+                              feat_shard)
         child = node_of_row * 2 + 1 + go_right.int()
         node_of_row = torch.where(
             row_leafed, minus_one, torch.where(at_level, child, node_of_row)

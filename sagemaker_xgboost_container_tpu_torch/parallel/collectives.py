@@ -7,11 +7,13 @@ Every training-path collective goes through here, so that
 * a group of None (one rank) is a no-op on every call, and the one-rank
   paths stay the code they were;
 * ``STATS`` counts the calls, the local payload bytes (also by ``kind``:
-  "hist", "totals", "merge", "stats", "metrics", "setup", and "cuts" for
-  approx's candidates, "rows" for the global rows of Cox, "linear" for
-  gblinear's sums, "update" for the refresh's node statistics) and the host
-  seconds spent in the calls and their waits (``chip_smoke.py`` phases 17
-  and 18 read them a round);
+  "hist", "totals", "merge" for the split merges and node-totals
+  broadcasts, "route" for a feature group's routing decisions, "stats",
+  "metrics", "setup", and "cuts" for approx's candidates, "rows" for the
+  global rows of Cox, "linear" for gblinear's sums, "update" for the
+  refresh's node statistics) and the host seconds spent in the calls and
+  their waits, in all and by kind (``kind_seconds``, ``kind_calls``;
+  ``chip_smoke.py`` phases 17, 18 and 25 read them a round);
 * a collective that fails (a peer died: gloo raises when its connection
   closes, NCCL when its watchdog times out) takes the watchdog's
   coordinated abort (exit 80) when the abort plane is up, and otherwise
@@ -27,11 +29,35 @@ import torch
 
 # the collectives this process ran: calls, local payload bytes (and by
 # kind), host seconds
-STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "kinds": {}}
+STATS = {"calls": 0, "bytes": 0, "seconds": 0.0, "kinds": {}, "kind_seconds": {},
+         "kind_calls": {}}
 
 
 def reset_stats():
-    STATS.update(calls=0, bytes=0, seconds=0.0, kinds={})
+    STATS.update(calls=0, bytes=0, seconds=0.0, kinds={}, kind_seconds={}, kind_calls={})
+
+
+def stats_snapshot():
+    """A copy of ``STATS`` whose per-kind dicts do not move with it."""
+    return {k: dict(v) if isinstance(v, dict) else v for k, v in STATS.items()}
+
+
+def stats_delta(before, after=None):
+    """``after`` (``STATS`` now when None) less the snapshot ``before`` ->
+    {"calls", "bytes", "seconds", "kinds": {kind: {"bytes", "seconds",
+    "calls"}}}."""
+    after = STATS if after is None else after
+    kinds = {}
+    for kind in after["kinds"]:
+        kinds[kind] = {
+            "bytes": after["kinds"][kind] - before["kinds"].get(kind, 0),
+            "seconds": (after["kind_seconds"].get(kind, 0.0)
+                        - before["kind_seconds"].get(kind, 0.0)),
+            "calls": after["kind_calls"].get(kind, 0) - before["kind_calls"].get(kind, 0)}
+    return {"calls": after["calls"] - before["calls"],
+            "bytes": after["bytes"] - before["bytes"],
+            "seconds": after["seconds"] - before["seconds"],
+            "kinds": {k: v for k, v in kinds.items() if v["calls"] or v["bytes"]}}
 
 
 def world(group):
@@ -49,11 +75,17 @@ def _failed(e):
     watchdog.on_collective_failure(e)
 
 
+def _note_seconds(seconds, kind):
+    STATS["seconds"] += seconds
+    STATS["kind_seconds"][kind] = STATS["kind_seconds"].get(kind, 0.0) + seconds
+
+
 def _note(nbytes, seconds, kind):
     STATS["calls"] += 1
     STATS["bytes"] += int(nbytes)
-    STATS["seconds"] += seconds
     STATS["kinds"][kind] = STATS["kinds"].get(kind, 0) + int(nbytes)
+    STATS["kind_calls"][kind] = STATS["kind_calls"].get(kind, 0) + 1
+    _note_seconds(seconds, kind)
 
 
 class Pending:
@@ -61,14 +93,15 @@ class Pending:
     (for NCCL, until the current stream is ordered after it) and returns
     the result."""
 
-    def __init__(self, work, result, finish=None):
+    def __init__(self, work, result, finish=None, kind="other"):
         self._work = work
         self._result = result
         self._finish = finish
+        self._kind = kind
 
     def then(self, fn):
         """A ``Pending`` whose ``wait()`` returns ``fn`` of this one's result."""
-        return Pending(None, self, lambda prev: fn(prev.wait()))
+        return Pending(None, self, lambda prev: fn(prev.wait()), self._kind)
 
     def wait(self):
         if self._work is not None:
@@ -78,7 +111,7 @@ class Pending:
             except Exception as e:
                 _failed(e)
                 raise
-            STATS["seconds"] += time.perf_counter() - t
+            _note_seconds(time.perf_counter() - t, self._kind)
             self._work = None
         if self._finish is not None:
             self._result, self._finish = self._finish(self._result), None
@@ -93,7 +126,7 @@ def _run(call, nbytes, result, async_op, kind, finish=None):
         _failed(e)
         raise
     _note(nbytes, time.perf_counter() - t, kind)
-    pending = Pending(work, result, finish)
+    pending = Pending(work, result, finish, kind)
     return pending if async_op else pending.wait()
 
 

@@ -250,7 +250,7 @@ class RoundTimer:
         """One ``training.attribution`` record: where the run's wall time
         went: kernel builds (compile_stats), host dispatch / device compute
         (the SM_TRACE_DEVICE_SYNC fences) and the histogram collectives (0.0
-        on one host). Fields are 0.0 when the matching
+        on one host; across ranks also by kind, ``collective_ms_by_kind``). Fields are 0.0 when the matching
         instrumentation wasn't armed, so the record shape is stable.
 
         ``rolling=True`` marks the SM_ATTRIBUTION_EVERY mid-job emissions
@@ -267,6 +267,12 @@ class RoundTimer:
             collective_ms=float(comm_per_round) * len(self._times),
         )
         fields["rounds"] = len(self._times)
+        kinds = get_round_fields().get("hist_comm_kinds")
+        if kinds:
+            # the collective share by kind: the histograms' ("hist",
+            # "totals") apart from a grid's split merge and routing
+            fields["collective_ms_by_kind"] = {
+                kind: round(float(v["ms"]) * len(self._times), 3) for kind, v in kinds.items()}
         # mirror the roofline verdict (device plane; None when unarmed or
         # nothing introspected) so attribution says WHY the device share is
         # what it is, not just how big it is

@@ -671,3 +671,219 @@ def dispatch_suite(rank, world, group, K):
                     if r.get("metric") == "training.round"]
             out[name][k] = (forest_arrays(forest), Log.log, fresh, comm)
     return out
+
+
+# ------------------------------------------------ the data x feature grid
+# name -> (params, rounds, data source): the cases trained on a grid and
+# over its data group alone. "case" data come from ``case_data`` (rank 0's
+# data shard the case's split), "option" data from ``option_shard``, and
+# "colsample" replays the JAX package's column draws (``ReplayDraws``)
+GRID_CASES = {
+    "binary": (TRAIN_CASES["binary"][0], TRAIN_CASES["binary"][3], "case"),
+    "softprob": (TRAIN_CASES["softprob"][0], TRAIN_CASES["softprob"][3], "case"),
+    "lossguide": (TRAIN_CASES["lossguide"][0], TRAIN_CASES["lossguide"][3], "case"),
+    "uneven": (TRAIN_CASES["uneven"][0], TRAIN_CASES["uneven"][3], "case"),
+    "ndcg": (OPTION_CASES["ndcg"][0], OPTION_CASES["ndcg"][1], "option"),
+    "colsample": ({"objective": "binary:logistic", "max_depth": 4, "eta": 0.3, "seed": 3,
+                   "colsample_bytree": 0.8, "colsample_bylevel": 0.8,
+                   "monotone_constraints": [1, 0, -1, 0, 0],
+                   "interaction_constraints": [[0, 1], [2, 3, 4]]}, 4, "colsample"),
+    # the JAX package's builder cannot combine colsample_bynode with
+    # interaction constraints (a broadcast error of its node masks), so
+    # bynode goes with monotone alone
+    "bynode": ({"objective": "binary:logistic", "max_depth": 4, "eta": 0.3, "seed": 4,
+                "colsample_bynode": 0.7, "monotone_constraints": [1, 0, -1, 0, 0]}, 4,
+               "colsample"),
+    "approx": (OPTION_CASES["approx"][0], OPTION_CASES["approx"][1], "option"),
+    "exact": ({"objective": "binary:logistic", "tree_method": "exact", "max_depth": 4,
+               "eta": 0.3}, 3, "case"),
+    "dart": (OPTION_CASES["dart"][0], OPTION_CASES["dart"][1], "option"),
+    "gblinear": (OPTION_CASES["gblinear"][0], OPTION_CASES["gblinear"][1], "option"),
+    "update": (OPTION_CASES["update"][0], OPTION_CASES["update"][1], "option"),
+}
+# the cases also trained under GRAFT_HIST_COMM=reduce_scatter on the grid
+GRID_SCATTER_CASES = ("binary", "softprob", "lossguide", "colsample", "bynode")
+# the cases of the 1 x 2 (feature-only) grid
+FEATURE_ONLY_CASES = ("binary", "softprob", "lossguide", "uneven", "colsample", "bynode")
+GRID_VAL_ROWS = 301   # the binary case's validation rows (level_data seed 51)
+
+
+def grid_data(name):
+    """(X, y, group sizes or None, rank 0's rows or query groups) of grid
+    case ``name`` over all rows."""
+    kind = GRID_CASES[name][2]
+    if kind == "option":
+        X, y, sizes = option_data(name)
+        split = RANK_SPLIT if OPTION_CASES[name][2] == "ranking" else OPTION_SPLIT
+        return X, y, sizes, split
+    if kind == "colsample":
+        X, y = level_data(1000, 5, seed=50 + len(name))
+        return X, y, None, 500
+    X, y = case_data("binary" if name == "exact" else name)
+    return X, y, None, CASES["binary" if name == "exact" else name][2]
+
+
+def grid_shard(name, data_rank, n_data):
+    """Data shard ``data_rank`` of ``n_data``'s DataMatrix arguments (X, y,
+    groups) of grid case ``name``: all rows on one data shard, else rank 0
+    the case's split (its first query groups for ranking)."""
+    X, y, sizes, split = grid_data(name)
+    if n_data == 1:
+        return X, y, sizes
+    if sizes is not None:
+        cut = int(sizes[:split].sum())
+        rows = slice(0, cut) if data_rank == 0 else slice(cut, None)
+        return X[rows], y[rows], sizes[:split] if data_rank == 0 else sizes[split:]
+    rows = slice(0, split) if data_rank == 0 else slice(split, None)
+    return X[rows], y[rows], None
+
+
+def grid_validation(data_rank, n_data):
+    """The binary case's validation rows of data shard ``data_rank``."""
+    X, y = level_data(GRID_VAL_ROWS, 5, seed=51)
+    if n_data == 1:
+        return X, y
+    rows = slice(0, 150) if data_rank == 0 else slice(150, None)
+    return X[rows], y[rows]
+
+
+class ReplayDraws:
+    """``train(_sampler=)`` replaying recorded column draws: per round the
+    list of (tree, level, node) numpy masks or None, one a parallel tree."""
+
+    def __init__(self, rounds):
+        self.rounds = rounds
+
+    def draw(self, rnd):
+        import torch
+
+        from sagemaker_xgboost_container_tpu_torch.models.sampling import TreeDraw
+        from sagemaker_xgboost_container_tpu_torch.ops.split import ColumnMasks
+
+        return [TreeDraw(None, ColumnMasks(*(None if m is None else torch.as_tensor(m)
+                                             for m in masks)))
+                for masks in self.rounds[rnd]]
+
+
+def train_grid_case(name, grid=None, group=None, data_rank=0, n_data=1, comm="psum",
+                    draws=None, base=None, extra=None):
+    """Train grid case ``name`` on data shard ``data_rank`` of ``n_data``
+    over ``grid`` (or ``group``) -> (model arrays, predictions of all rows,
+    the saved model's bytes, the metric log, the last round's
+    ``hist_comm_kinds``, the staged bins of each session: (shape, dtype,
+    every padded column always missing))."""
+    import tempfile
+
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+    from sagemaker_xgboost_container_tpu_torch.models import booster
+    from sagemaker_xgboost_container_tpu_torch.telemetry import emit
+
+    params, rounds, _kind = GRID_CASES[name]
+    params = dict(params, **(extra or {}))
+    X, y, groups = grid_shard(name, data_rank, n_data)
+    dm = DataMatrix(X, labels=y, groups=groups)
+    evals = [(dm, "train")]
+    if name == "binary":
+        Xv, yv = grid_validation(data_rank, n_data)
+        evals.append((DataMatrix(Xv, labels=yv), "validation"))
+    staged = []
+    init = booster._TrainingSession.__init__
+
+    def recording_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        b = self.bins.int()
+        pad = b[:, max(0, self.num_col - self.feature_rank * self.d_local):]
+        staged.append((tuple(self.bins.shape), str(self.bins.dtype),
+                       bool((pad == self.num_bins - 1).all())))
+
+    class Log:
+        log, kinds = None, None
+
+        def after_iteration(self, model, rnd, evals_log):
+            Log.log = {k: {m: list(v) for m, v in d.items()} for k, d in evals_log.items()}
+            Log.kinds = emit.get_round_fields().get("hist_comm_kinds")
+            return False
+
+    os.environ["GRAFT_HIST_COMM"] = comm
+    booster._TrainingSession.__init__ = recording_init
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            xgb_model = None
+            if base is not None:
+                xgb_model = os.path.join(tmp, "base.json")
+                with open(xgb_model, "wb") as f:
+                    f.write(base)
+            model = booster.train(params, dm, rounds, evals=evals, device="cpu", group=group,
+                                  grid=grid, callbacks=[Log()], verbose_eval=False,
+                                  xgb_model=xgb_model,
+                                  _sampler=None if draws is None else ReplayDraws(draws))
+            path = os.path.join(tmp, "model.json")
+            model.save_model(path)
+            with open(path, "rb") as f:
+                raw = f.read()
+    finally:
+        booster._TrainingSession.__init__ = init
+        os.environ.pop("GRAFT_HIST_COMM", None)
+    return (_model_arrays(model), model.predict(grid_data(name)[0]), raw, Log.log, Log.kinds,
+            staged)
+
+
+def grid_suite(rank, world, group, n_feature, draws):
+    """Everything ``tests/test_torch_feature_axis.py`` needs from one grid
+    of ``world`` ranks and ``n_feature`` feature shards: every case on the
+    grid (``FEATURE_ONLY_CASES`` on a feature-only one) and over its data
+    group alone (the 1-D data run over the same shards; on one data shard,
+    no group), some under reduce_scatter and at K rounds a dispatch, and
+    the refusals."""
+    from sagemaker_xgboost_container_tpu_torch.models.booster import train
+    from sagemaker_xgboost_container_tpu_torch.parallel import local
+    from sagemaker_xgboost_container_tpu_torch.parallel.grid import build_grid
+    from sagemaker_xgboost_container_tpu_torch.toolkit import exceptions as exc
+
+    grid = build_grid(n_feature)
+    out = {"place": (grid.data_rank, grid.feature_rank, grid.n_data, grid.n_feature,
+                     grid.n_hosts)}
+    base = update_base_model()
+    data_group = grid.data_group if grid.n_data > 1 else None
+    names = FEATURE_ONLY_CASES if grid.n_data == 1 else tuple(GRID_CASES)
+    for name in names:
+        kw = dict(data_rank=grid.data_rank, n_data=grid.n_data,
+                  draws=draws.get(name),
+                  base=base if name == "update" else None)
+        out["grid", name] = train_grid_case(name, grid=grid, **kw)
+        if name != "exact" or data_group is None:
+            # exact refuses a 1-D data group (a rank a host) but trains on a
+            # grid of one host
+            out["data", name] = train_grid_case(name, group=data_group, **kw)
+        if name in GRID_SCATTER_CASES and grid.n_data > 1:
+            out["scatter", name] = train_grid_case(name, grid=grid, comm="reduce_scatter", **kw)
+    out["dispatch"] = train_grid_case("binary", grid=grid, data_rank=grid.data_rank,
+                                      n_data=grid.n_data, extra={"_rounds_per_dispatch": 3})
+
+    def refused(fn):
+        try:
+            fn()
+        except exc.UserError as e:
+            return str(e)
+        return None
+
+    X, y, _g = grid_shard("binary", grid.data_rank, grid.n_data)
+    from sagemaker_xgboost_container_tpu_torch.data.matrix import DataMatrix
+
+    out["both"] = refused(lambda: train({}, DataMatrix(X, labels=y), 1, device="cpu",
+                                        group=group, grid=grid))
+    out["undivided"] = refused(lambda: build_grid(3 if world % 3 else 5))
+    if world == 4:
+        # two hosts of two local ranks: a feature group of 4 spans them, one
+        # of 2 does not, and exact refuses a grid over hosts
+        local.set_topology(local.Topology(2, rank // 2, 2, rank % 2))
+        try:
+            out["spans hosts"] = refused(lambda: build_grid(4))
+            two = build_grid(2)
+            out["hosts"] = two.n_hosts
+            out["exact over hosts"] = refused(lambda: train(
+                dict(GRID_CASES["exact"][0]), DataMatrix(X, labels=y), 1, device="cpu",
+                grid=two))
+        finally:
+            local.set_topology(None)
+    return out
