@@ -1,0 +1,10 @@
+"""Device ms a round of the ``split`` stage: the split scan and the tree arrays,
+stamped on the card inside the captured round (ops/stamps.py, csrc/stamp_kernel.cu)
+and read from the tracer's ``round.split`` spans of the traced window's rounds.
+Layer: tree build, objective and ranking ops."""
+
+from benchmark.spans import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "split")

@@ -1,0 +1,7 @@
+"""``round.split_ms`` of the ranking cell, which reports its rate as rank_rounds_per_s."""
+
+from benchmark.harness import read_metric
+
+
+def read(ctx):
+    return read_metric("round.split_ms", ctx)

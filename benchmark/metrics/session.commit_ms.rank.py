@@ -1,0 +1,8 @@
+"""``session.commit_ms`` of the ranking cell, which reports its rate as
+rank_rounds_per_s."""
+
+from benchmark.harness import read_metric
+
+
+def read(ctx):
+    return read_metric("session.commit_ms", ctx)

@@ -27,7 +27,7 @@ from .utils import compile_cache
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-CUDA_SOURCES = ("hist_kernel.cu", "totals_kernel.cu")
+CUDA_SOURCES = ("hist_kernel.cu", "totals_kernel.cu", "stamp_kernel.cu")
 ARCH_FLAG = "-gencode=arch=compute_90a,code=sm_90a"
 _LIB_NAME = "libsagemaker_xgboost_torch_kernels.so"
 
@@ -114,6 +114,8 @@ class _CtypesKernels:
         lib.hist_launch.restype = i
         lib.totals_launch.argtypes = [p, p, p, p, p, ll, i, i, i, i, ll, i, p]
         lib.totals_launch.restype = i
+        lib.stage_stamp_launch.argtypes = [p, p, i, i, i, i, p]
+        lib.stage_stamp_launch.restype = i
         lib.kernel_error_string.argtypes = [i]
         lib.kernel_error_string.restype = ctypes.c_char_p
         self._lib = lib
@@ -165,3 +167,16 @@ class _CtypesKernels:
                 plan.smem_bytes, self._stream(grad),
             )
         self._check(err, "totals_kernel")
+
+    def stamp(self, rows, state, stage, advance=False):
+        """rows: f64 [capacity, stages + 2] and state: int64 [2] on the
+        card (``ops/stamps``); stage < 0 begins a round, ``advance`` ends
+        it."""
+        import torch
+
+        capacity, width = rows.shape
+        with torch.cuda.device(rows.device):
+            err = self._lib.stage_stamp_launch(rows.data_ptr(), state.data_ptr(), stage,
+                                               width - 2, capacity, int(advance),
+                                               self._stream(rows))
+        self._check(err, "stage_stamp_kernel")

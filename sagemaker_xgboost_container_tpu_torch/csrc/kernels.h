@@ -1,8 +1,9 @@
 // Plain C interface of the histogram kernels (hist_kernel.cu,
-// totals_kernel.cu), built by nvcc into one shared library and called through
-// ctypes (_build.py). Each launcher enqueues its kernels on `stream` and
-// returns the first cudaError_t of the launches as an int (0 = success); it
-// never synchronises and allocates nothing.
+// totals_kernel.cu) and the stage stamp (stamp_kernel.cu), built by nvcc into
+// one shared library and called through ctypes (_build.py). Each launcher
+// enqueues its kernels on `stream` and returns the first cudaError_t of the
+// launches as an int (0 = success); it never synchronises and allocates
+// nothing.
 #pragma once
 
 #include <stdint.h>
@@ -36,6 +37,15 @@ int totals_launch(const float* grad, const float* hess, const int32_t* node,
                   float* out, float* pieces, long long n, int W, int C,
                   int ctas, int warps_per_cta, long long rows_per_cta,
                   int smem_bytes, void* stream);
+
+// rows: f64 [capacity, stages + 2], a row a round: the stages' nanoseconds,
+// the round's first stamp and its latest; state: int64 [2], the latest stamp
+// and the row being written. stage < 0 begins the row: its stages zeroed,
+// both times set to %globaltimer; else row[stage] += now - latest. advance
+// moves state to the next row, modulo capacity. Enqueues stage_stamp_kernel,
+// one thread.
+int stage_stamp_launch(double* rows, long long* state, int stage, int stages, int capacity,
+                       int advance, void* stream);
 
 // cudaGetErrorString for the codes above.
 const char* kernel_error_string(int code);

@@ -17,6 +17,10 @@ integer scatter-add.
   step. ``GRAFT_SKETCH_IMPL`` picks one (``_sketch_impl``).
 * ``max_bin=None`` (``tree_method=exact``) takes every adjacent-distinct
   midpoint, so the bin width is sized by the data, bounded by ``exact_cap``.
+* ``bin_matrix`` times its two parts as the phases ``setup.sketch`` (the
+  cuts) and ``setup.apply`` (the binning; the host's enqueue where it runs
+  on a card), once a matrix (``telemetry.span``: the registry's
+  ``training_phase_seconds``).
 """
 
 import os
@@ -24,6 +28,7 @@ import os
 import numpy as np
 import torch
 
+from ..telemetry import span
 from ..toolkit import exceptions as exc
 
 
@@ -351,8 +356,9 @@ def bin_matrix(dmatrix, max_bin=256, cut_points=None, exact_cap=None, device=Non
     memory. ``device``: where the device lowering runs (``_sketch_impl``).
     """
     if cut_points is None:
-        cut_points = compute_cut_points(dmatrix.features, dmatrix.weights, max_bin,
-                                        device=device)
+        with span("setup.sketch"):
+            cut_points = compute_cut_points(dmatrix.features, dmatrix.weights, max_bin,
+                                            device=device)
     longest = max((len(c) for c in cut_points), default=0)
     if max_bin is None:
         max_bin = longest + 1
@@ -374,7 +380,8 @@ def bin_matrix(dmatrix, max_bin=256, cut_points=None, exact_cap=None, device=Non
         raise exc.AlgorithmError(
             "cut selection produced {} cuts for max_bin {}".format(longest, max_bin)
         )
-    bins = apply_cut_points(dmatrix.features, cut_points, max_bin, device=device)
+    with span("setup.apply"):
+        bins = apply_cut_points(dmatrix.features, cut_points, max_bin, device=device)
     return BinnedMatrix(
         bins, cut_points, max_bin, labels=dmatrix.labels, weights=dmatrix.weights,
         groups=dmatrix.groups,

@@ -36,7 +36,17 @@ the round's one copy, the loop emits ``training.learning`` and aborts with
 exit 87 on a poisoned round, and the session captures the drift baseline;
 with ``SM_DEVICE_TELEMETRY`` the first dispatch's counted kernel work becomes
 the ``training.compiled`` record; ``SM_TRACE_DEVICE_SYNC=N`` fences every
-N-th dispatch into ``host_dispatch`` / ``device_sync`` phases. A CUDA
+N-th dispatch into ``host_dispatch`` / ``device_sync`` phases. A dispatch
+that starts while the tracer records (``SM_TRACE``, or a ``torch.profiler``
+session: ``telemetry/tracing.recording``) is traced: its rounds stamp their
+five stages on the card into a row a round (``ops/stamps``; a captured
+graph is captured again when that arming flips), the rows ride its one copy
+to the host and become the tracer's ``round.<stage>`` spans and each round's
+``device.<stage>`` phases, and the session's leaves are tracer spans and
+profiler ranges, not phases (``session.enqueue`` and ``session.copy_out`` a
+dispatch, ``session.commit``, ``session.eval`` and ``session.callbacks`` a
+round, the last ending before the callback that closes the round);
+otherwise each of those sites costs one boolean test. A CUDA
 out-of-memory error inside a round dumps forensics and exits 86. The dart
 loop builds the same session (so it captures the baseline) but, as in the
 JAX package, emits no learning records; gblinear, update and fold-parallel
@@ -86,6 +96,7 @@ from ``rep_block`` blocks of representative values. gblinear, dart and
 """
 
 import collections
+import contextlib
 import logging
 import os
 
@@ -108,9 +119,11 @@ from ..ops.lossguide import build_tree_lossguide
 from ..ops.predict import forest_leaf_values
 from ..ops.ranking import bucket_group_layout, lambdarank_grad_hess
 from ..ops.split import shard_feature_slice
+from ..ops.stamps import FIRST, GRADIENT, STAGES, StageClock
 from ..ops.histogram import hist_comm_impl, padded_feature_width
 from ..ops.tree_build import build_tree, pack_tree, predict_binned, unpack_tree
 from ..parallel import collectives, local
+from ..telemetry import active_recorder, span, tracing
 from ..telemetry import model as model_telemetry
 from ..telemetry.tracing import DEVICE_SYNC_ENV
 from ..toolkit import exceptions as exc
@@ -143,8 +156,24 @@ logger = logging.getLogger(__name__)
 
 # One dispatch's rounds on the host: ``trees``, per round the list of its
 # host tree dicts (one per parallel tree); ``metrics``, the per-round device
-# metric values [k, n_sets, n_metrics] or None
-Dispatch = collections.namedtuple("Dispatch", ["trees", "metrics"])
+# metric values [k, n_sets, n_metrics] or None; ``stages``, per round the
+# stage clock's row [k, len(STAGES) + 2] (int64 ns, ``ops/stamps``) or None
+Dispatch = collections.namedtuple("Dispatch", ["trees", "metrics", "stages"])
+# a session leaf while the tracer does not record
+_UNTRACED = contextlib.nullcontext()
+
+
+def _after_iteration(session, callbacks, forest, rnd, evals_log):
+    """The callbacks' ``after_iteration`` in order -> their stop flags. Those
+    before the first one that closes the round (``closes_round``: RoundTimer,
+    which drains the round's phases and rotates its root span) run inside
+    the ``session.callbacks`` leaf; that one and any after it run outside,
+    so the leaf never encloses the next round's root span."""
+    due = [cb for cb in callbacks if hasattr(cb, "after_iteration")]
+    cut = next((i for i, cb in enumerate(due) if getattr(cb, "closes_round", False)), len(due))
+    with session.phase("session.callbacks"):
+        stops = [cb.after_iteration(forest, rnd, evals_log) for cb in due[:cut]]
+    return stops + [cb.after_iteration(forest, rnd, evals_log) for cb in due[cut:]]
 
 
 def learning_stats(g, h, margins):
@@ -745,6 +774,10 @@ class _TrainingSession:
             model_telemetry.capture_drift_baseline(
                 BinnedMatrix(full_bins, self.cuts, self.train_binned.max_bin))
         self._count_cost = device_telemetry.enabled()
+        # the tracer's arming, read at each dispatch's start (_run_rounds):
+        # the round's stage clock and the session's leaf spans
+        self.traced = False
+        self.stage_clock = None
 
         # each metric on the device where it has a device form, else on the
         # host (None), as the JAX package evaluates it
@@ -1007,23 +1040,44 @@ class _TrainingSession:
         watchdog.request_abort("device_oom", EXIT_DEVICE_OOM, error=str(exc)[:400],
                                forensics=path or "")
 
+    def phase(self, name):
+        """The session leaf ``name`` while this dispatch is traced, else a
+        no-op context: a tracer span and, under a profiler, its range
+        (``tracing.trace_span``), never a ``span()`` phase, so the round's
+        ``PhaseRecorder`` and the registry count none of it twice."""
+        return tracing.trace_span(name) if self.traced else _UNTRACED
+
     def _run_rounds(self, rnd, k):
         """The dispatch, fenced on every N-th one (``SM_TRACE_DEVICE_SYNC``):
         the host's enqueue timed as the ``host_dispatch`` phase and the wait
         for the card as ``device_sync``, both into the active
-        ``PhaseRecorder``; then the dispatch's one device-to-host copy."""
+        ``PhaseRecorder``; then the dispatch's one device-to-host copy.
+
+        While the tracer records at its start (``tracing.recording()``) the
+        dispatch is traced: its rounds carry the stage clock
+        (``ops/stamps``), whose times become the tracer's ``round.<stage>``
+        spans, and the enqueue and the copy are the session's leaves
+        ``session.enqueue`` and ``session.copy_out``."""
         sampled = (self._device_sync_every > 0
                    and self._dispatch_index % self._device_sync_every == 0)
         self._dispatch_index += 1
+        self.traced = tracing.recording()
+        clock = None
+        if self.traced:
+            if self.stage_clock is None:
+                self.stage_clock = StageClock(self.device, self.rounds_per_dispatch)
+            clock = self.stage_clock
+            clock.measure_offset()
         probe = self._cost_probe() if self._count_cost else None
         if not sampled:
-            outs, values = self._enqueue_rounds(rnd, k)
+            with self.phase("session.enqueue"):
+                outs, values = self._enqueue_rounds(rnd, k, clock)
         else:
-            from ..telemetry import active_recorder, compile_stats, span
+            from ..telemetry import compile_stats
 
             pre_build = compile_stats()["seconds"]
-            with span("host_dispatch"):
-                outs, values = self._enqueue_rounds(rnd, k)
+            with span("host_dispatch"), self.phase("session.enqueue"):
+                outs, values = self._enqueue_rounds(rnd, k, clock)
             # a kernel build inside this dispatch is RoundTimer's `compile`
             # key: take exactly that overlap out of host_dispatch
             overlap = compile_stats()["seconds"] - pre_build
@@ -1033,12 +1087,39 @@ class _TrainingSession:
             with span("device_sync"):
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-        out = self._to_host(outs, values, k)
+        with self.phase("session.copy_out"):
+            out = self._to_host(outs, values, k, clock)
+        if out.stages is not None:
+            self._stage_spans(rnd, out.stages)
         if probe is not None:
             self._note_cost(probe, k)
         return out
 
-    def _enqueue_rounds(self, rnd, k):
+    def _stage_spans(self, rnd, stages):
+        """Each round's stages as the tracer's ``round.<stage>`` spans on the
+        device lane, mapped onto the tracer's clock by the session's offset:
+        laid end to end from the round's first stamp (``gradient`` is where
+        it ran; a later stage, the sum of its intervals)."""
+        offset = self.stage_clock.offset_ns
+        trace_id = tracing.new_id()
+        for j, row in enumerate(stages):
+            t = int(row[FIRST]) + offset
+            for s, name in enumerate(STAGES):
+                ns = int(row[s])
+                tracing.record_span_at("round." + name, t, ns, trace_id=trace_id,
+                                       attributes={"round": rnd + j, "clock": "device"})
+                t += ns
+
+    def note_stage_phases(self, batch, j):
+        """Round ``j`` of a traced dispatch: its stages' seconds into the
+        active ``PhaseRecorder`` as ``device.<stage>``."""
+        recorder = None if batch.stages is None else active_recorder()
+        if recorder is None:
+            return
+        for s, name in enumerate(STAGES):
+            recorder.add("device." + name, float(batch.stages[j, s]) / 1e9)
+
+    def _enqueue_rounds(self, rnd, k, clock=None):
         """Enqueue rounds ``rnd`` .. ``rnd + k - 1`` -> (the round body's
         outputs stacked [k, ...] on the device, metrics and learning stats
         None where not computed; across ranks under
@@ -1047,7 +1128,9 @@ class _TrainingSession:
         None). A captured session runs its first round eagerly (a real
         round, the warm-up), captures the body before its second, and
         replays the graph for every later one, each replay's outputs copied
-        into slot j of the static [K, ...] buffers."""
+        into slot j of the static [K, ...] buffers. ``clock``: the dispatch's
+        ``StageClock``, or None; a graph captured with the other arming is
+        released and captured again before its next replay."""
         per_round, values = [], None
         if self.group is not None and self.device_batched_metrics:
             values = np.zeros((k, len(self.eval_sets), len(self.metrics)), np.float64)
@@ -1062,7 +1145,7 @@ class _TrainingSession:
                 self.margins.mul_(float("nan"))
             draws = self.sampler.draw(rnd + j) if self.sampler is not None else None
             if self.graph is None:
-                per_round.append(self._round_body(draws))
+                per_round.append(self._round_body(draws, clock))
                 if values is not None:
                     # the rounds run eagerly across ranks and wait on their
                     # collectives anyway: K=1's evaluation, a round at a
@@ -1073,13 +1156,15 @@ class _TrainingSession:
                     values[j] = np.asarray([v for _d, _m, v in lines]).reshape(values.shape[1:])
                 continue
             if self._slots is None:
-                out = self._round_body(draws)
+                out = self._round_body(draws, clock)
                 self._slots = [None if t is None else
                                torch.empty((self.rounds_per_dispatch,) + tuple(t.shape),
                                            dtype=t.dtype, device=t.device) for t in out]
             else:
+                if self.graph.armed and self.graph.stamped != (clock is not None):
+                    self.graph.release()
                 if not self.graph.armed:
-                    self.graph.capture(draws)
+                    self.graph.capture(draws, clock)
                 out = self.graph.replay(draws)
             for slot, t in zip(self._slots, out):
                 if slot is not None:
@@ -1089,30 +1174,33 @@ class _TrainingSession:
         return [None if first is None else torch.stack([o[i] for o in per_round])
                 for i, first in enumerate(per_round[0])], values
 
-    def _to_host(self, outs, values, k):
+    def _to_host(self, outs, values, k, clock=None):
         """The dispatch's one device-to-host copy: the packed trees, the
-        metric values and the learning stats in one flat f64 tensor (the
-        trees alone in f32). ``values``: the metric values already on the
-        host (across ranks), else None."""
+        metric values, the learning stats and ``clock``'s rows (a traced
+        dispatch's ``StageClock``, else None) in one flat f64 tensor (the
+        trees alone in f32; the rows' stage nanoseconds exact, their first
+        and last stamps to 256 ns). ``values``: the metric values already on
+        the host (across ranks), else None."""
         packed, metrics, stats = outs
-        parts = [packed.reshape(-1)]
-        if metrics is not None:
-            parts.append(metrics.reshape(-1))
-        if stats is not None:
-            parts.append(stats.reshape(-1))
+        stamps = None if clock is None else clock.read(k)
+        parts = [packed] + [t for t in (metrics, stats, stamps) if t is not None]
         if len(parts) == 1:
             flat = packed.cpu().numpy().reshape(-1)
         else:
-            flat = torch.cat([p.double() for p in parts]).cpu().numpy()
+            flat = torch.cat([p.reshape(-1).double() for p in parts]).cpu().numpy()
         n = packed.numel()
         host = flat[:n].reshape(tuple(packed.shape))
         if metrics is not None:
             m = metrics.numel()
             values = flat[n:n + m].reshape(tuple(metrics.shape))
             n += m
-        self.last_learning_stats = [] if stats is None else [
-            model_telemetry.decode_device_stats(row) for row in flat[n:].reshape(k, -1)]
-        return Dispatch([[unpack_tree(p) for p in host[j]] for j in range(k)], values)
+        rows = []
+        if stats is not None:
+            rows = flat[n:n + stats.numel()].reshape(k, -1)
+            n += stats.numel()
+        self.last_learning_stats = [model_telemetry.decode_device_stats(row) for row in rows]
+        stages = None if stamps is None else flat[n:].reshape(k, -1).astype(np.int64)
+        return Dispatch([[unpack_tree(p) for p in host[j]] for j in range(k)], values, stages)
 
     def _cost_probe(self):
         """Before the session's first dispatch: the kernel-work tally and the
@@ -1149,19 +1237,25 @@ class _TrainingSession:
             logger.warning("round cost count failed (%s); training continues without the "
                            "training.compiled record", e)
 
-    def _round_body(self, draws):
+    def _round_body(self, draws, clock=None):
         """One round on the device, the region a capture records: the
         gradients, the round's ``num_parallel_tree`` trees (C per tree for C
         classes), the training and eval margins, the per-round metrics and
         the packing -> (packed trees [P, 10, ...], the metrics or None,
         the learning stats [8] or None). It updates the session's tensors
-        in place and, on one rank, makes no host sync."""
+        in place and, on one rank, makes no host sync. ``clock``: a
+        ``StageClock`` stamping the round's stages into its row
+        (``ops/stamps``), or None; decided by the dispatch."""
         cfg = self.config
+        if clock is not None:
+            clock.begin()
         g, h = self.grad_hess(self.margins)
         g_stat, h_stat = g, h
         if self.num_group > 1:
             # [n, C] -> the builder's contiguous [C, n]
             g, h = g.T.contiguous(), h.T.contiguous()
+        if clock is not None:
+            clock(GRADIENT)
         common = dict(
             num_bins=self.num_bins, max_depth=cfg.max_depth,
             reg_lambda=cfg.reg_lambda, alpha=cfg.alpha, gamma=cfg.gamma,
@@ -1170,7 +1264,7 @@ class _TrainingSession:
             eta=cfg.eta / cfg.num_parallel_tree,
             max_delta_step=cfg.max_delta_step,
             monotone=self.monotone, interaction_sets=self.interaction_sets,
-            **self.builder_axes(),
+            stamp=clock, **self.builder_axes(),
         )
         trees, total = [], None
         for k in range(cfg.num_parallel_tree):
@@ -1201,16 +1295,18 @@ class _TrainingSession:
         stacked = packed[0][None] if len(packed) == 1 else torch.stack(packed)
         metrics = (self._round_metrics()
                    if self.device_batched_metrics and self.group is None else None)
-        if not self.learning_stats:
-            return stacked, metrics, None
-        vec = learning_stats(g_stat, h_stat, self.margins)
-        if self.group is not None:
-            # sums and counts summed, extrema min / max over the ranks, as
-            # the JAX round's psum / pmin / pmax: one gather
-            every = collectives.all_gather(vec, self.group, kind="stats")
-            sums, mins, maxs = every.sum(0), every.min(0).values, every.max(0).values
-            vec = torch.stack([sums[0], mins[1], maxs[2], sums[3], mins[4], maxs[5],
-                               sums[6], sums[7]])
+        vec = None
+        if self.learning_stats:
+            vec = learning_stats(g_stat, h_stat, self.margins)
+            if self.group is not None:
+                # sums and counts summed, extrema min / max over the ranks, as
+                # the JAX round's psum / pmin / pmax: one gather
+                every = collectives.all_gather(vec, self.group, kind="stats")
+                sums, mins, maxs = every.sum(0), every.min(0).values, every.max(0).values
+                vec = torch.stack([sums[0], mins[1], maxs[2], sums[3], mins[4], maxs[5],
+                                   sums[6], sums[7]])
+        if clock is not None:
+            clock.end()
         return stacked, metrics, vec
 
     def _round_metrics(self):
@@ -1531,23 +1627,27 @@ def train(
             if session.across_ranks:
                 session.note_collectives(comm_before, len(batch.trees))
             for j, trees_np in enumerate(batch.trees):
-                # class-major: class 0's P trees, then class 1's, ... (xgboost's layout)
-                if C == 1:
-                    trees = [compact_padded_tree(t, session.cuts) for t in trees_np]
-                else:
-                    trees = [compact_padded_tree({k: v[c] for k, v in t.items()}, session.cuts)
-                             for c in range(C) for t in trees_np]
-                forest.append_round(trees, [c for c in range(C) for _ in range(P)])
-                if j < len(session.last_learning_stats):
-                    # the model-quality plane: the round's reductions and the
-                    # committed trees' stats -> one training.learning record,
-                    # then the numeric-health guard (NaN/Inf -> forensics +
-                    # exit 87)
-                    stats = dict(session.last_learning_stats[j])
-                    stats.update(model_telemetry.tree_stats(trees))
-                    model_telemetry.note_learning(rnd, stats)
-                    if model_telemetry.first_poisoned_round([stats], rnd) is not None:
-                        _abort_numeric_poison(rnd)
+                with session.phase("session.commit"):
+                    # class-major: class 0's P trees, then class 1's, ...
+                    # (xgboost's layout)
+                    if C == 1:
+                        trees = [compact_padded_tree(t, session.cuts) for t in trees_np]
+                    else:
+                        trees = [compact_padded_tree({k: v[c] for k, v in t.items()},
+                                                     session.cuts)
+                                 for c in range(C) for t in trees_np]
+                    forest.append_round(trees, [c for c in range(C) for _ in range(P)])
+                    if j < len(session.last_learning_stats):
+                        # the model-quality plane: the round's reductions and
+                        # the committed trees' stats -> one training.learning
+                        # record, then the numeric-health guard (NaN/Inf ->
+                        # forensics + exit 87)
+                        stats = dict(session.last_learning_stats[j])
+                        stats.update(model_telemetry.tree_stats(trees))
+                        model_telemetry.note_learning(rnd, stats)
+                        if model_telemetry.first_poisoned_round([stats], rnd) is not None:
+                            _abort_numeric_poison(rnd)
+                session.note_stage_phases(batch, j)
                 if batch.metrics is not None:
                     results = [(name, metric_name, float(batch.metrics[j, si, i]))
                                for si, (name, *_rest) in enumerate(session.eval_sets)
@@ -1556,7 +1656,8 @@ def train(
                     # the host cadence under K > 1: once a dispatch, at its
                     # last round, whose margins are the committed forest's (a
                     # dispatch builds no round past the last one asked for)
-                    results = session.evaluate(feval)
+                    with session.phase("session.eval"):
+                        results = session.evaluate(feval)
                 else:
                     results = []
                 for data_name, metric_name, value in results:
@@ -1564,11 +1665,7 @@ def train(
                         value)
                 if verbose_eval:
                     print_metric_line(rnd, results)
-                stops = [
-                    cb.after_iteration(forest, rnd, evals_log)
-                    for cb in callbacks
-                    if hasattr(cb, "after_iteration")
-                ]
+                stops = _after_iteration(session, callbacks, forest, rnd, evals_log)
                 rnd += 1
                 if any(stops):
                     stop = True

@@ -29,6 +29,23 @@ The kernel wrappers count their launches in Python (``ops/histogram``
 ``LAUNCHES`` / ``WORK``), which a replay does not run: the capture records
 what the counters advanced by while it recorded, sets them back, and every
 replay adds that much.
+
+Stage stamps: a ``record_function`` range opened while capturing is not
+replayed, so the body stamps its stages on the card instead
+(``ops/stamps``: ``gradient``, ``histogram``, ``split``, ``partition``,
+``margins``), and the graph carries those stamp nodes only if the tracer
+recorded when it was captured (``tracing.recording()``, read by the session
+at each dispatch's start: ``SM_TRACE``, or a ``torch.profiler`` session).
+When that flips between dispatches, the session releases its graph and
+captures again before the next replay. The first capture is timed as the
+phase ``round.capture``, a capture again as ``round.recapture``
+(``telemetry.span``, always on: once a job). Every replay of the graph
+writes the same stamp nodes, which pick the round's row of the clock by an
+index on the card, so the stages need no copy of their own: the rows reach
+the host in the dispatch's one copy and become the tracer's
+``round.<stage>`` spans and
+the ``training.round`` record's ``phases_ms`` keys ``device.<stage>``
+(``models/booster``).
 """
 
 import ctypes
@@ -36,6 +53,7 @@ import ctypes
 import torch
 
 from ..ops import histogram
+from ..telemetry import span
 
 # The functions a capture records, as "module:qualname" under the package:
 # the lint gate's capture pass (toolkit/graftlint/passes/capture.py) holds
@@ -111,10 +129,12 @@ def graph_node_count(graph):
 
 
 class RoundGraph:
-    """One session's captured round: ``capture(draws)`` records
-    ``body(static draws)`` once, ``replay(draws)`` runs it again with the
-    round's draws copied in and returns the body's outputs, which the next
-    replay overwrites; ``release()`` frees the graph and its memory pool."""
+    """One session's captured round: ``capture(draws, clock)`` records
+    ``body(static draws, clock)`` once, ``replay(draws)`` runs it again with
+    the round's draws copied in and returns the body's outputs, which the
+    next replay overwrites; ``release()`` frees the graph and its memory
+    pool. ``stamped``: the graph holds stage stamps (``clock`` was a
+    ``StageClock``)."""
 
     def __init__(self, body):
         self.body = body
@@ -124,13 +144,22 @@ class RoundGraph:
         self.launches = {}
         self.work = {}
         self.nodes = None
+        self.stamped = False
+        self.captures = 0
 
     @property
     def armed(self):
         return self.graph is not None
 
-    def capture(self, draws):
-        """Record one round. The round is not run: the caller replays."""
+    def capture(self, draws, clock=None):
+        """Record one round, with ``clock``'s stage stamps unless it is
+        None. The round is not run: the caller replays."""
+        with span("round.capture" if self.captures == 0 else "round.recapture"):
+            self._capture(draws, clock)
+        self.captures += 1
+        self.stamped = clock is not None
+
+    def _capture(self, draws, clock):
         self.static_draws = _clone(draws)
         launches, work = dict(histogram.LAUNCHES), dict(histogram.WORK)
         try:
@@ -140,7 +169,7 @@ class RoundGraph:
         # thread_local: the telemetry threads' own CUDA calls must not
         # invalidate the capture of this one
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outputs = self.body(self.static_draws)
+            outputs = self.body(self.static_draws, clock)
         self.launches = {k: histogram.LAUNCHES[k] - launches[k] for k in launches}
         self.work = {k: histogram.WORK[k] - work[k] for k in work}
         histogram.LAUNCHES.update(launches)

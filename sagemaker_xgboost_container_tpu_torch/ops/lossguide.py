@@ -64,6 +64,7 @@ from .split import (
     leaf_weight,
     shard_feature_slice,
 )
+from .stamps import HISTOGRAM, PARTITION, SPLIT
 from .tree_build import MIN_SPLIT_LOSS, merged_scan, route_rows
 
 
@@ -95,6 +96,7 @@ def build_tree_lossguide(
     feature_group=None,
     n_feature_shards=1,
     d_global=None,
+    stamp=None,
 ):
     """Grow one leaf-wise tree on grad, hess [n], or C trees on [C, n].
     Returns (tree tensors dict, row_out f32 [n] or [C, n]).
@@ -111,7 +113,10 @@ def build_tree_lossguide(
     optional bool [S, d], one row a constraint set (``build_tree``'s).
     ``group`` / ``hist_comm``: data-parallel training, and
     ``feature_group`` / ``n_feature_shards`` / ``d_global``: the feature
-    axis, as ``build_tree`` takes them.
+    axis, as ``build_tree`` takes them. ``stamp``: a ``StageClock`` or None,
+    as ``build_tree`` takes it; a step stamps its pick (``split``), its
+    routing and the children's row keys (``partition``), their histograms
+    (``histogram``), and its scan joins the next step's ``split``.
     """
     single = grad.dim() == 1
     if single:
@@ -240,6 +245,8 @@ def build_tree_lossguide(
     # the gate reads the full feature width under both lowerings
     subtract = _subtraction_enabled(max_leaves, d, B)
     G, H = level_histogram(bins, grad, hess, node_of_row, 1, B)
+    if stamp is not None:
+        stamp(HISTOGRAM)
     root_mask = scan_mask(node_depth[:, 0])
     if alive is not None:
         root_mask = combine_masks(root_mask, allowed(alive[:, 0]))
@@ -266,6 +273,8 @@ def build_tree_lossguide(
                            ("right", id_b)):
             tree[key][cls, leaf] = torch.where(can, value, tree[key][cls, leaf])
         cand["gain"].index_put_((cls, leaf), neg_inf)  # picked: never again
+        if stamp is not None:
+            stamp(SPLIT)
 
         # route the leaf's rows to the fresh children
         go_right = route_rows(bins, f[:, None].expand(C, n), b[:, None], dl[:, None], B,
@@ -288,6 +297,8 @@ def build_tree_lossguide(
             # histogram only the left child; right = the reduced cached
             # parent - the reduced left, zero when the step could not split
             left_local = torch.where(node_of_row == id_a, 0, -1).int()
+            if stamp is not None:
+                stamp(PARTITION)
             Ga, Ha = apply_hist_collective(
                 *level_histogram(bins, grad, hess, left_local, 1, B), group, hist_comm)
             keep = can[:, None, None]
@@ -296,11 +307,17 @@ def build_tree_lossguide(
             hist_G[:, id_a], hist_G[:, id_b] = Ga[:, 0], Gb
             hist_H[:, id_a], hist_H[:, id_b] = Ha[:, 0], Hb
             G, H = torch.stack([Ga[:, 0], Gb], dim=1), torch.stack([Ha[:, 0], Hb], dim=1)
+            if stamp is not None:
+                stamp(HISTOGRAM)
             splits = scan(G, H, mask)
         else:
             child_local = torch.where(
                 node_of_row == id_a, 0, torch.where(node_of_row == id_b, 1, -1)).int()
+            if stamp is not None:
+                stamp(PARTITION)
             G, H = level_histogram(bins, grad, hess, child_local, 2, B)
+            if stamp is not None:
+                stamp(HISTOGRAM)
             splits, _G, _H = reduced_scan(G, H, mask)
         # children at the depth cap never split; those of a step that could
         # not split hold no rows and are never picked
@@ -314,7 +331,11 @@ def build_tree_lossguide(
     tree["base_weight"] = weight
     tree["sum_hess"] = node_h
     tree["leaf_value"] = torch.where(tree["is_leaf"], eta * weight, 0.0)
+    if stamp is not None:
+        stamp(SPLIT)
     row_out = torch.gather(tree["leaf_value"], 1, node_of_row.long())
+    if stamp is not None:
+        stamp(PARTITION)
     if single:
         return {k: v[0] for k, v in tree.items()}, row_out[0]
     return tree, row_out

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..parallel import collectives
+from .stamps import HISTOGRAM, PARTITION, SPLIT
 from .histogram import (
     apply_hist_collective,
     comm_overlap,
@@ -163,10 +164,16 @@ def build_tree(
     feature_group=None,
     n_feature_shards=1,
     d_global=None,
+    stamp=None,
 ):
     """Grow one tree on grad, hess [n], or C trees on [C, n] (one per
     class, sharing the bins). Returns (tree tensors dict, row_out f32 [n] or
     [C, n]).
+
+    ``stamp``: a ``ops/stamps.StageClock`` or None; each level stamps the
+    end of its row bookkeeping (``partition``), its histograms and their
+    subtraction (``histogram``), its split scan and tree arrays (``split``)
+    and its routing (``partition``).
 
     ``masks``: optional ``ColumnMasks`` with ``level`` [1 or C, max_depth,
     d] and ``node`` [1 or C, 2**max_depth - 1, d] (one row per node slot of
@@ -265,11 +272,15 @@ def build_tree(
             """[C, width] per-node values -> each row's node's, [C, n]."""
             return torch.gather(per_node, 1, local_safe)
 
+        if stamp is not None:
+            stamp(PARTITION)
         if level == max_depth:
             # last level: every surviving node becomes a leaf, and leaf
             # weights need only per-node totals, not a [W, d, B] histogram
             g_tot, h_tot = reduce_node_totals(
                 *node_totals(grad, hess, node_local, width), group)
+            if stamp is not None:
+                stamp(HISTOGRAM)
             weight = leaf_weight(
                 g_tot, h_tot,
                 reg_lambda=reg_lambda, alpha=alpha, max_delta_step=max_delta_step,
@@ -278,7 +289,11 @@ def build_tree(
             tree["leaf_value"][:, sl] = eta * weight
             tree["base_weight"][:, sl] = weight
             tree["sum_hess"][:, sl] = h_tot
+            if stamp is not None:
+                stamp(SPLIT)
             row_out = torch.where(at_level, eta * per_row(weight), row_out)
+            if stamp is not None:
+                stamp(PARTITION)
             break
 
         if subtract and level > 0:
@@ -345,6 +360,8 @@ def build_tree(
         parts, G_parts, H_parts = [], [], []
         for nsl, p in pending:
             nsl, Gb, Hb = batch(nsl, p.wait())
+            if stamp is not None:
+                stamp(HISTOGRAM)
             parts.append(scan(nsl, Gb, Hb))
             G_parts.append(Gb)
             H_parts.append(Hb)
@@ -368,6 +385,8 @@ def build_tree(
         tree["base_weight"][:, sl] = weight
         tree["gain"][:, sl] = torch.where(can_split, splits["gain"], 0.0)
         tree["sum_hess"][:, sl] = splits["h_total"]
+        if stamp is not None:
+            stamp(SPLIT)
 
         # --- route rows ----------------------------------------------------
         row_leafed = at_level & per_row(becomes_leaf)
@@ -379,6 +398,8 @@ def build_tree(
         node_of_row = torch.where(
             row_leafed, minus_one, torch.where(at_level, child, node_of_row)
         )
+        if stamp is not None:
+            stamp(PARTITION)
         if alive is not None:
             # both children keep the sets that hold their parent's feature
             held = interaction_sets.to(dev)[:, splits["feature"].long()].permute(1, 2, 0)
@@ -388,6 +409,8 @@ def build_tree(
     ids = torch.arange(max_nodes, dtype=torch.int32, device=dev)
     tree["left"] = torch.where(tree["is_leaf"], ids, 2 * ids + 1)
     tree["right"] = torch.where(tree["is_leaf"], ids, 2 * ids + 2)
+    if stamp is not None:
+        stamp(SPLIT)
     if single:
         return {k: v[0] for k, v in tree.items()}, row_out[0]
     return tree, row_out

@@ -22,7 +22,10 @@ unset:
   tally, and the snapshot is zeros with ``source: "none"``.
 * **Roofline**: :func:`roofline_fields` combines the measured device time
   with the counted cost into achieved FLOP/s and bytes/s and the binding
-  resource; ``RoundTimer`` emits one ``training.roofline`` record.
+  resource; ``RoundTimer`` emits one ``training.roofline`` record. The time
+  is the rounds' ``histogram`` stage, stamped on the card (``ops/stamps``),
+  against the work of exactly those kernels, else the fenced wait; where
+  neither measured the device there is no record.
 * **OOM forensics**: :func:`dump_oom_forensics` writes
   ``hbm-forensics-rank<r>.json`` (the largest allocated blocks of
   ``torch.cuda.memory_snapshot()``, the allocator stats, the round cost,
@@ -273,14 +276,15 @@ def memory_status():
 
 
 # ----------------------------------------------------------------- roofline
-def roofline_fields(compiled, device_ms, rounds, source="residual",
+def roofline_fields(compiled, device_ms, rounds, source="stamps",
                     ridge=DEFAULT_RIDGE_FLOPS_PER_BYTE, latency_floor_ms=LATENCY_FLOOR_MS):
     """Pure roofline math -> the ``training.roofline`` field dict.
 
     ``compiled`` is a :func:`note_compiled`-shaped dict; ``device_ms`` the
     measured device time over ``rounds`` rounds, ``source`` how it was
-    measured (``device_sync`` fences, or the ``residual`` of the round
-    total less the instrumented host phases)."""
+    measured: ``stamps``, the round's ``histogram`` stage on the card
+    (``ops/stamps``), the time of the kernels whose work ``compiled``
+    counts, or ``device_sync``, the fenced wait for the whole round."""
     rounds = max(int(rounds), 1)
     flops_per_round = float(compiled.get("flops_per_round", 0.0) or 0.0)
     bytes_per_round = float(compiled.get("bytes_per_round", 0.0) or 0.0)
@@ -311,10 +315,10 @@ def roofline_fields(compiled, device_ms, rounds, source="residual",
 
 
 def maybe_roofline(device_ms, rounds, source, emit=False, extra=None):
-    """The gated roofline: None when the plane is unarmed or no round cost
-    was counted; else the field dict, with ``emit`` one
-    ``training.roofline`` record."""
-    if not enabled():
+    """The gated roofline: None when the plane is unarmed, no round cost
+    was counted or the device time was not measured (``source`` None); else
+    the field dict, with ``emit`` one ``training.roofline`` record."""
+    if not enabled() or source is None:
         return None
     compiled = last_compiled()
     if compiled is None or rounds <= 0:

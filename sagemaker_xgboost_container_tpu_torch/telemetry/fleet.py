@@ -29,9 +29,9 @@ rank has a flight recorder and a per-rank Chrome-trace export
   handler (:func:`install_sigquit_handler`) dumps the same view to disk on
   ``kill -3`` without killing the job.
 
-Timestamp caveat: span clocks are perf_counter-relative *per process*
-(telemetry/tracing.py ``_T0``), so lanes in the merged trace are each
-internally consistent but not aligned to a shared epoch across ranks — read
+Timestamp caveat: span clocks are each host's Unix clock
+(telemetry/tracing.py ``now_ns``, the profiler's), so lanes in the merged
+trace share an epoch only as far as the hosts' clocks agree — read
 within-lane structure and cross-lane *durations*, not cross-lane offsets.
 The skew fold compares durations only, so it is immune.
 """

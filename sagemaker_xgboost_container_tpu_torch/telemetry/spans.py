@@ -16,11 +16,22 @@ Three consumers, one call site:
 Recorders are thread-local: the booster's callback loop is single-threaded,
 and parallel serving threads never share a recorder by accident.
 
-With hierarchical tracing armed (``SM_TRACE``, telemetry/tracing.py) every
-``span()`` additionally opens a tracer span, so existing call sites upgrade
-in place: the flat per-round phases become children of the per-round root
-span RoundTimer owns. Disabled (the default), the only added cost is one
-cached-boolean check.
+While the tracer records (``SM_TRACE``, or a ``torch.profiler`` session:
+``tracing.recording``, telemetry/tracing.py) every ``span()`` additionally
+opens a tracer span, and under a profiler a ``record_function`` range of
+the same name, so existing call sites upgrade in place: the flat per-round
+phases become children of the per-round root span RoundTimer owns, and sit
+in the profiler's trace. Otherwise the added cost is the two checks.
+
+Training's one-off phases, always on: ``setup.sketch`` / ``setup.apply``
+(``data/binning``), ``round.capture`` / ``round.recapture``
+(``models/round_graph``). The session's leaves (``session.enqueue``,
+``session.copy_out``, ``session.commit``, ``session.eval``,
+``session.callbacks``, ``models/booster``) are tracer spans and profiler
+ranges only (``tracing.trace_span``), not phases: the round's own phases
+already count that time. The booster adds each round's device stages to
+the active recorder as ``device.gradient`` ... ``device.margins``
+(``ops/stamps``); RoundTimer keeps those out of its host remainder.
 """
 
 import contextlib
@@ -84,7 +95,7 @@ def span(name, emit=False, registry=None):
     ``training.phase`` stdout record — use it for one-off phases, never for
     per-round work (the round record owns that).
     """
-    tspan = tracing.start_span(name) if tracing.enabled() else None
+    tspan = tracing.start_span(name)
     start = time.perf_counter()
     try:
         yield

@@ -22,9 +22,42 @@ and its Chrome-trace / Perfetto JSON dump.
   serialization of a finished span for the local export and for the fleet
   plane's cross-rank merge (``telemetry/fleet.py``); each span landing in the
   recorder gets a sequence number, the shipper's drain watermark.
+* **Clock**: spans are stamped with ``time.time_ns()``, the Unix clock that
+  ``torch.profiler`` stamps its host events with, so the tracer's spans and
+  a profiler's events share one time axis. ``set_chrome_base_ns`` takes the
+  base a profiler's Chrome export subtracted (its ``baseTimeNanoseconds``,
+  ``training/profiling.torch_trace``), and this tracer's exports subtract
+  the same, so ``trace-rank<r>.json`` and that trace overlay in Perfetto
+  without a shift.
+* **The profiler's ranges**: while a ``torch.profiler`` session records,
+  ``start_span`` also enters a ``RecordFunction`` range of the span's name
+  and ``finish_span`` leaves it, so the spans sit in the profiler's trace
+  as host events (``cpu_op``). The range is ``_RecordFunctionFast`` (about
+  1 us under a profiler), not ``record_function``'s user annotation (about
+  13 us), which the profiler also projects onto the card's timeline as a
+  ``gpu_user_annotation`` over the kernels it encloses; a reader of device
+  activity would count that as a kernel.
+* **Device spans**: ``record_span_at`` adds a span timed elsewhere, on a
+  lane of its own: the round's stage times (``round.gradient``,
+  ``round.histogram``, ``round.split``, ``round.partition``,
+  ``round.margins``; ``ops/stamps``), measured on the card and mapped onto
+  this clock by the session's offset (``models/booster``), with the
+  attributes ``round`` and ``clock: "device"``; the same times reach each
+  ``training.round`` record's ``phases_ms`` as ``device.gradient`` ...
+  ``device.margins``.
 
-Everything is gated on ``SM_TRACE``: unset (the default), a call site costs
-one cached-boolean check; no spans, no buffer, no threads, no files.
+The tracer records while ``recording()``: ``SM_TRACE`` is set (resolved
+once, ``enabled()``), or a ``torch.profiler`` session is recording (a flag
+read, about 0.1 us). Otherwise a call site costs those two checks; no spans,
+no buffer, no threads, no files. Exports, the flight recorder and the
+device-sync fence stay on ``SM_TRACE`` alone. A training dispatch reads
+``recording()`` once at its start: that arms the round's stage stamps, and
+the session's leaf spans (``session.enqueue``, ``session.copy_out``,
+``session.commit``, ``session.eval``, ``session.callbacks``; ``trace_span``,
+so no ``PhaseRecorder`` counts them) for its rounds. The stage stamps
+measure the card's clock against this one once a session
+(``StageClock.measure_offset``): the two drift apart by about a microsecond
+a second on an H100.
 """
 
 import collections
@@ -32,9 +65,9 @@ import contextlib
 import json
 import logging
 import os
+import random
 import threading
 import time
-import uuid
 
 from ..utils.envconfig import env_bool, env_int
 
@@ -47,17 +80,30 @@ DEVICE_SYNC_ENV = "SM_TRACE_DEVICE_SYNC"
 
 DEFAULT_BUFFER_SPANS = 4096
 
-# perf_counter base: the trace's timestamps only need to be consistent
-# within the process, and a monotonic clock keeps spans ordered
-_T0 = time.perf_counter()
+#: the lane of device spans (``record_span_at``): no host thread has this id
+DEVICE_LANE_TID = 0x7FFF0000
+
+
+def now_ns():
+    """The tracer's clock: Unix nanoseconds, the clock ``torch.profiler``
+    stamps host events with."""
+    return time.time_ns()
 
 
 def _now_us():
-    return (time.perf_counter() - _T0) * 1e6
+    return time.time_ns() / 1e3
+
+
+# span and trace ids: 64 bits of a generator seeded once from the OS (again
+# in a forked child), not uuid4, which reads the OS's entropy at every call:
+# with uuid4 ids a traced depthwise training job ran 3-4 % slower on an H100
+# host, about 60 spans a dispatch
+_ids = random.Random()
+os.register_at_fork(after_in_child=_ids.seed)
 
 
 def new_id():
-    return uuid.uuid4().hex[:16]
+    return "%016x" % _ids.getrandbits(64)
 
 
 class Span:
@@ -65,7 +111,7 @@ class Span:
     started it (the thread-local stack is popped by identity)."""
 
     __slots__ = ("trace_id", "span_id", "parent_id", "name", "attributes", "start_us",
-                 "dur_us", "tid", "thread_name", "seq")
+                 "dur_us", "tid", "thread_name", "seq", "range")
 
     def __init__(self, name, trace_id, parent_id, attributes=None):
         self.name = name
@@ -80,6 +126,7 @@ class Span:
         # the recorder-append sequence number, the fleet shipper's drain
         # watermark (it ships spans with seq above the last shipped)
         self.seq = None
+        self.range = None   # the profiler's record_function range, while open
 
     def context(self):
         return (self.trace_id, self.span_id)
@@ -96,6 +143,9 @@ _sync_calls = 0
 _recorder = None  # deque of finished Span, created on first use
 _live = {}  # span_id -> open Span (for the flight-recorder dump)
 _seq = 0  # recorder appends so far (outlives the ring buffer's drops)
+_profiler = None  # torch.autograd.profiler, imported at the first check
+_range_type = None  # the RecordFunction a span opens under a profiler
+_chrome_base_us = 0.0  # subtracted from the exports' timestamps
 
 
 def enabled():
@@ -115,6 +165,47 @@ def enabled():
                 _enabled = env_bool(TRACE_ENV, False)
             value = _enabled
     return value
+
+
+def profiler_recording():
+    """Is a ``torch.profiler`` session recording? One flag read."""
+    global _profiler
+    mod = _profiler
+    if mod is None:
+        import torch.autograd.profiler as mod
+
+        _profiler = mod
+    flag = getattr(mod, "_is_profiler_enabled", None)
+    if flag is None:
+        import torch
+
+        return torch._C._autograd._profiler_enabled()
+    return flag
+
+
+def _open_range(name):
+    """Enter a profiler range named ``name`` -> the range, to ``__exit__``."""
+    global _range_type
+    if _range_type is None:
+        import torch
+
+        _range_type = getattr(torch._C._profiler, "_RecordFunctionFast", None) or (
+            _profiler.record_function)
+    rng = _range_type(name)
+    rng.__enter__()
+    return rng
+
+
+def recording():
+    """Does the tracer record: ``SM_TRACE`` set, or a profiler recording?"""
+    return enabled() or profiler_recording()
+
+
+def set_chrome_base_ns(base_ns):
+    """The base a profiler's Chrome export subtracted from its timestamps:
+    this tracer's exports subtract it too."""
+    global _chrome_base_us
+    _chrome_base_us = float(base_ns or 0) / 1e3
 
 
 def set_rank(rank):
@@ -146,9 +237,10 @@ def _get_recorder():
 def _reset_for_tests():
     """Drop the cached knobs, the ring buffer, live spans and this thread's
     span stack."""
-    global _enabled, _recorder, _sync_every, _sync_calls, _rank, _seq
+    global _enabled, _recorder, _sync_every, _sync_calls, _rank, _seq, _chrome_base_us
     with _state_lock:
         _enabled = None
+        _chrome_base_us = 0.0
         _recorder = None
         _rank = 0
         _sync_every = 0
@@ -192,14 +284,20 @@ def _resolve_parent(parent, trace_id, root):
 
 
 # ----------------------------------------------------------------- span API
-def start_span(name, attributes=None, parent=None, trace_id=None, root=False):
-    """Open a span (None when tracing is off). ``trace_id`` seeds a new
-    trace (the serving request id); ``root=True`` ignores an open span on
-    this thread."""
-    if not enabled():
+def start_span(name, attributes=None, parent=None, trace_id=None, root=False, annotate=True):
+    """Open a span (None when the tracer does not record). ``trace_id``
+    seeds a new trace (the serving request id); ``root=True`` ignores an
+    open span on this thread. While a profiler records, the span also opens
+    a profiler range of its name, unless ``annotate=False`` (a span that
+    encloses the leaves the profiler's gaps are named by)."""
+    profiled = profiler_recording()
+    if not (profiled or enabled()):
         return None
     tid, parent_id = _resolve_parent(parent, trace_id, root)
     span = Span(name, tid, parent_id, attributes)
+    if profiled and annotate:
+        # entered after the span's stamp: the range takes its own at once
+        span.range = _open_range(name)
     _stack().append(span)
     with _state_lock:
         _live[span.span_id] = span
@@ -212,6 +310,9 @@ def finish_span(span, **attributes):
     if span is None:
         return
     span.dur_us = max(_now_us() - span.start_us, 0.0)
+    if span.range is not None:
+        span.range.__exit__(None, None, None)
+        span.range = None
     if attributes:
         span.attributes.update(attributes)
     stack = _stack()
@@ -230,8 +331,9 @@ def finish_span(span, **attributes):
 
 @contextlib.contextmanager
 def trace_span(name, attributes=None, parent=None, trace_id=None, root=False):
-    """Context-managed span; yields the Span (or None when tracing is off)."""
-    if not enabled():
+    """Context-managed span; yields the Span (or None when the tracer does
+    not record)."""
+    if not recording():
         yield None
         return
     span = start_span(name, attributes=attributes, parent=parent, trace_id=trace_id,
@@ -246,19 +348,36 @@ def record_span(name, duration_s=0.0, attributes=None, parent=None):
     """Record an already-finished span ending now (an event whose duration
     is reported after the fact, such as a kernel build), parented to this
     thread's open span unless ``parent`` is given."""
-    if not enabled():
+    if not recording():
         return None
     tid, parent_id = _resolve_parent(parent, None, False)
     span = Span(name, tid, parent_id, attributes)
     span.dur_us = max(float(duration_s), 0.0) * 1e6
     span.start_us = max(span.start_us - span.dur_us, 0.0)
+    _append(span)
+    return span
+
+
+def record_span_at(name, start_ns, dur_ns, attributes=None, trace_id=None):
+    """Record a span timed elsewhere (a device stage, mapped onto this
+    clock), whatever ``recording()`` says: the caller armed what timed it.
+    It lands on a lane of its own (``DEVICE_LANE_TID``, named ``device``),
+    so it never nests among the host thread's spans."""
+    span = Span(name, trace_id or new_id(), None, attributes)
+    span.start_us = start_ns / 1e3
+    span.dur_us = max(dur_ns, 0) / 1e3
+    span.tid, span.thread_name = DEVICE_LANE_TID, "device"
+    _append(span)
+    return span
+
+
+def _append(span):
     recorder = _get_recorder()
     global _seq
     with _state_lock:
         _seq += 1
         span.seq = _seq
         recorder.append(span)
-    return span
 
 
 def record_compile(duration_s):
@@ -362,12 +481,17 @@ def chrome_trace_doc(spans=None, extra_metadata=None):
     if spans is None:
         spans = snapshot_spans()
     rank = get_rank()
-    events = events_from_wire([span_to_wire(span) for span in spans], pid=rank,
+    wires = [span_to_wire(span) for span in spans]
+    base_us = _chrome_base_us
+    for wire in wires:
+        wire["start_us"] = round(wire["start_us"] - base_us, 3)
+    events = events_from_wire(wires, pid=rank,
                               process_label="rank {} (os pid {})".format(rank, os.getpid()))
     metadata = {"rank": rank, "os_pid": os.getpid(), "spans": len(spans)}
     if extra_metadata:
         metadata.update(extra_metadata)
-    return {"traceEvents": events, "displayTimeUnit": "ms", "otherData": metadata}
+    return {"traceEvents": events, "displayTimeUnit": "ms", "otherData": metadata,
+            "baseTimeNanoseconds": int(round(base_us * 1e3))}
 
 
 def _write_doc(directory, filename, doc):

@@ -6,14 +6,19 @@ The port's counterpart of the JAX package's ``training/profiling.py``:
 * ``RoundTimer``: per-round wall time and throughput. Every round emits one
   structured stdout record (``training.round``, the CloudWatch-regex
   contract) with the round latency and a per-phase breakdown (the span
-  recorder drains into it), and observes the ``training_round_seconds``
-  histogram. Human-readable lines stay opt-in (``SM_ROUND_TIMING``); the
-  end of the run emits ``training.summary``, ``training.attribution`` and,
-  with the device plane armed, ``training.roofline``.
+  recorder drains into it; while the tracer records, the round's device
+  stages as ``device.gradient`` ... ``device.margins``, ``ops/stamps``), and
+  observes the ``training_round_seconds`` histogram. Human-readable lines
+  stay opt-in (``SM_ROUND_TIMING``); the end of the run emits
+  ``training.summary``, ``training.attribution`` and, with the device plane
+  armed, ``training.roofline``. Device time comes from the stage stamps,
+  else from the ``SM_TRACE_DEVICE_SYNC`` fences, else it is not measured:
+  attribution's ``device_ms`` reads 0.0 and no roofline is emitted.
 * ``torch_trace`` (alias ``xla_trace``, the JAX name, so the training
   entry point reads the same): a ``torch.profiler`` trace of CPU and CUDA
   activity around training when ``SM_PROFILER_TRACE_DIR`` is set, written
-  there as a Chrome trace.
+  there as a Chrome trace, whose ``baseTimeNanoseconds`` the tracer's own
+  export then subtracts too (``tracing.set_chrome_base_ns``).
 * the span API (``telemetry.span``): ``algorithm_train`` times data
   ingest, the boosting loop and the model save as named phases.
 """
@@ -62,6 +67,10 @@ class RoundTimer:
     distinguishable for the CloudWatch regexes).
     """
 
+    # it drains the round's phases and rotates the round's root span: the
+    # booster's ``session.callbacks`` leaf ends before it (``_after_iteration``)
+    closes_round = True
+
     def __init__(self, num_rows=None, log_every=10, emit_structured=True, fold=None):
         self.num_rows = num_rows
         self.log_every = log_every
@@ -79,6 +88,10 @@ class RoundTimer:
         self._compile_base = None
         self._compile_total_s = 0.0
         self._phase_totals = {}
+        # the rounds whose phases carry stamped device stages, and their wall
+        # seconds: a profiler window stamps only some of a run's rounds
+        self._stamped_rounds = 0
+        self._stamped_s = 0.0
 
     def before_training(self, model):
         self._last = time.perf_counter()
@@ -92,11 +105,15 @@ class RoundTimer:
         self._compile_base = compile_stats()["seconds"]
         self._compile_total_s = 0.0
         self._phase_totals = {}
+        self._stamped_rounds = 0
+        self._stamped_s = 0.0
         if tracing.enabled():
             # per-round ROOT span: stays open for the whole round, so the
             # phase spans (checkpoint, consensus, eval_monitor, ...) and the
             # booster's dispatch/collective/compile spans nest under it
-            self._round_span = tracing.start_span("round")
+            # not a profiler range: it encloses the session's leaf spans,
+            # which name the trace's idle gaps
+            self._round_span = tracing.start_span("round", annotate=False)
         return model
 
     def after_iteration(self, model, epoch, evals_log):
@@ -136,12 +153,16 @@ class RoundTimer:
                 self._phase_totals[name] = (
                     self._phase_totals.get(name, 0.0) + seconds
                 )
+            if any(name.startswith("device.") for name in phases):
+                self._stamped_rounds += 1
+                self._stamped_s += elapsed
             if self.emit_structured:
                 # callback work is measured by its spans; kernel builds that
                 # completed this round get their own key; the remainder is
                 # device compute: binning (first round), tree build, eval.
                 # One record per round — the CloudWatch-regex contract.
-                overhead = sum(phases.values())
+                # The device stages ran on the card, beside the host's time.
+                overhead = sum(v for k, v in phases.items() if not k.startswith("device."))
                 phases_ms = {
                     k: round(max(v, 0.0) * 1000, 3)
                     for k, v in sorted(phases.items())
@@ -184,7 +205,7 @@ class RoundTimer:
             # RoundTimer is last in the callback stack, so every phase span
             # of round `epoch` has already closed under this span; rotate
             tracing.finish_span(self._round_span, round=epoch)
-            self._round_span = tracing.start_span("round")
+            self._round_span = tracing.start_span("round", annotate=False)
         self._last = now
         return False
 
@@ -223,49 +244,69 @@ class RoundTimer:
                     fields["fold"] = self.fold
                 emit_metric("training.summary", **fields)
                 self._emit_attribution(total)
-                # roofline record (device plane): the measured device window
-                # against the compiled cost — one record per training run
-                device_ms, source = self._device_window_ms(total)
+                # roofline record (device plane): the measured device time
+                # of the counted kernels against their counted work — one
+                # record per training run
+                _device_ms, kernel_ms, source, rounds, _wall_s = self._device_window_ms()
                 extra = {"fold": self.fold} if self.fold is not None else None
                 device_telemetry.maybe_roofline(
-                    device_ms, len(self._times), source, emit=True, extra=extra
+                    kernel_ms, rounds, source, emit=True, extra=extra
                 )
         return model
 
-    def _device_window_ms(self, total_s):
-        """-> (device-window ms, source): the fenced ``device_sync`` span
-        totals when SM_TRACE_DEVICE_SYNC was armed, else the residual of
-        the round totals minus every instrumented host phase and compile —
-        the same remainder the round records call ``build_eval``."""
+    def _device_window_ms(self):
+        """-> (device ms, ms of the kernels ``histogram.WORK`` counts,
+        source, the rounds those cover, their wall seconds): the stamped
+        rounds' stages (``"stamps"``: their sum and the ``histogram``
+        stage's, over the rounds that carried stamps, which under a
+        profiler's window are only some of the run's), else the fenced
+        ``device_sync`` spans (``"device_sync"``, SM_TRACE_DEVICE_SYNC: the
+        fence's wait, both, over every round), else (0.0, 0.0, None, 0,
+        0.0): the device was not measured, and the host's remainder is no
+        measurement of it."""
+        stamped = sum(v for k, v in self._phase_totals.items() if k.startswith("device."))
+        if self._stamped_rounds and stamped > 0:
+            return (stamped * 1000.0, self._phase_totals.get("device.histogram", 0.0) * 1000.0,
+                    "stamps", self._stamped_rounds, self._stamped_s)
         device_s = self._phase_totals.get("device_sync", 0.0)
         if device_s > 0:
-            return device_s * 1000.0, "device_sync"
-        residual = max(
-            total_s - sum(self._phase_totals.values()) - self._compile_total_s,
-            0.0,
-        )
-        return residual * 1000.0, "residual"
+            return (device_s * 1000.0, device_s * 1000.0, "device_sync", len(self._times),
+                    sum(self._times))
+        return 0.0, 0.0, None, 0, 0.0
 
     def _emit_attribution(self, total_s, rolling=False, round_index=None):
         """One ``training.attribution`` record: where the run's wall time
-        went: kernel builds (compile_stats), host dispatch / device compute
-        (the SM_TRACE_DEVICE_SYNC fences) and the histogram collectives (0.0
-        on one host; across ranks also by kind, ``collective_ms_by_kind``). Fields are 0.0 when the matching
-        instrumentation wasn't armed, so the record shape is stable.
+        went: kernel builds (compile_stats), host dispatch (the
+        SM_TRACE_DEVICE_SYNC fences), device compute (the stage stamps, else
+        the fences; ``device_time_source`` says which, absent when neither
+        measured it; stamped, ``device_pct`` is over the ``device_rounds``
+        rounds that carried stamps) and the histogram collectives (0.0 on
+        one host; across ranks also by kind, ``collective_ms_by_kind``).
+        Fields are 0.0 when the matching instrumentation wasn't armed, so
+        the record shape is stable.
 
         ``rolling=True`` marks the SM_ATTRIBUTION_EVERY mid-job emissions
         (cumulative since the start of training — same shape, plus the
         round index) so CloudWatch regexes can tell them from the final
         after_training record."""
         comm_per_round = get_round_fields().get("hist_comm_ms") or 0.0
+        device_ms, kernel_ms, source, device_rounds, device_wall_s = self._device_window_ms()
         fields = attribution_fields(
             total_ms=total_s * 1000.0,
             compile_ms=self._compile_total_s * 1000.0,
             host_ms=max(self._phase_totals.get("host_dispatch", 0.0), 0.0)
             * 1000.0,
-            device_ms=self._phase_totals.get("device_sync", 0.0) * 1000.0,
+            device_ms=device_ms,
             collective_ms=float(comm_per_round) * len(self._times),
         )
+        if source is not None:
+            fields["device_time_source"] = source
+        if source == "stamps":
+            # the stamped rounds' device time against those rounds' wall
+            # time, not the run's: the rest of the run was not stamped
+            fields["device_rounds"] = device_rounds
+            fields["device_pct"] = (round(device_ms / (device_wall_s * 1000.0) * 100.0, 1)
+                                    if device_wall_s > 0 else 0.0)
         fields["rounds"] = len(self._times)
         kinds = get_round_fields().get("hist_comm_kinds")
         if kinds:
@@ -276,9 +317,8 @@ class RoundTimer:
         # mirror the roofline verdict (device plane; None when unarmed or
         # nothing introspected) so attribution says WHY the device share is
         # what it is, not just how big it is
-        device_ms, source = self._device_window_ms(total_s)
         roofline = device_telemetry.maybe_roofline(
-            device_ms, len(self._times), source
+            kernel_ms, device_rounds, source
         )
         if roofline is not None:
             fields["roofline"] = {
@@ -372,6 +412,19 @@ def torch_trace():
             else:
                 logger.info("Wrote torch profiler trace to %s", path)
                 emit_metric("training.trace", trace_dir=trace_dir, path=path)
+                tracing.set_chrome_base_ns(_chrome_base_ns(path))
+
+
+def _chrome_base_ns(path, tail=1 << 16):
+    """The ``baseTimeNanoseconds`` a profiler's Chrome export subtracted from
+    its timestamps (written at its end), or 0 where it wrote none."""
+    import re
+
+    with open(path, "rb") as f:
+        f.seek(0, os.SEEK_END)
+        f.seek(max(f.tell() - tail, 0))
+        found = re.search(rb'"baseTimeNanoseconds"\s*:\s*(\d+)', f.read())
+    return int(found.group(1)) if found else 0
 
 
 # the JAX package's name for the same context manager

@@ -41,8 +41,8 @@ def test_ridge_is_the_h100s():
 
 @pytest.mark.parametrize("compiled", COMPILED)
 @pytest.mark.parametrize("device_ms,rounds,source", [
-    (120.0, 10, "device_sync"), (3.0, 10, "residual"), (0.0, 4, "residual"),
-    (55.5, 1, "device_sync"), (9.0, 0, "residual")])
+    (120.0, 10, "device_sync"), (3.0, 10, "stamps"), (0.0, 4, "stamps"),
+    (55.5, 1, "device_sync"), (9.0, 0, "stamps")])
 @pytest.mark.parametrize("ridge,floor", [(10.0, 0.5), (20.0, 2.0)])
 def test_roofline_fields_equal_jax(compiled, device_ms, rounds, source, ridge, floor):
     got = device.roofline_fields(compiled, device_ms, rounds, source, ridge=ridge,
@@ -73,14 +73,17 @@ def test_cost_and_compiled_record_in_the_jax_keys():
 def test_gated_paths(monkeypatch):
     assert device.sample_cadence() == 0
     assert device.memory_status() is None
-    assert device.maybe_roofline(10.0, 2, "residual") is None
+    assert device.maybe_roofline(10.0, 2, "stamps") is None
     monkeypatch.setenv(device.DEVICE_TELEMETRY_ENV, "true")
     monkeypatch.setenv(device.HBM_SAMPLE_EVERY_ENV, "3")
     assert device.sample_cadence() == jax_device.sample_cadence() == 3
-    assert device.maybe_roofline(10.0, 2, "residual") is None  # nothing counted yet
+    assert device.maybe_roofline(10.0, 2, "stamps") is None  # nothing counted yet
     device.note_compiled(device.cost_from_launches(1e6, 1e6))
-    fields = device.maybe_roofline(10.0, 2, "residual", extra={"fold": 1})
+    # a device time nothing measured (no stamps, no fence) makes no roofline
+    assert device.maybe_roofline(10.0, 2, None) is None
+    fields = device.maybe_roofline(10.0, 2, "stamps", extra={"fold": 1})
     assert fields["fold"] == 1 and fields["rounds"] == 2
+    assert fields["device_time_source"] == "stamps"
     mark = device.sample_watermark(4)
     assert mark == {"round": 4, "bytes_in_use": 0, "peak_bytes": 0, "source": "none"}
     status = device.memory_status()

@@ -201,7 +201,7 @@ def test_status_callers_feed_the_plane(fleet_env, tmp_path):
     try:
         record = device.note_compiled(device.cost_from_launches(1000, 500))
         assert fleet.status_snapshot()["compiled"] == record
-        fields = device.maybe_roofline(1.0, 1, "residual", emit=True)
+        fields = device.maybe_roofline(1.0, 1, "stamps", emit=True)
         assert fleet.status_snapshot()["roofline"] == fields
     finally:
         device._reset_for_tests()

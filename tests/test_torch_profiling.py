@@ -142,6 +142,9 @@ def test_fenced_rounds_feed_attribution_and_roofline(monkeypatch, capsys):
 
 
 def test_unfenced_rounds_attribute_the_residual(monkeypatch, capsys):
+    """Neither fenced nor stamped: the host's remainder is no device time.
+    Attribution's device_ms reads 0.0 with no source, and no roofline is
+    emitted."""
     monkeypatch.setenv("SM_DEVICE_TELEMETRY", "true")
     X, y = _data()
     train(PARAMS, DataMatrix(X, y), 3, device="cpu", callbacks=[profiling.RoundTimer()],
@@ -149,8 +152,11 @@ def test_unfenced_rounds_attribute_the_residual(monkeypatch, capsys):
     out = capsys.readouterr().out
     for r in _records(out, "training.round"):
         assert "device_sync" not in r["phases_ms"]
-    (roofline,) = _records(out, "training.roofline")
-    assert roofline["device_time_source"] == "residual"
+        assert not [k for k in r["phases_ms"] if k.startswith("device.")]
+    assert not _records(out, "training.roofline")
+    (attribution,) = _records(out, "training.attribution")
+    assert attribution["device_ms"] == 0.0 and "device_time_source" not in attribution
+    assert "roofline" not in attribution
 
 
 def test_torch_trace_writes_a_chrome_trace(monkeypatch, tmp_path, capsys):
